@@ -4,19 +4,28 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py              # what CI runs
-    python3 chip_smoke.py --profile    # adds a device-time breakdown of one update
+    python3 chip_smoke.py --profile    # adds a device-time breakdown of one
+                                       # update of each path
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
-holds each kernel against its plain PyTorch version on the card, then
-drives the main path, the KFAC Laplace loop on ResNet-50 (ImageNet stem,
-1000 classes, 224x224, B=16, f32, MC=1, seeded weights): 4 factor
-updates, split-damped inversion, a 30-sample posterior ensemble, and the
-NN/BNN eval on 2 synthetic test batches. Every failed check raises. The
-last line of standard output is the ``{"ok": true, ...}`` JSON object;
-the line before it is the ``kernels`` JSON object.
+holds each kernel (patch_gram_tiled, patch_gram_v2, patch_gram, sym_gram;
+f32 and bf16) against its plain PyTorch version on the card, then drives
+three paths of ResNet-50 (ImageNet stem, 1000 classes, 224x224, MC=1,
+seeded weights), named after ``bench.py``'s rows:
 
-It exits non-zero, printing no result, where there is no CUDA device or
-where the package is not beside it.
+  * ``resnet50_kfac_update_img_s``: the KFAC Laplace loop in f32 at B=16,
+    4 factor updates, split-damped inversion, a 30-sample posterior
+    ensemble, and the NN/BNN eval on 2 synthetic test batches;
+  * ``resnet50_kfac_update_bf16_b32_img_s``: KFAC updates with
+    ``compute_dtype=bfloat16`` at B=32 (layer2.0.conv2 through the v2
+    kernel in bf16);
+  * ``resnet50_kfac_update_bf16_sub4_img_s``: bf16 with
+    ``token_subsample=0.25`` at B=16 (no Gram kernel, the JAX gate).
+
+Every failed check raises. The last line of standard output is the
+``{"ok": true, ...}`` JSON object; the line before it is the ``kernels``
+JSON object. It exits non-zero, printing no result, where there is no
+CUDA device or where the package is not beside it.
 """
 import argparse
 import json
@@ -24,13 +33,60 @@ import subprocess
 import sys
 import time
 
-#: NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, HBM3
-PEAK_FP32_FLOPS = 67e12
+#: NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, dense BF16
+#: on the tensor cores (bf16 x bf16 -> f32 products, what wgmma computes),
+#: HBM3
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
 PEAK_BYTES_S = 3.35e12
-#: the JAX tests' parity bar for the patch Gram (tests/test_pallas_kernels.py)
+#: the JAX tests' parity bars: patch Gram (tests/test_pallas_kernels.py:31)
+#: and sym_gram (:141, of max(max|want|, 1))
 GRAM_RTOL = 1e-4
+SYM_RTOL = 2e-5
+#: bf16 compute against f32 factors (tests/test_capture.py:137)
+BF16_RTOL = 2e-2
 BATCH, SIZE, CLASSES, UPDATES, SAMPLES = 16, 224, 1000, 4, 30
+BATCH_B32 = 32
 ADD, MULTIPLY = 1.0, 18916.0
+PATHS = ("resnet50_kfac_update_img_s", "resnet50_kfac_update_bf16_b32_img_s",
+         "resnet50_kfac_update_bf16_sub4_img_s")
+SAME1 = ((1, 1), (1, 1))
+#: entry -> [main-path shape first, then odd cases]: (shape, kernel,
+#: padding, strides); sym_gram cases are (N, F)
+PATCH_CASES = {
+    # the odd cases of tests/test_pallas_kernels.py (SAME with odd H/W,
+    # 5x5, stride-2 odd grid)
+    "patch_gram_tiled": [
+        ((16, 56, 56, 64), (3, 3), SAME1, (1, 1)),
+        ((2, 9, 9, 96), (3, 3), "SAME", (1, 1)),
+        ((1, 10, 10, 32), (5, 5), ((2, 2), (2, 2)), (1, 1)),
+        ((2, 12, 12, 128), (3, 3), SAME1, (2, 2)),
+        ((3, 9, 9, 64), (3, 3), SAME1, (2, 2)),
+    ],
+    "patch_gram_v2": [
+        ((16, 56, 56, 128), (3, 3), SAME1, (2, 2)),
+        ((3, 9, 9, 8), (3, 3), SAME1, (2, 2)),
+        ((2, 7, 9, 4), (3, 3), "SAME", (2, 2)),
+        ((2, 12, 12, 4), (5, 5), ((2, 2), (2, 2)), (2, 2)),
+        ((2, 7, 7, 4), (5, 5), ((2, 2), (2, 2)), (1, 1)),
+    ],
+    # the four shapes of tests/test_pallas_kernels.py:20-25 (2x2 VALID at
+    # C=3, non-square 10x6)
+    "patch_gram": [
+        ((16, 56, 56, 64), (3, 3), SAME1, (1, 1)),
+        ((2, 8, 8, 4), (3, 3), SAME1, (1, 1)),
+        ((3, 10, 6, 8), (3, 3), ((0, 0), (0, 0)), (1, 1)),
+        ((2, 7, 7, 4), (5, 5), ((2, 2), (2, 2)), (1, 1)),
+        ((1, 9, 9, 3), (2, 2), ((0, 0), (0, 0)), (1, 1)),
+    ],
+}
+#: (784, 4609) is ResNet-50's layer4 3x3 patch matrix at B=16
+SYM_CASES = [(784, 4609), (3136, 1025), (700, 577), (513, 2049)]
+REPLACES = {
+    "patch_gram_tiled": "curvature_tpu/ops/pallas/patch_gram.py:464",
+    "patch_gram_v2": "curvature_tpu/ops/pallas/patch_gram.py:229",
+    "patch_gram": "curvature_tpu/ops/pallas/patch_gram.py:114",
+    "sym_gram": "curvature_tpu/ops/pallas/sym_gram.py:85",
+}
 
 
 def log(*args):
@@ -54,25 +110,33 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def gram_bound(shape, kernel_size, strides, pads):
-    """(bound_ms, bound_by) of the patch Gram: the lower triangle with
-    its diagonal of the [F+1, F+1] Gram, N*(F+1)*(F+2) FLOP at the FP32
-    rate, against the input read once and the output written once."""
+def bound(flops, nbytes, dtype):
+    """(bound_ms, bound_by): the larger of the operations at the card's
+    peak rate for ``dtype`` and the bytes at its memory rate."""
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
+        (bytes_ms, "bytes")
+
+
+def gram_bound(shape, kernel_size, strides, pads, dtype, itemsize):
+    """The patch Gram's bound: the lower triangle with its diagonal of
+    the [F+1, F+1] Gram, N*(F+1)*(F+2) FLOP, against the input read once
+    and the f32 output written once."""
     b, h, w, c = shape
     kh, kw = kernel_size
     (pt, pb), (pl, pr) = pads
     ho = (h + pt + pb - kh) // strides[0] + 1
     wo = (w + pl + pr - kw) // strides[1] + 1
     n, f1 = b * ho * wo, c * kh * kw + 1
-    ops_ms = n * f1 * (f1 + 1) / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = (b * h * w * c + f1 * f1) * 4 / PEAK_BYTES_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else \
-        (bytes_ms, "bytes")
+    return bound(n * f1 * (f1 + 1), b * h * w * c * itemsize + f1 * f1 * 4,
+                 dtype)
 
 
 def library_gram(x_nhwc, kernel_size, pads, strides):
     """Yardstick only, never called by the port: ``F.unfold`` and one
-    ``torch.matmul`` (no ones row/column)."""
+    ``torch.matmul`` in the input's dtype (no ones row/column; bf16 gives
+    cuBLAS's bf16-output product)."""
     import torch.nn.functional as F
     p = F.unfold(x_nhwc.permute(0, 3, 1, 2), kernel_size,
                  padding=(pads[0][0], pads[1][0]), stride=strides)
@@ -80,82 +144,211 @@ def library_gram(x_nhwc, kernel_size, pads, strides):
     return p.T @ p
 
 
-def check_kernels(tpg):
-    """Each kernel against its plain version on the card; times at the
-    main-path shape. Returns the per-kernel records."""
+def _record(name, dtype, shape, abs_err, rel, worst, cases, **times):
+    return {"name": name if dtype == "f32" else f"{name}_{dtype}",
+            "function": name, "dtype": dtype, "route": "cuda",
+            "source": "curvature_tpu_torch/ops/cuda/csrc/"
+                      + ("sym_gram.cu" if name == "sym_gram"
+                         else "patch_gram.cu"),
+            "replaces": REPLACES[name], "launches": None,
+            "launches_by_path": None, "max_abs_err": abs_err,
+            "max_rel_err": rel, "worst_rel_err_all_cases": worst,
+            "cases": cases, "shape": list(shape), **times}
+
+
+def _launch_twice(fn, *args):
+    """One kernel result, after checking that a second launch gives the
+    same bits (no atomics, a fixed reduction order)."""
+    import torch
+    got = fn(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, fn(*args)):
+        raise AssertionError(f"{fn.__name__}: two launches differ (the "
+                             "reduction must be deterministic)")
+    return got
+
+
+def check_patch_kernels(tpg, dtype):
+    """Each patch-Gram entry against its plain version on the card, in
+    ``dtype``; times at the main-path shape. Returns the records."""
     import numpy as np
     import torch
-    same1 = ((1, 1), (1, 1))
-    cases = {
-        # entry: [main-path shape first, then the odd cases of
-        # tests/test_pallas_kernels.py (SAME with odd H/W, 5x5, stride-2
-        # odd grid)]
-        "patch_gram_tiled": [
-            ((16, 56, 56, 64), (3, 3), same1, (1, 1)),
-            ((2, 9, 9, 96), (3, 3), "SAME", (1, 1)),
-            ((1, 10, 10, 32), (5, 5), ((2, 2), (2, 2)), (1, 1)),
-            ((2, 12, 12, 128), (3, 3), same1, (2, 2)),
-            ((3, 9, 9, 64), (3, 3), same1, (2, 2)),
-        ],
-        "patch_gram_v2": [
-            ((16, 56, 56, 128), (3, 3), same1, (2, 2)),
-            ((3, 9, 9, 8), (3, 3), same1, (2, 2)),
-            ((2, 7, 9, 4), (3, 3), "SAME", (2, 2)),
-            ((2, 12, 12, 4), (5, 5), ((2, 2), (2, 2)), (2, 2)),
-            ((2, 7, 7, 4), (5, 5), ((2, 2), (2, 2)), (1, 1)),
-        ],
-    }
-    replaces = {
-        "patch_gram_tiled": "curvature_tpu/ops/pallas/patch_gram.py:464",
-        "patch_gram_v2": "curvature_tpu/ops/pallas/patch_gram.py:229",
-    }
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
     rng = np.random.default_rng(0)
-    records = {}
-    for name, items in cases.items():
+    records = []
+    for name, items in PATCH_CASES.items():
+        if dtype == "bf16" and name == "patch_gram_tiled":
+            continue              # no path routes tiled in bf16 (the JAX rule)
         fn = getattr(tpg, name)
-        worst_rel, main = 0.0, None
+        if name == "patch_gram_v2" and dtype == "bf16":
+            # the bf16_b32 path's layer2.0.conv2
+            items = [((BATCH_B32,) + items[0][0][1:],) + items[0][1:]] \
+                + items[1:]
+        worst, main = 0.0, None
         for i, (shape, ks, pad, st) in enumerate(items):
             x = torch.from_numpy(rng.standard_normal(shape).astype(
-                np.float32)).cuda()
-            got = fn(x, ks, pad, st)
-            torch.cuda.synchronize()
-            if not torch.equal(got, fn(x, ks, pad, st)):
-                raise AssertionError(f"{name} {shape}: two launches differ "
-                                     "(the reduction must be deterministic)")
+                np.float32)).cuda().to(tdt)
+            args = (x, ks, pad) if name == "patch_gram" else (x, ks, pad, st)
+            got = _launch_twice(fn, *args)
             want = tpg.patch_gram_plain(x, ks, pad, st)
             abs_err = float((got - want).abs().max())
             rel = abs_err / float(want.abs().max())
-            log(f"  {name} {shape} k={ks} pad={pad} s={st}: "
+            log(f"  {name} {dtype} {shape} k={ks} pad={pad} s={st}: "
                 f"max_abs_err={abs_err:.3e} rel={rel:.3e}")
             if not (torch.isfinite(got).all() and rel <= GRAM_RTOL):
                 raise AssertionError(
-                    f"{name} {shape}: kernel disagrees with its plain "
-                    f"version (rel {rel:.3e} > {GRAM_RTOL})")
-            worst_rel = max(worst_rel, rel)
+                    f"{name} {dtype} {shape}: kernel disagrees with its "
+                    f"plain version (rel {rel:.3e} > {GRAM_RTOL})")
+            worst = max(worst, rel)
             if i == 0:
-                main = (x, ks, pad, st, abs_err, rel)
-        x, ks, pad, st, abs_err, rel = main
+                main = (x, ks, pad, st, args, abs_err, rel)
+        x, ks, pad, st, args, abs_err, rel = main
         pads = tpg.resolve_padding(pad, x.shape[1], x.shape[2], ks, st)
-        bound_ms, bound_by = gram_bound(tuple(x.shape), ks, st, pads)
-        records[name] = {
-            "name": name, "route": "cuda",
-            "source": "curvature_tpu_torch/ops/cuda/csrc/patch_gram.cu",
-            "replaces": replaces[name], "launches": None,
-            "max_abs_err": abs_err, "max_rel_err": rel,
-            "worst_rel_err_all_cases": worst_rel, "cases": len(items),
-            "shape": list(x.shape),
-            "ms": cuda_ms(lambda: fn(x, ks, pad, st)),
-            "plain_ms": cuda_ms(lambda: tpg.patch_gram_plain(x, ks, pad, st)),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": cuda_ms(lambda: library_gram(x, ks, pads, st)),
-        }
+        bound_ms, bound_by = gram_bound(tuple(x.shape), ks, st, pads, dtype,
+                                        x.element_size())
+        records.append(_record(
+            name, dtype, x.shape, abs_err, rel, worst, len(items),
+            ms=cuda_ms(lambda: fn(*args)),
+            plain_ms=cuda_ms(lambda: tpg.patch_gram_plain(x, ks, pad, st)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=cuda_ms(lambda: library_gram(x, ks, pads, st)),
+            library_call=f"F.unfold + torch.matmul ({dtype} output)"))
     return records
+
+
+def check_sym_kernel(tsg, dtype):
+    """sym_gram against its plain version on the card, in ``dtype``:
+    every case, both variants bitwise equal, a bitwise symmetric result."""
+    import numpy as np
+    import torch
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(1)
+    worst, main = 0.0, None
+    for i, (n, f) in enumerate(SYM_CASES):
+        if not tsg.sym_gram_supported(n, f):
+            raise AssertionError(f"sym_gram ({n}, {f}) is below the gate")
+        x = torch.from_numpy(rng.standard_normal((n, f)).astype(
+            np.float32)).cuda().to(tdt)
+        got = _launch_twice(tsg.sym_gram, x)
+        if not torch.equal(got, tsg.sym_gram(x, variant="rect")):
+            raise AssertionError("sym_gram: 'rect' differs from 'tri'")
+        if not torch.equal(got, got.T):
+            raise AssertionError(f"sym_gram ({n}, {f}): not symmetric")
+        want = tsg.sym_gram_plain(x)
+        abs_err = float((got - want).abs().max())
+        rel = abs_err / max(float(want.abs().max()), 1.0)
+        log(f"  sym_gram {dtype} ({n}, {f}): max_abs_err={abs_err:.3e} "
+            f"rel={rel:.3e}")
+        if not (torch.isfinite(got).all() and rel <= SYM_RTOL):
+            raise AssertionError(
+                f"sym_gram {dtype} ({n}, {f}): kernel disagrees with its "
+                f"plain version (rel {rel:.3e} > {SYM_RTOL})")
+        worst = max(worst, rel)
+        if i == 0:
+            main = (x, abs_err, rel)
+    x, abs_err, rel = main
+    n, f = x.shape
+    bound_ms, bound_by = bound(n * f * (f + 1),
+                               n * f * x.element_size() + f * f * 4, dtype)
+    return [_record(
+        "sym_gram", dtype, x.shape, abs_err, rel, worst, len(SYM_CASES),
+        ms=cuda_ms(lambda: tsg.sym_gram(x)),
+        plain_ms=cuda_ms(lambda: tsg.sym_gram_plain(x)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=cuda_ms(lambda: x.T @ x),
+        library_call=f"x.T @ x ({dtype} output)")]
+
+
+class Counters:
+    """The kernel wrappers' launch counters."""
+
+    def __init__(self, tpg, tsg):
+        self.fns = {"patch_gram_tiled": tpg.patch_gram_tiled,
+                    "patch_gram_v2": tpg.patch_gram_v2,
+                    "patch_gram": tpg.patch_gram, "sym_gram": tsg.sym_gram}
+
+    def reset(self):
+        for fn in self.fns.values():
+            fn.launches = 0
+
+    def read(self):
+        return {name: fn.launches for name, fn in self.fns.items()}
+
+
+def nchw_batches(rng, n_batches, batch, dev):
+    import numpy as np
+    import torch
+    xs, ys = synthetic(rng, n_batches * batch)
+    return [(torch.from_numpy(np.ascontiguousarray(
+        xs[i * batch:(i + 1) * batch].transpose(0, 3, 1, 2))).to(dev)
+        .contiguous(memory_format=torch.channels_last),
+        ys[i * batch:(i + 1) * batch]) for i in range(n_batches)]
+
+
+def synthetic(rng, num):
+    from curvature_tpu_torch.data import synthetic_images
+    return synthetic_images(rng, num, SIZE, SIZE, 3, CLASSES)
+
+
+def drive_updates(est, batches, gen, counters, path, expect):
+    """The path's updates with the counters set to 0 just before and read
+    just after; ``expect`` is the exact launch count of each kernel."""
+    import torch
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x in batches:
+        est.update(x, generator=gen, num_samples=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counters.read()
+    log(f"{path}: {len(batches)} updates in {seconds:.3f} s (first block, "
+        f"incl. warm-up); launches {json.dumps(got)}")
+    if got != expect:
+        raise AssertionError(f"{path}: expected launches {expect}, got {got}")
+    for name, fac in est.state.items():
+        for key, t in fac.items():
+            if not torch.isfinite(t).all():
+                raise AssertionError(f"{path}: {name}.{key} is not finite")
+    return got
+
+
+def best_rate(est, batches, gen, batch):
+    """Images per second through ``update``, best of 3 blocks, each ended
+    by a synchronize."""
+    import torch
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x in batches:
+            est.update(x, generator=gen, num_samples=1)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return batch * len(batches) / best
+
+
+def a_factor_check(est, plain_est, x, name, what):
+    """One layer's A factor from ``est`` (kernel route) against
+    ``plain_est`` (``use_kernels=False``) on the same capture."""
+    import torch
+    cap = est.capture(x, labels=torch.zeros(x.shape[0], dtype=torch.long,
+                                            device=x.device))
+    meta, act = plain_est.metas[name], cap.acts[name]
+    got = est._a_factor(meta, act)
+    want = plain_est._a_factor(meta, act)
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"A factor {name} ({what}) kernel vs use_kernels=False: "
+        f"rel {rel:.3e}")
+    if rel > GRAM_RTOL:
+        raise AssertionError(f"{name} ({what}): A factor rel err {rel:.3e}")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also print a device-time breakdown of one update")
+                    help="also print a device-time breakdown of one update "
+                         "of each path")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -165,10 +358,10 @@ def main(argv=None):
         return 2
     try:
         from curvature_tpu_torch import estimators, models
-        from curvature_tpu_torch.data import synthetic_images
         from curvature_tpu_torch.eval import eval_bnn, eval_nn, metrics
         from curvature_tpu_torch.ops.cuda import build
         from curvature_tpu_torch.ops.cuda import patch_gram as tpg
+        from curvature_tpu_torch.ops.cuda import sym_gram as tsg
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -190,7 +383,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     reports = build.build_all(force=True)
     log(f"build: {time.perf_counter() - t0:.2f} s for "
-        f"{sorted(reports)} (nvcc -gencode arch=compute_90a,code=sm_90a)")
+        f"{sorted(reports)} (nvcc -gencode arch=compute_90a,code=sm_90a, "
+        "one process per source)")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -198,46 +392,32 @@ def main(argv=None):
 
     # -- 2. kernels against their plain versions ----------------------------
     log("kernels vs plain versions:")
-    records = check_kernels(tpg)
+    records = []
+    for dtype in ("f32", "bf16"):
+        records += check_patch_kernels(tpg, dtype)
+        records += check_sym_kernel(tsg, dtype)
 
-    # -- 3. the main path ---------------------------------------------------
+    # -- 3. the paths ---------------------------------------------------------
     model = models.resnet50(num_classes=CLASSES, device=dev)
     models.load_jax_variables(model, models.seeded_variables(model, 0))
     model = model.to(memory_format=torch.channels_last)
     rng = np.random.default_rng(1)
-    xs, _ = synthetic_images(rng, BATCH * UPDATES, SIZE, SIZE, 3, CLASSES)
-    batches = [torch.from_numpy(np.ascontiguousarray(
-        xs[i * BATCH:(i + 1) * BATCH].transpose(0, 3, 1, 2))).to(dev)
-        .contiguous(memory_format=torch.channels_last)
-        for i in range(UPDATES)]
-    xt, yt = synthetic_images(rng, 2 * BATCH, SIZE, SIZE, 3, CLASSES)
-    test_data = [(torch.from_numpy(np.ascontiguousarray(
-        xt[i * BATCH:(i + 1) * BATCH].transpose(0, 3, 1, 2))).to(dev)
-        .contiguous(memory_format=torch.channels_last),
-        yt[i * BATCH:(i + 1) * BATCH]) for i in range(2)]
+    batches = [x for x, _ in nchw_batches(rng, UPDATES, BATCH, dev)]
+    test_data = nchw_batches(rng, 2, BATCH, dev)
+    batches_b32 = [x for x, _ in nchw_batches(rng, UPDATES, BATCH_B32, dev)]
     gen = torch.Generator(device=dev).manual_seed(2)
+    counters = Counters(tpg, tsg)
+    none = {name: 0 for name in counters.fns}
+    by_path = {}
 
+    # 3a. f32: the KFAC Laplace loop
     est = estimators.KFAC(model)
     if not est.use_kernels:
         raise AssertionError("use_kernels='auto' must enable the kernels "
                              "on CUDA")
-    tpg.patch_gram_tiled.launches = 0
-    tpg.patch_gram_v2.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for x in batches:
-        est.update(x, generator=gen, num_samples=1)
-    torch.cuda.synchronize()
-    first_block = time.perf_counter() - t0
-    after_updates = (tpg.patch_gram_tiled.launches,
-                     tpg.patch_gram_v2.launches)
-    log(f"main path: {UPDATES} updates in {first_block:.3f} s (first "
-        f"block, incl. warm-up); launches tiled={after_updates[0]} "
-        f"v2={after_updates[1]}")
-    if after_updates != (3 * UPDATES, UPDATES):
-        raise AssertionError(f"expected {3 * UPDATES} tiled and {UPDATES} "
-                             f"v2 launches, got {after_updates}")
-
+    by_path[PATHS[0]] = drive_updates(
+        est, batches, gen, counters, PATHS[0],
+        dict(none, patch_gram_tiled=3 * UPDATES, patch_gram_v2=UPDATES))
     t0 = time.perf_counter()
     est.invert(ADD, MULTIPLY)
     torch.cuda.synchronize()
@@ -246,41 +426,23 @@ def main(argv=None):
     ensemble = est.ensemble_params(SAMPLES, generator=gen)
     torch.cuda.synchronize()
     sample_s = time.perf_counter() - t0
+    counters.reset()
     nn_probs, labels = eval_nn(model, test_data)
     bnn_probs, _ = eval_bnn(model, est, test_data, samples=SAMPLES,
                             ensemble_params=ensemble)
-    launches = (tpg.patch_gram_tiled.launches, tpg.patch_gram_v2.launches)
-    if launches != after_updates:
-        raise AssertionError("invert/sample/eval must not launch the "
-                             f"Gram kernels: {after_updates} -> {launches}")
-    records["patch_gram_tiled"]["launches"] = launches[0]
-    records["patch_gram_v2"]["launches"] = launches[1]
+    if counters.read() != none:
+        raise AssertionError("eval must not launch the Gram kernels: "
+                             f"{counters.read()}")
     log(f"invert(add={ADD}, multiply={MULTIPLY}): {invert_s:.3f} s; "
         f"{SAMPLES}-sample ensemble: {sample_s:.3f} s")
-
-    # -- 4. is what came out right? -----------------------------------------
-    for name, fac in est.state.items():
-        for key, t in list(fac.items()) + list(est.inv_state[name].items()):
+    for name, inv in est.inv_state.items():
+        for key, t in inv.items():
             if not torch.isfinite(t).all():
                 raise AssertionError(f"{name}.{key} is not finite")
     for what, p in (("nn", nn_probs), ("bnn", bnn_probs)):
         if p.shape != (2 * BATCH, CLASSES) or not np.isfinite(p).all() \
                 or np.abs(p.sum(1) - 1).max() > 1e-3:
             raise AssertionError(f"{what} probabilities malformed")
-    # the kernels' A factors against use_kernels=False on the same batch
-    check = ["layer1.0.conv2", "layer2.0.conv2"]
-    plain_est = estimators.KFAC(model, use_kernels=False, layer_filter=check)
-    cap = estimators.collect(model, plain_est.metas, batches[-1],
-                             labels=torch.zeros(BATCH, dtype=torch.long,
-                                                device=dev))
-    for name in check:
-        meta, act = plain_est.metas[name], cap.acts[name]
-        got = est._a_factor(meta, act)
-        want = plain_est._a_factor(meta, act)
-        rel = float((got - want).abs().max() / want.abs().max())
-        log(f"A factor {name} kernel vs use_kernels=False: rel {rel:.3e}")
-        if rel > GRAM_RTOL:
-            raise AssertionError(f"{name}: A factor rel err {rel:.3e}")
     stats = {}
     for what, p in (("nn", nn_probs), ("bnn", bnn_probs)):
         stats[what] = {
@@ -290,16 +452,58 @@ def main(argv=None):
     log(f"metrics (random weights, {2 * BATCH} synthetic images): "
         f"{json.dumps(stats)}")
 
-    # -- 5. rates (best of 3 blocks, each ended by a synchronize) ---------
-    best = float("inf")
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for x in batches:
-            est.update(x, generator=gen, num_samples=1)
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    update_img_s = BATCH * UPDATES / best
+    # 3b. bf16 at B=32: layer2.0.conv2 through the v2 kernel in bf16
+    est16 = estimators.KFAC(model, compute_dtype=torch.bfloat16)
+    by_path[PATHS[1]] = drive_updates(
+        est16, batches_b32, gen, counters, PATHS[1],
+        dict(none, patch_gram_v2=UPDATES))
+
+    # 3c. bf16 with token_subsample=0.25 at B=16: no Gram kernel
+    est_sub = estimators.KFAC(model, compute_dtype=torch.bfloat16,
+                              token_subsample=0.25)
+    by_path[PATHS[2]] = drive_updates(est_sub, batches, gen, counters,
+                                      PATHS[2], none)
+
+    for rec in records:
+        paths = PATHS[:1] if rec["dtype"] == "f32" else PATHS[1:]
+        rec["launches_by_path"] = {
+            p: by_path[p][rec["function"]] if p in paths else 0
+            for p in PATHS}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+
+    # -- 4. is what came out right? -----------------------------------------
+    # the kernels' A factors against use_kernels=False on the same capture
+    checked = ["layer1.0.conv2", "layer2.0.conv2"]
+    for name in checked:
+        a_factor_check(est, estimators.KFAC(
+            model, use_kernels=False, layer_filter=checked),
+            batches[-1], name, "f32")
+    a_factor_check(est16, estimators.KFAC(
+        model, use_kernels=False, compute_dtype=torch.bfloat16,
+        layer_filter=["layer2.0.conv2"]),
+        batches_b32[-1], "layer2.0.conv2", "bf16, B=32")
+    # bf16 factors against f32 ones from one batch with the same labels
+    one = {}
+    for what, kw in (("f32", {}), ("bf16", {"compute_dtype": torch.bfloat16})):
+        e = estimators.KFAC(model, **kw)
+        e.update(batches[0], labels=torch.arange(BATCH, device=dev))
+        one[what] = e.state
+    worst = {"a": 0.0, "g": 0.0}
+    for name, fac in one["f32"].items():
+        for key in worst:
+            want, got = fac[key], one["bf16"][name][key]
+            rel = float((got - want).abs().max() / want.abs().max())
+            worst[key] = max(worst[key], rel)
+            if key == "a" and rel > BF16_RTOL:
+                raise AssertionError(f"{name}: bf16 A factor {rel:.3e} of "
+                                     f"max from the f32 one (> {BF16_RTOL})")
+    log(f"bf16 vs f32 factors, one batch, worst over layers: "
+        f"A {worst['a']:.3e} (bar {BF16_RTOL}), G {worst['g']:.3e}")
+
+    # -- 5. rates --------------------------------------------------------------
+    rates = {PATHS[0]: best_rate(est, batches, gen, BATCH),
+             PATHS[1]: best_rate(est16, batches_b32, gen, BATCH_B32),
+             PATHS[2]: best_rate(est_sub, batches, gen, BATCH)}
     best_eval = float("inf")
     for _ in range(3):
         torch.cuda.synchronize()
@@ -309,16 +513,22 @@ def main(argv=None):
         torch.cuda.synchronize()
         best_eval = min(best_eval, time.perf_counter() - t0)
     bnn_img_s = 2 * BATCH / best_eval
-    log(f"update img/s: {update_img_s:.2f} (ResNet-50 f32 B={BATCH} MC=1, "
-        f"best of 3 blocks of {UPDATES} updates)")
-    log(f"bnn30 eval img/s: {bnn_img_s:.2f} (best of 3 blocks of "
-        f"{2 * BATCH} images x {SAMPLES} samples)")
+    for path, what in zip(PATHS, (f"f32 B={BATCH}", f"bf16 B={BATCH_B32}",
+                                  f"bf16 token_subsample=0.25 B={BATCH}")):
+        log(f"{path}: {rates[path]:.2f} update img/s (ResNet-50 {what} "
+            f"MC=1, best of 3 blocks of {UPDATES} updates; {smi})")
+    log(f"resnet50_bnn30_eval_img_s: {bnn_img_s:.2f} (best of 3 blocks of "
+        f"{2 * BATCH} images x {SAMPLES} samples; {smi})")
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     if args.profile:
-        profile_update(est, batches[0], gen)
+        for path, e, b in zip(PATHS, (est, est16, est_sub),
+                              (batches, batches_b32, batches)):
+            log(f"{path}:")
+            profile_update(e, b[0], gen)
 
-    print(json.dumps({"kernels": list(records.values())}))
+    log(smi)
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,12 @@ eagerly, so the JAX jitted transforms are plain method calls; the factor
 state is updated in place (each ``update`` adds into the existing
 tensors instead of allocating a new state).
 
+``compute_dtype`` (e.g. ``torch.bfloat16``) runs the capture forward and
+backward with every float parameter and the input cast to it (JAX
+``_cast_compute``, base.py:558-565); the model's own parameters and the BN
+running buffers are never changed, and the factor state accumulates in
+``dtype``.
+
 Differences from the JAX class, by design of this slice: no ``use_mesh``,
 no scan over batches, and no Pallas compile-failure fallback (a kernel
 failure raises). Random draws take injected numbers: ``update`` takes
@@ -21,6 +27,7 @@ import torch
 from curvature_tpu_torch.nn.core import LayerMeta, apply_matrix_delta
 from curvature_tpu_torch.ops.patches import extract_patches
 from curvature_tpu_torch.estimators.capture import Captured, collect
+from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
 
 def filter_metas(metas: Dict[str, LayerMeta], layer_filter) -> Dict:
@@ -43,12 +50,26 @@ def filter_metas(metas: Dict[str, LayerMeta], layer_filter) -> Dict:
 
 
 def act_tokens(meta: LayerMeta, act: torch.Tensor,
-               append_ones: bool = False) -> torch.Tensor:
+               append_ones: bool = False, extra_stride: int = 1,
+               offset=(0, 0)) -> torch.Tensor:
     """Layer input (JAX layout) -> [N_tokens, fan_in(+1)]; conv inputs are
-    expanded into (c, kh, kw) patches."""
+    expanded into (c, kh, kw) patches.
+
+    ``extra_stride`` k multiplies the window stride (spatial token
+    subsampling: the skipped positions are never generated); ``offset``
+    shifts the strided grid in output-grid coordinates. The k^2 offset
+    grids partition the positions. A non-zero offset extracts the full
+    grid and slices it, as JAX does (base.py:87-97)."""
     if meta.kind == "conv":
-        act = extract_patches(act, meta.kernel_size, meta.strides,
-                              meta.padding)
+        if extra_stride > 1 and tuple(offset) != (0, 0):
+            act = extract_patches(act, meta.kernel_size, meta.strides,
+                                  meta.padding)
+            act = act[:, offset[0]::extra_stride, offset[1]::extra_stride]
+        else:
+            strides = (meta.strides[0] * extra_stride,
+                       meta.strides[1] * extra_stride)
+            act = extract_patches(act, meta.kernel_size, strides,
+                                  meta.padding)
     t = act.reshape(-1, meta.fan_in)
     if append_ones:
         t = torch.cat([t, t.new_ones(t.shape[0], 1)], dim=1)
@@ -79,11 +100,13 @@ class Estimator:
     """Base class of the curvature estimators."""
 
     def __init__(self, model, dtype=torch.float32,
+                 compute_dtype: Optional[torch.dtype] = None,
                  layer_filter: Optional[Union[str, Sequence[str]]] = None):
         self.model = model
         self.metas: Dict[str, LayerMeta] = filter_metas(model.metas,
                                                         layer_filter)
         self.dtype = dtype
+        self.compute_dtype = compute_dtype
         self.device = next(model.parameters()).device
         # MAP mean snapshot of the tracked parameters (the reference's
         # deep-copied model_state), keyed like the state dict
@@ -124,15 +147,27 @@ class Estimator:
     def _accumulate(self, cap: Captured):
         self.state = self.update_state(self.state, cap)
 
+    def capture(self, x: torch.Tensor, labels=None,
+                generator: Optional[torch.Generator] = None,
+                num_samples: int = 1) -> Captured:
+        """One batch's activations and probe gradients, in
+        ``compute_dtype`` where one is set."""
+        params = None
+        if self.compute_dtype is not None:
+            params = cast_floats(dict(self.model.named_parameters()),
+                                 self.compute_dtype)
+            x = cast_input(x, self.compute_dtype)
+        return collect(self.model, self.metas, x, labels=labels,
+                       generator=generator, num_samples=num_samples,
+                       params=params)
+
     def update(self, x: torch.Tensor, labels=None,
                generator: Optional[torch.Generator] = None,
                num_samples: int = 1):
         """Accumulate factors from one batch. ``labels`` ([B] or [S, B])
         give the empirical Fisher or injected MC labels; ``None`` draws
         ``num_samples`` labels from the model distribution."""
-        cap = collect(self.model, self.metas, x, labels=labels,
-                      generator=generator, num_samples=num_samples)
-        self._accumulate(cap)
+        self._accumulate(self.capture(x, labels, generator, num_samples))
         return self.state
 
     @torch.no_grad()

@@ -8,12 +8,18 @@ cotangent at the logits, ``(softmax(logits) - onehot(labels_s)) / B``, so
 the S backwards are a loop of ``torch.autograd.grad`` over the probes with
 ``retain_graph`` (chosen over ``is_grads_batched``, whose vmapped backward
 does not cover every op's derivative, e.g. cuDNN batch norm).
+
+Under a compute dtype the caller passes a cast parameter dict (``params``,
+applied with ``torch.func.functional_call``) and a cast input; logits,
+softmax, one-hot and cotangent then stay in the logits' dtype, as in JAX
+(capture.py:74-83). MC labels are drawn from the softmax in f32.
 """
 from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.func import functional_call
 
 from curvature_tpu_torch.nn.core import Context, LayerMeta
 
@@ -55,19 +61,23 @@ def ce_cotangent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             labels: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None,
-            num_samples: int = 1) -> Captured:
+            num_samples: int = 1,
+            params: Optional[Dict[str, torch.Tensor]] = None) -> Captured:
     """Capture acts and probe gradients for the layers in ``metas``.
 
     ``labels`` are [S, B] (or [B]) class labels; ``None`` draws
     ``num_samples`` labels from the model distribution with
-    ``generator``. The model runs in train mode (batch-statistics BN)
-    and its running statistics are left untouched.
+    ``generator``. ``params`` (state-dict keys) replace the model's own
+    parameters for this forward; the model is not changed. The model runs
+    in train mode (batch-statistics BN) and its running statistics are
+    left untouched.
     """
     was_training = model.training
     model.train()
     ctx = Context(track=metas)
     try:
-        logits = model(x, ctx)
+        logits = (model(x, ctx) if params is None
+                  else functional_call(model, params, (x, ctx)))
     finally:
         model.train(was_training)
     if labels is None:

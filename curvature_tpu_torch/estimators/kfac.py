@@ -18,10 +18,19 @@ channels and a large extent; the CUDA patch-Gram kernels
 extraction + Gram otherwise. ``use_kernels`` is the JAX ``use_pallas``:
 ``"auto"`` enables the kernels on CUDA; ``False`` is the A/B switch.
 
+``token_subsample < 1`` estimates the conv factors from a strided grid of
+spatial positions, stride k = round(1/sqrt(token_subsample)) per dimension,
+shifted by ``subsample_offset`` (JAX kfac.py:102-110, 254-259); it turns
+off the kernel and correlation routes, so every conv A factor takes the
+patch route. Under ``compute_dtype`` the Grams take the bf16 operands,
+upcast to f32 before a strict-f32 matmul: each product of two bf16 values
+is exact in f32, so this is JAX's bf16 einsum with
+``preferred_element_type=f32``.
+
 Out of this slice: grouped convs, attention/qkv/head splits, blocked G,
-``stack_grams``, ``fused_g``, ``token_subsample < 1`` and
-``compute_dtype``.
+``stack_grams`` and ``fused_g``.
 """
+import math
 from typing import Dict
 
 import torch
@@ -46,8 +55,10 @@ def _split_damped_logdet(factor, add, multiply):
 
 
 def _gram_aligned(a: torch.Tensor, dtype) -> torch.Tensor:
-    """``a^T a`` in ``dtype``. (The JAX version zero-pads the column count
-    to a multiple of 128 for the MXU; cuBLAS needs no such help.)"""
+    """``a^T a`` in ``dtype``, the operands upcast first (bf16 x bf16 is
+    exact in f32; a bf16-output matmul would round the result). The JAX
+    version zero-pads the column count to a multiple of 128 for the MXU;
+    cuBLAS needs no such help."""
     a = a.to(dtype)
     return a.T @ a
 
@@ -69,13 +80,33 @@ class KFAC(Estimator):
     corr_gram_min_channels = 128
 
     def __init__(self, model, *, use_kernels="auto",
+                 token_subsample: float = 1.0, subsample_offset=(0, 0),
                  corr_gram_min_extent: int = 14, **kwargs):
         super().__init__(model, **kwargs)
         if use_kernels == "auto":
             self.use_kernels = self.device.type == "cuda"
         else:
             self.use_kernels = bool(use_kernels)
+        if not 0.0 < token_subsample <= 1.0:
+            raise ValueError("token_subsample must be in (0, 1]")
+        self.token_subsample = float(token_subsample)
+        self.subsample_offset = (int(subsample_offset[0]),
+                                 int(subsample_offset[1]))
         self.corr_gram_min_extent = int(corr_gram_min_extent)
+        # an offset outside [0, k) no longer indexes one of the k^2
+        # partition grids (a biased estimate, or zero tokens and NaN)
+        k = self._spatial_stride()
+        if not all(0 <= o < k for o in self.subsample_offset):
+            raise ValueError(
+                f"subsample_offset {self.subsample_offset} must lie in "
+                f"[0, {k}) per dim for token_subsample={self.token_subsample} "
+                f"(spatial stride {k})")
+
+    def _spatial_stride(self) -> int:
+        """Per-spatial-dim stride k such that ~token_subsample = 1/k^2."""
+        if self.token_subsample >= 1.0:
+            return 1
+        return max(int(round(1.0 / math.sqrt(self.token_subsample))), 1)
 
     def init_state(self):
         z = dict(dtype=self.dtype, device=self.device)
@@ -89,6 +120,7 @@ class KFAC(Estimator):
         if self._corr_gram_ok(meta, act):
             return self._corr_a_factor(meta, act)
         if (self.use_kernels and meta.kind == "conv"
+                and self.token_subsample >= 1.0
                 and not isinstance(meta.padding, str)):
             which = select_patch_gram(
                 act.shape[-1], meta.kernel_size, meta.strides,
@@ -115,14 +147,29 @@ class KFAC(Estimator):
         return (meta.kind == "conv"
                 and corr_gram_supported(meta.kernel_size, meta.strides)
                 and max(meta.kernel_size) <= 5
+                and self.token_subsample >= 1.0
                 and act.shape[-1] >= self.corr_gram_min_channels
                 and min(act.shape[1], act.shape[2])
                 >= self.corr_gram_min_extent)
 
     def _a_factor_xla(self, meta, act):
-        """Patch extraction + Gram (the name keeps the JAX counterpart's)."""
-        a = act_tokens(meta, act, append_ones=meta.has_bias)
+        """Patch extraction + Gram (the name keeps the JAX counterpart's);
+        also the subsampled route: the skipped positions are never
+        generated."""
+        a = act_tokens(meta, act, append_ones=meta.has_bias,
+                       extra_stride=self._spatial_stride(),
+                       offset=self.subsample_offset)
         return _gram_aligned(a, self.dtype) / a.shape[0]
+
+    def _g_tokens(self, meta, g):
+        """[S, ...preact] probe gradient -> ([S*N, out] tokens, N): the
+        strided spatial grid of a conv when token_subsample < 1."""
+        k = self._spatial_stride()
+        if meta.kind == "conv" and k > 1:
+            o0, o1 = self.subsample_offset
+            g = g[:, :, o0::k, o1::k, :]
+        t = grad_tokens(meta, g)
+        return t, t.shape[0] // g.shape[0]
 
     # -- transforms -----------------------------------------------------------
     def update_state(self, state, cap: Captured):
@@ -130,10 +177,10 @@ class KFAC(Estimator):
         num_mc = next(iter(cap.probe_grads.values())).shape[0]
         for name, meta in self.metas.items():
             # [S, ...preact] -> [S*N, out]: the S samples' Grams in one
-            g = grad_tokens(meta, cap.probe_grads[name]).to(self.dtype)
-            n_tok = g.shape[0] // num_mc
+            g, n_tok = self._g_tokens(meta, cap.probe_grads[name])
             # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
-            g_factor = (g.T @ g) * (cap.batch_size ** 2 / n_tok)
+            g_factor = _gram_aligned(g, self.dtype) * (
+                cap.batch_size ** 2 / n_tok)
             a_factor = self._a_factor(meta, cap.acts[name])
             state[name]["a"] += num_mc * a_factor.to(self.dtype)
             state[name]["g"] += g_factor

@@ -120,7 +120,10 @@ class BatchNorm(nn.Module):
     updates the running statistics with momentum 0.1 and the unbiased
     variance; eval mode uses the running statistics. Under an estimator's
     capture context (``ctx.update_stats`` False) train mode leaves the
-    running statistics untouched.
+    running statistics untouched. The output takes the input's dtype; under
+    an estimator's ``compute_dtype`` the scale and bias arrive rounded to
+    it (JAX casts every float parameter, layers.py:154-171) while the
+    running buffers stay f32.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,

@@ -37,7 +37,8 @@ def corr_patch_gram(x: torch.Tensor,
                     has_bias: bool = True) -> torch.Tensor:
     """Unnormalized patch Gram ``[F(+1), F(+1)]`` for a stride-1 conv over
     NHWC ``x``: canonical (c, dy, dx) feature order, optional ones column
-    last, f32 output."""
+    last, f32 output. bf16 operands are upcast before the products, which
+    are exact in f32: f32 accumulation, as the JAX bf16 einsums."""
     b, h, w, c = x.shape
     kh, kw = kernel_size
     (pt, pb), (pl, pr) = resolve_padding(padding, h, w, kernel_size)

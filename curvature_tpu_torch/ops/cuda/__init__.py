@@ -1,8 +1,6 @@
-"""Hand-written CUDA kernels (sources in ``csrc/``, built by ``build``)."""
-from curvature_tpu_torch.ops.cuda.patch_gram import (
-    patch_gram_plain, patch_gram_tiled, patch_gram_v2,
-    patch_gram_v2_supported, select_patch_gram, tiled_plan,
-)
+"""Hand-written CUDA kernels (sources in ``csrc/``, built by ``build``).
 
-__all__ = ["patch_gram_plain", "patch_gram_tiled", "patch_gram_v2",
-           "patch_gram_v2_supported", "select_patch_gram", "tiled_plan"]
+Import the entry points from their modules, ``ops.cuda.patch_gram`` and
+``ops.cuda.sym_gram``: the package re-exports nothing, since the functions
+``patch_gram`` and ``sym_gram`` would hide the modules of the same names.
+"""

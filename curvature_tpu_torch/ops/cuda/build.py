@@ -3,7 +3,8 @@ them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes
 ``build/lib<name>.so`` next to the package (``build/`` is git-ignored),
-compiled by ``nvcc -gencode arch=compute_90a,code=sm_90a`` at first use.
+compiled by ``nvcc -gencode arch=compute_90a,code=sm_90a`` at first use;
+``csrc/*.cuh`` are headers the sources share.
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all
 of them; ``load(name)`` builds one source if its library is missing or
 older than the source, then loads it once per process.
@@ -43,9 +44,12 @@ def library_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or a shared
+    header (``csrc/*.cuh``)."""
     lib = library_path(name)
+    inputs = [sources()[name], *CSRC.glob("*.cuh")]
     return (not lib.exists()
-            or lib.stat().st_mtime < sources()[name].stat().st_mtime)
+            or lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs))
 
 
 def build_all(names: Optional[Iterable[str]] = None,

@@ -1,26 +1,33 @@
-// Implicit-im2col conv-patch Gram for Hopper (sm_90a), f32 in, f32 out.
+// Implicit-im2col conv-patch Gram for Hopper (sm_90a): f32 or bf16 in,
+// f32 out.
 //
 // Replaces the Pallas kernels of curvature_tpu/ops/pallas/patch_gram.py:
 //   patch_gram_tiled  (_kernel_tiled, patch_gram.py:319; pallas_call :535)
 //   patch_gram_v2     (_kernel_v2 :173 / _kernel_v2_strided :196; :270)
-// Both compute the same function: for NHWC input x, kernel (kh, kw),
+//   patch_gram        (_kernel :72, row strips with a manual halo DMA; :144)
+// All three compute the same function: for NHWC input x, kernel (kh, kw),
 // stride s in {1, 2} and explicit padding, the unnormalized Gram
 // G = P^T P of the patch matrix P = [N, F+1] (N = B*Ho*Wo tokens,
 // F = C*kh*kw features in canonical (c, dy, dx) order, ones column last).
+// Every Pallas version is dtype-generic with f32 accumulation; so is this
+// one: bf16 elements are widened to f32 as they are gathered.
 //
 // What bounds it: on ResNet-50's main-path shapes (F = 576 and 1152,
 // N = 50,176 and 12,544) the lower triangle alone is N*F*(F+1) ~ 1.7e10
 // FLOP against 13-26 MB of input: far above the card's ops-per-byte
-// line, so it is bound by FP32 arithmetic on the CUDA cores. It stays in
-// strict FP32 FMA (no TF32 tensor-core mma) because the parity bar of the
-// JAX tests, 1e-4 of max|G|, is out of TF32's reach.
+// line, so it is bound by arithmetic. It stays in strict FP32 FMA (no TF32
+// tensor-core mma) because the parity bar of the JAX tests, 1e-4 of
+// max|G|, is out of TF32's reach. (For bf16 operands the tensor cores
+// would give the same exact products; that is later work.)
 //
-// What the design does about it (and about what the TPU version needed):
+// What the design does about it (and about what the TPU versions needed):
 //  * No patch matrix and no padded copy ever reach device memory: each
 //    block gathers its patch rows straight from x into shared memory
 //    (token n -> (b, oy, ox), feature f -> (c, dy, dx)); padding is a
 //    bounds check that reads zero. The TPU's VMEM-driven pieces (row
-//    bands, the parity stack, kb feature tiles) have no counterpart.
+//    strips with a halo DMA, row bands, the parity stack, kb feature
+//    tiles) have no counterpart: patch_gram's strips are just this
+//    kernel's stride-1 instance.
 //  * Each block owns one 64x64 tile of the lower triangle of the [F, F]
 //    core (internal feature order (tap, c), so 64 consecutive features are
 //    64 consecutive channels: coalesced loads). 256 threads hold 4x4 f32
@@ -38,13 +45,13 @@
 //  * Diagonal-tile blocks also sum their columns (the ones row/column),
 //    and the reduce kernel writes the canonical (c, dy, dx) order directly,
 //    with N in the corner, replacing the JAX perm gather.
-#include <cuda_runtime.h>
+#include "gram_tile.cuh"
 
 namespace {
 
-constexpr int TILE = 64;     // output tile edge, in features
-constexpr int BK = 32;       // tokens per shared-memory stage
-constexpr int THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
+using gram::BK;
+using gram::THREADS;
+using gram::TILE;
 
 struct Geom {
   int H, W, C, kw;
@@ -85,26 +92,23 @@ __device__ __forceinline__ void advance(const Geom& g, Row& r) {
   while (r.oy >= g.Ho) { r.oy -= g.Ho; r.base += g.H * g.W * g.C; }
 }
 
-template <int S>
-__device__ __forceinline__ float gather(const float* __restrict__ x,
+template <typename T, int S>
+__device__ __forceinline__ float gather(const T* __restrict__ x,
                                         const Geom& g, const Row& r,
                                         bool valid, int dy, int dx, int c) {
   const int iy = r.oy * S - g.pt + dy, ix = r.ox * S - g.pl + dx;
   if (!valid || iy < 0 || iy >= g.H || ix < 0 || ix >= g.W) return 0.0f;
-  return __ldg(x + r.base + (iy * g.W + ix) * g.C + c);
+  return gram::to_f32(x + r.base + (iy * g.W + ix) * g.C + c);
 }
 
-template <int S>
+template <typename T, int S>
 __global__ void __launch_bounds__(THREADS, 2)
-gram_partial_kernel(const float* __restrict__ x, float* __restrict__ ws,
+gram_partial_kernel(const T* __restrict__ x, float* __restrict__ ws,
                     float* __restrict__ colsum_ws, Geom g, int nt,
                     int num_tiles, int tokens_per_split) {
-  // blockIdx.x -> lower-triangular tile (ti, tj), ti >= tj
   const int t = blockIdx.x;
-  int ti = static_cast<int>((sqrtf(8.0f * t + 1.0f) - 1.0f) * 0.5f);
-  while ((ti + 1) * (ti + 2) / 2 <= t) ++ti;
-  while (ti * (ti + 1) / 2 > t) --ti;
-  const int tj = t - ti * (ti + 1) / 2;
+  int ti, tj;
+  gram::tri_tile(t, ti, tj);
   const bool diag = ti == tj;
   const int split = blockIdx.y;
   const int n_begin = split * tokens_per_split;
@@ -132,8 +136,8 @@ gram_partial_kernel(const float* __restrict__ x, float* __restrict__ ws,
 #pragma unroll
   for (int m = 0; m < M; ++m) {
     const bool in = n_begin + row0 + 4 * m < n_end;
-    ra[m] = gather<S>(x, g, rows[m], in && va, dya, dxa, ca);
-    rb[m] = gather<S>(x, g, rows[m], in && vb, dyb, dxb, cb);
+    ra[m] = gather<T, S>(x, g, rows[m], in && va, dya, dxa, ca);
+    rb[m] = gather<T, S>(x, g, rows[m], in && vb, dyb, dxb, cb);
   }
 #pragma unroll
   for (int m = 0; m < M; ++m) {
@@ -158,8 +162,8 @@ gram_partial_kernel(const float* __restrict__ x, float* __restrict__ ws,
       for (int m = 0; m < M; ++m) {
         advance(g, rows[m]);
         const bool in = n0 + BK + row0 + 4 * m < n_end;
-        ra[m] = gather<S>(x, g, rows[m], in && va, dya, dxa, ca);
-        rb[m] = gather<S>(x, g, rows[m], in && vb, dyb, dxb, cb);
+        ra[m] = gather<T, S>(x, g, rows[m], in && va, dya, dxa, ca);
+        rb[m] = gather<T, S>(x, g, rows[m], in && vb, dyb, dxb, cb);
       }
     }
     if (diag && tid < TILE) {
@@ -230,9 +234,10 @@ __global__ void gram_reduce_kernel(const float* __restrict__ ws,
   out[static_cast<size_t>(i) * f1 + j] = v;
 }
 
-int launch(const float* x, float* out, float* ws, float* colsum_ws, int B,
-           int H, int W, int C, int kh, int kw, int stride, int pt, int pl,
-           int Ho, int Wo, int splits, int tokens_per_split, void* stream) {
+template <typename T>
+int launch(const T* x, float* out, float* ws, float* colsum_ws, int B, int H,
+           int W, int C, int kh, int kw, int stride, int pt, int pl, int Ho,
+           int Wo, int splits, int tokens_per_split, void* stream) {
   Geom g;
   g.H = H; g.W = W; g.C = C; g.kw = kw;
   g.pt = pt; g.pl = pl; g.Ho = Ho; g.Wo = Wo;
@@ -243,10 +248,10 @@ int launch(const float* x, float* out, float* ws, float* colsum_ws, int B,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   dim3 grid(num_tiles, splits);
   if (stride == 1) {
-    gram_partial_kernel<1><<<grid, THREADS, 0, s>>>(
+    gram_partial_kernel<T, 1><<<grid, THREADS, 0, s>>>(
         x, ws, colsum_ws, g, nt, num_tiles, tokens_per_split);
   } else if (stride == 2) {
-    gram_partial_kernel<2><<<grid, THREADS, 0, s>>>(
+    gram_partial_kernel<T, 2><<<grid, THREADS, 0, s>>>(
         x, ws, colsum_ws, g, nt, num_tiles, tokens_per_split);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -261,37 +266,43 @@ int launch(const float* x, float* out, float* ws, float* colsum_ws, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+cudaError_t blocks_per_sm(int stride, int* blocks) {
+  return stride == 1
+      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks, gram_partial_kernel<T, 1>, THREADS, 0)
+      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            blocks, gram_partial_kernel<T, 2>, THREADS, 0);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Entry of patch_gram_tiled (curvature_tpu_torch/ops/cuda/patch_gram.py).
-int patch_gram_tiled_f32(const float* x, float* out, float* ws,
-                         float* colsum_ws, int B, int H, int W, int C, int kh,
-                         int kw, int stride, int pt, int pl, int Ho, int Wo,
-                         int splits, int tokens_per_split, void* stream) {
+// Entries of patch_gram_tiled, patch_gram_v2 and patch_gram
+// (curvature_tpu_torch/ops/cuda/patch_gram.py), one per element type: the
+// three share this kernel, and the stride is a template parameter of the
+// gather, not a separate body.
+int patch_gram_f32(const float* x, float* out, float* ws, float* colsum_ws,
+                   int B, int H, int W, int C, int kh, int kw, int stride,
+                   int pt, int pl, int Ho, int Wo, int splits,
+                   int tokens_per_split, void* stream) {
   return launch(x, out, ws, colsum_ws, B, H, W, C, kh, kw, stride, pt, pl, Ho,
                 Wo, splits, tokens_per_split, stream);
 }
 
-// Entry of patch_gram_v2: the same kernel; the stride is a template
-// parameter of the gather, not a separate body.
-int patch_gram_v2_f32(const float* x, float* out, float* ws, float* colsum_ws,
-                      int B, int H, int W, int C, int kh, int kw, int stride,
-                      int pt, int pl, int Ho, int Wo, int splits,
-                      int tokens_per_split, void* stream) {
+int patch_gram_bf16(const __nv_bfloat16* x, float* out, float* ws,
+                    float* colsum_ws, int B, int H, int W, int C, int kh,
+                    int kw, int stride, int pt, int pl, int Ho, int Wo,
+                    int splits, int tokens_per_split, void* stream) {
   return launch(x, out, ws, colsum_ws, B, H, W, C, kh, kw, stride, pt, pl, Ho,
                 Wo, splits, tokens_per_split, stream);
 }
 
 // Resident partial-kernel blocks per SM, for the wrapper's split count.
-int patch_gram_blocks_per_sm(int stride, int* blocks) {
-  cudaError_t err = stride == 1
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks, gram_partial_kernel<1>, THREADS, 0)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks, gram_partial_kernel<2>, THREADS, 0);
-  return static_cast<int>(err);
+int patch_gram_blocks_per_sm(int stride, int bf16, int* blocks) {
+  return static_cast<int>(bf16 ? blocks_per_sm<__nv_bfloat16>(stride, blocks)
+                               : blocks_per_sm<float>(stride, blocks));
 }
 
 const char* patch_gram_error_string(int code) {

@@ -1,29 +1,39 @@
 """Fused convolution-patch Gram: the CUDA kernels, their plain PyTorch
 versions, and the dispatch policy.
 
-Port of ``curvature_tpu/ops/pallas/patch_gram.py``. Both entry points keep
-the JAX contract: NHWC ``[B, H, W, C]`` input, ``[F+1, F+1]`` f32 output
-(F = C*kh*kw), canonical (c, dy, dx) feature order, ones column last, the
-unnormalized Gram (divide by N outside).
+Port of ``curvature_tpu/ops/pallas/patch_gram.py``. The entry points keep
+the JAX contract: NHWC ``[B, H, W, C]`` input in float32 or bfloat16,
+``[F+1, F+1]`` f32 output (F = C*kh*kw), canonical (c, dy, dx) feature
+order, ones column last, the unnormalized Gram (divide by N outside).
+bf16 operands give exact products and f32 sums, as the Pallas kernels'
+``preferred_element_type=f32``.
 
   * :func:`patch_gram_tiled` replaces the Pallas ``patch_gram_tiled``
     (patch_gram.py:464, kernel ``_kernel_tiled`` :319);
   * :func:`patch_gram_v2` replaces the Pallas ``patch_gram_v2``
     (patch_gram.py:229, kernels ``_kernel_v2`` :173 and
-    ``_kernel_v2_strided`` :196).
+    ``_kernel_v2_strided`` :196);
+  * :func:`patch_gram` replaces the Pallas ``patch_gram`` (patch_gram.py:114,
+    kernel ``_kernel`` :72), stride 1 only. No path dispatches it, in JAX
+    or here; it is public API.
 
-On Hopper both are one implicit-im2col Gram kernel templated on stride
-(``csrc/patch_gram.cu``, whose header says what bounds it and how the
-design answers). Each entry point keeps its own wrapper, contract checks
-and launch counter (``<fn>.launches``, counting kernel launches only).
+On Hopper all three are one implicit-im2col Gram kernel templated on
+stride and element type (``csrc/patch_gram.cu``, whose header says what
+bounds it and how the design answers). The TPU ``patch_gram``'s row strips
+of ~512 patch rows with a manual HBM->VMEM halo DMA exist to make a strip
+fit VMEM; a block here gathers its patch rows straight from the input, so
+``patch_gram`` is the kernel's stride-1 instance and has no strip design.
+Each entry point keeps its own wrapper, contract checks and launch counter
+(``<fn>.launches``, counting kernel launches only).
 
 For a CPU tensor a wrapper computes its plain version; for a CUDA tensor
 it launches the kernel or raises. Nothing falls back.
 
 The dispatch policy (``select_patch_gram``, ``tiled_plan``,
-``patch_gram_v2_supported``) is copied with the JAX thresholds, so the same
-layers take a kernel as in JAX; the thresholds were tuned on a TPU and
-are not yet re-measured on the H100.
+``patch_gram_v2_supported``) and the advisory ``patch_gram_supported`` are
+copied with the JAX thresholds, so the same layers take a kernel as in
+JAX; the thresholds were tuned on a TPU and are not yet re-measured on the
+H100.
 """
 import ctypes
 import functools
@@ -42,6 +52,14 @@ _TILE = 64
 # ---------------------------------------------------------------------------
 # dispatch policy (pure shape logic, copied from the JAX module)
 # ---------------------------------------------------------------------------
+
+def patch_gram_supported(c: int, kernel_size: Tuple[int, int],
+                         strides: Tuple[int, int]) -> bool:
+    """Advisory gate of :func:`patch_gram`: stride 1, F+1 <= 1200 and a
+    window of more than one tap."""
+    kh, kw = kernel_size
+    return strides == (1, 1) and c * kh * kw + 1 <= MAX_F and kh * kw > 1
+
 
 def patch_gram_v2_supported(c: int, kernel_size: Tuple[int, int],
                             strides: Tuple[int, int], h: int, w: int,
@@ -166,6 +184,10 @@ def patch_gram_plain(x: torch.Tensor, kernel_size: Tuple[int, int],
 # CUDA launch
 # ---------------------------------------------------------------------------
 
+#: element types the kernel takes, and the suffix of their C entry
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from curvature_tpu_torch.ops.cuda import build
@@ -173,37 +195,42 @@ def _lib() -> ctypes.CDLL:
     # x, out, ws, colsum; B H W C kh kw stride pt pl Ho Wo splits
     # tokens-per-split; stream
     args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-    for fn in (lib.patch_gram_tiled_f32, lib.patch_gram_v2_f32):
+    for suffix in KERNEL_DTYPES.values():
+        fn = getattr(lib, f"patch_gram_{suffix}")
         fn.argtypes = args
         fn.restype = ctypes.c_int
     lib.patch_gram_blocks_per_sm.argtypes = [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.patch_gram_blocks_per_sm.restype = ctypes.c_int
     lib.patch_gram_error_string.argtypes = [ctypes.c_int]
     lib.patch_gram_error_string.restype = ctypes.c_char_p
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _resident_blocks(device_index: int, stride: int) -> int:
-    """Partial-kernel blocks the card holds at once (SMs x blocks/SM)."""
-    lib = _lib()
+def resident_slots(device_index: int, blocks_per_sm) -> int:
+    """Blocks of a kernel the card holds at once: SMs x ``blocks_per_sm``
+    (a C occupancy query filling a ``c_int``)."""
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = lib.patch_gram_blocks_per_sm(stride, ctypes.byref(per_sm))
+        rc = blocks_per_sm(ctypes.byref(per_sm))
     if rc != 0:
-        raise RuntimeError(f"patch_gram occupancy query: CUDA error {rc}")
+        raise RuntimeError(f"occupancy query: CUDA error {rc}")
     sms = torch.cuda.get_device_properties(
         device_index).multi_processor_count
     return sms * max(per_sm.value, 1)
 
 
-def _splits(n_tokens: int, num_tiles: int, stride: int, device) -> int:
-    """Token-chunk split count that best fills whole waves of resident
-    blocks (the last wave of a grid idles the SMs it leaves empty), with
-    at least 256 tokens per split; the fewest splits among equals."""
-    slots = _resident_blocks(device.index, stride)
+@functools.lru_cache(maxsize=None)
+def _resident_blocks(device_index: int, stride: int, bf16: bool) -> int:
+    return resident_slots(device_index, functools.partial(
+        _lib().patch_gram_blocks_per_sm, stride, int(bf16)))
 
+
+def split_count(n_tokens: int, num_tiles: int, slots: int) -> int:
+    """Token-chunk split count that best fills whole waves of ``slots``
+    resident blocks (the last wave of a grid idles the SMs it leaves
+    empty), with at least 256 tokens per split; the fewest splits among
+    equals."""
     def fill(s):
         blocks = num_tiles * s
         return blocks / (-(-blocks // slots) * slots)
@@ -211,13 +238,19 @@ def _splits(n_tokens: int, num_tiles: int, stride: int, device) -> int:
                key=lambda s: (round(fill(s), 1), -s))
 
 
-def _launch(entry: str, x: torch.Tensor, kernel_size, pads, strides,
+def check_kernel_dtype(x: torch.Tensor, name: str) -> str:
+    """The C entry suffix for ``x``'s dtype; raises for any other."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or "
+                        f"bfloat16, got {x.dtype}")
+    return KERNEL_DTYPES[x.dtype]
+
+
+def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
             ho: int, wo: int) -> torch.Tensor:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{entry}: the CUDA kernel takes float32, got "
-                        f"{x.dtype}")
+    suffix = check_kernel_dtype(x, name)
     if strides not in ((1, 1), (2, 2)):
-        raise ValueError(f"{entry}: strides {strides} not in (1,1)/(2,2)")
+        raise ValueError(f"{name}: strides {strides} not in (1,1)/(2,2)")
     x = x.contiguous()
     b, h, w, c = x.shape
     kh, kw = kernel_size
@@ -226,9 +259,10 @@ def _launch(entry: str, x: torch.Tensor, kernel_size, pads, strides,
     num_tiles = nt * (nt + 1) // 2
     n_tokens = b * ho * wo
     if max(x.numel(), n_tokens) >= 2 ** 31:
-        raise ValueError(f"{entry}: the kernel indexes with 32-bit ints; "
+        raise ValueError(f"{name}: the kernel indexes with 32-bit ints; "
                          f"{tuple(x.shape)} is too large")
-    splits = _splits(n_tokens, num_tiles, strides[0], x.device)
+    slots = _resident_blocks(x.device.index, strides[0], suffix == "bf16")
+    splits = split_count(n_tokens, num_tiles, slots)
     per_split = -(-n_tokens // splits)
     out = torch.empty((f + 1, f + 1), dtype=torch.float32, device=x.device)
     ws = torch.empty(splits * num_tiles * _TILE * _TILE,
@@ -238,17 +272,17 @@ def _launch(entry: str, x: torch.Tensor, kernel_size, pads, strides,
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, entry)(
+        rc = getattr(lib, f"patch_gram_{suffix}")(
             x.data_ptr(), out.data_ptr(), ws.data_ptr(), colsum.data_ptr(),
             b, h, w, c, kh, kw, strides[0], pads[0][0], pads[1][0], ho, wo,
             splits, per_split, stream)
     if rc != 0:
-        raise RuntimeError(f"{entry}: CUDA error {rc}: "
+        raise RuntimeError(f"{name}: CUDA error {rc}: "
                            f"{lib.patch_gram_error_string(rc).decode()}")
     return out
 
 
-def _check_device(x: torch.Tensor, name: str):
+def check_device(x: torch.Tensor, name: str):
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no kernel or plain version for device "
                          f"{x.device}")
@@ -264,7 +298,7 @@ def patch_gram_tiled(x: torch.Tensor, kernel_size: Tuple[int, int],
     """[F+1, F+1] unnormalized patch Gram; port of the Pallas
     ``patch_gram_tiled``. Raises where the JAX plan is infeasible, as the
     JAX function does."""
-    _check_device(x, "patch_gram_tiled")
+    check_device(x, "patch_gram_tiled")
     b, h, w, c = x.shape
     kh, kw = kernel_size
     pads = resolve_padding(padding, h, w, kernel_size, strides)
@@ -275,8 +309,7 @@ def patch_gram_tiled(x: torch.Tensor, kernel_size: Tuple[int, int],
         raise ValueError("tiled patch-Gram plan infeasible for this shape")
     if x.device.type == "cpu":
         return patch_gram_plain(x, kernel_size, pads, strides)
-    out = _launch("patch_gram_tiled_f32", x, kernel_size, pads, strides,
-                  ho, wo)
+    out = _launch("patch_gram_tiled", x, kernel_size, pads, strides, ho, wo)
     patch_gram_tiled.launches += 1
     return out
 
@@ -289,16 +322,35 @@ def patch_gram_v2(x: torch.Tensor, kernel_size: Tuple[int, int],
                   strides: Tuple[int, int] = (1, 1)) -> torch.Tensor:
     """[F+1, F+1] unnormalized patch Gram; port of the Pallas
     ``patch_gram_v2`` (stride 1 or 2)."""
-    _check_device(x, "patch_gram_v2")
+    check_device(x, "patch_gram_v2")
     b, h, w, c = x.shape
     pads = resolve_padding(padding, h, w, kernel_size, strides)
     ho, wo = _out_shape(h, w, kernel_size, pads, strides)
     if x.device.type == "cpu":
         return patch_gram_plain(x, kernel_size, pads, strides)
-    out = _launch("patch_gram_v2_f32", x, kernel_size, pads, strides,
-                  ho, wo)
+    out = _launch("patch_gram_v2", x, kernel_size, pads, strides, ho, wo)
     patch_gram_v2.launches += 1
     return out
 
 
 patch_gram_v2.launches = 0
+
+
+def patch_gram(x: torch.Tensor, kernel_size: Tuple[int, int],
+               padding=((0, 0), (0, 0))) -> torch.Tensor:
+    """[F+1, F+1] unnormalized patch Gram of a stride-1 conv; port of the
+    Pallas ``patch_gram`` (the JAX signature less ``interpret``: explicit
+    pads or ``'SAME'``/``'VALID'``). ``patch_gram_supported`` is advisory
+    here as there: any shape the kernel indexes is computed."""
+    check_device(x, "patch_gram")
+    b, h, w, c = x.shape
+    pads = resolve_padding(padding, h, w, kernel_size)
+    ho, wo = _out_shape(h, w, kernel_size, pads, (1, 1))
+    if x.device.type == "cpu":
+        return patch_gram_plain(x, kernel_size, pads)
+    out = _launch("patch_gram", x, kernel_size, pads, (1, 1), ho, wo)
+    patch_gram.launches += 1
+    return out
+
+
+patch_gram.launches = 0

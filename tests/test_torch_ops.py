@@ -127,6 +127,24 @@ def test_corr_patch_gram_matches_jax(shape, ks, pad, bias):
     _close_rel(got, want, 1e-5)
 
 
+@pytest.mark.parametrize("shape,ks,pad", [
+    ((8, 8, 3), (3, 3), ((1, 1), (1, 1))),      # tests/test_corr_gram.py:53
+    ((9, 7, 4), (3, 3), "SAME"),
+])
+def test_corr_patch_gram_bf16_operands_match_jax(shape, ks, pad):
+    """bf16 operands, f32 output: exact products and f32 sums in both
+    packages, so 1e-5 of max|G| (the JAX test holds its bf16 result to
+    2e-2 of the f32 one; here both sides see the same bf16 values)."""
+    x = np.random.default_rng(1).standard_normal((4,) + shape).astype(
+        np.float32)
+    xt = torch.from_numpy(x).bfloat16()
+    jx = jnp.asarray(xt.float().numpy()).astype(jnp.bfloat16)
+    want = np.asarray(jcorr.corr_patch_gram(jx, ks, pad))
+    got = tcorr.corr_patch_gram(xt, ks, pad)
+    assert got.dtype == torch.float32
+    _close_rel(got.numpy(), want, 1e-5)
+
+
 def test_corr_gram_supported_gate():
     for ks, st in [((3, 3), (1, 1)), ((3, 3), (2, 2)), ((1, 1), (1, 1)),
                    ((1, 3), (1, 1))]:

@@ -1,6 +1,7 @@
 """Port parity: the patch-Gram entry points of ``curvature_tpu_torch``
+(``patch_gram_tiled``, ``patch_gram_v2``, ``patch_gram``; f32 and bf16)
 against the JAX Pallas functions (interpret mode), and the dispatch
-policy against the JAX one.
+policy and gates against the JAX ones.
 
 On the CPU the port's wrappers compute their plain PyTorch versions; the
 CUDA kernels are held against those plain versions by the ``cuda``-marked
@@ -36,6 +37,14 @@ V2_CASES = [
     ((2, 12, 12, 4), (5, 5), ((2, 2), (2, 2)), (2, 2)),
     ((2, 8, 8, 4), (3, 3), "SAME", (2, 2)),
     ((2, 7, 9, 4), (3, 3), "SAME", (2, 2)),
+]
+
+#: tests/test_pallas_kernels.py:20-25 (stride 1 only)
+PG_CASES = [
+    ((2, 8, 8, 4), (3, 3), ((1, 1), (1, 1))),
+    ((3, 10, 6, 8), (3, 3), ((0, 0), (0, 0))),
+    ((2, 7, 7, 4), (5, 5), ((2, 2), (2, 2))),
+    ((1, 9, 9, 3), (2, 2), ((0, 0), (0, 0))),
 ]
 
 #: tests/test_pallas_kernels.py:94-101
@@ -76,15 +85,74 @@ def test_patch_gram_tiled_plain_matches_jax(shape, ks, pad, strides):
     _assert_gram_close(got, want)
 
 
+@pytest.mark.parametrize("shape,ks,pad", PG_CASES)
+def test_patch_gram_plain_matches_jax(shape, ks, pad):
+    """The stride-1 entry point, at the JAX test's bar (rtol and atol
+    1e-4)."""
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    want = np.asarray(jpg.patch_gram(jnp.asarray(x), ks, pad,
+                                     interpret=True))
+    got = tpg.patch_gram(torch.from_numpy(x), ks, pad).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("c,ks,strides", [
+    (64, (3, 3), (1, 1)), (64, (3, 3), (2, 2)), (512, (3, 3), (1, 1)),
+    (64, (1, 1), (1, 1)), (133, (3, 3), (1, 1)), (134, (3, 3), (1, 1)),
+    (3, (2, 2), (1, 1)),
+])
+def test_patch_gram_supported_gate_matches_jax(c, ks, strides):
+    """The gate of tests/test_pallas_kernels.py:34, and both sides of its
+    F+1 <= 1200 edge (C=133: 1198; C=134: 1207)."""
+    assert tpg.patch_gram_supported(c, ks, strides) \
+        == jpg.patch_gram_supported(c, ks, strides)
+
+
+def _bf16_pair(shape, seed=0):
+    """Numpy normals rounded to bf16, fed identically to both packages."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    t = torch.from_numpy(x).bfloat16()
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("entry,shape,ks,pad,strides", [
+    ("v2", *V2_CASES[0]), ("v2", *V2_CASES[4]), ("v2", *V2_CASES[8]),
+    *[("patch_gram", *case, (1, 1)) for case in PG_CASES],
+])
+def test_bf16_operands_match_jax(entry, shape, ks, pad, strides):
+    """bf16 operands: exact products, f32 sums in both packages, so the
+    bar is 1e-5 of max|want| (only the summation order differs)."""
+    x, jx = _bf16_pair(shape)
+    if entry == "v2":
+        want = jpg.patch_gram_v2(jx, ks, pad, strides, interpret=True)
+        got = tpg.patch_gram_v2(x, ks, pad, strides)
+    else:
+        want = jpg.patch_gram(jx, ks, pad, interpret=True)
+        got = tpg.patch_gram(x, ks, pad)
+    want = np.asarray(want)
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want,
+                               atol=1e-5 * np.abs(want).max())
+
+
 def test_cpu_wrappers_do_not_count_launches():
     """The launch counters count kernel launches only; the plain version
     on a CPU tensor is not one."""
-    before = (tpg.patch_gram_tiled.launches, tpg.patch_gram_v2.launches)
+    fns = (tpg.patch_gram_tiled, tpg.patch_gram_v2, tpg.patch_gram)
+    before = [fn.launches for fn in fns]
     x = torch.zeros(1, 8, 8, 64)
     tpg.patch_gram_tiled(x, (3, 3), ((1, 1), (1, 1)))
     tpg.patch_gram_v2(x, (3, 3), ((1, 1), (1, 1)), (2, 2))
-    assert (tpg.patch_gram_tiled.launches,
-            tpg.patch_gram_v2.launches) == before
+    tpg.patch_gram(x.bfloat16(), (3, 3), "SAME")
+    assert [fn.launches for fn in fns] == before
+
+
+def test_kernel_takes_f32_and_bf16_only():
+    assert tpg.check_kernel_dtype(torch.zeros(1), "k") == "f32"
+    assert tpg.check_kernel_dtype(torch.zeros(1).bfloat16(), "k") == "bf16"
+    with pytest.raises(TypeError):
+        tpg.check_kernel_dtype(torch.zeros(1).half(), "k")
 
 
 def test_tiled_rejects_infeasible_plan_like_jax():
@@ -133,29 +201,35 @@ def test_dispatch_policy_matches_jax(itemsize):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("entry,shape,ks,pad,strides", [
     ("tiled", (16, 56, 56, 64), (3, 3), ((1, 1), (1, 1)), (1, 1)),
     ("tiled", (2, 9, 9, 96), (3, 3), "SAME", (1, 1)),
     ("tiled", (1, 10, 10, 32), (5, 5), ((2, 2), (2, 2)), (1, 1)),
     ("tiled", (2, 12, 12, 128), (3, 3), ((1, 1), (1, 1)), (2, 2)),
     ("v2", (16, 56, 56, 128), (3, 3), ((1, 1), (1, 1)), (2, 2)),
+    ("v2", (32, 56, 56, 128), (3, 3), ((1, 1), (1, 1)), (2, 2)),
     ("v2", (3, 9, 9, 8), (3, 3), ((1, 1), (1, 1)), (2, 2)),
     ("v2", (2, 7, 9, 4), (3, 3), "SAME", (2, 2)),
     ("v2", (2, 7, 7, 4), (5, 5), ((2, 2), (2, 2)), (1, 1)),
+    ("patch_gram", (16, 56, 56, 64), (3, 3), ((1, 1), (1, 1)), (1, 1)),
+    *[("patch_gram", *case, (1, 1)) for case in PG_CASES],
 ])
-def test_cuda_kernel_matches_plain(entry, shape, ks, pad, strides):
+def test_cuda_kernel_matches_plain(entry, shape, ks, pad, strides, dtype):
     """The CUDA kernel against its plain version on the card, at the
-    main-path shapes and the odd cases."""
+    main-path shapes and the odd cases, in f32 and bf16."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        shape).astype(np.float32)).cuda()
-    fn = tpg.patch_gram_tiled if entry == "tiled" else tpg.patch_gram_v2
+        shape).astype(np.float32)).cuda().to(getattr(torch, dtype))
+    fn = {"tiled": tpg.patch_gram_tiled, "v2": tpg.patch_gram_v2,
+          "patch_gram": tpg.patch_gram}[entry]
+    args = (x, ks, pad) if entry == "patch_gram" else (x, ks, pad, strides)
     before = fn.launches
-    got = fn(x, ks, pad, strides)
+    got = fn(*args)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
-    assert torch.equal(got, fn(x, ks, pad, strides))     # no atomics
+    assert torch.equal(got, fn(*args))                    # no atomics
     want = tpg.patch_gram_plain(x, ks, pad, strides)
     _assert_gram_close(got.cpu().numpy(), want.cpu().numpy())

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
 package, and its entry points run on CUDA unless told otherwise."""
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -21,14 +22,33 @@ bad = sorted(m for m in sys.modules
              or m == "curvature_tpu" or m.startswith("curvature_tpu."))
 print(len(names), bad)
 assert len(names) >= 20, names
+for required in ("curvature_tpu_torch.utils.casting",
+                 "curvature_tpu_torch.ops.cuda.patch_gram",
+                 "curvature_tpu_torch.ops.cuda.sym_gram"):
+    assert required in names, required
 assert not bad, bad
 """
+
+
+def _is_jax_side(module: str) -> bool:
+    return any(module == m or module.startswith(m + ".")
+               for m in ("jax", "curvature_tpu"))
 
 
 def test_port_imports_no_jax_and_no_jax_package():
     out = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_chip_smoke_imports_no_jax_and_no_jax_package():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    imported = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names]
+    imported += [n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module]
+    assert "curvature_tpu_torch.ops.cuda" in imported
+    assert not [m for m in imported if _is_jax_side(m)], imported
 
 
 def test_default_device_entry_point_raises_without_a_gpu():
