@@ -6,10 +6,13 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py              # what CI runs
     python3 chip_smoke.py --profile    # adds a device-time breakdown of one
                                        # update of each path
+    python3 chip_smoke.py --kernels    # builds and checks the kernels only
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
-holds each kernel (patch_gram_tiled, patch_gram_v2, patch_gram, sym_gram;
-f32 and bf16) against its plain PyTorch version on the card, then drives
+counts the tensor-core (HGMMA) instructions of the bf16 kernels in their
+SASS, holds each kernel (patch_gram_tiled, patch_gram_v2, patch_gram,
+sym_gram; f32 and bf16) against its plain PyTorch version on the card,
+then drives
 three paths of ResNet-50 (ImageNet stem, 1000 classes, 224x224, MC=1,
 seeded weights), named after ``bench.py``'s rows:
 
@@ -28,6 +31,7 @@ JSON object. It exits non-zero, printing no result, where there is no
 CUDA device or where the package is not beside it.
 """
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -79,8 +83,18 @@ PATCH_CASES = {
         ((1, 9, 9, 3), (2, 2), ((0, 0), (0, 0)), (1, 1)),
     ],
 }
-#: (784, 4609) is ResNet-50's layer4 3x3 patch matrix at B=16
-SYM_CASES = [(784, 4609), (3136, 1025), (700, 577), (513, 2049)]
+#: bf16 boundary cases of the wgmma gather, run through patch_gram_v2 (its
+#: odd cases above hold C = 4, the scalar gather, and C = 8)
+BF16_PATCH_CASES = [
+    # C = 96: 64-feature tiles straddle taps; F = 864 is not a multiple of
+    # 64; N = 162 is not a multiple of one 64-token stage
+    ((2, 9, 9, 96), (3, 3), SAME1, (1, 1)),
+    ((1, 5, 5, 64), (3, 3), SAME1, (1, 1)),       # N = 25 < one stage
+    ((4, 28, 28, 64), (3, 3), SAME1, (2, 2)),     # N = 784 in 3 splits
+]
+#: (784, 4609) is ResNet-50's layer4 3x3 patch matrix at B=16; (600, 1024)
+#: has F % 8 == 0 (no padding in bf16)
+SYM_CASES = [(784, 4609), (3136, 1025), (700, 577), (513, 2049), (600, 1024)]
 REPLACES = {
     "patch_gram_tiled": "curvature_tpu/ops/pallas/patch_gram.py:464",
     "patch_gram_v2": "curvature_tpu/ops/pallas/patch_gram.py:229",
@@ -93,21 +107,59 @@ def log(*args):
     print(*args, flush=True)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
+def cuda_ms(fn, min_ms=50.0, warmup=3):
     """Mean device time of ``fn`` in ms, from CUDA events around
-    ``iters`` back-to-back calls after ``warmup`` calls."""
+    back-to-back calls after ``warmup`` calls: at least 20 calls and about
+    ``min_ms`` of device time, so that short kernels are not timed over a
+    window of a few milliseconds."""
     import torch
+
+    def timed(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    return timed(max(20, min(2000, int(min_ms / max(timed(3), 1e-3)))))
+
+
+def add_device_times(records):
+    """Each record's device time per call by kernel name (torch.profiler)
+    and its sum, ``device_ms``: the kernels' own time, where ``ms`` also
+    holds the host's gaps between back-to-back wrapper calls that cannot
+    be enqueued as fast as the card runs them (kernels of ~0.1 ms). Run
+    after the paths: a profiler run slows the host's later launches."""
+    for rec in records:
+        rec["device_ms_by_kernel"] = device_ms_by_kernel(rec.pop("call"))
+        rec["device_ms"] = sum(rec["device_ms_by_kernel"].values())
+        log(f"{rec['name']}: {rec['ms']:.4f} ms, device {rec['device_ms']:.4f}"
+            f" ms ({rec['gather']} gather; {rec['tile']}), plain "
+            f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f} / f32 "
+            f"out {rec['library_f32_out_ms']}, bound {rec['bound_ms']:.4f} "
+            f"({rec['bound_by']}); by kernel " + ", ".join(
+                f"{k} {v:.4f}" for k, v in rec["device_ms_by_kernel"].items()))
+
+
+def device_ms_by_kernel(fn, calls=5):
+    """Device time per call of ``fn`` by kernel name (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3 / calls
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0}
 
 
 def bound(flops, nbytes, dtype):
@@ -133,15 +185,80 @@ def gram_bound(shape, kernel_size, strides, pads, dtype, itemsize):
                  dtype)
 
 
-def library_gram(x_nhwc, kernel_size, pads, strides):
-    """Yardstick only, never called by the port: ``F.unfold`` and one
-    ``torch.matmul`` in the input's dtype (no ones row/column; bf16 gives
-    cuBLAS's bf16-output product)."""
+def unfold(x_nhwc, kernel_size, pads, strides):
+    """The [N, F] patch matrix by ``F.unfold`` (yardsticks only)."""
     import torch.nn.functional as F
     p = F.unfold(x_nhwc.permute(0, 3, 1, 2), kernel_size,
                  padding=(pads[0][0], pads[1][0]), stride=strides)
-    p = p.transpose(1, 2).reshape(-1, p.shape[1])
-    return p.T @ p
+    return p.transpose(1, 2).reshape(-1, p.shape[1])
+
+
+def yardsticks(dtype, p_of):
+    """Library yardsticks, never called by the port, as {key: (name, fn)}:
+    ``p.T @ p`` in the input's dtype (bf16 gives cuBLAS's bf16-output
+    product) and, for bf16, ``torch.mm(..., out_dtype=torch.float32)``
+    (f32 output, the kernels' contract) where this torch accepts it.
+    ``p_of()`` builds the [N, F] matrix (the unfold counts in the time)."""
+    import torch
+
+    def same_out():
+        p = p_of()
+        return p.T @ p
+    out = {"library_ms": (f"p.T @ p ({dtype} output)", same_out)}
+    if dtype == "bf16":
+        def f32_out():
+            p = p_of()
+            return torch.mm(p.T, p, out_dtype=torch.float32)
+        try:
+            f32_out()
+            out["library_f32_out_ms"] = (
+                "torch.mm(p.T, p, out_dtype=torch.float32)", f32_out)
+        except (TypeError, RuntimeError, NotImplementedError) as e:
+            log(f"  torch.mm out_dtype=float32 not available: {e}")
+    return out
+
+
+def time_yardsticks(dtype, p_of):
+    times, names = {}, {}
+    for key, (name, fn) in yardsticks(dtype, p_of).items():
+        times[key] = cuda_ms(fn)
+        names[key.replace("_ms", "_call")] = name
+    times.setdefault("library_f32_out_ms", None)
+    return {**times, **names}
+
+
+def hgmma_counts(build):
+    """Tensor-core (HGMMA) instructions per kernel in the SASS of the built
+    libraries (``cuobjdump -sass``); raises if a bf16 Gram kernel has none,
+    or if an f32 one has any (those run on FP32 FMA)."""
+    import re
+    import shutil
+    from pathlib import Path
+    tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).parent
+                                             / "cuobjdump")
+    counts = {}
+    for name in ("patch_gram", "sym_gram"):
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn and "HGMMA" in line:
+                counts[fn] += 1
+    for fn, n in sorted(counts.items()):
+        log(f"  SASS {fn}: {n} HGMMA")
+        wgmma = "wgmma_kernel" in fn
+        if wgmma and n == 0:
+            raise AssertionError(f"{fn}: no HGMMA in its SASS")
+        if not wgmma and n:
+            raise AssertionError(f"{fn}: HGMMA in an FP32-FMA kernel")
+    if not any("wgmma_kernel" in fn for fn in counts):
+        raise AssertionError("no bf16 wgmma kernel found in the SASS")
+    return {fn: n for fn, n in counts.items() if "wgmma_kernel" in fn}
 
 
 def _record(name, dtype, shape, abs_err, rel, worst, cases, **times):
@@ -177,13 +294,11 @@ def check_patch_kernels(tpg, dtype):
     rng = np.random.default_rng(0)
     records = []
     for name, items in PATCH_CASES.items():
-        if dtype == "bf16" and name == "patch_gram_tiled":
-            continue              # no path routes tiled in bf16 (the JAX rule)
         fn = getattr(tpg, name)
         if name == "patch_gram_v2" and dtype == "bf16":
-            # the bf16_b32 path's layer2.0.conv2
+            # the bf16_b32 path's layer2.0.conv2, and the gather's edges
             items = [((BATCH_B32,) + items[0][0][1:],) + items[0][1:]] \
-                + items[1:]
+                + items[1:] + BF16_PATCH_CASES
         worst, main = 0.0, None
         for i, (shape, ks, pad, st) in enumerate(items):
             x = torch.from_numpy(rng.standard_normal(shape).astype(
@@ -193,7 +308,9 @@ def check_patch_kernels(tpg, dtype):
             want = tpg.patch_gram_plain(x, ks, pad, st)
             abs_err = float((got - want).abs().max())
             rel = abs_err / float(want.abs().max())
+            gather = tpg.bf16_gather(x) if dtype == "bf16" else "scalar f32"
             log(f"  {name} {dtype} {shape} k={ks} pad={pad} s={st}: "
+                f"splits={patch_splits(tpg, x, ks, pad, st)} gather={gather} "
                 f"max_abs_err={abs_err:.3e} rel={rel:.3e}")
             if not (torch.isfinite(got).all() and rel <= GRAM_RTOL):
                 raise AssertionError(
@@ -201,19 +318,32 @@ def check_patch_kernels(tpg, dtype):
                     f"plain version (rel {rel:.3e} > {GRAM_RTOL})")
             worst = max(worst, rel)
             if i == 0:
-                main = (x, ks, pad, st, args, abs_err, rel)
-        x, ks, pad, st, args, abs_err, rel = main
+                main = (x, ks, pad, st, args, abs_err, rel, gather)
+        x, ks, pad, st, args, abs_err, rel, gather = main
         pads = tpg.resolve_padding(pad, x.shape[1], x.shape[2], ks, st)
         bound_ms, bound_by = gram_bound(tuple(x.shape), ks, st, pads, dtype,
                                         x.element_size())
         records.append(_record(
             name, dtype, x.shape, abs_err, rel, worst, len(items),
-            ms=cuda_ms(lambda: fn(*args)),
+            gather=gather, ms=cuda_ms(lambda: fn(*args)),
+            call=functools.partial(fn, *args),
             plain_ms=cuda_ms(lambda: tpg.patch_gram_plain(x, ks, pad, st)),
             bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=cuda_ms(lambda: library_gram(x, ks, pads, st)),
-            library_call=f"F.unfold + torch.matmul ({dtype} output)"))
+            **time_yardsticks(dtype, lambda: unfold(x, ks, pads, st))))
     return records
+
+
+def patch_splits(tpg, x, ks, pad, st):
+    """The token split count the wrapper launches ``x`` with."""
+    import torch
+    b, h, w, c = x.shape
+    pads = tpg.resolve_padding(pad, h, w, ks, st)
+    ho, wo = tpg._out_shape(h, w, ks, pads, st)
+    bf16 = x.dtype == torch.bfloat16
+    slots = tpg._resident_blocks(
+        x.device.index, st[0], bf16, bf16 and tpg.bf16_gather(x) == "vector")
+    return tpg.plan_splits(b * ho * wo, tpg.block_tiles(c * ks[0] * ks[1],
+                                                         bf16), bf16, slots)
 
 
 def check_sym_kernel(tsg, dtype):
@@ -252,11 +382,13 @@ def check_sym_kernel(tsg, dtype):
                                n * f * x.element_size() + f * f * 4, dtype)
     return [_record(
         "sym_gram", dtype, x.shape, abs_err, rel, worst, len(SYM_CASES),
+        gather=("vector, features padded to 8" if f % 8 else "vector")
+        if dtype == "bf16" else "scalar f32",
         ms=cuda_ms(lambda: tsg.sym_gram(x)),
+        call=lambda: tsg.sym_gram(x),
         plain_ms=cuda_ms(lambda: tsg.sym_gram_plain(x)),
         bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=cuda_ms(lambda: x.T @ x),
-        library_call=f"x.T @ x ({dtype} output)")]
+        **time_yardsticks(dtype, lambda: x))]
 
 
 class Counters:
@@ -349,6 +481,9 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also print a device-time breakdown of one update "
                          "of each path")
+    ap.add_argument("--kernels", action="store_true",
+                    help="build and check the kernels, print their records, "
+                         "and stop (no paths, no result line)")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -387,8 +522,10 @@ def main(argv=None):
         "one process per source)")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                        "spill", "wgmma", "arning")):
                 log(f"  {name}: {line.strip()}")
+    hgmma = hgmma_counts(build)
 
     # -- 2. kernels against their plain versions ----------------------------
     log("kernels vs plain versions:")
@@ -396,6 +533,19 @@ def main(argv=None):
     for dtype in ("f32", "bf16"):
         records += check_patch_kernels(tpg, dtype)
         records += check_sym_kernel(tsg, dtype)
+    for rec in records:
+        edge = tsg._TILE if rec["function"] == "sym_gram" else tpg.BF16_TILE
+        rec["tile"] = "{0}x{0}, wgmma m64n{0}k16 on bf16 tensor cores".format(
+            edge) if rec["dtype"] == "bf16" \
+            else "64x64, 4x4 FP32 FMA micro-tiles"
+        rec["hgmma_in_sass"] = {fn: n for fn, n in hgmma.items()
+                                if rec["function"].startswith("sym") ==
+                                ("sym" in fn)} if rec["dtype"] == "bf16" \
+            else 0
+    if args.kernels:
+        add_device_times(records)
+        print(json.dumps({"kernels": records}))
+        return 0
 
     # -- 3. the paths ---------------------------------------------------------
     model = models.resnet50(num_classes=CLASSES, device=dev)
@@ -521,6 +671,7 @@ def main(argv=None):
         f"{2 * BATCH} images x {SAMPLES} samples; {smi})")
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    add_device_times(records)
     if args.profile:
         for path, e, b in zip(PATHS, (est, est16, est_sub),
                               (batches, batches_b32, batches)):

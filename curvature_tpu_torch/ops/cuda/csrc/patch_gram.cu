@@ -10,15 +10,23 @@
 // G = P^T P of the patch matrix P = [N, F+1] (N = B*Ho*Wo tokens,
 // F = C*kh*kw features in canonical (c, dy, dx) order, ones column last).
 // Every Pallas version is dtype-generic with f32 accumulation; so is this
-// one: bf16 elements are widened to f32 as they are gathered.
+// file, with one kernel body per element type:
+//  * f32: gram_partial_kernel, strict FP32 FMA;
+//  * bf16: gram_wgmma_kernel, bf16 x bf16 -> f32 on the tensor cores
+//    (wgmma, wgmma_gram.cuh). bf16 products are exact in f32, so it computes
+//    the same function as the f32 path on the widened values.
 //
 // What bounds it: on ResNet-50's main-path shapes (F = 576 and 1152,
-// N = 50,176 and 12,544) the lower triangle alone is N*F*(F+1) ~ 1.7e10
-// FLOP against 13-26 MB of input: far above the card's ops-per-byte
-// line, so it is bound by arithmetic. It stays in strict FP32 FMA (no TF32
-// tensor-core mma) because the parity bar of the JAX tests, 1e-4 of
-// max|G|, is out of TF32's reach. (For bf16 operands the tensor cores
-// would give the same exact products; that is later work.)
+// N = 50,176 and 12,544-25,088) the lower triangle alone is N*F*(F+1)
+// ~ 1.7e10-3.3e10 FLOP against 13-26 MB of input: far above the card's
+// ops-per-byte line, so the FLOP bound is the one that counts. In f32 it
+// stays in strict FP32 FMA (no TF32 tensor-core mma) because the parity bar
+// of the JAX tests, 1e-4 of max|G|, is out of TF32's reach. In bf16 the
+// tensor cores make the arithmetic cheap, and what is left is the gather:
+// every tile re-reads its token rows (from L2: the input fits in it), so
+// the bf16 kernel takes 128x128 tiles (half the bytes per FLOP of 64x64;
+// measured faster, PERF.md), sends 16-byte cp.async copies into a
+// 3-stage ring and keeps two stages in flight.
 //
 // What the design does about it (and about what the TPU versions needed):
 //  * No patch matrix and no padded copy ever reach device memory: each
@@ -28,24 +36,30 @@
 //    strips with a halo DMA, row bands, the parity stack, kb feature
 //    tiles) have no counterpart: patch_gram's strips are just this
 //    kernel's stride-1 instance.
-//  * Each block owns one 64x64 tile of the lower triangle of the [F, F]
-//    core (internal feature order (tap, c), so 64 consecutive features are
-//    64 consecutive channels: coalesced loads). 256 threads hold 4x4 f32
-//    accumulators each and run FP32 FMAs out of shared memory.
-//  * The gather keeps its global loads in flight under the FMAs: the next
-//    chunk of 32 tokens is loaded into registers before the current one is
-//    multiplied, into a second shared-memory stage (one barrier a chunk),
-//    and token positions advance by additions, not 64-bit divisions.
+//  * Each block owns one tile of the lower triangle of the [F, F] core
+//    (internal feature order (tap, c), so consecutive features are
+//    consecutive channels: coalesced loads). f32: a 64x64 tile, 256
+//    threads with 4x4 f32 accumulators each, FP32 FMAs out of shared
+//    memory. bf16: a 128x128 tile, two warpgroups running
+//    wgmma.m64n128k16 on swizzled [64 tokens x 128 features] operands;
+//    when C % 8 == 0 each thread copies 8 channels of one tap (16 bytes)
+//    per token row with cp.async, decoding its (tap, c0) once per block;
+//    otherwise a scalar gather fills the same layout.
+//  * The gathers keep their global loads in flight under the arithmetic
+//    (f32: the next 32-token chunk in registers and a second shared-memory
+//    stage; bf16: the ring), and token positions advance by additions, not
+//    64-bit divisions.
 //  * The TPU's sequential-grid accumulation becomes a split over token
 //    chunks: blockIdx.y picks a contiguous token range, and the wrapper
 //    picks the split count that best fills whole waves of resident blocks,
 //    so the 45 tiles of F = 576 still fill 132 SMs. Partial tiles go to a
-//    workspace and a second kernel sums them in a fixed order: no atomics,
-//    so results repeat bit for bit from run to run.
+//    workspace of 64x64 tiles and a second kernel sums them in a fixed
+//    order: no atomics, so results repeat bit for bit from run to run.
 //  * Diagonal-tile blocks also sum their columns (the ones row/column),
 //    and the reduce kernel writes the canonical (c, dy, dx) order directly,
 //    with N in the corner, replacing the JAX perm gather.
 #include "gram_tile.cuh"
+#include "wgmma_gram.cuh"
 
 namespace {
 
@@ -84,10 +98,11 @@ __device__ __forceinline__ Row row_at(const Geom& g, int n) {
   return r;
 }
 
-// Moves a row BK tokens on without a division (all threads of a warp
+// Moves a row STEP tokens on without a division (all threads of a warp
 // share the row, so the loops do not diverge).
+template <int STEP = BK>
 __device__ __forceinline__ void advance(const Geom& g, Row& r) {
-  r.ox += BK;
+  r.ox += STEP;
   while (r.ox >= g.Wo) { r.ox -= g.Wo; ++r.oy; }
   while (r.oy >= g.Ho) { r.oy -= g.Ho; r.base += g.H * g.W * g.C; }
 }
@@ -201,6 +216,119 @@ gram_partial_kernel(const T* __restrict__ x, float* __restrict__ ws,
     colsum_ws[static_cast<size_t>(split) * nt * TILE + ti * TILE + tid] = csum;
 }
 
+// Tile edge of the bf16 kernel: 64 * WGS features, WGS warpgroups a block.
+// 128 here: at the main-path shapes it measured 0.26 ms (v2, B=32) and
+// 0.14 ms (F = 576) against 0.31 and 0.16 ms for 64 (PERF.md).
+constexpr int WGS = 2;
+using Wg = wg::Shape<WGS>;
+
+// The bf16 kernel's gather (wg::GatherSlot says which 16-byte chunk of
+// which token rows a thread copies), for tile ti (A) and, off the
+// diagonal, tile tj (B). VEC (C % 8 == 0): the chunk's 8 features are 8
+// channels of one tap, one cp.async each, with padding taps and tail
+// tokens zero-filled (source size 0). Otherwise: 8 scalar loads (each
+// feature decoded), one 16-byte store.
+template <int S, bool VEC>
+struct PatchGather {
+  static constexpr int M = wg::BK / 16;      // token rows per thread
+  const __nv_bfloat16* __restrict__ x;
+  Geom g;
+  int n_next, n_end;                         // first token of the next chunk
+  wg::GatherSlot at;
+  int fa, fb;                                // first feature of A / B
+  int dya, dxa, ca, dyb, dxb, cb;            // VEC: the chunk's tap and c0
+  Row rows[M];
+
+  __device__ PatchGather(const __nv_bfloat16* x_, const Geom& g_, int ti,
+                         int tj, int n_begin, int n_end_)
+      : x(x_), g(g_), n_next(n_begin), n_end(n_end_) {
+    fa = ti * Wg::TILE + at.feature;
+    fb = tj * Wg::TILE + at.feature;
+    dya = dxa = ca = dyb = dxb = cb = 0;
+    if (VEC) {
+      if (fa < g.F) decode_feature(g, fa, ca, dya, dxa);
+      if (fb < g.F) decode_feature(g, fb, cb, dyb, dxb);
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      rows[m] = row_at(g, min(n_begin + at.r0 + 16 * m, g.N - 1));
+  }
+
+  // element offset of (row, tap) in x, or -1 in the padding
+  __device__ __forceinline__ int offset(const Row& r, int dy, int dx,
+                                        int c) const {
+    const int iy = r.oy * S - g.pt + dy, ix = r.ox * S - g.pl + dx;
+    if (iy < 0 || iy >= g.H || ix < 0 || ix >= g.W) return -1;
+    return r.base + (iy * g.W + ix) * g.C + c;
+  }
+
+  __device__ __forceinline__ void copy(uint32_t d, const Row& r, bool in,
+                                       int f0, int dy, int dx, int c) const {
+    if (VEC) {
+      const int off = in && f0 < g.F ? offset(r, dy, dx, c) : -1;
+      wg::cp_async16(d, off >= 0 ? x + off : x, off >= 0);
+    } else {
+      const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
+      unsigned int w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (!in || f0 + e >= g.F) continue;
+        int ce, dye, dxe;
+        decode_feature(g, f0 + e, ce, dye, dxe);
+        const int off = offset(r, dye, dxe, ce);
+        if (off >= 0)
+          w[e / 2] |= static_cast<unsigned int>(__ldg(xs + off))
+                      << (16 * (e % 2));
+      }
+      wg::st_shared16(d, make_uint4(w[0], w[1], w[2], w[3]));
+    }
+  }
+
+  // the next BK tokens into slot_a (and slot_b, unless it is slot_a)
+  __device__ __forceinline__ void load(uint32_t slot_a, uint32_t slot_b) {
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const bool in = n_next + at.r0 + 16 * m < n_end;
+      const uint32_t d = at.dst + m * 16 * wg::ROW_BYTES;
+      copy(slot_a + d, rows[m], in, fa, dya, dxa, ca);
+      if (slot_b != slot_a) copy(slot_b + d, rows[m], in, fb, dyb, dxb, cb);
+      advance<wg::BK>(g, rows[m]);
+    }
+    n_next += wg::BK;
+  }
+};
+
+// bf16 partial tile on the tensor cores: grid (lower tiles of edge
+// Wg::TILE, splits), WGS warpgroups a block, Wg::SMEM bytes of dynamic
+// shared memory. Writes the same 64x64-tile workspace as
+// gram_partial_kernel (nt, num_tiles: of 64-tiles), for the same reduce.
+template <int S, bool VEC>
+__global__ void __launch_bounds__(Wg::THREADS)
+gram_wgmma_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ ws,
+                  float* __restrict__ colsum_ws, Geom g, int nt, int num_tiles,
+                  int tokens_per_split) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int ti, tj;
+  gram::tri_tile(blockIdx.x, ti, tj);
+  const bool diag = ti == tj;
+  const int split = blockIdx.y;
+  const int n_begin = split * tokens_per_split;
+  const int n_end = min(n_begin + tokens_per_split, g.N);
+  const int nchunks =
+      n_end > n_begin ? (n_end - n_begin + wg::BK - 1) / wg::BK : 0;
+
+  PatchGather<S, VEC> gather(x, g, ti, tj, n_begin, n_end);
+  float acc[Wg::ACC];
+  const int f = ti * Wg::TILE + threadIdx.x;     // the column sum's feature
+  float* csum = f < nt * TILE
+      ? colsum_ws + static_cast<size_t>(split) * nt * TILE + f : nullptr;
+  wg::gram_tile<WGS, true>(gather, wg::ring_base(smem), nchunks, diag, acc,
+                           csum);
+  wg::store_subtiles<WGS>(
+      ws + static_cast<size_t>(split) * num_tiles * TILE * TILE, ti, tj, nt,
+      acc);
+}
+
 // Sums the split partials in a fixed order and writes [F+1, F+1] in the
 // canonical (c, dy, dx) order, ones row/column last, N in the corner.
 __global__ void gram_reduce_kernel(const float* __restrict__ ws,
@@ -234,10 +362,49 @@ __global__ void gram_reduce_kernel(const float* __restrict__ ws,
   out[static_cast<size_t>(i) * f1 + j] = v;
 }
 
+// The partial kernel of an element type, stride and gather, with its block
+// size, dynamic shared memory and output tile edge.
+template <typename T>
+struct Partial {
+  void (*fn)(const T*, float*, float*, Geom, int, int, int);
+  int threads, smem;
+  cudaError_t err;   // of the one-time shared-memory attribute (bf16)
+  int tile;
+};
+
+template <int S>
+Partial<float> partial(const float*, int) {
+  return {gram_partial_kernel<float, S>, THREADS, 0, cudaSuccess, TILE};
+}
+
+// The bf16 kernels take more than 48 KB of dynamic shared memory: the
+// attribute is set once per instance, before its first launch or query.
+template <int S, bool VEC>
+Partial<__nv_bfloat16> wgmma_partial() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      gram_wgmma_kernel<S, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Wg::SMEM);
+  return {gram_wgmma_kernel<S, VEC>, Wg::THREADS, Wg::SMEM, err,
+          Wg::TILE};
+}
+
+template <int S>
+Partial<__nv_bfloat16> partial(const __nv_bfloat16*, int vec) {
+  return vec ? wgmma_partial<S, true>() : wgmma_partial<S, false>();
+}
+
+template <typename T>
+bool pick(int stride, int vec, Partial<T>& k) {
+  if (stride != 1 && stride != 2) return false;
+  k = stride == 1 ? partial<1>(static_cast<const T*>(nullptr), vec)
+                  : partial<2>(static_cast<const T*>(nullptr), vec);
+  return true;
+}
+
 template <typename T>
 int launch(const T* x, float* out, float* ws, float* colsum_ws, int B, int H,
            int W, int C, int kh, int kw, int stride, int pt, int pl, int Ho,
-           int Wo, int splits, int tokens_per_split, void* stream) {
+           int Wo, int splits, int tokens_per_split, int vec, void* stream) {
   Geom g;
   g.H = H; g.W = W; g.C = C; g.kw = kw;
   g.pt = pt; g.pl = pl; g.Ho = Ho; g.Wo = Wo;
@@ -246,16 +413,13 @@ int launch(const T* x, float* out, float* ws, float* colsum_ws, int B, int H,
   const int nt = (g.F + TILE - 1) / TILE;
   const int num_tiles = nt * (nt + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(num_tiles, splits);
-  if (stride == 1) {
-    gram_partial_kernel<T, 1><<<grid, THREADS, 0, s>>>(
-        x, ws, colsum_ws, g, nt, num_tiles, tokens_per_split);
-  } else if (stride == 2) {
-    gram_partial_kernel<T, 2><<<grid, THREADS, 0, s>>>(
-        x, ws, colsum_ws, g, nt, num_tiles, tokens_per_split);
-  } else {
+  Partial<T> k;
+  if (!pick(stride, vec, k) || (vec && C % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (k.err != cudaSuccess) return static_cast<int>(k.err);
+  const int bt = (g.F + k.tile - 1) / k.tile;     // block tiles per edge
+  k.fn<<<dim3(bt * (bt + 1) / 2, splits), k.threads, k.smem, s>>>(
+      x, ws, colsum_ws, g, nt, num_tiles, tokens_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int f1 = g.F + 1;
@@ -267,12 +431,12 @@ int launch(const T* x, float* out, float* ws, float* colsum_ws, int B, int H,
 }
 
 template <typename T>
-cudaError_t blocks_per_sm(int stride, int* blocks) {
-  return stride == 1
-      ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks, gram_partial_kernel<T, 1>, THREADS, 0)
-      : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            blocks, gram_partial_kernel<T, 2>, THREADS, 0);
+cudaError_t blocks_per_sm(int stride, int vec, int* blocks) {
+  Partial<T> k;
+  if (!pick(stride, vec, k)) return cudaErrorInvalidValue;
+  if (k.err != cudaSuccess) return k.err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k.fn, k.threads,
+                                                       k.smem);
 }
 
 }  // namespace
@@ -281,28 +445,30 @@ extern "C" {
 
 // Entries of patch_gram_tiled, patch_gram_v2 and patch_gram
 // (curvature_tpu_torch/ops/cuda/patch_gram.py), one per element type: the
-// three share this kernel, and the stride is a template parameter of the
-// gather, not a separate body.
+// three share each type's kernel, and the stride is a template parameter of
+// the gather, not a separate body. bf16 takes `vec`: 1 for the 16-byte
+// cp.async gather (C % 8 == 0 and x 16-byte aligned), 0 for the scalar one.
 int patch_gram_f32(const float* x, float* out, float* ws, float* colsum_ws,
                    int B, int H, int W, int C, int kh, int kw, int stride,
                    int pt, int pl, int Ho, int Wo, int splits,
                    int tokens_per_split, void* stream) {
   return launch(x, out, ws, colsum_ws, B, H, W, C, kh, kw, stride, pt, pl, Ho,
-                Wo, splits, tokens_per_split, stream);
+                Wo, splits, tokens_per_split, 0, stream);
 }
 
 int patch_gram_bf16(const __nv_bfloat16* x, float* out, float* ws,
                     float* colsum_ws, int B, int H, int W, int C, int kh,
                     int kw, int stride, int pt, int pl, int Ho, int Wo,
-                    int splits, int tokens_per_split, void* stream) {
+                    int splits, int tokens_per_split, int vec, void* stream) {
   return launch(x, out, ws, colsum_ws, B, H, W, C, kh, kw, stride, pt, pl, Ho,
-                Wo, splits, tokens_per_split, stream);
+                Wo, splits, tokens_per_split, vec, stream);
 }
 
 // Resident partial-kernel blocks per SM, for the wrapper's split count.
-int patch_gram_blocks_per_sm(int stride, int bf16, int* blocks) {
-  return static_cast<int>(bf16 ? blocks_per_sm<__nv_bfloat16>(stride, blocks)
-                               : blocks_per_sm<float>(stride, blocks));
+int patch_gram_blocks_per_sm(int stride, int bf16, int vec, int* blocks) {
+  return static_cast<int>(
+      bf16 ? blocks_per_sm<__nv_bfloat16>(stride, vec, blocks)
+           : blocks_per_sm<float>(stride, 0, blocks));
 }
 
 const char* patch_gram_error_string(int code) {

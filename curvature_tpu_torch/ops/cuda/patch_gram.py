@@ -17,12 +17,15 @@ bf16 operands give exact products and f32 sums, as the Pallas kernels'
     kernel ``_kernel`` :72), stride 1 only. No path dispatches it, in JAX
     or here; it is public API.
 
-On Hopper all three are one implicit-im2col Gram kernel templated on
-stride and element type (``csrc/patch_gram.cu``, whose header says what
-bounds it and how the design answers). The TPU ``patch_gram``'s row strips
-of ~512 patch rows with a manual HBM->VMEM halo DMA exist to make a strip
-fit VMEM; a block here gathers its patch rows straight from the input, so
-``patch_gram`` is the kernel's stride-1 instance and has no strip design.
+On Hopper all three are one implicit-im2col Gram kernel body per element
+type, templated on stride (``csrc/patch_gram.cu``, whose header says what
+bounds it and how the design answers): f32 runs on FP32 FMA, bf16 on the
+tensor cores (``wgmma``, bf16 x bf16 -> f32) with a 16-byte ``cp.async``
+gather where the input allows it (:func:`bf16_gather`). The TPU
+``patch_gram``'s row strips of ~512 patch rows with a manual HBM->VMEM
+halo DMA exist to make a strip fit VMEM; a block here gathers its patch
+rows straight from the input, so ``patch_gram`` is the kernel's stride-1
+instance and has no strip design.
 Each entry point keeps its own wrapper, contract checks and launch counter
 (``<fn>.launches``, counting kernel launches only).
 
@@ -45,8 +48,15 @@ import torch.nn.functional as F
 from curvature_tpu_torch.ops.patches import resolve_padding
 
 MAX_F = 1200
-#: must match TILE in csrc/patch_gram.cu
+#: edge of the 64x64 workspace tiles and of the f32 kernel's output tile
+#: (TILE in csrc/gram_tile.cuh)
 _TILE = 64
+#: edge of the bf16 kernel's output tile (64 * WGS in csrc/patch_gram.cu)
+BF16_TILE = 128
+#: the most tokens one bf16 block sums in the tensor cores' f32
+#: accumulator; a longer range is split, and the splits are summed in f32 in
+#: a fixed order (the accumulator's error grows with the chain: PERF.md)
+MAX_CHAIN_TOKENS = 8192
 
 
 # ---------------------------------------------------------------------------
@@ -193,14 +203,15 @@ def _lib() -> ctypes.CDLL:
     from curvature_tpu_torch.ops.cuda import build
     lib = build.load("patch_gram")
     # x, out, ws, colsum; B H W C kh kw stride pt pl Ho Wo splits
-    # tokens-per-split; stream
-    args = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-    for suffix in KERNEL_DTYPES.values():
+    # tokens-per-split (bf16: and vec); stream
+    for suffix, ints in (("f32", 13), ("bf16", 14)):
         fn = getattr(lib, f"patch_gram_{suffix}")
-        fn.argtypes = args
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.patch_gram_blocks_per_sm.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)]
     lib.patch_gram_blocks_per_sm.restype = ctypes.c_int
     lib.patch_gram_error_string.argtypes = [ctypes.c_int]
     lib.patch_gram_error_string.restype = ctypes.c_char_p
@@ -221,9 +232,19 @@ def resident_slots(device_index: int, blocks_per_sm) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device_index: int, stride: int, bf16: bool) -> int:
+def _resident_blocks(device_index: int, stride: int, bf16: bool,
+                     vec: bool) -> int:
     return resident_slots(device_index, functools.partial(
-        _lib().patch_gram_blocks_per_sm, stride, int(bf16)))
+        _lib().patch_gram_blocks_per_sm, stride, int(bf16), int(vec)))
+
+
+def bf16_gather(x: torch.Tensor) -> str:
+    """The gather the bf16 kernel takes for ``x`` (NHWC), from its shape and
+    address alone: ``'vector'`` (one 16-byte ``cp.async`` per 8 channels of
+    a tap) when C % 8 == 0 and the data is 16-byte aligned, else
+    ``'scalar'`` (2-byte loads into the same shared-memory layout)."""
+    return "vector" if x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 \
+        else "scalar"
 
 
 def split_count(n_tokens: int, num_tiles: int, slots: int) -> int:
@@ -236,6 +257,22 @@ def split_count(n_tokens: int, num_tiles: int, slots: int) -> int:
         return blocks / (-(-blocks // slots) * slots)
     return max(range(1, max(1, min(64, n_tokens // 256)) + 1),
                key=lambda s: (round(fill(s), 1), -s))
+
+
+def plan_splits(n_tokens: int, num_tiles: int, bf16: bool,
+                slots: int) -> int:
+    """Token splits of a launch over ``n_tokens`` tokens and ``num_tiles``
+    block tiles: the wave-filling count, and for bf16 at least enough that
+    no block sums more than MAX_CHAIN_TOKENS."""
+    splits = split_count(n_tokens, num_tiles, slots)
+    return max(splits, -(-n_tokens // MAX_CHAIN_TOKENS)) if bf16 else splits
+
+
+def block_tiles(f: int, bf16: bool) -> int:
+    """Lower-triangular output tiles, one per block of a split, of the
+    kernel for ``f`` features."""
+    nt = -(-f // (BF16_TILE if bf16 else _TILE))
+    return nt * (nt + 1) // 2
 
 
 def check_kernel_dtype(x: torch.Tensor, name: str) -> str:
@@ -261,8 +298,11 @@ def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
     if max(x.numel(), n_tokens) >= 2 ** 31:
         raise ValueError(f"{name}: the kernel indexes with 32-bit ints; "
                          f"{tuple(x.shape)} is too large")
-    slots = _resident_blocks(x.device.index, strides[0], suffix == "bf16")
-    splits = split_count(n_tokens, num_tiles, slots)
+    bf16 = suffix == "bf16"
+    vec = bf16 and bf16_gather(x) == "vector"
+    splits = plan_splits(n_tokens, block_tiles(f, bf16), bf16,
+                         _resident_blocks(x.device.index, strides[0], bf16,
+                                          vec))
     per_split = -(-n_tokens // splits)
     out = torch.empty((f + 1, f + 1), dtype=torch.float32, device=x.device)
     ws = torch.empty(splits * num_tiles * _TILE * _TILE,
@@ -270,12 +310,13 @@ def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
     colsum = torch.empty(splits * nt * _TILE, dtype=torch.float32,
                          device=x.device)
     lib = _lib()
+    args = [b, h, w, c, kh, kw, strides[0], pads[0][0], pads[1][0], ho, wo,
+            splits, per_split] + ([int(vec)] if bf16 else [])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, f"patch_gram_{suffix}")(
             x.data_ptr(), out.data_ptr(), ws.data_ptr(), colsum.data_ptr(),
-            b, h, w, c, kh, kw, strides[0], pads[0][0], pads[1][0], ho, wo,
-            splits, per_split, stream)
+            *args, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: "
                            f"{lib.patch_gram_error_string(rc).decode()}")

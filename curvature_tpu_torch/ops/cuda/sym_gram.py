@@ -9,8 +9,13 @@ float32 out, f32 sums of exact products; below the gate
 (:func:`sym_gram_supported`, from ``_plan``) it is one plain product, as
 the JAX function's einsum. The two variants only chose a grid the TPU's
 compiler accepted, so both run the same kernel here (``csrc/sym_gram.cu``,
-whose header says what bounds it). The result is bitwise symmetric: the
-upper triangle is written from the lower triangle's values.
+whose header says what bounds it): FP32 FMA for f32, the tensor cores
+(``wgmma``, bf16 x bf16 -> f32) for bf16. The bf16 kernel copies 16 bytes
+(8 features) at a time, so its rows must be a multiple of 8 features:
+the wrapper appends zero features (:func:`pad_features`; the callers'
+ones column makes F odd) and the kernel writes only the leading [F, F].
+The result is bitwise symmetric: the upper triangle is written from the
+lower triangle's values.
 
 No path calls it, in JAX or here; it is public API. For a CPU tensor it
 computes its plain version; for a CUDA tensor above the gate it launches
@@ -23,12 +28,12 @@ from typing import Tuple
 import torch
 
 from curvature_tpu_torch.ops.cuda.patch_gram import (
-    KERNEL_DTYPES, check_device, check_kernel_dtype, resident_slots,
-    split_count)
+    check_device, check_kernel_dtype, plan_splits, resident_slots)
 
 __all__ = ["sym_gram", "sym_gram_plain", "sym_gram_supported"]
 
-#: must match TILE in csrc/gram_tile.cuh
+#: edge of the workspace tiles and of both kernels' output tiles (TILE in
+#: csrc/gram_tile.cuh; 64 * WGS in csrc/sym_gram.cu)
 _TILE = 64
 VARIANTS = ("tri", "rect")
 
@@ -58,15 +63,25 @@ def sym_gram_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.tril(g) + torch.tril(g, -1).T
 
 
+def pad_features(x: torch.Tensor) -> torch.Tensor:
+    """``x`` ([N, F]) with zero features appended up to a multiple of 8,
+    as a fresh (aligned) copy; ``x`` itself where F % 8 == 0 and its data
+    is 16-byte aligned. The leading [F, F] of its Gram is ``x``'s."""
+    f = x.shape[1]
+    if f % 8 == 0 and x.data_ptr() % 16 == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, -f % 8))
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from curvature_tpu_torch.ops.cuda import build
     lib = build.load("sym_gram")
-    # x, out, ws; N F splits tokens-per-split; stream
-    args = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    for suffix in KERNEL_DTYPES.values():
+    # x, out, ws; N F (bf16: ld) splits tokens-per-split; stream
+    for suffix, ints in (("f32", 4), ("bf16", 5)):
         fn = getattr(lib, f"sym_gram_{suffix}")
-        fn.argtypes = args
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * ints \
+            + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.sym_gram_blocks_per_sm.argtypes = [
         ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
@@ -86,23 +101,28 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
     suffix = check_kernel_dtype(x, "sym_gram")
     x = x.contiguous()
     n, f = x.shape
-    if n * f >= 2 ** 31:
+    if n * (f + 7) >= 2 ** 31:
         raise ValueError(f"sym_gram: the kernel indexes with 32-bit ints; "
                          f"{tuple(x.shape)} is too large")
+    bf16 = suffix == "bf16"
+    if bf16:
+        x = pad_features(x)
     nt = -(-f // _TILE)
     num_tiles = nt * (nt + 1) // 2
-    splits = split_count(n, num_tiles,
-                         _resident_blocks(x.device.index, suffix == "bf16"))
+    splits = plan_splits(n, num_tiles, bf16,
+                         _resident_blocks(x.device.index, bf16))
     per_split = -(-n // splits)
     out = torch.empty((f, f), dtype=torch.float32, device=x.device)
-    ws = torch.empty(splits * num_tiles * _TILE * _TILE,
+    # bf16 with one split writes out directly: no workspace
+    ws = torch.empty(0 if bf16 and splits == 1
+                     else splits * num_tiles * _TILE * _TILE,
                      dtype=torch.float32, device=x.device)
     lib = _lib()
+    args = [n, f] + ([x.shape[1]] if bf16 else []) + [splits, per_split]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, f"sym_gram_{suffix}")(
-            x.data_ptr(), out.data_ptr(), ws.data_ptr(), n, f, splits,
-            per_split, stream)
+            x.data_ptr(), out.data_ptr(), ws.data_ptr(), *args, stream)
     if rc != 0:
         raise RuntimeError(f"sym_gram: CUDA error {rc}: "
                            f"{lib.sym_gram_error_string(rc).decode()}")

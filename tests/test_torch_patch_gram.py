@@ -109,6 +109,18 @@ def test_patch_gram_supported_gate_matches_jax(c, ks, strides):
         == jpg.patch_gram_supported(c, ks, strides)
 
 
+#: bf16 edges of the CUDA kernel's tensor-core gather, as chip_smoke.py
+#: checks them on the card: C = 96 (64-feature tiles that straddle taps,
+#: F = 864 not a multiple of 64, N = 162 not a multiple of the 64-token
+#: stage), N = 25 (less than one stage), N = 784 (more than one split on
+#: the card). C = 4 and C = 3 (the scalar gather) are among the cases above.
+BF16_EDGE_CASES = [
+    ((2, 9, 9, 96), (3, 3), ((1, 1), (1, 1)), (1, 1)),
+    ((1, 5, 5, 64), (3, 3), ((1, 1), (1, 1)), (1, 1)),
+    ((4, 28, 28, 64), (3, 3), ((1, 1), (1, 1)), (2, 2)),
+]
+
+
 def _bf16_pair(shape, seed=0):
     """Numpy normals rounded to bf16, fed identically to both packages."""
     x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
@@ -119,6 +131,7 @@ def _bf16_pair(shape, seed=0):
 @pytest.mark.parametrize("entry,shape,ks,pad,strides", [
     ("v2", *V2_CASES[0]), ("v2", *V2_CASES[4]), ("v2", *V2_CASES[8]),
     *[("patch_gram", *case, (1, 1)) for case in PG_CASES],
+    *[("v2", *case) for case in BF16_EDGE_CASES],
 ])
 def test_bf16_operands_match_jax(entry, shape, ks, pad, strides):
     """bf16 operands: exact products, f32 sums in both packages, so the
@@ -146,6 +159,37 @@ def test_cpu_wrappers_do_not_count_launches():
     tpg.patch_gram_v2(x, (3, 3), ((1, 1), (1, 1)), (2, 2))
     tpg.patch_gram(x.bfloat16(), (3, 3), "SAME")
     assert [fn.launches for fn in fns] == before
+
+
+def test_bf16_gather_is_chosen_by_shape_and_alignment():
+    """The 16-byte gather where C % 8 == 0 and the data is 16-byte aligned;
+    the scalar one otherwise (C = 4, or a view 2 bytes into its storage)."""
+    x = torch.zeros(2, 8, 8, 64, dtype=torch.bfloat16)
+    assert tpg.bf16_gather(x) == "vector"
+    assert tpg.bf16_gather(torch.zeros(2, 8, 8, 4,
+                                       dtype=torch.bfloat16)) == "scalar"
+    shifted = torch.zeros(2 * 8 * 8 * 64 + 1, dtype=torch.bfloat16)[1:]
+    assert tpg.bf16_gather(shifted.view(2, 8, 8, 64)) == "scalar"
+
+
+@pytest.mark.parametrize("f,bf16,tiles", [(576, False, 45), (576, True, 15),
+                                          (1152, True, 45), (100, True, 1)])
+def test_block_tiles_follow_the_tile_edge(f, bf16, tiles):
+    """64-feature tiles for f32, BF16_TILE-feature tiles for bf16."""
+    assert tpg.BF16_TILE == 128
+    assert tpg.block_tiles(f, bf16) == tiles
+
+
+@pytest.mark.parametrize("n_tokens", [25, 784, 25_088, 50_176, 400_000])
+def test_bf16_splits_bound_each_accumulation_chain(n_tokens):
+    """bf16 never sums more than MAX_CHAIN_TOKENS tokens in one block's
+    tensor-core accumulator; f32 keeps the wave-filling count."""
+    for tiles, slots in ((15, 264), (45, 264), (2701, 396)):
+        f32 = tpg.plan_splits(n_tokens, tiles, False, slots)
+        bf16 = tpg.plan_splits(n_tokens, tiles, True, slots)
+        assert f32 == tpg.split_count(n_tokens, tiles, slots)
+        assert bf16 >= f32
+        assert -(-n_tokens // bf16) <= tpg.MAX_CHAIN_TOKENS
 
 
 def test_kernel_takes_f32_and_bf16_only():
@@ -214,6 +258,7 @@ def test_dispatch_policy_matches_jax(itemsize):
     ("v2", (2, 7, 7, 4), (5, 5), ((2, 2), (2, 2)), (1, 1)),
     ("patch_gram", (16, 56, 56, 64), (3, 3), ((1, 1), (1, 1)), (1, 1)),
     *[("patch_gram", *case, (1, 1)) for case in PG_CASES],
+    *[("v2", *case) for case in BF16_EDGE_CASES],
 ])
 def test_cuda_kernel_matches_plain(entry, shape, ks, pad, strides, dtype):
     """The CUDA kernel against its plain version on the card, at the

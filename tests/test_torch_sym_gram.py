@@ -27,8 +27,9 @@ torch.set_num_threads(1)
 
 #: a CPU-sized subset of tests/test_pallas_kernels.py:129-130: (700, 577)
 #: passes the gate and pads both N and F in the TPU plan; (100, 64) is
-#: below the gate (one einsum)
-CASES = [(700, 577), (100, 64)]
+#: below the gate (one einsum); (200, 520) passes it with F % 8 == 0 (the
+#: bf16 kernel reads its rows unpadded)
+CASES = [(700, 577), (100, 64), (200, 520)]
 
 
 def _inputs(shape, dtype):
@@ -68,6 +69,19 @@ def test_sym_gram_supported_gate_matches_jax(n, f):
     assert tsg.sym_gram_supported(n, f) == jsg.sym_gram_supported(n, f)
 
 
+@pytest.mark.parametrize("n,f", [(700, 577), (100, 13), (64, 600)])
+def test_padded_features_leave_the_gram_unchanged(n, f):
+    """The bf16 kernel runs on rows padded to 8 features; the plain Gram of
+    the padded input, cut to [F, F], is that of the input bit for bit."""
+    x = _inputs((n, f), "bfloat16")[0]
+    xp = tsg.pad_features(x)
+    assert xp.shape == (n, f + (-f % 8)) and xp.data_ptr() % 16 == 0
+    assert torch.equal(xp[:, :f], x) and not xp[:, f:].any()
+    assert torch.equal(tsg.sym_gram_plain(xp)[:f, :f], tsg.sym_gram_plain(x))
+    if f % 8 == 0:
+        assert tsg.pad_features(x) is x
+
+
 def test_sym_gram_rejects_unknown_variant():
     with pytest.raises(ValueError):
         tsg.sym_gram(torch.zeros(4, 600), variant="full")
@@ -83,7 +97,7 @@ def test_cpu_sym_gram_counts_no_launch():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,f", [(784, 4609), (3136, 1025), (700, 577),
-                                 (513, 2049)])
+                                 (513, 2049), (600, 1024)])
 def test_cuda_kernel_matches_plain(n, f, dtype):
     """The CUDA kernel against its plain version on the card: within the
     JAX bar, bitwise symmetric, the same bits from both variants and from
