@@ -9,10 +9,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --kernels    # builds and checks the kernels only
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
-counts the tensor-core (HGMMA) instructions of the bf16 kernels in their
-SASS, holds each kernel (patch_gram_tiled, patch_gram_v2, patch_gram,
-sym_gram; f32 and bf16) against its plain PyTorch version on the card,
-then drives
+counts the tensor-core (HGMMA) instructions of each kernel in their SASS
+(the f32 patch Gram and every bf16 kernel must have them, the FP32 FMA
+kernel none), holds each kernel (patch_gram_tiled, patch_gram_v2,
+patch_gram, sym_gram; f32 and bf16) against its plain PyTorch version on
+the card, including a case whose blocks each sum a full
+``MAX_CHAIN_TOKENS`` chain, then drives
 three paths of ResNet-50 (ImageNet stem, 1000 classes, 224x224, MC=1,
 seeded weights), named after ``bench.py``'s rows:
 
@@ -37,10 +39,14 @@ import subprocess
 import sys
 import time
 
-#: NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, dense BF16
-#: on the tensor cores (bf16 x bf16 -> f32 products, what wgmma computes),
-#: HBM3
-PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}
+#: NVIDIA H100 SXM data sheet: FP32 outside the tensor cores, dense TF32
+#: and BF16 on the tensor cores (f32 accumulation, what wgmma computes),
+#: HBM3. f32 Grams run 3xTF32 (csrc/tf32x3_gram.cuh): three TF32 products
+#: per f32 product, so their bound is 3x the FLOP at the TF32 rate; the
+#: strict FP32 FMA figure stays in each f32 record as bound_fp32_fma_ms
+#: (sym_gram's f32 kernel still runs FP32 FMA)
+PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
+TF32X3 = 3
 PEAK_BYTES_S = 3.35e12
 #: the JAX tests' parity bars: patch Gram (tests/test_pallas_kernels.py:31)
 #: and sym_gram (:141, of max(max|want|, 1))
@@ -95,6 +101,10 @@ BF16_PATCH_CASES = [
 #: (784, 4609) is ResNet-50's layer4 3x3 patch matrix at B=16; (600, 1024)
 #: has F % 8 == 0 (no padding in bf16)
 SYM_CASES = [(784, 4609), (3136, 1025), (700, 577), (513, 2049), (600, 1024)]
+#: run through patch_gram in f32 and bf16: N = 132 * 64 * 64 = 540,672 =
+#: 66 x MAX_CHAIN_TOKENS, so every block of the 66 splits sums a full
+#: 8,192-token chain in its tensor-core accumulator (F = 576)
+CHAIN_CASE = ((132, 64, 64, 64), (3, 3), SAME1, (1, 1))
 REPLACES = {
     "patch_gram_tiled": "curvature_tpu/ops/pallas/patch_gram.py:464",
     "patch_gram_v2": "curvature_tpu/ops/pallas/patch_gram.py:229",
@@ -162,18 +172,30 @@ def device_ms_by_kernel(fn, calls=5):
             and e.self_device_time_total > 0}
 
 
-def bound(flops, nbytes, dtype):
-    """(bound_ms, bound_by): the larger of the operations at the card's
-    peak rate for ``dtype`` and the bytes at its memory rate."""
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+def bound(ops, nbytes, rate):
+    """(ms, by): the larger of ``ops`` at ``rate`` per second and the
+    bytes at the card's memory rate."""
+    ops_ms = ops / rate * 1e3
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else \
         (bytes_ms, "bytes")
 
 
+def bounds(flops, nbytes, dtype):
+    """The record's bound keys for a Gram of ``flops`` FLOP over ``nbytes``
+    bytes: bf16 at the BF16 tensor-core rate; f32 as 3xTF32 (3x the FLOP
+    at the TF32 rate), with the strict FP32 FMA bound beside it."""
+    if dtype == "bf16":
+        ms, by = bound(flops, nbytes, PEAK_FLOPS["bf16"])
+        return {"bound_ms": ms, "bound_by": by, "bound_fp32_fma_ms": None}
+    ms, by = bound(TF32X3 * flops, nbytes, PEAK_FLOPS["tf32"])
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_fp32_fma_ms": bound(flops, nbytes, PEAK_FLOPS["fp32"])[0]}
+
+
 def gram_bound(shape, kernel_size, strides, pads, dtype, itemsize):
-    """The patch Gram's bound: the lower triangle with its diagonal of
-    the [F+1, F+1] Gram, N*(F+1)*(F+2) FLOP, against the input read once
+    """The patch Gram's bound keys: the lower triangle with its diagonal
+    of the [F+1, F+1] Gram, N*(F+1)*(F+2) FLOP, against the input read once
     and the f32 output written once."""
     b, h, w, c = shape
     kh, kw = kernel_size
@@ -181,8 +203,8 @@ def gram_bound(shape, kernel_size, strides, pads, dtype, itemsize):
     ho = (h + pt + pb - kh) // strides[0] + 1
     wo = (w + pl + pr - kw) // strides[1] + 1
     n, f1 = b * ho * wo, c * kh * kw + 1
-    return bound(n * f1 * (f1 + 1), b * h * w * c * itemsize + f1 * f1 * 4,
-                 dtype)
+    return bounds(n * f1 * (f1 + 1), b * h * w * c * itemsize + f1 * f1 * 4,
+                  dtype)
 
 
 def unfold(x_nhwc, kernel_size, pads, strides):
@@ -227,10 +249,19 @@ def time_yardsticks(dtype, p_of):
     return {**times, **names}
 
 
+#: (function, dtype) -> the kernel template that computes it, as it
+#: appears in the SASS; the ``*wgmma_kernel`` ones run on the tensor cores
+KERNEL_OF = {("patch", "f32"): "gram_tf32x3_wgmma_kernel",
+             ("patch", "bf16"): "gram_wgmma_kernel",
+             ("sym", "f32"): "sym_partial_kernel",
+             ("sym", "bf16"): "sym_wgmma_kernel"}
+
+
 def hgmma_counts(build):
     """Tensor-core (HGMMA) instructions per kernel in the SASS of the built
-    libraries (``cuobjdump -sass``); raises if a bf16 Gram kernel has none,
-    or if an f32 one has any (those run on FP32 FMA)."""
+    libraries (``cuobjdump -sass``); raises if a ``*wgmma_kernel`` has none
+    or any other kernel (FP32 FMA, the reduces) has some, or if a kernel of
+    ``KERNEL_OF`` is missing."""
     import re
     import shutil
     from pathlib import Path
@@ -255,10 +286,12 @@ def hgmma_counts(build):
         if wgmma and n == 0:
             raise AssertionError(f"{fn}: no HGMMA in its SASS")
         if not wgmma and n:
-            raise AssertionError(f"{fn}: HGMMA in an FP32-FMA kernel")
-    if not any("wgmma_kernel" in fn for fn in counts):
-        raise AssertionError("no bf16 wgmma kernel found in the SASS")
-    return {fn: n for fn, n in counts.items() if "wgmma_kernel" in fn}
+            raise AssertionError(f"{fn}: HGMMA in a kernel off the tensor "
+                                 "cores")
+    for kernel in KERNEL_OF.values():
+        if not any(kernel in fn for fn in counts):
+            raise AssertionError(f"{kernel} not found in the SASS")
+    return counts
 
 
 def _record(name, dtype, shape, abs_err, rel, worst, cases, **times):
@@ -308,7 +341,7 @@ def check_patch_kernels(tpg, dtype):
             want = tpg.patch_gram_plain(x, ks, pad, st)
             abs_err = float((got - want).abs().max())
             rel = abs_err / float(want.abs().max())
-            gather = tpg.bf16_gather(x) if dtype == "bf16" else "scalar f32"
+            gather = tpg.gather_kind(x)
             log(f"  {name} {dtype} {shape} k={ks} pad={pad} s={st}: "
                 f"splits={patch_splits(tpg, x, ks, pad, st)} gather={gather} "
                 f"max_abs_err={abs_err:.3e} rel={rel:.3e}")
@@ -321,16 +354,40 @@ def check_patch_kernels(tpg, dtype):
                 main = (x, ks, pad, st, args, abs_err, rel, gather)
         x, ks, pad, st, args, abs_err, rel, gather = main
         pads = tpg.resolve_padding(pad, x.shape[1], x.shape[2], ks, st)
-        bound_ms, bound_by = gram_bound(tuple(x.shape), ks, st, pads, dtype,
-                                        x.element_size())
         records.append(_record(
             name, dtype, x.shape, abs_err, rel, worst, len(items),
             gather=gather, ms=cuda_ms(lambda: fn(*args)),
             call=functools.partial(fn, *args),
             plain_ms=cuda_ms(lambda: tpg.patch_gram_plain(x, ks, pad, st)),
-            bound_ms=bound_ms, bound_by=bound_by,
+            **gram_bound(tuple(x.shape), ks, st, pads, dtype,
+                         x.element_size()),
             **time_yardsticks(dtype, lambda: unfold(x, ks, pads, st))))
+    records[-1]["chain_cap_rel_err"] = check_chain(tpg, tdt, rng)
     return records
+
+
+def check_chain(tpg, tdt, rng):
+    """CHAIN_CASE through ``patch_gram``: every block sums exactly
+    MAX_CHAIN_TOKENS tokens in one tensor-core accumulator. Returns its
+    error, rel to max|G|."""
+    import numpy as np
+    import torch
+    shape, ks, pad, st = CHAIN_CASE
+    x = torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda().to(tdt)
+    n = shape[0] * shape[1] * shape[2]
+    per_split = -(-n // patch_splits(tpg, x, ks, pad, st))
+    if per_split != tpg.MAX_CHAIN_TOKENS:
+        raise AssertionError(f"chain case: {per_split} tokens a split, not "
+                             f"{tpg.MAX_CHAIN_TOKENS}")
+    got = _launch_twice(tpg.patch_gram, x, ks, pad)
+    want = tpg.patch_gram_plain(x, ks, pad, st)
+    rel = float((got - want).abs().max() / want.abs().max())
+    log(f"  patch_gram {tdt} {shape} chain cap: {per_split} tokens in each "
+        f"block's accumulator, rel={rel:.3e}")
+    if not (torch.isfinite(got).all() and rel <= GRAM_RTOL):
+        raise AssertionError(f"chain case {tdt}: rel {rel:.3e} > {GRAM_RTOL}")
+    return rel
 
 
 def patch_splits(tpg, x, ks, pad, st):
@@ -340,10 +397,10 @@ def patch_splits(tpg, x, ks, pad, st):
     pads = tpg.resolve_padding(pad, h, w, ks, st)
     ho, wo = tpg._out_shape(h, w, ks, pads, st)
     bf16 = x.dtype == torch.bfloat16
-    slots = tpg._resident_blocks(
-        x.device.index, st[0], bf16, bf16 and tpg.bf16_gather(x) == "vector")
+    slots = tpg._resident_blocks(x.device.index, st[0], bf16,
+                                 tpg.gather_kind(x) == "vector")
     return tpg.plan_splits(b * ho * wo, tpg.block_tiles(c * ks[0] * ks[1],
-                                                         bf16), bf16, slots)
+                                                         bf16), True, slots)
 
 
 def check_sym_kernel(tsg, dtype):
@@ -378,8 +435,6 @@ def check_sym_kernel(tsg, dtype):
             main = (x, abs_err, rel)
     x, abs_err, rel = main
     n, f = x.shape
-    bound_ms, bound_by = bound(n * f * (f + 1),
-                               n * f * x.element_size() + f * f * 4, dtype)
     return [_record(
         "sym_gram", dtype, x.shape, abs_err, rel, worst, len(SYM_CASES),
         gather=("vector, features padded to 8" if f % 8 else "vector")
@@ -387,7 +442,8 @@ def check_sym_kernel(tsg, dtype):
         ms=cuda_ms(lambda: tsg.sym_gram(x)),
         call=lambda: tsg.sym_gram(x),
         plain_ms=cuda_ms(lambda: tsg.sym_gram_plain(x)),
-        bound_ms=bound_ms, bound_by=bound_by,
+        **bounds(n * f * (f + 1), n * f * x.element_size() + f * f * 4,
+                 dtype),
         **time_yardsticks(dtype, lambda: x))]
 
 
@@ -534,14 +590,19 @@ def main(argv=None):
         records += check_patch_kernels(tpg, dtype)
         records += check_sym_kernel(tsg, dtype)
     for rec in records:
-        edge = tsg._TILE if rec["function"] == "sym_gram" else tpg.BF16_TILE
-        rec["tile"] = "{0}x{0}, wgmma m64n{0}k16 on bf16 tensor cores".format(
-            edge) if rec["dtype"] == "bf16" \
-            else "64x64, 4x4 FP32 FMA micro-tiles"
+        fam = "sym" if rec["function"] == "sym_gram" else "patch"
+        edge = tsg._TILE if fam == "sym" else \
+            tpg.BF16_TILE if rec["dtype"] == "bf16" else tpg.F32_TILE
+        kernel = KERNEL_OF[fam, rec["dtype"]]
+        if not kernel.endswith("wgmma_kernel"):
+            how = "4x4 FP32 FMA micro-tiles"
+        elif rec["dtype"] == "f32":
+            how = f"3xTF32 wgmma m64n{edge}k8 on tf32 tensor cores"
+        else:
+            how = f"wgmma m64n{edge}k16 on bf16 tensor cores"
+        rec["tile"] = f"{edge}x{edge}, {how}"
         rec["hgmma_in_sass"] = {fn: n for fn, n in hgmma.items()
-                                if rec["function"].startswith("sym") ==
-                                ("sym" in fn)} if rec["dtype"] == "bf16" \
-            else 0
+                                if kernel in fn}
     if args.kernels:
         add_device_times(records)
         print(json.dumps({"kernels": records}))

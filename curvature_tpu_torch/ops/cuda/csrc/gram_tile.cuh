@@ -1,18 +1,20 @@
 // Helpers shared by the Gram kernels of this directory (patch_gram.cu,
-// sym_gram.cu): the tile geometry of the f32 kernels, their element load,
-// and the walk over the lower-triangular output tiles.
+// sym_gram.cu): the geometry of the workspace tiles and of the FP32 FMA
+// kernel, the element load, and the walk over the lower-triangular output
+// tiles.
 //
-// Both f32 kernels give each block one 64x64 tile (ti, tj), ti >= tj, of
+// Every partial kernel gives each block one tile (ti, tj), ti >= tj, of
 // the lower triangle of an [F, F] Gram and one contiguous token range (one
-// split of the token axis), and write the partial tile to a workspace, one
-// TILE*TILE block per (split, tile); a second kernel sums the splits in
+// split of the token axis), and writes the partial tile to a workspace of
+// TILE x TILE blocks, one set per split; a second kernel sums the splits in
 // split order: no atomics, so results repeat bit for bit from launch to
-// launch. Each kernel keeps its own partial-tile body: one body shared
-// through a loader template measured slower for the patch gather. The bf16
-// kernels (wgmma_gram.cuh) write the same workspace for the same reduce.
+// launch. The tensor-core kernels (wgmma_gram.cuh for bf16,
+// tf32x3_gram.cuh for the f32 patch Gram) write their tiles as 64x64
+// quarters into the same workspace, for the same reduce.
 //
-// f32 operands run in strict FP32 FMA: the TPU kernels'
-// preferred_element_type=f32 contract, without TF32.
+// FP32 FMA (the 64x64 tile of THREADS threads with 4x4 micro-tiles, BK
+// tokens a stage) is sym_gram's f32 kernel only: strict f32, the TPU
+// kernels' preferred_element_type=f32 contract without TF32.
 #pragma once
 
 #include <cuda_runtime.h>

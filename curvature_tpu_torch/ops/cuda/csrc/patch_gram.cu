@@ -10,23 +10,27 @@
 // G = P^T P of the patch matrix P = [N, F+1] (N = B*Ho*Wo tokens,
 // F = C*kh*kw features in canonical (c, dy, dx) order, ones column last).
 // Every Pallas version is dtype-generic with f32 accumulation; so is this
-// file, with one kernel body per element type:
-//  * f32: gram_partial_kernel, strict FP32 FMA;
-//  * bf16: gram_wgmma_kernel, bf16 x bf16 -> f32 on the tensor cores
-//    (wgmma, wgmma_gram.cuh). bf16 products are exact in f32, so it computes
-//    the same function as the f32 path on the widened values.
+// file, with one kernel body per element type, both on the tensor cores:
+//  * f32: gram_tf32x3_wgmma_kernel, 3xTF32 products (tf32x3_gram.cuh): each
+//    value split into TF32 hi and lo halves, lo*hi + hi*lo + hi*hi summed
+//    in f32, within ~2^-21 of the f32 products;
+//  * bf16: gram_wgmma_kernel, bf16 x bf16 -> f32 (wgmma_gram.cuh). bf16
+//    products are exact in f32, so it computes the same function as the
+//    f32 path on the widened values.
 //
 // What bounds it: on ResNet-50's main-path shapes (F = 576 and 1152,
 // N = 50,176 and 12,544-25,088) the lower triangle alone is N*F*(F+1)
 // ~ 1.7e10-3.3e10 FLOP against 13-26 MB of input: far above the card's
-// ops-per-byte line, so the FLOP bound is the one that counts. In f32 it
-// stays in strict FP32 FMA (no TF32 tensor-core mma) because the parity bar
-// of the JAX tests, 1e-4 of max|G|, is out of TF32's reach. In bf16 the
-// tensor cores make the arithmetic cheap, and what is left is the gather:
-// every tile re-reads its token rows (from L2: the input fits in it), so
-// the bf16 kernel takes 128x128 tiles (half the bytes per FLOP of 64x64;
-// measured faster, PERF.md), sends 16-byte cp.async copies into a
-// 3-stage ring and keeps two stages in flight.
+// ops-per-byte line, so the FLOP bound is the one that counts. One TF32
+// product misses the JAX tests' parity bar (1e-4 of max|G|), so f32 takes
+// three: 3x the FLOP at the dense TF32 rate (495 TFLOP/s), 2.5x below
+// strict FP32 FMA's bound (67 TFLOP/s). Once the tensor cores make the
+// arithmetic cheap, what is left is the gather: every tile re-reads its
+// token rows (from L2: the input fits in it), so both kernels take 128x128
+// tiles (half the bytes per FLOP of 64x64; PERF.md) and keep their next
+// loads in flight under the tensor cores' work. In f32 the gather also
+// transposes and splits every value, and its instructions bound the
+// kernel (PERF.md).
 //
 // What the design does about it (and about what the TPU versions needed):
 //  * No patch matrix and no padded copy ever reach device memory: each
@@ -36,35 +40,37 @@
 //    strips with a halo DMA, row bands, the parity stack, kb feature
 //    tiles) have no counterpart: patch_gram's strips are just this
 //    kernel's stride-1 instance.
-//  * Each block owns one tile of the lower triangle of the [F, F] core
-//    (internal feature order (tap, c), so consecutive features are
-//    consecutive channels: coalesced loads). f32: a 64x64 tile, 256
-//    threads with 4x4 f32 accumulators each, FP32 FMAs out of shared
-//    memory. bf16: a 128x128 tile, two warpgroups running
-//    wgmma.m64n128k16 on swizzled [64 tokens x 128 features] operands;
-//    when C % 8 == 0 each thread copies 8 channels of one tap (16 bytes)
-//    per token row with cp.async, decoding its (tap, c0) once per block;
-//    otherwise a scalar gather fills the same layout.
-//  * The gathers keep their global loads in flight under the arithmetic
-//    (f32: the next 32-token chunk in registers and a second shared-memory
-//    stage; bf16: the ring), and token positions advance by additions, not
-//    64-bit divisions.
+//  * Each block owns one 128x128 tile of the lower triangle of the [F, F]
+//    core (internal feature order (tap, c), so consecutive features are
+//    consecutive channels: coalesced loads), two warpgroups running
+//    wgmma.m64n128k{8,16}. f32: tf32 wgmma takes only K-major operands
+//    (the token axis contiguous), so each thread loads a 4-token x
+//    4-channel block (one 16-byte load per token when C % 4 == 0), splits
+//    it and writes it transposed into swizzled [features x 32 tokens] hi
+//    and lo slabs; the next chunk's loads wait in registers under the
+//    current chunk's products (two shared-memory stages). bf16: the
+//    operands stay token-major ([64 tokens x 128 features], transpose bits
+//    set), so each thread copies 8 channels of one tap (16 bytes) per token
+//    row with cp.async into a 3-stage ring. Each decodes its (tap, c0) once
+//    per block; for other C a scalar gather fills the same layout.
+//  * Token positions advance by additions, not 64-bit divisions.
 //  * The TPU's sequential-grid accumulation becomes a split over token
 //    chunks: blockIdx.y picks a contiguous token range, and the wrapper
-//    picks the split count that best fills whole waves of resident blocks,
-//    so the 45 tiles of F = 576 still fill 132 SMs. Partial tiles go to a
-//    workspace of 64x64 tiles and a second kernel sums them in a fixed
-//    order: no atomics, so results repeat bit for bit from run to run.
-//  * Diagonal-tile blocks also sum their columns (the ones row/column),
-//    and the reduce kernel writes the canonical (c, dy, dx) order directly,
-//    with N in the corner, replacing the JAX perm gather.
+//    picks the split count that best fills whole waves of resident blocks
+//    (so the 15 tiles of F = 576 still fill 132 SMs), with at most
+//    MAX_CHAIN_TOKENS tokens in one tensor-core accumulator. Partial tiles
+//    go to a workspace of 64x64 tiles and a second kernel sums them in a
+//    fixed order: no atomics, so results repeat bit for bit from run to run.
+//  * Diagonal-tile blocks also sum their columns (the ones row/column) in
+//    f32 from the gathered values, and the reduce kernel writes the
+//    canonical (c, dy, dx) order directly, with N in the corner, replacing
+//    the JAX perm gather.
 #include "gram_tile.cuh"
+#include "tf32x3_gram.cuh"
 #include "wgmma_gram.cuh"
 
 namespace {
 
-using gram::BK;
-using gram::THREADS;
 using gram::TILE;
 
 struct Geom {
@@ -98,122 +104,181 @@ __device__ __forceinline__ Row row_at(const Geom& g, int n) {
   return r;
 }
 
-// Moves a row STEP tokens on without a division (all threads of a warp
-// share the row, so the loops do not diverge).
-template <int STEP = BK>
+// Moves a row STEP tokens on without a division.
+template <int STEP>
 __device__ __forceinline__ void advance(const Geom& g, Row& r) {
   r.ox += STEP;
   while (r.ox >= g.Wo) { r.ox -= g.Wo; ++r.oy; }
   while (r.oy >= g.Ho) { r.oy -= g.Ho; r.base += g.H * g.W * g.C; }
 }
 
-template <typename T, int S>
-__device__ __forceinline__ float gather(const T* __restrict__ x,
-                                        const Geom& g, const Row& r,
-                                        bool valid, int dy, int dx, int c) {
+// Element offset in x of tap (dy, dx), channel c of token row r, or -1 in
+// the padding.
+template <int S>
+__device__ __forceinline__ int tap_offset(const Geom& g, const Row& r, int dy,
+                                          int dx, int c) {
   const int iy = r.oy * S - g.pt + dy, ix = r.ox * S - g.pl + dx;
-  if (!valid || iy < 0 || iy >= g.H || ix < 0 || ix >= g.W) return 0.0f;
-  return gram::to_f32(x + r.base + (iy * g.W + ix) * g.C + c);
+  if (iy < 0 || iy >= g.H || ix < 0 || ix >= g.W) return -1;
+  return r.base + (iy * g.W + ix) * g.C + c;
 }
 
-template <typename T, int S>
-__global__ void __launch_bounds__(THREADS, 2)
-gram_partial_kernel(const T* __restrict__ x, float* __restrict__ ws,
-                    float* __restrict__ colsum_ws, Geom g, int nt,
-                    int num_tiles, int tokens_per_split) {
-  const int t = blockIdx.x;
+// What the f32 gather loads for padding taps and tail tokens: every load
+// is unconditional, and no branch surrounds it.
+__device__ const float4 kZero4 = {0.0f, 0.0f, 0.0f, 0.0f};
+
+// Tile edge of the f32 kernel: 64 * TF_WGS features, TF_WGS warpgroups a
+// block. 128 here: at the main-path shapes it measured 0.50 ms (F = 576)
+// and 0.46 ms (v2) against 0.61 and 0.60 ms for 64 (PERF.md).
+constexpr int TF_WGS = 2;
+using Tf = tf::Shape<TF_WGS>;
+
+// The f32 kernel's gather, for tile ti (A) and, off the diagonal, tile tj
+// (B). Per 32-token chunk, thread t holds a block of 4 tokens x 4 features
+// of each operand: features 4q..4q+3 of the tile, q = 4 * warp + lane / 8,
+// and tokens 4p..4p+3 of the chunk, p = lane % 8 (8 lanes on one feature
+// quad: their transposed 16-byte stores hit 8 distinct chunks of a row).
+// VEC (C % 4 == 0, x 16-byte aligned): the quad is 4 channels of one tap,
+// one 16-byte ld.global.nc per token, its (tap, c0) decoded once per block.
+// Otherwise: 4 scalar loads per token (each feature decoded once per block)
+// into the same registers. Padding taps and tail tokens read zero.
+template <int S, bool VEC>
+struct Tf32Gather {
+  struct Tap {
+    int dy, dx, c;
+  };
+  const float* __restrict__ x;
+  Geom g;
+  int n_next, n_end;                  // first token of the next chunk
+  int q, p;                           // feature quad, token quad
+  int fa, fb;                         // first feature of the A / B quad
+  bool diag;
+  Tap ta[4], tb[4];                   // the quads' taps (VEC: [0] only)
+  Row rows[4];                        // the thread's tokens in the next chunk
+  float4 va[4], vb[4];                // va[j]: the A quad at token j
+  float csum[4];                      // diagonal: column sums of the A quad
+
+  __device__ Tf32Gather(const float* x_, const Geom& g_, int ti, int tj,
+                        int n_begin, int n_end_)
+      : x(x_), g(g_), n_next(n_begin), n_end(n_end_), diag(ti == tj) {
+    const int lane = threadIdx.x % 32;
+    q = 4 * (threadIdx.x / 32) + lane / 8;
+    p = lane % 8;
+    fa = ti * Tf::TILE + 4 * q;
+    fb = tj * Tf::TILE + 4 * q;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      ta[e] = tb[e] = Tap{0, 0, 0};
+      if (VEC && e > 0) continue;
+      if (fa + e < g.F) decode_feature(g, fa + e, ta[e].c, ta[e].dy, ta[e].dx);
+      if (fb + e < g.F) decode_feature(g, fb + e, tb[e].c, tb[e].dy, tb[e].dx);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      rows[j] = row_at(g, min(n_begin + 4 * p + j, g.N - 1));
+      csum[j] = 0.0f;
+    }
+  }
+
+  // the quad from f0 at one token row
+  __device__ __forceinline__ float4 load(const Row& r, bool in, int f0,
+                                         const Tap (&t)[4]) const {
+    if (VEC) {
+      const int off =
+          in && f0 < g.F ? tap_offset<S>(g, r, t[0].dy, t[0].dx, t[0].c) : -1;
+      return __ldg(off >= 0 ? reinterpret_cast<const float4*>(x + off)
+                            : &kZero4);
+    }
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int off = in && f0 + e < g.F
+          ? tap_offset<S>(g, r, t[e].dy, t[e].dx, t[e].c) : -1;
+      v[e] = __ldg(off >= 0 ? x + off : &kZero4.x);
+    }
+    return make_float4(v[0], v[1], v[2], v[3]);
+  }
+
+  // starts the next chunk's loads into va (and vb)
+  __device__ __forceinline__ void fetch() {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool in = n_next + 4 * p + j < n_end;
+      va[j] = load(rows[j], in, fa, ta);
+      if (!diag) vb[j] = load(rows[j], in, fb, tb);
+      advance<tf::BK>(g, rows[j]);
+    }
+    n_next += tf::BK;
+  }
+
+  __device__ static __forceinline__ float at(const float4& v, int e) {
+    return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+  }
+
+  // the fetched chunk, transposed: feature row 4q + e, tokens 4p..4p+3
+  __device__ __forceinline__ void store(const tf::Slots& s) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t d = tf::swizzled(4 * q + e, p);
+      const float a[4] = {at(va[0], e), at(va[1], e), at(va[2], e),
+                          at(va[3], e)};
+      tf::store_split(s.a_hi + d, s.a_lo + d, a);
+      if (diag) {               // ones row/column: exact f32 adds
+#pragma unroll
+        for (int j = 0; j < 4; ++j) csum[e] += a[j];
+      } else {
+        const float b[4] = {at(vb[0], e), at(vb[1], e), at(vb[2], e),
+                            at(vb[3], e)};
+        tf::store_split(s.b_hi + d, s.b_lo + d, b);
+      }
+    }
+  }
+
+  // diagonal tile: the column sums of the tile's features over the block's
+  // tokens (the 8 token quads summed in a fixed order) into out[f] for the
+  // tile's features f < limit
+  __device__ __forceinline__ void write_colsum(float* __restrict__ out,
+                                               int limit) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int m = 1; m < 8; m *= 2)
+        csum[e] += __shfl_xor_sync(0xffffffffu, csum[e], m);
+    if (p == 0)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (4 * q + e < limit) out[4 * q + e] = csum[e];
+  }
+};
+
+// f32 partial tile on the tensor cores, 3xTF32 (tf32x3_gram.cuh): grid
+// (lower tiles of edge Tf::TILE, splits), TF_WGS warpgroups a block,
+// Tf::SMEM bytes of dynamic shared memory. Writes the 64x64-tile workspace
+// (nt, num_tiles: of 64-tiles) and, on diagonal tiles, the column sums,
+// for gram_reduce_kernel.
+template <int S, bool VEC>
+__global__ void __launch_bounds__(Tf::THREADS)
+gram_tf32x3_wgmma_kernel(const float* __restrict__ x, float* __restrict__ ws,
+                         float* __restrict__ colsum_ws, Geom g, int nt,
+                         int num_tiles, int tokens_per_split) {
+  extern __shared__ __align__(1024) unsigned char smem[];
   int ti, tj;
-  gram::tri_tile(t, ti, tj);
-  const bool diag = ti == tj;
+  gram::tri_tile(blockIdx.x, ti, tj);
   const int split = blockIdx.y;
   const int n_begin = split * tokens_per_split;
   const int n_end = min(n_begin + tokens_per_split, g.N);
+  const int nchunks =
+      n_end > n_begin ? (n_end - n_begin + tf::BK - 1) / tf::BK : 0;
 
-  // two stages: the next chunk is stored while this one is multiplied
-  __shared__ __align__(16) float As[2][BK][TILE];
-  __shared__ __align__(16) float Bs[2][BK][TILE];
-
-  const int tid = threadIdx.x;
-  const int r = tid % TILE;        // feature column this thread gathers
-  const int row0 = tid / TILE;     // token rows row0 + 4m, m < BK/4
-  constexpr int M = BK / 4;
-  const int fa = ti * TILE + r, fb = tj * TILE + r;
-  const bool va = fa < g.F, vb = fb < g.F;
-  int ca = 0, dya = 0, dxa = 0, cb = 0, dyb = 0, dxb = 0;
-  if (va) decode_feature(g, fa, ca, dya, dxa);
-  if (vb) decode_feature(g, fb, cb, dyb, dxb);
-
-  Row rows[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m)
-    rows[m] = row_at(g, min(n_begin + row0 + 4 * m, g.N - 1));
-  float ra[M], rb[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const bool in = n_begin + row0 + 4 * m < n_end;
-    ra[m] = gather<T, S>(x, g, rows[m], in && va, dya, dxa, ca);
-    rb[m] = gather<T, S>(x, g, rows[m], in && vb, dyb, dxb, cb);
-  }
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    As[0][row0 + 4 * m][r] = ra[m];
-    Bs[0][row0 + 4 * m][r] = rb[m];
-  }
-  __syncthreads();
-
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  float csum = 0.0f;
-
-  int buf = 0;
-  for (int n0 = n_begin; n0 < n_end; n0 += BK) {
-    const bool more = n0 + BK < n_end;
-    if (more) {                    // start the next chunk's loads now
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        advance(g, rows[m]);
-        const bool in = n0 + BK + row0 + 4 * m < n_end;
-        ra[m] = gather<T, S>(x, g, rows[m], in && va, dya, dxa, ca);
-        rb[m] = gather<T, S>(x, g, rows[m], in && vb, dyb, dxb, cb);
-      }
-    }
-    if (diag && tid < TILE) {
-#pragma unroll
-      for (int k = 0; k < BK; ++k) csum += As[buf][k][tid];
-    }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    if (more) {
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        As[buf ^ 1][row0 + 4 * m][r] = ra[m];
-        Bs[buf ^ 1][row0 + 4 * m][r] = rb[m];
-      }
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  float* out = ws + (static_cast<size_t>(split) * num_tiles + t) * TILE * TILE;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(&out[(ty * 4 + i) * TILE + tx * 4]) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-  if (diag && tid < TILE)
-    colsum_ws[static_cast<size_t>(split) * nt * TILE + ti * TILE + tid] = csum;
+  Tf32Gather<S, VEC> gather(x, g, ti, tj, n_begin, n_end);
+  float acc[Tf::ACC];
+  tf::gram_tile<TF_WGS>(gather, wg::ring_base(smem), nchunks, ti == tj, acc);
+  if (ti == tj)
+    gather.write_colsum(colsum_ws + static_cast<size_t>(split) * nt * TILE +
+                            ti * Tf::TILE,
+                        nt * TILE - ti * Tf::TILE);
+  wg::store_subtiles<TF_WGS>(
+      ws + static_cast<size_t>(split) * num_tiles * TILE * TILE, ti, tj, nt,
+      acc);
 }
 
 // Tile edge of the bf16 kernel: 64 * WGS features, WGS warpgroups a block.
@@ -254,18 +319,10 @@ struct PatchGather {
       rows[m] = row_at(g, min(n_begin + at.r0 + 16 * m, g.N - 1));
   }
 
-  // element offset of (row, tap) in x, or -1 in the padding
-  __device__ __forceinline__ int offset(const Row& r, int dy, int dx,
-                                        int c) const {
-    const int iy = r.oy * S - g.pt + dy, ix = r.ox * S - g.pl + dx;
-    if (iy < 0 || iy >= g.H || ix < 0 || ix >= g.W) return -1;
-    return r.base + (iy * g.W + ix) * g.C + c;
-  }
-
   __device__ __forceinline__ void copy(uint32_t d, const Row& r, bool in,
                                        int f0, int dy, int dx, int c) const {
     if (VEC) {
-      const int off = in && f0 < g.F ? offset(r, dy, dx, c) : -1;
+      const int off = in && f0 < g.F ? tap_offset<S>(g, r, dy, dx, c) : -1;
       wg::cp_async16(d, off >= 0 ? x + off : x, off >= 0);
     } else {
       const unsigned short* xs = reinterpret_cast<const unsigned short*>(x);
@@ -275,7 +332,7 @@ struct PatchGather {
         if (!in || f0 + e >= g.F) continue;
         int ce, dye, dxe;
         decode_feature(g, f0 + e, ce, dye, dxe);
-        const int off = offset(r, dye, dxe, ce);
+        const int off = tap_offset<S>(g, r, dye, dxe, ce);
         if (off >= 0)
           w[e / 2] |= static_cast<unsigned int>(__ldg(xs + off))
                       << (16 * (e % 2));
@@ -301,7 +358,8 @@ struct PatchGather {
 // bf16 partial tile on the tensor cores: grid (lower tiles of edge
 // Wg::TILE, splits), WGS warpgroups a block, Wg::SMEM bytes of dynamic
 // shared memory. Writes the same 64x64-tile workspace as
-// gram_partial_kernel (nt, num_tiles: of 64-tiles), for the same reduce.
+// gram_tf32x3_wgmma_kernel (nt, num_tiles: of 64-tiles), for the same
+// reduce.
 template <int S, bool VEC>
 __global__ void __launch_bounds__(Wg::THREADS)
 gram_wgmma_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ ws,
@@ -368,17 +426,26 @@ template <typename T>
 struct Partial {
   void (*fn)(const T*, float*, float*, Geom, int, int, int);
   int threads, smem;
-  cudaError_t err;   // of the one-time shared-memory attribute (bf16)
+  cudaError_t err;   // of the one-time shared-memory attribute
   int tile;
 };
 
-template <int S>
-Partial<float> partial(const float*, int) {
-  return {gram_partial_kernel<float, S>, THREADS, 0, cudaSuccess, TILE};
+// Both kernels take more than 48 KB of dynamic shared memory: the
+// attribute is set once per instance, before its first launch or query.
+template <int S, bool VEC>
+Partial<float> tf32x3_partial() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      gram_tf32x3_wgmma_kernel<S, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tf::SMEM);
+  return {gram_tf32x3_wgmma_kernel<S, VEC>, Tf::THREADS, Tf::SMEM, err,
+          Tf::TILE};
 }
 
-// The bf16 kernels take more than 48 KB of dynamic shared memory: the
-// attribute is set once per instance, before its first launch or query.
+template <int S>
+Partial<float> partial(const float*, int vec) {
+  return vec ? tf32x3_partial<S, true>() : tf32x3_partial<S, false>();
+}
+
 template <int S, bool VEC>
 Partial<__nv_bfloat16> wgmma_partial() {
   static const cudaError_t err = cudaFuncSetAttribute(
@@ -414,7 +481,7 @@ int launch(const T* x, float* out, float* ws, float* colsum_ws, int B, int H,
   const int num_tiles = nt * (nt + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Partial<T> k;
-  if (!pick(stride, vec, k) || (vec && C % 8 != 0))
+  if (!pick(stride, vec, k) || (vec && C * sizeof(T) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (k.err != cudaSuccess) return static_cast<int>(k.err);
   const int bt = (g.F + k.tile - 1) / k.tile;     // block tiles per edge
@@ -446,14 +513,15 @@ extern "C" {
 // Entries of patch_gram_tiled, patch_gram_v2 and patch_gram
 // (curvature_tpu_torch/ops/cuda/patch_gram.py), one per element type: the
 // three share each type's kernel, and the stride is a template parameter of
-// the gather, not a separate body. bf16 takes `vec`: 1 for the 16-byte
-// cp.async gather (C % 8 == 0 and x 16-byte aligned), 0 for the scalar one.
+// the gather, not a separate body. `vec`: 1 for the 16-byte gather (C
+// channels a multiple of 16 bytes, x 16-byte aligned), 0 for the scalar
+// one.
 int patch_gram_f32(const float* x, float* out, float* ws, float* colsum_ws,
                    int B, int H, int W, int C, int kh, int kw, int stride,
                    int pt, int pl, int Ho, int Wo, int splits,
-                   int tokens_per_split, void* stream) {
+                   int tokens_per_split, int vec, void* stream) {
   return launch(x, out, ws, colsum_ws, B, H, W, C, kh, kw, stride, pt, pl, Ho,
-                Wo, splits, tokens_per_split, 0, stream);
+                Wo, splits, tokens_per_split, vec, stream);
 }
 
 int patch_gram_bf16(const __nv_bfloat16* x, float* out, float* ws,
@@ -468,7 +536,7 @@ int patch_gram_bf16(const __nv_bfloat16* x, float* out, float* ws,
 int patch_gram_blocks_per_sm(int stride, int bf16, int vec, int* blocks) {
   return static_cast<int>(
       bf16 ? blocks_per_sm<__nv_bfloat16>(stride, vec, blocks)
-           : blocks_per_sm<float>(stride, 0, blocks));
+           : blocks_per_sm<float>(stride, vec, blocks));
 }
 
 const char* patch_gram_error_string(int code) {

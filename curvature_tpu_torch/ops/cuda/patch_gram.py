@@ -19,9 +19,13 @@ bf16 operands give exact products and f32 sums, as the Pallas kernels'
 
 On Hopper all three are one implicit-im2col Gram kernel body per element
 type, templated on stride (``csrc/patch_gram.cu``, whose header says what
-bounds it and how the design answers): f32 runs on FP32 FMA, bf16 on the
-tensor cores (``wgmma``, bf16 x bf16 -> f32) with a 16-byte ``cp.async``
-gather where the input allows it (:func:`bf16_gather`). The TPU
+bounds it and how the design answers), both on the tensor cores
+(``wgmma``). bf16 runs bf16 x bf16 -> f32, exact products. f32 runs
+3xTF32: each value is split into TF32 halves (:func:`tf32_split`) and
+``lo*hi + hi*lo + hi*hi`` is summed in f32, within ~2^-21 of the f32
+products; one TF32 product would miss the JAX tests' 1e-4 bar, and strict
+FP32 FMA's bound is 2.5x longer (67 TFLOP/s against 495/3). Both gather 16
+bytes at a time where the input allows it (:func:`gather_kind`). The TPU
 ``patch_gram``'s row strips of ~512 patch rows with a manual HBM->VMEM
 halo DMA exist to make a strip fit VMEM; a block here gathers its patch
 rows straight from the input, so ``patch_gram`` is the kernel's stride-1
@@ -48,14 +52,15 @@ import torch.nn.functional as F
 from curvature_tpu_torch.ops.patches import resolve_padding
 
 MAX_F = 1200
-#: edge of the 64x64 workspace tiles and of the f32 kernel's output tile
-#: (TILE in csrc/gram_tile.cuh)
+#: edge of the 64x64 workspace tiles (TILE in csrc/gram_tile.cuh)
 _TILE = 64
-#: edge of the bf16 kernel's output tile (64 * WGS in csrc/patch_gram.cu)
+#: edge of the f32 and bf16 kernels' output tiles (64 * TF_WGS and
+#: 64 * WGS in csrc/patch_gram.cu)
+F32_TILE = 128
 BF16_TILE = 128
-#: the most tokens one bf16 block sums in the tensor cores' f32
-#: accumulator; a longer range is split, and the splits are summed in f32 in
-#: a fixed order (the accumulator's error grows with the chain: PERF.md)
+#: the most tokens one block sums in the tensor cores' f32 accumulator; a
+#: longer range is split, and the splits are summed in f32 in a fixed order
+#: (the accumulator's error grows with the chain: PERF.md)
 MAX_CHAIN_TOKENS = 8192
 
 
@@ -190,6 +195,20 @@ def patch_gram_plain(x: torch.Tensor, kernel_size: Tuple[int, int],
     return p.T @ p
 
 
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 kernel's operand split in plain torch ops (tests only):
+    ``hi`` is ``x`` rounded to TF32 (10 explicit mantissa bits) to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32``, and ``lo`` is
+    ``x - hi`` rounded the same way; both have their low 13 bits zero and
+    ``hi + lo`` holds ``x`` to ~2^-22. The kernel sums
+    ``lo*hi + hi*lo + hi*hi`` for each product."""
+    def rna(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
+
+
 # ---------------------------------------------------------------------------
 # CUDA launch
 # ---------------------------------------------------------------------------
@@ -203,10 +222,10 @@ def _lib() -> ctypes.CDLL:
     from curvature_tpu_torch.ops.cuda import build
     lib = build.load("patch_gram")
     # x, out, ws, colsum; B H W C kh kw stride pt pl Ho Wo splits
-    # tokens-per-split (bf16: and vec); stream
-    for suffix, ints in (("f32", 13), ("bf16", 14)):
+    # tokens-per-split vec; stream
+    for suffix in KERNEL_DTYPES.values():
         fn = getattr(lib, f"patch_gram_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.patch_gram_blocks_per_sm.argtypes = [
@@ -238,13 +257,15 @@ def _resident_blocks(device_index: int, stride: int, bf16: bool,
         _lib().patch_gram_blocks_per_sm, stride, int(bf16), int(vec)))
 
 
-def bf16_gather(x: torch.Tensor) -> str:
-    """The gather the bf16 kernel takes for ``x`` (NHWC), from its shape and
-    address alone: ``'vector'`` (one 16-byte ``cp.async`` per 8 channels of
-    a tap) when C % 8 == 0 and the data is 16-byte aligned, else
-    ``'scalar'`` (2-byte loads into the same shared-memory layout)."""
-    return "vector" if x.shape[-1] % 8 == 0 and x.data_ptr() % 16 == 0 \
-        else "scalar"
+def gather_kind(x: torch.Tensor) -> str:
+    """The gather the kernel takes for ``x`` (NHWC), from its shape and
+    address alone: ``'vector'`` (16 bytes of channels of one tap at a time:
+    a bf16 ``cp.async`` of 8 channels, an f32 load of 4) when a pixel's C
+    channels are a multiple of 16 bytes and the data is 16-byte aligned,
+    else ``'scalar'`` (element loads into the same shared-memory
+    layout)."""
+    return "vector" if x.shape[-1] * x.element_size() % 16 == 0 \
+        and x.data_ptr() % 16 == 0 else "scalar"
 
 
 def split_count(n_tokens: int, num_tiles: int, slots: int) -> int:
@@ -259,19 +280,21 @@ def split_count(n_tokens: int, num_tiles: int, slots: int) -> int:
                key=lambda s: (round(fill(s), 1), -s))
 
 
-def plan_splits(n_tokens: int, num_tiles: int, bf16: bool,
+def plan_splits(n_tokens: int, num_tiles: int, tensor_cores: bool,
                 slots: int) -> int:
     """Token splits of a launch over ``n_tokens`` tokens and ``num_tiles``
-    block tiles: the wave-filling count, and for bf16 at least enough that
-    no block sums more than MAX_CHAIN_TOKENS."""
+    block tiles: the wave-filling count, and for a kernel that accumulates
+    on the tensor cores at least enough that no block sums more than
+    MAX_CHAIN_TOKENS."""
     splits = split_count(n_tokens, num_tiles, slots)
-    return max(splits, -(-n_tokens // MAX_CHAIN_TOKENS)) if bf16 else splits
+    return max(splits, -(-n_tokens // MAX_CHAIN_TOKENS)) if tensor_cores \
+        else splits
 
 
 def block_tiles(f: int, bf16: bool) -> int:
     """Lower-triangular output tiles, one per block of a split, of the
     kernel for ``f`` features."""
-    nt = -(-f // (BF16_TILE if bf16 else _TILE))
+    nt = -(-f // (BF16_TILE if bf16 else F32_TILE))
     return nt * (nt + 1) // 2
 
 
@@ -299,8 +322,8 @@ def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
         raise ValueError(f"{name}: the kernel indexes with 32-bit ints; "
                          f"{tuple(x.shape)} is too large")
     bf16 = suffix == "bf16"
-    vec = bf16 and bf16_gather(x) == "vector"
-    splits = plan_splits(n_tokens, block_tiles(f, bf16), bf16,
+    vec = gather_kind(x) == "vector"
+    splits = plan_splits(n_tokens, block_tiles(f, bf16), True,
                          _resident_blocks(x.device.index, strides[0], bf16,
                                           vec))
     per_split = -(-n_tokens // splits)
@@ -311,7 +334,7 @@ def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
                          device=x.device)
     lib = _lib()
     args = [b, h, w, c, kh, kw, strides[0], pads[0][0], pads[1][0], ho, wo,
-            splits, per_split] + ([int(vec)] if bf16 else [])
+            splits, per_split, int(vec)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = getattr(lib, f"patch_gram_{suffix}")(

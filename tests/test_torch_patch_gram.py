@@ -162,34 +162,109 @@ def test_cpu_wrappers_do_not_count_launches():
 
 
 def test_bf16_gather_is_chosen_by_shape_and_alignment():
-    """The 16-byte gather where C % 8 == 0 and the data is 16-byte aligned;
-    the scalar one otherwise (C = 4, or a view 2 bytes into its storage)."""
+    """The 16-byte gather where a pixel's channels are a multiple of 16
+    bytes (bf16: C % 8 == 0; f32: C % 4 == 0) and the data is 16-byte
+    aligned; the scalar one otherwise (bf16 C = 4, f32 C = 6, or a view 2
+    or 4 bytes into its storage)."""
     x = torch.zeros(2, 8, 8, 64, dtype=torch.bfloat16)
-    assert tpg.bf16_gather(x) == "vector"
-    assert tpg.bf16_gather(torch.zeros(2, 8, 8, 4,
+    assert tpg.gather_kind(x) == "vector"
+    assert tpg.gather_kind(torch.zeros(2, 8, 8, 4,
                                        dtype=torch.bfloat16)) == "scalar"
     shifted = torch.zeros(2 * 8 * 8 * 64 + 1, dtype=torch.bfloat16)[1:]
-    assert tpg.bf16_gather(shifted.view(2, 8, 8, 64)) == "scalar"
+    assert tpg.gather_kind(shifted.view(2, 8, 8, 64)) == "scalar"
+    assert tpg.gather_kind(torch.zeros(2, 8, 8, 4)) == "vector"
+    assert tpg.gather_kind(torch.zeros(2, 8, 8, 6)) == "scalar"
+    shifted = torch.zeros(2 * 8 * 8 * 64 + 1)[1:]
+    assert tpg.gather_kind(shifted.view(2, 8, 8, 64)) == "scalar"
 
 
-@pytest.mark.parametrize("f,bf16,tiles", [(576, False, 45), (576, True, 15),
-                                          (1152, True, 45), (100, True, 1)])
+@pytest.mark.parametrize("f,bf16,tiles", [(576, False, 15), (576, True, 15),
+                                          (1152, True, 45), (100, True, 1),
+                                          (1152, False, 45), (100, False, 1)])
 def test_block_tiles_follow_the_tile_edge(f, bf16, tiles):
-    """64-feature tiles for f32, BF16_TILE-feature tiles for bf16."""
-    assert tpg.BF16_TILE == 128
+    """F32_TILE-feature tiles for f32, BF16_TILE-feature tiles for bf16:
+    both kernels run 128x128 tiles of two warpgroups."""
+    assert tpg.F32_TILE == tpg.BF16_TILE == 128
     assert tpg.block_tiles(f, bf16) == tiles
 
 
 @pytest.mark.parametrize("n_tokens", [25, 784, 25_088, 50_176, 400_000])
 def test_bf16_splits_bound_each_accumulation_chain(n_tokens):
-    """bf16 never sums more than MAX_CHAIN_TOKENS tokens in one block's
-    tensor-core accumulator; f32 keeps the wave-filling count."""
-    for tiles, slots in ((15, 264), (45, 264), (2701, 396)):
-        f32 = tpg.plan_splits(n_tokens, tiles, False, slots)
-        bf16 = tpg.plan_splits(n_tokens, tiles, True, slots)
-        assert f32 == tpg.split_count(n_tokens, tiles, slots)
-        assert bf16 >= f32
-        assert -(-n_tokens // bf16) <= tpg.MAX_CHAIN_TOKENS
+    """A kernel on the tensor cores (the patch Grams in f32 and bf16,
+    sym_gram in bf16) never sums more than MAX_CHAIN_TOKENS tokens in one
+    block's accumulator; the FP32 FMA kernel (sym_gram in f32) keeps the
+    wave-filling count."""
+    for tiles, slots in ((15, 132), (15, 264), (45, 264), (2701, 396)):
+        fma = tpg.plan_splits(n_tokens, tiles, False, slots)
+        capped = tpg.plan_splits(n_tokens, tiles, True, slots)
+        assert fma == tpg.split_count(n_tokens, tiles, slots)
+        assert capped >= fma
+        assert -(-n_tokens // capped) <= tpg.MAX_CHAIN_TOKENS
+
+
+def test_chain_cap_binds_on_the_smoke_chain_case():
+    """The shape chip_smoke.py checks at the cap, [132, 64, 64, 64] 3x3
+    (N = 540,672, F = 576): 66 splits of exactly MAX_CHAIN_TOKENS tokens
+    for either kernel's occupancy (1 or 2 blocks a card SM)."""
+    for slots in (132, 264):
+        splits = tpg.plan_splits(132 * 64 * 64, tpg.block_tiles(576, False),
+                                 True, slots)
+        assert splits == 66
+        assert 132 * 64 * 64 == splits * tpg.MAX_CHAIN_TOKENS
+
+
+def _tf32_bits(t):
+    return t.view(torch.int32) & 0x1FFF
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_tf32_split_halves_hold_x(relu):
+    """``hi`` and ``lo`` are TF32 values (low 13 bits zero) and ``hi + lo``
+    holds x to 2^-21 relative; ``hi`` is round-to-nearest, ties away."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        100_000).astype(np.float32))
+    if relu:
+        x = x.clamp_min(0)
+    hi, lo = tpg.tf32_split(x)
+    assert int(_tf32_bits(hi).abs().max()) == 0
+    assert int(_tf32_bits(lo).abs().max()) == 0
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -21 * x.double().abs()).all())
+    # hi is the nearest TF32 value: within half its unit in the last place
+    assert bool(((hi - x).abs() <= 2.0 ** -11 * x.abs()).all())
+    # a tie (x halfway between two TF32 values) rounds away from zero
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    assert tpg.tf32_split(tie)[0].tolist() == [1.0 + 2.0 ** -10,
+                                               -(1.0 + 2.0 ** -10)]
+
+
+def _patch_matrix(x, ks, pad):
+    """[N, F+1] patch matrix of NHWC ``x``, (c, dy, dx) order, ones last."""
+    p = torch.nn.functional.unfold(x.permute(0, 3, 1, 2), ks, padding=pad)
+    p = p.transpose(1, 2).reshape(-1, p.shape[1])
+    return torch.cat([p, p.new_ones(p.shape[0], 1)], dim=1)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_tf32x3_gram_is_within_1e_6_of_float64(relu):
+    """The f32 kernel's arithmetic, emulated: the three TF32 products
+    lo*hi + hi*lo + hi*hi summed in f32 (small terms first) are within
+    1e-6 of max|G| of the float64 Gram of a [2, 28, 28, 64] 3x3 input, and
+    agree with the JAX kernel (interpret mode) at its 1e-4 bar."""
+    x = np.random.default_rng(4).standard_normal(
+        (2, 28, 28, 64)).astype(np.float32)
+    if relu:
+        x = np.maximum(x, 0)
+    p = _patch_matrix(torch.from_numpy(x), (3, 3), 1)
+    hi, lo = tpg.tf32_split(p)
+    got = lo.T @ hi + hi.T @ lo + hi.T @ hi
+    want = p.double().T @ p.double()
+    assert float((got.double() - want).abs().max()) \
+        <= 1e-6 * float(want.abs().max())
+    jax_g = np.asarray(jpg.patch_gram_v2(jnp.asarray(x), (3, 3),
+                                         ((1, 1), (1, 1)), (1, 1),
+                                         interpret=True))
+    _assert_gram_close(got.numpy(), jax_g)
 
 
 def test_kernel_takes_f32_and_bf16_only():
@@ -256,6 +331,7 @@ def test_dispatch_policy_matches_jax(itemsize):
     ("v2", (3, 9, 9, 8), (3, 3), ((1, 1), (1, 1)), (2, 2)),
     ("v2", (2, 7, 9, 4), (3, 3), "SAME", (2, 2)),
     ("v2", (2, 7, 7, 4), (5, 5), ((2, 2), (2, 2)), (1, 1)),
+    ("v2", (2, 7, 7, 6), (3, 3), ((1, 1), (1, 1)), (1, 1)),   # f32 scalar
     ("patch_gram", (16, 56, 56, 64), (3, 3), ((1, 1), (1, 1)), (1, 1)),
     *[("patch_gram", *case, (1, 1)) for case in PG_CASES],
     *[("v2", *case) for case in BF16_EDGE_CASES],
@@ -277,4 +353,23 @@ def test_cuda_kernel_matches_plain(entry, shape, ks, pad, strides, dtype):
     assert fn.launches == before + 1
     assert torch.equal(got, fn(*args))                    # no atomics
     want = tpg.patch_gram_plain(x, ks, pad, strides)
+    _assert_gram_close(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_scalar_gather_on_a_misaligned_view(dtype):
+    """A view one element into its storage (C = 64: the vector gather's
+    channel count, but not 16-byte aligned) takes the scalar gather and
+    computes the same Gram."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = (2, 9, 9, 64)
+    flat = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        int(np.prod(shape)) + 1).astype(np.float32)).cuda()
+    x = flat.to(getattr(torch, dtype))[1:].view(shape)
+    assert tpg.gather_kind(x) == "scalar"
+    got = tpg.patch_gram_v2(x, (3, 3), ((1, 1), (1, 1)), (1, 1))
+    want = tpg.patch_gram_plain(x, (3, 3), ((1, 1), (1, 1)))
     _assert_gram_close(got.cpu().numpy(), want.cpu().numpy())
