@@ -6,14 +6,16 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py              # what CI runs
     python3 chip_smoke.py --profile    # adds a device-time breakdown of one
                                        # update of each path
-    python3 chip_smoke.py --kernels    # builds and checks the kernels only
+    python3 chip_smoke.py --kernels    # builds, checks and times the kernels
+                                       # only, with the f32 sym_gram split
+                                       # sweep
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
-(the f32 patch Gram and every bf16 kernel must have them, the FP32 FMA
-kernel none), holds each kernel (patch_gram_tiled, patch_gram_v2,
-patch_gram, sym_gram; f32 and bf16) against its plain PyTorch version on
-the card, including a case whose blocks each sum a full
+(every tile kernel must have them, the f32 pre-pass and the reduces
+none), holds each kernel (patch_gram_tiled, patch_gram_v2, patch_gram,
+sym_gram with its f32 pre-pass; f32 and bf16) against its plain PyTorch
+version on the card, including cases whose blocks each sum a full
 ``MAX_CHAIN_TOKENS`` chain, then drives
 three paths of ResNet-50 (ImageNet stem, 1000 classes, 224x224, MC=1,
 seeded weights), named after ``bench.py``'s rows:
@@ -43,8 +45,8 @@ import time
 #: and BF16 on the tensor cores (f32 accumulation, what wgmma computes),
 #: HBM3. f32 Grams run 3xTF32 (csrc/tf32x3_gram.cuh): three TF32 products
 #: per f32 product, so their bound is 3x the FLOP at the TF32 rate; the
-#: strict FP32 FMA figure stays in each f32 record as bound_fp32_fma_ms
-#: (sym_gram's f32 kernel still runs FP32 FMA)
+#: strict FP32 FMA figure (what the kernels ran before the tensor cores)
+#: stays in each f32 record as bound_fp32_fma_ms
 PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 TF32X3 = 3
 PEAK_BYTES_S = 3.35e12
@@ -101,6 +103,15 @@ BF16_PATCH_CASES = [
 #: (784, 4609) is ResNet-50's layer4 3x3 patch matrix at B=16; (600, 1024)
 #: has F % 8 == 0 (no padding in bf16)
 SYM_CASES = [(784, 4609), (3136, 1025), (700, 577), (513, 2049), (600, 1024)]
+#: N = 2 x MAX_CHAIN_TOKENS at F = 4609: one split fills the card, so the
+#: chain cap alone sets the splits, and every block sums exactly a full
+#: chain (f32 2 x 8,192 tokens, bf16 8 x BF16_CHAIN_TOKENS = 2,048)
+SYM_CHAIN_CASE = (16384, 4609)
+#: --kernels: f32 sym_gram shapes from 0.3 to 5.3 waves of 128-feature
+#: block tiles on 132 SMs, each timed with one split and with the
+#: wave-filling count, for the wrapper's ONE_PASS_WAVES
+SPLIT_SWEEP = [(3136, 1025), (513, 2049), (784, 2305), (784, 3073),
+               (784, 3585), (784, 4097), (784, 4609)]
 #: run through patch_gram in f32 and bf16: N = 132 * 64 * 64 = 540,672 =
 #: 66 x MAX_CHAIN_TOKENS, so every block of the 66 splits sums a full
 #: 8,192-token chain in its tensor-core accumulator (F = 576)
@@ -143,11 +154,16 @@ def add_device_times(records):
     """Each record's device time per call by kernel name (torch.profiler)
     and its sum, ``device_ms``: the kernels' own time, where ``ms`` also
     holds the host's gaps between back-to-back wrapper calls that cannot
-    be enqueued as fast as the card runs them (kernels of ~0.1 ms). Run
-    after the paths: a profiler run slows the host's later launches."""
+    be enqueued as fast as the card runs them (kernels of ~0.1 ms); and
+    the shares of the split reduce and the f32 pre-pass in it. Run after
+    the paths: a profiler run slows the host's later launches."""
     for rec in records:
-        rec["device_ms_by_kernel"] = device_ms_by_kernel(rec.pop("call"))
-        rec["device_ms"] = sum(rec["device_ms_by_kernel"].values())
+        by_kernel = device_ms_by_kernel(rec.pop("call"))
+        rec["device_ms_by_kernel"] = by_kernel
+        rec["device_ms"] = sum(by_kernel.values())
+        for part in ("reduce", "presplit"):
+            rec[f"device_ms_{part}"] = sum(
+                v for k, v in by_kernel.items() if f"{part}_kernel" in k)
         log(f"{rec['name']}: {rec['ms']:.4f} ms, device {rec['device_ms']:.4f}"
             f" ms ({rec['gather']} gather; {rec['tile']}), plain "
             f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f} / f32 "
@@ -253,15 +269,15 @@ def time_yardsticks(dtype, p_of):
 #: appears in the SASS; the ``*wgmma_kernel`` ones run on the tensor cores
 KERNEL_OF = {("patch", "f32"): "gram_tf32x3_wgmma_kernel",
              ("patch", "bf16"): "gram_wgmma_kernel",
-             ("sym", "f32"): "sym_partial_kernel",
+             ("sym", "f32"): "sym_tf32x3_wgmma_kernel",
              ("sym", "bf16"): "sym_wgmma_kernel"}
 
 
 def hgmma_counts(build):
     """Tensor-core (HGMMA) instructions per kernel in the SASS of the built
     libraries (``cuobjdump -sass``); raises if a ``*wgmma_kernel`` has none
-    or any other kernel (FP32 FMA, the reduces) has some, or if a kernel of
-    ``KERNEL_OF`` is missing."""
+    or any other kernel (the f32 pre-pass, the reduces) has some, or if a
+    kernel of ``KERNEL_OF`` is missing."""
     import re
     import shutil
     from pathlib import Path
@@ -400,12 +416,47 @@ def patch_splits(tpg, x, ks, pad, st):
     slots = tpg._resident_blocks(x.device.index, st[0], bf16,
                                  tpg.gather_kind(x) == "vector")
     return tpg.plan_splits(b * ho * wo, tpg.block_tiles(c * ks[0] * ks[1],
-                                                         bf16), True, slots)
+                                                         bf16), slots)
+
+
+def sym_splits(tsg, x):
+    """(splits, tokens per split) the wrapper launches ``x`` with."""
+    import torch
+    bf16 = x.dtype == torch.bfloat16
+    return tsg.split_plan(*x.shape, bf16,
+                          tsg._resident_blocks(x.device.index, bf16))
+
+
+def check_sym_case(tsg, x, dtype):
+    """One sym_gram case: two launches and both variants bitwise equal, a
+    bitwise symmetric result within SYM_RTOL of the plain version, and in
+    f32 the pre-pass bit for bit its plain version. Returns the errors."""
+    import torch
+    n, f = x.shape
+    if dtype == "f32" and not torch.equal(tsg.tf32_presplit(x),
+                                          tsg.tf32_presplit_plain(x)):
+        raise AssertionError(f"tf32_presplit ({n}, {f}): kernel differs "
+                             "from its plain version")
+    got = _launch_twice(tsg.sym_gram, x)
+    if not torch.equal(got, tsg.sym_gram(x, variant="rect")):
+        raise AssertionError("sym_gram: 'rect' differs from 'tri'")
+    if not torch.equal(got, got.T):
+        raise AssertionError(f"sym_gram ({n}, {f}): not symmetric")
+    want = tsg.sym_gram_plain(x)
+    abs_err = float((got - want).abs().max())
+    rel = abs_err / max(float(want.abs().max()), 1.0)
+    log(f"  sym_gram {dtype} ({n}, {f}): splits, tokens a split = "
+        f"{sym_splits(tsg, x)} max_abs_err={abs_err:.3e} rel={rel:.3e}")
+    if not (torch.isfinite(got).all() and rel <= SYM_RTOL):
+        raise AssertionError(
+            f"sym_gram {dtype} ({n}, {f}): kernel disagrees with its "
+            f"plain version (rel {rel:.3e} > {SYM_RTOL})")
+    return abs_err, rel
 
 
 def check_sym_kernel(tsg, dtype):
-    """sym_gram against its plain version on the card, in ``dtype``:
-    every case, both variants bitwise equal, a bitwise symmetric result."""
+    """sym_gram against its plain version on the card, in ``dtype``, on
+    every case (check_sym_case) and, in f32, at the chain cap."""
     import numpy as np
     import torch
     tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
@@ -416,35 +467,87 @@ def check_sym_kernel(tsg, dtype):
             raise AssertionError(f"sym_gram ({n}, {f}) is below the gate")
         x = torch.from_numpy(rng.standard_normal((n, f)).astype(
             np.float32)).cuda().to(tdt)
-        got = _launch_twice(tsg.sym_gram, x)
-        if not torch.equal(got, tsg.sym_gram(x, variant="rect")):
-            raise AssertionError("sym_gram: 'rect' differs from 'tri'")
-        if not torch.equal(got, got.T):
-            raise AssertionError(f"sym_gram ({n}, {f}): not symmetric")
-        want = tsg.sym_gram_plain(x)
-        abs_err = float((got - want).abs().max())
-        rel = abs_err / max(float(want.abs().max()), 1.0)
-        log(f"  sym_gram {dtype} ({n}, {f}): max_abs_err={abs_err:.3e} "
-            f"rel={rel:.3e}")
-        if not (torch.isfinite(got).all() and rel <= SYM_RTOL):
-            raise AssertionError(
-                f"sym_gram {dtype} ({n}, {f}): kernel disagrees with its "
-                f"plain version (rel {rel:.3e} > {SYM_RTOL})")
+        abs_err, rel = check_sym_case(tsg, x, dtype)
         worst = max(worst, rel)
         if i == 0:
             main = (x, abs_err, rel)
     x, abs_err, rel = main
     n, f = x.shape
-    return [_record(
+    gather = {"f32": "pre-split swizzled slabs (tf32_presplit_kernel), "
+                     "bulk copies",
+              "bf16": "vector, features padded to 8" if f % 8 else "vector"}
+    rec = _record(
         "sym_gram", dtype, x.shape, abs_err, rel, worst, len(SYM_CASES),
-        gather=("vector, features padded to 8" if f % 8 else "vector")
-        if dtype == "bf16" else "scalar f32",
+        gather=gather[dtype], splits=sym_splits(tsg, x)[0],
         ms=cuda_ms(lambda: tsg.sym_gram(x)),
         call=lambda: tsg.sym_gram(x),
         plain_ms=cuda_ms(lambda: tsg.sym_gram_plain(x)),
         **bounds(n * f * (f + 1), n * f * x.element_size() + f * f * 4,
                  dtype),
-        **time_yardsticks(dtype, lambda: x))]
+        **time_yardsticks(dtype, lambda: x))
+    rec["chain_cap_rel_err"] = check_sym_chain(tsg, tdt, rng)
+    return [rec]
+
+
+def check_sym_chain(tsg, tdt, rng):
+    """SYM_CHAIN_CASE through ``sym_gram``: every block sums exactly its
+    chain cap of tokens (f32 MAX_CHAIN_TOKENS, flushing its tensor-core
+    accumulator into an f32 total; bf16 BF16_CHAIN_TOKENS, unflushed).
+    Returns its error, rel to max(max|G|, 1)."""
+    import numpy as np
+    import torch
+    n, f = SYM_CHAIN_CASE
+    bf16 = tdt == torch.bfloat16
+    cap = tsg.BF16_CHAIN_TOKENS if bf16 else tsg.MAX_CHAIN_TOKENS
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(
+        np.float32)).cuda().to(tdt)
+    splits, per_split = sym_splits(tsg, x)
+    if per_split != cap or splits * per_split != n:
+        raise AssertionError(f"sym chain case: {splits} splits of "
+                             f"{per_split} tokens, not of {cap}")
+    return check_sym_case(tsg, x, "bf16" if bf16 else "f32")[1]
+
+
+def sweep_sym_splits(tsg):
+    """SPLIT_SWEEP through the f32 ``sym_gram``, each shape launched with
+    one split and with the wave-filling count (the wrapper's plan
+    replaced for the sweep): device ms of each (pre-pass, tile kernel and
+    any reduce), every result checked against the plain version."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(2)
+    plan, rows = tsg.split_plan, []
+    slots = tsg._resident_blocks(0, False)
+    try:
+        for n, f in SPLIT_SWEEP:
+            x = torch.from_numpy(rng.standard_normal((n, f)).astype(
+                np.float32)).cuda()
+            nt = -(-f // tsg.F32_TILE)
+            tiles = nt * (nt + 1) // 2
+            row = {"shape": [n, f], "block_tiles": tiles,
+                   "waves": tiles / slots,
+                   "wrapper_plan": list(plan(n, f, False, slots))}
+            fill = max(tsg.split_count(n, tiles, slots),
+                       -(-n // tsg.MAX_CHAIN_TOKENS))
+            for key, splits in (("one", 1), ("fill", fill)):
+                per = -(-(-(-n // splits)) // tsg.CHUNK) * tsg.CHUNK
+                tsg.split_plan = lambda *_, p=per: (-(-n // p), p)
+                want = tsg.sym_gram_plain(x)
+                rel = float((tsg.sym_gram(x) - want).abs().max()) \
+                    / max(float(want.abs().max()), 1.0)
+                if rel > SYM_RTOL:
+                    raise AssertionError(f"split sweep {n, f} {splits} "
+                                         f"splits: rel {rel:.3e}")
+                by_kernel = device_ms_by_kernel(lambda: tsg.sym_gram(x))
+                row[key] = {"splits": -(-n // per), "tokens": per,
+                            "device_ms": sum(by_kernel.values()),
+                            "reduce_ms": sum(v for k, v in by_kernel.items()
+                                             if "reduce_kernel" in k)}
+            log(f"  split sweep {json.dumps(row)}")
+            rows.append(row)
+    finally:
+        tsg.split_plan = plan
+    return rows
 
 
 class Counters:
@@ -453,7 +556,8 @@ class Counters:
     def __init__(self, tpg, tsg):
         self.fns = {"patch_gram_tiled": tpg.patch_gram_tiled,
                     "patch_gram_v2": tpg.patch_gram_v2,
-                    "patch_gram": tpg.patch_gram, "sym_gram": tsg.sym_gram}
+                    "patch_gram": tpg.patch_gram, "sym_gram": tsg.sym_gram,
+                    "tf32_presplit": tsg.tf32_presplit}
 
     def reset(self):
         for fn in self.fns.values():
@@ -538,7 +642,8 @@ def main(argv=None):
                     help="also print a device-time breakdown of one update "
                          "of each path")
     ap.add_argument("--kernels", action="store_true",
-                    help="build and check the kernels, print their records, "
+                    help="build and check the kernels, print their records "
+                         "and the f32 sym_gram split sweep (SPLIT_SWEEP), "
                          "and stop (no paths, no result line)")
     args = ap.parse_args(argv)
 
@@ -591,12 +696,10 @@ def main(argv=None):
         records += check_sym_kernel(tsg, dtype)
     for rec in records:
         fam = "sym" if rec["function"] == "sym_gram" else "patch"
-        edge = tsg._TILE if fam == "sym" else \
-            tpg.BF16_TILE if rec["dtype"] == "bf16" else tpg.F32_TILE
+        mod = tsg if fam == "sym" else tpg
+        edge = mod.BF16_TILE if rec["dtype"] == "bf16" else mod.F32_TILE
         kernel = KERNEL_OF[fam, rec["dtype"]]
-        if not kernel.endswith("wgmma_kernel"):
-            how = "4x4 FP32 FMA micro-tiles"
-        elif rec["dtype"] == "f32":
+        if rec["dtype"] == "f32":
             how = f"3xTF32 wgmma m64n{edge}k8 on tf32 tensor cores"
         else:
             how = f"wgmma m64n{edge}k16 on bf16 tensor cores"
@@ -605,6 +708,7 @@ def main(argv=None):
                                 if kernel in fn}
     if args.kernels:
         add_device_times(records)
+        print(json.dumps({"split_sweep": sweep_sym_splits(tsg)}))
         print(json.dumps({"kernels": records}))
         return 0
 

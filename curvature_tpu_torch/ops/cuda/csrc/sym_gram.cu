@@ -6,134 +6,60 @@
 //   sym_gram variant='rect'  (_kernel_rect :66; pallas_call :109)
 // Both variants compute the same function; on the TPU they differ only in
 // which grid its Mosaic compiler accepted (scalar-prefetched tile pairs
-// against a predicated rectangle). Here there is one kernel per element
-// type: f32 sym_partial_kernel (strict FP32 FMA), bf16 sym_wgmma_kernel
-// (bf16 x bf16 -> f32 on the tensor cores, wgmma_gram.cuh).
+// against a predicated rectangle). Here both element types run on the
+// tensor cores: f32 as 3xTF32 (sym_tf32x3_wgmma_kernel, tf32x3_gram.cuh:
+// each value split into TF32 hi and lo halves, lo*hi + hi*lo + hi*hi
+// summed in f32), bf16 as bf16 x bf16 -> f32 (sym_wgmma_kernel,
+// wgmma_gram.cuh).
 //
 // What bounds it: at the shapes that pass the JAX gate (F > 512), e.g.
 // ResNet-50's layer4 3x3 patch matrix at B=16, [784, 4609], the lower
 // triangle is N*F*(F+1) ~ 1.7e10 FLOP against 7-14 MB of input and 85 MB
-// of output. In f32 that is bound by arithmetic (strict FP32 FMA, as
-// patch_gram.cu, for the JAX test's 2e-5 of max|G| bar); in bf16 on the
-// tensor cores it is bound by the 85 MB written.
+// of output: in f32, 3x that FLOP at the dense TF32 rate bounds it; in
+// bf16 the 85 MB written does. Every tile re-reads its operands (from L2:
+// the input fits in it), so what a tile does per operand value is what
+// is left once the tensor cores make the arithmetic cheap.
 //
 // What the design does about it:
-//  * Only the nt(nt+1)/2 lower-triangular 64x64 tiles are computed, one
-//    per block, in patch_gram.cu's layout. f32: 256 threads with 4x4 f32
-//    accumulators each, FP32 FMAs out of shared memory, the next 32-token
-//    chunk loaded into registers under the current chunk's FMAs (two
-//    shared-memory stages); the loads are plain rows, 64 consecutive
-//    features of a row per 64 threads, coalesced. bf16: one warpgroup,
-//    wgmma on swizzled [64 tokens x 64 features] tiles filled by 16-byte
-//    cp.async copies, which need rows of a multiple of 8 features: the
-//    wrapper pads F up to one (the callers' ones column makes F odd).
-//  * The token axis is split across blocks when there are too few tiles
-//    to fill the card, with a deterministic two-pass reduction: the reduce
-//    kernel takes one tile per block, sums the splits in order, and writes
-//    the tile and its transpose. With one split (2,701 tiles at F = 4609
-//    fill the card) the bf16 kernel does that itself, straight from its
-//    accumulators: no workspace, no second launch.
+//  * f32: tf32 wgmma takes only K-major operands (the token axis
+//    contiguous), and every value must be split. Both are done once, by
+//    tf32_presplit_kernel, which writes the hi and lo halves of x as
+//    ready-made swizzled [64 features x 32 tokens] slabs (tf32x3_gram.cuh,
+//    "pre-split operands"), zero past N and F (14 us at [784, 4609]): the
+//    tile loop then fills its ring with one bulk copy (cp.async.bulk on an
+//    mbarrier) per operand half, no per-value work, no bounds checks, and
+//    odd F needs no scalar path. 128x128 tiles of two warpgroups
+//    (wgmma.m64n128k8; half the bytes per FLOP of 64x64), a 3-stage ring,
+//    the accumulator flushed into an f32 total every tf::FLUSH chunks.
+//    What is left is the tiles' schedule: 703 blocks at one an SM are 5.3
+//    waves, and a block's epilogue (its tile and the transpose, 128 KB)
+//    overlaps no other block's products (PERF.md).
+//  * bf16: one warpgroup, wgmma on swizzled [64 tokens x 64 features]
+//    tiles filled by 16-byte cp.async copies, which need rows of a
+//    multiple of 8 features: the wrapper pads F up to one (the callers'
+//    ones column makes F odd).
+//  * Only the lower-triangular tiles are computed, one per block. The
+//    token axis is split across blocks when there are too few tiles to fill
+//    the card, or to bound a block's chain (MAX_CHAIN_TOKENS; a quarter of
+//    it in bf16, whose accumulator is not flushed), with a
+//    deterministic two-pass reduction: partial tiles go to a workspace of
+//    64x64 tiles and the reduce kernel takes one tile per block, sums the
+//    splits in order, and writes the tile and its transpose. With one split
+//    the tile kernel does that itself, straight from its accumulators: no
+//    workspace, no second launch.
 //  * Every tile and its transpose are written from the same shared-memory
-//    values, through a padded [64][65] tile so both writes are coalesced
+//    values, through a padded [T][T+1] tile so both writes are coalesced
 //    rows, and a diagonal tile's upper half mirrors its lower half: the
 //    result is bitwise symmetric (the JAX version mirrors tril(low, -1).T).
 #include "gram_tile.cuh"
+#include "tf32x3_gram.cuh"
 #include "wgmma_gram.cuh"
 
 namespace {
 
-using gram::BK;
-using gram::THREADS;
 using gram::TILE;
 
-template <typename T>
-__device__ __forceinline__ float load(const T* __restrict__ x, int F, int n,
-                                      int f, bool valid) {
-  return valid ? gram::to_f32(x + n * F + f) : 0.0f;  // N*F < 2^31
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-sym_partial_kernel(const T* __restrict__ x, float* __restrict__ ws, int N,
-                   int F, int num_tiles, int tokens_per_split) {
-  const int t = blockIdx.x;
-  int ti, tj;
-  gram::tri_tile(t, ti, tj);
-  const int split = blockIdx.y;
-  const int n_begin = split * tokens_per_split;
-  const int n_end = min(n_begin + tokens_per_split, N);
-
-  // two stages: the next chunk is stored while this one is multiplied
-  __shared__ __align__(16) float As[2][BK][TILE];
-  __shared__ __align__(16) float Bs[2][BK][TILE];
-
-  const int tid = threadIdx.x;
-  const int r = tid % TILE;        // feature column this thread loads
-  const int row0 = tid / TILE;     // token rows row0 + 4m, m < BK/4
-  constexpr int M = BK / 4;
-  const int fa = ti * TILE + r, fb = tj * TILE + r;
-  const bool va = fa < F, vb = fb < F;
-
-  float ra[M], rb[M];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    const int n = n_begin + row0 + 4 * m;
-    ra[m] = load(x, F, n, fa, n < n_end && va);
-    rb[m] = load(x, F, n, fb, n < n_end && vb);
-  }
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    As[0][row0 + 4 * m][r] = ra[m];
-    Bs[0][row0 + 4 * m][r] = rb[m];
-  }
-  __syncthreads();
-
-  const int ty = tid / 16, tx = tid % 16;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  int buf = 0;
-  for (int n0 = n_begin; n0 < n_end; n0 += BK) {
-    const bool more = n0 + BK < n_end;
-    if (more) {                    // start the next chunk's loads now
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int n = n0 + BK + row0 + 4 * m;
-        ra[m] = load(x, F, n, fa, n < n_end && va);
-        rb[m] = load(x, F, n, fb, n < n_end && vb);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[buf][k][ty * 4]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][k][tx * 4]);
-      const float ar[4] = {av.x, av.y, av.z, av.w};
-      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    if (more) {
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        As[buf ^ 1][row0 + 4 * m][r] = ra[m];
-        Bs[buf ^ 1][row0 + 4 * m][r] = rb[m];
-      }
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-
-  float* out = ws + (static_cast<size_t>(split) * num_tiles + t) * TILE * TILE;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(&out[(ty * 4 + i) * TILE + tx * 4]) =
-        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-}
+constexpr int REDUCE_THREADS = 256;
 
 // Writes the lower tile (ti, tj) of edge T of `tile` ([T][T+1], row-major
 // values of out[ti*T + r, tj*T + c]) and its transpose at (tj, ti); a
@@ -158,7 +84,7 @@ __device__ __forceinline__ void write_tile_pair(const float (*tile)[T + 1],
 
 // One lower tile per block: the splits summed in order, then the tile at
 // (ti, tj) and its transpose at (tj, ti), both from the same values.
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(REDUCE_THREADS)
 sym_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
                   int F, int num_tiles, int splits) {
   __shared__ float tile[TILE][TILE + 1];
@@ -167,7 +93,7 @@ sym_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
   gram::tri_tile(t, ti, tj);
   const size_t per_split = static_cast<size_t>(num_tiles) * TILE * TILE;
   const float* src = ws + static_cast<size_t>(t) * TILE * TILE;
-  for (int e = threadIdx.x; e < TILE * TILE; e += THREADS) {
+  for (int e = threadIdx.x; e < TILE * TILE; e += REDUCE_THREADS) {
     float v = 0.0f;
     for (int s = 0; s < splits; ++s) v += src[s * per_split + e];
     tile[e / TILE][e % TILE] = v;
@@ -175,6 +101,112 @@ sym_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
   __syncthreads();
   write_tile_pair<TILE>(tile, out, F, ti, tj);
 }
+
+// The end of a tensor-core tile kernel of WGS warpgroups, `acc` its
+// values of block tile (ti, tj): with more than one split (gridDim.y), the
+// partial tile into the 64x64-tile workspace (num_tiles 64-tiles a split)
+// for sym_reduce_kernel; with one, staged in the (now idle) ring at smem,
+// the tile and its transpose into out as coalesced rows.
+template <int WGS>
+__device__ __forceinline__ void finish_tile(const float (&acc)[32 * WGS],
+                                            unsigned char* smem,
+                                            float* __restrict__ ws,
+                                            float* __restrict__ out, int F,
+                                            int num_tiles, int ti, int tj) {
+  constexpr int T = 64 * WGS;
+  if (gridDim.y > 1) {
+    wg::store_subtiles<WGS>(
+        ws + static_cast<size_t>(blockIdx.y) * num_tiles * TILE * TILE, ti,
+        tj, (F + TILE - 1) / TILE, acc);
+    return;
+  }
+  float(*tile)[T + 1] = reinterpret_cast<float(*)[T + 1]>(smem);
+  __syncthreads();
+  const int r0 = 64 * (threadIdx.x / 128);       // this warpgroup's rows
+#pragma unroll
+  for (int i = 0; i < 32 * WGS; ++i)
+    tile[r0 + wg::acc_row(i)][wg::acc_col(i)] = acc[i];
+  __syncthreads();
+  write_tile_pair<T>(tile, out, F, ti, tj);
+}
+
+// ---- f32: pre-split operands, 3xTF32 ---------------------------------------
+
+// Tile edge of the f32 kernel: 64 * TF_WGS features, TF_WGS warpgroups a
+// block, and stages of its ring (3 x 64 KB: one block an SM). 128 here: at
+// [784, 4609] it measured 0.219 ms against 0.271 for 64 (2,701 blocks, 2
+// an SM; PERF.md).
+constexpr int TF_WGS = 2;
+constexpr int TF_STAGES = 3;
+using Tf = tf::Ring<TF_WGS, TF_STAGES>;
+
+// Feature blocks of 64 covering F in whole f32 tiles: the pre-split
+// buffers hold every feature block of every block tile, zero past F.
+__host__ __device__ constexpr int presplit_fblocks(int F) {
+  return (F + Tf::TILE - 1) / Tf::TILE * TF_WGS;
+}
+
+// x [N, F] -> hi and lo, each [ceil(N/32) chunks][presplit_fblocks(F)
+// blocks] slabs of [64 features x 32 tokens] (tf::SLAB bytes, swizzled as
+// tf::desc reads them), zero past N and F; hi = cvt.rna.tf32(x) and lo =
+// cvt.rna.tf32(x - hi), as tf::store_split. Grid (chunks, fblocks), 256
+// threads: each block reads its [32 tokens x 64 features] rows of x
+// coalesced into a padded shared tile and writes its two slabs as
+// coalesced 16-byte chunks.
+__global__ void __launch_bounds__(256)
+tf32_presplit_kernel(const float* __restrict__ x, uint4* __restrict__ hi,
+                     uint4* __restrict__ lo, int N, int F) {
+  __shared__ float tile[tf::BK][64 + 1];         // [token][feature]
+  const int c = blockIdx.x, fb = blockIdx.y;
+  const int col = threadIdx.x % 64, f = fb * 64 + col;
+  for (int r = threadIdx.x / 64; r < tf::BK; r += 4) {
+    const int n = c * tf::BK + r;
+    tile[r][col] =
+        n < N && f < F ? __ldg(x + static_cast<size_t>(n) * F + f) : 0.0f;
+  }
+  __syncthreads();
+  const size_t slab = (static_cast<size_t>(c) * gridDim.y + fb) *
+                      (tf::SLAB / sizeof(uint4));
+  for (int q = threadIdx.x; q < tf::SLAB / 16; q += 256) {
+    const int row = q / 8, j = (q % 8) ^ (row & 7);   // feature, token quad
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float v = tile[4 * j + e][row];
+      h[e] = tf::tf32_rna(v);
+      l[e] = tf::tf32_rna(v - __uint_as_float(h[e]));   // exact difference
+    }
+    hi[slab + q] = make_uint4(h[0], h[1], h[2], h[3]);
+    lo[slab + q] = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// f32 lower tile on the tensor cores, 3xTF32 from the pre-split hi and lo
+// slabs: grid (lower tiles of edge Tf::TILE, splits), TF_WGS warpgroups a
+// block, Tf::SMEM bytes of dynamic shared memory; split y sums chunks
+// [y * chunks_per_split, ...) of the `chunks` in the buffers.
+__global__ void __launch_bounds__(Tf::THREADS)
+sym_tf32x3_wgmma_kernel(const float* __restrict__ hi,
+                        const float* __restrict__ lo, float* __restrict__ ws,
+                        float* __restrict__ out, int F, int chunks,
+                        int chunks_per_split, int num_tiles) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  int ti, tj;
+  gram::tri_tile(blockIdx.x, ti, tj);
+  const int c0 = blockIdx.y * chunks_per_split;
+  const int nchunks = max(0, min(chunks_per_split, chunks - c0));
+  const size_t chunk = static_cast<size_t>(presplit_fblocks(F)) * tf::SLAB;
+  const tf::Presplit p{reinterpret_cast<const char*>(hi),
+                       reinterpret_cast<const char*>(lo),
+                       c0 * chunk + static_cast<size_t>(ti) * Tf::HALF,
+                       c0 * chunk + static_cast<size_t>(tj) * Tf::HALF, chunk};
+  float acc[Tf::ACC];
+  tf::presplit_tile<TF_WGS, TF_STAGES>(p, wg::ring_base(smem), nchunks,
+                                        ti == tj, acc);
+  finish_tile<TF_WGS>(acc, smem, ws, out, F, num_tiles, ti, tj);
+}
+
+// ---- bf16 -------------------------------------------------------------------
 
 // Tile edge of the bf16 kernel: 64 * WGS features, WGS warpgroups a block.
 // 64 here: at [784, 4609] a 128-feature tile (703 blocks of 13 chunks)
@@ -218,9 +250,7 @@ struct RowGather {
 
 // bf16 lower tile on the tensor cores: grid (lower tiles of edge Wg::TILE,
 // splits), WGS warpgroups a block, Wg::SMEM bytes of dynamic shared
-// memory. With more than one split it writes its partial tile to the
-// 64x64-tile workspace (num_tiles 64-tiles a split) for sym_reduce_kernel;
-// with one it writes the tile and its transpose to out.
+// memory.
 __global__ void __launch_bounds__(Wg::THREADS)
 sym_wgmma_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ ws,
                  float* __restrict__ out, int N, int F, int ld, int num_tiles,
@@ -228,8 +258,7 @@ sym_wgmma_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ ws,
   extern __shared__ __align__(1024) unsigned char smem[];
   int ti, tj;
   gram::tri_tile(blockIdx.x, ti, tj);
-  const int split = blockIdx.y;
-  const int n_begin = split * tokens_per_split;
+  const int n_begin = blockIdx.y * tokens_per_split;
   const int n_end = min(n_begin + tokens_per_split, N);
   const int nchunks =
       n_end > n_begin ? (n_end - n_begin + wg::BK - 1) / wg::BK : 0;
@@ -238,26 +267,20 @@ sym_wgmma_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ ws,
   float acc[Wg::ACC];
   wg::gram_tile<WGS, false>(gather, wg::ring_base(smem), nchunks, ti == tj,
                             acc, nullptr);
-  if (gridDim.y > 1) {
-    wg::store_subtiles<WGS>(
-        ws + static_cast<size_t>(split) * num_tiles * TILE * TILE, ti, tj,
-        (F + TILE - 1) / TILE, acc);
-    return;
-  }
-  // one split: stage the tile in the (now idle) ring, then write it and
-  // its transpose as coalesced rows
-  float(*tile)[Wg::TILE + 1] = reinterpret_cast<float(*)[Wg::TILE + 1]>(smem);
-  __syncthreads();
-  const int r0 = 64 * (threadIdx.x / 128);       // this warpgroup's rows
-#pragma unroll
-  for (int i = 0; i < Wg::ACC; ++i)
-    tile[r0 + wg::acc_row(i)][wg::acc_col(i)] = acc[i];
-  __syncthreads();
-  write_tile_pair<Wg::TILE>(tile, out, F, ti, tj);
+  finish_tile<WGS>(acc, smem, ws, out, F, num_tiles, ti, tj);
 }
 
-// The bf16 kernel takes more than 48 KB of dynamic shared memory: the
-// attribute is set once, before its first launch or query.
+// ---- launch -----------------------------------------------------------------
+
+// Both tile kernels take more than 48 KB of dynamic shared memory: the
+// attribute is set once per kernel, before its first launch or query.
+cudaError_t allow_tf32x3_smem() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      sym_tf32x3_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Tf::SMEM);
+  return err;
+}
+
 cudaError_t allow_wgmma_smem() {
   static const cudaError_t err = cudaFuncSetAttribute(
       sym_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -265,18 +288,39 @@ cudaError_t allow_wgmma_smem() {
   return err;
 }
 
-int launch(const float* x, float* out, float* ws, int N, int F, int splits,
-           int tokens_per_split, void* stream) {
-  const int nt = (F + TILE - 1) / TILE;
-  const int num_tiles = nt * (nt + 1) / 2;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sym_partial_kernel<float><<<dim3(num_tiles, splits), THREADS, 0, s>>>(
-      x, ws, N, F, num_tiles, tokens_per_split);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sym_reduce_kernel<<<num_tiles, THREADS, 0, s>>>(ws, out, F, num_tiles,
-                                                  splits);
+int num_lower_tiles(int F, int edge) {
+  const int nt = (F + edge - 1) / edge;
+  return nt * (nt + 1) / 2;
+}
+
+cudaError_t reduce(const float* ws, float* out, int F, int splits,
+                   cudaStream_t s) {
+  const int num_tiles = num_lower_tiles(F, TILE);
+  sym_reduce_kernel<<<num_tiles, REDUCE_THREADS, 0, s>>>(ws, out, F,
+                                                         num_tiles, splits);
+  return cudaGetLastError();
+}
+
+int presplit(const float* x, float* hi, float* lo, int N, int F,
+             void* stream) {
+  const dim3 grid((N + tf::BK - 1) / tf::BK, presplit_fblocks(F));
+  tf32_presplit_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, reinterpret_cast<uint4*>(hi), reinterpret_cast<uint4*>(lo), N, F);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const float* hi, const float* lo, float* out, float* ws, int N,
+           int F, int splits, int chunks_per_split, void* stream) {
+  cudaError_t err = allow_tf32x3_smem();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  sym_tf32x3_wgmma_kernel<<<dim3(num_lower_tiles(F, Tf::TILE), splits),
+                            Tf::THREADS, Tf::SMEM, s>>>(
+      hi, lo, ws, out, F, (N + tf::BK - 1) / tf::BK, chunks_per_split,
+      num_lower_tiles(F, TILE));
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return static_cast<int>(reduce(ws, out, F, splits, s));
 }
 
 int launch(const __nv_bfloat16* x, float* out, float* ws, int N, int F,
@@ -284,29 +328,36 @@ int launch(const __nv_bfloat16* x, float* out, float* ws, int N, int F,
   if (ld < F || ld % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_wgmma_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nt = (F + TILE - 1) / TILE;
-  const int num_tiles = nt * (nt + 1) / 2;
-  const int bt = (F + Wg::TILE - 1) / Wg::TILE;   // block tiles per edge
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sym_wgmma_kernel<<<dim3(bt * (bt + 1) / 2, splits), Wg::THREADS, Wg::SMEM,
-                     s>>>(x, ws, out, N, F, ld, num_tiles, tokens_per_split);
+  sym_wgmma_kernel<<<dim3(num_lower_tiles(F, Wg::TILE), splits), Wg::THREADS,
+                     Wg::SMEM, s>>>(x, ws, out, N, F, ld,
+                                    num_lower_tiles(F, TILE),
+                                    tokens_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  sym_reduce_kernel<<<num_tiles, THREADS, 0, s>>>(ws, out, F, num_tiles,
-                                                  splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(reduce(ws, out, F, splits, s));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Entries of sym_gram (curvature_tpu_torch/ops/cuda/sym_gram.py). bf16
-// rows have a stride of ld >= F elements, a multiple of 8, and x is 16-byte
-// aligned (the wrapper pads); with splits == 1 bf16 needs no workspace.
-int sym_gram_f32(const float* x, float* out, float* ws, int N, int F,
-                 int splits, int tokens_per_split, void* stream) {
-  return launch(x, out, ws, N, F, splits, tokens_per_split, stream);
+// Entries of sym_gram and tf32_presplit
+// (curvature_tpu_torch/ops/cuda/sym_gram.py). f32: tf32_presplit_f32
+// writes hi and lo (each [ceil(N/32)][2 * ceil(F/128)][64][32] f32,
+// 16-byte aligned), then sym_gram_f32 reads them, its splits
+// chunks_per_split chunks of 32 tokens each. bf16 rows have a stride of
+// ld >= F elements, a multiple of 8, and x is 16-byte aligned (the wrapper
+// pads). With splits == 1 neither needs a workspace.
+int tf32_presplit_f32(const float* x, float* hi, float* lo, int N, int F,
+                      void* stream) {
+  return presplit(x, hi, lo, N, F, stream);
+}
+
+int sym_gram_f32(const float* hi, const float* lo, float* out, float* ws,
+                 int N, int F, int splits, int chunks_per_split,
+                 void* stream) {
+  return launch(hi, lo, out, ws, N, F, splits, chunks_per_split, stream);
 }
 
 int sym_gram_bf16(const __nv_bfloat16* x, float* out, float* ws, int N, int F,
@@ -314,15 +365,15 @@ int sym_gram_bf16(const __nv_bfloat16* x, float* out, float* ws, int N, int F,
   return launch(x, out, ws, N, F, ld, splits, tokens_per_split, stream);
 }
 
-// Resident partial-kernel blocks per SM, for the wrapper's split count.
+// Resident tile-kernel blocks per SM, for the wrapper's split count.
 int sym_gram_blocks_per_sm(int bf16, int* blocks) {
-  if (!bf16)
-    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, sym_partial_kernel<float>, THREADS, 0));
-  cudaError_t err = allow_wgmma_smem();
+  cudaError_t err = bf16 ? allow_wgmma_smem() : allow_tf32x3_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, sym_wgmma_kernel, Wg::THREADS, Wg::SMEM));
+  return static_cast<int>(
+      bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 blocks, sym_wgmma_kernel, Wg::THREADS, Wg::SMEM)
+           : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 blocks, sym_tf32x3_wgmma_kernel, Tf::THREADS, Tf::SMEM));
 }
 
 const char* sym_gram_error_string(int code) {

@@ -1,5 +1,7 @@
-// The f32 Gram tile on Hopper's tensor cores, as 3xTF32 products: the f32
-// kernel of patch_gram.cu uses it, and sym_gram.cu's f32 kernel can.
+// The f32 Gram tile on Hopper's tensor cores, as 3xTF32 products, with two
+// ways to fill its operands: gram_tile (a transposing register gather; the
+// f32 kernel of patch_gram.cu) and presplit_tile (bulk copies of operands
+// a pre-pass split and laid out once; sym_gram.cu's f32 kernel).
 //
 // A block of WGS warpgroups owns one TILE x TILE tile (ti, tj), ti >= tj,
 // TILE = 64 * WGS, of the lower triangle of an [F, F] Gram and one
@@ -25,16 +27,19 @@
 // descriptor's start address by 32 bytes inside the swizzle atom; groups
 // of 8 rows are 1,024 bytes apart (stride byte offset).
 //
-// The transposing gather cannot be a cp.async, so operands pass through
-// registers: the caller's Gather has fetch(), which starts the global loads
-// of its next chunk into registers, and store(slots), which splits them and
-// writes one stage's hi and lo slabs (A and, off the diagonal, B; a
-// diagonal tile passes A's slabs as B). While the tensor cores work on
-// chunk c, the threads store chunk c + 1 and start the loads of chunk
-// c + 2. The proxy fence that hands the stores to the tensor cores waits
-// for the thread's loads in flight, so it comes between the stores and the
-// next loads. This gather (loads, split, transposed 16-byte stores), not
-// the tensor cores, bounds the kernel: PERF.md has the measurements.
+// gram_tile: the patch matrix exists only as the gather makes it, so the
+// transpose and the split happen per tile, and a transposing gather cannot
+// be a cp.async: operands pass through registers. The caller's Gather has
+// fetch(), which starts the global loads of its next chunk into registers,
+// and store(slots), which splits them and writes one stage's hi and lo
+// slabs (A and, off the diagonal, B; a diagonal tile passes A's slabs as
+// B). While the tensor cores work on chunk c, the threads store chunk
+// c + 1 and start the loads of chunk c + 2. The proxy fence that hands the
+// stores to the tensor cores waits for the thread's loads in flight, so it
+// comes between the stores and the next loads. This gather (loads, split,
+// transposed 16-byte stores), not the tensor cores, bounds that kernel.
+// presplit_tile removes it where the operand is a plain matrix (below).
+// PERF.md has the measurements of both.
 //
 // The tensor cores add each instruction's 8 products into the f32
 // accumulator with truncation, not rounding to nearest: an error biased to
@@ -229,6 +234,153 @@ __device__ __forceinline__ void gram_tile(Gather& gather, uint32_t ring,
       wg::fence_proxy_async();       // before new loads: it waits for them
       if (c + 2 < nchunks) gather.fetch();
     }
+  }
+  wgmma_wait<0>();
+  wg::fence_acc(part);
+#pragma unroll
+  for (int i = 0; i < S::ACC; ++i) acc[i] += part[i];
+}
+
+// ---- pre-split operands ---------------------------------------------------
+//
+// Where the operand is a plain [N, F] matrix (sym_gram.cu), the transpose
+// and the split are done once, by a pre-pass, and not once per tile: it
+// writes the hi and lo halves as grids of ready-made slabs, [token chunk]
+// [64-feature block], SLAB bytes each, already swizzled as desc() reads
+// them (feature row r, tokens 4j..4j+3 at swizzled(r, j)) and zero past N
+// and F. A stage is then WGS contiguous slabs per operand half, one bulk
+// copy each (the swizzle carries through a straight copy), and the loop
+// does no per-value work.
+
+// The ring of the pre-split loop: STAGES stages of Shape<WGS>::STAGE.
+template <int WGS, int STAGES_>
+struct Ring : Shape<WGS> {
+  static constexpr int STAGES = STAGES_;
+  static constexpr int SMEM = STAGES * Shape<WGS>::STAGE + 1024;
+};
+
+// One tile's operands in the pre-split buffers: the byte offsets of A's
+// and B's first slab in the block's first chunk, and the bytes from one
+// chunk to the next.
+struct Presplit {
+  const char* hi;
+  const char* lo;
+  size_t a, b, chunk;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+// `bytes` global -> shared in one bulk copy (async proxy), completing on
+// the mbarrier at bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Chunk c's operand halves (A and, off the diagonal, B) as bulk copies of
+// HALF bytes each, issued by thread 0, completing on the stage's mbarrier.
+template <int WGS>
+__device__ __forceinline__ void bulk_stage(const Presplit& p, int c,
+                                           const Slots& s, bool diag,
+                                           uint32_t bar) {
+  using S = Shape<WGS>;
+  if (threadIdx.x != 0) return;
+  const size_t a = p.a + c * p.chunk, b = p.b + c * p.chunk;
+  mbar_expect_tx(bar, (diag ? 2 : 4) * S::HALF);
+  bulk_copy(s.a_hi, p.hi + a, S::HALF, bar);
+  bulk_copy(s.a_lo, p.lo + a, S::HALF, bar);
+  if (diag) return;
+  bulk_copy(s.b_hi, p.hi + b, S::HALF, bar);
+  bulk_copy(s.b_lo, p.lo + b, S::HALF, bar);
+}
+
+// Runs the whole token range of one tile from pre-split operands:
+// `nchunks` chunks of BK tokens from p. A ring of STAGES stages, each on
+// its mbarrier, keeps STAGES - 1 chunks of bulk copies in flight while the
+// tensor cores work on the current one (a stage is refilled once both
+// warpgroups are done with its products: with one chunk of copies in
+// flight, the copies' latency showed; PERF.md). The products, their order
+// and the flush into the f32 total are gram_tile's. On return `acc` holds
+// this thread's values of the tile (wg::acc_row, wg::acc_col).
+template <int WGS, int STAGES>
+__device__ __forceinline__ void presplit_tile(const Presplit& p, uint32_t ring,
+                                              int nchunks, bool diag,
+                                              float (&acc)[32 * WGS]) {
+  using S = Shape<WGS>;
+  __shared__ __align__(8) uint64_t bars[STAGES];
+  const uint32_t bar0 = wg::smem_addr(bars);
+  float part[S::ACC];                // the tensor cores' accumulator
+#pragma unroll
+  for (int i = 0; i < S::ACC; ++i) acc[i] = part[i] = 0.0f;
+
+  auto fill = [&](int c) {
+    const uint32_t a = ring + (c % STAGES) * S::STAGE;
+    const uint32_t b = diag ? a : a + 2 * S::HALF;
+    bulk_stage<WGS>(p, c, Slots{a, a + S::HALF, b, b + S::HALF}, diag,
+                    bar0 + 8 * (c % STAGES));
+  };
+
+  if (threadIdx.x < STAGES) mbar_init(bar0 + 8 * threadIdx.x);
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < STAGES - 1; ++c)
+    if (c < nchunks) fill(c);
+  for (int c = 0; c < nchunks; ++c) {
+    const bool fresh = c % FLUSH == 0;
+    mbar_wait(bar0 + 8 * (c % STAGES), (c / STAGES) & 1);   // chunk c's copies
+    wgmma_wait<0>();                 // chunk c-1's products (this warpgroup)
+    wg::fence_acc(part);
+    if (fresh) {                     // all products so far, into the total
+#pragma unroll
+      for (int i = 0; i < S::ACC; ++i) acc[i] += part[i];
+    }
+    __syncthreads();                 // stage c-1 free in both warpgroups
+    const uint32_t a = ring + (c % STAGES) * S::STAGE;
+    const uint32_t b = diag ? a : a + 2 * S::HALF;
+    const uint32_t wa = (threadIdx.x / 128) * SLAB;   // this warpgroup's A
+    const uint64_t a_hi = desc(a + wa), a_lo = desc(a + S::HALF + wa);
+    const uint64_t b_hi = desc(b), b_lo = desc(b + S::HALF);
+    wg::fence_acc(part);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 8; ++k) {
+      const uint64_t o = 2 * k;
+      wgmma(part, a_lo + o, b_hi + o, k > 0 || !fresh);
+      wgmma(part, a_hi + o, b_lo + o, 1);
+      wgmma(part, a_hi + o, b_hi + o, 1);
+    }
+    wg::wgmma_commit();
+    wg::fence_acc(part);
+    if (c + STAGES - 1 < nchunks)    // into stage c-1, under these products
+      fill(c + STAGES - 1);
   }
   wgmma_wait<0>();
   wg::fence_acc(part);

@@ -280,15 +280,12 @@ def split_count(n_tokens: int, num_tiles: int, slots: int) -> int:
                key=lambda s: (round(fill(s), 1), -s))
 
 
-def plan_splits(n_tokens: int, num_tiles: int, tensor_cores: bool,
-                slots: int) -> int:
+def plan_splits(n_tokens: int, num_tiles: int, slots: int) -> int:
     """Token splits of a launch over ``n_tokens`` tokens and ``num_tiles``
-    block tiles: the wave-filling count, and for a kernel that accumulates
-    on the tensor cores at least enough that no block sums more than
-    MAX_CHAIN_TOKENS."""
-    splits = split_count(n_tokens, num_tiles, slots)
-    return max(splits, -(-n_tokens // MAX_CHAIN_TOKENS)) if tensor_cores \
-        else splits
+    block tiles: the wave-filling count, and at least enough that no block
+    sums more than MAX_CHAIN_TOKENS in its tensor-core accumulator."""
+    return max(split_count(n_tokens, num_tiles, slots),
+               -(-n_tokens // MAX_CHAIN_TOKENS))
 
 
 def block_tiles(f: int, bf16: bool) -> int:
@@ -323,7 +320,7 @@ def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
                          f"{tuple(x.shape)} is too large")
     bf16 = suffix == "bf16"
     vec = gather_kind(x) == "vector"
-    splits = plan_splits(n_tokens, block_tiles(f, bf16), True,
+    splits = plan_splits(n_tokens, block_tiles(f, bf16),
                          _resident_blocks(x.device.index, strides[0], bf16,
                                           vec))
     per_split = -(-n_tokens // splits)

@@ -190,15 +190,14 @@ def test_block_tiles_follow_the_tile_edge(f, bf16, tiles):
 
 @pytest.mark.parametrize("n_tokens", [25, 784, 25_088, 50_176, 400_000])
 def test_bf16_splits_bound_each_accumulation_chain(n_tokens):
-    """A kernel on the tensor cores (the patch Grams in f32 and bf16,
-    sym_gram in bf16) never sums more than MAX_CHAIN_TOKENS tokens in one
-    block's accumulator; the FP32 FMA kernel (sym_gram in f32) keeps the
-    wave-filling count."""
+    """Every kernel runs on the tensor cores (the patch Grams and sym_gram,
+    f32 and bf16) and never sums more than MAX_CHAIN_TOKENS tokens in one
+    block's accumulator: the plan is the wave-filling count, raised to
+    the chain cap where that binds."""
     for tiles, slots in ((15, 132), (15, 264), (45, 264), (2701, 396)):
-        fma = tpg.plan_splits(n_tokens, tiles, False, slots)
-        capped = tpg.plan_splits(n_tokens, tiles, True, slots)
-        assert fma == tpg.split_count(n_tokens, tiles, slots)
-        assert capped >= fma
+        fill = tpg.split_count(n_tokens, tiles, slots)
+        capped = tpg.plan_splits(n_tokens, tiles, slots)
+        assert capped == max(fill, -(-n_tokens // tpg.MAX_CHAIN_TOKENS))
         assert -(-n_tokens // capped) <= tpg.MAX_CHAIN_TOKENS
 
 
@@ -208,7 +207,7 @@ def test_chain_cap_binds_on_the_smoke_chain_case():
     for either kernel's occupancy (1 or 2 blocks a card SM)."""
     for slots in (132, 264):
         splits = tpg.plan_splits(132 * 64 * 64, tpg.block_tiles(576, False),
-                                 True, slots)
+                                 slots)
         assert splits == 66
         assert 132 * 64 * 64 == splits * tpg.MAX_CHAIN_TOKENS
 

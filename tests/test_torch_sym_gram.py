@@ -1,11 +1,12 @@
 """Port parity: ``sym_gram`` of ``curvature_tpu_torch`` against the JAX
 Pallas ``sym_gram`` (interpret mode), in f32 and bf16, both variants, and
-its shape gate against the JAX one.
+its shape gate against the JAX one; the f32 kernel's arithmetic (3xTF32
+from pre-split operands), the pre-pass's slab layout, and the split plan.
 
 On the CPU the port computes its plain version (and, below the gate, the
-plain product, as the JAX function's einsum); the CUDA kernel is held
-against the plain version by the ``cuda``-marked test, which skips where
-there is no card.
+plain product, as the JAX function's einsum); the CUDA kernels are held
+against their plain versions by the ``cuda``-marked test, which skips
+where there is no card.
 """
 import importlib
 
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from curvature_tpu_torch.ops.cuda import patch_gram as tpg
 from curvature_tpu_torch.ops.cuda import sym_gram as tsg
 
 try:
@@ -94,23 +96,126 @@ def test_cpu_sym_gram_counts_no_launch():
     assert tsg.sym_gram.launches == before
 
 
+def test_cpu_presplit_is_its_plain_version_and_counts_no_launch():
+    x = _inputs((40, 70), "float32")[0]
+    before = tsg.tf32_presplit.launches
+    assert torch.equal(tsg.tf32_presplit(x), tsg.tf32_presplit_plain(x))
+    assert tsg.tf32_presplit.launches == before
+    with pytest.raises(TypeError):
+        tsg.tf32_presplit(x.bfloat16())
+
+
+def _unswizzle(op):
+    """[2, chunks, blocks, 64, 8, 4] slabs -> [2, features, tokens]: quad
+    j of feature row r of a slab is read from position j ^ (r % 8)."""
+    a = op.numpy()
+    two, nc, fb = a.shape[:3]
+    out = np.full((2, fb, 64, nc, 8, 4), np.nan, np.float32)
+    for r in range(64):
+        for j in range(8):
+            out[:, :, r, :, j, :] = a[:, :, :, r, j ^ (r % 8), :].transpose(
+                0, 2, 1, 3)
+    return out.reshape(2, fb * 64, nc * 32)
+
+
+@pytest.mark.parametrize("n,f", [(700, 577), (200, 520), (100, 13)])
+def test_presplit_plain_layout(n, f):
+    """Un-swizzled, the pre-pass's slabs are ``tf32_split(x)`` transposed
+    (features as rows, tokens contiguous) and zero-padded to whole
+    CHUNK-token chunks and F32_TILE-feature tiles, bit for bit."""
+    x = _inputs((n, f), "float32")[0]
+    op = tsg.tf32_presplit_plain(x)
+    fp = -(-f // tsg.F32_TILE) * tsg.F32_TILE
+    np_ = -(-n // tsg.CHUNK) * tsg.CHUNK
+    assert op.shape == tsg.presplit_shape(n, f) \
+        == (2, np_ // 32, fp // 64, 64, 8, 4)
+    got = _unswizzle(op)
+    for half, want in zip(got, tpg.tf32_split(x)):
+        padded = np.zeros((fp, np_), np.float32)
+        padded[:f, :n] = want.numpy().T
+        assert np.array_equal(half.view(np.int32), padded.view(np.int32))
+
+
+@pytest.mark.parametrize("n,f", CASES)
+def test_tf32x3_sym_gram_matches_jax(n, f):
+    """The f32 kernel's arithmetic, emulated: lo*hi + hi*lo + hi*hi of the
+    TF32 halves summed in f32, against the JAX Pallas ``sym_gram``
+    (interpret mode) at its bar, 2e-5 of max(max|G|, 1)."""
+    x, jx = _inputs((n, f), "float32")
+    hi, lo = tpg.tf32_split(x)
+    got = lo.T @ hi + hi.T @ lo + hi.T @ hi
+    want = np.asarray(jsg.sym_gram(jx, interpret=True))
+    _assert_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,f,slots,want", [
+    (784, 4609, 132, (1, 800)),        # 703 block tiles: 5.3 waves, 1 pass
+    (784, 2305, 132, (1, 800)),        # 190 block tiles: 1.4 waves
+    (513, 2049, 132, (1, 544)),        # 153 block tiles (561 64-tiles)
+    (16384, 4609, 132, (2, 8192)),     # the chain cap alone: 2 splits
+    (16384, 4609, 264, (2, 8192)),
+    (3136, 1025, 132, (5, 640)),       # 45 block tiles: 0.34 waves
+    (3136, 1025, 44, (1, 3136)),       # 45 block tiles fill 44 slots
+    (700, 577, 264, (1, 704)),         # wave-filling: 1 split of 15 tiles
+    (40_000, 577, 132, (17, 2368)),
+])
+def test_f32_split_plan_caps_chains_and_counts_block_tiles(n, f, slots,
+                                                             want):
+    """f32 splits: whole CHUNK-token chunks, no block past
+    MAX_CHAIN_TOKENS, no empty split, and the count from the kernel's
+    F32_TILE-feature block tiles (one pass when they fill ONE_PASS_WAVES
+    waves, else the wave-filling plan)."""
+    splits, per = tsg.split_plan(n, f, False, slots)
+    assert (splits, per) == want
+    assert per % tsg.CHUNK == 0 and per <= tpg.MAX_CHAIN_TOKENS
+    assert (splits - 1) * per < n <= splits * per
+
+
+@pytest.mark.parametrize("n,f,slots,want", [
+    (784, 4609, 396, (1, 784)),
+    (16384, 4609, 396, (8, 2048)),     # the bf16 chain cap alone
+    (2048, 4609, 396, (1, 2048)), (2049, 4609, 396, (2, 1025)),
+    (3136, 1025, 396, (5, 628)), (600, 1024, 264, (1, 600)),
+    (40_000, 577, 396, (20, 2000)),    # the cap over 7 wave-filling splits
+])
+def test_bf16_split_plan_counts_64_tiles(n, f, slots, want):
+    """bf16 splits: any token count, the wave-filling count of 64-feature
+    block tiles (the bf16 kernel's edge), raised so that no block sums
+    more than BF16_CHAIN_TOKENS in its unflushed accumulator."""
+    splits, per = tsg.split_plan(n, f, True, slots)
+    assert (splits, per) == want
+    assert per <= tsg.BF16_CHAIN_TOKENS and (splits - 1) * per < n
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n,f", [(784, 4609), (3136, 1025), (700, 577),
-                                 (513, 2049), (600, 1024)])
+@pytest.mark.parametrize("n,f,dtype", [
+    (n, f, dtype) for n, f in [(784, 4609), (3136, 1025), (700, 577),
+                               (513, 2049), (600, 1024),
+                               # the chain cap: every block sums a full
+                               # chain (f32 2 x 8,192 tokens, bf16 8 x 2,048)
+                               (16384, 4609)]
+    for dtype in ("float32", "bfloat16")])
 def test_cuda_kernel_matches_plain(n, f, dtype):
-    """The CUDA kernel against its plain version on the card: within the
-    JAX bar, bitwise symmetric, the same bits from both variants and from
-    a second launch."""
+    """The CUDA kernels against their plain versions on the card: the f32
+    pre-pass bit for bit, the Gram within the JAX bar, bitwise symmetric,
+    the same bits from both variants and from a second launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (n, f)).astype(np.float32)).cuda().to(getattr(torch, dtype))
+    if n == 16384:
+        bf16 = dtype == "bfloat16"
+        cap = tsg.BF16_CHAIN_TOKENS if bf16 else tpg.MAX_CHAIN_TOKENS
+        slots = tsg._resident_blocks(x.device.index, bf16)
+        assert tsg.split_plan(n, f, bf16, slots) == (n // cap, cap)
+    if dtype == "float32":
+        assert torch.equal(tsg.tf32_presplit(x), tsg.tf32_presplit_plain(x))
     before = tsg.sym_gram.launches
     got = tsg.sym_gram(x)
     torch.cuda.synchronize()
     assert tsg.sym_gram.launches == before + 1
+    assert torch.equal(got, tsg.sym_gram(x))
     assert torch.equal(got, got.T)
     assert torch.equal(got, tsg.sym_gram(x, variant="rect"))
     _assert_close(got.cpu().numpy(), tsg.sym_gram_plain(x).cpu().numpy())
