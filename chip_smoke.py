@@ -27,7 +27,18 @@ seeded weights), named after ``bench.py``'s rows:
     ``compute_dtype=bfloat16`` at B=32 (layer2.0.conv2 through the v2
     kernel in bf16);
   * ``resnet50_kfac_update_bf16_sub4_img_s``: bf16 with
-    ``token_subsample=0.25`` at B=16 (no Gram kernel, the JAX gate).
+    ``token_subsample=0.25`` at B=16 (no Gram kernel, the JAX gate);
+
+then the rest of the estimator ladder in f32 at B=16 (JAX
+pipelines/factors.py): Diagonal, EFB from the f32 KFAC factors, INF from
+EFB's diags, lambdas and eigenvectors (rank 100, bucket 8), and
+BlockDiagonal on ``layer1.0.conv1``, each through update (no Gram kernel),
+invert at its own damping (``LADDER_DAMPING``), a 30-sample ensemble and
+the BNN eval; and a dense check of all
+five estimators on ``layer1.0.conv1`` against their damped precision
+formed in float64. The patch-Gram checks include strides outside (1, 1)
+and (2, 2), which ``patch_gram_v2`` runs through the kernel's
+run-time-stride instance.
 
 Every failed check raises. The last line of standard output is the
 ``{"ok": true, ...}`` JSON object; the line before it is the ``kernels``
@@ -37,6 +48,7 @@ CUDA device or where the package is not beside it.
 import argparse
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -59,6 +71,24 @@ BF16_RTOL = 2e-2
 BATCH, SIZE, CLASSES, UPDATES, SAMPLES = 16, 224, 1000, 4, 30
 BATCH_B32 = 32
 ADD, MULTIPLY = 1.0, 18916.0
+#: the estimator ladder (JAX pipelines/factors.py:39-58): INF's rank and
+#: index-set bucket, as the pipeline calls INF.update, and max_product (0:
+#: the reference's uncapped index sets)
+INF_RANK, INF_BUCKET, INF_MAX_PRODUCT = 100, 8, 0
+#: the ladder's invert(add, multiply): the reference's best (norm, scale)
+#: of each estimator for ResNet-50 on ImageNet (BASELINE.md, from its
+#: README.rst:259-267); Block, which has no row, takes Diagonal's. At
+#: KFAC's (ADD, MULTIPLY) the Diagonal, EFB and INF ensembles of the random
+#: network overflow: a prior standard deviation of 1 on every weight whose
+#: Fisher is near 0
+LADDER_DAMPING = {"diagonal": (16.0, 7387.0), "efb": (11.0, 75113871.0),
+                  "inf": (145307.0, 60.0), "block": (16.0, 7387.0)}
+#: the layer of the Block phase and of the dense check: 1x1, 64 -> 64,
+#: 4,096 parameters (a 64 MiB Block state)
+DENSE_LAYER = "layer1.0.conv1"
+#: the estimators against their dense float64 precision: the constant of
+#: the rounding bounds of ``dense_bars``
+DENSE_C = 16
 PATHS = ("resnet50_kfac_update_img_s", "resnet50_kfac_update_bf16_b32_img_s",
          "resnet50_kfac_update_bf16_sub4_img_s")
 SAME1 = ((1, 1), (1, 1))
@@ -81,6 +111,15 @@ PATCH_CASES = {
         ((2, 12, 12, 4), (5, 5), ((2, 2), (2, 2)), (2, 2)),
         ((2, 7, 7, 4), (5, 5), ((2, 2), (2, 2)), (1, 1)),
     ],
+    # strides outside COMPILED_STRIDES, through patch_gram_v2's
+    # run-time-stride instance: layer2.0.conv2's input at stride (3, 3)
+    # first, then the small cases of tests/test_torch_patch_gram.py
+    "patch_gram_v2_any_stride": [
+        ((16, 56, 56, 128), (3, 3), SAME1, (3, 3)),
+        ((2, 9, 9, 4), (3, 3), SAME1, (3, 3)),
+        ((2, 8, 8, 4), (3, 3), SAME1, (1, 2)),
+        ((2, 8, 8, 4), (3, 3), SAME1, (2, 1)),
+    ],
     # the four shapes of tests/test_pallas_kernels.py:20-25 (2x2 VALID at
     # C=3, non-square 10x6)
     "patch_gram": [
@@ -91,6 +130,8 @@ PATCH_CASES = {
         ((1, 9, 9, 3), (2, 2), ((0, 0), (0, 0)), (1, 1)),
     ],
 }
+#: record name -> the entry point it runs
+ENTRY = {"patch_gram_v2_any_stride": "patch_gram_v2"}
 #: bf16 boundary cases of the wgmma gather, run through patch_gram_v2 (its
 #: odd cases above hold C = 4, the scalar gather, and C = 8)
 BF16_PATCH_CASES = [
@@ -311,12 +352,14 @@ def hgmma_counts(build):
 
 
 def _record(name, dtype, shape, abs_err, rel, worst, cases, **times):
+    function = ENTRY.get(name, name)
     return {"name": name if dtype == "f32" else f"{name}_{dtype}",
-            "function": name, "dtype": dtype, "route": "cuda",
+            "function": function, "counter": name, "dtype": dtype,
+            "route": "cuda",
             "source": "curvature_tpu_torch/ops/cuda/csrc/"
                       + ("sym_gram.cu" if name == "sym_gram"
                          else "patch_gram.cu"),
-            "replaces": REPLACES[name], "launches": None,
+            "replaces": REPLACES[function], "launches": None,
             "launches_by_path": None, "max_abs_err": abs_err,
             "max_rel_err": rel, "worst_rel_err_all_cases": worst,
             "cases": cases, "shape": list(shape), **times}
@@ -343,7 +386,7 @@ def check_patch_kernels(tpg, dtype):
     rng = np.random.default_rng(0)
     records = []
     for name, items in PATCH_CASES.items():
-        fn = getattr(tpg, name)
+        fn = getattr(tpg, ENTRY.get(name, name))
         if name == "patch_gram_v2" and dtype == "bf16":
             # the bf16_b32 path's layer2.0.conv2, and the gather's edges
             items = [((BATCH_B32,) + items[0][0][1:],) + items[0][1:]] \
@@ -413,7 +456,7 @@ def patch_splits(tpg, x, ks, pad, st):
     pads = tpg.resolve_padding(pad, h, w, ks, st)
     ho, wo = tpg._out_shape(h, w, ks, pads, st)
     bf16 = x.dtype == torch.bfloat16
-    slots = tpg._resident_blocks(x.device.index, st[0], bf16,
+    slots = tpg._resident_blocks(x.device.index, tuple(st), bf16,
                                  tpg.gather_kind(x) == "vector")
     return tpg.plan_splits(b * ho * wo, tpg.block_tiles(c * ks[0] * ks[1],
                                                          bf16), slots)
@@ -550,21 +593,282 @@ def sweep_sym_splits(tsg):
     return rows
 
 
+def prob_stats(probs, labels, what):
+    """Accuracy, ECE and NLL of [N, K] probabilities, after checking their
+    shape, finiteness and sums."""
+    import numpy as np
+    from curvature_tpu_torch.eval import metrics
+    if probs.shape != (2 * BATCH, CLASSES) or not np.isfinite(probs).all() \
+            or np.abs(probs.sum(1) - 1).max() > 1e-3:
+        raise AssertionError(f"{what} probabilities malformed")
+    return {"acc": float(metrics.accuracy(probs, labels)),
+            "ece": float(metrics.expected_calibration_error(probs,
+                                                            labels)[0]),
+            "nll": float(metrics.negative_log_likelihood(probs, labels))}
+
+
+def laplace_tail(est, model, test_data, gen, counters, label,
+                 damping=(ADD, MULTIPLY)):
+    """An updated estimator's invert at ``damping`` -> SAMPLES-sample
+    ensemble -> bnn eval on ``test_data``: every inverse-state tensor
+    finite, no Gram kernel launched by the eval, the metrics printed.
+    Returns the ensemble."""
+    import torch
+    from curvature_tpu_torch.eval import eval_bnn
+    add, multiply = damping
+    t0 = time.perf_counter()
+    est.invert(add, multiply)
+    torch.cuda.synchronize()
+    invert_s = time.perf_counter() - t0
+    check_finite(est.inv_state, f"{label} inv_state")
+    t0 = time.perf_counter()
+    ensemble = est.ensemble_params(SAMPLES, generator=gen)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    counters.reset()
+    probs, labels = eval_bnn(model, est, test_data, samples=SAMPLES,
+                             ensemble_params=ensemble)
+    if counters.read() != counters.zero():
+        raise AssertionError(f"{label}: eval must not launch the Gram "
+                             f"kernels: {counters.read()}")
+    log(f"{label}: invert(add={add}, multiply={multiply}) {invert_s:.3f} s; "
+        f"{SAMPLES}-sample ensemble {sample_s:.3f} s; bnn metrics (random "
+        f"weights, {2 * BATCH} synthetic images) "
+        f"{json.dumps(prob_stats(probs, labels, label))}")
+    return ensemble
+
+
+def eval_rate(model, est, test_data, ensemble):
+    """Images per second through ``eval_bnn`` with a given ensemble, best
+    of 3 blocks."""
+    import torch
+    from curvature_tpu_torch.eval import eval_bnn
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eval_bnn(model, est, test_data, samples=SAMPLES,
+                 ensemble_params=ensemble)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return 2 * BATCH / best
+
+
+def ladder(estimators, model, kfac, batches, test_data, gen, counters):
+    """The rest of the estimator ladder at full width, each through update
+    (no Gram kernel launched), invert, a SAMPLES-sample ensemble and the
+    bnn eval: Diagonal; EFB from the f32 KFAC path's factors (the
+    eigendecomposition timed); INF as the pipeline builds it (EFB's free
+    diags, the KFAC factors, EFB's lambdas and eigenvectors); and
+    BlockDiagonal on DENSE_LAYER. Returns {kind: (estimator, ensemble)}."""
+    import torch
+    out = {}
+    none = counters.zero()
+    diag = estimators.Diagonal(model)
+    drive_updates(diag, batches, gen, counters, "ladder diagonal", none)
+    out["diagonal"] = (diag, laplace_tail(diag, model, test_data, gen,
+                                          counters, "ladder diagonal",
+                                          LADDER_DAMPING["diagonal"]))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    efb = estimators.EFB(model, kfac.state)
+    torch.cuda.synchronize()
+    shapes = sorted({tuple(f[k].shape) for f in kfac.state.values()
+                     for k in "ag"})
+    log(f"ladder efb: eigendecomposition of {2 * len(efb.metas)} KFAC "
+        f"factors ({len(shapes)} distinct shapes, the largest "
+        f"{shapes[-1]}) in {time.perf_counter() - t0:.3f} s")
+    drive_updates(efb, batches, gen, counters, "ladder efb", none)
+    out["efb"] = (efb, laplace_tail(efb, model, test_data, gen, counters,
+                                    "ladder efb", LADDER_DAMPING["efb"]))
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counters.reset()
+    inf = estimators.INF(model, efb.diags, kfac.state, efb.state,
+                         eigvecs=efb.eigvecs)
+    inf.update(rank=INF_RANK, max_product=INF_MAX_PRODUCT,
+               bucket=INF_BUCKET)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if counters.read() != none:
+        raise AssertionError(f"INF build launched {counters.read()}")
+    sizes = {n: [s["ua"].shape[1], s["ug"].shape[1]]
+             for n, s in inf.state.items()}
+    r = [lm[0] * lm[1] for lm in sizes.values()]
+    log(f"ladder inf: update(rank={INF_RANK}, max_product="
+        f"{INF_MAX_PRODUCT}, bucket={INF_BUCKET}) in {build_s:.3f} s; R = "
+        f"L*M from {min(r)} to {max(r)}, sum {sum(r)}; (L, M) by layer "
+        f"{json.dumps(sizes)}")
+    check_finite(inf.state, "ladder inf state")
+    out["inf"] = (inf, laplace_tail(inf, model, test_data, gen, counters,
+                                    "ladder inf", LADDER_DAMPING["inf"]))
+
+    blk = estimators.BlockDiagonal(model, layer_filter=DENSE_LAYER)
+    drive_updates(blk, batches, gen, counters, f"ladder block "
+                  f"({DENSE_LAYER})", none)
+    out["block"] = (blk, laplace_tail(blk, model, test_data, gen, counters,
+                                      f"ladder block ({DENSE_LAYER})",
+                                      LADDER_DAMPING["block"]))
+    return out
+
+
+def dense_check(estimators, model, batches, gen):
+    """All five estimators built on DENSE_LAYER alone and updated from
+    ``batches``, each against its damped precision P formed densely in
+    float64 on the card (flat order: the [out, cols] matrix view's rows):
+    ``precision_solve`` against ``torch.linalg.solve(P, d)`` (relative to
+    max |P^-1 d|), ``quadratic_form`` against d^T P d and
+    ``logdet_precision`` against ``slogdet(P)``. The estimators run in
+    float64 and in float32; each reading is held to ``dense_bars`` at the
+    unit roundoff of the estimator's dtype, and a miss raises."""
+    import torch
+    from curvature_tpu_torch.estimators.block import _flatten_grad
+    from curvature_tpu_torch.ops.linalg import kron, sym
+    name, a, m = DENSE_LAYER, ADD, MULTIPLY
+    for dtype in (torch.float64, torch.float32):
+        kw = {"layer_filter": name, "dtype": dtype}
+        est = {"kfac": estimators.KFAC(model, **kw),
+               "diagonal": estimators.Diagonal(model, **kw),
+               "block": estimators.BlockDiagonal(model, **kw)}
+        for e in est.values():
+            for x in batches:
+                e.update(x, generator=gen)
+        est["efb"] = estimators.EFB(model, est["kfac"].state, **kw)
+        for x in batches:
+            est["efb"].update(x, generator=gen)
+        est["inf"] = estimators.INF(model, est["efb"].diags,
+                                    est["kfac"].state, est["efb"].state,
+                                    eigvecs=est["efb"].eigvecs, **kw)
+        est["inf"].update(rank=INF_RANK, max_product=INF_MAX_PRODUCT,
+                          bucket=INF_BUCKET)
+        meta = est["kfac"].metas[name]
+        out_f, cols = meta.out_features, meta.mat_cols
+        dev = est["kfac"].device
+
+        def eye(k):
+            return torch.eye(k, dtype=torch.float64, device=dev)
+
+        def state(kind):
+            return est[kind].state[name].double()
+        fac = {k: v.double() for k, v in est["kfac"].state[name].items()}
+        ev = est["efb"].eigvecs[name]
+        u = kron(ev["g"].double(), ev["a"].double())
+        s = {k: v.double() for k, v in est["inf"].state[name].items()}
+        v = kron(s["ua"], s["ug"])           # INF's [cols, out] flat order
+        p_t = torch.diag(m * s["corr"].clamp_min(0) + a) \
+            + (v * (m * s["lam"])) @ v.T
+        idx = torch.arange(out_f * cols, device=dev)
+        # matrix-view order from INF's [cols, out] order and from Block's
+        # torch view(-1) order (weights, then the bias)
+        perm = idx.reshape(cols, out_f).T.reshape(-1)
+        perm_b = torch.argsort(_flatten_grad(idx.reshape(out_f, cols),
+                                             meta.has_bias))
+        dense = {
+            "kfac": kron(m ** 0.5 * fac["g"] + a ** 0.5 * eye(out_f),
+                         m ** 0.5 * fac["a"] + a ** 0.5 * eye(cols)),
+            "diagonal": torch.diag((m * state("diagonal") + a).reshape(-1)),
+            "block": (m * state("block")
+                      + a * eye(out_f * cols))[perm_b][:, perm_b],
+            "efb": (u * (m * state("efb") + a).reshape(-1)) @ u.T,
+            "inf": p_t[perm][:, perm],
+        }
+        basis = {"efb": u, "inf": v}
+        misses = []
+        d = torch.randn((out_f, cols),
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+        dv = d.double().reshape(-1)
+        for kind, e in est.items():
+            p = sym(dense[kind])
+            evals = torch.linalg.eigvalsh(p)
+            want = torch.linalg.solve(p, dv)
+            got = e.precision_solve({name: d}, a, m)[name].double()
+            got = got.reshape(-1)
+            quad = float(dv @ p @ dv)
+            sign, logdet = torch.linalg.slogdet(p)
+            errs = {
+                "solve": float((got - want).abs().max() / want.abs().max()),
+                "quad": abs(e.quadratic_form({name: d}, a, m) - quad) / quad,
+                "logdet": abs(e.logdet_precision(a, m) - float(logdet))
+                / abs(float(logdet))}
+            errs["basis"], bars = dense_bars(dtype, evals, basis.get(kind),
+                                             max(out_f, cols))
+            log(f"dense check {kind} {str(dtype)[6:]} ({name}, P "
+                f"{tuple(p.shape)} float64, cond "
+                f"{float(evals[-1] / evals[0]):.3e}): " + ", ".join(
+                    f"{k} {x:.3e} (bar {bars[k]:.3e})"
+                    for k, x in errs.items()))
+            if float(sign) <= 0 or any(errs[k] > bars[k] for k in errs):
+                misses.append(f"{kind} {dtype}: {errs} over {bars}")
+        if misses:                     # every reading printed first
+            raise AssertionError("dense check: " + "; ".join(misses))
+
+
+def dense_bars(dtype, evals, basis, dim):
+    """The dense check's bars for one estimator in ``dtype`` (unit
+    roundoff eps = 2^-24 in float32, 2^-53 in float64), C = DENSE_C,
+    n = dim P, from P's float64 eigenvalues ``evals``. ``basis`` is the
+    basis U that EFB (its Kronecker eigenvectors) and INF (its low-rank
+    columns of them) treat as orthonormal, None for the others; its
+    departure delta = ||U^T U - I||_2 is measured and enters the bars:
+
+    - basis: delta <= 2 C dim eps, the bound of an ``eigh`` of order
+      ``dim`` for each of the two Kronecker factors;
+    - solve: C cond(P) eps + 2 (1 + cond(P)) delta, the backward-stable
+      bound plus first order in delta (U^-1 = (I - E) U^T);
+    - quad: C log2(n) eps, a pairwise sum of n terms;
+    - logdet: (C (sqrt(n) eps + n 2^-53) sum|log lambda_i|
+      + 2 |logdet U^T U|) / |logdet P|: n rounded logs, the float64
+      factorization of order n behind ``slogdet(P)``, and
+      det(U D U^T) = det D det(U^T U).
+
+    Returns (delta, {what: bar})."""
+    import torch
+    eps = torch.finfo(dtype).eps / 2
+    eps64 = torch.finfo(torch.float64).eps / 2
+    n = evals.shape[0]
+    delta = ldu = 0.0
+    if basis is not None:
+        utu = basis.T @ basis
+        delta = float(torch.linalg.eigvalsh(
+            utu - torch.eye(utu.shape[0], dtype=utu.dtype,
+                            device=utu.device)).abs().max())
+        ldu = abs(float(torch.linalg.slogdet(utu)[1]))
+    logs = torch.log(evals)
+    cond = float(evals[-1] / evals[0])
+    return delta, {
+        "solve": DENSE_C * cond * eps + 2 * (1 + cond) * delta,
+        "quad": DENSE_C * math.log2(n) * eps,
+        "logdet": (DENSE_C * (math.sqrt(n) * eps + n * eps64)
+                   * float(logs.abs().sum()) + 2 * ldu)
+        / abs(float(logs.sum())),
+        "basis": 2 * DENSE_C * dim * eps}
+
+
 class Counters:
-    """The kernel wrappers' launch counters."""
+    """The kernel wrappers' launch counters, as {name: (wrapper,
+    attribute)}."""
 
     def __init__(self, tpg, tsg):
-        self.fns = {"patch_gram_tiled": tpg.patch_gram_tiled,
-                    "patch_gram_v2": tpg.patch_gram_v2,
-                    "patch_gram": tpg.patch_gram, "sym_gram": tsg.sym_gram,
-                    "tf32_presplit": tsg.tf32_presplit}
+        self.fns = {"patch_gram_tiled": (tpg.patch_gram_tiled, "launches"),
+                    "patch_gram_v2": (tpg.patch_gram_v2, "launches"),
+                    "patch_gram_v2_any_stride": (tpg.patch_gram_v2,
+                                                 "any_stride_launches"),
+                    "patch_gram": (tpg.patch_gram, "launches"),
+                    "sym_gram": (tsg.sym_gram, "launches"),
+                    "tf32_presplit": (tsg.tf32_presplit, "launches")}
 
     def reset(self):
-        for fn in self.fns.values():
-            fn.launches = 0
+        for fn, attr in self.fns.values():
+            setattr(fn, attr, 0)
 
     def read(self):
-        return {name: fn.launches for name, fn in self.fns.items()}
+        return {name: getattr(fn, attr)
+                for name, (fn, attr) in self.fns.items()}
+
+    def zero(self):
+        return {name: 0 for name in self.fns}
 
 
 def nchw_batches(rng, n_batches, batch, dev):
@@ -598,11 +902,18 @@ def drive_updates(est, batches, gen, counters, path, expect):
         f"incl. warm-up); launches {json.dumps(got)}")
     if got != expect:
         raise AssertionError(f"{path}: expected launches {expect}, got {got}")
-    for name, fac in est.state.items():
-        for key, t in fac.items():
-            if not torch.isfinite(t).all():
-                raise AssertionError(f"{path}: {name}.{key} is not finite")
+    check_finite(est.state, f"{path} state")
     return got
+
+
+def check_finite(tree, what):
+    """Raises unless every tensor of a nested dict is finite."""
+    import torch
+    for key, t in tree.items():
+        if isinstance(t, dict):
+            check_finite(t, f"{what}.{key}")
+        elif not torch.isfinite(t).all():
+            raise AssertionError(f"{what}.{key} is not finite")
 
 
 def best_rate(est, batches, gen, batch):
@@ -654,7 +965,7 @@ def main(argv=None):
         return 2
     try:
         from curvature_tpu_torch import estimators, models
-        from curvature_tpu_torch.eval import eval_bnn, eval_nn, metrics
+        from curvature_tpu_torch.eval import eval_nn
         from curvature_tpu_torch.ops.cuda import build
         from curvature_tpu_torch.ops.cuda import patch_gram as tpg
         from curvature_tpu_torch.ops.cuda import sym_gram as tsg
@@ -722,7 +1033,7 @@ def main(argv=None):
     batches_b32 = [x for x, _ in nchw_batches(rng, UPDATES, BATCH_B32, dev)]
     gen = torch.Generator(device=dev).manual_seed(2)
     counters = Counters(tpg, tsg)
-    none = {name: 0 for name in counters.fns}
+    none = counters.zero()
     by_path = {}
 
     # 3a. f32: the KFAC Laplace loop
@@ -733,39 +1044,13 @@ def main(argv=None):
     by_path[PATHS[0]] = drive_updates(
         est, batches, gen, counters, PATHS[0],
         dict(none, patch_gram_tiled=3 * UPDATES, patch_gram_v2=UPDATES))
-    t0 = time.perf_counter()
-    est.invert(ADD, MULTIPLY)
-    torch.cuda.synchronize()
-    invert_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ensemble = est.ensemble_params(SAMPLES, generator=gen)
-    torch.cuda.synchronize()
-    sample_s = time.perf_counter() - t0
+    ensemble = laplace_tail(est, model, test_data, gen, counters, "kfac")
     counters.reset()
     nn_probs, labels = eval_nn(model, test_data)
-    bnn_probs, _ = eval_bnn(model, est, test_data, samples=SAMPLES,
-                            ensemble_params=ensemble)
-    if counters.read() != none:
-        raise AssertionError("eval must not launch the Gram kernels: "
-                             f"{counters.read()}")
-    log(f"invert(add={ADD}, multiply={MULTIPLY}): {invert_s:.3f} s; "
-        f"{SAMPLES}-sample ensemble: {sample_s:.3f} s")
-    for name, inv in est.inv_state.items():
-        for key, t in inv.items():
-            if not torch.isfinite(t).all():
-                raise AssertionError(f"{name}.{key} is not finite")
-    for what, p in (("nn", nn_probs), ("bnn", bnn_probs)):
-        if p.shape != (2 * BATCH, CLASSES) or not np.isfinite(p).all() \
-                or np.abs(p.sum(1) - 1).max() > 1e-3:
-            raise AssertionError(f"{what} probabilities malformed")
-    stats = {}
-    for what, p in (("nn", nn_probs), ("bnn", bnn_probs)):
-        stats[what] = {
-            "acc": float(metrics.accuracy(p, labels)),
-            "ece": float(metrics.expected_calibration_error(p, labels)[0]),
-            "nll": float(metrics.negative_log_likelihood(p, labels))}
-    log(f"metrics (random weights, {2 * BATCH} synthetic images): "
-        f"{json.dumps(stats)}")
+    if counters.read() != counters.zero():
+        raise AssertionError(f"eval_nn launched {counters.read()}")
+    log(f"nn metrics (random weights, {2 * BATCH} synthetic images): "
+        f"{json.dumps(prob_stats(nn_probs, labels, 'nn'))}")
 
     # 3b. bf16 at B=32: layer2.0.conv2 through the v2 kernel in bf16
     est16 = estimators.KFAC(model, compute_dtype=torch.bfloat16)
@@ -779,10 +1064,14 @@ def main(argv=None):
     by_path[PATHS[2]] = drive_updates(est_sub, batches, gen, counters,
                                       PATHS[2], none)
 
+    # 3d. the estimator ladder: Diagonal, EFB from the f32 path's factors,
+    # INF from both, BlockDiagonal on DENSE_LAYER; no Gram kernel
+    lad = ladder(estimators, model, est, batches, test_data, gen, counters)
+
     for rec in records:
         paths = PATHS[:1] if rec["dtype"] == "f32" else PATHS[1:]
         rec["launches_by_path"] = {
-            p: by_path[p][rec["function"]] if p in paths else 0
+            p: by_path[p][rec["counter"]] if p in paths else 0
             for p in PATHS}
         rec["launches"] = sum(rec["launches_by_path"].values())
 
@@ -814,26 +1103,29 @@ def main(argv=None):
                                      f"max from the f32 one (> {BF16_RTOL})")
     log(f"bf16 vs f32 factors, one batch, worst over layers: "
         f"A {worst['a']:.3e} (bar {BF16_RTOL}), G {worst['g']:.3e}")
+    # all five estimators on DENSE_LAYER against their float64 precision
+    dense_check(estimators, model, batches, gen)
 
     # -- 5. rates --------------------------------------------------------------
     rates = {PATHS[0]: best_rate(est, batches, gen, BATCH),
              PATHS[1]: best_rate(est16, batches_b32, gen, BATCH_B32),
              PATHS[2]: best_rate(est_sub, batches, gen, BATCH)}
-    best_eval = float("inf")
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eval_bnn(model, est, test_data, samples=SAMPLES,
-                 ensemble_params=ensemble)
-        torch.cuda.synchronize()
-        best_eval = min(best_eval, time.perf_counter() - t0)
-    bnn_img_s = 2 * BATCH / best_eval
+    bnn_img_s = eval_rate(model, est, test_data, ensemble)
     for path, what in zip(PATHS, (f"f32 B={BATCH}", f"bf16 B={BATCH_B32}",
                                   f"bf16 token_subsample=0.25 B={BATCH}")):
         log(f"{path}: {rates[path]:.2f} update img/s (ResNet-50 {what} "
             f"MC=1, best of 3 blocks of {UPDATES} updates; {smi})")
     log(f"resnet50_bnn30_eval_img_s: {bnn_img_s:.2f} (best of 3 blocks of "
         f"{2 * BATCH} images x {SAMPLES} samples; {smi})")
+    # the ladder's rates: informative lines, no benchmark metric
+    for kind, (e, ens) in lad.items():
+        if kind != "inf":                  # INF runs no update pass
+            log(f"ladder {kind}: {best_rate(e, batches, gen, BATCH):.2f} "
+                f"update img/s (f32 B={BATCH} MC=1, best of 3 blocks of "
+                f"{UPDATES} updates; {smi})")
+        log(f"ladder {kind}: {eval_rate(model, e, test_data, ens):.2f} bnn30 "
+            f"eval img/s (best of 3 blocks of {2 * BATCH} images x "
+            f"{SAMPLES} samples; {smi})")
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     add_device_times(records)
@@ -842,6 +1134,9 @@ def main(argv=None):
                               (batches, batches_b32, batches)):
             log(f"{path}:")
             profile_update(e, b[0], gen)
+        for kind in ("diagonal", "efb", "block"):
+            log(f"ladder {kind} (f32 B={BATCH}):")
+            profile_update(lad[kind][0], batches[0], gen)
 
     log(smi)
     print(json.dumps({"kernels": records}))

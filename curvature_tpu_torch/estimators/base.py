@@ -1,4 +1,6 @@
-"""Estimator base class: the ``update -> invert -> sample`` lifecycle.
+"""Estimator base class: the ``update -> invert -> sample`` lifecycle and
+the Gaussian API (``precision_solve``, ``quadratic_form``,
+``log_density``).
 
 Port of the plain-layer subset of ``curvature_tpu/estimators/base.py``.
 ``state`` and ``inv_state`` are dicts keyed by layer name. PyTorch runs
@@ -12,22 +14,40 @@ backward with every float parameter and the input cast to it (JAX
 running buffers are never changed, and the factor state accumulates in
 ``dtype``.
 
-Differences from the JAX class, by design of this slice: no ``use_mesh``,
-no scan over batches, and no Pallas compile-failure fallback (a kernel
-failure raises). Random draws take injected numbers: ``update`` takes
+Differences from the JAX class, by design of this slice: no ``use_mesh``
+(ROADMAP Queue 1 item 10), no ``update_batches`` scan (item 2), both
+raising ``NotImplementedError``, and no Pallas compile-failure fallback (a
+kernel failure raises). Random draws take injected numbers: ``update`` takes
 ``labels``, ``sample`` takes standard-normal ``noise``, since
 ``jax.random`` and torch streams never agree; without them a
 ``torch.Generator`` draws.
 """
 import fnmatch
+import math
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
-from curvature_tpu_torch.nn.core import LayerMeta, apply_matrix_delta
+from curvature_tpu_torch.nn.core import (
+    LayerMeta, apply_matrix_delta, param_matrix)
 from curvature_tpu_torch.ops.patches import extract_patches
 from curvature_tpu_torch.estimators.capture import Captured, collect
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
+
+#: reference-compatible layer-type aliases (curvatures.py:57-63)
+_TYPE_ALIASES = {
+    "Linear": "linear", "Conv2d": "conv", "MultiheadAttention": "attention",
+    "linear": "linear", "dense": "linear", "conv": "conv",
+    "attention": "attention",
+}
+
+
+def _meta_type(meta: LayerMeta) -> str:
+    if meta.kind == "conv":
+        return "conv"
+    if meta.name.endswith("/in_proj") or meta.name.endswith("/out_proj"):
+        return "attention"
+    return "linear"
 
 
 def filter_metas(metas: Dict[str, LayerMeta], layer_filter) -> Dict:
@@ -81,10 +101,12 @@ def grad_tokens(meta: LayerMeta, probe_grad: torch.Tensor) -> torch.Tensor:
     return probe_grad.reshape(-1, meta.out_features)
 
 
-def normalize_damping(add, multiply, num_layers: int, device=None):
-    """Scalar or per-layer damping -> two [L] float32 tensors."""
-    add = torch.as_tensor(add, dtype=torch.float32, device=device)
-    multiply = torch.as_tensor(multiply, dtype=torch.float32, device=device)
+def normalize_damping(add, multiply, num_layers: int, device=None,
+                      dtype=torch.float32):
+    """Scalar or per-layer damping -> two [L] tensors of the state's
+    ``dtype`` (a float64 estimator damps in float64)."""
+    add = torch.as_tensor(add, dtype=dtype, device=device)
+    multiply = torch.as_tensor(multiply, dtype=dtype, device=device)
     if add.ndim == 0:
         add = add.expand(num_layers)
     if multiply.ndim == 0:
@@ -99,12 +121,27 @@ def normalize_damping(add, multiply, num_layers: int, device=None):
 class Estimator:
     """Base class of the curvature estimators."""
 
+    #: which capture outputs this estimator consumes; subclasses narrow
+    #: these so the unused gradient path is never computed (capture.collect)
+    need_param_grads = True
+    need_probe_grads = True
+
     def __init__(self, model, dtype=torch.float32,
                  compute_dtype: Optional[torch.dtype] = None,
-                 layer_filter: Optional[Union[str, Sequence[str]]] = None):
+                 layer_filter: Optional[Union[str, Sequence[str]]] = None,
+                 layer_types: Optional[Union[str, Sequence[str]]] = None):
         self.model = model
-        self.metas: Dict[str, LayerMeta] = filter_metas(model.metas,
-                                                        layer_filter)
+        if layer_types is None:
+            wanted = {"linear", "conv", "attention"}
+        else:
+            if isinstance(layer_types, str):
+                layer_types = [layer_types]
+            wanted = {_TYPE_ALIASES[t] for t in layer_types}
+        metas = {n: m for n, m in model.metas.items()
+                 if _meta_type(m) in wanted}
+        if not metas:
+            raise ValueError("no tracked layers match the requested types")
+        self.metas: Dict[str, LayerMeta] = filter_metas(metas, layer_filter)
         self.dtype = dtype
         self.compute_dtype = compute_dtype
         self.device = next(model.parameters()).device
@@ -140,7 +177,43 @@ class Estimator:
         raise NotImplementedError
 
     def logdet_state(self, state, add, multiply):
+        """``log det`` of the damped posterior precision the sampler uses,
+        summed over the tracked layers."""
         raise NotImplementedError
+
+    def quad_state(self, state, add, multiply, deltas):
+        """delta^T P delta for matrix-view offsets ``deltas`` under the
+        damped precision P, summed over the tracked layers."""
+        raise NotImplementedError
+
+    def solve_state(self, inv_state, deltas):
+        """``P^{-1} @ deltas`` (matrix view) with the damped precision the
+        sampler draws from, exactly: every sampler is an explicit linear
+        square root of P^{-1}."""
+        raise NotImplementedError
+
+    # -- inverse-state hooks (EFB carries its eigenvectors) ------------------
+    def _inv_aux(self):
+        """Arrays ``_wrap_inv`` attaches to the inverse state (EFB: its
+        Kronecker eigenvectors; None for the others)."""
+        return None
+
+    def _wrap_inv_aux(self, inv, aux):
+        return inv
+
+    def _wrap_inv(self, inv):
+        return self._wrap_inv_aux(inv, self._inv_aux())
+
+    # -- out of this slice ---------------------------------------------------
+    def use_mesh(self, *args, **kwargs):
+        raise NotImplementedError(
+            "use_mesh and the tensor-parallel leaf specs are not ported yet "
+            "(ROADMAP Queue 1 item 10)")
+
+    def update_batches(self, *args, **kwargs):
+        raise NotImplementedError(
+            "update_batches is not ported yet (ROADMAP Queue 1 item 2); "
+            "call update once per batch")
 
     # -- stateful API (reference lifecycle) ---------------------------------
     @torch.no_grad()
@@ -159,7 +232,9 @@ class Estimator:
             x = cast_input(x, self.compute_dtype)
         return collect(self.model, self.metas, x, labels=labels,
                        generator=generator, num_samples=num_samples,
-                       params=params)
+                       params=params,
+                       need_param_grads=self.need_param_grads,
+                       need_probe_grads=self.need_probe_grads)
 
     def update(self, x: torch.Tensor, labels=None,
                generator: Optional[torch.Generator] = None,
@@ -175,14 +250,55 @@ class Estimator:
         """Damped inversion; ``add``/``multiply`` are scalars or per-layer
         sequences."""
         add, multiply = normalize_damping(add, multiply, len(self.metas),
-                                          self.device)
-        self.inv_state = self.invert_state(self.state, add, multiply)
+                                          self.device, self.dtype)
+        self.inv_state = self._wrap_inv(
+            self.invert_state(self.state, add, multiply))
         return self.inv_state
 
+    @torch.no_grad()
     def logdet_precision(self, add=0.0, multiply=1.0) -> float:
         add, multiply = normalize_damping(add, multiply, len(self.metas),
-                                          self.device)
+                                          self.device, self.dtype)
         return float(self.logdet_state(self.state, add, multiply))
+
+    def _as_deltas(self, deltas) -> Dict[str, torch.Tensor]:
+        return {name: torch.as_tensor(deltas[name], dtype=self.dtype,
+                                      device=self.device)
+                for name in self.metas}
+
+    @torch.no_grad()
+    def precision_solve(self, deltas, add=0.0, multiply=1.0
+                        ) -> Dict[str, torch.Tensor]:
+        """Damped invert at (add, multiply), then ``P^{-1}`` applied to the
+        matrix-view offsets ``deltas`` ({layer: [out, fan_in(+1)]})."""
+        add, multiply = normalize_damping(add, multiply, len(self.metas),
+                                          self.device, self.dtype)
+        inv = self._wrap_inv(self.invert_state(self.state, add, multiply))
+        return self.solve_state(inv, self._as_deltas(deltas))
+
+    @torch.no_grad()
+    def quadratic_form(self, deltas, add=0.0, multiply=1.0) -> float:
+        add, multiply = normalize_damping(add, multiply, len(self.metas),
+                                          self.device, self.dtype)
+        return float(self.quad_state(self.state, add, multiply,
+                                     self._as_deltas(deltas)))
+
+    @torch.no_grad()
+    def log_density(self, params: Dict[str, torch.Tensor], add=0.0,
+                    multiply=1.0) -> float:
+        """Log-density of the Laplace posterior N(theta*, P^-1) at
+        ``params`` ({state-dict key: tensor}, as ``posterior_params``
+        returns; untracked entries are ignored)."""
+        deltas, d = {}, 0
+        for name, meta in self.metas.items():
+            def mat(p):
+                return param_matrix(meta, p[f"{name}.weight"],
+                                    p.get(f"{name}.bias"))
+            deltas[name] = mat(params) - mat(self.mean_params)
+            d += deltas[name].numel()
+        q = self.quadratic_form(deltas, add, multiply)
+        logdet = self.logdet_precision(add, multiply)
+        return -0.5 * (q + d * math.log(2 * math.pi)) + 0.5 * logdet
 
     def draw_noise(self, generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:

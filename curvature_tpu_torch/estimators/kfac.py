@@ -10,6 +10,8 @@ Port of ``curvature_tpu/estimators/kfac.py`` for plain Conv/Dense layers:
                                   grads by B before the Gram)
   invert: split damping, chol(inv(sqrt(mult)*F + sqrt(add)*I)) per factor.
   sample: matrix-normal A_chol @ Z @ G_chol^T, transposed to [out, cols].
+  quad:   sum(d * (G_d d A_d)) with the split-damped factors A_d, G_d;
+  solve:  G_d^-1 d A_d^-1 = (g_chol g_chol^T) d (a_chol a_chol^T).
 
 The conv A factor is dispatched three ways, as in JAX (kfac.py:349-400):
 the correlation Gram (ops/corr_gram.py) for stride-1 3x3 with many
@@ -43,7 +45,7 @@ from curvature_tpu_torch.ops.corr_gram import (
 from curvature_tpu_torch.ops.cuda.patch_gram import (
     patch_gram_tiled, patch_gram_v2, select_patch_gram)
 from curvature_tpu_torch.ops.linalg import (
-    chol_logdet, damped_inverse_cholesky)
+    chol_logdet, damped_inverse_cholesky, diag_add, sym)
 from curvature_tpu_torch.ops.patches import resolve_padding
 
 
@@ -75,6 +77,8 @@ def _conv_token_count(meta, act) -> int:
 
 
 class KFAC(Estimator):
+
+    need_param_grads = False
 
     #: channel gate of the correlation-Gram route (the JAX default)
     corr_gram_min_channels = 128
@@ -204,6 +208,29 @@ class KFAC(Estimator):
             lg = _split_damped_logdet(fac["g"], add[i], multiply[i])
             tot = tot + fac["g"].shape[-1] * la + fac["a"].shape[-1] * lg
         return tot
+
+    def quad_state(self, state, add, multiply, deltas):
+        """delta^T (G_d (x) A_d) delta = sum(delta * (G_d delta A_d)) per
+        layer (JAX kfac.py:698-744, plain layers)."""
+        tot = torch.zeros((), dtype=self.dtype, device=self.device)
+        for i, name in enumerate(self.metas):
+            fac, d = state[name], deltas[name]
+            s, n = torch.sqrt(multiply[i]), torch.sqrt(add[i])
+            a_d = sym(diag_add(s * fac["a"], n))
+            g_d = sym(diag_add(s * fac["g"], n))
+            tot = tot + (d * (g_d @ d @ a_d)).sum()
+        return tot
+
+    def solve_state(self, inv_state, deltas):
+        """``G_d^-1 d A_d^-1`` from the inverse Choleskys: chol(X^-1)
+        chol(X^-1)^T = X^-1 (JAX kfac.py:746-784, plain layers)."""
+        out = {}
+        for name in self.metas:
+            a_chol = inv_state[name]["a_chol"]
+            g_chol = inv_state[name]["g_chol"]
+            d = deltas[name]
+            out[name] = (g_chol @ (g_chol.T @ d)) @ a_chol @ a_chol.T
+        return out
 
     def noise_shapes(self) -> Dict[str, tuple]:
         return {name: (m.mat_cols, m.out_features)

@@ -43,6 +43,17 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def state_from_jax(state, device, dtype: torch.dtype = torch.float32):
+    """A JAX estimator's state (a nested dict of arrays: KFAC factors, EFB
+    lambdas, diags or eigenvectors) as the port's: the same nesting, each
+    leaf a ``dtype`` tensor on ``device``. Every layout is the same
+    ``[out, cols]`` matrix view (or square factor) in both packages, so
+    nothing is transposed."""
+    if isinstance(state, dict):
+        return {k: state_from_jax(v, device, dtype) for k, v in state.items()}
+    return torch.tensor(np.asarray(state), dtype=dtype, device=device)
+
+
 def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
     """Load JAX-layout numpy variables into ``model`` (strict)."""
     model.load_state_dict(state_dict_from_jax(variables), strict=True)

@@ -45,12 +45,15 @@ class Context:
     ``track`` names the layers to capture. ``update_stats`` says whether
     BatchNorm layers in train mode update their running statistics; the
     estimator's capture leaves them alone, as the JAX ``collect`` discards
-    the new statistics.
+    the new statistics. ``probes=False`` records the inputs only (a
+    capture that needs no output gradients adds no probe).
     """
 
-    def __init__(self, track: Iterable[str] = (), update_stats: bool = False):
+    def __init__(self, track: Iterable[str] = (), update_stats: bool = False,
+                 probes: bool = True):
         self.track = frozenset(track)
         self.update_stats = update_stats
+        self.make_probes = probes
         self.acts: Dict[str, torch.Tensor] = {}
         self.probes: Dict[str, torch.Tensor] = {}
 
@@ -59,7 +62,7 @@ class Context:
             self.acts[name] = x.detach()
 
     def probe(self, name: str, y: torch.Tensor) -> torch.Tensor:
-        if name not in self.track:
+        if name not in self.track or not self.make_probes:
             return y
         # zeros_like keeps y's memory format, so a channels_last model gets
         # channels_last probe gradients

@@ -6,7 +6,7 @@
 //   patch_gram_v2     (_kernel_v2 :173 / _kernel_v2_strided :196; :270)
 //   patch_gram        (_kernel :72, row strips with a manual halo DMA; :144)
 // All three compute the same function: for NHWC input x, kernel (kh, kw),
-// stride s in {1, 2} and explicit padding, the unnormalized Gram
+// strides (sh, sw) and explicit padding, the unnormalized Gram
 // G = P^T P of the patch matrix P = [N, F+1] (N = B*Ho*Wo tokens,
 // F = C*kh*kw features in canonical (c, dy, dx) order, ones column last).
 // Every Pallas version is dtype-generic with f32 accumulation; so is this
@@ -40,6 +40,11 @@
 //    strips with a halo DMA, row bands, the parity stack, kb feature
 //    tiles) have no counterpart: patch_gram's strips are just this
 //    kernel's stride-1 instance.
+//  * The stride is a template parameter S of the gather: S = 1 and S = 2
+//    (both dims; every main-path conv) fix it at compile time, and S = 0
+//    reads (sh, sw) from the geometry at run time for any other pair, such
+//    as (3, 3), (1, 2) or (2, 1), which patch_gram_v2 takes as the Pallas
+//    parity stack does (patch_gram.py:251-268).
 //  * Each block owns one 128x128 tile of the lower triangle of the [F, F]
 //    core (internal feature order (tap, c), so consecutive features are
 //    consecutive channels: coalesced loads), two warpgroups running
@@ -75,6 +80,7 @@ using gram::TILE;
 
 struct Geom {
   int H, W, C, kw;
+  int sh, sw;                // read by the run-time-stride instance (S = 0)
   int pt, pl, Ho, Wo;
   int F;                     // C * kh * kw
   int N;                     // B * Ho * Wo (the wrapper keeps it < 2^31)
@@ -113,11 +119,12 @@ __device__ __forceinline__ void advance(const Geom& g, Row& r) {
 }
 
 // Element offset in x of tap (dy, dx), channel c of token row r, or -1 in
-// the padding.
+// the padding. S > 0 is the stride of both dims; S = 0 takes g.sh, g.sw.
 template <int S>
 __device__ __forceinline__ int tap_offset(const Geom& g, const Row& r, int dy,
                                           int dx, int c) {
-  const int iy = r.oy * S - g.pt + dy, ix = r.ox * S - g.pl + dx;
+  const int sh = S > 0 ? S : g.sh, sw = S > 0 ? S : g.sw;
+  const int iy = r.oy * sh - g.pt + dy, ix = r.ox * sw - g.pl + dx;
   if (iy < 0 || iy >= g.H || ix < 0 || ix >= g.W) return -1;
   return r.base + (iy * g.W + ix) * g.C + c;
 }
@@ -460,20 +467,26 @@ Partial<__nv_bfloat16> partial(const __nv_bfloat16*, int vec) {
   return vec ? wgmma_partial<S, true>() : wgmma_partial<S, false>();
 }
 
+// The instance for strides (sh, sw): the compile-time ones for (1, 1) and
+// (2, 2), the run-time one (S = 0) for any other positive pair.
 template <typename T>
-bool pick(int stride, int vec, Partial<T>& k) {
-  if (stride != 1 && stride != 2) return false;
-  k = stride == 1 ? partial<1>(static_cast<const T*>(nullptr), vec)
-                  : partial<2>(static_cast<const T*>(nullptr), vec);
+bool pick(int sh, int sw, int vec, Partial<T>& k) {
+  if (sh < 1 || sw < 1) return false;
+  const T* t = nullptr;
+  k = sh == 1 && sw == 1   ? partial<1>(t, vec)
+      : sh == 2 && sw == 2 ? partial<2>(t, vec)
+                           : partial<0>(t, vec);
   return true;
 }
 
 template <typename T>
 int launch(const T* x, float* out, float* ws, float* colsum_ws, int B, int H,
-           int W, int C, int kh, int kw, int stride, int pt, int pl, int Ho,
-           int Wo, int splits, int tokens_per_split, int vec, void* stream) {
+           int W, int C, int kh, int kw, int sh, int sw, int pt, int pl,
+           int Ho, int Wo, int splits, int tokens_per_split, int vec,
+           void* stream) {
   Geom g;
   g.H = H; g.W = W; g.C = C; g.kw = kw;
+  g.sh = sh; g.sw = sw;
   g.pt = pt; g.pl = pl; g.Ho = Ho; g.Wo = Wo;
   g.F = C * kh * kw;
   g.N = B * Ho * Wo;
@@ -481,7 +494,7 @@ int launch(const T* x, float* out, float* ws, float* colsum_ws, int B, int H,
   const int num_tiles = nt * (nt + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Partial<T> k;
-  if (!pick(stride, vec, k) || (vec && C * sizeof(T) % 16 != 0))
+  if (!pick(sh, sw, vec, k) || (vec && C * sizeof(T) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (k.err != cudaSuccess) return static_cast<int>(k.err);
   const int bt = (g.F + k.tile - 1) / k.tile;     // block tiles per edge
@@ -498,9 +511,9 @@ int launch(const T* x, float* out, float* ws, float* colsum_ws, int B, int H,
 }
 
 template <typename T>
-cudaError_t blocks_per_sm(int stride, int vec, int* blocks) {
+cudaError_t blocks_per_sm(int sh, int sw, int vec, int* blocks) {
   Partial<T> k;
-  if (!pick(stride, vec, k)) return cudaErrorInvalidValue;
+  if (!pick(sh, sw, vec, k)) return cudaErrorInvalidValue;
   if (k.err != cudaSuccess) return k.err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k.fn, k.threads,
                                                        k.smem);
@@ -513,30 +526,31 @@ extern "C" {
 // Entries of patch_gram_tiled, patch_gram_v2 and patch_gram
 // (curvature_tpu_torch/ops/cuda/patch_gram.py), one per element type: the
 // three share each type's kernel, and the stride is a template parameter of
-// the gather, not a separate body. `vec`: 1 for the 16-byte gather (C
-// channels a multiple of 16 bytes, x 16-byte aligned), 0 for the scalar
-// one.
+// the gather, not a separate body (see pick). `vec`: 1 for the 16-byte
+// gather (C channels a multiple of 16 bytes, x 16-byte aligned), 0 for the
+// scalar one.
 int patch_gram_f32(const float* x, float* out, float* ws, float* colsum_ws,
-                   int B, int H, int W, int C, int kh, int kw, int stride,
+                   int B, int H, int W, int C, int kh, int kw, int sh, int sw,
                    int pt, int pl, int Ho, int Wo, int splits,
                    int tokens_per_split, int vec, void* stream) {
-  return launch(x, out, ws, colsum_ws, B, H, W, C, kh, kw, stride, pt, pl, Ho,
+  return launch(x, out, ws, colsum_ws, B, H, W, C, kh, kw, sh, sw, pt, pl, Ho,
                 Wo, splits, tokens_per_split, vec, stream);
 }
 
 int patch_gram_bf16(const __nv_bfloat16* x, float* out, float* ws,
                     float* colsum_ws, int B, int H, int W, int C, int kh,
-                    int kw, int stride, int pt, int pl, int Ho, int Wo,
+                    int kw, int sh, int sw, int pt, int pl, int Ho, int Wo,
                     int splits, int tokens_per_split, int vec, void* stream) {
-  return launch(x, out, ws, colsum_ws, B, H, W, C, kh, kw, stride, pt, pl, Ho,
+  return launch(x, out, ws, colsum_ws, B, H, W, C, kh, kw, sh, sw, pt, pl, Ho,
                 Wo, splits, tokens_per_split, vec, stream);
 }
 
-// Resident partial-kernel blocks per SM, for the wrapper's split count.
-int patch_gram_blocks_per_sm(int stride, int bf16, int vec, int* blocks) {
+// Resident partial-kernel blocks per SM of the instance for (sh, sw), for
+// the wrapper's split count.
+int patch_gram_blocks_per_sm(int sh, int sw, int bf16, int vec, int* blocks) {
   return static_cast<int>(
-      bf16 ? blocks_per_sm<__nv_bfloat16>(stride, vec, blocks)
-           : blocks_per_sm<float>(stride, vec, blocks));
+      bf16 ? blocks_per_sm<__nv_bfloat16>(sh, sw, vec, blocks)
+           : blocks_per_sm<float>(sh, sw, vec, blocks));
 }
 
 const char* patch_gram_error_string(int code) {

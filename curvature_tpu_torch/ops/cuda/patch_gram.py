@@ -18,7 +18,8 @@ bf16 operands give exact products and f32 sums, as the Pallas kernels'
     or here; it is public API.
 
 On Hopper all three are one implicit-im2col Gram kernel body per element
-type, templated on stride (``csrc/patch_gram.cu``, whose header says what
+type, templated on stride: (1, 1) and (2, 2) fixed at compile time, any
+other (sh, sw) read at run time (``csrc/patch_gram.cu``, whose header says what
 bounds it and how the design answers), both on the tensor cores
 (``wgmma``). bf16 runs bf16 x bf16 -> f32, exact products. f32 runs
 3xTF32: each value is split into TF32 halves (:func:`tf32_split`) and
@@ -62,6 +63,10 @@ BF16_TILE = 128
 #: longer range is split, and the splits are summed in f32 in a fixed order
 #: (the accumulator's error grows with the chain: PERF.md)
 MAX_CHAIN_TOKENS = 8192
+#: strides with a compile-time kernel instance; any other positive pair
+#: runs the run-time-stride instance (counted apart in
+#: ``patch_gram_v2.any_stride_launches``)
+COMPILED_STRIDES = ((1, 1), (2, 2))
 
 
 # ---------------------------------------------------------------------------
@@ -221,16 +226,16 @@ KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 def _lib() -> ctypes.CDLL:
     from curvature_tpu_torch.ops.cuda import build
     lib = build.load("patch_gram")
-    # x, out, ws, colsum; B H W C kh kw stride pt pl Ho Wo splits
+    # x, out, ws, colsum; B H W C kh kw sh sw pt pl Ho Wo splits
     # tokens-per-split vec; stream
     for suffix in KERNEL_DTYPES.values():
         fn = getattr(lib, f"patch_gram_{suffix}")
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 \
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # sh sw bf16 vec; the count's address
     lib.patch_gram_blocks_per_sm.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.patch_gram_blocks_per_sm.restype = ctypes.c_int
     lib.patch_gram_error_string.argtypes = [ctypes.c_int]
     lib.patch_gram_error_string.restype = ctypes.c_char_p
@@ -251,10 +256,10 @@ def resident_slots(device_index: int, blocks_per_sm) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _resident_blocks(device_index: int, stride: int, bf16: bool,
-                     vec: bool) -> int:
+def _resident_blocks(device_index: int, strides: Tuple[int, int],
+                     bf16: bool, vec: bool) -> int:
     return resident_slots(device_index, functools.partial(
-        _lib().patch_gram_blocks_per_sm, stride, int(bf16), int(vec)))
+        _lib().patch_gram_blocks_per_sm, *strides, int(bf16), int(vec)))
 
 
 def gather_kind(x: torch.Tensor) -> str:
@@ -306,8 +311,9 @@ def check_kernel_dtype(x: torch.Tensor, name: str) -> str:
 def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
             ho: int, wo: int) -> torch.Tensor:
     suffix = check_kernel_dtype(x, name)
-    if strides not in ((1, 1), (2, 2)):
-        raise ValueError(f"{name}: strides {strides} not in (1,1)/(2,2)")
+    strides = (int(strides[0]), int(strides[1]))
+    if min(strides) < 1:
+        raise ValueError(f"{name}: strides {strides} must be positive")
     x = x.contiguous()
     b, h, w, c = x.shape
     kh, kw = kernel_size
@@ -321,7 +327,7 @@ def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
     bf16 = suffix == "bf16"
     vec = gather_kind(x) == "vector"
     splits = plan_splits(n_tokens, block_tiles(f, bf16),
-                         _resident_blocks(x.device.index, strides[0], bf16,
+                         _resident_blocks(x.device.index, strides, bf16,
                                           vec))
     per_split = -(-n_tokens // splits)
     out = torch.empty((f + 1, f + 1), dtype=torch.float32, device=x.device)
@@ -330,7 +336,7 @@ def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
     colsum = torch.empty(splits * nt * _TILE, dtype=torch.float32,
                          device=x.device)
     lib = _lib()
-    args = [b, h, w, c, kh, kw, strides[0], pads[0][0], pads[1][0], ho, wo,
+    args = [b, h, w, c, kh, kw, *strides, pads[0][0], pads[1][0], ho, wo,
             splits, per_split, int(vec)]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -382,7 +388,10 @@ def patch_gram_v2(x: torch.Tensor, kernel_size: Tuple[int, int],
                   padding=((0, 0), (0, 0)),
                   strides: Tuple[int, int] = (1, 1)) -> torch.Tensor:
     """[F+1, F+1] unnormalized patch Gram; port of the Pallas
-    ``patch_gram_v2`` (stride 1 or 2)."""
+    ``patch_gram_v2``, any strides (sh, sw) as there: (1, 1) and (2, 2)
+    run the kernel's compile-time instances, any other pair its run-time
+    one. ``select_patch_gram`` routes only (2, 2) (and, through the tiled
+    plan, (1, 1)) here, as in JAX."""
     check_device(x, "patch_gram_v2")
     b, h, w, c = x.shape
     pads = resolve_padding(padding, h, w, kernel_size, strides)
@@ -391,10 +400,13 @@ def patch_gram_v2(x: torch.Tensor, kernel_size: Tuple[int, int],
         return patch_gram_plain(x, kernel_size, pads, strides)
     out = _launch("patch_gram_v2", x, kernel_size, pads, strides, ho, wo)
     patch_gram_v2.launches += 1
+    if tuple(strides) not in COMPILED_STRIDES:
+        patch_gram_v2.any_stride_launches += 1
     return out
 
 
 patch_gram_v2.launches = 0
+patch_gram_v2.any_stride_launches = 0
 
 
 def patch_gram(x: torch.Tensor, kernel_size: Tuple[int, int],

@@ -1,15 +1,40 @@
-"""Damped inversion of Kronecker factors.
+"""Damped inversion and eigendecomposition of Kronecker factors.
 
-Port of ``curvature_tpu/ops/linalg.py`` (``sym``, ``chol_inv``,
-``chol_logdet``, ``damped_inverse_cholesky``); all batched over leading
-dims.
+Port of ``curvature_tpu/ops/linalg.py`` (``kron``, ``sym``, ``diag_add``,
+``eigh_sym``, ``chol_inv``, ``chol_logdet``, ``damped_inverse_cholesky``,
+``group_by_shape``, ``ungroup``); all batched over leading dims.
 """
+from collections import defaultdict
+from typing import Dict, List, Sequence, Tuple
+
 import torch
+
+
+def kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Kronecker product of two matrices (the reference's einsum ``kron``,
+    utils.py:288-310)."""
+    m, n = a.shape
+    p, q = b.shape
+    return (a[:, None, :, None] * b[None, :, None, :]).reshape(m * p, n * q)
 
 
 def sym(a: torch.Tensor) -> torch.Tensor:
     """(A + A^T) / 2."""
     return (a + a.transpose(-1, -2)) / 2.0
+
+
+def diag_add(a: torch.Tensor, value) -> torch.Tensor:
+    """A + value * I for the trailing square dims."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    return a + torch.as_tensor(value, dtype=a.dtype, device=a.device) * eye
+
+
+def eigh_sym(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigendecomposition of ``A + A^T`` (a *sum*, as the reference's
+    ``get_eigenvectors``, utils.py:56-58: twice the eigenvalues, the same
+    eigenvectors). Returns (eigenvalues ascending, eigenvectors as
+    columns)."""
+    return torch.linalg.eigh(a + a.transpose(-1, -2))
 
 
 def chol_inv(a: torch.Tensor) -> torch.Tensor:
@@ -42,3 +67,22 @@ def damped_inverse_cholesky(factor: torch.Tensor, add, multiply
     eye = torch.eye(factor.shape[-1], dtype=factor.dtype,
                     device=factor.device)
     return chol_inv(sym(s * factor + n * eye))
+
+
+def group_by_shape(arrays: Dict[str, torch.Tensor]
+                   ) -> List[Tuple[List[str], torch.Tensor]]:
+    """Group a dict of tensors by (shape, dtype) for batched linalg:
+    ``(names, stacked)`` pairs, ``stacked`` with a new leading axis over
+    ``names``, in first-seen order."""
+    groups: Dict[tuple, List[str]] = defaultdict(list)
+    for name, arr in arrays.items():
+        groups[(tuple(arr.shape), arr.dtype)].append(name)
+    return [(names, torch.stack([arrays[n] for n in names]))
+            for names in groups.values()]
+
+
+def ungroup(groups: Sequence[Tuple[List[str], torch.Tensor]]
+            ) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`group_by_shape` after a batched op."""
+    return {n: stacked[i] for names, stacked in groups
+            for i, n in enumerate(names)}

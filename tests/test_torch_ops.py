@@ -150,3 +150,58 @@ def test_corr_gram_supported_gate():
                    ((1, 3), (1, 1))]:
         assert tcorr.corr_gram_supported(ks, st) \
             == jcorr.corr_gram_supported(ks, st)
+
+
+def test_kron_matches_jax():
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((3, 4)).astype(np.float32)
+    b = rng.standard_normal((2, 5)).astype(np.float32)
+    got = tlin.kron(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jlin.kron(jnp.asarray(a),
+                                                            jnp.asarray(b))))
+    np.testing.assert_allclose(got, np.kron(a, b), atol=1e-6)
+
+
+@pytest.mark.parametrize("value", [0.0, 0.5, -2.0])
+def test_diag_add_matches_jax(value):
+    a = _spd_stack(6)
+    got = tlin.diag_add(torch.from_numpy(a), value).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jlin.diag_add(
+        jnp.asarray(a), value)))
+
+
+def test_eigh_sym_matches_jax():
+    """Eigenvalues of A + A^T (a sum: twice A's) at 1e-5 of max; on a
+    separated spectrum the eigenvectors agree up to sign, |U_jax^T U| = I
+    at 1e-4."""
+    rng = np.random.default_rng(7)
+    q, _ = np.linalg.qr(rng.standard_normal((3, 8, 8)))
+    evals = np.linspace(1.0, 8.0, 8)
+    a = (q * evals[None, None, :]) @ q.transpose(0, 2, 1)
+    a = a.astype(np.float32)
+    w_t, u_t = tlin.eigh_sym(torch.from_numpy(a))
+    w_j, u_j = jlin.eigh_sym(jnp.asarray(a))
+    _close_rel(w_t.numpy(), np.asarray(w_j), 1e-5)
+    np.testing.assert_allclose(w_t.numpy(), np.broadcast_to(2 * evals,
+                                                            (3, 8)),
+                               atol=1e-4)
+    overlap = np.abs(np.asarray(u_j).transpose(0, 2, 1) @ u_t.numpy())
+    np.testing.assert_allclose(overlap, np.broadcast_to(np.eye(8), (3, 8, 8)),
+                               atol=1e-4)
+
+
+def test_group_by_shape_and_ungroup_match_jax():
+    rng = np.random.default_rng(8)
+    arrays = {n: rng.standard_normal(s).astype(np.float32) for n, s in
+              [("a", (3, 3)), ("b", (4, 4)), ("c", (3, 3)), ("d", (4,)),
+               ("e", (4, 4))]}
+    got = tlin.group_by_shape({k: torch.from_numpy(v)
+                               for k, v in arrays.items()})
+    want = jlin.group_by_shape({k: jnp.asarray(v) for k, v in arrays.items()})
+    assert [names for names, _ in got] == [names for names, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    back = tlin.ungroup(got)
+    assert list(back) == ["a", "c", "b", "e", "d"]
+    for k, v in arrays.items():
+        np.testing.assert_array_equal(back[k].numpy(), v)

@@ -39,6 +39,15 @@ V2_CASES = [
     ((2, 7, 9, 4), (3, 3), "SAME", (2, 2)),
 ]
 
+#: strides outside (1, 1) and (2, 2): the JAX parity stack computes them
+#: (patch_gram.py:251-268), the CUDA kernel through its run-time-stride
+#: instance
+RT_STRIDE_CASES = [
+    ((2, 9, 9, 4), (3, 3), ((1, 1), (1, 1)), (3, 3)),
+    ((2, 8, 8, 4), (3, 3), ((1, 1), (1, 1)), (1, 2)),
+    ((2, 8, 8, 4), (3, 3), ((1, 1), (1, 1)), (2, 1)),
+]
+
 #: tests/test_pallas_kernels.py:20-25 (stride 1 only)
 PG_CASES = [
     ((2, 8, 8, 4), (3, 3), ((1, 1), (1, 1))),
@@ -147,6 +156,26 @@ def test_bf16_operands_match_jax(entry, shape, ks, pad, strides):
     assert got.dtype == torch.float32 and want.dtype == np.float32
     np.testing.assert_allclose(got.numpy(), want,
                                atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("shape,ks,pad,strides", RT_STRIDE_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_patch_gram_v2_any_stride_plain_matches_jax(shape, ks, pad, strides,
+                                                    dtype):
+    """The plain version at strides (3, 3), (1, 2) and (2, 1) against the
+    JAX ``patch_gram_v2`` (interpret mode) within 1e-4 of max|G|; bf16
+    operands are fed identically to both packages."""
+    if dtype == "float32":
+        x = np.random.default_rng(0).standard_normal(shape).astype(
+            np.float32)
+        xt, jx = torch.from_numpy(x), jnp.asarray(x)
+    else:
+        xt, jx = _bf16_pair(shape)
+    want = np.asarray(jpg.patch_gram_v2(jx, ks, pad, strides,
+                                        interpret=True))
+    got = tpg.patch_gram_v2(xt, ks, pad, strides)
+    assert got.dtype == torch.float32
+    _assert_gram_close(got.numpy(), want)
 
 
 def test_cpu_wrappers_do_not_count_launches():
@@ -331,6 +360,9 @@ def test_dispatch_policy_matches_jax(itemsize):
     ("v2", (2, 7, 9, 4), (3, 3), "SAME", (2, 2)),
     ("v2", (2, 7, 7, 4), (5, 5), ((2, 2), (2, 2)), (1, 1)),
     ("v2", (2, 7, 7, 6), (3, 3), ((1, 1), (1, 1)), (1, 1)),   # f32 scalar
+    # the run-time-stride instance, and its main-path width
+    *[("v2", *case) for case in RT_STRIDE_CASES],
+    ("v2", (16, 56, 56, 128), (3, 3), ((1, 1), (1, 1)), (3, 3)),
     ("patch_gram", (16, 56, 56, 64), (3, 3), ((1, 1), (1, 1)), (1, 1)),
     *[("patch_gram", *case, (1, 1)) for case in PG_CASES],
     *[("v2", *case) for case in BF16_EDGE_CASES],
