@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py              # what CI runs
     python3 chip_smoke.py --profile    # adds a device-time breakdown of one
-                                       # update of each path
+                                       # update of each path (and of the
+                                       # ResNet-18 pipeline's)
     python3 chip_smoke.py --kernels    # builds, checks and times the kernels
                                        # only, with the f32 sym_gram split
                                        # sweep
@@ -38,7 +39,23 @@ the BNN eval; and a dense check of all
 five estimators on ``layer1.0.conv1`` against their damped precision
 formed in float64. The patch-Gram checks include strides outside (1, 1)
 and (2, 2), which ``patch_gram_v2`` runs through the kernel's
-run-time-stride instance.
+run-time-stride instance, and the shapes ResNet-18 gives the kernels.
+
+Then the pipeline CLIs, each ``main(argv)`` called in-process, writing
+under ``build/pipelines``:
+
+  * LeNet-5 on the bundled digits with the bundled trained weights:
+    ``factors`` for diag, kfac and efb (full ``update_batches`` chunks and
+    a ragged tail), ``inf`` at rank 100, then ``evaluate`` for kfac at
+    the blitz's damping, plain and with the 19-step ``--fgsm`` sweep; the
+    NN and BNN accuracy must be well above chance;
+  * ResNet-18 (CIFAR stem) on synthetic data at full width: ``factors``
+    kfac (16 batches of 32, two ``update_batches`` chunks) whose kernel
+    launches must equal JAX's routes (``R18_ROUTES``, held against JAX's
+    dispatch by tests/test_torch_pipelines.py) times the updates, the A
+    factors of a tiled stride-1, the tiled stride-2 and the v2 layer
+    against the plain path, then efb, diag and inf, ``evaluate --ood``
+    for kfac and efb (AUROC), and kfac in bf16.
 
 Every failed check raises. The last line of standard output is the
 ``{"ok": true, ...}`` JSON object; the line before it is the ``kernels``
@@ -91,6 +108,41 @@ DENSE_LAYER = "layer1.0.conv1"
 DENSE_C = 16
 PATHS = ("resnet50_kfac_update_img_s", "resnet50_kfac_update_bf16_b32_img_s",
          "resnet50_kfac_update_bf16_sub4_img_s")
+#: the pipeline phase: the ResNet-18 factors runs whose launches are read
+R18_PATHS = ("resnet18_synthetic_factors_kfac_f32",
+             "resnet18_synthetic_factors_kfac_bf16")
+#: where the CLIs write (git-ignored)
+PIPE_ROOT = "build/pipelines"
+#: LeNet-5 on the digits: 512 training digits in 16 batches of 32, two
+#: update_batches chunks of 6 and a ragged tail of 4
+LENET_ARGV = ["--model", "lenet5", "--data", "mnist", "--batch_size", "32",
+              "--scan_chunk", "6"]
+LENET_UPDATES = 16
+#: the blitz's damping (examples/blitz.py:36-40): BNN accuracy equals the
+#: NN's on the digits
+BLITZ = ["--norm", "1", "--scale", "5e4"]
+#: ResNet-18 CIFAR on synthetic data: 512 images in 16 batches of 32, two
+#: update_batches chunks of 8 (the default --scan_chunk)
+R18_ARGV = ["--model", "resnet18", "--data", "synthetic", "--batch_size",
+            "32"]
+R18_UPDATES = 16
+#: kernel launches of one ResNet-18 kfac update at B = 32, by path: JAX's
+#: routes (the correlation gate, then select_patch_gram), eight tiled
+#: layers (layer1's four convs, layer2.0.conv1 at stride 2, layer2's three
+#: other convs at C = 128) and one v2 layer (layer3.0.conv1) in f32, the
+#: v2 layer alone in bf16
+R18_ROUTES = {R18_PATHS[0]: {"tiled": 8, "v2": 1},
+              R18_PATHS[1]: {"tiled": 0, "v2": 1}}
+#: the CLIs' default --mc_samples (utils/config.py)
+PIPE_MC = 10
+#: the random network's damping: a prior standard deviation of at most
+#: 1/sqrt(norm) = 0.01 per weight against He-init scales of 0.02-0.08
+R18_DAMPING = ["--norm", "1e4", "--scale", "1e4"]
+#: the A factors held against the plain path after the kfac run: a tiled
+#: stride-1 layer at C = 64 and at C = 128, the tiled stride-2 layer, the
+#: v2 layer
+R18_CHECKED = {"layer1.0.conv1": "tiled", "layer2.1.conv1": "tiled",
+               "layer2.0.conv1": "tiled", "layer3.0.conv1": "v2"}
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -120,6 +172,17 @@ PATCH_CASES = {
         ((2, 8, 8, 4), (3, 3), SAME1, (1, 2)),
         ((2, 8, 8, 4), (3, 3), SAME1, (2, 1)),
     ],
+    # ResNet-18's (B=32, 32x32 input, after the maxpool): layer2.0.conv1
+    # at stride 2 first, then layer1's and layer2's stride-1 convs
+    "patch_gram_tiled_resnet18": [
+        ((32, 16, 16, 64), (3, 3), SAME1, (2, 2)),
+        ((32, 16, 16, 64), (3, 3), SAME1, (1, 1)),
+        ((32, 8, 8, 128), (3, 3), SAME1, (1, 1)),
+    ],
+    # ResNet-18's layer3.0.conv1
+    "patch_gram_v2_resnet18": [
+        ((32, 8, 8, 128), (3, 3), SAME1, (2, 2)),
+    ],
     # the four shapes of tests/test_pallas_kernels.py:20-25 (2x2 VALID at
     # C=3, non-square 10x6)
     "patch_gram": [
@@ -131,7 +194,12 @@ PATCH_CASES = {
     ],
 }
 #: record name -> the entry point it runs
-ENTRY = {"patch_gram_v2_any_stride": "patch_gram_v2"}
+ENTRY = {"patch_gram_v2_any_stride": "patch_gram_v2",
+         "patch_gram_tiled_resnet18": "patch_gram_tiled",
+         "patch_gram_v2_resnet18": "patch_gram_v2"}
+#: record name -> the launch counter it reads (Counters), where not its own
+COUNTER = {"patch_gram_tiled_resnet18": "patch_gram_tiled",
+           "patch_gram_v2_resnet18": "patch_gram_v2"}
 #: bf16 boundary cases of the wgmma gather, run through patch_gram_v2 (its
 #: odd cases above hold C = 4, the scalar gather, and C = 8)
 BF16_PATCH_CASES = [
@@ -354,7 +422,8 @@ def hgmma_counts(build):
 def _record(name, dtype, shape, abs_err, rel, worst, cases, **times):
     function = ENTRY.get(name, name)
     return {"name": name if dtype == "f32" else f"{name}_{dtype}",
-            "function": function, "counter": name, "dtype": dtype,
+            "function": function, "counter": COUNTER.get(name, name),
+            "dtype": dtype,
             "route": "cuda",
             "source": "curvature_tpu_torch/ops/cuda/csrc/"
                       + ("sym_gram.cu" if name == "sym_gram"
@@ -626,8 +695,8 @@ def laplace_tail(est, model, test_data, gen, counters, label,
     torch.cuda.synchronize()
     sample_s = time.perf_counter() - t0
     counters.reset()
-    probs, labels = eval_bnn(model, est, test_data, samples=SAMPLES,
-                             ensemble_params=ensemble)
+    probs, labels, _ = eval_bnn(model, est, test_data, samples=SAMPLES,
+                                ensemble_params=ensemble)
     if counters.read() != counters.zero():
         raise AssertionError(f"{label}: eval must not launch the Gram "
                              f"kernels: {counters.read()}")
@@ -931,13 +1000,19 @@ def best_rate(est, batches, gen, batch):
     return batch * len(batches) / best
 
 
-def a_factor_check(est, plain_est, x, name, what):
+def a_factor_check(est, plain_est, x, name, what, route=None):
     """One layer's A factor from ``est`` (kernel route) against
-    ``plain_est`` (``use_kernels=False``) on the same capture."""
+    ``plain_est`` (``use_kernels=False``) on the same capture; ``route``,
+    where given, is the route ``est`` must take for it."""
     import torch
     cap = est.capture(x, labels=torch.zeros(x.shape[0], dtype=torch.long,
                                             device=x.device))
     meta, act = plain_est.metas[name], cap.acts[name]
+    if route is not None:
+        took = est.a_route(est.metas[name], act.shape, act.element_size())
+        if took != route:
+            raise AssertionError(f"{name} ({what}): route {took}, "
+                                 f"want {route}")
     got = est._a_factor(meta, act)
     want = plain_est._a_factor(meta, act)
     rel = float((got - want).abs().max() / want.abs().max())
@@ -945,6 +1020,136 @@ def a_factor_check(est, plain_est, x, name, what):
         f"rel {rel:.3e}")
     if rel > GRAM_RTOL:
         raise AssertionError(f"{name} ({what}): A factor rel err {rel:.3e}")
+
+
+def run_cli(module, argv, counters, smi, label):
+    """``module.main(argv)`` in-process with the launch counters set to 0
+    just before and read just after; prints its wall seconds. Returns
+    (result, launches)."""
+    import torch
+    counters.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = module.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counters.read()
+    log(f"pipeline {label}: {seconds:.3f} s wall; launches {json.dumps(got)}"
+        f" ({smi})")
+    return out, got
+
+
+def pipelines(estimators, counters, smi):
+    """The pipeline CLIs (``factors`` -> ``evaluate``) in-process, LeNet-5
+    on the bundled digits and ResNet-18 on synthetic data; every result
+    checked. Returns the ResNet-18 factors runs' launches by path, and
+    (path, estimator, batch) of each for ``--profile``."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch.data.loaders import FIXTURE_DIR
+    from curvature_tpu_torch.pipelines import common, evaluate, factors
+    from curvature_tpu_torch.utils.checkpoint import results_paths
+    from curvature_tpu_torch.utils.config import parse_args
+    none = counters.zero()
+    root = os.path.abspath(os.path.join(PIPE_ROOT, "lenet5"))
+    base = LENET_ARGV + ["--data_dir", FIXTURE_DIR, "--root_dir", root,
+                         "--results_dir", root]
+    # (a) LeNet-5 on the digits: no Gram kernel (C < 32, no corr route)
+    for name in ("diag", "kfac", "efb"):
+        est, got = run_cli(factors, base + ["--estimator", name], counters,
+                           smi, f"lenet5 factors {name}")
+        if got != none or est.num_updates != LENET_UPDATES:
+            raise AssertionError(f"lenet5 factors {name}: launches {got}, "
+                                 f"{est.num_updates} updates")
+        check_finite(est.state, f"lenet5 {name} state")
+    est, _ = run_cli(factors, base + ["--estimator", "inf", "--rank", "100"],
+                     counters, smi, "lenet5 factors inf (rank 100)")
+    check_finite(est.state, "lenet5 inf state")
+    kfac_argv = base + ["--estimator", "kfac"] + BLITZ
+    (probs, labels), _ = run_cli(evaluate, kfac_argv, counters, smi,
+                                 "lenet5 evaluate kfac (test)")
+    nn = evaluate.summary(probs, labels)
+    (stats, bnn_stats), got = run_cli(evaluate, kfac_argv + ["--fgsm"],
+                                      counters, smi,
+                                      "lenet5 evaluate kfac --fgsm")
+    if got != none:
+        raise AssertionError(f"lenet5 evaluate launched {got}")
+    # epsilon 0 leaves the batch as it is: the sweep's first row is the
+    # plain Bayesian eval
+    log(f"lenet5 digits kfac (bundled weights, {len(labels)} test digits):"
+        f" NN accuracy {nn[0]:.2f}% ECE {100 * nn[1]:.2f}% NLL "
+        f"{nn[2]:.4f}; BNN ({SAMPLES} samples, norm 1, scale 5e4) accuracy "
+        f"{bnn_stats['acc'][0]:.2f}% ECE {bnn_stats['ece1'][0]:.2f}% NLL "
+        f"{bnn_stats['nll'][0]:.4f}; FGSM eps 0.1: NN {stats['acc'][5]:.2f}%"
+        f", BNN {bnn_stats['acc'][5]:.2f}%")
+    if abs(stats["acc"][0] - nn[0]) > 1e-6 or nn[0] <= 50.0 \
+            or bnn_stats["acc"][0] <= 50.0 \
+            or not np.isfinite([v for k in stats for v in stats[k]]).all() \
+            or not np.isfinite([v for k in bnn_stats
+                                for v in bnn_stats[k]]).all():
+        raise AssertionError(f"lenet5 evaluate: NN {nn}, FGSM {stats}, "
+                             f"BNN {bnn_stats}")
+
+    # (b) ResNet-18 on synthetic data, f32 then bf16
+    by_path, updated = {}, []
+    root = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
+    base = R18_ARGV + ["--root_dir", root, "--results_dir", root]
+    for path, extra in zip(R18_PATHS, ([], ["--precision", "bfloat16",
+                                            "--suffix", "_bf16"])):
+        est, got = run_cli(factors, base + ["--estimator", "kfac"] + extra,
+                           counters, smi, f"resnet18 factors kfac {path}")
+        cfg = parse_args(base + extra)
+        x = next(common.on_device(common.build_data(cfg, "train"),
+                                  est.device))[0]
+        per_update = R18_ROUTES[path]
+        want = dict(none, **{f"patch_gram_{r}": n * R18_UPDATES
+                             for r, n in per_update.items()})
+        log(f"{path}: per update {json.dumps(per_update)} by JAX's routes")
+        if got != want or est.num_updates != R18_UPDATES:
+            raise AssertionError(f"{path}: launches {got}, want {want}")
+        check_finite(est.state, f"{path} state")
+        by_path[path] = got
+        updated.append((path, est, x))
+        dtype = {"compute_dtype": torch.bfloat16} if extra else {}
+        for layer, route in R18_CHECKED.items():
+            if extra and route != "v2":            # patches in bf16
+                continue
+            a_factor_check(est, estimators.KFAC(
+                est.model, use_kernels=False, layer_filter=[layer],
+                **dtype), x, layer, f"resnet18 {route} s"
+                f"{est.metas[layer].strides[0]}, {path}", route)
+    for name in ("efb", "diag"):
+        est, got = run_cli(factors, base + ["--estimator", name], counters,
+                           smi, f"resnet18 factors {name}")
+        if got != none:
+            raise AssertionError(f"resnet18 {name} launched {got}")
+        check_finite(est.state, f"resnet18 {name} state")
+    est, _ = run_cli(factors, base + ["--estimator", "inf", "--rank", "100"],
+                     counters, smi, "resnet18 factors inf (rank 100)")
+    check_finite(est.state, "resnet18 inf state")
+    for name in ("kfac", "efb"):
+        argv = base + ["--estimator", name, "--ood"] + R18_DAMPING
+        (probs, bnn_probs, labels), got = run_cli(
+            evaluate, argv, counters, smi, f"resnet18 evaluate {name} --ood")
+        with np.load(results_paths(parse_args(argv))[0] + ".npz",
+                     allow_pickle=True) as f:
+            auroc = f["auroc"]
+            ood = f["bnn_ood_predictions"]
+        for what, p in (("nn", probs), ("bnn", bnn_probs),
+                        ("bnn ood", ood)):
+            if p.shape != (256, 10) or not np.isfinite(p).all() \
+                    or np.abs(p.sum(1) - 1).max() > 1e-3:
+                raise AssertionError(f"resnet18 {name} {what} predictions "
+                                     "malformed")
+        log(f"resnet18 synthetic {name} --ood (random weights): NN "
+            f"accuracy {100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
+            f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}%; AUROC NN "
+            f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
+        if got != none or not np.isfinite(auroc).all():
+            raise AssertionError(f"resnet18 evaluate {name}: launches {got},"
+                                 f" AUROC {auroc}")
+    return by_path, updated
 
 
 def main(argv=None):
@@ -1068,11 +1273,20 @@ def main(argv=None):
     # INF from both, BlockDiagonal on DENSE_LAYER; no Gram kernel
     lad = ladder(estimators, model, est, batches, test_data, gen, counters)
 
+    # 3e. the pipeline CLIs: LeNet-5 on the digits, ResNet-18 on synthetic
+    r18_paths, r18_updated = pipelines(estimators, counters, smi)
+    by_path.update(r18_paths)
+
     for rec in records:
-        paths = PATHS[:1] if rec["dtype"] == "f32" else PATHS[1:]
+        # a record's shapes are ResNet-50's or ResNet-18's: it counts the
+        # launches of its wrapper on that network's paths of its dtype
+        r18 = rec["name"].split("_bf16")[0].endswith("_resnet18")
+        paths = ((R18_PATHS[:1] if rec["dtype"] == "f32" else R18_PATHS[1:])
+                 if r18 else
+                 (PATHS[:1] if rec["dtype"] == "f32" else PATHS[1:]))
         rec["launches_by_path"] = {
             p: by_path[p][rec["counter"]] if p in paths else 0
-            for p in PATHS}
+            for p in PATHS + R18_PATHS}
         rec["launches"] = sum(rec["launches_by_path"].values())
 
     # -- 4. is what came out right? -----------------------------------------
@@ -1137,6 +1351,9 @@ def main(argv=None):
         for kind in ("diagonal", "efb", "block"):
             log(f"ladder {kind} (f32 B={BATCH}):")
             profile_update(lad[kind][0], batches[0], gen)
+        for path, e, x in r18_updated:
+            log(f"{path} (the pipeline's update: B=32, MC={PIPE_MC}):")
+            profile_update(e, x, gen, num_samples=PIPE_MC)
 
     log(smi)
     print(json.dumps({"kernels": records}))
@@ -1146,17 +1363,17 @@ def main(argv=None):
     return 0
 
 
-def profile_update(est, x, gen):
+def profile_update(est, x, gen, num_samples=1):
     """Device time of one update by kernel name (torch.profiler), and the
     device-busy share of the update's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    est.update(x, generator=gen)
+    est.update(x, generator=gen, num_samples=num_samples)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        est.update(x, generator=gen)
+        est.update(x, generator=gen, num_samples=num_samples)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device kernels only: an aten op's row repeats its kernels' time

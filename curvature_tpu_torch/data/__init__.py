@@ -1,3 +1,4 @@
+from curvature_tpu_torch.data import loaders
 from curvature_tpu_torch.data.synthetic import synthetic_images
 
-__all__ = ["synthetic_images"]
+__all__ = ["loaders", "synthetic_images"]

@@ -15,9 +15,10 @@ running buffers are never changed, and the factor state accumulates in
 ``dtype``.
 
 Differences from the JAX class, by design of this slice: no ``use_mesh``
-(ROADMAP Queue 1 item 10), no ``update_batches`` scan (item 2), both
-raising ``NotImplementedError``, and no Pallas compile-failure fallback (a
-kernel failure raises). Random draws take injected numbers: ``update`` takes
+(ROADMAP Queue 1 item 10, raising ``NotImplementedError``),
+``update_batches`` is a loop of ``update`` calls rather than a scan, and
+there is no Pallas compile-failure fallback (a kernel failure raises).
+Random draws take injected numbers: ``update`` takes
 ``labels``, ``sample`` takes standard-normal ``noise``, since
 ``jax.random`` and torch streams never agree; without them a
 ``torch.Generator`` draws.
@@ -210,11 +211,6 @@ class Estimator:
             "use_mesh and the tensor-parallel leaf specs are not ported yet "
             "(ROADMAP Queue 1 item 10)")
 
-    def update_batches(self, *args, **kwargs):
-        raise NotImplementedError(
-            "update_batches is not ported yet (ROADMAP Queue 1 item 2); "
-            "call update once per batch")
-
     # -- stateful API (reference lifecycle) ---------------------------------
     @torch.no_grad()
     def _accumulate(self, cap: Captured):
@@ -243,6 +239,17 @@ class Estimator:
         give the empirical Fisher or injected MC labels; ``None`` draws
         ``num_samples`` labels from the model distribution."""
         self._accumulate(self.capture(x, labels, generator, num_samples))
+        return self.state
+
+    def update_batches(self, xs: torch.Tensor,
+                       generator: Optional[torch.Generator] = None,
+                       num_samples: int = 1):
+        """Accumulate factors from stacked batches ``xs`` [T, B, ...]: T
+        update steps drawing their labels from one ``generator`` (JAX
+        base.py:678-703 scans them in one jitted program; here they run one
+        after the other, the same steps)."""
+        for x in xs:
+            self.update(x, generator=generator, num_samples=num_samples)
         return self.state
 
     @torch.no_grad()

@@ -29,7 +29,14 @@ upcast to f32 before a strict-f32 matmul: each product of two bf16 values
 is exact in f32, so this is JAX's bf16 einsum with
 ``preferred_element_type=f32``.
 
-Out of this slice: grouped convs, attention/qkv/head splits, blocked G,
+``corr_gram=False`` switches the correlation route off (JAX
+kfac.py:194-198); ``corr_gram_min_channels``/``corr_gram_min_extent`` are
+its gate. ``max_factor_dim`` bounds every factor's side, checked before
+any factor is allocated (JAX kfac.py:147, :154-172, with its messages).
+:meth:`KFAC.a_route` names the route of each conv layer from shapes alone.
+
+Out of this slice: grouped convs, attention/qkv/head splits, blocked G
+(a dense layer past ``max_factor_dim`` that JAX would block raises),
 ``stack_grams`` and ``fused_g``.
 """
 import math
@@ -80,12 +87,13 @@ class KFAC(Estimator):
 
     need_param_grads = False
 
-    #: channel gate of the correlation-Gram route (the JAX default)
-    corr_gram_min_channels = 128
-
     def __init__(self, model, *, use_kernels="auto",
                  token_subsample: float = 1.0, subsample_offset=(0, 0),
-                 corr_gram_min_extent: int = 14, **kwargs):
+                 corr_gram: bool = True, corr_gram_min_channels: int = 128,
+                 corr_gram_min_extent: int = 14, max_factor_dim: int = 16384,
+                 **kwargs):
+        # read by init_state, which the base constructor calls
+        self.max_factor_dim = int(max_factor_dim)
         super().__init__(model, **kwargs)
         if use_kernels == "auto":
             self.use_kernels = self.device.type == "cuda"
@@ -96,6 +104,8 @@ class KFAC(Estimator):
         self.token_subsample = float(token_subsample)
         self.subsample_offset = (int(subsample_offset[0]),
                                  int(subsample_offset[1]))
+        self.corr_gram = bool(corr_gram)
+        self.corr_gram_min_channels = int(corr_gram_min_channels)
         self.corr_gram_min_extent = int(corr_gram_min_extent)
         # an offset outside [0, k) no longer indexes one of the k^2
         # partition grids (a biased estimate, or zero tokens and NaN)
@@ -106,6 +116,35 @@ class KFAC(Estimator):
                 f"[0, {k}) per dim for token_subsample={self.token_subsample} "
                 f"(spatial stride {k})")
 
+    def _check_factor_dims(self):
+        """JAX's guard (kfac.py:154-172), before any factor exists. A dense
+        layer whose G side alone is too large gets blocked G factors in JAX
+        (``g_block_size``), which the port does not have yet."""
+        for name, meta in self.metas.items():
+            if meta.kind == "dense" \
+                    and meta.out_features > self.max_factor_dim:
+                if meta.fan_in + 1 > self.max_factor_dim:
+                    raise ValueError(
+                        f"{name}: A-factor dimension {meta.fan_in + 1} "
+                        f"exceeds max_factor_dim={self.max_factor_dim}; "
+                        "blocked-G only bounds the G side. Exclude the "
+                        "layer with layer_filter or use Diagonal for it.")
+                raise NotImplementedError(
+                    f"{name}: out_features {meta.out_features} exceeds "
+                    f"max_factor_dim={self.max_factor_dim}, which takes "
+                    "blocked G factors (g_block_size), not ported yet "
+                    "(ROADMAP Queue 1 item 6)")
+            worst = max(meta.out_features, meta.fan_in + 1)
+            if worst > self.max_factor_dim:
+                raise ValueError(
+                    f"{name}: KFAC factor dimension {worst} exceeds "
+                    f"max_factor_dim={self.max_factor_dim} "
+                    f"({worst}^2 f32 = {worst * worst * 4 / 2 ** 30:.1f} GB "
+                    "per factor). Exclude the layer with layer_filter "
+                    "(CLI --layers, e.g. 'h.*' to skip a vocab-sized "
+                    "lm_head), use Diagonal for it, raise max_factor_dim, "
+                    "or (dense layers) enable g_block_size.")
+
     def _spatial_stride(self) -> int:
         """Per-spatial-dim stride k such that ~token_subsample = 1/k^2."""
         if self.token_subsample >= 1.0:
@@ -113,29 +152,43 @@ class KFAC(Estimator):
         return max(int(round(1.0 / math.sqrt(self.token_subsample))), 1)
 
     def init_state(self):
+        self._check_factor_dims()
         z = dict(dtype=self.dtype, device=self.device)
         return {name: {"a": torch.zeros((m.mat_cols, m.mat_cols), **z),
                        "g": torch.zeros((m.out_features,) * 2, **z)}
                 for name, m in self.metas.items()}
 
     # -- A factor -----------------------------------------------------------
-    def _a_factor(self, meta, act):
-        """Per-batch A factor (already divided by its token count)."""
-        if self._corr_gram_ok(meta, act):
-            return self._corr_a_factor(meta, act)
+    def a_route(self, meta, shape, itemsize: int) -> str:
+        """The route of a layer's A factor for an input of ``shape`` (JAX
+        layout) and ``itemsize`` bytes an element: ``"corr"`` (the
+        correlation Gram), ``"tiled"`` or ``"v2"`` (the CUDA patch-Gram
+        kernels, as ``select_patch_gram`` picks), or ``"patches"`` (patch
+        extraction + Gram, every dense layer too), as in JAX
+        kfac.py:385-400."""
+        if self._corr_gram_ok(meta, shape):
+            return "corr"
         if (self.use_kernels and meta.kind == "conv"
                 and self.token_subsample >= 1.0
                 and not isinstance(meta.padding, str)):
-            which = select_patch_gram(
-                act.shape[-1], meta.kernel_size, meta.strides,
-                act.shape[1], act.shape[2], act.shape[0],
-                act.element_size())
+            which = select_patch_gram(shape[-1], meta.kernel_size,
+                                      meta.strides, shape[1], shape[2],
+                                      shape[0], itemsize)
             if which is not None:
-                fn = patch_gram_v2 if which == "v2" else patch_gram_tiled
-                gram = fn(act, meta.kernel_size, meta.padding, meta.strides)
-                if not meta.has_bias:
-                    gram = gram[:meta.fan_in, :meta.fan_in]
-                return gram.to(self.dtype) / _conv_token_count(meta, act)
+                return which
+        return "patches"
+
+    def _a_factor(self, meta, act):
+        """Per-batch A factor (already divided by its token count)."""
+        route = self.a_route(meta, act.shape, act.element_size())
+        if route == "corr":
+            return self._corr_a_factor(meta, act)
+        if route in ("tiled", "v2"):
+            fn = patch_gram_v2 if route == "v2" else patch_gram_tiled
+            gram = fn(act, meta.kernel_size, meta.padding, meta.strides)
+            if not meta.has_bias:
+                gram = gram[:meta.fan_in, :meta.fan_in]
+            return gram.to(self.dtype) / _conv_token_count(meta, act)
         return self._a_factor_xla(meta, act)
 
     def _corr_a_factor(self, meta, act):
@@ -148,13 +201,15 @@ class KFAC(Estimator):
             replace(meta, padding=pad), act)
 
     def _corr_gram_ok(self, meta, act) -> bool:
-        return (meta.kind == "conv"
+        """The correlation route's gate; ``act`` is the layer input or its
+        shape."""
+        shape = act.shape if torch.is_tensor(act) else act
+        return (self.corr_gram and meta.kind == "conv"
                 and corr_gram_supported(meta.kernel_size, meta.strides)
                 and max(meta.kernel_size) <= 5
                 and self.token_subsample >= 1.0
-                and act.shape[-1] >= self.corr_gram_min_channels
-                and min(act.shape[1], act.shape[2])
-                >= self.corr_gram_min_extent)
+                and shape[-1] >= self.corr_gram_min_channels
+                and min(shape[1], shape[2]) >= self.corr_gram_min_extent)
 
     def _a_factor_xla(self, meta, act):
         """Patch extraction + Gram (the name keeps the JAX counterpart's);

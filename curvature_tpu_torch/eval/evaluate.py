@@ -1,15 +1,23 @@
 """Deterministic and Bayesian model evaluation.
 
-Port of ``eval_nn``/``eval_bnn`` of ``curvature_tpu/eval/evaluate.py``.
-The model runs in eval mode (running-statistics BN). The Bayesian eval
-loops over the posterior samples, each a parameter dict applied with
+Port of ``eval_nn``, ``eval_bnn`` (with its ``sample_chunk`` path and the
+``stats`` running statistics) and ``eval_nn_and_bnn`` of
+``curvature_tpu/eval/evaluate.py`` (reference evaluate.py:94-170). The
+model runs in eval mode (running-statistics BN). The Bayesian eval loops
+over the posterior samples, each a parameter dict applied with
 ``torch.func.functional_call``, and averages the softmax over them.
+``compute_dtype`` (``--precision bfloat16``) runs the forwards with every
+float parameter, buffer and the input cast to it; the softmax and every
+metric stay f32. Data batches are (NCHW input, labels) pairs.
 """
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
+
+from curvature_tpu_torch.eval import metrics
+from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
 
 def _device(model) -> torch.device:
@@ -21,15 +29,30 @@ def _batches(data, device):
         yield torch.as_tensor(x, device=device), np.asarray(y).reshape(-1)
 
 
+def _forward(model, params, x, compute_dtype):
+    """Eval-mode softmax [B, K] in f32, with ``params`` (state-dict keys,
+    None for the model's own) cast to ``compute_dtype`` with the model's
+    buffers and the input where one is given."""
+    if compute_dtype is not None:
+        own = dict(model.named_parameters())
+        own.update(model.named_buffers())
+        params = cast_floats(dict(own, **(params or {})), compute_dtype)
+        x = cast_input(x, compute_dtype)
+    logits = model(x) if params is None else functional_call(
+        model, params, (x,))
+    return torch.softmax(logits.float(), dim=-1)
+
+
 @torch.no_grad()
-def eval_nn(model, data: Iterable[Tuple]) -> Tuple[np.ndarray, np.ndarray]:
+def eval_nn(model, data: Iterable[Tuple], compute_dtype=None
+            ) -> Tuple[np.ndarray, np.ndarray]:
     """One deterministic pass; returns (softmax [N, K], labels [N])."""
     was_training = model.training
     model.eval()
     probs, labels = [], []
     try:
         for x, y in _batches(data, _device(model)):
-            probs.append(torch.softmax(model(x).float(), dim=-1).cpu())
+            probs.append(_forward(model, None, x, compute_dtype).cpu())
             labels.append(y)
     finally:
         model.train(was_training)
@@ -37,30 +60,92 @@ def eval_nn(model, data: Iterable[Tuple]) -> Tuple[np.ndarray, np.ndarray]:
 
 
 @torch.no_grad()
-def eval_bnn(model, estimator, data: Iterable[Tuple], samples: int = 30,
-             ensemble_params: Optional[List[Dict[str, torch.Tensor]]] = None,
-             generator: Optional[torch.Generator] = None
-             ) -> Tuple[np.ndarray, np.ndarray]:
-    """Mean softmax over ``samples`` posterior weight draws; returns
-    (mean predictions [N, K], labels [N]).
-
-    The ensemble is drawn once (``estimator.ensemble_params``) unless one
-    is given, then every data batch runs all samples."""
-    if ensemble_params is None:
-        ensemble_params = estimator.ensemble_params(samples,
-                                                    generator=generator)
+def _ensemble_sums(model, ensemble_params, batches, compute_dtype,
+                   keep_samples):
+    """Per batch, the softmax summed over the ensemble [B, K] (and, with
+    ``keep_samples``, each sample's [S, B, K])."""
     was_training = model.training
     model.eval()
-    sums, labels = [], []
+    sums, per_sample = [], []
     try:
-        for x, y in _batches(data, _device(model)):
-            total = None
-            for params in ensemble_params:
-                p = torch.softmax(
-                    functional_call(model, params, (x,)).float(), dim=-1)
-                total = p if total is None else total + p
-            sums.append((total / len(ensemble_params)).cpu())
-            labels.append(y)
+        for x, _ in _batches(batches, _device(model)):
+            probs = [_forward(model, p, x, compute_dtype)
+                     for p in ensemble_params]
+            sums.append(torch.stack(probs).sum(0).cpu())
+            if keep_samples:
+                per_sample.append(torch.stack(probs).cpu().numpy())
     finally:
         model.train(was_training)
-    return torch.cat(sums).numpy(), np.concatenate(labels)
+    return torch.cat(sums).numpy(), per_sample
+
+
+def _running_stats(probs_all: np.ndarray, labels: np.ndarray,
+                   samples: int) -> Dict[str, List[float]]:
+    """The reference's running statistics over the sample axis: accuracy,
+    ECE and entropy of the running mean, each sample's NLL
+    (evaluate.py:141-146)."""
+    out = {"acc": [], "ece": [], "nll": [], "ent": []}
+    running = np.cumsum(probs_all, axis=0)
+    for s in range(samples):
+        mean_s = running[s] / (s + 1)
+        out["acc"].append(float(metrics.accuracy(mean_s, labels)))
+        out["ece"].append(float(
+            100 * metrics.expected_calibration_error(mean_s, labels)[0]))
+        out["nll"].append(float(
+            metrics.negative_log_likelihood(probs_all[s], labels)))
+        out["ent"].append(float(
+            metrics.predictive_entropy(mean_s, mean=True)))
+    return out
+
+
+def eval_bnn(model, estimator, data: Iterable[Tuple], samples: int = 30,
+             ensemble_params: Optional[List[Dict[str, torch.Tensor]]] = None,
+             generator: Optional[torch.Generator] = None,
+             stats: bool = False, sample_chunk: Optional[int] = None,
+             compute_dtype=None
+             ) -> Tuple[np.ndarray, np.ndarray, Dict[str, List[float]]]:
+    """Mean softmax over ``samples`` posterior weight draws; returns (mean
+    predictions [N, K], labels [N], running statistics).
+
+    The ensemble is drawn once (``estimator.ensemble_params``) unless one
+    is given, whose members then set the count; every data batch runs all
+    of them. ``sample_chunk`` bounds how many sampled parameter sets exist
+    at once: the ensemble is drawn and run a chunk at a time. ``stats``
+    fills the reference's running statistics (empty lists otherwise)."""
+    batches = list(data)
+    labels = np.concatenate([np.asarray(y).reshape(-1) for _, y in batches])
+    if ensemble_params is not None:
+        ensembles = [ensemble_params]
+    else:
+        # each chunk drawn when it runs: at most sample_chunk sets exist
+        step = min(sample_chunk or samples, samples)
+        ensembles = (estimator.ensemble_params(min(step, samples - i),
+                                               generator=generator)
+                     for i in range(0, samples, step))
+    total, per_sample, members = None, [], 0
+    for ens in ensembles:
+        members += len(ens)
+        s, kept = _ensemble_sums(model, ens, batches, compute_dtype, stats)
+        total = s if total is None else total + s
+        if stats:
+            per_sample.append(np.concatenate(kept, axis=1))
+    stats_list = {"acc": [], "ece": [], "nll": [], "ent": []}
+    if stats:
+        stats_list = _running_stats(np.concatenate(per_sample, axis=0),
+                                    labels, members)
+    return total / members, labels, stats_list
+
+
+def eval_nn_and_bnn(model, estimator, data, samples: int = 30,
+                    generator: Optional[torch.Generator] = None,
+                    stats: bool = False, compute_dtype=None,
+                    sample_chunk: Optional[int] = None):
+    """Deterministic and Bayesian predictions over the same data
+    (reference eval_nn_and_bnn, evaluate.py:155-170); returns
+    (predictions, bnn_predictions, labels, bnn_stats)."""
+    batches = list(data)
+    predictions, labels = eval_nn(model, batches, compute_dtype)
+    bnn_predictions, _, bnn_stats = eval_bnn(
+        model, estimator, batches, samples, generator=generator,
+        stats=stats, sample_chunk=sample_chunk, compute_dtype=compute_dtype)
+    return predictions, bnn_predictions, labels, bnn_stats

@@ -2,10 +2,27 @@ from curvature_tpu_torch.models.convert import (
     load_jax_variables, seeded_variables, state_dict_from_jax,
     state_from_jax,
 )
+from curvature_tpu_torch.models.lenet5 import lenet5
 from curvature_tpu_torch.models.resnet import (
     BasicBlock, Bottleneck, ResNet, resnet, resnet18, resnet50,
 )
 
+#: the ported families, by the JAX registry's names (models/__init__.py)
+MODEL_REGISTRY = {"lenet5": lenet5, "resnet18": resnet18,
+                  "resnet50": resnet50}
+
+
+def build(name: str, num_classes: int = 1000, device=None, **kw):
+    """Build a model by its JAX registry name on ``device`` (CUDA unless
+    ``"cpu"`` is passed); the other families of the JAX zoo are not ported
+    yet."""
+    if name not in MODEL_REGISTRY:
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP Queue 1 item 9); "
+            f"ported: {', '.join(sorted(MODEL_REGISTRY))}")
+    return MODEL_REGISTRY[name](num_classes=num_classes, device=device, **kw)
+
+
 __all__ = ["load_jax_variables", "seeded_variables", "state_dict_from_jax",
-           "state_from_jax", "BasicBlock", "Bottleneck", "ResNet", "resnet",
-           "resnet18", "resnet50"]
+           "state_from_jax", "lenet5", "BasicBlock", "Bottleneck", "ResNet",
+           "resnet", "resnet18", "resnet50", "MODEL_REGISTRY", "build"]

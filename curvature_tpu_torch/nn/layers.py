@@ -1,5 +1,6 @@
-"""Layers of the ResNet slice: tracked ``Dense``/``Conv`` and the untracked
-``BatchNorm``, ``ReLU``, ``MaxPool`` and ``GlobalAvgPool``.
+"""Layers of the ResNet and LeNet-5 slices: tracked ``Dense``/``Conv``, the
+untracked ``BatchNorm``, ``ReLU``, ``MaxPool``, ``GlobalAvgPool`` and
+``Flatten``, and the ``Sequential`` container.
 
 Port of the matching subset of ``curvature_tpu/nn/layers.py`` in PyTorch
 layout (NCHW activations, OIHW conv weights, [out, in] dense weights).
@@ -170,3 +171,36 @@ class MaxPool(nn.Module):
 class GlobalAvgPool(nn.Module):
     def forward(self, x):
         return x.mean(dim=(2, 3))
+
+
+class Flatten(nn.Module):
+    """[B, C, H, W] -> [B, C*H*W] in channel-major (c, h, w) order: NCHW's
+    own order, which the JAX ``Flatten`` reaches by transposing NHWC first
+    (layers.py:310-321), so a converted dense kernel lines up."""
+
+    def forward(self, x):
+        return x.reshape(x.shape[0], -1)
+
+
+class Sequential(nn.Module):
+    """Layers applied in order, the tracked ones (``Dense``/``Conv``) with
+    the capture context. A layer with a ``name`` is registered under it,
+    so its state-dict keys and factor-file keys are the JAX layer names
+    (``"conv1.weight"``, ``"fc1"``); the others under their position.
+    ``metas`` lists the tracked layers in forward order."""
+
+    def __init__(self, layers):
+        super().__init__()
+        for i, layer in enumerate(layers):
+            self.add_module(getattr(layer, "name", None) or str(i), layer)
+
+    @property
+    def metas(self):
+        return {m.name: m.meta for m in self.modules()
+                if isinstance(m, (Conv, Dense))}
+
+    def forward(self, x, ctx: Optional[Context] = None):
+        for layer in self.children():
+            x = layer(x, ctx) if isinstance(layer, (Conv, Dense)) \
+                else layer(x)
+        return x

@@ -1,0 +1,179 @@
+"""Shared model/data construction for the pipeline CLIs.
+
+Port of ``curvature_tpu/pipelines/common.py`` for the ported families
+(lenet5, resnet18, resnet50) and datasets (mnist, kmnist, synthetic). The
+loaders yield NHWC numpy batches as in JAX; :func:`device_batch` moves one
+to the device, and :func:`nchw` views it in the models' NCHW order (a
+channels_last view: the data is transposed once, in the view).
+"""
+import dataclasses
+import os
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from curvature_tpu_torch import models
+from curvature_tpu_torch.data import loaders as D
+from curvature_tpu_torch.data.synthetic import synthetic_images
+from curvature_tpu_torch.utils.checkpoint import load_pytree
+from curvature_tpu_torch.utils.config import device as config_device
+
+NUM_CLASSES = {"mnist": 10, "kmnist": 10, "cifar10": 10, "svhn": 10,
+               "gtsrb": 43, "tiny": 200, "imagenet": 1000, "synthetic": 10,
+               "tokens": 256}
+
+
+def loss_kind(cfg) -> str:
+    """Estimator loss for the dataset: the port captures classification
+    cross-entropy only (the token streams' ``'lm'`` is Queue 1 item 6)."""
+    if cfg.data == "tokens":
+        raise NotImplementedError(
+            "--data tokens (loss 'lm') is not ported yet (ROADMAP Queue 1 "
+            "item 6)")
+    return "cross_entropy"
+
+
+def input_shape(data: str, model: str = "") -> Tuple[int, int, int]:
+    """(H, W, C) of the dataset's images."""
+    if data in ("mnist", "kmnist"):
+        return (28, 28, 1)
+    if data in ("cifar10", "svhn", "gtsrb", "synthetic"):
+        return (32, 32, 3)
+    if data == "tiny":
+        return (64, 64, 3)
+    if data == "imagenet":
+        s = 299 if model == "inception_v3" else 224
+        return (s, s, 3)
+    raise ValueError(f"unknown dataset {data!r}")
+
+
+def device_batch(x, device) -> torch.Tensor:
+    """One NHWC numpy batch as a tensor on ``device`` (same layout)."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [..., H, W, C] -> NCHW [..., C, H, W] view (channels_last
+    memory: the kernels read the layer inputs back in NHWC)."""
+    return x.movedim(-1, -3)
+
+
+def on_device(data, device):
+    """(NCHW tensor on ``device``, labels) for each NHWC batch of
+    ``data``."""
+    for x, y in data:
+        yield nchw(device_batch(x, device)), y
+
+
+def build_model(cfg):
+    """Construct the model on the configuration's device and load its
+    weights, searched in JAX's order: ``<root>/weights/<model>_<data>.npz``
+    (JAX layout), a ``.pth`` of the same stem (not ported), the bundled
+    asset ``models/assets/<model>_<data>.npz``, else a seeded
+    initialization (``models.seeded_variables``, the port's own numbers:
+    torch and JAX initializers never agree). On CUDA the model is
+    channels_last."""
+    device = config_device(cfg)
+    num_classes = NUM_CLASSES.get(cfg.data, 10)
+    kw = {}
+    if cfg.model.startswith("resnet"):
+        # CIFAR-style 3x3 stride-1 stem off ImageNet (reference
+        # resnet.py:128-130)
+        kw["stem"] = "imagenet" if cfg.data in ("imagenet", "tiny") \
+            else "cifar"
+    model = models.build(cfg.model, num_classes, device=device, **kw)
+    h, w, _ = input_shape(cfg.data, cfg.model)
+    variables = models.seeded_variables(model, cfg.seed)
+
+    stem = f"{cfg.model}_{cfg.data}"
+    weights_npz = os.path.join(cfg.root_dir, "weights", f"{stem}.npz")
+    weights_pth = os.path.join(cfg.root_dir, "weights", f"{stem}.pth")
+    bundled_npz = os.path.join(os.path.dirname(models.__file__), "assets",
+                               f"{stem}.npz")
+    loaded = None
+    if os.path.exists(weights_npz):
+        loaded = load_pytree(weights_npz)
+    elif os.path.exists(weights_pth):
+        raise NotImplementedError(
+            f"{weights_pth}: torch checkpoints of the reference's layout "
+            "(models/torch_convert.py) are not ported yet (ROADMAP Queue 1 "
+            "item 9); convert it to a JAX-layout npz")
+    elif os.path.exists(bundled_npz):
+        loaded = load_pytree(bundled_npz)
+    if loaded is not None:
+        # a checkpoint of another input size would fail deep inside the
+        # forward; name the layer here
+        init_params = variables["params"]
+        for layer, group in loaded.get("params", {}).items():
+            for pname, arr in group.items():
+                want = init_params.get(layer, {}).get(pname)
+                if want is not None and tuple(want.shape) != \
+                        tuple(np.shape(arr)):
+                    raise ValueError(
+                        f"checkpoint shape mismatch for {layer}.{pname}: "
+                        f"file has {tuple(np.shape(arr))}, the model built "
+                        f"for {cfg.data} ({h}x{w}) expects "
+                        f"{tuple(want.shape)} — was the checkpoint trained "
+                        "at a different input size?")
+        variables = dict(loaded)
+        variables.setdefault("batch_stats", {})
+    models.load_jax_variables(model, variables)
+    if device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    return model
+
+
+def build_data(cfg, splits="train"):
+    """Dataset dispatch (reference factors.py:89-110): NHWC numpy batches.
+    ``synthetic`` is 512 train / 256 test random 32x32x3 images."""
+    root = cfg.data_dir
+    if cfg.data == "synthetic":
+        h, w, c = input_shape("synthetic")
+        rng = np.random.default_rng(cfg.seed)
+        n = 512 if splits == "train" else 256
+        x, y = synthetic_images(rng, n, h, w, c, NUM_CLASSES["synthetic"])
+        split_list = [splits] if isinstance(splits, str) else list(splits)
+        out = [D.ArrayLoader(x, y, cfg.batch_size, shuffle=(s == "train"))
+               for s in split_list]
+        return out[0] if len(out) == 1 else out
+    if cfg.data == "mnist":
+        return D.mnist(root, cfg.batch_size, cfg.workers, cfg.augment, splits)
+    if cfg.data == "kmnist":
+        return D.kmnist(root, cfg.batch_size, cfg.workers, cfg.augment,
+                        splits)
+    if cfg.data == "tokens":
+        raise NotImplementedError(
+            "--data tokens is not ported yet (ROADMAP Queue 1 item 6)")
+    if cfg.data in NUM_CLASSES:
+        raise NotImplementedError(
+            f"the {cfg.data} loader is not ported yet (ROADMAP Queue 1 "
+            "item 9)")
+    raise ValueError(f"unknown dataset {cfg.data!r}")
+
+
+def build_ood_data(cfg, batch_size=None):
+    """In-domain/OOD test loader pair (reference evaluate.py:221-243): the
+    synthetic OOD set is seed + 1 and ``x * 2 + 1``; a dataset's pair is
+    ``loaders.OOD_PAIRS`` (MNIST's is KMNIST, whose files must be under
+    ``--data_dir``)."""
+    bs = batch_size or cfg.batch_size
+    in_data = build_data(cfg, splits="test")
+    if cfg.data == "synthetic":
+        rng = np.random.default_rng(cfg.seed + 1)
+        h, w, c = input_shape("synthetic")
+        x, y = synthetic_images(rng, 256, h, w, c, 10)
+        return in_data, D.ArrayLoader(x * 2.0 + 1.0, y, bs)
+    ood_cfg = dataclasses.replace(cfg, data=D.OOD_PAIRS[cfg.data])
+    return in_data, build_data(ood_cfg, splits="test")
+
+
+def layer_filter(cfg):
+    """--layers flag -> estimator ``layer_filter`` argument: '' = all,
+    'last' = last-layer Laplace, else comma-separated fnmatch patterns."""
+    spec = getattr(cfg, "layers", "") or ""
+    if not spec:
+        return None
+    if spec == "last":
+        return "last"
+    return [p.strip() for p in spec.split(",") if p.strip()]

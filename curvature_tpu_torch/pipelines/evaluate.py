@@ -1,0 +1,220 @@
+"""Evaluation pipeline (reference scripts/evaluate.py): deterministic test,
+in-domain vs out-of-domain Bayesian eval, and FGSM sweeps, with the
+reference's artefact layout and best-params fallback.
+
+Port of ``curvature_tpu/pipelines/evaluate.py``: the estimator is rebuilt
+from factor files of either package, inverted at ``--norm``/``--scale``
+(or the hyperparameter search's ``<results>_best_params.npy`` when either
+is -1), and its posterior samples are drawn from a ``torch.Generator``
+seeded with ``--seed``. Results go into npz files with JAX's keys.
+
+    python -m curvature_tpu_torch.pipelines.evaluate --model lenet5 \\
+        --data mnist --data_dir <dir> --estimator kfac --norm 1 \\
+        --scale 5e4 --fgsm
+"""
+import numpy as np
+import torch
+
+from curvature_tpu_torch import estimators
+from curvature_tpu_torch.eval import (
+    eval_fgsm, eval_fgsm_bnn, eval_nn, eval_nn_and_bnn, metrics)
+from curvature_tpu_torch.models import state_from_jax
+from curvature_tpu_torch.pipelines.common import (
+    build_data, build_model, build_ood_data, layer_filter, loss_kind,
+    on_device)
+from curvature_tpu_torch.utils.checkpoint import (
+    factors_path, load_pytree, results_paths)
+
+
+def _compute_dtype(cfg):
+    """--precision bfloat16: forwards in bf16; softmax and metrics f32."""
+    return torch.bfloat16 if cfg.precision == "bfloat16" else None
+
+
+def _generator(cfg, model) -> torch.Generator:
+    device = next(model.parameters()).device
+    return torch.Generator(device=device).manual_seed(cfg.seed)
+
+
+def load_estimator(cfg, model):
+    """Rebuild an estimator from saved factors (evaluate.py:347-370)."""
+    name = cfg.estimator
+    lf = layer_filter(cfg)
+    loss_kind(cfg)
+    device = next(model.parameters()).device
+
+    def load(*args, **kw):
+        return state_from_jax(load_pytree(factors_path(cfg, *args, **kw)),
+                              device)
+    if name == "diag":
+        est = estimators.Diagonal(model, layer_filter=lf)
+        est.state = load()
+    elif name == "kfac":
+        est = estimators.KFAC(model, layer_filter=lf)
+        est.state = load()
+    elif name == "efb":
+        est = estimators.EFB(model, load("kfac"), layer_filter=lf)
+        est.state = load()
+    elif name == "inf":
+        est = estimators.INF(model, load("diag"), load("kfac"), load("efb"),
+                             layer_filter=lf)
+        est.state = load(rank=str(cfg.rank))
+    elif name in ("subspace", "swag"):
+        raise NotImplementedError(
+            f"--estimator {name} is not ported yet (ROADMAP Queue 1 item 8)")
+    else:
+        raise ValueError(f"unknown estimator {name!r}")
+    missing = set(est.metas) - set(est.state)
+    if missing:
+        # factors computed under a narrower --layers than this run asks for
+        raise ValueError(
+            f"saved factors at {factors_path(cfg)} lack layers "
+            f"{sorted(missing)}; recompute factors or pass the matching "
+            "--layers filter")
+    return est
+
+
+def invert_from_config(cfg, est, results_path: str):
+    """norm/scale from flags or the hyperparameter search's best-params
+    file; the scale is multiplied by pre_scale (evaluate.py:373-378)."""
+    if cfg.norm == -1 or cfg.scale == -1:
+        best = np.load(results_path + "_best_params.npy", allow_pickle=True)
+        norm = np.asarray(best[0], dtype=float)
+        scale = np.asarray(best[1], dtype=float)
+        if norm.size == 1:
+            norm = float(norm.ravel()[0])
+            scale = float(scale.ravel()[0])
+    else:
+        norm, scale = cfg.norm, cfg.scale
+    est.invert(norm, np.asarray(cfg.pre_scale * np.asarray(scale)))
+    return norm, scale
+
+
+def summary(predictions, labels):
+    """(accuracy %, ECE, NLL) of [N, K] probabilities."""
+    return (float(metrics.accuracy(predictions, labels)),
+            float(metrics.expected_calibration_error(predictions, labels)[0]),
+            float(metrics.negative_log_likelihood(predictions, labels)))
+
+
+def _print_summary(tag: str, predictions, labels):
+    """The reference prints accuracy/ECE after every eval pass
+    (evaluate.py:114-118, 149-152)."""
+    acc, ece, nll = summary(predictions, labels)
+    print(f"{tag}: accuracy {acc:.2f}% | ECE {100 * ece:.2f}% | NLL "
+          f"{nll:.4f}", flush=True)
+
+
+def out_of_domain(cfg, model, est, results_path: str, fig_path: str):
+    """In-domain + OOD eval for NN and BNN (evaluate.py:199-280), with
+    the OOD AUROC of the predictive entropy."""
+    in_data, out_data = build_ood_data(cfg)
+    device = next(model.parameters()).device
+    in_data = list(on_device(in_data, device))
+    out_data = list(on_device(out_data, device))
+    dtype = _compute_dtype(cfg)
+    chunk = getattr(cfg, "sample_chunk", 0) or None
+    predictions, bnn_predictions, labels, stats = eval_nn_and_bnn(
+        model, est, in_data, cfg.samples, _generator(cfg, model), cfg.stats,
+        compute_dtype=dtype, sample_chunk=chunk)
+    ood_predictions, bnn_ood_predictions, _, _ = eval_nn_and_bnn(
+        model, est, out_data, cfg.samples, _generator(cfg, model), False,
+        compute_dtype=dtype, sample_chunk=chunk)
+    _print_summary("NN ", predictions, labels)
+    _print_summary("BNN", bnn_predictions, labels)
+
+    def _ent(p):
+        return metrics.predictive_entropy(p).numpy()
+    auroc_nn = metrics.auroc(_ent(predictions), _ent(ood_predictions))
+    auroc_bnn = metrics.auroc(_ent(bnn_predictions),
+                              _ent(bnn_ood_predictions))
+    print(f"OOD AUROC (predictive entropy): NN {auroc_nn:.4f} "
+          f"| BNN {auroc_bnn:.4f}", flush=True)
+    if not cfg.no_results:
+        np.savez_compressed(results_path + ".npz",
+                            stats=stats,
+                            labels=labels,
+                            predictions=predictions,
+                            bnn_predictions=bnn_predictions,
+                            ood_predictions=ood_predictions,
+                            bnn_ood_predictions=bnn_ood_predictions,
+                            auroc=np.asarray([auroc_nn, auroc_bnn]))
+    return predictions, bnn_predictions, labels
+
+
+#: the reference's epsilon sweep (evaluate.py:307)
+FGSM_STEPS = np.concatenate([np.linspace(0, 0.2, 11), np.linspace(0.3, 1, 8)])
+
+
+def _table(stats):
+    """A {column: [values]} table as plain text (JAX prints it with
+    ``tabulate``)."""
+    keys = list(stats)
+    rows = [keys] + [[f"{v:.6g}" for v in vals]
+                     for vals in zip(*(stats[k] for k in keys))]
+    width = [max(len(r[i]) for r in rows) for i in range(len(keys))]
+    return "\n".join("  ".join(c.rjust(w) for c, w in zip(r, width))
+                     for r in rows)
+
+
+def adversarial_attack(cfg, model, est, results_path: str, fig_path: str):
+    """FGSM sweep for NN and BNN (evaluate.py:283-318); with --epsilon > 0
+    one NN attack at that epsilon."""
+    device = next(model.parameters()).device
+    data = list(on_device(build_data(cfg, splits="test"), device))
+    if cfg.epsilon > 0:
+        return eval_fgsm(model, data, cfg.epsilon)[-1]
+    stats_dict = {k: [] for k in ("eps", "acc", "ece1", "ece2", "nll", "ent")}
+    bnn_stats_dict = {k: [] for k in stats_dict}
+    if getattr(cfg, "sample_chunk", 0):
+        raise ValueError(
+            "--sample_chunk is not supported by the FGSM sweep (the "
+            "ensemble stays resident across the epsilon grid); drop the "
+            "flag or lower --samples")
+    ensemble = est.ensemble_params(cfg.samples,
+                                   generator=_generator(cfg, model))
+    for step in FGSM_STEPS:
+        s = eval_fgsm(model, data, float(step))[-1]
+        bs = eval_fgsm_bnn(model, est, data, cfg.samples, float(step),
+                           ensemble_params=ensemble)[-1]
+        for k in stats_dict:
+            stats_dict[k].append(s[k])
+            bnn_stats_dict[k].append(bs[k])
+        if not cfg.no_results:
+            np.savez(results_path + "_fgsm.npz", stats=stats_dict,
+                     bnn_stats=bnn_stats_dict)
+    print(_table(stats_dict))
+    print(_table(bnn_stats_dict), flush=True)
+    return stats_dict, bnn_stats_dict
+
+
+def test(cfg, model, fig_path: str = ""):
+    """Plain deterministic test pass (evaluate.py:173-196)."""
+    device = next(model.parameters()).device
+    predictions, labels = eval_nn(
+        model, on_device(build_data(cfg, splits="test"), device),
+        compute_dtype=_compute_dtype(cfg))
+    _print_summary("NN ", predictions, labels)
+    return predictions, labels
+
+
+def run(cfg):
+    results_path, fig_path = results_paths(cfg)
+    model = build_model(cfg)
+    if cfg.ood or cfg.fgsm:
+        est = load_estimator(cfg, model)
+        invert_from_config(cfg, est, results_path)
+        if cfg.fgsm:
+            return adversarial_attack(cfg, model, est, results_path,
+                                      fig_path)
+        return out_of_domain(cfg, model, est, results_path, fig_path)
+    return test(cfg, model, fig_path)
+
+
+def main(argv=None):
+    from curvature_tpu_torch.utils.config import setup
+    return run(setup(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -346,15 +346,13 @@ def test_efb_and_inf_check_their_factors(ladder):
 
 def test_parts_out_of_this_slice_raise(ladder):
     est = ladder["fed"]["diag"]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        est.update_batches(None, None)
     with pytest.raises(NotImplementedError, match="item 10"):
         est.use_mesh(None)
     for name in ("Subspace", "SWAG"):
         with pytest.raises(NotImplementedError, match="item 8"):
             getattr(port_est, name)
     with pytest.raises(NotImplementedError, match="item 7"):
-        from curvature_tpu_torch.pipelines import factors  # noqa: F401
+        from curvature_tpu_torch.pipelines import hyper  # noqa: F401
 
 
 def test_inf_lazy_eigvecs_match_efb_eigenvalues(ladder):

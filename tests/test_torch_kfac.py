@@ -202,7 +202,7 @@ def test_eval_bnn_with_given_ensemble_matches_jax(eval_pair):
     j_ens = jax.tree_util.tree_map(lambda *a: jnp.stack(a), *j_params)
     want, labels, _ = jeval.eval_bnn(jm, jv, None, data, samples=3,
                                      ensemble_params=j_ens)
-    got, t_labels = teval.eval_bnn(
+    got, t_labels, _ = teval.eval_bnn(
         tm, None, [(_nchw(x), y) for x, y in data], samples=3,
         ensemble_params=t_ens)
     np.testing.assert_array_equal(t_labels, labels)
@@ -218,6 +218,27 @@ def test_eval_bnn_with_given_ensemble_matches_jax(eval_pair):
     w = np.asarray(jmetrics.predictive_entropy(want))
     g = tmetrics.predictive_entropy(got).numpy()
     np.testing.assert_allclose(g, w, atol=1e-5)
+
+
+def test_eval_bnn_given_ensemble_sets_the_count(eval_pair):
+    """A given ensemble's mean is over its own members: ``samples`` only
+    sizes an ensemble that ``eval_bnn`` draws itself."""
+    _, _, tm = eval_pair
+    rng = np.random.default_rng(10)
+    data = [(_nchw(rng.standard_normal((2, 32, 32, 3)).astype(np.float32)),
+             np.array([1, 4]))]
+    own = {k: v.detach() for k, v in tm.named_parameters()
+           if k.rsplit(".", 1)[0] in tm.metas}
+    ens = [{k: v + 0.05 * v.std() * torch.from_numpy(
+                rng.standard_normal(tuple(v.shape)).astype(np.float32))
+            for k, v in own.items()} for _ in range(3)]
+    three, _, stats = teval.eval_bnn(tm, None, data, samples=3,
+                                     ensemble_params=ens, stats=True)
+    thirty, _, stats30 = teval.eval_bnn(tm, None, data, samples=30,
+                                        ensemble_params=ens, stats=True)
+    np.testing.assert_array_equal(thirty, three)
+    np.testing.assert_allclose(three.sum(1), 1.0, atol=1e-5)
+    assert stats30 == stats and len(stats["acc"]) == 3
 
 
 def test_eval_nn_matches_jax(eval_pair):

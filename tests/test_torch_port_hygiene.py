@@ -24,7 +24,9 @@ print(len(names), bad)
 assert len(names) >= 20, names
 for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.ops.cuda.patch_gram",
-                 "curvature_tpu_torch.ops.cuda.sym_gram"):
+                 "curvature_tpu_torch.ops.cuda.sym_gram",
+                 "curvature_tpu_torch.pipelines.factors",
+                 "curvature_tpu_torch.pipelines.evaluate"):
     assert required in names, required
 assert not bad, bad
 """
@@ -60,3 +62,18 @@ def test_default_device_entry_point_raises_without_a_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         models.resnet18()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_bundled_assets_are_byte_copies():
+    """The port's own copies of the JAX package's assets (it imports
+    nothing of that package) stay identical to them."""
+    import filecmp
+    raw = "data/fixtures/digits/MNIST/raw"
+    files = ["models/assets/lenet5_mnist.npz"] + [
+        f"{raw}/{f}" for f in ("train-images-idx3-ubyte.gz",
+                               "train-labels-idx1-ubyte.gz",
+                               "t10k-images-idx3-ubyte.gz",
+                               "t10k-labels-idx1-ubyte.gz")]
+    for f in files:
+        assert filecmp.cmp(REPO / "curvature_tpu_torch" / f,
+                           REPO / "curvature_tpu" / f, shallow=False), f
