@@ -143,6 +143,28 @@ R18_DAMPING = ["--norm", "1e4", "--scale", "1e4"]
 #: v2 layer
 R18_CHECKED = {"layer1.0.conv1": "tiled", "layer2.1.conv1": "tiled",
                "layer2.0.conv1": "tiled", "layer3.0.conv1": "v2"}
+#: the causal-LM phase: GPT-2 124M (bench.py:265-282) at its full width,
+#: depth-stacked, B=8, T=512, loss 'lm', the blocks' layers ('h.*'); the
+#: rate's blocks of updates (bench.py:131-142: one warm update, best of 3)
+LM_PATH = "gpt2_124m_kfac_update_tok_s"
+LM_BATCH, LM_T, LM_VOCAB, LM_UPDATES = 8, 512, 50257, 10
+#: the ladder's batches, the short per-token BNN evals' samples, and the
+#: damping of the random GPT-2's posteriors: a prior standard deviation
+#: of at most 1/sqrt(norm) ~ 0.003 per weight against N(0, 0.02) kernels
+LM_LADDER_BATCHES, LM_LADDER_SAMPLES = 4, 10
+LM_DAMPING = (1e5, 1e4)
+#: the vocabulary head's blocked G: 50 blocks of 1,024 (51,200 padded rows)
+LM_G_BLOCK = 1024
+#: INF on the 124M layers: rank 100 as the pipeline, the completed index
+#: product capped at 1,024 per depth (R x R float64 eigh per depth)
+LM_INF_MAX_PRODUCT = 1024
+#: the CLIs: JAX tests/test_lm_pipeline.py's configuration, then the
+#: vocabulary-scale per-token stats route (vocab >= 8192)
+LM_ARGV = ["--model", "gpt2_tiny", "--data", "tokens", "--seq_len", "16",
+           "--batch_size", "32", "--scan_blocks"]
+LM_VOCAB_ARGV = ["--model", "gpt2_tiny", "--data", "tokens", "--vocab",
+                 "50257", "--seq_len", "64", "--layers", "h.*"]
+LM_CLI_DAMPING = ["--norm", "1e5", "--scale", "1e4"]
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -1152,6 +1174,278 @@ def pipelines(estimators, counters, smi):
     return by_path, updated
 
 
+def lm_tokens(rng, n, dev):
+    """n seeded [LM_BATCH, LM_T] token batches and [LM_BATCH, LM_T] label
+    batches on the card."""
+    import torch
+    out = []
+    for _ in range(n):
+        x = rng.integers(0, LM_VOCAB, (LM_BATCH, LM_T)).astype("int32")
+        y = rng.integers(0, LM_VOCAB, (LM_BATCH, LM_T)).astype("int64")
+        out.append((torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)))
+    return out
+
+
+def timed(fn):
+    """(fn(), wall seconds), synchronized on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def rel_err(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def token_stats(stats, what):
+    """Accuracy, ECE and NLL per token from the [N, 4] STATS_COLUMNS,
+    after checking them finite."""
+    import numpy as np
+    from curvature_tpu_torch.eval import metrics
+    if not np.isfinite(stats).all():
+        raise AssertionError(f"{what}: stats not finite")
+    return {"acc": 100.0 * float(stats[:, 2].mean()),
+            "ece": 100.0 * float(metrics.ece_from_confidence(
+                stats[:, 1], stats[:, 2])[0]),
+            "nll": float(-np.log(np.clip(stats[:, 0], 1e-12, None)).mean())}
+
+
+def lm_tail(est, model, x, y, gen, counters, label, samples):
+    """invert at LM_DAMPING -> one sample -> a ``samples``-sample per-token
+    BNN eval (``eval_bnn_stats``, drawn 10 at a time) on one batch; no
+    Gram kernel launched; every step's wall seconds printed."""
+    from curvature_tpu_torch.eval import eval_bnn_stats
+    _, inv_s = timed(lambda: est.invert(*LM_DAMPING))
+    check_finite(est.inv_state, f"{label} inv_state")
+    sample, sample_s = timed(lambda: est.sample(generator=gen))
+    check_finite(sample, f"{label} sample")
+    counters.reset()
+    (stats, _), eval_s = timed(lambda: eval_bnn_stats(
+        model, est, [(x, y.cpu().numpy())], samples, generator=gen,
+        sample_chunk=10))
+    if counters.read() != counters.zero():
+        raise AssertionError(f"{label}: eval launched {counters.read()}")
+    log(f"{label}: invert{LM_DAMPING} {inv_s:.3f} s; sample {sample_s:.3f} "
+        f"s; {samples}-sample per-token bnn eval of {x.numel()} tokens "
+        f"{eval_s:.3f} s: {json.dumps(token_stats(stats, label))} (random "
+        "weights)")
+
+
+def lm_updates(est, batches, gen, counters, label):
+    """``update`` over ``batches`` with the counters set to 0 just before
+    and read just after: no Gram kernel may launch."""
+    counters.reset()
+    _, seconds = timed(lambda: [est.update(x, generator=gen)
+                                for x, _ in batches])
+    got = counters.read()
+    log(f"{label}: {len(batches)} updates in {seconds:.3f} s; launches "
+        f"{json.dumps(got)}")
+    if got != counters.zero():
+        raise AssertionError(f"{label}: Gram kernels launched: {got}")
+    check_finite(est.state, f"{label} state")
+
+
+def lm_phase(estimators, models, counters, smi, dev, profile=False):
+    """The causal-LM path on GPT-2 124M (seeded N(0, 0.02) weights in
+    JAX's layout, carried across by ``models.load_jax_variables``): (a)
+    KFAC over the stacked blocks at B=8, T=512 -- the rate, invert,
+    sample, a 30-sample per-token eval, and depth slices against the
+    unrolled model; (b) last-layer KFAC on the 50,257-word head with
+    blocked G; (c) Diagonal, KFAC, EFB and INF over 4 batches, Block on
+    gpt2_tiny's stacked ``h.attn.c_proj``; (d) the ``--data tokens`` CLIs.
+    Returns the rate."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch.pipelines import evaluate, factors
+    from curvature_tpu_torch.utils.checkpoint import results_paths
+    from curvature_tpu_torch.utils.config import parse_args
+    none = counters.zero()
+    rng = np.random.default_rng(11)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    model = models.gpt2(LM_VOCAB, scan_blocks=True, max_len=LM_T, device=dev)
+    variables = models.seeded_variables(model, 0)
+    models.load_jax_variables(model, variables)
+    batches = lm_tokens(rng, 1 + LM_UPDATES, dev)
+
+    # (a) the main path: KFAC over the blocks, the rate by bench.py's method
+    est = estimators.KFAC(model, loss="lm", layer_filter="h.*")
+    lm_updates(est, batches[:1], gen, counters, f"{LM_PATH} (warm update)")
+    best = float("inf")
+    for _ in range(3):
+        counters.reset()
+        _, seconds = timed(lambda: [est.update(x, generator=gen)
+                                    for x, _ in batches[1:]])
+        if counters.read() != none:
+            raise AssertionError(f"{LM_PATH}: launches {counters.read()}")
+        best = min(best, seconds)
+    rate = LM_BATCH * LM_T * LM_UPDATES / best
+    check_finite(est.state, f"{LM_PATH} state")
+    log(f"{LM_PATH}: {rate:.2f} tokens/s (GPT-2 124M depth-stacked, f32, "
+        f"B={LM_BATCH} T={LM_T} MC=1, layers h.*, best of 3 blocks of "
+        f"{LM_UPDATES} updates: {1e3 * best / LM_UPDATES:.1f} ms per update;"
+        f" {smi})")
+    state_gb = sum(t.numel() * t.element_size() for f in est.state.values()
+                   for t in f.values()) / 1e9
+    log(f"{LM_PATH}: KFAC state {state_gb:.3f} GB; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        log(f"{LM_PATH} (one update):")
+        profile_update(est, batches[0][0], gen)
+    x, y = batches[0]
+    lm_tail(est, model, x, y, gen, counters, "gpt2 124M kfac", SAMPLES)
+    del est
+    # depth slice i of the stacked factors == the unrolled model's h.{i}
+    flat = models.gpt2(LM_VOCAB, max_len=LM_T, device=dev)
+    models.load_jax_variables(flat,
+                              models.unstack_scan_groups(variables, model))
+    one = {}
+    for what, m in (("scan", model), ("unrolled", flat)):
+        e = estimators.KFAC(m, loss="lm", layer_filter="h.*")
+        e.update(x, labels=y)
+        one[what] = e.state
+    worst = {"a": 0.0, "g": 0.0}
+    for name, fac in one["scan"].items():
+        for i in range(fac["a"].shape[0]):
+            flat_fac = one["unrolled"][name.replace("h.", f"h.{i}.", 1)]
+            for key in worst:
+                worst[key] = max(worst[key],
+                                 rel_err(fac[key][i], flat_fac[key]))
+    log(f"stacked slices vs the unrolled model, one batch: A "
+        f"{worst['a']:.3e} (bar 1e-5), G {worst['g']:.3e} (bar 1e-4) of max")
+    if worst["a"] > 1e-5 or worst["g"] > 1e-4:
+        raise AssertionError(f"stacked vs unrolled factors: {worst}")
+    del one, flat
+
+    # (b) the vocabulary head: last-layer KFAC with blocked G
+    head = estimators.KFAC(model, loss="lm", layer_filter="last",
+                           g_block_size=LM_G_BLOCK)
+    meta = head.metas["lm_head"]
+    nb, bs, padded = head._gblock_dims(meta)
+    counters.reset()
+    cap = head.capture(x, labels=y)
+    head._accumulate(cap)
+    if counters.read() != none:
+        raise AssertionError(f"lm_head update launched {counters.read()}")
+    g = head.state["lm_head"]["g"]
+    got = float(torch.diagonal(g, dim1=-2, dim2=-1).double().sum())
+    grads = cap.probe_grads["lm_head"].double()
+    n_tok = grads[0].numel() // meta.out_features
+    want = float((grads ** 2).sum()) * cap.batch_size ** 2 / n_tok
+    del cap, grads
+    tail = meta.out_features - (nb - 1) * bs
+    tail_nz = int(torch.count_nonzero(g[-1, tail:, :])
+                  + torch.count_nonzero(g[-1, :, tail:]))
+    log(f"lm_head blocked G: {nb} blocks of [{bs}, {bs}] ({padded} padded "
+        f"rows); sum of block traces {got:.9e} vs B^2/N sum |g_n|^2 "
+        f"{want:.9e}: rel {abs(got - want) / abs(want):.3e} (bar 1e-5); "
+        f"nonzeros in the padded tail {tail_nz}")
+    if abs(got - want) > 1e-5 * abs(want) or tail_nz:
+        raise AssertionError("lm_head blocked G check failed")
+    lm_tail(head, model, x, y, gen, counters, "lm_head kfac (blocked G)", 2)
+    del head
+
+    # (c) the ladder over the stacked 124M layers, the same 4 batches
+    ladder_batches = batches[:LM_LADDER_BATCHES]
+    diag = estimators.Diagonal(model, loss="lm", layer_filter="h.*")
+    lm_updates(diag, ladder_batches, gen, counters, "gpt2 ladder diagonal")
+    lm_tail(diag, model, x, y, gen, counters, "gpt2 ladder diagonal",
+            LM_LADDER_SAMPLES)
+    kfac = estimators.KFAC(model, loss="lm", layer_filter="h.*")
+    lm_updates(kfac, ladder_batches, gen, counters, "gpt2 ladder kfac")
+    lm_tail(kfac, model, x, y, gen, counters, "gpt2 ladder kfac",
+            LM_LADDER_SAMPLES)
+    efb, eig_s = timed(lambda: estimators.EFB(model, kfac.state, loss="lm",
+                                              layer_filter="h.*"))
+    shapes = sorted({tuple(f[k].shape) for f in kfac.state.values()
+                     for k in "ag"})
+    log(f"gpt2 ladder efb: eigendecomposition of {2 * len(efb.metas)} "
+        f"stacked factors ({shapes}) in {eig_s:.3f} s")
+    lm_updates(efb, ladder_batches, gen, counters, "gpt2 ladder efb")
+    lm_tail(efb, model, x, y, gen, counters, "gpt2 ladder efb",
+            LM_LADDER_SAMPLES)
+    counters.reset()
+    inf = estimators.INF(model, efb.diags, kfac.state, efb.state,
+                         eigvecs=efb.eigvecs, layer_filter="h.*")
+    _, build_s = timed(lambda: inf.update(
+        rank=INF_RANK, max_product=LM_INF_MAX_PRODUCT, bucket=INF_BUCKET))
+    if counters.read() != none:
+        raise AssertionError(f"INF build launched {counters.read()}")
+    sizes = {n: [s["ua"].shape[-1], s["ug"].shape[-1]]
+             for n, s in inf.state.items()}
+    log(f"gpt2 ladder inf: update(rank={INF_RANK}, max_product="
+        f"{LM_INF_MAX_PRODUCT}, bucket={INF_BUCKET}) in {build_s:.3f} s; "
+        f"(L, M) per depth by layer {json.dumps(sizes)}")
+    check_finite(inf.state, "gpt2 ladder inf state")
+    lm_tail(inf, model, x, y, gen, counters, "gpt2 ladder inf",
+            LM_LADDER_SAMPLES)
+    del diag, kfac, efb, inf
+    tiny = models.gpt2_tiny(scan_blocks=True, max_len=64, device=dev)
+    models.load_jax_variables(tiny, models.seeded_variables(tiny, 0))
+    tb = [(torch.from_numpy(rng.integers(0, 256, (8, 64)).astype("int32"))
+           .to(dev), torch.from_numpy(rng.integers(0, 256, (8, 64))).to(dev))
+          for _ in range(LM_LADDER_BATCHES)]
+    blk = estimators.BlockDiagonal(tiny, loss="lm",
+                                   layer_filter="h.attn.c_proj")
+    lm_updates(blk, tb, gen, counters,
+               "gpt2_tiny ladder block (h.attn.c_proj, stacked)")
+    lm_tail(blk, tiny, tb[0][0], tb[0][1], gen, counters,
+            "gpt2_tiny ladder block", LM_LADDER_SAMPLES)
+    del blk, tiny
+
+    # (d) the --data tokens CLIs on gpt2_tiny
+    root = os.path.abspath(os.path.join(PIPE_ROOT, "gpt2_tiny"))
+    base = LM_ARGV + ["--root_dir", root, "--results_dir", root]
+    for name in ("diag", "kfac", "efb", "inf"):
+        est, got = run_cli(factors, base + ["--estimator", name], counters,
+                           smi, f"gpt2_tiny tokens factors {name}")
+        if got != none:
+            raise AssertionError(f"gpt2_tiny factors {name} launched {got}")
+        check_finite(est.state, f"gpt2_tiny {name} state")
+    for name in ("kfac", "efb"):
+        argv = base + ["--estimator", name, "--ood"] + LM_CLI_DAMPING
+        (probs, bnn_probs, labels), got = run_cli(
+            evaluate, argv, counters, smi,
+            f"gpt2_tiny tokens evaluate {name} --ood")
+        cfg = parse_args(argv)
+        with np.load(results_paths(cfg)[0] + ".npz",
+                     allow_pickle=True) as f:
+            auroc = f["auroc"]
+        for what, p in (("nn", probs), ("bnn", bnn_probs)):
+            if p.shape != (256 * cfg.seq_len, 256) \
+                    or not np.isfinite(p).all() \
+                    or np.abs(p.sum(1) - 1).max() > 1e-3:
+                raise AssertionError(f"gpt2_tiny {name} {what} malformed")
+        if got != none or not np.isfinite(auroc).all():
+            raise AssertionError(f"gpt2_tiny evaluate {name}: {got}, "
+                                 f"AUROC {auroc}")
+        log(f"gpt2_tiny tokens {name} --ood (random weights): NN accuracy "
+            f"{100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
+            f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}% per "
+            f"token; AUROC NN {auroc[0]:.4f} BNN {auroc[1]:.4f}")
+    root = os.path.abspath(os.path.join(PIPE_ROOT, "gpt2_tiny_vocab"))
+    base = LM_VOCAB_ARGV + ["--root_dir", root, "--results_dir", root,
+                            "--estimator", "kfac"]
+    est, got = run_cli(factors, base, counters, smi,
+                       "gpt2_tiny vocab 50257 factors kfac (h.*)")
+    check_finite(est.state, "gpt2_tiny vocab kfac state")
+    (nn_s, bnn_s, labels), got2 = run_cli(
+        evaluate, base + ["--ood"] + LM_CLI_DAMPING, counters, smi,
+        "gpt2_tiny vocab 50257 evaluate kfac --ood (stats route)")
+    n_tok = 256 * parse_args(base).seq_len
+    if got != none or got2 != none or nn_s.shape != (n_tok, 4) \
+            or bnn_s.shape != (n_tok, 4):
+        raise AssertionError(f"gpt2_tiny vocab: {got}, {got2}, "
+                             f"{nn_s.shape}, {bnn_s.shape}")
+    log(f"gpt2_tiny vocab 50257 per-token stats: NN "
+        f"{json.dumps(token_stats(nn_s, 'nn'))}, BNN "
+        f"{json.dumps(token_stats(bnn_s, 'bnn'))}")
+    return rate
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1161,7 +1455,11 @@ def main(argv=None):
                     help="build and check the kernels, print their records "
                          "and the f32 sym_gram split sweep (SPLIT_SWEEP), "
                          "and stop (no paths, no result line)")
+    ap.add_argument("--lm", action="store_true",
+                    help="build the kernels, run the causal-LM phase only "
+                         "and stop (no result line)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -1203,6 +1501,12 @@ def main(argv=None):
                                         "spill", "wgmma", "arning")):
                 log(f"  {name}: {line.strip()}")
     hgmma = hgmma_counts(build)
+    if args.lm:
+        lm_phase(estimators, models, Counters(tpg, tsg), smi,
+                 torch.device("cuda", 0), args.profile)
+        log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            " GiB")
+        return 0
 
     # -- 2. kernels against their plain versions ----------------------------
     log("kernels vs plain versions:")
@@ -1354,6 +1658,13 @@ def main(argv=None):
         for path, e, x in r18_updated:
             log(f"{path} (the pipeline's update: B=32, MC={PIPE_MC}):")
             profile_update(e, x, gen, num_samples=PIPE_MC)
+
+    # -- 6. the causal-LM path: GPT-2 124M, the ladder, the token CLIs -----
+    del est, est16, est_sub, lad, r18_updated, ensemble
+    torch.cuda.empty_cache()
+    lm_phase(estimators, models, counters, smi, dev, args.profile)
+    log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s")
 
     log(smi)
     print(json.dumps({"kernels": records}))

@@ -1,4 +1,4 @@
 from curvature_tpu_torch.data import loaders
-from curvature_tpu_torch.data.synthetic import synthetic_images
+from curvature_tpu_torch.data.synthetic import synthetic_images, synthetic_tokens
 
-__all__ = ["loaders", "synthetic_images"]
+__all__ = ["loaders", "synthetic_images", "synthetic_tokens"]

@@ -2,7 +2,10 @@
 the Gaussian API (``precision_solve``, ``quadratic_form``,
 ``log_density``).
 
-Port of the plain-layer subset of ``curvature_tpu/estimators/base.py``.
+Port of ``curvature_tpu/estimators/base.py`` for plain and depth-stacked
+(ScanBlocks) layers; a stacked layer's state, offsets and samples carry a
+leading ``[depth]`` axis. ``loss`` picks the Fisher's output distribution
+(``'cross_entropy'``, or the per-token ``'lm'``; estimators/capture.py).
 ``state`` and ``inv_state`` are dicts keyed by layer name. PyTorch runs
 eagerly, so the JAX jitted transforms are plain method calls; the factor
 state is updated in place (each ``update`` adds into the existing
@@ -130,8 +133,10 @@ class Estimator:
     def __init__(self, model, dtype=torch.float32,
                  compute_dtype: Optional[torch.dtype] = None,
                  layer_filter: Optional[Union[str, Sequence[str]]] = None,
-                 layer_types: Optional[Union[str, Sequence[str]]] = None):
+                 layer_types: Optional[Union[str, Sequence[str]]] = None,
+                 loss: str = "cross_entropy"):
         self.model = model
+        self.loss = loss
         if layer_types is None:
             wanted = {"linear", "conv", "attention"}
         else:
@@ -230,13 +235,15 @@ class Estimator:
                        generator=generator, num_samples=num_samples,
                        params=params,
                        need_param_grads=self.need_param_grads,
-                       need_probe_grads=self.need_probe_grads)
+                       need_probe_grads=self.need_probe_grads,
+                       loss=self.loss)
 
     def update(self, x: torch.Tensor, labels=None,
                generator: Optional[torch.Generator] = None,
                num_samples: int = 1):
-        """Accumulate factors from one batch. ``labels`` ([B] or [S, B])
-        give the empirical Fisher or injected MC labels; ``None`` draws
+        """Accumulate factors from one batch. ``labels`` ([B] or [S, B];
+        [B, T] or [S, B, T] for ``loss='lm'``) give the empirical Fisher or
+        injected MC labels; ``None`` draws
         ``num_samples`` labels from the model distribution."""
         self._accumulate(self.capture(x, labels, generator, num_samples))
         return self.state

@@ -1,9 +1,10 @@
 """Exact per-layer (block-diagonal) Fisher.
 
 Port of ``curvature_tpu/estimators/block.py`` (the reference's
-``BlockDiagonal``, curvatures.py:196-261), plain layers: the outer product
-of each layer's flattened gradient, a [p, p] state for p = out * cols
-parameters, O(p^2) memory (practical for small layers only: the exact
+``BlockDiagonal``, curvatures.py:196-261): the outer product of each
+layer's flattened gradient, a [p, p] state for p = out * cols parameters
+(``[depth, p, p]`` for a stacked layer, every transform batched over
+depth, JAX :37-123), O(p^2) memory (practical for small layers only: the exact
 reference the other estimators are checked against).
 
   update:  state += B * sum_s v_s v_s^T     (v_s: flattened gradient)
@@ -36,12 +37,12 @@ def _flatten_grad(mat: torch.Tensor, has_bias: bool) -> torch.Tensor:
 
 
 def _unflatten(vec: torch.Tensor, meta: LayerMeta) -> torch.Tensor:
-    """Inverse of :func:`_flatten_grad`: [p] -> [out, cols]."""
-    w = vec[:meta.out_features * meta.fan_in].reshape(meta.out_features,
-                                                      meta.fan_in)
+    """Inverse of :func:`_flatten_grad`: [..., p] -> [..., out, cols]."""
+    lead = vec.shape[:-1]
+    nw = meta.out_features * meta.fan_in
+    w = vec[..., :nw].reshape(lead + (meta.out_features, meta.fan_in))
     if meta.has_bias:
-        return torch.cat([w, vec[meta.out_features * meta.fan_in:, None]],
-                         dim=1)
+        return torch.cat([w, vec[..., nw:, None]], dim=-1)
     return w
 
 
@@ -50,15 +51,17 @@ class BlockDiagonal(Estimator):
     need_probe_grads = False
 
     def init_state(self):
-        return {name: torch.zeros((m.out_features * m.mat_cols,) * 2,
+        return {name: torch.zeros(((m.stacked,) if m.stacked else ())
+                                  + (m.out_features * m.mat_cols,) * 2,
                                   dtype=self.dtype, device=self.device)
                 for name, m in self.metas.items()}
 
     def update_state(self, state, cap: Captured):
         for name, meta in self.metas.items():
             v = _flatten_grad(cap.param_grads[name].to(self.dtype),
-                              meta.has_bias)                  # [S, p]
-            state[name] += cap.batch_size * (v.T @ v)
+                              meta.has_bias)            # [S, (depth,) p]
+            v = v.movedim(0, -2)                        # [(depth,) S, p]
+            state[name] += cap.batch_size * (v.mT @ v)
         return state
 
     def _damped(self, state, add, multiply, i, name):
@@ -78,15 +81,15 @@ class BlockDiagonal(Estimator):
         tot = torch.zeros((), dtype=torch.float64, device=self.device)
         for i, name in enumerate(self.metas):
             tot = tot + chol_logdet(diag_add(
-                multiply[i].double() * state[name].double(), add[i]))
+                multiply[i].double() * state[name].double(), add[i])).sum()
         return tot.to(self.dtype)
 
     def quad_state(self, state, add, multiply, deltas):
         tot = torch.zeros((), dtype=self.dtype, device=self.device)
         for i, (name, meta) in enumerate(self.metas.items()):
             damped = sym(self._damped(state, add, multiply, i, name))
-            v = _flatten_grad(deltas[name], meta.has_bias)
-            tot = tot + v @ (damped @ v)
+            v = _flatten_grad(deltas[name], meta.has_bias)[..., None]
+            tot = tot + (v * (damped @ v)).sum()
         return tot
 
     def solve_state(self, inv_state, deltas):
@@ -94,14 +97,16 @@ class BlockDiagonal(Estimator):
         out = {}
         for name, meta in self.metas.items():
             l = inv_state[name]
-            v = _flatten_grad(deltas[name], meta.has_bias)
-            out[name] = _unflatten(l @ (l.T @ v), meta)
+            v = _flatten_grad(deltas[name], meta.has_bias)[..., None]
+            out[name] = _unflatten((l @ (l.mT @ v))[..., 0], meta)
         return out
 
     def noise_shapes(self) -> Dict[str, tuple]:
-        return {name: (m.out_features * m.mat_cols,)
+        return {name: ((m.stacked,) if m.stacked else ())
+                + (m.out_features * m.mat_cols,)
                 for name, m in self.metas.items()}
 
     def sample_state(self, inv_state, noise) -> Dict[str, torch.Tensor]:
-        return {name: _unflatten(inv_state[name] @ noise[name], meta)
+        return {name: _unflatten((inv_state[name] @ noise[name][..., None])
+                                 [..., 0], meta)
                 for name, meta in self.metas.items()}

@@ -1,11 +1,16 @@
 """Activation, output-gradient and parameter-gradient capture: one
 forward, S backwards.
 
-Port of ``curvature_tpu/estimators/capture.py`` (classification only).
-One forward under a capture :class:`~curvature_tpu_torch.nn.Context`
-records every tracked layer's input and adds a zero probe to its
-pre-activation output. Each Monte-Carlo label draw only changes the loss
-cotangent at the logits, ``(softmax(logits) - onehot(labels_s)) / B``, so
+Port of ``curvature_tpu/estimators/capture.py`` for the categorical
+losses: classification (``loss='cross_entropy'``, logits [B, K], labels
+[S, B]) and the per-token causal-LM Fisher (``loss='lm'``, logits [B, T,
+V], labels [S, B, T]; explicit [B, T] labels are told apart from [S, B]
+by their rank, JAX :172-181). One forward under a capture
+:class:`~curvature_tpu_torch.nn.Context` records every tracked layer's
+input and adds a zero probe to its pre-activation output. Each
+Monte-Carlo label draw only changes the loss cotangent at the logits,
+``(softmax(logits) - onehot(labels_s)) / #positions`` (B, or B*T for
+``'lm'``), so
 the S backwards are a loop of ``torch.autograd.grad`` over the probes
 and/or the tracked layers' ``weight``/``bias`` with ``retain_graph``
 (chosen over ``is_grads_batched``, whose vmapped backward does not cover
@@ -18,13 +23,16 @@ alone, the gradient-moment estimators for the parameters alone).
 Under a compute dtype the caller passes a cast parameter dict (``params``,
 applied with ``torch.func.functional_call``) and a cast input; logits,
 softmax, one-hot and cotangent then stay in the logits' dtype, as in JAX
-(capture.py:74-83). MC labels are drawn from the softmax in f32.
+(capture.py:74-83). MC labels are drawn from the softmax in f32. Each
+sample's cotangent is made just before its backward and freed after it,
+so at a 50,257-word vocabulary one ``[B, T, V]`` cotangent exists at a
+time.
 """
+import math
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
-import torch.nn.functional as F
 from torch.func import functional_call
 
 from curvature_tpu_torch.nn.core import Context, LayerMeta, param_matrix
@@ -34,12 +42,16 @@ from curvature_tpu_torch.nn.core import Context, LayerMeta, param_matrix
 class Captured:
     """Per-batch capture results.
 
-    acts:        layer -> input, JAX layout (NHWC conv, [B, in] dense).
+    acts:        layer -> input, JAX layout (NHWC conv, [B, (T,) in]
+                 dense; a stacked layer's [depth, ...]).
     probe_grads: layer -> [S, ...preact] dL/dy of the mean loss, JAX
-                 layout (NHWC conv, [S, B, out] dense).
-    logits:      [B, K] outputs of the forward.
-    batch_size:  B.
-    param_grads: layer -> [S, out, fan_in(+1)] matrix-view gradients of the
+                 layout (NHWC conv, [S, B, (T,) out] dense; a stacked
+                 layer's [S, depth, ...preact]).
+    logits:      [B, K] (or [B, T, V]) outputs of the forward.
+    batch_size:  the observation count every estimator's scale uses: B,
+                 or B*T for ``loss='lm'`` (JAX :219-226).
+    param_grads: layer -> [S, (depth,) out, fan_in(+1)] matrix-view
+                 gradients of the
                  mean loss (``nn.core.param_matrix``: (c, kh, kw) columns,
                  the bias column last); empty unless asked for.
     """
@@ -53,19 +65,30 @@ class Captured:
 def sample_labels(logits: torch.Tensor, num_samples: int,
                   generator: Optional[torch.Generator] = None
                   ) -> torch.Tensor:
-    """Categorical draws [S, B] from the model's output distribution (the
-    'true' Fisher)."""
+    """Categorical draws [S, *lead] from the model's output distribution
+    (the 'true' Fisher): [S, B] for [B, K] logits, per-token [S, B, T] for
+    [B, T, V]."""
     probs = torch.softmax(logits.detach().float(), dim=-1)
-    return torch.multinomial(probs, num_samples, replacement=True,
-                             generator=generator).T
+    draws = torch.multinomial(probs.reshape(-1, probs.shape[-1]),
+                              num_samples, replacement=True,
+                              generator=generator)
+    return draws.T.reshape((num_samples,) + logits.shape[:-1])
 
 
-def ce_cotangent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """d(mean CE)/d logits = (softmax - onehot) / B, per label row:
-    logits [B, K], labels [S, B] -> [S, B, K]."""
-    p = torch.softmax(logits.detach(), dim=-1)
-    onehot = F.one_hot(labels.long(), logits.shape[-1]).to(p.dtype)
-    return (p[None] - onehot) / logits.shape[0]
+def ce_cotangent(logits: torch.Tensor, labels: torch.Tensor,
+                 probs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """d(mean CE)/d logits = (softmax - onehot) / #positions, #positions
+    the product of every leading axis (B, or B*T): logits [*lead, K],
+    labels [S, *lead] -> [S, *lead, K]. ``probs``, where given, is the
+    softmax of the logits, computed once for every sample."""
+    p = torch.softmax(logits.detach(), dim=-1) if probs is None else probs
+    # p - onehot as a scatter of -1: the same numbers, without a [*lead, K]
+    # int64 one-hot (1.6 GB at B=8, T=512, V=50,257)
+    cot = p.expand((labels.shape[0],) + p.shape).clone()
+    idx = labels.long()[..., None]
+    cot.scatter_add_(-1, idx, torch.full(idx.shape, -1.0, dtype=p.dtype,
+                                         device=p.device))
+    return cot / math.prod(logits.shape[:-1])
 
 
 def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
@@ -74,11 +97,13 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             num_samples: int = 1,
             params: Optional[Dict[str, torch.Tensor]] = None,
             need_param_grads: bool = True,
-            need_probe_grads: bool = True) -> Captured:
+            need_probe_grads: bool = True,
+            loss: str = "cross_entropy") -> Captured:
     """Capture acts, probe gradients and parameter gradients for the layers
     in ``metas``.
 
-    ``labels`` are [S, B] (or [B]) class labels; ``None`` draws
+    ``labels`` are [S, B] (or [B]) class labels, or [S, B, T] (or [B, T])
+    token labels for ``loss='lm'``; ``None`` draws
     ``num_samples`` labels from the model distribution with
     ``generator``. ``params`` (state-dict keys) replace the model's own
     parameters for this forward; the model is not changed. The model runs
@@ -87,6 +112,9 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     two gradient outputs; a switched-off one is neither computed nor
     returned.
     """
+    if loss not in ("cross_entropy", "lm"):
+        raise NotImplementedError(
+            f"loss {loss!r} is not ported yet (ROADMAP Queue 1 item 6)")
     weight_keys = [f"{n}.{leaf}" for n, m in metas.items()
                    for leaf in (("weight", "bias") if m.has_bias
                                 else ("weight",))]
@@ -109,22 +137,26 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     if labels is None:
         labels = sample_labels(logits, num_samples, generator)
     labels = torch.as_tensor(labels, device=logits.device)
-    if labels.ndim == 1:
+    if labels.ndim == (2 if loss == "lm" else 1):
         labels = labels[None]
-    cots = ce_cotangent(logits, labels)
+    probs = torch.softmax(logits.detach(), dim=-1)
     names = list(metas)
     inputs = [ctx.probes[n] for n in names] if need_probe_grads else []
     if need_param_grads:
         inputs += [params[k] for k in weight_keys]
     grads = {n: [] for n in names}
     pgrads = {n: [] for n in names}
-    for s in range(cots.shape[0]):
-        gs = torch.autograd.grad(logits, inputs, grad_outputs=cots[s],
-                                 retain_graph=s < cots.shape[0] - 1)
+    num = labels.shape[0]
+    for s in range(num):
+        cot = ce_cotangent(logits, labels[s:s + 1], probs)[0]
+        gs = torch.autograd.grad(logits, inputs, grad_outputs=cot,
+                                 retain_graph=s < num - 1)
+        del cot
         if need_probe_grads:
             for n, g in zip(names, gs):
                 # JAX layout: NCHW conv grads -> NHWC views
-                grads[n].append(g.permute(0, 2, 3, 1) if g.ndim == 4 else g)
+                grads[n].append(g.permute(0, 2, 3, 1)
+                                if metas[n].kind == "conv" else g)
             gs = gs[len(names):]
         if need_param_grads:
             by_key = dict(zip(weight_keys, gs))
@@ -137,6 +169,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
         acts={n: ctx.acts[n] for n in names},
         probe_grads=({n: torch.stack(v) for n, v in grads.items()}
                      if need_probe_grads else {}),
-        logits=logits.detach(), batch_size=x.shape[0],
+        logits=logits.detach(),
+        batch_size=(math.prod(logits.shape[:-1]) if loss == "lm"
+                    else x.shape[0]),
         param_grads=({n: torch.stack(v) for n, v in pgrads.items()}
                      if need_param_grads else {}))

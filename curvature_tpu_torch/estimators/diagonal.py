@@ -1,7 +1,8 @@
 """Diagonal Fisher estimator.
 
 Port of ``curvature_tpu/estimators/diagonal.py`` (the reference's
-``Diagonal``, curvatures.py:132-193), plain layers:
+``Diagonal``, curvatures.py:132-193); a stacked layer's state carries a
+leading depth axis, and every transform is elementwise (JAX :32-36):
 
   update:  state += B * sum_s g_s^2     (g_s: [out, fan_in(+1)] gradient of
                                          the mean loss for MC sample s)
@@ -31,9 +32,8 @@ class Diagonal(Estimator):
     need_probe_grads = False
 
     def init_state(self):
-        return {name: torch.zeros((m.out_features, m.mat_cols),
-                                  dtype=self.dtype, device=self.device)
-                for name, m in self.metas.items()}
+        return {name: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                for name, shape in self.noise_shapes().items()}
 
     def update_state(self, state, cap: Captured):
         for name in self.metas:
@@ -46,7 +46,8 @@ class Diagonal(Estimator):
         return {name: torch.sqrt(1.0 / p) for name, p in prec.items()}
 
     def noise_shapes(self) -> Dict[str, tuple]:
-        return {name: (m.out_features, m.mat_cols)
+        return {name: ((m.stacked,) if m.stacked else ())
+                + (m.out_features, m.mat_cols)
                 for name, m in self.metas.items()}
 
     def sample_state(self, inv_state, noise) -> Dict[str, torch.Tensor]:

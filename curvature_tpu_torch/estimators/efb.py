@@ -1,7 +1,9 @@
 """Eigenvalue-corrected Kronecker factorization (EFB / EKFAC).
 
 Port of ``curvature_tpu/estimators/efb.py`` (the reference's ``EFB``,
-curvatures.py:395-460), plain layers. The KFAC factors are
+curvatures.py:395-460), for plain and stacked layers (a stacked layer's
+eigenvectors, moments and noise carry a leading depth axis, every product
+batched over it, JAX :77-135, :244-250). The KFAC factors are
 eigendecomposed once, at construction (``kfac_eigenvectors``: the
 eigenvectors of A + A^T, utils.py:45-60); ``update`` then accumulates the
 second moments of the gradient in the Kronecker eigenbasis
@@ -23,15 +25,17 @@ from curvature_tpu_torch.estimators.capture import Captured
 from curvature_tpu_torch.estimators.diagonal import damped
 from curvature_tpu_torch.ops.linalg import eigh_sym, group_by_shape, ungroup
 
-_NOT_PORTED = ("stacked (ScanBlocks) and grouped-conv factors are not ported "
-               "yet (ROADMAP Queue 1 items 3 and 6)")
+_NOT_PORTED = ("grouped-conv factors are not ported yet (ROADMAP Queue 1 "
+               "item 3)")
 
 
 @torch.no_grad()
 def kfac_eigenvectors(kfac_state: Dict, dtype=torch.float32) -> Dict:
     """Eigenvectors of each layer's KFAC factors, ``{name: {'a': U_A
-    [cols, cols], 'g': U_G [out, out]}}``: one batched ``eigh`` for each
-    distinct factor shape (ResNet stages share them), as JAX (:30-54)."""
+    [(depth,) cols, cols], 'g': U_G [(depth,) out, out]}}``: one batched
+    ``eigh`` for each distinct factor shape (ResNet stages share them; a
+    stacked layer's [depth, d, d] factors batch over depth too), as JAX
+    (:30-54)."""
     flat = {f"{name}::{k}": fac[k].to(dtype)
             for name, fac in kfac_state.items() for k in "ag"}
     vecs = ungroup([(names, eigh_sym(stacked)[1])
@@ -40,21 +44,22 @@ def kfac_eigenvectors(kfac_state: Dict, dtype=torch.float32) -> Dict:
             for name in kfac_state}
 
 
-def check_square_factors(kfac_state: Dict, names):
-    """Each layer's KFAC factors must be plain square [d, d] matrices:
-    split attention / blocked-G factors are KFAC-only (a ValueError, as in
-    JAX), stacked or grouped ones are not ported (NotImplementedError)."""
-    for name in names:
+def check_square_factors(kfac_state: Dict, metas):
+    """Each layer's KFAC factors must be square [d, d] matrices ([depth,
+    d, d] for a stacked layer): split attention and blocked-G factors are
+    KFAC-only (a ValueError, as in JAX); other 3-d factors are grouped
+    convs', not ported (NotImplementedError)."""
+    for name, meta in metas.items():
         fac = kfac_state[name]
-        if "a_bias" in fac or fac["a"].ndim > 3 or fac["g"].ndim > 3:
+        want = 3 if meta.stacked else 2
+        if "a_bias" in fac or fac["a"].ndim > 3 or fac["g"].ndim > 3 \
+                or (meta.kind == "dense" and fac["g"].ndim > want):
             raise ValueError(
                 f"{name}: split KFAC factors (attention_qkv_split / "
                 "attention_head_split / blocked-G vocab heads) are "
                 "KFAC-only; EFB/INF need square per-layer factors")
-        if fac["a"].ndim == 3 or fac["g"].ndim == 3:
+        if fac["a"].ndim != want or fac["g"].ndim != want:
             raise NotImplementedError(f"{name}: {_NOT_PORTED}")
-        if fac["a"].ndim != 2 or fac["g"].ndim != 2:
-            raise ValueError(f"{name}: KFAC factors must be matrices")
 
 
 class EFB(Estimator):
@@ -73,21 +78,20 @@ class EFB(Estimator):
         self.eigvecs = kfac_eigenvectors(
             {n: {k: kfac_state[n][k].to(self.device) for k in "ag"}
              for n in self.metas}, self.dtype)
-        self.diags = {n: torch.zeros((m.out_features, m.mat_cols),
-                                     dtype=self.dtype, device=self.device)
-                      for n, m in self.metas.items()}
+        self.diags = {n: torch.zeros_like(s) for n, s in self.state.items()}
 
     def init_state(self):
-        return {name: torch.zeros((m.out_features, m.mat_cols),
+        return {name: torch.zeros(((m.stacked,) if m.stacked else ())
+                                  + (m.out_features, m.mat_cols),
                                   dtype=self.dtype, device=self.device)
                 for name, m in self.metas.items()}
 
     def update_state(self, state, cap: Captured):
         """Both moments accumulate in place (curvatures.py:427-434)."""
         for name in self.metas:
-            g = cap.param_grads[name].to(self.dtype)       # [S, out, cols]
+            g = cap.param_grads[name].to(self.dtype)  # [S, (L,) out, cols]
             ua, ug = self.eigvecs[name]["a"], self.eigvecs[name]["g"]
-            lam = ug.T @ g @ ua                            # [S, out, cols]
+            lam = ug.mT @ g @ ua                      # [S, (L,) out, cols]
             state[name] += (lam * lam).sum(0)
             self.diags[name] += cap.batch_size * (g * g).sum(0)
         return state
@@ -113,7 +117,7 @@ class EFB(Estimator):
         tot = 0.0
         for name, p in damped(state, add, multiply, self.metas).items():
             ua, ug = self.eigvecs[name]["a"], self.eigvecs[name]["g"]
-            tot = tot + (p * (ug.T @ deltas[name] @ ua) ** 2).sum()
+            tot = tot + (p * (ug.mT @ deltas[name] @ ua) ** 2).sum()
         return tot
 
     def solve_state(self, inv_state, deltas):
@@ -122,19 +126,20 @@ class EFB(Estimator):
         for name in self.metas:
             ua = inv_state["eigvecs"][name]["a"]
             ug = inv_state["eigvecs"][name]["g"]
-            rot = ug.T @ deltas[name] @ ua
-            out[name] = ug @ (rot * inv_state["ilam"][name] ** 2) @ ua.T
+            rot = ug.mT @ deltas[name] @ ua
+            out[name] = ug @ (rot * inv_state["ilam"][name] ** 2) @ ua.mT
         return out
 
     def noise_shapes(self) -> Dict[str, tuple]:
-        return {name: (m.mat_cols, m.out_features)
+        return {name: ((m.stacked,) if m.stacked else ())
+                + (m.mat_cols, m.out_features)
                 for name, m in self.metas.items()}
 
     def sample_state(self, inv_state, noise) -> Dict[str, torch.Tensor]:
         out = {}
         for name in self.metas:
-            ua = inv_state["eigvecs"][name]["a"]           # [cols, cols]
-            ug = inv_state["eigvecs"][name]["g"]           # [out, out]
-            z = noise[name] * inv_state["ilam"][name].T    # [cols, out]
-            out[name] = (ua @ z @ ug.T).T                  # [out, cols]
+            ua = inv_state["eigvecs"][name]["a"]     # [(L,) cols, cols]
+            ug = inv_state["eigvecs"][name]["g"]     # [(L,) out, out]
+            z = noise[name] * inv_state["ilam"][name].mT   # [(L,) cols, out]
+            out[name] = (ua @ z @ ug.mT).mT          # [(L,) out, cols]
         return out

@@ -2,7 +2,10 @@
 posterior.
 
 Port of ``curvature_tpu/estimators/inf.py`` (the reference's ``INF``,
-curvatures.py:463-672), plain layers. Inputs: the Diagonal state (EFB's
+curvatures.py:463-672), for plain and stacked layers: a stacked layer
+selects its index sets per depth and pads them to one shared bucketed
+(L, M), so its state stacks ``[depth, ...]`` and every later step runs
+batched over depth (JAX :239-520). Inputs: the Diagonal state (EFB's
 free ``diags``), the KFAC factors and the EFB lambdas. Per layer, with
 U_A [n, n] and U_G [m, m] the factors' eigenvectors (n = cols, m = out)
 and the flat layout k = i*m + j of the transposed [cols, out] matrix:
@@ -70,9 +73,10 @@ def dim_reduction(lam_vec: np.ndarray, n: int, m: int, rank: int,
 def sif_diagonal(ua: torch.Tensor, ug: torch.Tensor,
                  lam: torch.Tensor) -> torch.Tensor:
     """diag((U_A (x) U_G) diag(lam) (U_A (x) U_G)^T), layout k = i*m + j:
-    ``(U_A^2) Lam (U_G^2)^T`` flattened."""
-    lam_mat = lam.reshape(ua.shape[-1], ug.shape[-1])
-    return ((ua * ua) @ lam_mat @ (ug * ug).T).reshape(-1)
+    ``(U_A^2) Lam (U_G^2)^T`` flattened, batched over leading dims."""
+    lam_mat = lam.reshape(lam.shape[:-1] + (ua.shape[-1], ug.shape[-1]))
+    d = (ua * ua) @ lam_mat @ (ug * ug).mT
+    return d.reshape(d.shape[:-2] + (-1,))
 
 
 def _bucket(k: int, limit: int, step: int = 8) -> int:
@@ -260,28 +264,42 @@ class INF(Estimator):
         slots carrying exactly-zero lambda (``bucket=1``: the reference's
         exact sizes)."""
         state = {}
-        for name in self.metas:
-            ua_full = self.eigvecs[name]["a"]                # [cols, cols]
-            ug_full = self.eigvecs[name]["g"]                # [out, out]
+        for name, meta in self.metas.items():
+            # a plain layer is a stack of depth 1
+            depth = meta.stacked or 1
+            ua_full = self.eigvecs[name]["a"].reshape(
+                depth, meta.mat_cols, meta.mat_cols)
+            ug_full = self.eigvecs[name]["g"].reshape(
+                depth, meta.out_features, meta.out_features)
             n, m = ua_full.shape[-1], ug_full.shape[-1]
-            lam_vec = self.lambdas[name].T.reshape(-1)
-            diag_vec = self.diags[name].T.reshape(-1)
-            left, right = self._select(_host(lam_vec), n, m, rank,
-                                       max_product)
-            lb = _bucket(len(left), n, bucket)
-            rb = _bucket(len(right), m, bucket)
-            left_p = _pad_indices(left, lb, n)
-            right_p = _pad_indices(right, rb, m)
-            mask = np.zeros((lb, rb), np.float32)
-            mask[:len(left), :len(right)] = 1.0
-            grid = (left_p[:, None] * m + right_p[None, :]).reshape(-1)
+            lam_vec = self.lambdas[name].reshape(depth, m, n).mT \
+                .reshape(depth, -1)
+            diag_vec = self.diags[name].reshape(depth, m, n).mT \
+                .reshape(depth, -1)
+            lam_np = _host(lam_vec)
+            sel = [self._select(lam_np[i], n, m, rank, max_product)
+                   for i in range(depth)]
+            lb = _bucket(max(len(s[0]) for s in sel), n, bucket)
+            rb = _bucket(max(len(s[1]) for s in sel), m, bucket)
             dev = ua_full.device
-            ua = ua_full[:, torch.from_numpy(left_p).to(dev)]
-            ug = ug_full[:, torch.from_numpy(right_p).to(dev)]
-            lam = lam_vec[torch.from_numpy(grid).to(dev)] \
-                * torch.from_numpy(mask.reshape(-1)).to(dev, self.dtype)
+            uas, ugs, lams = [], [], []
+            for i, (left, right) in enumerate(sel):
+                left_p = _pad_indices(left, lb, n)
+                right_p = _pad_indices(right, rb, m)
+                mask = np.zeros((lb, rb), np.float32)
+                mask[:len(left), :len(right)] = 1.0
+                grid = (left_p[:, None] * m + right_p[None, :]).reshape(-1)
+                uas.append(ua_full[i][:, torch.from_numpy(left_p).to(dev)])
+                ugs.append(ug_full[i][:, torch.from_numpy(right_p).to(dev)])
+                lams.append(lam_vec[i][torch.from_numpy(grid).to(dev)]
+                            * torch.from_numpy(mask.reshape(-1))
+                            .to(dev, self.dtype))
+            ua, ug, lam = torch.stack(uas), torch.stack(ugs), \
+                torch.stack(lams)
             corr = diag_vec - sif_diagonal(ua, ug, lam)
-            state[name] = {"ua": ua, "ug": ug, "lam": lam, "corr": corr}
+            st = {"ua": ua, "ug": ug, "lam": lam, "corr": corr}
+            state[name] = st if meta.stacked else {k: v[0]
+                                                   for k, v in st.items()}
         self.state = state
         return state
 
@@ -316,10 +334,12 @@ class INF(Estimator):
             idx = [i for i, _ in members]
             stack = {k: torch.stack([state[n][k] for _, n in members])
                      for k in ("ua", "ug", "lam", "corr")}
-            muls = multiply[idx][:, None]
+            # per-layer damping against [G, (depth,) ...] stacks
+            col = (-1,) + (1,) * (stack["lam"].ndim - 1)
+            muls = multiply[idx].reshape(col)
             reg_lambda = _safe_reg_lambda(muls, stack["lam"])
-            inv_corr = torch.sqrt(1.0 / _damped_corr(muls, add[idx][:, None],
-                                                     stack["corr"]))
+            inv_corr = torch.sqrt(1.0 / _damped_corr(
+                muls, add[idx].reshape(col), stack["corr"]))
             pre = pre_sampler(stack["ua"], stack["ug"], reg_lambda, inv_corr)
             for j, (_, name) in enumerate(members):
                 inv[name] = {"ua": stack["ua"][j], "ug": stack["ug"][j],
@@ -335,7 +355,8 @@ class INF(Estimator):
             reg_lambda = _safe_reg_lambda(multiply[i], s["lam"])
             inv_corr = torch.sqrt(1.0 / _damped_corr(multiply[i], add[i],
                                                      s["corr"]))
-            tot = tot + inf_logdet(s["ua"], s["ug"], reg_lambda, inv_corr)
+            tot = tot + inf_logdet(s["ua"], s["ug"], reg_lambda,
+                                   inv_corr).sum()
         return tot
 
     def quad_state(self, state, add, multiply, deltas):
@@ -344,10 +365,10 @@ class INF(Estimator):
         tot = torch.zeros((), dtype=self.dtype, device=self.device)
         for i, name in enumerate(self.metas):
             s = state[name]
-            yy = deltas[name].T                              # [cols, out]
-            y = yy.reshape(-1)
+            yy = deltas[name].mT                        # [(depth,) cols, out]
+            y = yy.reshape(s["corr"].shape)
             dcorr = _damped_corr(multiply[i], add[i], s["corr"])
-            proj = (s["ua"].T @ yy @ s["ug"]).reshape(-1)    # [L*M]
+            proj = (s["ua"].mT @ yy @ s["ug"]).reshape(s["lam"].shape)
             tot = tot + (dcorr * y * y).sum() \
                 + (multiply[i] * s["lam"] * proj * proj).sum()
         return tot
@@ -361,7 +382,8 @@ class INF(Estimator):
         return out
 
     def noise_shapes(self) -> Dict[str, tuple]:
-        return {name: (m.mat_cols * m.out_features,)
+        return {name: ((m.stacked,) if m.stacked else ())
+                + (m.mat_cols * m.out_features,)
                 for name, m in self.metas.items()}
 
     def sample_state(self, inv_state, noise) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,7 @@
-"""Kronecker-factored approximate curvature (KFAC), plain layers.
+"""Kronecker-factored approximate curvature (KFAC).
 
-Port of ``curvature_tpu/estimators/kfac.py`` for plain Conv/Dense layers:
+Port of ``curvature_tpu/estimators/kfac.py`` for plain Conv/Dense layers,
+depth-stacked (ScanBlocks) Dense layers and blocked-G vocabulary heads:
 
   update (per batch, per MC label sample s):
     A += (a_1^T a_1) / N          a_1: [N, fan_in+1] activations (+ones col),
@@ -35,8 +36,19 @@ its gate. ``max_factor_dim`` bounds every factor's side, checked before
 any factor is allocated (JAX kfac.py:147, :154-172, with its messages).
 :meth:`KFAC.a_route` names the route of each conv layer from shapes alone.
 
-Out of this slice: grouped convs, attention/qkv/head splits, blocked G
-(a dense layer past ``max_factor_dim`` that JAX would block raises),
+A stacked layer (``LayerMeta.stacked`` = depth) keeps ``[depth, cols,
+cols]`` A and ``[depth, out, out]`` G factors: per-depth Grams of its
+``[depth, N, ...]`` tokens in one batched product, inverted, sampled and
+summed over depth as JAX does (kfac.py:354-359, :438-450). A dense layer
+whose ``out_features`` exceed ``max_factor_dim`` (a vocabulary head) gets
+a block-diagonal G of ``ceil(out / g_block_size)`` ``[bs, bs]`` blocks
+over zero-padded output features, sharing its A (``_is_gblock``, JAX
+:228-241); the padded tail is sliced away at sample, solve and logdet.
+``g_block_size=0`` restores the hard error. These Grams are products that
+JAX leaves to XLA (no Pallas kernel): here they are cuBLAS matmuls.
+
+Out of this slice: grouped convs, the attention qkv/head splits (they key
+on ``/in_proj`` names, which only ``nn.MultiheadAttention`` has),
 ``stack_grams`` and ``fused_g``.
 """
 import math
@@ -64,12 +76,13 @@ def _split_damped_logdet(factor, add, multiply):
 
 
 def _gram_aligned(a: torch.Tensor, dtype) -> torch.Tensor:
-    """``a^T a`` in ``dtype``, the operands upcast first (bf16 x bf16 is
-    exact in f32; a bf16-output matmul would round the result). The JAX
-    version zero-pads the column count to a multiple of 128 for the MXU;
-    cuBLAS needs no such help."""
+    """``a^T a`` in ``dtype`` over the last two dims (batched over leading
+    ones), the operands upcast first (bf16 x bf16 is exact in f32; a
+    bf16-output matmul would round the result). The JAX version zero-pads
+    the column count to a multiple of 128 for the MXU; cuBLAS needs no
+    such help."""
     a = a.to(dtype)
-    return a.T @ a
+    return a.transpose(-1, -2) @ a
 
 
 def _conv_token_count(meta, act) -> int:
@@ -91,9 +104,10 @@ class KFAC(Estimator):
                  token_subsample: float = 1.0, subsample_offset=(0, 0),
                  corr_gram: bool = True, corr_gram_min_channels: int = 128,
                  corr_gram_min_extent: int = 14, max_factor_dim: int = 16384,
-                 **kwargs):
+                 g_block_size: int = 1024, **kwargs):
         # read by init_state, which the base constructor calls
         self.max_factor_dim = int(max_factor_dim)
+        self.g_block_size = int(g_block_size)
         super().__init__(model, **kwargs)
         if use_kernels == "auto":
             self.use_kernels = self.device.type == "cuda"
@@ -116,24 +130,33 @@ class KFAC(Estimator):
                 f"[0, {k}) per dim for token_subsample={self.token_subsample} "
                 f"(spatial stride {k})")
 
+    def _is_gblock(self, meta) -> bool:
+        """Block-diagonal G for an oversized dense layer (a vocabulary
+        head): out_features > max_factor_dim, blocks of g_block_size,
+        shared A. Stacked layers keep the hard error (JAX :228-236)."""
+        return (self.g_block_size > 0 and meta.kind == "dense"
+                and not meta.stacked
+                and meta.out_features > self.max_factor_dim)
+
+    def _gblock_dims(self, meta):
+        """(num_blocks, block_size, padded_out) of a blocked-G layer."""
+        bs = min(self.g_block_size, meta.out_features)
+        nb = -(-meta.out_features // bs)
+        return nb, bs, nb * bs
+
     def _check_factor_dims(self):
-        """JAX's guard (kfac.py:154-172), before any factor exists. A dense
-        layer whose G side alone is too large gets blocked G factors in JAX
-        (``g_block_size``), which the port does not have yet."""
+        """JAX's guard (kfac.py:153-175), before any factor exists: a
+        blocked-G layer bounds only its A side; any other factor side past
+        ``max_factor_dim`` raises."""
         for name, meta in self.metas.items():
-            if meta.kind == "dense" \
-                    and meta.out_features > self.max_factor_dim:
+            if self._is_gblock(meta):
                 if meta.fan_in + 1 > self.max_factor_dim:
                     raise ValueError(
                         f"{name}: A-factor dimension {meta.fan_in + 1} "
                         f"exceeds max_factor_dim={self.max_factor_dim}; "
                         "blocked-G only bounds the G side. Exclude the "
                         "layer with layer_filter or use Diagonal for it.")
-                raise NotImplementedError(
-                    f"{name}: out_features {meta.out_features} exceeds "
-                    f"max_factor_dim={self.max_factor_dim}, which takes "
-                    "blocked G factors (g_block_size), not ported yet "
-                    "(ROADMAP Queue 1 item 6)")
+                continue
             worst = max(meta.out_features, meta.fan_in + 1)
             if worst > self.max_factor_dim:
                 raise ValueError(
@@ -154,9 +177,17 @@ class KFAC(Estimator):
     def init_state(self):
         self._check_factor_dims()
         z = dict(dtype=self.dtype, device=self.device)
-        return {name: {"a": torch.zeros((m.mat_cols, m.mat_cols), **z),
-                       "g": torch.zeros((m.out_features,) * 2, **z)}
-                for name, m in self.metas.items()}
+        state = {}
+        for name, m in self.metas.items():
+            lead = (m.stacked,) if m.stacked else ()
+            if self._is_gblock(m):
+                nb, bs, _ = self._gblock_dims(m)
+                g = torch.zeros((nb, bs, bs), **z)
+            else:
+                g = torch.zeros(lead + (m.out_features,) * 2, **z)
+            state[name] = {"a": torch.zeros(lead + (m.mat_cols,) * 2, **z),
+                           "g": g}
+        return state
 
     # -- A factor -----------------------------------------------------------
     def a_route(self, meta, shape, itemsize: int) -> str:
@@ -179,7 +210,14 @@ class KFAC(Estimator):
         return "patches"
 
     def _a_factor(self, meta, act):
-        """Per-batch A factor (already divided by its token count)."""
+        """Per-batch A factor (already divided by its token count); a
+        stacked layer's [depth, cols, cols], its depth axis batching the
+        Gram (JAX :354-359)."""
+        if meta.stacked:
+            a = act.reshape(meta.stacked, -1, meta.fan_in)
+            if meta.has_bias:
+                a = torch.cat([a, a.new_ones(a.shape[:-1] + (1,))], dim=-1)
+            return _gram_aligned(a, self.dtype) / a.shape[1]
         route = self.a_route(meta, act.shape, act.element_size())
         if route == "corr":
             return self._corr_a_factor(meta, act)
@@ -222,13 +260,28 @@ class KFAC(Estimator):
 
     def _g_tokens(self, meta, g):
         """[S, ...preact] probe gradient -> ([S*N, out] tokens, N): the
-        strided spatial grid of a conv when token_subsample < 1."""
+        strided spatial grid of a conv when token_subsample < 1; a stacked
+        layer's [S, depth, ...] -> [depth, S*N, out]."""
+        if meta.stacked:
+            s, depth = g.shape[:2]
+            t = g.reshape(s, depth, -1, meta.out_features).transpose(0, 1)
+            return t.reshape(depth, -1, meta.out_features), \
+                t.shape[2]
         k = self._spatial_stride()
         if meta.kind == "conv" and k > 1:
             o0, o1 = self.subsample_offset
             g = g[:, :, o0::k, o1::k, :]
         t = grad_tokens(meta, g)
         return t, t.shape[0] // g.shape[0]
+
+    def _gblock_gram(self, meta, g):
+        """Per-block token Grams [nb, bs, bs] of [n, out] tokens whose
+        columns are zero-padded to nb * bs: the padded tail's rows and
+        columns are exactly zero (JAX :574-590)."""
+        nb, bs, padded = self._gblock_dims(meta)
+        g = torch.nn.functional.pad(g, (0, padded - meta.out_features))
+        return _gram_aligned(g.reshape(-1, nb, bs).transpose(0, 1),
+                             self.dtype)
 
     # -- transforms -----------------------------------------------------------
     def update_state(self, state, cap: Captured):
@@ -237,9 +290,10 @@ class KFAC(Estimator):
         for name, meta in self.metas.items():
             # [S, ...preact] -> [S*N, out]: the S samples' Grams in one
             g, n_tok = self._g_tokens(meta, cap.probe_grads[name])
+            gram = (self._gblock_gram(meta, g) if self._is_gblock(meta)
+                    else _gram_aligned(g, self.dtype))
             # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
-            g_factor = _gram_aligned(g, self.dtype) * (
-                cap.batch_size ** 2 / n_tok)
+            g_factor = gram * (cap.batch_size ** 2 / n_tok)
             a_factor = self._a_factor(meta, cap.acts[name])
             state[name]["a"] += num_mc * a_factor.to(self.dtype)
             state[name]["g"] += g_factor
@@ -255,21 +309,47 @@ class KFAC(Estimator):
 
     def logdet_state(self, state, add, multiply):
         """logdet(A (x) G) = out * logdet(A) + cols * logdet(G) per layer
-        of the split-damped factors, summed."""
+        (per depth of a stacked one) of the split-damped factors, summed.
+        A blocked G's padded dims each add log(sqrt(add)) to its blocks'
+        logdet, subtracted so the sum runs over the real out_features only
+        (JAX :679-695)."""
         tot = torch.zeros((), dtype=self.dtype, device=self.device)
-        for i, name in enumerate(self.metas):
+        for i, (name, meta) in enumerate(self.metas.items()):
             fac = state[name]
             la = _split_damped_logdet(fac["a"], add[i], multiply[i])
             lg = _split_damped_logdet(fac["g"], add[i], multiply[i])
-            tot = tot + fac["g"].shape[-1] * la + fac["a"].shape[-1] * lg
+            cols = fac["a"].shape[-1]
+            if self._is_gblock(meta):
+                _, _, padded = self._gblock_dims(meta)
+                pad = padded - meta.out_features
+                lg_real = lg.sum() - pad * 0.5 * torch.log(add[i])
+                tot = tot + meta.out_features * la + cols * lg_real
+                continue
+            tot = tot + (fac["g"].shape[-1] * la + cols * lg).sum()
         return tot
+
+    def _blocks(self, meta, d):
+        """A blocked-G layer's [out, cols] offset as zero-padded [nb, bs,
+        cols] row blocks; any other layer's as it is."""
+        if not self._is_gblock(meta):
+            return d
+        nb, bs, padded = self._gblock_dims(meta)
+        d = torch.nn.functional.pad(d, (0, 0, 0, padded - meta.out_features))
+        return d.reshape(nb, bs, -1)
+
+    def _unblocks(self, meta, d):
+        """Inverse of :meth:`_blocks`: the padded tail rows sliced away."""
+        if not self._is_gblock(meta):
+            return d
+        return d.reshape(-1, d.shape[-1])[:meta.out_features]
 
     def quad_state(self, state, add, multiply, deltas):
         """delta^T (G_d (x) A_d) delta = sum(delta * (G_d delta A_d)) per
-        layer (JAX kfac.py:698-744, plain layers)."""
+        layer, batched over a stacked layer's depth or a blocked G's blocks
+        (zero-padded rows add exactly zero; JAX kfac.py:698-744)."""
         tot = torch.zeros((), dtype=self.dtype, device=self.device)
-        for i, name in enumerate(self.metas):
-            fac, d = state[name], deltas[name]
+        for i, (name, meta) in enumerate(self.metas.items()):
+            fac, d = state[name], self._blocks(meta, deltas[name])
             s, n = torch.sqrt(multiply[i]), torch.sqrt(add[i])
             a_d = sym(diag_add(s * fac["a"], n))
             g_d = sym(diag_add(s * fac["g"], n))
@@ -278,23 +358,35 @@ class KFAC(Estimator):
 
     def solve_state(self, inv_state, deltas):
         """``G_d^-1 d A_d^-1`` from the inverse Choleskys: chol(X^-1)
-        chol(X^-1)^T = X^-1 (JAX kfac.py:746-784, plain layers)."""
+        chol(X^-1)^T = X^-1, per depth or G block (JAX kfac.py:746-784)."""
         out = {}
-        for name in self.metas:
+        for name, meta in self.metas.items():
             a_chol = inv_state[name]["a_chol"]
             g_chol = inv_state[name]["g_chol"]
-            d = deltas[name]
-            out[name] = (g_chol @ (g_chol.T @ d)) @ a_chol @ a_chol.T
+            d = self._blocks(meta, deltas[name])
+            sol = (g_chol @ (g_chol.mT @ d)) @ a_chol @ a_chol.mT
+            out[name] = self._unblocks(meta, sol)
         return out
 
     def noise_shapes(self) -> Dict[str, tuple]:
-        return {name: (m.mat_cols, m.out_features)
-                for name, m in self.metas.items()}
+        """[(depth,) cols, out], or [nb, cols, bs] for a blocked G."""
+        out = {}
+        for name, m in self.metas.items():
+            if self._is_gblock(m):
+                nb, bs, _ = self._gblock_dims(m)
+                out[name] = (nb, m.mat_cols, bs)
+            else:
+                lead = (m.stacked,) if m.stacked else ()
+                out[name] = lead + (m.mat_cols, m.out_features)
+        return out
 
     def sample_state(self, inv_state, noise) -> Dict[str, torch.Tensor]:
+        """Matrix-normal A_chol z G_chol^T per layer, depth or G block, as
+        [(depth,) out, cols]; a blocked G's padded rows are dropped."""
         out = {}
-        for name in self.metas:
+        for name, meta in self.metas.items():
             a_chol = inv_state[name]["a_chol"]
             g_chol = inv_state[name]["g_chol"]
-            out[name] = (a_chol @ noise[name] @ g_chol.T).T    # [out, cols]
+            w = (a_chol @ noise[name] @ g_chol.mT).mT
+            out[name] = self._unblocks(meta, w)
         return out

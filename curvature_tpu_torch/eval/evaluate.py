@@ -8,7 +8,15 @@ over the posterior samples, each a parameter dict applied with
 ``torch.func.functional_call``, and averages the softmax over them.
 ``compute_dtype`` (``--precision bfloat16``) runs the forwards with every
 float parameter, buffer and the input cast to it; the softmax and every
-metric stay f32. Data batches are (NCHW input, labels) pairs.
+metric stay f32. Data batches are (NCHW input, labels) pairs, or (token
+ids [B, T], next-token labels [B, T]): a causal LM's [B, T, V] softmax is
+scored per token, flattened to [B*T, V] with the labels to [B*T], as in
+JAX.
+
+At a vocabulary-sized output ``eval_nn_stats``/``eval_bnn_stats`` reduce
+each batch on the device to four numbers per token (``STATS_COLUMNS``);
+the Bayesian one accumulates the sample-mean softmax per batch, so no
+[N, V] matrix reaches the host (JAX evaluate.py:237-300).
 """
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -40,7 +48,9 @@ def _forward(model, params, x, compute_dtype):
         x = cast_input(x, compute_dtype)
     logits = model(x) if params is None else functional_call(
         model, params, (x,))
-    return torch.softmax(logits.float(), dim=-1)
+    p = torch.softmax(logits.float(), dim=-1)
+    # causal LMs: [B, T, V] -> per-token [B*T, V]
+    return p.reshape(-1, p.shape[-1]) if p.ndim > 2 else p
 
 
 @torch.no_grad()
@@ -149,3 +159,85 @@ def eval_nn_and_bnn(model, estimator, data, samples: int = 30,
         model, estimator, batches, samples, generator=generator,
         stats=stats, sample_chunk=sample_chunk, compute_dtype=compute_dtype)
     return predictions, bnn_predictions, labels, bnn_stats
+
+
+# -- sufficient-statistics eval (vocab-scale outputs) -------------------------
+#: per-token columns: probability of the label (NLL), max probability (ECE
+#: bins), argmax == label (accuracy, ECE), entropy (OOD scores)
+STATS_COLUMNS = ("p_label", "confidence", "correct", "entropy")
+
+
+def _probs_to_stats(p2d: torch.Tensor, y) -> torch.Tensor:
+    """[N, K] probabilities and [N] labels -> [N, 4] STATS_COLUMNS, on the
+    probabilities' device."""
+    y = torch.as_tensor(np.asarray(y).reshape(-1), device=p2d.device).long()
+    p_label = p2d.gather(1, y[:, None])[:, 0]
+    conf = p2d.max(dim=1).values
+    correct = (p2d.argmax(dim=1) == y).float()
+    ent = -(p2d * torch.log(p2d.clamp_min(1e-12))).sum(dim=1)
+    return torch.stack([p_label, conf, correct, ent], dim=1)
+
+
+@torch.no_grad()
+def eval_nn_stats(model, data: Iterable[Tuple], compute_dtype=None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`eval_nn` reduced on the device to the [N, 4]
+    STATS_COLUMNS; returns (stats, labels [N])."""
+    was_training = model.training
+    model.eval()
+    stats, labels = [], []
+    try:
+        for x, y in _batches(data, _device(model)):
+            p = _forward(model, None, x, compute_dtype)
+            stats.append(_probs_to_stats(p, y).cpu())
+            labels.append(y)
+    finally:
+        model.train(was_training)
+    return torch.cat(stats).numpy(), np.concatenate(labels)
+
+
+@torch.no_grad()
+def eval_bnn_stats(model, estimator, data: Iterable[Tuple],
+                   samples: int = 30,
+                   generator: Optional[torch.Generator] = None,
+                   sample_chunk: Optional[int] = None, compute_dtype=None,
+                   ensemble_params: Optional[List[Dict]] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`eval_bnn` reduced on the device: per batch, the sample-mean
+    softmax accumulates there and collapses to STATS_COLUMNS. The
+    posterior is drawn ``sample_chunk`` members at a time and redrawn for
+    every batch from the generator's starting state, so each batch sees
+    the same ensemble and at most a chunk of sampled parameter sets
+    exists at once (JAX :269-300). A given ``ensemble_params`` is used
+    as it is. Returns (stats [N, 4], labels [N])."""
+    device = _device(model)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    start = generator.get_state()
+    chunk = min(sample_chunk or samples, samples)
+
+    def ensembles():
+        if ensemble_params is not None:
+            yield ensemble_params
+            return
+        generator.set_state(start)
+        for i in range(0, samples, chunk):
+            yield estimator.ensemble_params(min(chunk, samples - i),
+                                            generator=generator)
+
+    was_training = model.training
+    model.eval()
+    stats, labels = [], []
+    try:
+        for x, y in _batches(data, device):
+            total, members = None, 0
+            for ens in ensembles():
+                for params in ens:
+                    p = _forward(model, params, x, compute_dtype)
+                    total = p if total is None else total + p
+                members += len(ens)
+            stats.append(_probs_to_stats(total / members, y).cpu())
+            labels.append(y)
+    finally:
+        model.train(was_training)
+    return torch.cat(stats).numpy(), np.concatenate(labels)

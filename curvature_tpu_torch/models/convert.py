@@ -2,11 +2,15 @@
 
 The JAX package keeps ``{"params": {layer: {...}}, "batch_stats": {layer:
 {"mean", "var"}}}`` with HWIO conv kernels and ``[in, out]`` dense
-kernels. :func:`state_dict_from_jax` turns such variables, given as numpy
-arrays, into this port's state dict; :func:`seeded_variables` makes
-variables in that layout from a numpy seed (there are no ResNet weights
-in the repository, so tests and the chip smoke build them this way and
-hand the same numbers to both packages).
+kernels (``[depth, in, out]`` in a ScanBlocks stack).
+:func:`state_dict_from_jax` turns such variables, given as numpy arrays,
+into this port's state dict; :func:`seeded_variables` makes variables in
+that layout from a numpy seed (there are no ResNet or GPT-2 weights in the
+repository, so tests and the chip smoke build them this way and hand the
+same numbers to both packages). :func:`stack_scan_groups` and
+:func:`unstack_scan_groups` move such variables between a stacked model's
+``h.*`` names and an unrolled model's ``h.{i}.*`` (JAX
+models/torch_convert.py:123-195).
 """
 from typing import Dict
 
@@ -19,17 +23,22 @@ from curvature_tpu_torch.nn import BatchNorm, Conv, Dense
 
 def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX-layout numpy variables -> this port's state dict (CPU tensors):
-    conv HWIO -> OIHW, dense [in, out] -> [out, in], BN scale/bias ->
-    weight/bias, batch_stats mean/var -> running_mean/running_var."""
+    conv HWIO -> OIHW, dense [(depth,) in, out] -> [(depth,) out, in], BN
+    and LayerNorm scale/bias -> weight/bias, embedding tables (``wte``,
+    ``wpe``: ``weight``) as they are, batch_stats mean/var ->
+    running_mean/running_var."""
     sd = {}
     for layer, p in variables["params"].items():
         if "kernel" in p:
             k = np.asarray(p["kernel"], np.float32)
-            k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+            k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.swapaxes(-1, -2)
             sd[f"{layer}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
             if "bias" in p:
                 sd[f"{layer}.bias"] = torch.from_numpy(
                     np.asarray(p["bias"], np.float32).copy())
+        elif "weight" in p:
+            sd[f"{layer}.weight"] = torch.from_numpy(
+                np.asarray(p["weight"], np.float32).copy())
         else:
             sd[f"{layer}.weight"] = torch.from_numpy(
                 np.asarray(p["scale"], np.float32).copy())
@@ -67,8 +76,12 @@ def seeded_variables(model: nn.Module, seed: int,
     bias near 0, running statistics near (0, 1). The last BN of each
     residual block has its scale multiplied by ``residual_gain`` (the
     usual damped-residual init), so that eval-mode activations do not grow
-    block by block and the random network's softmax stays unsaturated."""
+    block by block and the random network's softmax stays unsaturated.
+    A GPT-2 gets :func:`~curvature_tpu_torch.models.gpt.seeded_gpt2`."""
+    from curvature_tpu_torch.models.gpt import GPT2, seeded_gpt2
     from curvature_tpu_torch.models.resnet import BasicBlock, Bottleneck
+    if isinstance(model, GPT2):
+        return seeded_gpt2(model, seed)
     rng = np.random.default_rng(seed)
     params, stats = {}, {}
     residual_bns = set()
@@ -103,3 +116,36 @@ def seeded_variables(model: nn.Module, seed: int,
                 "mean": (0.05 * rng.standard_normal(n)).astype(np.float32),
                 "var": rng.uniform(0.8, 1.2, n).astype(np.float32)}
     return {"params": params, "batch_stats": stats}
+
+
+def stack_scan_groups(variables: Dict, model) -> Dict:
+    """Fold per-depth JAX-layout params (``h.{i}.attn.c_attn``) into a
+    stacked model's ``[depth, ...]`` entries (``h.attn.c_attn``), from its
+    ``scan_groups``; entries already stacked pass through."""
+    params = dict(variables.get("params", {}))
+    for prefix, info in getattr(model, "scan_groups", {}).items():
+        for layer in info["param_layers"]:
+            if layer in params:
+                continue
+            rest = layer[len(prefix):]
+            names = [pd + rest for pd in info["per_depth_names"]]
+            params[layer] = {k: np.stack([np.asarray(params[n][k])
+                                          for n in names])
+                             for k in params[names[0]]}
+            for n in names:
+                del params[n]
+    return dict(variables, params=params)
+
+
+def unstack_scan_groups(variables: Dict, model) -> Dict:
+    """Inverse of :func:`stack_scan_groups`: a stacked model's JAX-layout
+    variables as the unrolled model's (``h.{i}.*``)."""
+    params = dict(variables.get("params", {}))
+    for prefix, info in getattr(model, "scan_groups", {}).items():
+        for layer in info["param_layers"]:
+            stacked = params.pop(layer)
+            rest = layer[len(prefix):]
+            for i, pd in enumerate(info["per_depth_names"]):
+                params[pd + rest] = {k: np.asarray(v)[i]
+                                     for k, v in stacked.items()}
+    return dict(variables, params=params)

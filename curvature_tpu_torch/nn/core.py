@@ -11,9 +11,16 @@ the JAX ``Context.record_act``/``probe``:
 
 Layer identity is the torchvision state-dict path (``"layer1.0.conv2"``),
 the same string as the JAX ``LayerMeta.name``.
+
+A layer inside a depth-stacked :class:`~curvature_tpu_torch.nn.scan.
+ScanBlocks` runs once per depth under one name. While ScanBlocks loops, the
+context knows the depth (``scan``): the layer's inputs come back stacked
+``[depth, ...]``, and its probe is one ``[depth, ...preact]`` zero tensor,
+made at depth 0 and added slice by slice, so ``autograd.grad`` returns
+``[depth, ...preact]``, JAX's layout (its probes are a scanned input).
 """
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -23,7 +30,10 @@ class LayerMeta:
     """Static description of a tracked layer.
 
     ``fan_in`` counts input features (Dense) or C*kh*kw (Conv), the row
-    dimension of the A factor before the bias row is appended.
+    dimension of the A factor before the bias row is appended. ``stacked``
+    > 0 marks a layer of a ScanBlocks stack: its parameters, inputs, probes
+    and factor state carry a leading ``[stacked]`` depth axis. ``heads`` is
+    the head count of an attention projection (0 elsewhere).
     """
     name: str
     kind: str                       # 'dense' | 'conv'
@@ -33,6 +43,8 @@ class LayerMeta:
     kernel_size: Tuple[int, int] = ()
     strides: Tuple[int, int] = ()
     padding: Any = "VALID"
+    stacked: int = 0
+    heads: int = 0
 
     @property
     def mat_cols(self) -> int:
@@ -56,14 +68,33 @@ class Context:
         self.make_probes = probes
         self.acts: Dict[str, torch.Tensor] = {}
         self.probes: Dict[str, torch.Tensor] = {}
+        #: (depth index, depth) while a ScanBlocks stack runs its template
+        self.scan: Optional[Tuple[int, int]] = None
 
     def record_act(self, name: str, x: torch.Tensor):
-        if name in self.track:
+        if name not in self.track:
+            return
+        if self.scan is None:
             self.acts[name] = x.detach()
+        else:
+            i, depth = self.scan
+            self.acts.setdefault(name, [None] * depth)[i] = x.detach()
+
+    def stack_acts(self):
+        """Stack the per-depth inputs of a ScanBlocks run: [depth, ...]."""
+        for name, v in self.acts.items():
+            if isinstance(v, list):
+                self.acts[name] = torch.stack(v)
 
     def probe(self, name: str, y: torch.Tensor) -> torch.Tensor:
         if name not in self.track or not self.make_probes:
             return y
+        if self.scan is not None:
+            i, depth = self.scan
+            if i == 0:
+                self.probes[name] = y.new_zeros((depth,) + y.shape,
+                                                requires_grad=True)
+            return y + self.probes[name][i]
         # zeros_like keeps y's memory format, so a channels_last model gets
         # channels_last probe gradients
         p = torch.zeros_like(y, requires_grad=True)
@@ -79,23 +110,27 @@ class Context:
 
 def param_matrix(meta: LayerMeta, weight: torch.Tensor,
                  bias: torch.Tensor = None) -> torch.Tensor:
-    """Layer weight (OIHW conv, [out, in] dense) -> [out, fan_in(+1)]."""
-    mat = weight.reshape(meta.out_features, -1)
+    """Layer weight (OIHW conv, [out, in] dense) -> [out, fan_in(+1)];
+    a stacked layer's [depth, ...] weight -> [depth, out, fan_in(+1)]."""
+    lead = (meta.stacked,) if meta.stacked else ()
+    mat = weight.reshape(lead + (meta.out_features, -1))
     if meta.has_bias:
-        mat = torch.cat([mat, bias[:, None]], dim=1)
+        mat = torch.cat([mat, bias[..., None]], dim=-1)
     return mat
 
 
 def matrix_to_delta(meta: LayerMeta, mat: torch.Tensor
                     ) -> Dict[str, torch.Tensor]:
-    """[out, fan_in(+1)] matrix -> ``{"weight": ..., "bias": ...}``."""
+    """[(depth,) out, fan_in(+1)] matrix -> ``{"weight": ..., "bias":
+    ...}``."""
     out = {}
     if meta.has_bias:
-        out["bias"] = mat[:, -1]
-        mat = mat[:, :-1]
+        out["bias"] = mat[..., -1]
+        mat = mat[..., :-1]
     if meta.kind == "conv":
         kh, kw = meta.kernel_size
-        mat = mat.reshape(meta.out_features, meta.fan_in // (kh * kw), kh, kw)
+        mat = mat.reshape(mat.shape[:-2] + (
+            meta.out_features, meta.fan_in // (kh * kw), kh, kw))
     out["weight"] = mat
     return out
 

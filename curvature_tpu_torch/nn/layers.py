@@ -1,6 +1,6 @@
-"""Layers of the ResNet and LeNet-5 slices: tracked ``Dense``/``Conv``, the
-untracked ``BatchNorm``, ``ReLU``, ``MaxPool``, ``GlobalAvgPool`` and
-``Flatten``, and the ``Sequential`` container.
+"""Layers of the ResNet, LeNet-5 and GPT-2 slices: tracked ``Dense``/``Conv``,
+the untracked ``BatchNorm``, ``LayerNorm``, ``ReLU``, ``MaxPool``,
+``GlobalAvgPool`` and ``Flatten``, and the ``Sequential`` container.
 
 Port of the matching subset of ``curvature_tpu/nn/layers.py`` in PyTorch
 layout (NCHW activations, OIHW conv weights, [out, in] dense weights).
@@ -37,12 +37,16 @@ def _pair(v) -> Tuple[int, int]:
 
 
 class Dense(nn.Module):
-    """Tracked fully-connected layer (torch ``Linear`` weights)."""
+    """Tracked fully-connected layer (torch ``Linear`` weights) over any
+    leading batch/token dims. Inside a ScanBlocks stack its weight is
+    ``[depth, out, in]`` and its meta is stacked. ``heads`` is stamped by
+    an attention module on its projections (JAX gpt.py:69-73)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, name: Optional[str] = None):
         super().__init__()
         self.name = name
+        self.heads = 0
         bound = 1.0 / math.sqrt(max(in_features, 1))
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features).uniform_(-bound, bound))
@@ -52,9 +56,11 @@ class Dense(nn.Module):
 
     @property
     def meta(self) -> LayerMeta:
-        out_f, in_f = self.weight.shape
+        out_f, in_f = self.weight.shape[-2:]
+        stacked = self.weight.shape[0] if self.weight.ndim == 3 else 0
         return LayerMeta(self.name, "dense", out_f, in_f,
-                         self.bias is not None)
+                         self.bias is not None, stacked=stacked,
+                         heads=self.heads)
 
     def forward(self, x, ctx: Optional[Context] = None):
         if ctx is not None:
@@ -146,6 +152,24 @@ class BatchNorm(nn.Module):
             None if keep else self.running_var,
             self.weight.float(), self.bias.float(),
             training=self.training, momentum=self.momentum, eps=self.eps)
+        return out.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """Layer normalization over the last dim, computed in f32 and returned
+    in the input's dtype, with the JAX package's biased variance
+    (``curvature_tpu/models/transformer2.py`` ``LayerNorm``; its ``scale``
+    is torch's ``weight``)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        out = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
+                           self.bias.float(), self.eps)
         return out.to(x.dtype)
 
 

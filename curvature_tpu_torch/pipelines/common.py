@@ -1,10 +1,14 @@
 """Shared model/data construction for the pipeline CLIs.
 
 Port of ``curvature_tpu/pipelines/common.py`` for the ported families
-(lenet5, resnet18, resnet50) and datasets (mnist, kmnist, synthetic). The
-loaders yield NHWC numpy batches as in JAX; :func:`device_batch` moves one
-to the device, and :func:`nchw` views it in the models' NCHW order (a
-channels_last view: the data is transposed once, in the view).
+(lenet5, resnet18, resnet50, the GPT-2s) and datasets (mnist, kmnist,
+synthetic, tokens). The loaders yield NHWC numpy batches (or [B, T] token
+ids) as in JAX; :func:`device_batch` moves one to the device, and
+:func:`model_input` views an image batch in the models' NCHW order (a
+channels_last view: the data is transposed once, in the view). ``--data
+tokens`` is the synthetic Markov token stream (512 train / 256 test
+sequences of ``--seq_len``, vocabulary ``--vocab`` or 256) with the
+per-token Fisher (``loss='lm'``); its OOD set is order-0 (uniform) tokens.
 """
 import dataclasses
 import os
@@ -15,7 +19,8 @@ import torch
 
 from curvature_tpu_torch import models
 from curvature_tpu_torch.data import loaders as D
-from curvature_tpu_torch.data.synthetic import synthetic_images
+from curvature_tpu_torch.data.synthetic import (
+    synthetic_images, synthetic_tokens)
 from curvature_tpu_torch.utils.checkpoint import load_pytree
 from curvature_tpu_torch.utils.config import device as config_device
 
@@ -25,13 +30,19 @@ NUM_CLASSES = {"mnist": 10, "kmnist": 10, "cifar10": 10, "svhn": 10,
 
 
 def loss_kind(cfg) -> str:
-    """Estimator loss for the dataset: the port captures classification
-    cross-entropy only (the token streams' ``'lm'`` is Queue 1 item 6)."""
-    if cfg.data == "tokens":
-        raise NotImplementedError(
-            "--data tokens (loss 'lm') is not ported yet (ROADMAP Queue 1 "
-            "item 6)")
-    return "cross_entropy"
+    """Estimator loss for the dataset: the per-token categorical Fisher
+    (``'lm'``) for token streams, classification cross-entropy
+    otherwise."""
+    return "lm" if cfg.data == "tokens" else "cross_entropy"
+
+
+def seq_len(cfg) -> int:
+    return int(getattr(cfg, "seq_len", 0) or 64)
+
+
+def vocab(cfg) -> int:
+    """The token vocabulary: ``--vocab``, else the dataset's 256."""
+    return getattr(cfg, "vocab", 0) or NUM_CLASSES["tokens"]
 
 
 def input_shape(data: str, model: str = "") -> Tuple[int, int, int]:
@@ -59,11 +70,16 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.movedim(-1, -3)
 
 
+def model_input(x: torch.Tensor) -> torch.Tensor:
+    """A loader batch as the model takes it: image batches (floating
+    point) as NCHW views, token ids as they are."""
+    return nchw(x) if x.is_floating_point() else x
+
+
 def on_device(data, device):
-    """(NCHW tensor on ``device``, labels) for each NHWC batch of
-    ``data``."""
+    """(model input on ``device``, labels) for each batch of ``data``."""
     for x, y in data:
-        yield nchw(device_batch(x, device)), y
+        yield model_input(device_batch(x, device)), y
 
 
 def build_model(cfg):
@@ -73,9 +89,13 @@ def build_model(cfg):
     asset ``models/assets/<model>_<data>.npz``, else a seeded
     initialization (``models.seeded_variables``, the port's own numbers:
     torch and JAX initializers never agree). On CUDA the model is
-    channels_last."""
+    channels_last. A GPT-2 goes through :func:`_build_lm_model`."""
     device = config_device(cfg)
     num_classes = NUM_CLASSES.get(cfg.data, 10)
+    if cfg.model.startswith("gpt"):
+        # --vocab overrides the dataset default (256): 50257 builds the
+        # real GPT-2 head, whose KFAC G factor goes blocked
+        return _build_lm_model(cfg, vocab(cfg), device)
     kw = {}
     if cfg.model.startswith("resnet"):
         # CIFAR-style 3x3 stride-1 stem off ImageNet (reference
@@ -124,10 +144,63 @@ def build_model(cfg):
     return model
 
 
+def _build_lm_model(cfg, num_tokens: int, device):
+    """Causal-LM branch of :func:`build_model` (JAX :136-183): context
+    ``--seq_len``, ``--scan_blocks`` stacks. Weights: a JAX-layout npz
+    (per-depth entries folded into a stack), a Hugging Face GPT-2 state
+    dict saved with ``torch.save`` (``.pth``), else seeded ones; a
+    checkpoint's longer position table gives its prefix."""
+    t = seq_len(cfg)
+    model = models.build(cfg.model, num_tokens, device=device, max_len=t,
+                         scan_blocks=bool(getattr(cfg, "scan_blocks",
+                                                  False)))
+    stem = f"{cfg.model}_{cfg.data}"
+    weights_npz = os.path.join(cfg.root_dir, "weights", f"{stem}.npz")
+    weights_pth = os.path.join(cfg.root_dir, "weights", f"{stem}.pth")
+    if os.path.exists(weights_npz):
+        variables = models.stack_scan_groups(load_pytree(weights_npz), model)
+        sd = models.state_dict_from_jax(variables)
+    elif os.path.exists(weights_pth):
+        sd = models.convert_gpt2_state_dict(
+            torch.load(weights_pth, map_location="cpu"), model)
+    else:
+        sd = models.state_dict_from_jax(models.seeded_variables(model,
+                                                                cfg.seed))
+    own = model.state_dict()
+    for key, arr in sd.items():
+        want = own.get(key)
+        if want is not None and tuple(want.shape) != tuple(arr.shape):
+            if key == "wpe.weight" and arr.shape[1:] == want.shape[1:] \
+                    and arr.shape[0] > want.shape[0]:
+                sd[key] = arr[:want.shape[0]]
+                continue
+            raise ValueError(
+                f"checkpoint shape mismatch for {key}: file has "
+                f"{tuple(arr.shape)}, the model built with --seq_len {t} / "
+                f"vocab {num_tokens} expects {tuple(want.shape)}")
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
 def build_data(cfg, splits="train"):
     """Dataset dispatch (reference factors.py:89-110): NHWC numpy batches.
-    ``synthetic`` is 512 train / 256 test random 32x32x3 images."""
+    ``synthetic`` is 512 train / 256 test random 32x32x3 images;
+    ``tokens`` the Markov token streams, one transition permutation shared
+    by every split, each split drawn from its own seed (JAX :185-205)."""
     root = cfg.data_dir
+    if cfg.data == "tokens":
+        v = vocab(cfg)
+        perm = np.random.default_rng(cfg.seed).permutation(v)
+        split_list = [splits] if isinstance(splits, str) else list(splits)
+        out = []
+        for s in split_list:
+            rng = np.random.default_rng(cfg.seed + {"train": 1, "val": 2,
+                                                    "test": 3}.get(s, 4))
+            n = 512 if s == "train" else 256
+            x, y = synthetic_tokens(rng, n, seq_len(cfg), v, perm=perm)
+            out.append(D.ArrayLoader(x, y, cfg.batch_size,
+                                     shuffle=(s == "train")))
+        return out[0] if len(out) == 1 else out
     if cfg.data == "synthetic":
         h, w, c = input_shape("synthetic")
         rng = np.random.default_rng(cfg.seed)
@@ -142,9 +215,6 @@ def build_data(cfg, splits="train"):
     if cfg.data == "kmnist":
         return D.kmnist(root, cfg.batch_size, cfg.workers, cfg.augment,
                         splits)
-    if cfg.data == "tokens":
-        raise NotImplementedError(
-            "--data tokens is not ported yet (ROADMAP Queue 1 item 6)")
     if cfg.data in NUM_CLASSES:
         raise NotImplementedError(
             f"the {cfg.data} loader is not ported yet (ROADMAP Queue 1 "
@@ -164,6 +234,12 @@ def build_ood_data(cfg, batch_size=None):
         h, w, c = input_shape("synthetic")
         x, y = synthetic_images(rng, 256, h, w, c, 10)
         return in_data, D.ArrayLoader(x * 2.0 + 1.0, y, bs)
+    if cfg.data == "tokens":
+        # structureless streams: uniform i.i.d. tokens (order 0)
+        rng = np.random.default_rng(cfg.seed + 7)
+        x, y = synthetic_tokens(rng, 256, seq_len(cfg), vocab(cfg),
+                                order=0.0)
+        return in_data, D.ArrayLoader(x, y, bs)
     ood_cfg = dataclasses.replace(cfg, data=D.OOD_PAIRS[cfg.data])
     return in_data, build_data(ood_cfg, splits="test")
 

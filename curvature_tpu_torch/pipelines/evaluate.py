@@ -6,7 +6,10 @@ Port of ``curvature_tpu/pipelines/evaluate.py``: the estimator is rebuilt
 from factor files of either package, inverted at ``--norm``/``--scale``
 (or the hyperparameter search's ``<results>_best_params.npy`` when either
 is -1), and its posterior samples are drawn from a ``torch.Generator``
-seeded with ``--seed``. Results go into npz files with JAX's keys.
+seeded with ``--seed``. Results go into npz files with JAX's keys. With
+an output of 8,192 classes or more (``--vocab 50257``) ``--ood`` runs the
+per-token sufficient-statistics eval (``_out_of_domain_stats``): four
+numbers per token, computed on the device, written to ``*_stats.npz``.
 
     python -m curvature_tpu_torch.pipelines.evaluate --model lenet5 \\
         --data mnist --data_dir <dir> --estimator kfac --norm 1 \\
@@ -17,11 +20,12 @@ import torch
 
 from curvature_tpu_torch import estimators
 from curvature_tpu_torch.eval import (
-    eval_fgsm, eval_fgsm_bnn, eval_nn, eval_nn_and_bnn, metrics)
+    STATS_COLUMNS, eval_bnn_stats, eval_fgsm, eval_fgsm_bnn, eval_nn,
+    eval_nn_and_bnn, eval_nn_stats, metrics)
 from curvature_tpu_torch.models import state_from_jax
 from curvature_tpu_torch.pipelines.common import (
-    build_data, build_model, build_ood_data, layer_filter, loss_kind,
-    on_device)
+    NUM_CLASSES, build_data, build_model, build_ood_data, layer_filter,
+    loss_kind, on_device)
 from curvature_tpu_torch.utils.checkpoint import (
     factors_path, load_pytree, results_paths)
 
@@ -39,25 +43,24 @@ def _generator(cfg, model) -> torch.Generator:
 def load_estimator(cfg, model):
     """Rebuild an estimator from saved factors (evaluate.py:347-370)."""
     name = cfg.estimator
-    lf = layer_filter(cfg)
-    loss_kind(cfg)
+    kw = dict(layer_filter=layer_filter(cfg), loss=loss_kind(cfg))
     device = next(model.parameters()).device
 
     def load(*args, **kw):
         return state_from_jax(load_pytree(factors_path(cfg, *args, **kw)),
                               device)
     if name == "diag":
-        est = estimators.Diagonal(model, layer_filter=lf)
+        est = estimators.Diagonal(model, **kw)
         est.state = load()
     elif name == "kfac":
-        est = estimators.KFAC(model, layer_filter=lf)
+        est = estimators.KFAC(model, g_block_size=cfg.g_block_size, **kw)
         est.state = load()
     elif name == "efb":
-        est = estimators.EFB(model, load("kfac"), layer_filter=lf)
+        est = estimators.EFB(model, load("kfac"), **kw)
         est.state = load()
     elif name == "inf":
         est = estimators.INF(model, load("diag"), load("kfac"), load("efb"),
-                             layer_filter=lf)
+                             **kw)
         est.state = load(rank=str(cfg.rank))
     elif name in ("subspace", "swag"):
         raise NotImplementedError(
@@ -105,9 +108,61 @@ def _print_summary(tag: str, predictions, labels):
           f"{nll:.4f}", flush=True)
 
 
+def _stats_mode_k(cfg) -> int:
+    """The output cardinality where the sufficient-statistics eval must
+    be used (a vocabulary-sized head: a full [N, K] prediction matrix
+    would be GBs), else 0."""
+    k = getattr(cfg, "vocab", 0) or NUM_CLASSES.get(cfg.data, 10)
+    return k if k >= 8192 else 0
+
+
+def _print_stats_summary(tag: str, stats):
+    acc = 100.0 * float(np.mean(stats[:, 2]))
+    ece = float(metrics.ece_from_confidence(stats[:, 1], stats[:, 2])[0])
+    nll = float(-np.mean(np.log(np.clip(stats[:, 0], 1e-12, None))))
+    print(f"{tag}: accuracy {acc:.2f}% | ECE {100 * ece:.2f}% | NLL "
+          f"{nll:.4f}", flush=True)
+
+
+def _out_of_domain_stats(cfg, model, est, results_path: str):
+    """Vocabulary-scale :func:`out_of_domain`: the per-token
+    STATS_COLUMNS of the NN and the BNN on the in-domain and OOD tokens,
+    computed on the device (JAX :126-180); returns (nn stats, bnn stats,
+    labels)."""
+    in_data, out_data = build_ood_data(cfg)
+    device = next(model.parameters()).device
+    in_data = list(on_device(in_data, device))
+    out_data = list(on_device(out_data, device))
+    dtype = _compute_dtype(cfg)
+    chunk = getattr(cfg, "sample_chunk", 0) or None
+    nn_s, labels = eval_nn_stats(model, in_data, compute_dtype=dtype)
+    bnn_s, _ = eval_bnn_stats(model, est, in_data, cfg.samples,
+                              _generator(cfg, model), sample_chunk=chunk,
+                              compute_dtype=dtype)
+    ood_nn_s, _ = eval_nn_stats(model, out_data, compute_dtype=dtype)
+    ood_bnn_s, _ = eval_bnn_stats(model, est, out_data, cfg.samples,
+                                  _generator(cfg, model), sample_chunk=chunk,
+                                  compute_dtype=dtype)
+    _print_stats_summary("NN ", nn_s)
+    _print_stats_summary("BNN", bnn_s)
+    auroc_nn = metrics.auroc(nn_s[:, 3], ood_nn_s[:, 3])
+    auroc_bnn = metrics.auroc(bnn_s[:, 3], ood_bnn_s[:, 3])
+    print(f"OOD AUROC (predictive entropy): NN {auroc_nn:.4f} "
+          f"| BNN {auroc_bnn:.4f}", flush=True)
+    if not cfg.no_results:
+        np.savez_compressed(results_path + "_stats.npz",
+                            stats_columns=np.asarray(STATS_COLUMNS),
+                            labels=labels, nn_stats=nn_s, bnn_stats=bnn_s,
+                            ood_nn_stats=ood_nn_s, ood_bnn_stats=ood_bnn_s,
+                            auroc=np.asarray([auroc_nn, auroc_bnn]))
+    return nn_s, bnn_s, labels
+
+
 def out_of_domain(cfg, model, est, results_path: str, fig_path: str):
     """In-domain + OOD eval for NN and BNN (evaluate.py:199-280), with
     the OOD AUROC of the predictive entropy."""
+    if _stats_mode_k(cfg):
+        return _out_of_domain_stats(cfg, model, est, results_path)
     in_data, out_data = build_ood_data(cfg)
     device = next(model.parameters()).device
     in_data = list(on_device(in_data, device))

@@ -21,7 +21,8 @@ import torch
 from curvature_tpu_torch import estimators
 from curvature_tpu_torch.models import state_from_jax
 from curvature_tpu_torch.pipelines.common import (
-    build_data, build_model, device_batch, layer_filter, loss_kind, nchw)
+    build_data, build_model, device_batch, layer_filter, loss_kind,
+    model_input)
 from curvature_tpu_torch.utils.checkpoint import (
     factors_path, load_pytree, save_pytree)
 
@@ -36,7 +37,6 @@ def compute_factors(model, data, cfg, kfac_state=None,
     factors.py:33-62) over NHWC batches ``data``; returns the estimator
     with ``num_updates`` set (the states are raw running sums)."""
     name = cfg.estimator.lower()
-    loss_kind(cfg)
     subsample = float(getattr(cfg, "token_subsample", 1.0) or 1.0)
     if subsample < 1.0 and name != "kfac":
         raise ValueError(
@@ -44,12 +44,14 @@ def compute_factors(model, data, cfg, kfac_state=None,
             f"--estimator {name} has no patch-Gram phase")
     device = _device(model)
     # --precision bfloat16: capture forwards/backwards in bf16, f32 factors
-    kw = dict(layer_filter=layer_filter(cfg), compute_dtype=(
-        torch.bfloat16 if cfg.precision == "bfloat16" else None))
+    kw = dict(layer_filter=layer_filter(cfg), loss=loss_kind(cfg),
+              compute_dtype=(torch.bfloat16 if cfg.precision == "bfloat16"
+                             else None))
     if name == "diag":
         est = estimators.Diagonal(model, **kw)
     elif name == "kfac":
-        est = estimators.KFAC(model, token_subsample=subsample, **kw)
+        est = estimators.KFAC(model, token_subsample=subsample,
+                              g_block_size=cfg.g_block_size, **kw)
     elif name == "block":
         est = estimators.BlockDiagonal(model, **kw)
     elif name == "efb":
@@ -72,20 +74,21 @@ def compute_factors(model, data, cfg, kfac_state=None,
             buffer.append(device_batch(x, device))
             if len(buffer) == chunk and chunk > 1 \
                     and all(b.shape == buffer[0].shape for b in buffer):
-                est.update_batches(nchw(torch.stack(buffer)), generator,
+                est.update_batches(model_input(torch.stack(buffer)),
+                                   generator,
                                    num_samples=cfg.mc_samples)
                 num_updates += len(buffer)
                 buffer = []
             elif len(buffer) >= chunk:
                 for b in buffer:
-                    est.update(nchw(b), generator=generator,
+                    est.update(model_input(b), generator=generator,
                                num_samples=cfg.mc_samples)
                 num_updates += len(buffer)
                 buffer = []
             if cfg.verbose:
                 _progress(epoch, cfg.epochs, i + 1, len(data), t0, device)
         for b in buffer:        # ragged tail
-            est.update(nchw(b), generator=generator,
+            est.update(model_input(b), generator=generator,
                        num_samples=cfg.mc_samples)
             num_updates += 1
     est.num_updates = num_updates

@@ -71,12 +71,16 @@ class Config:
     swag: bool = False
     swag_rank: int = 20
     bn_update: bool = False
-    g_block_size: int = 1024        # KFAC blocked G (not ported)
-    qkv_split: bool = False
-    head_split: bool = False
-    scan_blocks: bool = False
-    seq_len: int = 64
-    vocab: int = 0
+    g_block_size: int = 1024        # KFAC: block size of the blocked G of
+                                    # dense layers past max_factor_dim
+                                    # (vocab heads; 0 = hard error)
+    qkv_split: bool = False         # not ported
+    head_split: bool = False        # not ported
+    scan_blocks: bool = False       # GPT-2: depth-stacked blocks
+                                    # (nn/scan.py)
+    seq_len: int = 64               # GPT-2: context length of --data tokens
+    vocab: int = 0                  # GPT-2: vocabulary of the model and of
+                                    # --data tokens (0 = 256)
     fidelity: int = 0
     spectrum: int = 0
     # toggles
@@ -117,8 +121,8 @@ def parse_args(argv=None, **overrides) -> Config:
     return Config(**vars(ns))
 
 
-_TRANSFORMERS = ("gpt", "vit", "swin", "maxvit", "transformer",
-                 "tiny_transformer")
+_TRANSFORMERS = ("vit", "swin", "maxvit", "transformer",
+                 "tiny_transformer", "gpt2_moe")
 
 #: (what, test of the config, ROADMAP item): flags whose module is not
 #: ported; each one set raises
@@ -133,15 +137,10 @@ NOT_PORTED = (
     ("--estimator subspace|swag", lambda c: c.estimator in ("subspace",
                                                             "swag"),
      "Queue 1 item 8"),
-    ("--data tokens", lambda c: c.data == "tokens", "Queue 1 item 6"),
-    ("transformer and GPT models",
+    ("transformer models other than GPT-2 (and GPT-2 MoE)",
      lambda c: c.model.startswith(_TRANSFORMERS), "Queue 1 item 6"),
-    ("--qkv_split/--head_split/--scan_blocks/--vocab/--seq_len/"
-     "--g_block_size", lambda c: (c.qkv_split or c.head_split
-                                  or c.scan_blocks or c.vocab
-                                  or c.seq_len != 64
-                                  or c.g_block_size != 1024),
-     "Queue 1 item 6"),
+    ("--qkv_split/--head_split (nn.MultiheadAttention's splits)",
+     lambda c: c.qkv_split or c.head_split, "Queue 1 item 6"),
     ("--swag/--bn_update (training's SWAG)",
      lambda c: c.swag or c.bn_update, "Queue 1 item 8"),
     ("the visualize/loss-landscape/hyper toggles",

@@ -328,10 +328,17 @@ def test_efb_and_inf_check_their_factors(ladder):
     kfac = dict(fed["kfac"].state)
     with pytest.raises(ValueError, match="missing"):
         port_est.EFB(tm, {"fc": kfac["fc"]}, layer_filter=["conv1", "fc"])
+    # a plain dense layer's factors with a leading axis are not its own
+    # (stacked factors belong to stacked layers): JAX's ValueError
     stacked = dict(kfac, fc={"a": kfac["fc"]["a"][None],
                              "g": kfac["fc"]["g"][None]})
-    with pytest.raises(NotImplementedError, match="Queue 1 items 3 and 6"):
+    with pytest.raises(ValueError, match="KFAC-only"):
         port_est.EFB(tm, stacked, layer_filter="fc")
+    # per-group conv factors: grouped convs are not ported
+    grouped = dict(kfac, conv1={"a": kfac["conv1"]["a"][None],
+                                "g": kfac["conv1"]["g"][None]})
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        port_est.EFB(tm, grouped, layer_filter="conv1")
     split = dict(kfac, fc=dict(kfac["fc"], a_bias=torch.ones(())))
     with pytest.raises(ValueError, match="KFAC-only"):
         port_est.EFB(tm, split, layer_filter="fc")

@@ -498,9 +498,10 @@ def test_evaluate_cli_writes_jax_keys(lenet, swapped, capsys):
     ["--parallel"], ["--mesh", "data:2"], ["--fidelity", "2"],
     ["--spectrum", "3"], ["--plot"], ["--predictive", "probit"],
     ["--estimator", "subspace"], ["--estimator", "swag"],
-    ["--data", "tokens"], ["--model", "gpt2_tiny"], ["--model", "vit_b_16"],
-    ["--qkv_split"], ["--head_split"], ["--scan_blocks"],
-    ["--g_block_size", "512"], ["--swag"], ["--loss1d"], ["--eigvals"],
+    ["--model", "gpt2_moe_tiny"], ["--model", "swin_t"],
+    ["--model", "vit_b_16"], ["--qkv_split"], ["--head_split"],
+    ["--bn_update"], ["--calibration"], ["--swag"], ["--loss1d"],
+    ["--eigvals"],
 ])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):

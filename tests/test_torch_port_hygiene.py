@@ -26,7 +26,9 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.ops.cuda.patch_gram",
                  "curvature_tpu_torch.ops.cuda.sym_gram",
                  "curvature_tpu_torch.pipelines.factors",
-                 "curvature_tpu_torch.pipelines.evaluate"):
+                 "curvature_tpu_torch.pipelines.evaluate",
+                 "curvature_tpu_torch.nn.scan",
+                 "curvature_tpu_torch.models.gpt"):
     assert required in names, required
 assert not bad, bad
 """
