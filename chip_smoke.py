@@ -10,6 +10,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --kernels    # builds, checks and times the kernels
                                        # only, with the f32 sym_gram split
                                        # sweep
+    python3 chip_smoke.py --lm         # builds the kernels, runs the
+                                       # causal-LM phase only
+    python3 chip_smoke.py --grouped    # builds the kernels, runs the
+                                       # grouped-conv phase only
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -56,6 +60,15 @@ under ``build/pipelines``:
     factors of a tiled stride-1, the tiled stride-2 and the v2 layer
     against the plain path, then efb, diag and inf, ``evaluate --ood``
     for kfac and efb (AUROC), and kfac in bf16.
+
+Then the grouped and depthwise convolutions (``grouped_phase``), none
+launching a Gram kernel by JAX's routes: ResNeXt-50 32x4d and
+EfficientNet-B0 at 224², B=16 through the KFAC loop of JAX's
+``benchmarks/suite.py`` (``*_kfac_update_img_s``, ``*_kfac_invert``,
+``*_bnn30_eval_fwd_img_s``, and ``*_kfac_update_bf16_sub4_img_s``), the
+ladder on EfficientNet-B0, the dense check on ResNeXt's grouped
+``layer1.0.conv2``, a ConvNeXt-T update and eval, and the MobileNetV2
+``--data synthetic`` CLI chain; and last the causal-LM phase.
 
 Every failed check raises. The last line of standard output is the
 ``{"ok": true, ...}`` JSON object; the line before it is the ``kernels``
@@ -165,6 +178,22 @@ LM_ARGV = ["--model", "gpt2_tiny", "--data", "tokens", "--seq_len", "16",
 LM_VOCAB_ARGV = ["--model", "gpt2_tiny", "--data", "tokens", "--vocab",
                  "50257", "--seq_len", "64", "--layers", "h.*"]
 LM_CLI_DAMPING = ["--norm", "1e5", "--scale", "1e4"]
+#: the grouped phase (JAX benchmarks/suite.py:216-263, grouped_pipeline):
+#: ResNeXt-50 32x4d and EfficientNet-B0 at 224², B=16, f32, MC=1, 1000
+#: classes; the bf16 token_subsample=0.25 update under the suite's tag
+GROUPED_MODELS = ("resnext50_32x4d", "efficientnet_b0")
+GROUPED_TAG = "_bf16_sub4"
+#: the dense check's grouped layer: 128 out, 32 groups of 4 channels, 36
+#: columns, 4,608 parameters
+GROUPED_DENSE_LAYER = "layer1.0.conv2"
+#: the EfficientNet-B0 ladder's Block layer: the depthwise 3x3 s2 over 96
+#: channels (96 groups of 9 columns, 864 parameters)
+GROUPED_BLOCK_LAYER = "features.2.0.block.1.0"
+#: the CLI chain (JAX benchmarks/NOTES.md:408-414): MobileNetV2 on
+#: synthetic data, INF at rank 50, the random network's damping of
+#: R18_DAMPING
+GROUPED_ARGV = ["--model", "mobilenet_v2", "--data", "synthetic"]
+GROUPED_INF_RANK = "50"
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -703,7 +732,7 @@ def laplace_tail(est, model, test_data, gen, counters, label,
     """An updated estimator's invert at ``damping`` -> SAMPLES-sample
     ensemble -> bnn eval on ``test_data``: every inverse-state tensor
     finite, no Gram kernel launched by the eval, the metrics printed.
-    Returns the ensemble."""
+    Returns the ensemble and the invert's seconds."""
     import torch
     from curvature_tpu_torch.eval import eval_bnn
     add, multiply = damping
@@ -726,7 +755,7 @@ def laplace_tail(est, model, test_data, gen, counters, label,
         f"{SAMPLES}-sample ensemble {sample_s:.3f} s; bnn metrics (random "
         f"weights, {2 * BATCH} synthetic images) "
         f"{json.dumps(prob_stats(probs, labels, label))}")
-    return ensemble
+    return ensemble, invert_s
 
 
 def eval_rate(model, est, test_data, ensemble):
@@ -745,21 +774,23 @@ def eval_rate(model, est, test_data, ensemble):
     return 2 * BATCH / best
 
 
-def ladder(estimators, model, kfac, batches, test_data, gen, counters):
+def ladder(estimators, model, kfac, batches, test_data, gen, counters,
+           block_layer=DENSE_LAYER, tag="ladder"):
     """The rest of the estimator ladder at full width, each through update
     (no Gram kernel launched), invert, a SAMPLES-sample ensemble and the
     bnn eval: Diagonal; EFB from the f32 KFAC path's factors (the
     eigendecomposition timed); INF as the pipeline builds it (EFB's free
     diags, the KFAC factors, EFB's lambdas and eigenvectors); and
-    BlockDiagonal on DENSE_LAYER. Returns {kind: (estimator, ensemble)}."""
+    BlockDiagonal on ``block_layer``. ``tag`` prefixes the printed lines.
+    Returns {kind: (estimator, ensemble)}."""
     import torch
     out = {}
     none = counters.zero()
     diag = estimators.Diagonal(model)
-    drive_updates(diag, batches, gen, counters, "ladder diagonal", none)
+    drive_updates(diag, batches, gen, counters, f"{tag} diagonal", none)
     out["diagonal"] = (diag, laplace_tail(diag, model, test_data, gen,
-                                          counters, "ladder diagonal",
-                                          LADDER_DAMPING["diagonal"]))
+                                          counters, f"{tag} diagonal",
+                                          LADDER_DAMPING["diagonal"])[0])
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -767,12 +798,13 @@ def ladder(estimators, model, kfac, batches, test_data, gen, counters):
     torch.cuda.synchronize()
     shapes = sorted({tuple(f[k].shape) for f in kfac.state.values()
                      for k in "ag"})
-    log(f"ladder efb: eigendecomposition of {2 * len(efb.metas)} KFAC "
+    log(f"{tag} efb: eigendecomposition of {2 * len(efb.metas)} KFAC "
         f"factors ({len(shapes)} distinct shapes, the largest "
-        f"{shapes[-1]}) in {time.perf_counter() - t0:.3f} s")
-    drive_updates(efb, batches, gen, counters, "ladder efb", none)
+        f"{max(shapes, key=math.prod)}) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    drive_updates(efb, batches, gen, counters, f"{tag} efb", none)
     out["efb"] = (efb, laplace_tail(efb, model, test_data, gen, counters,
-                                    "ladder efb", LADDER_DAMPING["efb"]))
+                                    f"{tag} efb", LADDER_DAMPING["efb"])[0])
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -785,39 +817,44 @@ def ladder(estimators, model, kfac, batches, test_data, gen, counters):
     build_s = time.perf_counter() - t0
     if counters.read() != none:
         raise AssertionError(f"INF build launched {counters.read()}")
-    sizes = {n: [s["ua"].shape[1], s["ug"].shape[1]]
+    sizes = {n: [s["ua"].shape[-1], s["ug"].shape[-1]]
              for n, s in inf.state.items()}
     r = [lm[0] * lm[1] for lm in sizes.values()]
-    log(f"ladder inf: update(rank={INF_RANK}, max_product="
+    log(f"{tag} inf: update(rank={INF_RANK}, max_product="
         f"{INF_MAX_PRODUCT}, bucket={INF_BUCKET}) in {build_s:.3f} s; R = "
         f"L*M from {min(r)} to {max(r)}, sum {sum(r)}; (L, M) by layer "
         f"{json.dumps(sizes)}")
-    check_finite(inf.state, "ladder inf state")
+    check_finite(inf.state, f"{tag} inf state")
     out["inf"] = (inf, laplace_tail(inf, model, test_data, gen, counters,
-                                    "ladder inf", LADDER_DAMPING["inf"]))
+                                    f"{tag} inf", LADDER_DAMPING["inf"])[0])
 
-    blk = estimators.BlockDiagonal(model, layer_filter=DENSE_LAYER)
-    drive_updates(blk, batches, gen, counters, f"ladder block "
-                  f"({DENSE_LAYER})", none)
+    blk = estimators.BlockDiagonal(model, layer_filter=block_layer)
+    drive_updates(blk, batches, gen, counters, f"{tag} block "
+                  f"({block_layer})", none)
     out["block"] = (blk, laplace_tail(blk, model, test_data, gen, counters,
-                                      f"ladder block ({DENSE_LAYER})",
-                                      LADDER_DAMPING["block"]))
+                                      f"{tag} block ({block_layer})",
+                                      LADDER_DAMPING["block"])[0])
     return out
 
 
-def dense_check(estimators, model, batches, gen):
-    """All five estimators built on DENSE_LAYER alone and updated from
+def dense_check(estimators, model, batches, gen, name=DENSE_LAYER):
+    """All five estimators built on layer ``name`` alone and updated from
     ``batches``, each against its damped precision P formed densely in
     float64 on the card (flat order: the [out, cols] matrix view's rows):
     ``precision_solve`` against ``torch.linalg.solve(P, d)`` (relative to
     max |P^-1 d|), ``quadratic_form`` against d^T P d and
-    ``logdet_precision`` against ``slogdet(P)``. The estimators run in
-    float64 and in float32; each reading is held to ``dense_bars`` at the
-    unit roundoff of the estimator's dtype, and a miss raises."""
+    ``logdet_precision`` against ``slogdet(P)``. A grouped conv's KFAC,
+    EFB and INF precisions are block-diagonal over its g groups (rows
+    group-major), formed here as ``block_diag`` of the per-group dense
+    blocks, and their solve of an offset held in group 0 alone must be
+    exactly zero in every other group (Diagonal's too; Block is the
+    layer's whole Fisher). The estimators run in float64 and in float32;
+    each reading is held to ``dense_bars`` at the unit roundoff of the
+    estimator's dtype, and a miss raises."""
     import torch
     from curvature_tpu_torch.estimators.block import _flatten_grad
     from curvature_tpu_torch.ops.linalg import kron, sym
-    name, a, m = DENSE_LAYER, ADD, MULTIPLY
+    a, m = ADD, MULTIPLY
     for dtype in (torch.float64, torch.float32):
         kw = {"layer_filter": name, "dtype": dtype}
         est = {"kfac": estimators.KFAC(model, **kw),
@@ -835,7 +872,8 @@ def dense_check(estimators, model, batches, gen):
         est["inf"].update(rank=INF_RANK, max_product=INF_MAX_PRODUCT,
                           bucket=INF_BUCKET)
         meta = est["kfac"].metas[name]
-        out_f, cols = meta.out_features, meta.mat_cols
+        out_f, cols, g = meta.out_features, meta.mat_cols, meta.groups
+        og = out_f // g
         dev = est["kfac"].device
 
         def eye(k):
@@ -843,29 +881,43 @@ def dense_check(estimators, model, batches, gen):
 
         def state(kind):
             return est[kind].state[name].double()
-        fac = {k: v.double() for k, v in est["kfac"].state[name].items()}
+
+        def per_group(t, *shape):
+            """A state tensor as its [g, *shape] group blocks (a plain
+            layer is one group)."""
+            return t.double().reshape((g,) + shape)
+        fac = est["kfac"].state[name]
+        fa, fg = per_group(fac["a"], cols, cols), per_group(fac["g"], og, og)
         ev = est["efb"].eigvecs[name]
-        u = kron(ev["g"].double(), ev["a"].double())
-        s = {k: v.double() for k, v in est["inf"].state[name].items()}
-        v = kron(s["ua"], s["ug"])           # INF's [cols, out] flat order
-        p_t = torch.diag(m * s["corr"].clamp_min(0) + a) \
-            + (v * (m * s["lam"])) @ v.T
+        ua, ug = per_group(ev["a"], cols, cols), per_group(ev["g"], og, og)
+        u = torch.block_diag(*[kron(ug[j], ua[j]) for j in range(g)])
+        s = est["inf"].state[name]
+        va = per_group(s["ua"], cols, s["ua"].shape[-1])
+        vg = per_group(s["ug"], og, s["ug"].shape[-1])
+        lam, corr = per_group(s["lam"], -1), per_group(s["corr"], -1)
+        # INF's [cols, og] flat order per group, to the [og, cols] view's
+        idx = torch.arange(og * cols, device=dev)
+        perm = idx.reshape(cols, og).T.reshape(-1)
+        v = [kron(va[j], vg[j]) for j in range(g)]
+        p_inf = [(torch.diag(m * corr[j].clamp_min(0) + a)
+                  + (v[j] * (m * lam[j])) @ v[j].T)[perm][:, perm]
+                 for j in range(g)]
         idx = torch.arange(out_f * cols, device=dev)
-        # matrix-view order from INF's [cols, out] order and from Block's
-        # torch view(-1) order (weights, then the bias)
-        perm = idx.reshape(cols, out_f).T.reshape(-1)
+        # Block's torch view(-1) order (weights, then the bias)
         perm_b = torch.argsort(_flatten_grad(idx.reshape(out_f, cols),
                                              meta.has_bias))
         dense = {
-            "kfac": kron(m ** 0.5 * fac["g"] + a ** 0.5 * eye(out_f),
-                         m ** 0.5 * fac["a"] + a ** 0.5 * eye(cols)),
+            "kfac": torch.block_diag(*[
+                kron(m ** 0.5 * fg[j] + a ** 0.5 * eye(og),
+                     m ** 0.5 * fa[j] + a ** 0.5 * eye(cols))
+                for j in range(g)]),
             "diagonal": torch.diag((m * state("diagonal") + a).reshape(-1)),
             "block": (m * state("block")
                       + a * eye(out_f * cols))[perm_b][:, perm_b],
             "efb": (u * (m * state("efb") + a).reshape(-1)) @ u.T,
-            "inf": p_t[perm][:, perm],
+            "inf": torch.block_diag(*p_inf),
         }
-        basis = {"efb": u, "inf": v}
+        basis = {"efb": u, "inf": torch.block_diag(*v)}
         misses = []
         d = torch.randn((out_f, cols),
                         generator=torch.Generator().manual_seed(3)).to(dev)
@@ -884,9 +936,16 @@ def dense_check(estimators, model, batches, gen):
                 "logdet": abs(e.logdet_precision(a, m) - float(logdet))
                 / abs(float(logdet))}
             errs["basis"], bars = dense_bars(dtype, evals, basis.get(kind),
-                                             max(out_f, cols))
-            log(f"dense check {kind} {str(dtype)[6:]} ({name}, P "
-                f"{tuple(p.shape)} float64, cond "
+                                             max(og, cols))
+            if g > 1 and kind != "block":
+                # an offset in group 0 alone moves no other group
+                d0 = torch.zeros_like(d)
+                d0[:og] = d[:og]
+                leak = e.precision_solve({name: d0}, a, m)[name][og:]
+                errs["cross_group"], bars["cross_group"] = \
+                    float(leak.abs().max()), 0.0
+            log(f"dense check {kind} {str(dtype)[6:]} ({name}, {g} groups, "
+                f"P {tuple(p.shape)} float64, cond "
                 f"{float(evals[-1] / evals[0]):.3e}): " + ", ".join(
                     f"{k} {x:.3e} (bar {bars[k]:.3e})"
                     for k, x in errs.items()))
@@ -1174,6 +1233,145 @@ def pipelines(estimators, counters, smi):
     return by_path, updated
 
 
+def grouped_phase(estimators, models, counters, smi, dev, profile=False):
+    """Grouped and depthwise convolutions at full width, seeded weights in
+    JAX's layout (residual branches damped by ``seeded_variables``): (a)
+    ResNeXt-50 32x4d and EfficientNet-B0 through the KFAC Laplace loop of
+    JAX's suite (the update rate, the invert at (1, 18916), a
+    SAMPLES-sample ensemble, the NN/BNN eval and its rate), then their
+    bf16 ``token_subsample=0.25`` updates; (b) the ladder on EfficientNet-B0
+    (Block on a depthwise layer); (c) the dense check of the five
+    estimators on ResNeXt's grouped ``GROUPED_DENSE_LAYER``; (d) one
+    ConvNeXt-T update and its eval (channel LayerNorm, layer_scale, the
+    depthwise 7x7 and the string-padded convs); (e) the CLI chain on
+    MobileNetV2. No update, eval or CLI may launch a Gram kernel: JAX
+    routes grouped layers to the batched per-group einsum before any
+    kernel, its stems have C=3, and ConvNeXt's downsampling convs carry
+    string padding. Returns the update paths' launches."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch.eval import eval_nn
+    from curvature_tpu_torch.pipelines import evaluate, factors
+    from curvature_tpu_torch.utils.checkpoint import results_paths
+    from curvature_tpu_torch.utils.config import parse_args
+    none = counters.zero()
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    batches = [x for x, _ in nchw_batches(rng, UPDATES, BATCH, dev)]
+    test_data = nchw_batches(rng, 2, BATCH, dev)
+    by_path = {}
+
+    def build(arch):
+        model = models.build(arch, CLASSES, device=dev)
+        models.load_jax_variables(model, models.seeded_variables(model, 0))
+        return model.to(memory_format=torch.channels_last)
+
+    def nn_stats(model, label):
+        counters.reset()
+        probs, labels = eval_nn(model, test_data)
+        if counters.read() != none:
+            raise AssertionError(f"{label} eval_nn launched {counters.read()}")
+        log(f"{label} nn metrics (random weights, {2 * BATCH} synthetic "
+            f"images): {json.dumps(prob_stats(probs, labels, label))}")
+
+    # (a) the suite's grouped_pipeline, f32 then bf16 + token_subsample
+    for arch in GROUPED_MODELS:
+        model = build(arch)
+        path = f"{arch}_kfac_update_img_s"
+        est = estimators.KFAC(model)
+        by_path[path] = drive_updates(est, batches, gen, counters, path, none)
+        rate = best_rate(est, batches, gen, BATCH)
+        log(f"{path}: {rate:.2f} update img/s (f32 B={BATCH} MC=1 "
+            f"{SIZE}x{SIZE}, best of 3 blocks of {UPDATES} updates; {smi})")
+        if profile and arch == GROUPED_MODELS[0]:
+            log(f"{path} (one update):")
+            profile_update(est, batches[0], gen)
+        est.invert(2.0, 20000.0)              # warm, as the suite
+        ensemble, invert_s = laplace_tail(est, model, test_data, gen,
+                                          counters, f"{arch} kfac")
+        log(f"{arch}_kfac_invert: {invert_s:.4f} s (add={ADD}, "
+            f"multiply={MULTIPLY}, after a warm invert; {smi})")
+        nn_stats(model, arch)
+        counters.reset()
+        fwd = SAMPLES * eval_rate(model, est, test_data, ensemble)
+        if counters.read() != none:
+            raise AssertionError(f"{arch} eval launched {counters.read()}")
+        log(f"{arch}_bnn30_eval_fwd_img_s: {fwd:.2f} ({SAMPLES} x images "
+            f"per second through eval_bnn, best of 3 blocks of {2 * BATCH} "
+            f"images; {smi})")
+        if arch == "efficientnet_b0":
+            # (b) the ladder: depthwise 3x3 and 5x5 layers with SE
+            lad = ladder(estimators, model, est, batches, test_data, gen,
+                         counters, GROUPED_BLOCK_LAYER, f"{arch} ladder")
+            for kind, (e, ens) in lad.items():
+                if kind != "inf":
+                    log(f"{arch} ladder {kind}: "
+                        f"{best_rate(e, batches, gen, BATCH):.2f} update "
+                        f"img/s ({smi})")
+            del lad
+        del est, ensemble
+        path = f"{arch}_kfac_update{GROUPED_TAG}_img_s"
+        sub = estimators.KFAC(model, compute_dtype=torch.bfloat16,
+                              token_subsample=0.25)
+        by_path[path] = drive_updates(sub, batches, gen, counters, path, none)
+        log(f"{path}: {best_rate(sub, batches, gen, BATCH):.2f} update img/s"
+            f" (bf16, token_subsample=0.25, B={BATCH} MC=1, best of 3 "
+            f"blocks of {UPDATES} updates; {smi})")
+        del sub
+        if arch == "resnext50_32x4d":
+            # (c) the five estimators on one grouped layer, densely
+            dense_check(estimators, model, batches[:2], gen,
+                        GROUPED_DENSE_LAYER)
+        del model
+        torch.cuda.empty_cache()
+
+    # (d) ConvNeXt-T: one update and the eval
+    model = build("convnext_tiny")
+    est = estimators.KFAC(model)
+    by_path["convnext_tiny_kfac_update"] = drive_updates(
+        est, batches[:1], gen, counters, "convnext_tiny kfac (one update)",
+        none)
+    laplace_tail(est, model, test_data, gen, counters, "convnext_tiny kfac")
+    nn_stats(model, "convnext_tiny")
+    del est, model
+    torch.cuda.empty_cache()
+
+    # (e) the CLI chain on MobileNetV2: factors kfac -> diag -> efb -> inf,
+    # evaluate --ood for kfac and inf
+    root = os.path.abspath(os.path.join(PIPE_ROOT, "mobilenet_v2"))
+    base = GROUPED_ARGV + ["--root_dir", root, "--results_dir", root]
+    for name in ("kfac", "diag", "efb", "inf"):
+        extra = ["--rank", GROUPED_INF_RANK] if name == "inf" else []
+        est, got = run_cli(factors, base + ["--estimator", name] + extra,
+                           counters, smi, f"mobilenet_v2 factors {name}")
+        if got != none:
+            raise AssertionError(f"mobilenet_v2 factors {name}: {got}")
+        check_finite(est.state, f"mobilenet_v2 {name} state")
+    for name in ("kfac", "inf"):
+        argv = base + ["--estimator", name, "--ood", "--rank",
+                       GROUPED_INF_RANK] + R18_DAMPING
+        (probs, bnn_probs, labels), got = run_cli(
+            evaluate, argv, counters, smi, f"mobilenet_v2 evaluate {name} "
+            "--ood")
+        with np.load(results_paths(parse_args(argv))[0] + ".npz",
+                     allow_pickle=True) as f:
+            auroc = f["auroc"]
+        for what, p in (("nn", probs), ("bnn", bnn_probs)):
+            if p.shape != (256, 10) or not np.isfinite(p).all() \
+                    or np.abs(p.sum(1) - 1).max() > 1e-3:
+                raise AssertionError(f"mobilenet_v2 {name} {what} "
+                                     "predictions malformed")
+        log(f"mobilenet_v2 synthetic {name} --ood (random weights): NN "
+            f"accuracy {100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
+            f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}%; AUROC NN "
+            f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
+        if got != none or not np.isfinite(auroc).all():
+            raise AssertionError(f"mobilenet_v2 evaluate {name}: launches "
+                                 f"{got}, AUROC {auroc}")
+    return by_path
+
+
 def lm_tokens(rng, n, dev):
     """n seeded [LM_BATCH, LM_T] token batches and [LM_BATCH, LM_T] label
     batches on the card."""
@@ -1458,6 +1656,9 @@ def main(argv=None):
     ap.add_argument("--lm", action="store_true",
                     help="build the kernels, run the causal-LM phase only "
                          "and stop (no result line)")
+    ap.add_argument("--grouped", action="store_true",
+                    help="build the kernels, run the grouped-conv phase "
+                         "only and stop (no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1501,6 +1702,13 @@ def main(argv=None):
                                         "spill", "wgmma", "arning")):
                 log(f"  {name}: {line.strip()}")
     hgmma = hgmma_counts(build)
+    if args.grouped:
+        t0 = time.perf_counter()
+        grouped_phase(estimators, models, Counters(tpg, tsg), smi,
+                      torch.device("cuda", 0), args.profile)
+        log(f"grouped phase: {time.perf_counter() - t0:.1f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return 0
     if args.lm:
         lm_phase(estimators, models, Counters(tpg, tsg), smi,
                  torch.device("cuda", 0), args.profile)
@@ -1553,7 +1761,7 @@ def main(argv=None):
     by_path[PATHS[0]] = drive_updates(
         est, batches, gen, counters, PATHS[0],
         dict(none, patch_gram_tiled=3 * UPDATES, patch_gram_v2=UPDATES))
-    ensemble = laplace_tail(est, model, test_data, gen, counters, "kfac")
+    ensemble, _ = laplace_tail(est, model, test_data, gen, counters, "kfac")
     counters.reset()
     nn_probs, labels = eval_nn(model, test_data)
     if counters.read() != counters.zero():
@@ -1659,9 +1867,23 @@ def main(argv=None):
             log(f"{path} (the pipeline's update: B=32, MC={PIPE_MC}):")
             profile_update(e, x, gen, num_samples=PIPE_MC)
 
-    # -- 6. the causal-LM path: GPT-2 124M, the ladder, the token CLIs -----
+    # -- 6. grouped and depthwise convolutions: ResNeXt-50, EfficientNet-B0,
+    # ConvNeXt-T, the MobileNetV2 CLIs -------------------------------------
     del est, est16, est_sub, lad, r18_updated, ensemble
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    grouped_by_path = grouped_phase(estimators, models, counters, smi, dev,
+                                    args.profile)
+    log(f"grouped phase: {time.perf_counter() - t0:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    for rec in records:
+        # the grouped paths launch none of the kernels (JAX's routes)
+        rec["launches_by_path"].update(
+            {p: got[rec["counter"]] for p, got in grouped_by_path.items()})
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    torch.cuda.empty_cache()
+
+    # -- 7. the causal-LM path: GPT-2 124M, the ladder, the token CLIs -----
     lm_phase(estimators, models, counters, smi, dev, args.profile)
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")

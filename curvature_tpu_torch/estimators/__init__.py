@@ -1,5 +1,6 @@
 from curvature_tpu_torch.estimators.base import (
-    Estimator, act_tokens, filter_metas, grad_tokens, normalize_damping,
+    Estimator, act_tokens, filter_metas, grad_tokens, grouped_act_tokens,
+    normalize_damping,
 )
 from curvature_tpu_torch.estimators.block import BlockDiagonal
 from curvature_tpu_torch.estimators.capture import (
@@ -11,9 +12,9 @@ from curvature_tpu_torch.estimators.inf import INF
 from curvature_tpu_torch.estimators.kfac import KFAC
 
 __all__ = ["Estimator", "act_tokens", "filter_metas", "grad_tokens",
-           "normalize_damping", "Captured", "ce_cotangent", "collect",
-           "sample_labels", "KFAC", "Diagonal", "BlockDiagonal", "EFB",
-           "INF", "kfac_eigenvectors"]
+           "grouped_act_tokens", "normalize_damping", "Captured",
+           "ce_cotangent", "collect", "sample_labels", "KFAC", "Diagonal",
+           "BlockDiagonal", "EFB", "INF", "kfac_eigenvectors"]
 
 #: estimators of the JAX package not ported yet, and where they stand
 _NOT_PORTED = {"Subspace": "ROADMAP Queue 1 item 8",

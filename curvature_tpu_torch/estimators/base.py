@@ -83,21 +83,70 @@ def act_tokens(meta: LayerMeta, act: torch.Tensor,
     subsampling: the skipped positions are never generated); ``offset``
     shifts the strided grid in output-grid coordinates. The k^2 offset
     grids partition the positions. A non-zero offset extracts the full
-    grid and slices it, as JAX does (base.py:87-97)."""
+    grid and slices it, as JAX does (base.py:87-97). A grouped conv's
+    input does not flatten to one matrix: :func:`grouped_act_tokens`."""
     if meta.kind == "conv":
-        if extra_stride > 1 and tuple(offset) != (0, 0):
-            act = extract_patches(act, meta.kernel_size, meta.strides,
-                                  meta.padding)
-            act = act[:, offset[0]::extra_stride, offset[1]::extra_stride]
-        else:
-            strides = (meta.strides[0] * extra_stride,
-                       meta.strides[1] * extra_stride)
-            act = extract_patches(act, meta.kernel_size, strides,
-                                  meta.padding)
+        if meta.groups > 1:
+            raise ValueError(
+                f"{meta.name}: grouped conv activations don't flatten to one "
+                "[N, fan_in] matrix — use grouped_act_tokens")
+        act = _conv_patches(meta, act, extra_stride, offset)
     t = act.reshape(-1, meta.fan_in)
     if append_ones:
         t = torch.cat([t, t.new_ones(t.shape[0], 1)], dim=1)
     return t
+
+
+def _conv_patches(meta: LayerMeta, act: torch.Tensor, extra_stride: int,
+                  offset) -> torch.Tensor:
+    """A conv input's [B, H', W', C*kh*kw] patches on the (subsampled)
+    output grid."""
+    if extra_stride > 1 and tuple(offset) != (0, 0):
+        p = extract_patches(act, meta.kernel_size, meta.strides,
+                            meta.padding)
+        return p[:, offset[0]::extra_stride, offset[1]::extra_stride]
+    strides = (meta.strides[0] * extra_stride,
+               meta.strides[1] * extra_stride)
+    return extract_patches(act, meta.kernel_size, strides, meta.padding)
+
+
+def grouped_act_tokens(meta: LayerMeta, act: torch.Tensor,
+                       append_ones: bool = False, extra_stride: int = 1,
+                       offset=(0, 0)) -> torch.Tensor:
+    """Grouped-conv input -> [N_tokens, groups, fan_in(+1)] (JAX
+    base.py:105-130). Patch features are channel-major (c, kh, kw), so
+    channel block j's features are the contiguous slice [j*fan_in,
+    (j+1)*fan_in) and one reshape splits the group axis out; the ones
+    column (bias) is per group. ``extra_stride`` and ``offset`` subsample
+    the output grid as in :func:`act_tokens`."""
+    p = _conv_patches(meta, act, extra_stride, offset)
+    t = p.reshape(-1, meta.groups, meta.fan_in)
+    if append_ones:
+        t = torch.cat([t, t.new_ones(t.shape[:-1] + (1,))], dim=-1)
+    return t
+
+
+def is_grouped(meta: LayerMeta) -> bool:
+    """A grouped or depthwise conv, whose curvature is block-diagonal over
+    its groups."""
+    return meta.kind == "conv" and meta.groups > 1
+
+
+def group_rows(meta: LayerMeta, mat: torch.Tensor) -> torch.Tensor:
+    """A grouped conv's [..., out, cols] matrix view as its [..., g,
+    out/g, cols] group blocks (output channels are group-major); any other
+    layer's as it is."""
+    if not is_grouped(meta):
+        return mat
+    return mat.reshape(mat.shape[:-2] + (meta.groups, -1, mat.shape[-1]))
+
+
+def ungroup_rows(meta: LayerMeta, blocks: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`group_rows`."""
+    if not is_grouped(meta):
+        return blocks
+    return blocks.reshape(blocks.shape[:-3] + (meta.out_features,
+                                               blocks.shape[-1]))
 
 
 def grad_tokens(meta: LayerMeta, probe_grad: torch.Tensor) -> torch.Tensor:

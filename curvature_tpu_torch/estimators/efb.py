@@ -1,12 +1,15 @@
 """Eigenvalue-corrected Kronecker factorization (EFB / EKFAC).
 
 Port of ``curvature_tpu/estimators/efb.py`` (the reference's ``EFB``,
-curvatures.py:395-460), for plain and stacked layers (a stacked layer's
-eigenvectors, moments and noise carry a leading depth axis, every product
-batched over it, JAX :77-135, :244-250). The KFAC factors are
+curvatures.py:395-460), for plain, stacked and grouped layers: a stacked
+layer's eigenvectors, moments and noise carry a leading depth axis (JAX
+:77-135, :244-250), a grouped conv's a leading group axis, each group's
+[out/g, cols] gradient block rotated into its own Kronecker eigenbasis
+(JAX :123-127, :175-177, :216-218, :236-239); every product is batched
+over that axis. The KFAC factors are
 eigendecomposed once, at construction (``kfac_eigenvectors``: the
-eigenvectors of A + A^T, utils.py:45-60); ``update`` then accumulates the
-second moments of the gradient in the Kronecker eigenbasis
+eigenvectors of A + A^T, utils.py:45-60); ``update`` then accumulates
+the second moments of the gradient in the Kronecker eigenbasis
 
     state += sum_s (U_G^T g_s U_A)^2
     diags += B * sum_s g_s^2          (a free Diagonal, README.rst:246)
@@ -20,22 +23,20 @@ from typing import Dict
 
 import torch
 
-from curvature_tpu_torch.estimators.base import Estimator
+from curvature_tpu_torch.estimators.base import (
+    Estimator, group_rows, is_grouped, ungroup_rows)
 from curvature_tpu_torch.estimators.capture import Captured
 from curvature_tpu_torch.estimators.diagonal import damped
 from curvature_tpu_torch.ops.linalg import eigh_sym, group_by_shape, ungroup
-
-_NOT_PORTED = ("grouped-conv factors are not ported yet (ROADMAP Queue 1 "
-               "item 3)")
 
 
 @torch.no_grad()
 def kfac_eigenvectors(kfac_state: Dict, dtype=torch.float32) -> Dict:
     """Eigenvectors of each layer's KFAC factors, ``{name: {'a': U_A
-    [(depth,) cols, cols], 'g': U_G [(depth,) out, out]}}``: one batched
-    ``eigh`` for each distinct factor shape (ResNet stages share them; a
-    stacked layer's [depth, d, d] factors batch over depth too), as JAX
-    (:30-54)."""
+    [(d,) cols, cols], 'g': U_G [(d,) out, out]}}`` (d: a stacked layer's
+    depth, or a grouped conv's groups, whose G blocks are [g, out/g,
+    out/g], [C, 1, 1] for a depthwise one): one batched ``eigh`` for each
+    distinct factor shape (ResNet stages share them), as JAX (:30-54)."""
     flat = {f"{name}::{k}": fac[k].to(dtype)
             for name, fac in kfac_state.items() for k in "ag"}
     vecs = ungroup([(names, eigh_sym(stacked)[1])
@@ -46,20 +47,19 @@ def kfac_eigenvectors(kfac_state: Dict, dtype=torch.float32) -> Dict:
 
 def check_square_factors(kfac_state: Dict, metas):
     """Each layer's KFAC factors must be square [d, d] matrices ([depth,
-    d, d] for a stacked layer): split attention and blocked-G factors are
-    KFAC-only (a ValueError, as in JAX); other 3-d factors are grouped
-    convs', not ported (NotImplementedError)."""
+    d, d] for a stacked layer, per-group [g, d, d] for a grouped conv):
+    split attention and blocked-G factors are KFAC-only, a ValueError as
+    in JAX (:69-83)."""
     for name, meta in metas.items():
         fac = kfac_state[name]
-        want = 3 if meta.stacked else 2
-        if "a_bias" in fac or fac["a"].ndim > 3 or fac["g"].ndim > 3 \
-                or (meta.kind == "dense" and fac["g"].ndim > want):
+        want = 3 if (meta.stacked or is_grouped(meta)) else 2
+        if "a_bias" in fac or fac["a"].ndim != want \
+                or fac["g"].ndim != want:
             raise ValueError(
                 f"{name}: split KFAC factors (attention_qkv_split / "
                 "attention_head_split / blocked-G vocab heads) are "
-                "KFAC-only; EFB/INF need square per-layer factors")
-        if fac["a"].ndim != want or fac["g"].ndim != want:
-            raise NotImplementedError(f"{name}: {_NOT_PORTED}")
+                "KFAC-only; EFB/INF need square per-layer (or per-group) "
+                "factors")
 
 
 class EFB(Estimator):
@@ -78,20 +78,33 @@ class EFB(Estimator):
         self.eigvecs = kfac_eigenvectors(
             {n: {k: kfac_state[n][k].to(self.device) for k in "ag"}
              for n in self.metas}, self.dtype)
-        self.diags = {n: torch.zeros_like(s) for n, s in self.state.items()}
+        # the free Diagonal in the [(depth,) out, cols] matrix view
+        self.diags = {name: torch.zeros(((m.stacked,) if m.stacked else ())
+                                        + (m.out_features, m.mat_cols),
+                                        dtype=self.dtype, device=self.device)
+                      for name, m in self.metas.items()}
+
+    @staticmethod
+    def _lead(m) -> tuple:
+        """The leading axis of a layer's eigenbasis arrays: a stacked
+        layer's depth, a grouped conv's groups."""
+        return ((m.stacked,) if m.stacked else
+                (m.groups,) if is_grouped(m) else ())
 
     def init_state(self):
-        return {name: torch.zeros(((m.stacked,) if m.stacked else ())
-                                  + (m.out_features, m.mat_cols),
+        """Eigenbasis second moments, [(depth,) out, cols]; a grouped
+        conv's per-group [g, out/g, cols] (JAX ``_lam_shape``)."""
+        return {name: torch.zeros(self._lead(m) + (m.out_features
+                                                   // m.groups, m.mat_cols),
                                   dtype=self.dtype, device=self.device)
                 for name, m in self.metas.items()}
 
     def update_state(self, state, cap: Captured):
         """Both moments accumulate in place (curvatures.py:427-434)."""
-        for name in self.metas:
+        for name, meta in self.metas.items():
             g = cap.param_grads[name].to(self.dtype)  # [S, (L,) out, cols]
             ua, ug = self.eigvecs[name]["a"], self.eigvecs[name]["g"]
-            lam = ug.mT @ g @ ua                      # [S, (L,) out, cols]
+            lam = ug.mT @ group_rows(meta, g) @ ua    # [S, (L|g,) ., cols]
             state[name] += (lam * lam).sum(0)
             self.diags[name] += cap.batch_size * (g * g).sum(0)
         return state
@@ -113,33 +126,39 @@ class EFB(Estimator):
                    for p in damped(state, add, multiply, self.metas).values())
 
     def quad_state(self, state, add, multiply, deltas):
-        """sum((s*lam + n) * (U_G^T d U_A)^2) per layer."""
+        """sum((s*lam + n) * (U_G^T d U_A)^2) per layer (per group)."""
         tot = 0.0
         for name, p in damped(state, add, multiply, self.metas).items():
             ua, ug = self.eigvecs[name]["a"], self.eigvecs[name]["g"]
-            tot = tot + (p * (ug.mT @ deltas[name] @ ua) ** 2).sum()
+            d = group_rows(self.metas[name], deltas[name])
+            tot = tot + (p * (ug.mT @ d @ ua) ** 2).sum()
         return tot
 
     def solve_state(self, inv_state, deltas):
         """P^{-1} d = U_G (ilam^2 * (U_G^T d U_A)) U_A^T."""
         out = {}
-        for name in self.metas:
+        for name, meta in self.metas.items():
             ua = inv_state["eigvecs"][name]["a"]
             ug = inv_state["eigvecs"][name]["g"]
-            rot = ug.mT @ deltas[name] @ ua
-            out[name] = ug @ (rot * inv_state["ilam"][name] ** 2) @ ua.mT
+            rot = ug.mT @ group_rows(meta, deltas[name]) @ ua
+            out[name] = ungroup_rows(
+                meta, ug @ (rot * inv_state["ilam"][name] ** 2) @ ua.mT)
         return out
 
     def noise_shapes(self) -> Dict[str, tuple]:
-        return {name: ((m.stacked,) if m.stacked else ())
-                + (m.mat_cols, m.out_features)
+        """[(depth,) cols, out]; JAX's [g, cols, out/g] for a grouped conv
+        (:236-239)."""
+        return {name: self._lead(m) + (m.mat_cols, m.out_features
+                                       // m.groups)
                 for name, m in self.metas.items()}
 
     def sample_state(self, inv_state, noise) -> Dict[str, torch.Tensor]:
+        """Eigenbasis noise scaled and rotated out, [(L,) out, cols]; a
+        grouped conv's group blocks re-stacked group-major."""
         out = {}
-        for name in self.metas:
-            ua = inv_state["eigvecs"][name]["a"]     # [(L,) cols, cols]
-            ug = inv_state["eigvecs"][name]["g"]     # [(L,) out, out]
-            z = noise[name] * inv_state["ilam"][name].mT   # [(L,) cols, out]
-            out[name] = (ua @ z @ ug.mT).mT          # [(L,) out, cols]
+        for name, meta in self.metas.items():
+            ua = inv_state["eigvecs"][name]["a"]     # [(L|g,) cols, cols]
+            ug = inv_state["eigvecs"][name]["g"]     # [(L|g,) out, out]
+            z = noise[name] * inv_state["ilam"][name].mT   # [.., cols, out]
+            out[name] = ungroup_rows(meta, (ua @ z @ ug.mT).mT)
         return out

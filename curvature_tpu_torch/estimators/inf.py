@@ -2,13 +2,17 @@
 posterior.
 
 Port of ``curvature_tpu/estimators/inf.py`` (the reference's ``INF``,
-curvatures.py:463-672), for plain and stacked layers: a stacked layer
-selects its index sets per depth and pads them to one shared bucketed
-(L, M), so its state stacks ``[depth, ...]`` and every later step runs
-batched over depth (JAX :239-520). Inputs: the Diagonal state (EFB's
-free ``diags``), the KFAC factors and the EFB lambdas. Per layer, with
-U_A [n, n] and U_G [m, m] the factors' eigenvectors (n = cols, m = out)
-and the flat layout k = i*m + j of the transposed [cols, out] matrix:
+curvatures.py:463-672), for plain, stacked and grouped layers: a stacked
+layer selects its index sets per depth and pads them to one shared
+bucketed (L, M), so its state stacks ``[depth, ...]`` and every later
+step runs batched over depth (JAX :239-520); a grouped conv runs the same
+body with its groups in place of depth (each group is an independent
+Kronecker basis, its [g, out/g, cols] blocks re-stacked group-major into
+the [out, cols] view; JAX :240-245, :313-324, :464-467, :508-519).
+Inputs: the Diagonal state (EFB's free ``diags``), the KFAC factors and
+the EFB lambdas. Per layer (or slab), with U_A [n, n] and U_G [m, m] the
+factors' eigenvectors (n = cols, m = out) and the flat layout k = i*m + j
+of the transposed [cols, out] matrix:
 
   update:  keep the top-|lambda| entries, complete their (A, G) index
            sets to a product grid (``dim_reduction``), V = U_A[:, left]
@@ -29,7 +33,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from curvature_tpu_torch.estimators.base import Estimator
+from curvature_tpu_torch.estimators.base import (
+    Estimator, group_rows, is_grouped, ungroup_rows)
 from curvature_tpu_torch.estimators.efb import (
     check_square_factors, kfac_eigenvectors)
 from curvature_tpu_torch.ops.linalg import sym
@@ -265,12 +270,13 @@ class INF(Estimator):
         exact sizes)."""
         state = {}
         for name, meta in self.metas.items():
-            # a plain layer is a stack of depth 1
-            depth = meta.stacked or 1
+            # slabs: a stacked layer's depth, a grouped conv's groups; a
+            # plain layer is one slab
+            depth = meta.stacked or meta.groups
+            og = meta.out_features // meta.groups
             ua_full = self.eigvecs[name]["a"].reshape(
                 depth, meta.mat_cols, meta.mat_cols)
-            ug_full = self.eigvecs[name]["g"].reshape(
-                depth, meta.out_features, meta.out_features)
+            ug_full = self.eigvecs[name]["g"].reshape(depth, og, og)
             n, m = ua_full.shape[-1], ug_full.shape[-1]
             lam_vec = self.lambdas[name].reshape(depth, m, n).mT \
                 .reshape(depth, -1)
@@ -281,25 +287,28 @@ class INF(Estimator):
                    for i in range(depth)]
             lb = _bucket(max(len(s[0]) for s in sel), n, bucket)
             rb = _bucket(max(len(s[1]) for s in sel), m, bucket)
-            dev = ua_full.device
-            uas, ugs, lams = [], [], []
+            # every slab's padded index sets gathered at once (a depthwise
+            # conv has a slab per channel)
+            left_p = np.stack([_pad_indices(s[0], lb, n) for s in sel])
+            right_p = np.stack([_pad_indices(s[1], rb, m) for s in sel])
+            mask = np.zeros((depth, lb, rb), np.float32)
             for i, (left, right) in enumerate(sel):
-                left_p = _pad_indices(left, lb, n)
-                right_p = _pad_indices(right, rb, m)
-                mask = np.zeros((lb, rb), np.float32)
-                mask[:len(left), :len(right)] = 1.0
-                grid = (left_p[:, None] * m + right_p[None, :]).reshape(-1)
-                uas.append(ua_full[i][:, torch.from_numpy(left_p).to(dev)])
-                ugs.append(ug_full[i][:, torch.from_numpy(right_p).to(dev)])
-                lams.append(lam_vec[i][torch.from_numpy(grid).to(dev)]
-                            * torch.from_numpy(mask.reshape(-1))
-                            .to(dev, self.dtype))
-            ua, ug, lam = torch.stack(uas), torch.stack(ugs), \
-                torch.stack(lams)
+                mask[i, :len(left), :len(right)] = 1.0
+            grid = (left_p[:, :, None] * m + right_p[:, None, :]) \
+                .reshape(depth, -1)
+
+            def dev(a):
+                return torch.from_numpy(a).to(ua_full.device)
+            ua = torch.gather(ua_full, 2, dev(left_p)[:, None, :]
+                              .expand(depth, n, lb))
+            ug = torch.gather(ug_full, 2, dev(right_p)[:, None, :]
+                              .expand(depth, m, rb))
+            lam = torch.gather(lam_vec, 1, dev(grid)) \
+                * dev(mask.reshape(depth, -1)).to(self.dtype)
             corr = diag_vec - sif_diagonal(ua, ug, lam)
             st = {"ua": ua, "ug": ug, "lam": lam, "corr": corr}
-            state[name] = st if meta.stacked else {k: v[0]
-                                                   for k, v in st.items()}
+            state[name] = st if meta.stacked or is_grouped(meta) \
+                else {k: v[0] for k, v in st.items()}
         self.state = state
         return state
 
@@ -365,7 +374,8 @@ class INF(Estimator):
         tot = torch.zeros((), dtype=self.dtype, device=self.device)
         for i, name in enumerate(self.metas):
             s = state[name]
-            yy = deltas[name].mT                        # [(depth,) cols, out]
+            # [(depth|g,) cols, out]
+            yy = group_rows(self.metas[name], deltas[name]).mT
             y = yy.reshape(s["corr"].shape)
             dcorr = _damped_corr(multiply[i], add[i], s["corr"])
             proj = (s["ua"].mT @ yy @ s["ug"]).reshape(s["lam"].shape)
@@ -375,15 +385,19 @@ class INF(Estimator):
 
     def solve_state(self, inv_state, deltas):
         out = {}
-        for name in self.metas:
+        for name, meta in self.metas.items():
             s = inv_state[name]
-            out[name] = inf_solve(s["ua"], s["ug"], s["inv_corr"], s["pre"],
-                                  deltas[name])
+            out[name] = ungroup_rows(meta, inf_solve(
+                s["ua"], s["ug"], s["inv_corr"], s["pre"],
+                group_rows(meta, deltas[name])))
         return out
 
     def noise_shapes(self) -> Dict[str, tuple]:
-        return {name: ((m.stacked,) if m.stacked else ())
-                + (m.mat_cols * m.out_features,)
+        """[(depth,) cols*out]; [g, cols*out/g] for a grouped conv, one
+        draw per group (JAX splits the layer's key per group, :508-519)."""
+        return {name: ((m.stacked,) if m.stacked else
+                       (m.groups,) if is_grouped(m) else ())
+                + (m.mat_cols * m.out_features // m.groups,)
                 for name, m in self.metas.items()}
 
     def sample_state(self, inv_state, noise) -> Dict[str, torch.Tensor]:
@@ -398,5 +412,5 @@ class INF(Estimator):
             z = torch.stack([noise[n] for n in names])
             res = inf_sample(s["ua"], s["ug"], s["inv_corr"], s["pre"], z)
             for j, name in enumerate(names):
-                out[name] = res[j]
+                out[name] = ungroup_rows(self.metas[name], res[j])
         return {name: out[name] for name in self.metas}

@@ -47,9 +47,22 @@ over zero-padded output features, sharing its A (``_is_gblock``, JAX
 ``g_block_size=0`` restores the hard error. These Grams are products that
 JAX leaves to XLA (no Pallas kernel): here they are cuBLAS matmuls.
 
-Out of this slice: grouped convs, the attention qkv/head splits (they key
-on ``/in_proj`` names, which only ``nn.MultiheadAttention`` has),
-``stack_grams`` and ``fused_g``.
+A grouped or depthwise conv (``LayerMeta.groups`` = g > 1) keeps
+block-diagonal per-group factors, ``[g, cols, cols]`` A and ``[g, og,
+og]`` G (og = out / g): each group is an independent convolution, so the
+cross-group covariance is exactly zero in its weight space (JAX
+kfac.py:243-252). Its A factor takes the batched per-group Gram of
+``grouped_act_tokens`` before any kernel route, as in JAX (:363-386: the
+patch-Gram kernels hold one [F, F] accumulator), or the within-group
+correlation Gram where ``corr_gram_grouped`` (default off, as in JAX)
+and the correlation gate allow. Output channels are group-major, so its
+G tokens, offsets and noise split the group axis with one reshape; its
+noise is JAX's ``[g, cols, og]``.
+
+Out of this slice: the attention qkv/head splits (they key on
+``/in_proj`` names, which only ``nn.MultiheadAttention`` has),
+``stack_grams`` and ``fused_g`` (whose fused-G capture set must leave
+grouped layers out, JAX :282-302).
 """
 import math
 from typing import Dict
@@ -57,7 +70,8 @@ from typing import Dict
 import torch
 
 from curvature_tpu_torch.estimators.base import (
-    Estimator, act_tokens, grad_tokens)
+    Estimator, act_tokens, grad_tokens, group_rows, grouped_act_tokens,
+    is_grouped, ungroup_rows)
 from curvature_tpu_torch.estimators.capture import Captured
 from curvature_tpu_torch.ops.corr_gram import (
     corr_gram_supported, corr_patch_gram)
@@ -102,7 +116,8 @@ class KFAC(Estimator):
 
     def __init__(self, model, *, use_kernels="auto",
                  token_subsample: float = 1.0, subsample_offset=(0, 0),
-                 corr_gram: bool = True, corr_gram_min_channels: int = 128,
+                 corr_gram: bool = True, corr_gram_grouped: bool = False,
+                 corr_gram_min_channels: int = 128,
                  corr_gram_min_extent: int = 14, max_factor_dim: int = 16384,
                  g_block_size: int = 1024, **kwargs):
         # read by init_state, which the base constructor calls
@@ -119,6 +134,7 @@ class KFAC(Estimator):
         self.subsample_offset = (int(subsample_offset[0]),
                                  int(subsample_offset[1]))
         self.corr_gram = bool(corr_gram)
+        self.corr_gram_grouped = bool(corr_gram_grouped)
         self.corr_gram_min_channels = int(corr_gram_min_channels)
         self.corr_gram_min_extent = int(corr_gram_min_extent)
         # an offset outside [0, k) no longer indexes one of the k^2
@@ -180,6 +196,16 @@ class KFAC(Estimator):
         state = {}
         for name, m in self.metas.items():
             lead = (m.stacked,) if m.stacked else ()
+            if is_grouped(m):
+                if m.stacked:
+                    raise ValueError(
+                        f"{name}: grouped convs inside ScanBlocks are not "
+                        "supported")
+                og = m.out_features // m.groups
+                state[name] = {
+                    "a": torch.zeros((m.groups,) + (m.mat_cols,) * 2, **z),
+                    "g": torch.zeros((m.groups, og, og), **z)}
+                continue
             if self._is_gblock(m):
                 nb, bs, _ = self._gblock_dims(m)
                 g = torch.zeros((nb, bs, bs), **z)
@@ -193,10 +219,15 @@ class KFAC(Estimator):
     def a_route(self, meta, shape, itemsize: int) -> str:
         """The route of a layer's A factor for an input of ``shape`` (JAX
         layout) and ``itemsize`` bytes an element: ``"corr"`` (the
-        correlation Gram), ``"tiled"`` or ``"v2"`` (the CUDA patch-Gram
+        correlation Gram), ``"grouped"`` (a grouped conv's batched
+        per-group Gram), ``"tiled"`` or ``"v2"`` (the CUDA patch-Gram
         kernels, as ``select_patch_gram`` picks), or ``"patches"`` (patch
         extraction + Gram, every dense layer too), as in JAX
-        kfac.py:385-400."""
+        kfac.py:363-400: a grouped conv takes the correlation Gram only
+        under ``corr_gram_grouped``, and never a kernel."""
+        if is_grouped(meta):
+            return ("corr" if self.corr_gram_grouped
+                    and self._corr_gram_ok(meta, shape) else "grouped")
         if self._corr_gram_ok(meta, shape):
             return "corr"
         if (self.use_kernels and meta.kind == "conv"
@@ -219,6 +250,11 @@ class KFAC(Estimator):
                 a = torch.cat([a, a.new_ones(a.shape[:-1] + (1,))], dim=-1)
             return _gram_aligned(a, self.dtype) / a.shape[1]
         route = self.a_route(meta, act.shape, act.element_size())
+        if route == "grouped":
+            t = grouped_act_tokens(meta, act, append_ones=meta.has_bias,
+                                   extra_stride=self._spatial_stride(),
+                                   offset=self.subsample_offset)
+            return _gram_aligned(t.transpose(0, 1), self.dtype) / t.shape[0]
         if route == "corr":
             return self._corr_a_factor(meta, act)
         if route in ("tiled", "v2"):
@@ -232,7 +268,7 @@ class KFAC(Estimator):
     def _corr_a_factor(self, meta, act):
         from dataclasses import replace
         gram = corr_patch_gram(act, meta.kernel_size, meta.padding,
-                               has_bias=meta.has_bias)
+                               has_bias=meta.has_bias, groups=meta.groups)
         pad = resolve_padding(meta.padding, act.shape[1], act.shape[2],
                               meta.kernel_size, meta.strides)
         return gram.to(self.dtype) / _conv_token_count(
@@ -243,7 +279,8 @@ class KFAC(Estimator):
         shape."""
         shape = act.shape if torch.is_tensor(act) else act
         return (self.corr_gram and meta.kind == "conv"
-                and corr_gram_supported(meta.kernel_size, meta.strides)
+                and corr_gram_supported(meta.kernel_size, meta.strides,
+                                        meta.groups)
                 and max(meta.kernel_size) <= 5
                 and self.token_subsample >= 1.0
                 and shape[-1] >= self.corr_gram_min_channels
@@ -290,8 +327,16 @@ class KFAC(Estimator):
         for name, meta in self.metas.items():
             # [S, ...preact] -> [S*N, out]: the S samples' Grams in one
             g, n_tok = self._g_tokens(meta, cap.probe_grads[name])
-            gram = (self._gblock_gram(meta, g) if self._is_gblock(meta)
-                    else _gram_aligned(g, self.dtype))
+            if self._is_gblock(meta):
+                gram = self._gblock_gram(meta, g)
+            elif is_grouped(meta):
+                # output channels are group-major: one reshape splits the
+                # group axis (JAX :586-595)
+                gq = g.reshape(-1, meta.groups, meta.out_features
+                               // meta.groups)
+                gram = _gram_aligned(gq.transpose(0, 1), self.dtype)
+            else:
+                gram = _gram_aligned(g, self.dtype)
             # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
             g_factor = gram * (cap.batch_size ** 2 / n_tok)
             a_factor = self._a_factor(meta, cap.acts[name])
@@ -309,7 +354,8 @@ class KFAC(Estimator):
 
     def logdet_state(self, state, add, multiply):
         """logdet(A (x) G) = out * logdet(A) + cols * logdet(G) per layer
-        (per depth of a stacked one) of the split-damped factors, summed.
+        (per depth of a stacked one, per group of a grouped one) of the
+        split-damped factors, summed.
         A blocked G's padded dims each add log(sqrt(add)) to its blocks'
         logdet, subtracted so the sum runs over the real out_features only
         (JAX :679-695)."""
@@ -330,9 +376,10 @@ class KFAC(Estimator):
 
     def _blocks(self, meta, d):
         """A blocked-G layer's [out, cols] offset as zero-padded [nb, bs,
-        cols] row blocks; any other layer's as it is."""
+        cols] row blocks, a grouped conv's as [g, og, cols] group blocks;
+        any other layer's as it is."""
         if not self._is_gblock(meta):
-            return d
+            return group_rows(meta, d)
         nb, bs, padded = self._gblock_dims(meta)
         d = torch.nn.functional.pad(d, (0, 0, 0, padded - meta.out_features))
         return d.reshape(nb, bs, -1)
@@ -340,13 +387,14 @@ class KFAC(Estimator):
     def _unblocks(self, meta, d):
         """Inverse of :meth:`_blocks`: the padded tail rows sliced away."""
         if not self._is_gblock(meta):
-            return d
+            return ungroup_rows(meta, d)
         return d.reshape(-1, d.shape[-1])[:meta.out_features]
 
     def quad_state(self, state, add, multiply, deltas):
         """delta^T (G_d (x) A_d) delta = sum(delta * (G_d delta A_d)) per
-        layer, batched over a stacked layer's depth or a blocked G's blocks
-        (zero-padded rows add exactly zero; JAX kfac.py:698-744)."""
+        layer, batched over a stacked layer's depth, a grouped conv's groups
+        or a blocked G's blocks (zero-padded rows add exactly zero; JAX
+        kfac.py:698-744)."""
         tot = torch.zeros((), dtype=self.dtype, device=self.device)
         for i, (name, meta) in enumerate(self.metas.items()):
             fac, d = state[name], self._blocks(meta, deltas[name])
@@ -358,7 +406,8 @@ class KFAC(Estimator):
 
     def solve_state(self, inv_state, deltas):
         """``G_d^-1 d A_d^-1`` from the inverse Choleskys: chol(X^-1)
-        chol(X^-1)^T = X^-1, per depth or G block (JAX kfac.py:746-784)."""
+        chol(X^-1)^T = X^-1, per depth, group or G block (JAX
+        kfac.py:746-784)."""
         out = {}
         for name, meta in self.metas.items():
             a_chol = inv_state[name]["a_chol"]
@@ -369,10 +418,13 @@ class KFAC(Estimator):
         return out
 
     def noise_shapes(self) -> Dict[str, tuple]:
-        """[(depth,) cols, out], or [nb, cols, bs] for a blocked G."""
+        """[(depth,) cols, out]; [nb, cols, bs] for a blocked G, JAX's [g,
+        cols, og] for a grouped conv (kfac.py:793-802)."""
         out = {}
         for name, m in self.metas.items():
-            if self._is_gblock(m):
+            if is_grouped(m):
+                out[name] = (m.groups, m.mat_cols, m.out_features // m.groups)
+            elif self._is_gblock(m):
                 nb, bs, _ = self._gblock_dims(m)
                 out[name] = (nb, m.mat_cols, bs)
             else:
@@ -381,8 +433,9 @@ class KFAC(Estimator):
         return out
 
     def sample_state(self, inv_state, noise) -> Dict[str, torch.Tensor]:
-        """Matrix-normal A_chol z G_chol^T per layer, depth or G block, as
-        [(depth,) out, cols]; a blocked G's padded rows are dropped."""
+        """Matrix-normal A_chol z G_chol^T per layer, depth, group or G
+        block, as [(depth,) out, cols]: a grouped conv's group blocks
+        re-stacked group-major, a blocked G's padded rows dropped."""
         out = {}
         for name, meta in self.metas.items():
             a_chol = inv_state[name]["a_chol"]

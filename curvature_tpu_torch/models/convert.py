@@ -2,7 +2,9 @@
 
 The JAX package keeps ``{"params": {layer: {...}}, "batch_stats": {layer:
 {"mean", "var"}}}`` with HWIO conv kernels and ``[in, out]`` dense
-kernels (``[depth, in, out]`` in a ScanBlocks stack).
+kernels (``[depth, in, out]`` in a ScanBlocks stack; a grouped conv's
+kernel is ``[kh, kw, C/g, O]``, torch's ``[O, C/g, kh, kw]``), and raw
+parameters such as ConvNeXt's ``layer_scale`` as ``{"value": ...}``.
 :func:`state_dict_from_jax` turns such variables, given as numpy arrays,
 into this port's state dict; :func:`seeded_variables` makes variables in
 that layout from a numpy seed (there are no ResNet or GPT-2 weights in the
@@ -18,15 +20,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from curvature_tpu_torch.nn import BatchNorm, Conv, Dense
+from curvature_tpu_torch.nn import BatchNorm, Conv, Dense, LayerNorm
 
 
 def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
     """JAX-layout numpy variables -> this port's state dict (CPU tensors):
-    conv HWIO -> OIHW, dense [(depth,) in, out] -> [(depth,) out, in], BN
-    and LayerNorm scale/bias -> weight/bias, embedding tables (``wte``,
-    ``wpe``: ``weight``) as they are, batch_stats mean/var ->
-    running_mean/running_var."""
+    conv HWIO -> OIHW (grouped: [kh, kw, C/g, O] -> [O, C/g, kh, kw]),
+    dense [(depth,) in, out] -> [(depth,) out, in], BN and LayerNorm
+    scale/bias -> weight/bias, embedding tables (``wte``, ``wpe``:
+    ``weight``) as they are, a raw parameter group ``{"value": v}`` (JAX
+    ConvNeXt's ``{block}.layer_scale``) -> the parameter ``{block}.
+    layer_scale``, batch_stats mean/var -> running_mean/running_var."""
     sd = {}
     for layer, p in variables["params"].items():
         if "kernel" in p:
@@ -39,6 +43,9 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
         elif "weight" in p:
             sd[f"{layer}.weight"] = torch.from_numpy(
                 np.asarray(p["weight"], np.float32).copy())
+        elif "value" in p:
+            sd[layer] = torch.from_numpy(
+                np.asarray(p["value"], np.float32).copy())
         else:
             sd[f"{layer}.weight"] = torch.from_numpy(
                 np.asarray(p["scale"], np.float32).copy())
@@ -72,25 +79,31 @@ def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
 def seeded_variables(model: nn.Module, seed: int,
                      residual_gain: float = 0.2) -> Dict:
     """Random JAX-layout numpy variables for ``model`` from a numpy seed:
-    He-normal conv/dense kernels, small dense biases, BN scale near 1 and
-    bias near 0, running statistics near (0, 1). The last BN of each
-    residual block has its scale multiplied by ``residual_gain`` (the
-    usual damped-residual init), so that eval-mode activations do not grow
+    He-normal conv/dense kernels (a grouped conv's over its (C/g)*kh*kw
+    fan-in), small conv/dense biases, BN and LayerNorm scales near 1 and
+    biases near 0, running statistics near (0, 1). The last BN of each
+    residual branch (a block's ``residual_bn``: ResNet's Bottleneck and
+    BasicBlock, MobileNet's and MNASNet's inverted residuals, MBConv,
+    FusedMBConv, RegNet's ResBottleneckBlock, where they add to their
+    input) has its scale multiplied by ``residual_gain``, and so has
+    ConvNeXt's ``layer_scale``, which plays that BN's part (the usual
+    damped-residual init), so that eval-mode activations do not grow
     block by block and the random network's softmax stays unsaturated.
     A GPT-2 gets :func:`~curvature_tpu_torch.models.gpt.seeded_gpt2`."""
     from curvature_tpu_torch.models.gpt import GPT2, seeded_gpt2
-    from curvature_tpu_torch.models.resnet import BasicBlock, Bottleneck
     if isinstance(model, GPT2):
         return seeded_gpt2(model, seed)
     rng = np.random.default_rng(seed)
     params, stats = {}, {}
-    residual_bns = set()
+    residual_bns = {f"{name}.{m.residual_bn}"
+                    for name, m in model.named_modules()
+                    if getattr(m, "residual_bn", None)}
     for name, m in model.named_modules():
-        if isinstance(m, Bottleneck):
-            residual_bns.add(f"{name}.bn3")
-        elif isinstance(m, BasicBlock):
-            residual_bns.add(f"{name}.bn2")
-    for name, m in model.named_modules():
+        scale = getattr(m, "layer_scale", None)
+        if isinstance(scale, nn.Parameter):
+            params[f"{name}.layer_scale"] = {"value": (
+                residual_gain * rng.uniform(0.8, 1.2, scale.shape)
+            ).astype(np.float32)}
         if isinstance(m, Conv):
             o, c, kh, kw = m.weight.shape
             std = np.sqrt(2.0 / (c * kh * kw))
@@ -106,6 +119,11 @@ def seeded_variables(model: nn.Module, seed: int,
             if m.bias is not None:
                 params[name]["bias"] = (0.01 * rng.standard_normal(o)
                                         ).astype(np.float32)
+        elif isinstance(m, LayerNorm):
+            n = m.weight.shape[0]
+            params[name] = {
+                "scale": rng.uniform(0.8, 1.2, n).astype(np.float32),
+                "bias": (0.05 * rng.standard_normal(n)).astype(np.float32)}
         elif isinstance(m, BatchNorm):
             n = m.weight.shape[0]
             gain = residual_gain if name in residual_bns else 1.0

@@ -32,8 +32,11 @@ class LayerMeta:
     ``fan_in`` counts input features (Dense) or C*kh*kw (Conv), the row
     dimension of the A factor before the bias row is appended. ``stacked``
     > 0 marks a layer of a ScanBlocks stack: its parameters, inputs, probes
-    and factor state carry a leading ``[stacked]`` depth axis. ``heads`` is
-    the head count of an attention projection (0 elsewhere).
+    and factor state carry a leading ``[stacked]`` depth axis. ``groups``
+    > 1 marks a grouped (or depthwise) conv: ``fan_in`` then counts the
+    (C/groups)*kh*kw inputs each output channel sees, torch's ``[O,
+    C/groups, kh, kw]`` weight. ``heads`` is the head count of an
+    attention projection (0 elsewhere).
     """
     name: str
     kind: str                       # 'dense' | 'conv'
@@ -44,6 +47,7 @@ class LayerMeta:
     strides: Tuple[int, int] = ()
     padding: Any = "VALID"
     stacked: int = 0
+    groups: int = 1
     heads: int = 0
 
     @property
@@ -105,7 +109,10 @@ class Context:
 # ---------------------------------------------------------------------------
 # Matrix views: estimators work on the [out, fan_in(+1)] weight matrix per
 # tracked layer (the reference's ``grads.view(shape[0], -1)`` plus the bias
-# column). OIHW flattens to (c, kh, kw) columns directly.
+# column). OIHW flattens to (c, kh, kw) columns directly; a grouped conv's
+# [O, C/g, kh, kw] weight to its per-group (C/g)*kh*kw columns, the output
+# channels group-major (rows j*O/g .. (j+1)*O/g belong to group j), as
+# JAX's view of its HWIO kernel (core.py:246-301).
 # ---------------------------------------------------------------------------
 
 def param_matrix(meta: LayerMeta, weight: torch.Tensor,

@@ -1,6 +1,10 @@
-"""Layers of the ResNet, LeNet-5 and GPT-2 slices: tracked ``Dense``/``Conv``,
-the untracked ``BatchNorm``, ``LayerNorm``, ``ReLU``, ``MaxPool``,
-``GlobalAvgPool`` and ``Flatten``, and the ``Sequential`` container.
+"""Layers of the ported model families: tracked ``Dense``/``Conv`` (grouped
+and depthwise convs through ``groups``), the untracked ``BatchNorm``,
+``LayerNorm`` (and ConvNeXt's ``ChannelLayerNorm`` on NCHW activations),
+the activations ``ReLU``, ``ReLU6``, ``SiLU``, ``Hardsigmoid``,
+``Hardswish``, ``GELU`` and ``Identity``, the pools ``MaxPool``,
+``AvgPool``, ``AdaptiveAvgPool`` and ``GlobalAvgPool``, ``Flatten``, and
+the ``Sequential`` and ``Add`` containers.
 
 Port of the matching subset of ``curvature_tpu/nn/layers.py`` in PyTorch
 layout (NCHW activations, OIHW conv weights, [out, in] dense weights).
@@ -36,7 +40,13 @@ def _pair(v) -> Tuple[int, int]:
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-class Dense(nn.Module):
+class CtxModule(nn.Module):
+    """A module whose forward takes the capture context ``ctx`` (the
+    tracked layers, the containers, and the model blocks holding them);
+    :class:`Sequential` and :class:`Add` pass it on to these only."""
+
+
+class Dense(CtxModule):
     """Tracked fully-connected layer (torch ``Linear`` weights) over any
     leading batch/token dims. Inside a ScanBlocks stack its weight is
     ``[depth, out, in]`` and its meta is stacked. ``heads`` is stamped by
@@ -69,29 +79,42 @@ class Dense(nn.Module):
         return ctx.probe(self.name, y) if ctx is not None else y
 
 
-class Conv(nn.Module):
-    """Tracked 2D convolution, groups=1, with the JAX padding forms.
+class Conv(CtxModule):
+    """Tracked 2D convolution with the JAX padding forms.
 
-    Explicit symmetric padding goes to ``F.conv2d`` directly; asymmetric
-    pads (XLA's stride-aware 'SAME' gives the high side the extra row)
-    go through ``F.pad`` first, never torch's ``padding='same'``.
+    ``groups > 1`` is a grouped convolution (``groups == in_channels``:
+    depthwise): output channel block j sees input channel block j only, so
+    the weight is ``[O, C/groups, kh, kw]`` and ``fan_in`` counts
+    (C/groups)*kh*kw (JAX layers.py:73-129, with its divisibility errors,
+    both raised here at construction). Explicit symmetric padding goes to
+    ``F.conv2d`` directly; asymmetric pads (XLA's stride-aware 'SAME' gives
+    the high side the extra row) go through ``F.pad`` first, never torch's
+    ``padding='same'``.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: Union[int, Tuple[int, int]],
                  stride: Union[int, Tuple[int, int]] = 1,
                  padding: Any = "VALID", bias: bool = True,
-                 name: Optional[str] = None):
+                 groups: int = 1, name: Optional[str] = None):
         super().__init__()
         self.name = name
         self.kernel_size = _pair(kernel_size)
         self.stride = _pair(stride)
         self.padding = normalize_padding(padding, self.kernel_size)
+        self.groups = int(groups)
+        if self.groups < 1 or out_channels % self.groups:
+            raise ValueError(
+                f"groups={groups} must divide out features {out_channels}")
+        if in_channels % self.groups:
+            raise ValueError(
+                f"{name}: groups={self.groups} must divide input channels "
+                f"{in_channels}")
         kh, kw = self.kernel_size
-        fan_in = in_channels * kh * kw
+        fan_in = in_channels // self.groups * kh * kw
         bound = 1.0 / math.sqrt(max(fan_in, 1))
         self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels, kh, kw)
+            torch.empty(out_channels, in_channels // self.groups, kh, kw)
             .uniform_(-bound, bound))
         self.bias = (nn.Parameter(torch.empty(out_channels)
                                   .uniform_(-bound, bound))
@@ -102,7 +125,7 @@ class Conv(nn.Module):
         o, c, kh, kw = self.weight.shape
         return LayerMeta(self.name, "conv", o, c * kh * kw,
                          self.bias is not None, self.kernel_size,
-                         self.stride, self.padding)
+                         self.stride, self.padding, groups=self.groups)
 
     def forward(self, x, ctx: Optional[Context] = None):
         if ctx is not None:
@@ -113,10 +136,11 @@ class Conv(nn.Module):
             self.padding, x.shape[2], x.shape[3], self.kernel_size,
             self.stride)
         if pt == pb and pl == pr:
-            y = F.conv2d(x, self.weight, self.bias, self.stride, (pt, pl))
+            y = F.conv2d(x, self.weight, self.bias, self.stride, (pt, pl),
+                         groups=self.groups)
         else:
             y = F.conv2d(F.pad(x, (pl, pr, pt, pb)), self.weight, self.bias,
-                         self.stride)
+                         self.stride, groups=self.groups)
         return ctx.probe(self.name, y) if ctx is not None else y
 
 
@@ -173,9 +197,57 @@ class LayerNorm(nn.Module):
         return out.to(x.dtype)
 
 
+class ChannelLayerNorm(LayerNorm):
+    """:class:`LayerNorm` over the channel axis of NCHW activations
+    (ConvNeXt's ``LayerNorm2d``; JAX normalizes NHWC's last axis)."""
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+
 class ReLU(nn.Module):
     def forward(self, x):
         return F.relu(x)
+
+
+class ReLU6(nn.Module):
+    """min(max(x, 0), 6): MobileNet's clipped activation."""
+
+    def forward(self, x):
+        return F.relu6(x)
+
+
+class SiLU(nn.Module):
+    """x * sigmoid(x): EfficientNet's activation."""
+
+    def forward(self, x):
+        return F.silu(x)
+
+
+class Hardsigmoid(nn.Module):
+    """relu6(x + 3) / 6: MobileNetV3's squeeze-excitation gate."""
+
+    def forward(self, x):
+        return F.hardsigmoid(x)
+
+
+class Hardswish(nn.Module):
+    """x * relu6(x + 3) / 6: MobileNetV3's activation."""
+
+    def forward(self, x):
+        return F.hardswish(x)
+
+
+class GELU(nn.Module):
+    """The exact (erf) GELU, as JAX's ``approximate=False``."""
+
+    def forward(self, x):
+        return F.gelu(x)
+
+
+class Identity(nn.Module):
+    def forward(self, x):
+        return x
 
 
 class MaxPool(nn.Module):
@@ -192,6 +264,33 @@ class MaxPool(nn.Module):
         return F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
 
 
+class AvgPool(nn.Module):
+    """Average pooling over a window; int padding is zero padding counted
+    in the divisor (torch's ``count_include_pad=True``, as JAX divides by
+    the full window)."""
+
+    def __init__(self, kernel_size: int, stride: Optional[int] = None,
+                 padding: int = 0):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride if stride is not None else kernel_size
+        self.padding = padding
+
+    def forward(self, x):
+        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding)
+
+
+class AdaptiveAvgPool(nn.Module):
+    """torch's ``AdaptiveAvgPool2d`` bins, which the JAX layer unrolls."""
+
+    def __init__(self, output_size: Union[int, Tuple[int, int]]):
+        super().__init__()
+        self.output_size = _pair(output_size)
+
+    def forward(self, x):
+        return F.adaptive_avg_pool2d(x, self.output_size)
+
+
 class GlobalAvgPool(nn.Module):
     def forward(self, x):
         return x.mean(dim=(2, 3))
@@ -206,10 +305,11 @@ class Flatten(nn.Module):
         return x.reshape(x.shape[0], -1)
 
 
-class Sequential(nn.Module):
-    """Layers applied in order, the tracked ones (``Dense``/``Conv``) with
-    the capture context. A layer with a ``name`` is registered under it,
-    so its state-dict keys and factor-file keys are the JAX layer names
+class Sequential(CtxModule):
+    """Layers applied in order, those that take it (the tracked
+    ``Dense``/``Conv``, the containers and blocks: :class:`CtxModule`)
+    with the capture context. A layer with a ``name`` is registered under
+    it, so its state-dict keys and factor-file keys are the JAX layer names
     (``"conv1.weight"``, ``"fc1"``); the others under their position.
     ``metas`` lists the tracked layers in forward order."""
 
@@ -225,6 +325,18 @@ class Sequential(nn.Module):
 
     def forward(self, x, ctx: Optional[Context] = None):
         for layer in self.children():
-            x = layer(x, ctx) if isinstance(layer, (Conv, Dense)) \
-                else layer(x)
+            x = layer(x, ctx) if isinstance(layer, CtxModule) else layer(x)
         return x
+
+
+class Add(CtxModule):
+    """Residual add of a main branch and a shortcut branch."""
+
+    def __init__(self, main: nn.Module, shortcut: nn.Module):
+        super().__init__()
+        self.main = main
+        self.shortcut = shortcut
+
+    def forward(self, x, ctx: Optional[Context] = None):
+        return sum(m(x, ctx) if isinstance(m, CtxModule) else m(x)
+                   for m in (self.main, self.shortcut))

@@ -1,11 +1,14 @@
 """Patch-Gram via windowed channel correlations (stride-1 convolutions).
 
-Port of ``curvature_tpu/ops/corr_gram.py`` for groups=1. Stride-1 patch
+Port of ``curvature_tpu/ops/corr_gram.py``. Stride-1 patch
 columns are shifted copies of one padded image, so the Gram entry for taps
 d and d' is a windowed correlation that depends on delta = d' - d only:
 the k^4 tap pairs collapse onto (2k-1)^2 full-field [C, C] correlations
 plus exact single-row/column/corner boundary corrections, and delta/-delta
 pairs are transposes. FLOPs: 2*N*C^2*(2k^2 - 2k + 1) against 2*N*C^2*k^4.
+A grouped conv (``groups`` > 1) correlates within-group channel pairs only
+([G, cg, cg] per delta), giving the per-group blocks [G, Fg(+1), Fg(+1)]
+in the layout of ``estimators.base.grouped_act_tokens`` (JAX :26-29).
 
 The JAX version is plain XLA, so this is plain torch ops (matmuls over
 shifted slices), not a hand-written kernel.
@@ -20,32 +23,43 @@ from curvature_tpu_torch.ops.patches import resolve_padding
 __all__ = ["corr_patch_gram", "corr_gram_supported"]
 
 
-def corr_gram_supported(kernel_size, strides) -> bool:
+def corr_gram_supported(kernel_size, strides, groups: int = 1) -> bool:
     kh, kw = kernel_size
     return tuple(strides) == (1, 1) and (kh, kw) != (1, 1)
 
 
 def _corr(a1: torch.Tensor, a2: torch.Tensor) -> torch.Tensor:
-    """sum over all leading axes of a1[..., c] a2[..., d] -> [C, C]."""
-    c = a1.shape[-1]
-    return a1.reshape(-1, c).T @ a2.reshape(-1, c)
+    """sum over all leading axes of a1[..., g, c] a2[..., g, d] -> [G, C,
+    C]: one batched product over the groups."""
+    g, c = a1.shape[-2:]
+    a1 = a1.reshape(-1, g, c).transpose(0, 1)
+    a2 = a2.reshape(-1, g, c).transpose(0, 1)
+    return a1.mT @ a2
 
 
 def corr_patch_gram(x: torch.Tensor,
                     kernel_size: Tuple[int, int],
                     padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
-                    has_bias: bool = True) -> torch.Tensor:
-    """Unnormalized patch Gram ``[F(+1), F(+1)]`` for a stride-1 conv over
-    NHWC ``x``: canonical (c, dy, dx) feature order, optional ones column
-    last, f32 output. bf16 operands are upcast before the products, which
-    are exact in f32: f32 accumulation, as the JAX bf16 einsums."""
+                    has_bias: bool = True,
+                    groups: int = 1) -> torch.Tensor:
+    """Unnormalized patch Gram for a stride-1 conv over NHWC ``x``:
+    canonical (c, dy, dx) feature order, optional ones column last, f32
+    output; ``[F(+1), F(+1)]`` for ``groups == 1``, the per-group blocks
+    ``[G, Fg(+1), Fg(+1)]`` (Fg = (C/G)*kh*kw) otherwise. bf16 operands
+    are upcast before the products, which are exact in f32: f32
+    accumulation, as the JAX bf16 einsums."""
     b, h, w, c = x.shape
     kh, kw = kernel_size
+    if c % groups:
+        raise ValueError(f"channels {c} not divisible by groups {groups}")
+    cg = c // groups
     (pt, pb), (pl, pr) = resolve_padding(padding, h, w, kernel_size)
     xp = F.pad(x.float(), (0, 0, pl, pr, pt, pb))
     hp, wp = h + pt + pb, w + pl + pr
     ho, wo = hp - kh + 1, wp - kw + 1
     n_tok = b * ho * wo
+    # the group axis split once; the slices below keep the trailing [G, cg]
+    xp = xp.reshape(b, hp, wp, groups, cg)
 
     # full-field correlations: the lexicographically-positive half, the
     # rest mirrored as transposes
@@ -60,7 +74,7 @@ def corr_patch_gram(x: torch.Tensor,
                                    xp[:, ly + dy:hy + dy, lx + dx:hx + dx])
     for (dy, dx) in list(full):
         if (dy, dx) != (0, 0):
-            full[(-dy, -dx)] = full[(dy, dx)].T
+            full[(-dy, -dx)] = full[(dy, dx)].mT
 
     # boundary corrections: rows/columns/corners of the padded field that
     # fall outside a tap's window; the set union dedupes overlapping
@@ -86,7 +100,7 @@ def corr_patch_gram(x: torch.Tensor,
                         corner[(y, xq, dy, dx)] = _corr(
                             xp[:, y, xq], xp[:, y + dy, xq + dx])
 
-    # assemble the k^2 x k^2 grid of [C, C] blocks
+    # assemble the k^2 x k^2 grid of [G, cg, cg] blocks
     taps = [(dy, dx) for dy in range(kh) for dx in range(kw)]
     blocks = []
     for (dy, dx) in taps:
@@ -110,17 +124,18 @@ def corr_patch_gram(x: torch.Tensor,
                         blk = blk + corner[(y, xq, dly, dlx)]
             row_blocks.append(blk)
         blocks.append(torch.stack(row_blocks))
-    bk = torch.stack(blocks)                          # [K, K', C, C']
+    bk = torch.stack(blocks)                          # [K, K', G, cg, cg']
     k2 = kh * kw
-    # feature order (c, tap): [C, K, C', K']
-    gram = bk.permute(2, 0, 3, 1).reshape(c * k2, c * k2)
+    # per-group feature order (c, tap): [G, cg, K, cg', K']
+    gram = bk.permute(2, 3, 0, 4, 1).reshape(groups, cg * k2, cg * k2)
     if has_bias:
-        # ones column: per-tap window channel sums
+        # ones column: per-tap window channel sums, per group
         sums = torch.stack([xp[:, dy:dy + ho, dx:dx + wo].sum(dim=(0, 1, 2))
-                            for (dy, dx) in taps])    # [K, C]
-        vec = sums.T.reshape(-1)                      # (c, tap) order
-        top = torch.cat([gram, vec[:, None]], dim=1)
-        n = torch.full((1,), float(n_tok), dtype=gram.dtype,
+                            for (dy, dx) in taps])    # [K, G, cg]
+        vec = sums.permute(1, 2, 0).reshape(groups, -1)   # (c, tap) order
+        top = torch.cat([gram, vec[:, :, None]], dim=2)
+        n = torch.full((groups, 1), float(n_tok), dtype=gram.dtype,
                        device=gram.device)
-        gram = torch.cat([top, torch.cat([vec, n])[None, :]], dim=0)
-    return gram
+        gram = torch.cat([top, torch.cat([vec, n], dim=1)[:, None, :]],
+                         dim=1)
+    return gram[0] if groups == 1 else gram

@@ -2,7 +2,8 @@
 
 Port of ``curvature_tpu/ops/linalg.py`` (``kron``, ``sym``, ``diag_add``,
 ``eigh_sym``, ``chol_inv``, ``chol_logdet``, ``damped_inverse_cholesky``,
-``group_by_shape``, ``ungroup``); all batched over leading dims.
+``group_by_shape``, ``ungroup``, ``grouped_gram_packed``); all batched
+over leading dims.
 """
 from collections import defaultdict
 from typing import Dict, List, Sequence, Tuple
@@ -86,3 +87,29 @@ def ungroup(groups: Sequence[Tuple[List[str], torch.Tensor]]
     """Inverse of :func:`group_by_shape` after a batched op."""
     return {n: stacked[i] for names, stacked in groups
             for i, n in enumerate(names)}
+
+
+def grouped_gram_packed(t: torch.Tensor, dtype=torch.float32,
+                        lane: int = 128) -> torch.Tensor:
+    """Per-group token Grams ``[g, c, c]`` of tokens ``[N, g, c]``, with
+    P = lane // c adjacent groups packed into one lane-wide operand (JAX
+    linalg.py:130): one ``[P*c, P*c]`` Gram per pack, its P diagonal
+    blocks kept. The group axis is zero-padded to a multiple of P (zero
+    tokens give exactly-zero Grams, dropped). The same token products as
+    the plain batched ``ngi,ngj->gij``, accumulated in ``dtype``; as in
+    JAX it is the measured alternative, on no estimator's path
+    (``KFAC._a_factor`` takes the plain batched product)."""
+    n, g, c = t.shape
+    t = t.to(dtype)
+    p = min(g, max(1, lane // c))
+    if p <= 1:
+        return torch.einsum("ngi,ngj->gij", t, t)
+    g_pad = -(-g // p) * p
+    if g_pad != g:
+        t = torch.nn.functional.pad(t, (0, 0, 0, g_pad - g))
+    tp = t.reshape(n, g_pad // p, p * c).transpose(0, 1)     # [k, n, p*c]
+    packed = tp.mT @ tp
+    blocks = packed.reshape(g_pad // p, p, c, p, c)
+    idx = torch.arange(p, device=t.device)
+    out = blocks[:, idx, :, idx, :]                 # [p, g_pad/p, c, c]
+    return out.transpose(0, 1).reshape(g_pad, c, c)[:g]

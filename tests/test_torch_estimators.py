@@ -334,10 +334,12 @@ def test_efb_and_inf_check_their_factors(ladder):
                              "g": kfac["fc"]["g"][None]})
     with pytest.raises(ValueError, match="KFAC-only"):
         port_est.EFB(tm, stacked, layer_filter="fc")
-    # per-group conv factors: grouped convs are not ported
+    # per-group factors belong to grouped convs: on a plain conv they are
+    # not its own, JAX's ValueError (tests/test_torch_grouped.py runs the
+    # grouped ones)
     grouped = dict(kfac, conv1={"a": kfac["conv1"]["a"][None],
                                 "g": kfac["conv1"]["g"][None]})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+    with pytest.raises(ValueError, match="KFAC-only"):
         port_est.EFB(tm, grouped, layer_filter="conv1")
     split = dict(kfac, fc=dict(kfac["fc"], a_bias=torch.ones(())))
     with pytest.raises(ValueError, match="KFAC-only"):

@@ -28,7 +28,14 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.pipelines.factors",
                  "curvature_tpu_torch.pipelines.evaluate",
                  "curvature_tpu_torch.nn.scan",
-                 "curvature_tpu_torch.models.gpt"):
+                 "curvature_tpu_torch.models.gpt",
+                 "curvature_tpu_torch.models.blocks",
+                 "curvature_tpu_torch.models.convnext",
+                 "curvature_tpu_torch.models.efficientnet",
+                 "curvature_tpu_torch.models.mnasnet",
+                 "curvature_tpu_torch.models.mobilenet",
+                 "curvature_tpu_torch.models.regnet",
+                 "curvature_tpu_torch.models.shufflenet"):
     assert required in names, required
 assert not bad, bad
 """
@@ -63,6 +70,9 @@ def test_default_device_entry_point_raises_without_a_gpu():
         resolve_device()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         models.resnet18()
+    for name in ("resnext50_32x4d", "efficientnet_b0", "convnext_tiny"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            models.build(name)
     assert resolve_device("cpu").type == "cpu"
 
 
