@@ -14,6 +14,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
                                        # causal-LM phase only
     python3 chip_smoke.py --grouped    # builds the kernels, runs the
                                        # grouped-conv phase only
+    python3 chip_smoke.py --hyper      # builds the kernels and the factor
+                                       # files, runs the damping-search
+                                       # phase only
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -60,6 +63,16 @@ under ``build/pipelines``:
     factors of a tiled stride-1, the tiled stride-2 and the v2 layer
     against the plain path, then efb, diag and inf, ``evaluate --ood``
     for kfac and efb (AUROC), and kfac in bf16.
+
+Then the damping search and the predictives (``hyper_phase``) on the
+pipeline phase's factor files: on LeNet-5 every ``hyper`` optimizer
+(random with the boundary points, grid, gp, forest, gbrt, ``--layer``)
+and the evidence by gp and gradient ascent, ``evaluate`` at the searched
+damping, the closed-form and linearized predictives, ``BayesianPredictor``,
+the ``laplace`` facade and temperature scaling; on ResNet-18 the sampled
+and evidence searches and ``evaluate --ood --predictive``; on ResNet-50's
+f32 KFAC factors the batched evaluator and the evidence. None launches a
+Gram kernel; the seconds per candidate are printed.
 
 Then the grouped and depthwise convolutions (``grouped_phase``), none
 launching a Gram kernel by JAX's routes: ResNeXt-50 32x4d and
@@ -178,6 +191,36 @@ LM_ARGV = ["--model", "gpt2_tiny", "--data", "tokens", "--seq_len", "16",
 LM_VOCAB_ARGV = ["--model", "gpt2_tiny", "--data", "tokens", "--vocab",
                  "50257", "--seq_len", "64", "--layers", "h.*"]
 LM_CLI_DAMPING = ["--norm", "1e5", "--scale", "1e4"]
+#: the damping-search phase (JAX pipelines/hyper.py, its objectives and
+#: the predictives): the LeNet-5 searches as (estimator, flags); --layer
+#: evaluates ~170 candidates, at 10 samples each (23.3 s of the phase at
+#: the default 30)
+HYPER_LENET = (("kfac", ["--optimizer", "random", "--calls", "16",
+                         "--boundaries"]),
+               ("kfac", ["--optimizer", "grid"]),
+               ("diag", ["--optimizer", "gp", "--calls", "12"]),
+               ("efb", ["--optimizer", "forest", "--calls", "10"]),
+               ("kfac", ["--optimizer", "gbrt", "--calls", "10"]),
+               ("kfac", ["--layer", "--calls", "8", "--samples", "10"]))
+HYPER_LENET_MARGLIK = (["--optimizer", "gp", "--calls", "12"],
+                       ["--optimizer", "grad", "--calls", "100"],
+                       ["--optimizer", "grad", "--calls", "100", "--layer"])
+#: ResNet-18: the sampled searches' calls and samples, the evidence's
+#: searches, the predictives of evaluate --ood
+HYPER_R18 = ["--optimizer", "random", "--calls", "8", "--samples", "10"]
+HYPER_R18_MARGLIK = (["--optimizer", "gp", "--calls", "12"],
+                     ["--optimizer", "grad", "--calls", "100"])
+HYPER_PREDICTIVES = ("probit", "bridge", "linearized", "linearized_probit")
+#: evaluate --predictive's posterior samples (the CLI's default is 30: a
+#: linearized run at 30 took 16-18 s of the phase's time)
+HYPER_PREDICTIVE_SAMPLES = ["--samples", "10"]
+#: ResNet-50 (the main path's f32 KFAC factors): the batched evaluator's
+#: candidates (S=10, the two test batches as validation) and the
+#: evidence's
+HYPER_R50_CANDIDATES = ([1.0, 10.0, 100.0, 1e3], [18916.0, 1e4, 1e3, 1e2])
+HYPER_R50_SAMPLES = 10
+HYPER_R50_EVIDENCE = [(a, b) for a in (1.0, 1e2, 1e4, 1e6)
+                      for b in (1e2, 18916.0)]
 #: the grouped phase (JAX benchmarks/suite.py:216-263, grouped_pipeline):
 #: ResNeXt-50 32x4d and EfficientNet-B0 at 224², B=16, f32, MC=1, 1000
 #: classes; the bf16 token_subsample=0.25 update under the suite's tag
@@ -1233,6 +1276,302 @@ def pipelines(estimators, counters, smi):
     return by_path, updated
 
 
+def hyper_run(hyper, argv, counters, smi, label):
+    """One ``hyper`` CLI through :func:`run_cli`: no Gram kernel launched
+    (JAX has none there either), a finite best cost; prints the seconds per
+    candidate. Returns (result, wall seconds, candidates)."""
+    import numpy as np
+    (out, got), seconds = timed(lambda: run_cli(hyper, argv, counters, smi,
+                                                label))
+    rows = 1 if "grad" in argv else len(out["stats"]["cost"])
+    if got != counters.zero() or not np.isfinite(out["best_cost"]):
+        raise AssertionError(f"{label}: launches {got}, best cost "
+                             f"{out['best_cost']}")
+    log(f"{label}: best cost {out['best_cost']:.4f} over {rows} candidates,"
+        f" {out['penalized']} penalized; {seconds / rows:.4f} s per "
+        f"candidate ({smi})")
+    return out, seconds, rows
+
+
+def hyper_inputs(estimators, models, counters, smi, dev):
+    """What ``--hyper`` runs the phase on: the factor files the pipeline
+    phase writes (LeNet-5 diag, kfac, efb; ResNet-18 kfac, efb) and
+    ResNet-50's f32 KFAC after UPDATES updates. Returns (model, estimator,
+    test batches)."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch.data.loaders import FIXTURE_DIR
+    from curvature_tpu_torch.pipelines import factors
+    root = os.path.abspath(os.path.join(PIPE_ROOT, "lenet5"))
+    base = LENET_ARGV + ["--data_dir", FIXTURE_DIR, "--root_dir", root,
+                         "--results_dir", root]
+    for name in ("diag", "kfac", "efb"):
+        run_cli(factors, base + ["--estimator", name], counters, smi,
+                f"lenet5 factors {name}")
+    root = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
+    base = R18_ARGV + ["--root_dir", root, "--results_dir", root]
+    for name in ("kfac", "efb"):
+        run_cli(factors, base + ["--estimator", name], counters, smi,
+                f"resnet18 factors {name}")
+    model = models.resnet50(num_classes=CLASSES, device=dev)
+    models.load_jax_variables(model, models.seeded_variables(model, 0))
+    model = model.to(memory_format=torch.channels_last)
+    rng = np.random.default_rng(1)
+    batches = [x for x, _ in nchw_batches(rng, UPDATES, BATCH, dev)]
+    test_data = nchw_batches(rng, 2, BATCH, dev)
+    est = estimators.KFAC(model)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for x in batches:
+        est.update(x, generator=gen, num_samples=1)
+    return model, est, test_data
+
+
+def hyper_phase(counters, smi, dev, r50=None):
+    """The damping search and the predictives (JAX pipelines/hyper.py,
+    eval/{predictive,marglik,calibrate,predictor}.py, laplace.py), on the
+    factor files of the pipeline phase under ``PIPE_ROOT``: (a) LeNet-5 on
+    the digits, the trained cell: every optimizer, ``--layer``, the
+    evidence by gp and by gradient ascent, then ``evaluate`` at the
+    searched damping (BNN accuracy > 50%) and the closed-form,
+    linearized, predictor, facade and temperature paths; (b) ResNet-18 at
+    full width: sampled and evidence searches, ``evaluate --ood`` with
+    every closed-form and linearized predictive, the predictives' rates;
+    (c) with ``r50`` = (model, KFAC estimator, test batches), ResNet-50:
+    the batched evaluator and the evidence. No search, eval or evaluate
+    launches a Gram kernel. Prints the seconds per candidate."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from curvature_tpu_torch import laplace
+    from curvature_tpu_torch.data.loaders import FIXTURE_DIR
+    from curvature_tpu_torch.eval import (
+        BayesianPredictor, eval_bnn, eval_bnn_closed_form,
+        eval_bnn_linearized, eval_nn_temperature, metrics)
+    from curvature_tpu_torch.eval.calibrate import (
+        collect_logits, temperature_scale)
+    from curvature_tpu_torch.eval.marglik import (
+        dataset_map_nll, log_marginal_likelihood, marglik_gradient_tune)
+    from curvature_tpu_torch.pipelines import (
+        common, evaluate, hyper, surrogates)
+    from curvature_tpu_torch.utils.checkpoint import results_paths
+    from curvature_tpu_torch.utils.config import parse_args
+    t_phase = time.perf_counter()
+    none = counters.zero()
+
+    def quiet(fn):
+        """``fn()`` with no Gram kernel launched."""
+        counters.reset()
+        out = fn()
+        if counters.read() != none:
+            raise AssertionError(f"launches {counters.read()}")
+        return out
+
+    def acc(p, y):
+        return float(metrics.accuracy(p, y))
+
+    # (a) LeNet-5 on the bundled digits
+    root = os.path.abspath(os.path.join(PIPE_ROOT, "lenet5"))
+    results = os.path.join(root, "hyper")
+    shutil.rmtree(results, ignore_errors=True)
+    base = LENET_ARGV + ["--data_dir", FIXTURE_DIR, "--root_dir", root,
+                         "--results_dir", results]
+    for est_name, flags in HYPER_LENET:
+        hyper_run(hyper, base + ["--estimator", est_name] + flags, counters,
+                  smi, f"lenet5 hyper {est_name} {' '.join(flags)}")
+    marg = base + ["--estimator", "kfac", "--objective", "marglik",
+                   "--results_dir", os.path.join(root, "hyper_marglik")]
+    for flags in HYPER_LENET_MARGLIK:
+        out, seconds, _ = hyper_run(hyper, marg + flags, counters, smi,
+                                    f"lenet5 hyper kfac marglik "
+                                    f"{' '.join(flags)}")
+        if "grad" in flags:
+            log(f"  {seconds * 1e3 / len(out['trace']):.2f} ms per Adam "
+                f"step (incl. the NLL pass and the factor load)")
+    kfac_argv = base + ["--estimator", "kfac"]
+    cfg = parse_args(kfac_argv)
+    best = np.load(results_paths(cfg)[0] + "_best_params.npy")
+    (stats, bnn_stats), got = run_cli(evaluate, kfac_argv + ["--fgsm"],
+                                      counters, smi,
+                                      "lenet5 evaluate kfac --fgsm at the "
+                                      "searched damping")
+    model = common.build_model(cfg)
+    val = list(common.on_device(common.build_data(cfg, splits="val"), dev))
+    test = list(common.on_device(common.build_data(cfg, splits="test"),
+                                 dev))
+    est = evaluate.load_estimator(cfg, model)
+    ev = hyper.make_batched_evaluator(cfg, model, est, val)
+    at_best, at_blitz = quiet(lambda: ev(
+        [best[0], float(BLITZ[1])], [best[1], float(BLITZ[3])],
+        torch.Generator(device=dev).manual_seed(cfg.seed)))
+    log(f"lenet5 kfac val cost ({SAMPLES} samples): searched damping "
+        f"(norm {np.ravel(best[0])[0]:.4g}, scale "
+        f"{np.ravel(best[1])[0]:.4g}) {at_best['cost']:.3f} "
+        f"(acc {at_best['acc']:.2f}%, ECE {at_best['ece']:.2f}%) vs blitz's"
+        f" (1, 5e4) {at_blitz['cost']:.3f} (acc {at_blitz['acc']:.2f}%, "
+        f"ECE {at_blitz['ece']:.2f}%); test BNN accuracy at the searched "
+        f"damping {bnn_stats['acc'][0]:.2f}%")
+    if got != none or bnn_stats["acc"][0] <= 50.0:
+        raise AssertionError(f"lenet5 evaluate at the searched damping: "
+                             f"launches {got}, BNN {bnn_stats['acc'][0]}")
+    evaluate.invert_from_config(cfg, est, results_paths(cfg)[0])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ens = est.ensemble_params(SAMPLES, generator=gen)
+    preds = {}
+    for m in ("probit", "bridge"):
+        preds[m] = quiet(lambda: eval_bnn_closed_form(
+            model, est, test, ensemble_params=ens, method=m))
+    for m in ("mc", "probit"):
+        preds[f"linearized_{m}"] = quiet(lambda: eval_bnn_linearized(
+            model, est, test, ensemble_params=ens, method=m))
+    line = {k: round(acc(p, y), 2) for k, (p, y) in preds.items()}
+    log(f"lenet5 kfac predictives at the searched damping, test accuracy "
+        f"(%): {json.dumps(line)}")
+    if min(line.values()) <= 50.0:
+        raise AssertionError(f"lenet5 predictives: {line}")
+    x0, y0 = test[0]
+    pred = quiet(lambda: BayesianPredictor(model, est, ensemble_params=ens))
+    out = quiet(lambda: (pred(x0), pred.predict_closed_form(x0, "bridge"),
+                         pred.predict_linearized(x0)))
+    for o in out:
+        if o.mean.shape != (len(y0), 10) or not all(
+                torch.isfinite(t).all() for t in o):
+            raise AssertionError("lenet5 BayesianPredictor malformed")
+    la = quiet(lambda: laplace.fit(model, val[:4], "kfac", mc_samples=1,
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(4)))
+    tuned = quiet(lambda: la.optimize_prior_precision())
+    p_lin = quiet(lambda: la.predictive(x0, method="linearized"))
+    log(f"lenet5 laplace.fit kfac -> optimize_prior_precision (200 steps): "
+        f"norm {tuned['norms'][0]:.4g}, scale {tuned['scales'][0]:.4g}, "
+        f"log evidence {tuned['log_marglik']:.2f}; linearized predictive "
+        f"accuracy on a test batch {acc(p_lin, y0):.2f}%; predictor BALD "
+        f"{float(out[0].epistemic.mean()):.4f}")
+    if p_lin.shape != (len(y0), 10) or not np.isfinite(p_lin).all() \
+            or np.abs(p_lin.sum(1) - 1).max() > 1e-3:
+        raise AssertionError("lenet5 laplace facade predictions malformed")
+    probs_t, _, temp = quiet(lambda: eval_nn_temperature(model, val, test))
+    v_logits, v_labels = collect_logits(model, val)
+
+    def v_nll(t):
+        p = temperature_scale(v_logits, t)
+        return float(-np.mean(np.log(p[np.arange(len(v_labels)),
+                                       v_labels])))
+    log(f"lenet5 temperature scaling: T {temp:.4f}, val NLL {v_nll(temp):.4f}"
+        f" (T=1: {v_nll(1.0):.4f}), test accuracy "
+        f"{acc(probs_t, np.concatenate([y for _, y in test])):.2f}%")
+    if not np.isfinite(temp) or v_nll(temp) > v_nll(1.0):
+        raise AssertionError(f"temperature {temp}")
+    xs = np.random.default_rng(0).uniform(-10, 10, (11, 2))
+    ys = np.sin(xs[:, 0]) + xs[:, 1]
+    cand = np.random.default_rng(1).uniform(-10, 10, (512, 2))
+    t0 = time.perf_counter()
+    for _ in range(10):
+        surrogates.GaussianProcess().fit(xs, ys).predict(cand,
+                                                         return_std=True)
+    log(f"gp surrogate fit (11 points) + 512-candidate proposal: "
+        f"{(time.perf_counter() - t0) * 100:.2f} ms (host)")
+
+    # (b) ResNet-18 at full width on synthetic data
+    root = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
+    results = os.path.join(root, "hyper")
+    shutil.rmtree(results, ignore_errors=True)
+    base = R18_ARGV + ["--root_dir", root, "--results_dir", results]
+    for est_name in ("kfac", "efb"):
+        hyper_run(hyper, base + ["--estimator", est_name] + HYPER_R18,
+                  counters, smi, f"resnet18 hyper {est_name} "
+                  f"{' '.join(HYPER_R18)}")
+    for flags in HYPER_R18_MARGLIK:
+        out, seconds, _ = hyper_run(
+            hyper, base + ["--estimator", "kfac", "--objective", "marglik"]
+            + flags, counters, smi,
+            f"resnet18 hyper kfac marglik {' '.join(flags)}")
+    cfg = parse_args(base + ["--estimator", "kfac"])
+    model = common.build_model(cfg)
+    est = evaluate.load_estimator(cfg, model)
+    train = list(common.on_device(common.build_data(cfg, "train"), dev))
+    nll = quiet(lambda: dataset_map_nll(model, train))
+    (_, seconds) = timed(lambda: quiet(lambda: marglik_gradient_tune(
+        est, nll, steps=20)))
+    log(f"resnet18 kfac evidence gradient ascent: {seconds * 50:.2f} ms per "
+        f"Adam step (20 steps; every factor Cholesky-factored, up to "
+        f"4,609^2, and differentiated; {smi})")
+    for kind in HYPER_PREDICTIVES:
+        argv = base + ["--estimator", "kfac", "--ood", "--predictive",
+                       kind] + R18_DAMPING + HYPER_PREDICTIVE_SAMPLES
+        (probs, bnn_probs, labels), got = run_cli(
+            evaluate, argv, counters, smi,
+            f"resnet18 evaluate kfac --ood --predictive {kind}")
+        with np.load(results_paths(parse_args(argv))[0] + ".npz",
+                     allow_pickle=True) as f:
+            auroc = f["auroc"]
+            ood = f["bnn_ood_predictions"]
+        for what, p in (("bnn", bnn_probs), ("bnn ood", ood)):
+            if p.shape != (256, 10) or not np.isfinite(p).all() \
+                    or np.abs(p.sum(1) - 1).max() > 1e-3:
+                raise AssertionError(f"resnet18 {kind} {what} predictions "
+                                     "malformed")
+        log(f"resnet18 --predictive {kind} (random weights): BNN accuracy "
+            f"{acc(bnn_probs, labels):.2f}%; AUROC NN {auroc[0]:.4f} BNN "
+            f"{auroc[1]:.4f}")
+        if got != none or not np.isfinite(auroc).all():
+            raise AssertionError(f"resnet18 --predictive {kind}: launches "
+                                 f"{got}, AUROC {auroc}")
+    est.invert(*(float(v) for v in R18_DAMPING[1::2]))
+    test = list(common.on_device(common.build_data(cfg, "test"), dev))
+    ens = est.ensemble_params(SAMPLES, generator=torch.Generator(
+        device=dev).manual_seed(5))
+    rates = {}
+    for name, fn in (
+            ("sampled", lambda: eval_bnn(model, est, test, SAMPLES,
+                                         ensemble_params=ens)),
+            ("probit", lambda: eval_bnn_closed_form(
+                model, est, test, ensemble_params=ens)),
+            ("linearized", lambda: eval_bnn_linearized(
+                model, est, test, ensemble_params=ens))):
+        quiet(fn)                                      # warm-up
+        rates[name] = round(256 / timed(fn)[1], 2)
+    log(f"resnet18 predictive rates, img/s ({SAMPLES}-sample ensemble, 256 "
+        f"images, after a warm-up run; {smi}): {json.dumps(rates)}")
+    del est, ens, model
+
+    # (c) ResNet-50 at 224², the main path's f32 KFAC factors
+    if r50 is not None:
+        model, est, test_data = r50
+        cfg = parse_args(["--samples", str(HYPER_R50_SAMPLES)])
+        ev = hyper.make_batched_evaluator(cfg, model, est, test_data)
+        res, seconds = timed(lambda: quiet(lambda: ev(
+            *HYPER_R50_CANDIDATES,
+            torch.Generator(device=dev).manual_seed(6))))
+        log(f"resnet50 batched evaluator: {len(res)} candidates x "
+            f"{HYPER_R50_SAMPLES} samples x {2 * BATCH} images, "
+            f"{seconds / len(res):.3f} s per candidate, {ev.penalized} "
+            f"penalized ({smi}); costs "
+            f"{[round(r['cost'], 3) for r in res]}")
+        if ev.penalized == len(res):
+            raise AssertionError("resnet50: every candidate penalized")
+        nll = quiet(lambda: dataset_map_nll(model, test_data))
+        evid, pen = [], 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, b in HYPER_R50_EVIDENCE:
+            try:
+                evid.append(round(quiet(lambda: log_marginal_likelihood(
+                    est, nll, a, b)), 1))
+            except torch.linalg.LinAlgError:
+                evid.append(None)
+                pen += 1
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        log(f"resnet50 evidence at {len(evid)} candidates: "
+            f"{seconds / len(evid):.3f} s per candidate, {pen} singular "
+            f"({smi}); {evid}")
+        if pen == len(evid):
+            raise AssertionError("resnet50: every evidence singular")
+    log(f"hyper phase: {time.perf_counter() - t_phase:.1f} s wall ({smi})")
+
+
 def grouped_phase(estimators, models, counters, smi, dev, profile=False):
     """Grouped and depthwise convolutions at full width, seeded weights in
     JAX's layout (residual branches damped by ``seeded_variables``): (a)
@@ -1659,6 +1998,10 @@ def main(argv=None):
     ap.add_argument("--grouped", action="store_true",
                     help="build the kernels, run the grouped-conv phase "
                          "only and stop (no result line)")
+    ap.add_argument("--hyper", action="store_true",
+                    help="build the kernels, write the factor files the "
+                         "damping-search phase reads, run that phase only "
+                         "and stop (no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1702,6 +2045,15 @@ def main(argv=None):
                                         "spill", "wgmma", "arning")):
                 log(f"  {name}: {line.strip()}")
     hgmma = hgmma_counts(build)
+    if args.hyper:
+        t0 = time.perf_counter()
+        r50 = hyper_inputs(estimators, models, Counters(tpg, tsg), smi, dev)
+        log(f"hyper inputs (factor files, ResNet-50 updates): "
+            f"{time.perf_counter() - t0:.1f} s")
+        hyper_phase(Counters(tpg, tsg), smi, dev, r50)
+        log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            " GiB")
+        return 0
     if args.grouped:
         t0 = time.perf_counter()
         grouped_phase(estimators, models, Counters(tpg, tsg), smi,
@@ -1788,6 +2140,10 @@ def main(argv=None):
     # 3e. the pipeline CLIs: LeNet-5 on the digits, ResNet-18 on synthetic
     r18_paths, r18_updated = pipelines(estimators, counters, smi)
     by_path.update(r18_paths)
+
+    # 3f. the damping search and the predictives on those factor files, and
+    # on the f32 ResNet-50 factors of 3a
+    hyper_phase(counters, smi, dev, (model, est, test_data))
 
     for rec in records:
         # a record's shapes are ResNet-50's or ResNet-18's: it counts the

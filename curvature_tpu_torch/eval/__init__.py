@@ -4,7 +4,25 @@ from curvature_tpu_torch.eval.evaluate import (
     STATS_COLUMNS, eval_bnn, eval_bnn_stats, eval_nn, eval_nn_and_bnn,
     eval_nn_stats,
 )
+from curvature_tpu_torch.eval.predictive import (
+    eval_bnn_closed_form, eval_bnn_linearized, eval_bnn_regression,
+    laplace_bridge, make_linearized_ensemble_fn, make_logit_ensemble_fn,
+    probit_mean_field,
+)
+from curvature_tpu_torch.eval.predictor import BayesianPredictor, Prediction
+from curvature_tpu_torch.eval.marglik import (
+    dataset_map_nll, log_marginal_likelihood,
+)
+from curvature_tpu_torch.eval.calibrate import (
+    eval_nn_temperature, fit_temperature, temperature_scale,
+)
 
 __all__ = ["metrics", "STATS_COLUMNS", "eval_bnn", "eval_bnn_stats",
            "eval_nn", "eval_nn_and_bnn", "eval_nn_stats", "fgsm",
-           "eval_fgsm", "eval_fgsm_bnn"]
+           "eval_fgsm", "eval_fgsm_bnn",
+           "BayesianPredictor", "Prediction",
+           "probit_mean_field", "laplace_bridge", "eval_bnn_closed_form",
+           "eval_bnn_linearized", "make_linearized_ensemble_fn",
+           "make_logit_ensemble_fn", "eval_bnn_regression",
+           "dataset_map_nll", "log_marginal_likelihood",
+           "fit_temperature", "temperature_scale", "eval_nn_temperature"]

@@ -7,11 +7,11 @@ model runs in eval mode (running-statistics BN). The Bayesian eval loops
 over the posterior samples, each a parameter dict applied with
 ``torch.func.functional_call``, and averages the softmax over them.
 ``compute_dtype`` (``--precision bfloat16``) runs the forwards with every
-float parameter, buffer and the input cast to it; the softmax and every
-metric stay f32. Data batches are (NCHW input, labels) pairs, or (token
-ids [B, T], next-token labels [B, T]): a causal LM's [B, T, V] softmax is
-scored per token, flattened to [B*T, V] with the labels to [B*T], as in
-JAX.
+float parameter and the input cast to it (BatchNorm's running statistics
+stay f32); the softmax and every metric stay f32. Data batches are (NCHW
+input, labels) pairs, or (token ids [B, T], next-token labels [B, T]): a
+causal LM's [B, T, V] softmax is scored per token, flattened to [B*T, V]
+with the labels to [B*T], as in JAX.
 
 At a vocabulary-sized output ``eval_nn_stats``/``eval_bnn_stats`` reduce
 each batch on the device to four numbers per token (``STATS_COLUMNS``);
@@ -40,10 +40,11 @@ def _batches(data, device):
 def _forward(model, params, x, compute_dtype):
     """Eval-mode softmax [B, K] in f32, with ``params`` (state-dict keys,
     None for the model's own) cast to ``compute_dtype`` with the model's
-    buffers and the input where one is given."""
+    other parameters and the input where one is given. Buffers stay as
+    they are: BatchNorm normalizes in f32 on f32 running statistics (JAX
+    keeps ``batch_stats`` f32)."""
     if compute_dtype is not None:
         own = dict(model.named_parameters())
-        own.update(model.named_buffers())
         params = cast_floats(dict(own, **(params or {})), compute_dtype)
         x = cast_input(x, compute_dtype)
     logits = model(x) if params is None else functional_call(

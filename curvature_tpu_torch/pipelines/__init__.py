@@ -1,12 +1,13 @@
 """The pipeline CLIs: ``factors`` (estimate and save the curvature
-factors) and ``evaluate`` (the deterministic test, in-domain vs
-out-of-domain Bayesian eval, the FGSM sweep), with the JAX package's
-flags, artefact paths and npz layout. The other pipelines (``hyper``,
-``training``, ``loss_landscape``, ``visualize``, ``plot``) are not ported
-yet (ROADMAP Queue 1 item 7): asking this package for one raises
+factors), ``hyper`` (search the damping) and ``evaluate`` (the
+deterministic test, in-domain vs out-of-domain Bayesian eval with the
+sampled, closed-form or linearized predictive, the FGSM sweep), with the
+JAX package's flags, artefact paths and npz layout. The other pipelines
+(``training``, ``loss_landscape``, ``visualize``, ``plot``) are not
+ported yet (ROADMAP Queue 1 item 7): asking this package for one raises
 ``NotImplementedError``."""
 
-_NOT_PORTED = ("hyper", "training", "loss_landscape", "visualize", "plot")
+_NOT_PORTED = ("training", "loss_landscape", "visualize", "plot")
 
 
 def __getattr__(name):

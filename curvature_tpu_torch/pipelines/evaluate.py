@@ -10,6 +10,10 @@ seeded with ``--seed``. Results go into npz files with JAX's keys. With
 an output of 8,192 classes or more (``--vocab 50257``) ``--ood`` runs the
 per-token sufficient-statistics eval (``_out_of_domain_stats``): four
 numbers per token, computed on the device, written to ``*_stats.npz``.
+``--predictive probit|bridge|linearized|linearized_probit|
+linearized_bridge`` replaces the sampled Bayesian predictive of ``--ood``
+by a closed-form or linearized one over the same posterior draws
+(``eval/predictive.py``).
 
     python -m curvature_tpu_torch.pipelines.evaluate --model lenet5 \\
         --data mnist --data_dir <dir> --estimator kfac --norm 1 \\
@@ -20,8 +24,9 @@ import torch
 
 from curvature_tpu_torch import estimators
 from curvature_tpu_torch.eval import (
-    STATS_COLUMNS, eval_bnn_stats, eval_fgsm, eval_fgsm_bnn, eval_nn,
-    eval_nn_and_bnn, eval_nn_stats, metrics)
+    STATS_COLUMNS, eval_bnn_closed_form, eval_bnn_linearized, eval_bnn_stats,
+    eval_fgsm, eval_fgsm_bnn, eval_nn, eval_nn_and_bnn, eval_nn_stats,
+    metrics)
 from curvature_tpu_torch.models import state_from_jax
 from curvature_tpu_torch.pipelines.common import (
     NUM_CLASSES, build_data, build_model, build_ood_data, layer_filter,
@@ -129,6 +134,11 @@ def _out_of_domain_stats(cfg, model, est, results_path: str):
     STATS_COLUMNS of the NN and the BNN on the in-domain and OOD tokens,
     computed on the device (JAX :126-180); returns (nn stats, bnn stats,
     labels)."""
+    pred_kind = getattr(cfg, "predictive", "sampled") or "sampled"
+    if pred_kind != "sampled":
+        raise ValueError(
+            f"--predictive {pred_kind} is not implemented for vocab-scale "
+            "outputs (>= 8192 classes); use the sampled predictive")
     in_data, out_data = build_ood_data(cfg)
     device = next(model.parameters()).device
     in_data = list(on_device(in_data, device))
@@ -169,12 +179,19 @@ def out_of_domain(cfg, model, est, results_path: str, fig_path: str):
     out_data = list(on_device(out_data, device))
     dtype = _compute_dtype(cfg)
     chunk = getattr(cfg, "sample_chunk", 0) or None
-    predictions, bnn_predictions, labels, stats = eval_nn_and_bnn(
-        model, est, in_data, cfg.samples, _generator(cfg, model), cfg.stats,
-        compute_dtype=dtype, sample_chunk=chunk)
-    ood_predictions, bnn_ood_predictions, _, _ = eval_nn_and_bnn(
-        model, est, out_data, cfg.samples, _generator(cfg, model), False,
-        compute_dtype=dtype, sample_chunk=chunk)
+    pred_kind = getattr(cfg, "predictive", "sampled") or "sampled"
+    if pred_kind == "sampled":
+        predictions, bnn_predictions, labels, stats = eval_nn_and_bnn(
+            model, est, in_data, cfg.samples, _generator(cfg, model),
+            cfg.stats, compute_dtype=dtype, sample_chunk=chunk)
+        ood_predictions, bnn_ood_predictions, _, _ = eval_nn_and_bnn(
+            model, est, out_data, cfg.samples, _generator(cfg, model), False,
+            compute_dtype=dtype, sample_chunk=chunk)
+    else:
+        predictions, bnn_predictions, labels, ood_predictions, \
+            bnn_ood_predictions = _alternative_predictive(
+                cfg, model, est, in_data, out_data, pred_kind, chunk)
+        stats = {}
     _print_summary("NN ", predictions, labels)
     _print_summary("BNN", bnn_predictions, labels)
 
@@ -195,6 +212,43 @@ def out_of_domain(cfg, model, est, results_path: str, fig_path: str):
                             bnn_ood_predictions=bnn_ood_predictions,
                             auroc=np.asarray([auroc_nn, auroc_bnn]))
     return predictions, bnn_predictions, labels
+
+
+def _alternative_predictive(cfg, model, est, in_data, out_data,
+                            pred_kind: str, chunk):
+    """The closed-form / linearized predictives of ``--predictive``
+    (JAX :192-227): the NN on both sets, the BNN through ``pred_kind``
+    over one posterior draw per set from a generator seeded with
+    ``--seed``. Returns (predictions, bnn_predictions, labels,
+    ood_predictions, bnn_ood_predictions)."""
+    if cfg.stats:
+        raise ValueError(
+            "--stats tracks running statistics over the SAMPLED "
+            f"ensemble; it is undefined for --predictive {pred_kind}")
+    if chunk:
+        # the FGSM precedent: never silently ignore a flag
+        raise ValueError(
+            "--sample_chunk is only implemented for the sampled "
+            f"predictive; drop it or use --predictive sampled "
+            f"(got --predictive {pred_kind})")
+
+    def alt_bnn(data):
+        gen = _generator(cfg, model)
+        if pred_kind in ("probit", "bridge"):
+            return eval_bnn_closed_form(model, est, data, cfg.samples,
+                                        generator=gen, method=pred_kind)[0]
+        if pred_kind.startswith("linearized"):
+            method = pred_kind[len("linearized"):].lstrip("_") or "mc"
+            return eval_bnn_linearized(model, est, data, cfg.samples,
+                                       generator=gen, method=method)[0]
+        raise ValueError(f"unknown --predictive {pred_kind!r}")
+
+    dtype = _compute_dtype(cfg)
+    predictions, labels = eval_nn(model, in_data, compute_dtype=dtype)
+    bnn_predictions = alt_bnn(in_data)
+    ood_predictions, _ = eval_nn(model, out_data, compute_dtype=dtype)
+    return (predictions, bnn_predictions, labels, ood_predictions,
+            alt_bnn(out_data))
 
 
 #: the reference's epsilon sweep (evaluate.py:307)

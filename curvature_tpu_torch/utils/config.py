@@ -132,8 +132,6 @@ NOT_PORTED = (
     ("--fidelity/--spectrum (eval/fidelity.py, ops/matfree.py)",
      lambda c: c.fidelity or c.spectrum, "Queue 1 item 8"),
     ("--plot (pipelines/plot.py)", lambda c: c.plot, "Queue 1 item 7"),
-    ("--predictive other than 'sampled' (eval/predictive.py)",
-     lambda c: (c.predictive or "sampled") != "sampled", "Queue 1 item 7"),
     ("--estimator subspace|swag", lambda c: c.estimator in ("subspace",
                                                             "swag"),
      "Queue 1 item 8"),

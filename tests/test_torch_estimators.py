@@ -361,7 +361,7 @@ def test_parts_out_of_this_slice_raise(ladder):
         with pytest.raises(NotImplementedError, match="item 8"):
             getattr(port_est, name)
     with pytest.raises(NotImplementedError, match="item 7"):
-        from curvature_tpu_torch.pipelines import hyper  # noqa: F401
+        from curvature_tpu_torch.pipelines import training  # noqa: F401
 
 
 def test_inf_lazy_eigvecs_match_efb_eigenvalues(ladder):

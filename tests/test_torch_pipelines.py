@@ -496,7 +496,7 @@ def test_evaluate_cli_writes_jax_keys(lenet, swapped, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--parallel"], ["--mesh", "data:2"], ["--fidelity", "2"],
-    ["--spectrum", "3"], ["--plot"], ["--predictive", "probit"],
+    ["--spectrum", "3"], ["--plot"], ["--loss2d"],
     ["--estimator", "subspace"], ["--estimator", "swag"],
     ["--model", "gpt2_moe_tiny"], ["--model", "swin_t"],
     ["--model", "vit_b_16"], ["--qkv_split"], ["--head_split"],

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
-package, and its entry points run on CUDA unless told otherwise."""
+package, nor scikit-learn, optax or matplotlib (the card's machine has
+none of them), and its entry points run on CUDA unless told otherwise."""
 import ast
 import subprocess
 import sys
@@ -18,8 +19,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.")
-             or m == "curvature_tpu" or m.startswith("curvature_tpu."))
+             if m.split(".")[0] in ("jax", "curvature_tpu", "sklearn",
+                                    "optax", "matplotlib"))
 print(len(names), bad)
 assert len(names) >= 20, names
 for required in ("curvature_tpu_torch.utils.casting",
@@ -35,7 +36,14 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.models.mnasnet",
                  "curvature_tpu_torch.models.mobilenet",
                  "curvature_tpu_torch.models.regnet",
-                 "curvature_tpu_torch.models.shufflenet"):
+                 "curvature_tpu_torch.models.shufflenet",
+                 "curvature_tpu_torch.pipelines.hyper",
+                 "curvature_tpu_torch.pipelines.surrogates",
+                 "curvature_tpu_torch.eval.marglik",
+                 "curvature_tpu_torch.eval.predictive",
+                 "curvature_tpu_torch.eval.calibrate",
+                 "curvature_tpu_torch.eval.predictor",
+                 "curvature_tpu_torch.laplace"):
     assert required in names, required
 assert not bad, bad
 """
@@ -60,6 +68,26 @@ def test_chip_smoke_imports_no_jax_and_no_jax_package():
                  if isinstance(n, ast.ImportFrom) and n.module]
     assert "curvature_tpu_torch.ops.cuda" in imported
     assert not [m for m in imported if _is_jax_side(m)], imported
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text())
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Import):
+            yield from (a.name for a in n.names)
+        elif isinstance(n, ast.ImportFrom) and n.module:
+            yield n.module
+
+
+def test_no_import_of_packages_the_card_lacks():
+    """No module of the port, and not chip_smoke.py, imports scikit-learn,
+    optax or matplotlib anywhere, function-local imports included (the
+    damping search's surrogates are ``pipelines/surrogates.py``)."""
+    files = sorted((REPO / "curvature_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = {str(f.relative_to(REPO)): m for f in files for m in _imports(f)
+           if m.split(".")[0] in ("sklearn", "optax", "matplotlib")}
+    assert len(files) > 40 and not bad, bad
 
 
 def test_default_device_entry_point_raises_without_a_gpu():
