@@ -17,6 +17,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --hyper      # builds the kernels and the factor
                                        # files, runs the damping-search
                                        # phase only
+    python3 chip_smoke.py --training   # builds the kernels, runs the
+                                       # training phase only (with
+                                       # --profile: one KFAC-optimizer step
+                                       # of ResNet-18 too)
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -73,6 +77,21 @@ the ``laplace`` facade and temperature scaling; on ResNet-18 the sampled
 and evidence searches and ``evaluate --ood --predictive``; on ResNet-50's
 f32 KFAC factors the batched evaluator and the evidence. None launches a
 Gram kernel; the seconds per candidate are printed.
+
+Then training (``training_phase``), each CLI writing under
+``build/training``: LeNet-5 trained by SGD on the digits from its seeded
+initialization, its test accuracy held within 3 points of the JAX
+package's with the same flags (``JAX_LENET_TEST_ACC``), then ``factors``
+-> ``hyper`` -> ``evaluate`` on the checkpoint it wrote (BNN above 50%),
+``loss_landscape --loss1d`` and ``--loss2d`` twice each (the second call
+must compute nothing), ``--swag`` and ``evaluate --estimator swag``;
+ResNet-18 at full width with SGD, Adam and ``--optimizer kfac``, whose
+factor passes launch the patch-Gram kernels by JAX's routes
+(``R18_ROUTES`` per pass) and whose A factors are held against the plain
+path, SWAG with ``evaluate --bn_update --ood``, and an 11-point loss
+line. Nothing else in the phase launches a Gram kernel; it prints each
+optimizer's step ms and img/s, the KFAC optimizer's re-invert and the
+seconds per landscape point.
 
 Then the grouped and depthwise convolutions (``grouped_phase``), none
 launching a Gram kernel by JAX's routes: ResNeXt-50 32x4d and
@@ -237,6 +256,37 @@ GROUPED_BLOCK_LAYER = "features.2.0.block.1.0"
 #: R18_DAMPING
 GROUPED_ARGV = ["--model", "mobilenet_v2", "--data", "synthetic"]
 GROUPED_INF_RANK = "50"
+#: the training phase (JAX pipelines/training.py, optim.py,
+#: estimators/swag.py, pipelines/loss_landscape.py), under its own root: a
+#: weights/lenet5_mnist.npz under PIPE_ROOT would take the bundled
+#: asset's place in the pipeline phase
+TRAIN_ROOT = "build/training"
+#: LeNet-5 on the digits (512 training digits, B=32, 16 steps an epoch),
+#: SGD with momentum 0.9 from the seeded initialization (numpy seed 42,
+#: written as the checkpoint first); the flags and the JAX package's test
+#: accuracy with them on the CPU are tests/test_torch_training.py's
+#: CHIP_FLAGS and its printed reading (the card's run must come within 3
+#: points)
+TRAIN_LENET = ["--epochs", "20", "--lr", "0.01"]
+TRAIN_LENET_SEED = 42
+JAX_LENET_TEST_ACC = 86.328125
+#: the chain on the trained checkpoint: the damping search, then SWAG, 8
+#: more epochs of which the SWA window takes the last 2, sampled at the
+#: paper's covariance (multiply 1; add is ignored)
+TRAIN_HYPER = ["--optimizer", "random", "--calls", "16"]
+TRAIN_SWAG = ["--epochs", "8", "--lr", "0.01", "--swag"]
+TRAIN_SWAG_DAMPING = ["--norm", "1", "--scale", "1"]
+#: ResNet-18 CIFAR at full width on synthetic data: training's train/val
+#: split holds 256 images (pipelines/common.build_data), 8 steps of 32 an
+#: epoch; each optimizer from the seeded initialization under its own root
+TRAIN_R18 = ["--epochs", "2"]
+#: each optimizer's flags: Adam at its usual rate, the KFAC optimizer
+#: (damping 1e-2, JAX's default) at 0.01: both diverge at 0.05
+TRAIN_R18_OPTS = {"sgd": ["--lr", "0.05"], "adam": ["--lr", "1e-3"],
+                  "kfac": ["--lr", "0.01"]}
+TRAIN_PATH = "resnet18_synthetic_training_kfac_f32"
+#: the loss line at full width (the CLI's is 51 points)
+LANDSCAPE_R18_POINTS = 11
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -1711,6 +1761,228 @@ def grouped_phase(estimators, models, counters, smi, dev, profile=False):
     return by_path
 
 
+def train_step_ms(step, batches, reps=3):
+    """Wall ms per training step: ``step(x, y)`` over ``batches`` after one
+    warm pass, best of ``reps`` passes, each ended by a synchronize."""
+    import torch
+    for x, y in batches:
+        step(x, y)
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for x, y in batches:
+            step(x, y)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best / len(batches)
+
+
+def training_phase(estimators, counters, smi, dev, profile=False):
+    """Training, the KFAC optimizer, SWAG and the loss landscape (JAX
+    pipelines/training.py, optim.py, estimators/swag.py,
+    pipelines/loss_landscape.py), each CLI ``main(argv)`` in-process under
+    ``TRAIN_ROOT``: (a) LeNet-5 on the digits trained by SGD from the
+    seeded initialization, then ``factors`` (kfac, diag) -> ``hyper`` ->
+    ``evaluate`` on the checkpoint it wrote, the loss landscape twice
+    (the second call computes nothing), ``--swag`` and the SWAG
+    posterior's eval, no Gram kernel anywhere; (b) ResNet-18 at full
+    width with SGD, Adam and the KFAC optimizer, whose steps launch the
+    patch-Gram kernels by JAX's routes (``R18_ROUTES``), its A factors
+    held against the plain path; SWAG with ``--bn_update``; a loss line
+    at full width. Prints the rates, the re-invert and the seconds per
+    landscape point. Returns {TRAIN_PATH: launches}."""
+    import os
+    import shutil
+    import numpy as np
+    import torch
+    from curvature_tpu_torch import models, optim
+    from curvature_tpu_torch.data.loaders import FIXTURE_DIR
+    from curvature_tpu_torch.estimators.base import normalize_damping
+    from curvature_tpu_torch.pipelines import (
+        common, evaluate, factors, hyper, loss_landscape, training)
+    from curvature_tpu_torch.utils.checkpoint import (
+        results_paths, save_pytree)
+    from curvature_tpu_torch.utils.config import parse_args
+    t_phase = time.perf_counter()
+    none = counters.zero()
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+
+    def cli(module, argv, label, want=None):
+        out, got = run_cli(module, argv, counters, smi, label)
+        if got != (want or none):
+            raise AssertionError(f"{label}: launches {got}, want "
+                                 f"{want or none}")
+        return out
+
+    def batches_of(cfg):
+        """The training batches ``training.run`` reads (its train split)."""
+        train = common.build_data(cfg, splits=("train", "val"))[0]
+        return [(x, torch.as_tensor(np.asarray(y), device=dev).long())
+                for x, y in common.on_device(train, dev)]
+
+    def accuracy(probs, labels):
+        return 100.0 * float(np.mean(np.asarray(probs).argmax(1)
+                                     == np.asarray(labels)))
+
+    # (a) LeNet-5 on the digits, from the seeded initialization
+    root = os.path.abspath(os.path.join(TRAIN_ROOT, "lenet5"))
+    base = LENET_ARGV + ["--data_dir", FIXTURE_DIR, "--root_dir", root,
+                         "--results_dir", root]
+    cfg = parse_args(base)
+    save_pytree(training.weights_path(cfg), models.seeded_variables(
+        models.lenet5(10, device="cpu"), TRAIN_LENET_SEED))
+    (model, hist), seconds = timed(lambda: cli(
+        training, base + TRAIN_LENET, "lenet5 training sgd "
+        + " ".join(TRAIN_LENET)))
+    probs, labels = cli(evaluate, base, "lenet5 evaluate (test)")
+    test_acc = accuracy(probs, labels)
+    log(f"lenet5 digits trained on the card ({' '.join(TRAIN_LENET)}, B=32,"
+        f" 16 steps an epoch): loss {hist['loss'][0]:.4f} -> "
+        f"{hist['loss'][-1]:.4f}, val {hist['val_acc'][-1]:.2f}%, test "
+        f"{test_acc:.2f}% (JAX package on the CPU, same flags: "
+        f"{JAX_LENET_TEST_ACC:.2f}%); {seconds:.3f} s wall ({smi})")
+    if not np.isfinite(hist["loss"]).all() \
+            or abs(test_acc - JAX_LENET_TEST_ACC) > 3.0:
+        raise AssertionError(f"lenet5 training: test {test_acc:.2f}% vs "
+                             f"JAX's {JAX_LENET_TEST_ACC:.2f}%, {hist}")
+    sgd = torch.optim.SGD(model.parameters(), lr=1e-4, momentum=0.9)
+    ms = train_step_ms(training.make_train_step(model, sgd),
+                       batches_of(cfg))
+    log(f"lenet5 sgd train step B=32: {ms:.3f} ms, {1e3 / ms:.1f} it/s, "
+        f"{32e3 / ms:.1f} img/s (the reference's ~317-333 it/s, "
+        f"BASELINE.md:19; {smi})")
+    for name in ("kfac", "diag"):
+        cli(factors, base + ["--estimator", name], f"lenet5 factors {name}"
+            " (trained)")
+    cli(hyper, base + ["--estimator", "kfac"] + TRAIN_HYPER,
+        "lenet5 hyper kfac " + " ".join(TRAIN_HYPER))
+    stats, bnn = cli(evaluate, base + ["--estimator", "kfac", "--fgsm"],
+                     "lenet5 evaluate kfac --fgsm at the searched damping")
+    log(f"lenet5 chain on the trained checkpoint: NN {stats['acc'][0]:.2f}%"
+        f", BNN {bnn['acc'][0]:.2f}% (ECE {bnn['ece1'][0]:.2f}%, NLL "
+        f"{bnn['nll'][0]:.4f}); FGSM eps 0.1: NN {stats['acc'][5]:.2f}%, "
+        f"BNN {bnn['acc'][5]:.2f}%")
+    if bnn["acc"][0] <= 50.0:
+        raise AssertionError(f"lenet5 chain: BNN {bnn['acc'][0]:.2f}%")
+    for flag, keys, points in (("--loss1d", ("train_loss", "val_loss"),
+                                51 * 2), ("--loss2d", ("loss",), 21 * 21)):
+        path = f"{results_paths(cfg)[0]}_{flag[2:]}.npy"
+        res, seconds = timed(lambda: cli(loss_landscape, base + [flag],
+                                         f"lenet5 loss_landscape {flag}"))
+        stamp = os.stat(path).st_mtime_ns
+        again = cli(loss_landscape, base + [flag],
+                    f"lenet5 loss_landscape {flag} (resumed)")
+        if os.stat(path).st_mtime_ns != stamp \
+                or any(not np.array_equal(again[k], res[k]) for k in res) \
+                or any(not np.isfinite(res[k]).all() for k in keys):
+            raise AssertionError(f"lenet5 {flag}: the resumed call "
+                                 "computed or changed something")
+        centre = np.ravel(res[keys[0]])[np.size(res[keys[0]]) // 2]
+        log(f"lenet5 {flag}: {points} points in {seconds:.3f} s, "
+            f"{seconds / points:.5f} s per point; train loss at the centre "
+            f"{centre:.4f}, at most {float(np.max(res[keys[0]])):.4f}; the "
+            f"resumed call computed nothing ({smi})")
+    hist = cli(training, base + TRAIN_SWAG, "lenet5 training "
+               + " ".join(TRAIN_SWAG))[1]
+    stats, bnn = cli(evaluate, base + ["--estimator", "swag", "--fgsm"]
+                     + TRAIN_SWAG_DAMPING, "lenet5 evaluate swag --fgsm")
+    log(f"lenet5 swag ({TRAIN_SWAG[1]} more epochs, the last 2 collected):"
+        f" NN {stats['acc'][0]:.2f}%, SWAG BNN {bnn['acc'][0]:.2f}% (ECE "
+        f"{bnn['ece1'][0]:.2f}%); val {hist['val_acc'][-1]:.2f}%")
+    if bnn["acc"][0] <= 50.0:
+        raise AssertionError(f"lenet5 swag: BNN {bnn['acc'][0]:.2f}%")
+
+    # (b) ResNet-18 at full width on synthetic data
+    def r18(opt):
+        root = os.path.abspath(os.path.join(TRAIN_ROOT, f"resnet18_{opt}"))
+        return R18_ARGV + TRAIN_R18 + ["--root_dir", root, "--results_dir",
+                                       root]
+    cfg = parse_args(r18("sgd"))
+    batches = batches_of(cfg)
+    steps = cfg.epochs * len(batches)
+    by_path = {}
+    for opt, flags in TRAIN_R18_OPTS.items():
+        argv = r18(opt) + ["--optimizer", opt] + flags
+        want = none
+        if opt == "kfac":
+            # one factor pass a step, and one for the first batch
+            want = dict(none, **{f"patch_gram_{r}": n * (steps + 1) for r, n
+                                 in R18_ROUTES[R18_PATHS[0]].items()})
+        (model, hist), seconds = timed(lambda: cli(
+            training, argv, f"resnet18 training {opt}", want))
+        log(f"resnet18 {opt}: {steps} steps of B=32 ({len(batches) * 32} "
+            f"synthetic images, {cfg.epochs} epochs), loss "
+            f"{hist['loss'][0]:.4f} -> {hist['loss'][-1]:.4f}; "
+            f"{seconds:.3f} s wall with the set-up and the checkpoint")
+        if not np.isfinite(hist["loss"]).all():
+            raise AssertionError(f"resnet18 {opt}: loss {hist['loss']}")
+        if opt == "kfac":
+            by_path[TRAIN_PATH] = counters.read()
+            est = estimators.KFAC(model)
+            x = batches[0][0]
+            for layer, route in R18_CHECKED.items():
+                a_factor_check(est, estimators.KFAC(
+                    model, use_kernels=False, layer_filter=[layer]), x,
+                    layer, f"resnet18 training kfac, {route} s"
+                    f"{est.metas[layer].strides[0]}", route)
+            tx = torch.optim.SGD(model.parameters(), lr=1e-4, momentum=0.9)
+            kstep, kinit = optim.make_kfac_train_step(model, est, tx)
+            state = list(kinit(*batches[0]))
+            state.append(1)
+
+            def step(x, y):
+                state[0], state[1], state[2], _ = kstep(
+                    state[0], state[1], state[2], x, y)
+            add, mult = normalize_damping(1e-2, 1.0, len(est.metas), dev)
+            _, inv_s = timed(lambda: est.invert_state(state[0], add, mult))
+            log(f"resnet18 kfac optimizer re-invert ({len(est.metas)} "
+                f"layers, damping 1e-2): {inv_s:.4f} s ({smi})")
+            if profile:
+                log(f"resnet18 training kfac, one step (B=32; a re-invert "
+                    "every 10th):")
+                profile_fn(lambda: step(*batches[1]))
+        else:
+            opt_cls = torch.optim.Adam if opt == "adam" else torch.optim.SGD
+            step = training.make_train_step(model, opt_cls(
+                model.parameters(), lr=1e-4))
+        ms = train_step_ms(step, batches)
+        log(f"resnet18 training {opt} step B=32: {ms:.2f} ms, "
+            f"{32e3 / ms:.1f} img/s ({smi})")
+    argv = r18("swag") + TRAIN_R18_OPTS["sgd"] + ["--swag"]
+    cli(training, argv, "resnet18 training sgd --swag")
+    argv += ["--estimator", "swag", "--bn_update", "--ood"] \
+        + TRAIN_SWAG_DAMPING
+    probs, bnn_probs, labels = cli(evaluate, argv,
+                                   "resnet18 evaluate swag --bn_update --ood")
+    with np.load(results_paths(parse_args(argv))[0] + ".npz",
+                 allow_pickle=True) as f:
+        auroc, ood = f["auroc"], f["bnn_ood_predictions"]
+    for what, p in (("nn", probs), ("bnn", bnn_probs), ("bnn ood", ood)):
+        if p.shape != (256, 10) or not np.isfinite(p).all() \
+                or np.abs(p.sum(1) - 1).max() > 1e-3:
+            raise AssertionError(f"resnet18 swag {what} predictions "
+                                 "malformed")
+    log(f"resnet18 swag --bn_update --ood: NN {accuracy(probs, labels):.2f}%"
+        f", BNN {accuracy(bnn_probs, labels):.2f}%; AUROC NN {auroc[0]:.4f}"
+        f" BNN {auroc[1]:.4f}")
+    cfg = parse_args(r18("sgd"))
+    model = common.build_model(cfg)
+    counters.reset()
+    res, seconds = timed(lambda: loss_landscape.loss1d(
+        model, common.build_data(cfg, "train"), common.build_data(cfg, "val"),
+        torch.Generator(device=dev).manual_seed(cfg.seed),
+        steps=LANDSCAPE_R18_POINTS))
+    if counters.read() != none or not np.isfinite(res["train_loss"]).all():
+        raise AssertionError(f"resnet18 loss1d: launches {counters.read()}")
+    points = 2 * LANDSCAPE_R18_POINTS
+    log(f"resnet18 loss1d at full width: {points} points (train, 512 "
+        f"images, and val, 256) in {seconds:.3f} s, {seconds / points:.4f} "
+        f"s per point ({smi})")
+    log(f"training phase: {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return by_path
+
+
 def lm_tokens(rng, n, dev):
     """n seeded [LM_BATCH, LM_T] token batches and [LM_BATCH, LM_T] label
     batches on the card."""
@@ -2002,6 +2274,9 @@ def main(argv=None):
                     help="build the kernels, write the factor files the "
                          "damping-search phase reads, run that phase only "
                          "and stop (no result line)")
+    ap.add_argument("--training", action="store_true",
+                    help="build the kernels, run the training phase only "
+                         "and stop (no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2060,6 +2335,12 @@ def main(argv=None):
                       torch.device("cuda", 0), args.profile)
         log(f"grouped phase: {time.perf_counter() - t0:.1f} s; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return 0
+    if args.training:
+        training_phase(estimators, Counters(tpg, tsg), smi, dev,
+                       args.profile)
+        log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            " GiB")
         return 0
     if args.lm:
         lm_phase(estimators, models, Counters(tpg, tsg), smi,
@@ -2145,16 +2426,21 @@ def main(argv=None):
     # on the f32 ResNet-50 factors of 3a
     hyper_phase(counters, smi, dev, (model, est, test_data))
 
+    # 3g. training, the KFAC optimizer, SWAG, the loss landscape
+    by_path.update(training_phase(estimators, counters, smi, dev,
+                                  args.profile))
+
     for rec in records:
         # a record's shapes are ResNet-50's or ResNet-18's: it counts the
         # launches of its wrapper on that network's paths of its dtype
         r18 = rec["name"].split("_bf16")[0].endswith("_resnet18")
-        paths = ((R18_PATHS[:1] if rec["dtype"] == "f32" else R18_PATHS[1:])
+        paths = ((R18_PATHS[:1] + (TRAIN_PATH,) if rec["dtype"] == "f32"
+                  else R18_PATHS[1:])
                  if r18 else
                  (PATHS[:1] if rec["dtype"] == "f32" else PATHS[1:]))
         rec["launches_by_path"] = {
             p: by_path[p][rec["counter"]] if p in paths else 0
-            for p in PATHS + R18_PATHS}
+            for p in PATHS + R18_PATHS + (TRAIN_PATH,)}
         rec["launches"] = sum(rec["launches_by_path"].values())
 
     # -- 4. is what came out right? -----------------------------------------
@@ -2255,14 +2541,21 @@ def main(argv=None):
 def profile_update(est, x, gen, num_samples=1):
     """Device time of one update by kernel name (torch.profiler), and the
     device-busy share of the update's wall time."""
+    profile_fn(lambda: est.update(x, generator=gen,
+                                  num_samples=num_samples), "update")
+
+
+def profile_fn(fn, what="step"):
+    """Device time of one call of ``fn`` (after a warm call) by kernel
+    name (torch.profiler), and the device-busy share of its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    est.update(x, generator=gen, num_samples=num_samples)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        est.update(x, generator=gen, num_samples=num_samples)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device kernels only: an aten op's row repeats its kernels' time
@@ -2271,7 +2564,7 @@ def profile_update(est, x, gen, num_samples=1):
               and e.self_device_time_total > 0]
     events.sort(key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in events) / 1e3    # ms
-    log(f"profile: one update {wall * 1e3:.1f} ms wall, "
+    log(f"profile: one {what} {wall * 1e3:.1f} ms wall, "
         f"{busy:.1f} ms of device kernels ({100 * busy / (wall * 1e3):.1f}%"
         f" of the wall time), {sum(e.count for e in events)} launches")
     for e in events[:15]:

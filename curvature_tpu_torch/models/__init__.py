@@ -3,6 +3,7 @@ from functools import partial
 from curvature_tpu_torch.models.convert import (
     load_jax_variables, seeded_variables, stack_scan_groups,
     state_dict_from_jax, state_from_jax, unstack_scan_groups,
+    variables_to_jax,
 )
 from curvature_tpu_torch.models.convnext import ConvNeXt, convnext
 from curvature_tpu_torch.models.efficientnet import (
@@ -79,6 +80,7 @@ def build(name: str, num_classes: int = 1000, device=None, **kw):
 
 __all__ = ["load_jax_variables", "seeded_variables", "stack_scan_groups",
            "state_dict_from_jax", "state_from_jax", "unstack_scan_groups",
+           "variables_to_jax",
            "ConvNeXt", "convnext", "EfficientNet", "efficientnet",
            "efficientnet_b0", "GPT2", "convert_gpt2_state_dict", "gpt2",
            "gpt2_custom", "gpt2_large", "gpt2_medium", "gpt2_tiny",

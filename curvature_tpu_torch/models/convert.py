@@ -9,12 +9,15 @@ parameters such as ConvNeXt's ``layer_scale`` as ``{"value": ...}``.
 into this port's state dict; :func:`seeded_variables` makes variables in
 that layout from a numpy seed (there are no ResNet or GPT-2 weights in the
 repository, so tests and the chip smoke build them this way and hand the
-same numbers to both packages). :func:`stack_scan_groups` and
+same numbers to both packages). :func:`variables_to_jax` is the inverse
+of :func:`state_dict_from_jax`: it writes a model's state in the JAX
+layout (the training pipeline's checkpoints, read by both packages).
+:func:`stack_scan_groups` and
 :func:`unstack_scan_groups` move such variables between a stacked model's
 ``h.*`` names and an unrolled model's ``h.{i}.*`` (JAX
 models/torch_convert.py:123-195).
 """
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -23,19 +26,27 @@ from torch import nn
 from curvature_tpu_torch.nn import BatchNorm, Conv, Dense, LayerNorm
 
 
-def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(variables: Dict, lead: int = 0
+                        ) -> Dict[str, torch.Tensor]:
     """JAX-layout numpy variables -> this port's state dict (CPU tensors):
     conv HWIO -> OIHW (grouped: [kh, kw, C/g, O] -> [O, C/g, kh, kw]),
     dense [(depth,) in, out] -> [(depth,) out, in], BN and LayerNorm
     scale/bias -> weight/bias, embedding tables (``wte``, ``wpe``:
     ``weight``) as they are, a raw parameter group ``{"value": v}`` (JAX
     ConvNeXt's ``{block}.layer_scale``) -> the parameter ``{block}.
-    layer_scale``, batch_stats mean/var -> running_mean/running_var."""
+    layer_scale``, batch_stats mean/var -> running_mean/running_var.
+    ``lead`` leading axes of every leaf pass through untouched (SWAG's
+    ``[K, ...]`` deviation buffer): a kernel is a conv's when it has four
+    axes past them."""
     sd = {}
     for layer, p in variables["params"].items():
         if "kernel" in p:
             k = np.asarray(p["kernel"], np.float32)
-            k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.swapaxes(-1, -2)
+            if k.ndim - lead == 4:
+                k = k.transpose(tuple(range(lead)) + tuple(
+                    lead + i for i in (3, 2, 0, 1)))
+            else:
+                k = k.swapaxes(-1, -2)
             sd[f"{layer}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
             if "bias" in p:
                 sd[f"{layer}.bias"] = torch.from_numpy(
@@ -57,6 +68,68 @@ def state_dict_from_jax(variables: Dict) -> Dict[str, torch.Tensor]:
         sd[f"{layer}.running_var"] = torch.from_numpy(
             np.asarray(s["var"], np.float32).copy())
     return sd
+
+
+def variables_to_jax(model: nn.Module,
+                     state: Optional[Dict[str, torch.Tensor]] = None,
+                     lead: int = 0) -> Dict:
+    """Inverse of :func:`state_dict_from_jax`: ``state`` (state-dict keys
+    -> tensors; the model's own state dict by default) as JAX-layout
+    numpy variables. Each leaf is placed by the type of the module that
+    owns it, never by its rank: a ``Conv`` weight OIHW -> HWIO (grouped
+    [O, C/g, kh, kw] -> [kh, kw, C/g, O]), a ``Dense`` weight [(depth,)
+    out, in] -> [(depth,) in, out], ``BatchNorm``/``LayerNorm`` weight ->
+    ``scale``, an embedding's ``weight`` as it is, a module's raw
+    parameter (ConvNeXt's ``layer_scale``) -> ``{"value": ...}``,
+    ``running_mean``/``running_var`` -> ``batch_stats`` ``mean``/``var``.
+    ``lead`` leading axes of every leaf pass through untouched (SWAG's
+    ``[K, ...]`` deviation buffer). A state holding only parameters gives
+    no ``batch_stats``; a key no rule places raises ``KeyError``."""
+    state = model.state_dict() if state is None else state
+    params, stats = {}, {}
+    kept = set()
+    lead_axes = tuple(range(lead))
+
+    def arr(key):
+        kept.add(key)
+        return np.ascontiguousarray(state[key].detach().float().cpu().numpy())
+
+    for name, m in model.named_modules():
+        keys = {leaf: f"{name}.{leaf}" for leaf in ("weight", "bias",
+                                                    "running_mean",
+                                                    "running_var")}
+        if isinstance(m, (Conv, Dense)) and keys["weight"] in state:
+            w = arr(keys["weight"])
+            if isinstance(m, Conv):
+                w = w.transpose(lead_axes + tuple(lead + i
+                                                  for i in (2, 3, 1, 0)))
+            else:
+                w = w.swapaxes(-1, -2)
+            params[name] = {"kernel": np.ascontiguousarray(w)}
+            if keys["bias"] in state:
+                params[name]["bias"] = arr(keys["bias"])
+        elif isinstance(m, (BatchNorm, LayerNorm)) \
+                and keys["weight"] in state:
+            params[name] = {"scale": arr(keys["weight"]),
+                            "bias": arr(keys["bias"])}
+        elif isinstance(m, nn.Embedding) and keys["weight"] in state:
+            params[name] = {"weight": arr(keys["weight"])}
+        if isinstance(m, BatchNorm) and keys["running_mean"] in state:
+            stats[name] = {"mean": arr(keys["running_mean"]),
+                           "var": arr(keys["running_var"])}
+        for pname, _ in m.named_parameters(recurse=False):
+            key = f"{name}.{pname}" if name else pname
+            if key in state and key not in kept \
+                    and not isinstance(m, (Conv, Dense, BatchNorm,
+                                           LayerNorm, nn.Embedding)):
+                params[key] = {"value": arr(key)}
+    left = [k for k in state if k not in kept]
+    if left:
+        raise KeyError(f"no JAX layout for {sorted(left)}")
+    out = {"params": params}
+    if stats:
+        out["batch_stats"] = stats
+    return out
 
 
 def state_from_jax(state, device, dtype: torch.dtype = torch.float32):

@@ -144,14 +144,15 @@ class Conv(CtxModule):
         return ctx.probe(self.name, y) if ctx is not None else y
 
 
-class BatchNorm(nn.Module):
+class BatchNorm(CtxModule):
     """Torch-semantics batch normalization over NCHW channels, in f32.
 
     Train mode normalizes with batch statistics (biased variance) and
     updates the running statistics with momentum 0.1 and the unbiased
     variance; eval mode uses the running statistics. Under an estimator's
     capture context (``ctx.update_stats`` False) train mode leaves the
-    running statistics untouched. The output takes the input's dtype; under
+    running statistics untouched; it is a :class:`CtxModule`, so the
+    containers hand it that context. The output takes the input's dtype; under
     an estimator's ``compute_dtype`` the scale and bias arrive rounded to
     it (JAX casts every float parameter, layers.py:154-171) while the
     running buffers stay f32.

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from curvature_tpu_torch import estimators
+from curvature_tpu_torch.estimators.swag import update_batch_stats
 from curvature_tpu_torch.eval import (
     STATS_COLUMNS, eval_bnn_closed_form, eval_bnn_linearized, eval_bnn_stats,
     eval_fgsm, eval_fgsm_bnn, eval_nn, eval_nn_and_bnn, eval_nn_stats,
@@ -33,6 +34,7 @@ from curvature_tpu_torch.pipelines.common import (
     loss_kind, on_device)
 from curvature_tpu_torch.utils.checkpoint import (
     factors_path, load_pytree, results_paths)
+from curvature_tpu_torch.utils.table import tabulate
 
 
 def _compute_dtype(cfg):
@@ -67,7 +69,13 @@ def load_estimator(cfg, model):
         est = estimators.INF(model, load("diag"), load("kfac"), load("efb"),
                              **kw)
         est.state = load(rank=str(cfg.rank))
-    elif name in ("subspace", "swag"):
+    elif name == "swag":
+        # SWAG rides the training pipeline (--swag), not factors: its state
+        # lives next to the weights, in JAX's layout
+        from curvature_tpu_torch.pipelines.training import weights_path
+        est = estimators.SWAG(model)
+        return est.load_jax_state(load_pytree(weights_path(cfg, "_swag")))
+    elif name == "subspace":
         raise NotImplementedError(
             f"--estimator {name} is not ported yet (ROADMAP Queue 1 item 8)")
     else:
@@ -255,17 +263,6 @@ def _alternative_predictive(cfg, model, est, in_data, out_data,
 FGSM_STEPS = np.concatenate([np.linspace(0, 0.2, 11), np.linspace(0.3, 1, 8)])
 
 
-def _table(stats):
-    """A {column: [values]} table as plain text (JAX prints it with
-    ``tabulate``)."""
-    keys = list(stats)
-    rows = [keys] + [[f"{v:.6g}" for v in vals]
-                     for vals in zip(*(stats[k] for k in keys))]
-    width = [max(len(r[i]) for r in rows) for i in range(len(keys))]
-    return "\n".join("  ".join(c.rjust(w) for c, w in zip(r, width))
-                     for r in rows)
-
-
 def adversarial_attack(cfg, model, est, results_path: str, fig_path: str):
     """FGSM sweep for NN and BNN (evaluate.py:283-318); with --epsilon > 0
     one NN attack at that epsilon."""
@@ -292,8 +289,8 @@ def adversarial_attack(cfg, model, est, results_path: str, fig_path: str):
         if not cfg.no_results:
             np.savez(results_path + "_fgsm.npz", stats=stats_dict,
                      bnn_stats=bnn_stats_dict)
-    print(_table(stats_dict))
-    print(_table(bnn_stats_dict), flush=True)
+    print(tabulate(stats_dict, headers="keys"))
+    print(tabulate(bnn_stats_dict, headers="keys"), flush=True)
     return stats_dict, bnn_stats_dict
 
 
@@ -312,6 +309,14 @@ def run(cfg):
     model = build_model(cfg)
     if cfg.ood or cfg.fgsm:
         est = load_estimator(cfg, model)
+        if cfg.estimator == "swag" and cfg.bn_update \
+                and next(model.buffers(), None) is not None:
+            # SWA-averaged weights shift the activation statistics: the
+            # running statistics are re-estimated at the SWA mean, as
+            # standard SWAG practice (the model keeps its own weights)
+            device = next(model.parameters()).device
+            update_batch_stats(model, est.mean, on_device(
+                build_data(cfg, splits="train"), device))
         invert_from_config(cfg, est, results_path)
         if cfg.fgsm:
             return adversarial_attack(cfg, model, est, results_path,

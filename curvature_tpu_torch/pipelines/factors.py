@@ -58,7 +58,7 @@ def compute_factors(model, data, cfg, kfac_state=None,
         if kfac_state is None:
             kfac_state = load_pytree(factors_path(cfg, "kfac"))
         est = estimators.EFB(model, state_from_jax(kfac_state, device), **kw)
-    elif name in ("subspace", "swag"):
+    elif name == "subspace":
         raise NotImplementedError(
             f"--estimator {name} is not ported yet (ROADMAP Queue 1 item 8)")
     else:

@@ -479,7 +479,8 @@ def run(cfg):
     if not getattr(est, "metas", None):
         raise ValueError(
             "hyper tunes the damping of curvature estimators; "
-            f"--estimator {cfg.estimator} has no damping to tune")
+            f"--estimator {cfg.estimator} has no damping to tune (SWAG's "
+            "covariance scale is the --scale flag at evaluate time)")
 
     stats_path = results_path + (
         "_hyperopt_stats_layer.npy" if cfg.layer else "_hyperopt_stats.npy")

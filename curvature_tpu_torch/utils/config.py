@@ -131,20 +131,19 @@ NOT_PORTED = (
      lambda c: c.parallel or c.mesh, "Queue 1 item 10"),
     ("--fidelity/--spectrum (eval/fidelity.py, ops/matfree.py)",
      lambda c: c.fidelity or c.spectrum, "Queue 1 item 8"),
-    ("--plot (pipelines/plot.py)", lambda c: c.plot, "Queue 1 item 7"),
-    ("--estimator subspace|swag", lambda c: c.estimator in ("subspace",
-                                                            "swag"),
+    ("--plot (pipelines/plot.py: its figures need matplotlib)",
+     lambda c: c.plot, "Queue 1 item 7"),
+    ("--estimator subspace", lambda c: c.estimator == "subspace",
      "Queue 1 item 8"),
     ("transformer models other than GPT-2 (and GPT-2 MoE)",
      lambda c: c.model.startswith(_TRANSFORMERS), "Queue 1 item 6"),
     ("--qkv_split/--head_split (nn.MultiheadAttention's splits)",
      lambda c: c.qkv_split or c.head_split, "Queue 1 item 6"),
-    ("--swag/--bn_update (training's SWAG)",
-     lambda c: c.swag or c.bn_update, "Queue 1 item 8"),
-    ("the visualize/loss-landscape/hyper toggles",
-     lambda c: (c.calibration or c.loss1d or c.loss2d or c.ecdf
-                or c.entropy or c.summary or c.eigvals or c.hyper
-                or c.networks or c.landscapes), "Queue 1 item 7"),
+    ("the visualize figure toggles --calibration/--ecdf/--entropy/"
+     "--eigvals/--hyper/--networks/--landscapes (their figures need "
+     "matplotlib)",
+     lambda c: (c.calibration or c.ecdf or c.entropy or c.eigvals
+                or c.hyper or c.networks or c.landscapes), "Queue 1 item 7"),
 )
 
 

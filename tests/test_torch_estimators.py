@@ -357,11 +357,13 @@ def test_parts_out_of_this_slice_raise(ladder):
     est = ladder["fed"]["diag"]
     with pytest.raises(NotImplementedError, match="item 10"):
         est.use_mesh(None)
-    for name in ("Subspace", "SWAG"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            getattr(port_est, name)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        from curvature_tpu_torch.pipelines import training  # noqa: F401
+    with pytest.raises(NotImplementedError, match="item 8"):
+        getattr(port_est, "Subspace")
+    with pytest.raises(NotImplementedError, match="matplotlib"):
+        from curvature_tpu_torch.pipelines import plot  # noqa: F401
+    with pytest.raises(AttributeError):
+        getattr(port_est, "NoSuchEstimator")
+    assert port_est.SWAG.__module__ == "curvature_tpu_torch.estimators.swag"
 
 
 def test_inf_lazy_eigvecs_match_efb_eigenvalues(ladder):

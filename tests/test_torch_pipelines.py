@@ -496,16 +496,69 @@ def test_evaluate_cli_writes_jax_keys(lenet, swapped, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--parallel"], ["--mesh", "data:2"], ["--fidelity", "2"],
-    ["--spectrum", "3"], ["--plot"], ["--loss2d"],
-    ["--estimator", "subspace"], ["--estimator", "swag"],
+    ["--spectrum", "3"], ["--plot"],
+    ["--estimator", "subspace"],
     ["--model", "gpt2_moe_tiny"], ["--model", "swin_t"],
     ["--model", "vit_b_16"], ["--qkv_split"], ["--head_split"],
-    ["--bn_update"], ["--calibration"], ["--swag"], ["--loss1d"],
+    ["--calibration"],
     ["--eigvals"],
 ])
 def test_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         tconfig.setup(["--platform", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--loss2d"], ["--estimator", "swag"], ["--bn_update"], ["--swag"],
+    ["--loss1d"]])
+def test_ported_flags_reach_their_module(flags, tmp_path, monkeypatch):
+    """The flags of the training slice parse and reach the function that
+    serves them (``loss_landscape.loss1d``/``loss2d``, training's SWAG,
+    evaluate's SWAG estimator and its BatchNorm re-estimate), here stubbed
+    where the work itself is tested elsewhere
+    (tests/test_torch_training.py, tests/test_torch_landscape.py)."""
+    from curvature_tpu_torch.estimators import swag as tswag
+    from curvature_tpu_torch.pipelines import loss_landscape as tll
+    from curvature_tpu_torch.pipelines import training as ttraining
+    base = ["--platform", "cpu", "--root_dir", str(tmp_path),
+            "--results_dir", str(tmp_path)]
+    digits = ["--model", "lenet5", "--data", "mnist", "--data_dir", FIXTURE]
+    seen = []
+    tconfig.setup(base + flags)
+    if flags[0] in ("--loss1d", "--loss2d"):
+        fn = flags[0][2:]
+        monkeypatch.setattr(tll, fn, lambda *a, **k: seen.append(fn))
+        tll.main(digits + base + flags)
+    elif flags == ["--swag"]:
+        def train(model, *a, swag=None, **k):
+            swag.collect(model)
+            seen.append(type(swag).__name__)
+            return model, {}
+        monkeypatch.setattr(ttraining, "train", train)
+        ttraining.main(digits + base + flags)
+        assert os.path.exists(tmp_path / "weights" / "lenet5_mnist_swag.npz")
+    else:
+        # a ResNet-18's SWAG state (BatchNorm: --bn_update has work)
+        argv = base + ["--model", "resnet18", "--data", "synthetic",
+                       "--estimator", "swag", "--ood", "--norm", "1",
+                       "--scale", "1"]
+        cfg = tconfig.parse_args(argv)
+        swag = tswag.SWAG(tcommon.build_model(cfg))
+        swag.collect(swag.model)
+        tckpt.save_pytree(str(tmp_path / "weights" /
+                              "resnet18_synthetic_swag.npz"),
+                          swag.jax_state())
+        monkeypatch.setattr(tevaluate, "out_of_domain",
+                            lambda cfg, model, est, *a: seen.append(
+                                type(est).__name__))
+        monkeypatch.setattr(tevaluate, "update_batch_stats",
+                            lambda *a, **k: seen.append("bn_update"))
+        tevaluate.main(argv + flags[2:] if flags[0] == "--estimator"
+                       else argv + flags)
+    want = {"--loss1d": ["loss1d"], "--loss2d": ["loss2d"],
+            "--swag": ["SWAG"], "--estimator": ["SWAG"],
+            "--bn_update": ["bn_update", "SWAG"]}[flags[0]]
+    assert seen == want
 
 
 def test_unported_models_data_and_formats_raise(tmp_path):

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
-package, nor scikit-learn, optax or matplotlib (the card's machine has
-none of them), and its entry points run on CUDA unless told otherwise."""
+package, nor scikit-learn, optax, matplotlib or tabulate (the card's
+machine has none of them), and its entry points run on CUDA unless told
+otherwise."""
 import ast
 import subprocess
 import sys
@@ -20,7 +21,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "curvature_tpu", "sklearn",
-                                    "optax", "matplotlib"))
+                                    "optax", "matplotlib", "tabulate"))
 print(len(names), bad)
 assert len(names) >= 20, names
 for required in ("curvature_tpu_torch.utils.casting",
@@ -43,7 +44,12 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.eval.predictive",
                  "curvature_tpu_torch.eval.calibrate",
                  "curvature_tpu_torch.eval.predictor",
-                 "curvature_tpu_torch.laplace"):
+                 "curvature_tpu_torch.laplace",
+                 "curvature_tpu_torch.pipelines.training",
+                 "curvature_tpu_torch.pipelines.loss_landscape",
+                 "curvature_tpu_torch.pipelines.visualize",
+                 "curvature_tpu_torch.optim",
+                 "curvature_tpu_torch.estimators.swag"):
     assert required in names, required
 assert not bad, bad
 """
@@ -81,12 +87,14 @@ def _imports(path: Path):
 
 def test_no_import_of_packages_the_card_lacks():
     """No module of the port, and not chip_smoke.py, imports scikit-learn,
-    optax or matplotlib anywhere, function-local imports included (the
-    damping search's surrogates are ``pipelines/surrogates.py``)."""
+    optax, matplotlib or tabulate anywhere, function-local imports
+    included (the damping search's surrogates are
+    ``pipelines/surrogates.py``, the tables' formatter ``utils/table.py``)."""
     files = sorted((REPO / "curvature_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     bad = {str(f.relative_to(REPO)): m for f in files for m in _imports(f)
-           if m.split(".")[0] in ("sklearn", "optax", "matplotlib")}
+           if m.split(".")[0] in ("sklearn", "optax", "matplotlib",
+                                  "tabulate")}
     assert len(files) > 40 and not bad, bad
 
 
