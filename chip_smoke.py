@@ -21,6 +21,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
                                        # training phase only (with
                                        # --profile: one KFAC-optimizer step
                                        # of ResNet-18 too)
+    python3 chip_smoke.py --zoo        # builds the kernels, runs the
+                                       # classic-zoo phase only (with
+                                       # --profile: one DenseNet-121
+                                       # update too)
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -100,7 +104,23 @@ EfficientNet-B0 at 224², B=16 through the KFAC loop of JAX's
 ``*_bnn30_eval_fwd_img_s``, and ``*_kfac_update_bf16_sub4_img_s``), the
 ladder on EfficientNet-B0, the dense check on ResNeXt's grouped
 ``layer1.0.conv2``, a ConvNeXt-T update and eval, and the MobileNetV2
-``--data synthetic`` CLI chain; and last the causal-LM phase.
+``--data synthetic`` CLI chain.
+
+Then the reference's classic torchvision CNNs (``zoo_phase``), under
+``build/zoo``: DenseNet-121 at 224², B=16 through the KFAC loop
+(``densenet121_kfac_update_img_s``, its 16 denseblock4 3x3 convs an
+update through the tiled kernel, invert at the reference's DenseNet-121
+damping, ``densenet121_bnn30_eval_img_s``, the bf16
+``token_subsample=0.25`` rate); one update, invert and a 2-sample eval of
+DenseNet-161, VGG-16 (its 25,089-wide ``classifier.0`` A factor built and
+inverted), Inception v3 at 299², GoogLeNet, AlexNet and SqueezeNet 1.1
+at B=8; the CLI chain ``factors -> evaluate --ood`` of DenseNet-121 on a
+CIFAR-10 pickle tree and an SVHN .mat written there, from a
+torchvision-layout ``.pth``, its batches through ``DevicePrefetcher``;
+and ``mlp`` with ``loss='gaussian'`` on a UCI CSV. Every update's
+launches are asserted from JAX's routes (``ZOO_ROUTES``) and every
+kernel-routed layer's A factor is held against the plain path. Last the
+causal-LM phase.
 
 Every failed check raises. The last line of standard output is the
 ``{"ok": true, ...}`` JSON object; the line before it is the ``kernels``
@@ -256,6 +276,62 @@ GROUPED_BLOCK_LAYER = "features.2.0.block.1.0"
 #: R18_DAMPING
 GROUPED_ARGV = ["--model", "mobilenet_v2", "--data", "synthetic"]
 GROUPED_INF_RANK = "50"
+#: the zoo phase (the reference's torchvision CNNs, reference
+#: factors.py:80-84): DenseNet-121 at 224², ImageNet head, f32 B=16
+#: through the ResNet-50 row's KFAC loop (bench.py), under its names
+ZOO_PATHS = ("densenet121_kfac_update_img_s",
+             "densenet121_kfac_update_bf16_sub4_img_s")
+#: then one update (B=8), invert and a 2-sample eval of each other family
+#: at full width (Inception v3 at 299², the rest at 224²)
+ZOO_FAMILIES = ("densenet161", "vgg16", "inception_v3", "googlenet",
+                "alexnet", "squeezenet1_1")
+ZOO_BATCH, ZOO_SAMPLES = 8, 2
+#: invert(add, multiply): the reference's best KFAC (norm, scale) for
+#: DenseNet-121 and -161 on ImageNet (BASELINE.md, from its
+#: README.rst:259-267): at ResNet-50's (ADD, MULTIPLY) the random
+#: DenseNet's ensemble overflows through its 120 BatchNorms. The families
+#: without a row take (1e8, 1e4): the A factors of VGG-16's and AlexNet's
+#: dense heads at B=8 have rank 8 (VGG-16's classifier.0 a largest
+#: eigenvalue of 2.2e5 on these inputs, measured on the CPU), and at
+#: R18_DAMPING's (1e4, 1e4) the damped precision's condition number
+#: (2.2e5) leaves the f32 inverse L^-T L^-1 of 25,089 (9,217) columns
+#: indefinite: the inverse Cholesky raises. (1e8, 1e4) bounds it at 2.2e3
+ZOO_DAMPING = {"densenet121": (2312.0, 12791.0),
+               "densenet161": (260.0, 17780.0)}
+ZOO_DEFAULT_DAMPING = (1e8, 1e4)
+#: (tiled, v2) kernel launches of one f32 update by JAX's routes, per
+#: (model, batch, extent): held against JAX's dispatch by
+#: tests/test_torch_zoo_classic_layers.py
+ZOO_ROUTES = {("densenet121", 16, 224): (16, 0),
+              ("densenet121", 32, 32): (58, 0),
+              ("densenet161", 8, 224): (0, 0), ("vgg16", 8, 224): (2, 0),
+              ("inception_v3", 8, 299): (10, 27),
+              ("googlenet", 8, 224): (9, 0), ("alexnet", 8, 224): (0, 0),
+              ("squeezenet1_1", 8, 224): (6, 0)}
+#: VGG-16's classifier.0 has fan-in 25,088: its A factor (25,089 wide,
+#: 2.5 GB in f32) is past KFAC's default max_factor_dim of 16,384
+ZOO_MAX_FACTOR_DIM = 25089
+#: the CLI chain on array-format files this phase writes: a CIFAR-10
+#: pickle tree (5 batches of 128 training images, 512 test), an SVHN test
+#: .mat of 512 (the OOD pair), a torchvision-layout densenet121_cifar10.pth;
+#: factors kfac (20 updates of 32 through DevicePrefetcher) -> evaluate
+#: --ood
+ZOO_ROOT = "build/zoo"
+ZOO_CIFAR_TRAIN, ZOO_TEST = 128, 512
+ZOO_ARGV = ["--model", "densenet121", "--data", "cifar10", "--batch_size",
+            "32"]
+ZOO_CLI_UPDATES = 20
+ZOO_CLI_PATH = "densenet121_cifar10_factors_kfac_f32"
+#: the regression cell: mlp on a synthetic UCI CSV (FEATURES inputs, one
+#: target), loss='gaussian', batches of 64
+ZOO_UCI_ROWS, ZOO_UCI_FEATURES = 1024, 8
+#: kernel record -> the zoo paths whose f32 launches it counts
+ZOO_RECORD_PATHS = {
+    "patch_gram_tiled_densenet121": (ZOO_PATHS[0], ZOO_CLI_PATH),
+    "patch_gram_tiled_zoo": ("vgg16_kfac_update", "inception_v3_kfac_update",
+                             "googlenet_kfac_update",
+                             "squeezenet1_1_kfac_update"),
+    "patch_gram_v2_inception_v3": ("inception_v3_kfac_update",)}
 #: the training phase (JAX pipelines/training.py, optim.py,
 #: estimators/swag.py, pipelines/loss_landscape.py), under its own root: a
 #: weights/lenet5_mnist.npz under PIPE_ROOT would take the bundled
@@ -327,6 +403,35 @@ PATCH_CASES = {
     "patch_gram_v2_resnet18": [
         ((32, 8, 8, 128), (3, 3), SAME1, (2, 2)),
     ],
+    # DenseNet-121's denseblock4 3x3 convs at 224² (B=16), then the CIFAR
+    # CLI's at 4², 2² and 1² (B=32): most window taps in the padding, 16 to
+    # 512 tokens, under one 128-token chunk at 1²
+    "patch_gram_tiled_densenet121": [
+        ((16, 7, 7, 128), (3, 3), SAME1, (1, 1)),
+        ((32, 4, 4, 128), (3, 3), SAME1, (1, 1)),
+        ((32, 2, 2, 128), (3, 3), SAME1, (1, 1)),
+        ((32, 1, 1, 128), (3, 3), SAME1, (1, 1)),
+    ],
+    # the other zoo families' tiled layers at B=8: VGG-16's features.2,
+    # Inception v3's Conv2d_2b_3x3 and its 3x3 over 64 channels at 35²,
+    # GoogLeNet's conv3, SqueezeNet 1.1's last expand3x3
+    "patch_gram_tiled_zoo": [
+        ((8, 224, 224, 64), (3, 3), SAME1, (1, 1)),
+        ((8, 147, 147, 32), (3, 3), SAME1, (1, 1)),
+        ((8, 35, 35, 64), (3, 3), SAME1, (1, 1)),
+        ((8, 56, 56, 64), (3, 3), SAME1, (1, 1)),
+        ((8, 13, 13, 64), (3, 3), SAME1, (1, 1)),
+    ],
+    # Inception v3's v2 layers at B=8, 299²: the 1x7 and 7x1 convs of
+    # Mixed_6* (asymmetric pads), the 1x3 and 3x1 of Mixed_7*, the stride-2
+    # 3x3 of Mixed_6a's double branch
+    "patch_gram_v2_inception_v3": [
+        ((8, 17, 17, 128), (1, 7), ((0, 0), (3, 3)), (1, 1)),
+        ((8, 17, 17, 160), (7, 1), ((3, 3), (0, 0)), (1, 1)),
+        ((8, 8, 8, 384), (1, 3), ((0, 0), (1, 1)), (1, 1)),
+        ((8, 8, 8, 384), (3, 1), ((1, 1), (0, 0)), (1, 1)),
+        ((8, 35, 35, 96), (3, 3), ((0, 0), (0, 0)), (2, 2)),
+    ],
     # the four shapes of tests/test_pallas_kernels.py:20-25 (2x2 VALID at
     # C=3, non-square 10x6)
     "patch_gram": [
@@ -340,10 +445,12 @@ PATCH_CASES = {
 #: record name -> the entry point it runs
 ENTRY = {"patch_gram_v2_any_stride": "patch_gram_v2",
          "patch_gram_tiled_resnet18": "patch_gram_tiled",
-         "patch_gram_v2_resnet18": "patch_gram_v2"}
+         "patch_gram_v2_resnet18": "patch_gram_v2",
+         "patch_gram_tiled_densenet121": "patch_gram_tiled",
+         "patch_gram_tiled_zoo": "patch_gram_tiled",
+         "patch_gram_v2_inception_v3": "patch_gram_v2"}
 #: record name -> the launch counter it reads (Counters), where not its own
-COUNTER = {"patch_gram_tiled_resnet18": "patch_gram_tiled",
-           "patch_gram_v2_resnet18": "patch_gram_v2"}
+COUNTER = dict(ENTRY, patch_gram_v2_any_stride="patch_gram_v2_any_stride")
 #: bf16 boundary cases of the wgmma gather, run through patch_gram_v2 (its
 #: odd cases above hold C = 4, the scalar gather, and C = 8)
 BF16_PATCH_CASES = [
@@ -1124,9 +1231,11 @@ def nchw_batches(rng, n_batches, batch, dev):
         ys[i * batch:(i + 1) * batch]) for i in range(n_batches)]
 
 
-def synthetic(rng, num):
+def synthetic(rng, num, size=None):
+    """``num`` synthetic NHWC images of ``size`` (default SIZE) squared."""
     from curvature_tpu_torch.data import synthetic_images
-    return synthetic_images(rng, num, SIZE, SIZE, 3, CLASSES)
+    size = size or SIZE
+    return synthetic_images(rng, num, size, size, 3, CLASSES)
 
 
 def drive_updates(est, batches, gen, counters, path, expect):
@@ -1761,6 +1870,297 @@ def grouped_phase(estimators, models, counters, smi, dev, profile=False):
     return by_path
 
 
+def kernel_route_check(est, plain_kw, x, expect, what):
+    """The (tiled, v2) counts of ``est``'s A routes on ``x`` (one
+    capture's input shapes) must be ``expect``; then every kernel-routed
+    layer's A factor from that capture against a ``use_kernels=False``
+    KFAC's (``plain_kw`` its other arguments), under GRAM_RTOL: the
+    kernels held against their plain versions at the shapes the path gives
+    them. Returns the worst error, rel to max."""
+    import torch
+    cap = est.capture(x, labels=torch.zeros(x.shape[0], dtype=torch.long,
+                                            device=x.device))
+    routes = {n: est.a_route(m, cap.acts[n].shape,
+                             cap.acts[n].element_size())
+              for n, m in est.metas.items()}
+    counts = tuple(list(routes.values()).count(r) for r in ("tiled", "v2"))
+    if counts != tuple(expect):
+        raise AssertionError(f"{what}: (tiled, v2) routes {counts}, want "
+                             f"{tuple(expect)}")
+    names = [n for n, r in routes.items() if r in ("tiled", "v2")]
+    worst = 0.0
+    if names:
+        plain = est.__class__(est.model, use_kernels=False,
+                              layer_filter=names, **plain_kw)
+        for name in names:
+            act = cap.acts[name]
+            got = est._a_factor(est.metas[name], act)
+            want = plain._a_factor(plain.metas[name], act)
+            rel = float((got - want).abs().max() / want.abs().max())
+            worst = max(worst, rel)
+            if not (torch.isfinite(got).all() and rel <= GRAM_RTOL):
+                raise AssertionError(
+                    f"{what} {name} ({routes[name]}, input "
+                    f"{tuple(act.shape)}): A factor rel err {rel:.3e}")
+        shapes = sorted({(routes[n], tuple(cap.acts[n].shape),
+                          est.metas[n].kernel_size) for n in names})
+        log(f"{what}: {len(names)} kernel-routed A factors vs "
+            f"use_kernels=False, worst rel {worst:.3e} (bar {GRAM_RTOL}); "
+            f"(route, input, kernel): {shapes}")
+    return worst
+
+
+def zoo_phase(estimators, models, counters, smi, dev, profile=False):
+    """The reference's classic torchvision CNNs at full width, seeded
+    weights in JAX's layout: (a) DenseNet-121 at 224², B=16 through the
+    KFAC loop of the ResNet-50 row (the update rate, its denseblock4 3x3
+    convs through the tiled kernel, invert, a SAMPLES-sample ensemble, the
+    bnn30 eval rate, the bf16 ``token_subsample=0.25`` rate); (b) one
+    update, invert and a ZOO_SAMPLES-sample eval of each of ZOO_FAMILIES
+    at B=8, VGG-16 with ``max_factor_dim`` past its 25,089-wide
+    ``classifier.0`` A factor; (c) the CLI chain ``factors -> evaluate
+    --ood`` of DenseNet-121 on a CIFAR-10 pickle tree and an SVHN .mat
+    written here, from a torchvision-layout ``.pth``; (d) the regression
+    cell, ``mlp`` with ``loss='gaussian'`` on a UCI CSV. Every update's
+    launches are asserted from ZOO_ROUTES (JAX's routes), and every
+    kernel-routed layer's A factor is held against the plain path.
+    Returns the launches by path."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch.data import loaders
+    from curvature_tpu_torch.eval import eval_bnn
+    from curvature_tpu_torch.eval.metrics import gaussian_nll
+    from curvature_tpu_torch.eval.predictive import eval_bnn_regression
+    none = counters.zero()
+    rng = np.random.default_rng(31)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    by_path = {}
+
+    def build(arch, classes=CLASSES):
+        model = models.build(arch, classes, device=dev)
+        models.load_jax_variables(model, models.seeded_variables(model, 0))
+        return model.to(memory_format=torch.channels_last)
+
+    def launches(tiled, v2, n=1):
+        return dict(none, patch_gram_tiled=tiled * n, patch_gram_v2=v2 * n)
+
+    # (a) DenseNet-121: the KFAC loop, f32 then bf16 + token_subsample
+    t0 = time.perf_counter()
+    model = build("densenet121")
+    batches = [x for x, _ in nchw_batches(rng, UPDATES, BATCH, dev)]
+    test_data = nchw_batches(rng, 2, BATCH, dev)
+    routes = ZOO_ROUTES["densenet121", BATCH, SIZE]
+    est = estimators.KFAC(model)
+    by_path[ZOO_PATHS[0]] = drive_updates(est, batches, gen, counters,
+                                          ZOO_PATHS[0],
+                                          launches(*routes, UPDATES))
+    kernel_route_check(est, {}, batches[-1], routes,
+                       f"densenet121 f32 B={BATCH}")
+    rate = best_rate(est, batches, gen, BATCH)
+    log(f"{ZOO_PATHS[0]}: {rate:.2f} update img/s (f32 B={BATCH} MC=1 "
+        f"{SIZE}x{SIZE}, best of 3 blocks of {UPDATES} updates; {smi})")
+    if profile:
+        log(f"{ZOO_PATHS[0]} (one update):")
+        profile_update(est, batches[0], gen)
+    damping = ZOO_DAMPING["densenet121"]
+    ensemble, invert_s = laplace_tail(est, model, test_data, gen, counters,
+                                      "densenet121 kfac", damping)
+    log(f"densenet121_kfac_invert: {invert_s:.4f} s (add={damping[0]}, "
+        f"multiply={damping[1]}; {smi})")
+    counters.reset()
+    bnn_img_s = eval_rate(model, est, test_data, ensemble)
+    if counters.read() != none:
+        raise AssertionError(f"densenet121 eval launched {counters.read()}")
+    log(f"densenet121_bnn30_eval_img_s: {bnn_img_s:.2f} (best of 3 blocks "
+        f"of {2 * BATCH} images x {SAMPLES} samples; {smi})")
+    del est, ensemble
+    sub = estimators.KFAC(model, compute_dtype=torch.bfloat16,
+                          token_subsample=0.25)
+    by_path[ZOO_PATHS[1]] = drive_updates(sub, batches, gen, counters,
+                                          ZOO_PATHS[1], none)
+    log(f"{ZOO_PATHS[1]}: {best_rate(sub, batches, gen, BATCH):.2f} update "
+        f"img/s (bf16, token_subsample=0.25, B={BATCH} MC=1, best of 3 "
+        f"blocks of {UPDATES} updates; {smi})")
+    del sub, model, batches, test_data
+    torch.cuda.empty_cache()
+    log(f"zoo densenet121: {time.perf_counter() - t0:.1f} s")
+
+    # (b) the other families: one update, invert, a short eval
+    for arch in ZOO_FAMILIES:
+        t0 = time.perf_counter()
+        size = 299 if arch == "inception_v3" else SIZE
+        model = build(arch)
+        xs, ys = synthetic(rng, ZOO_BATCH, size)
+        x = torch.from_numpy(np.ascontiguousarray(xs.transpose(
+            0, 3, 1, 2))).to(dev).contiguous(
+                memory_format=torch.channels_last)
+        kw = {"max_factor_dim": ZOO_MAX_FACTOR_DIM}
+        est = estimators.KFAC(model, **kw)
+        routes = ZOO_ROUTES[arch, ZOO_BATCH, size]
+        path = f"{arch}_kfac_update"
+        by_path[path] = drive_updates(est, [x], gen, counters, path,
+                                      launches(*routes))
+        kernel_route_check(est, kw, x, routes, f"{arch} f32 B={ZOO_BATCH}")
+        damping = ZOO_DAMPING.get(arch, ZOO_DEFAULT_DAMPING)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        est.invert(*damping)
+        torch.cuda.synchronize()
+        invert_s = time.perf_counter() - t1
+        check_finite(est.inv_state, f"{arch} inv_state")
+        ensemble = est.ensemble_params(ZOO_SAMPLES, generator=gen)
+        counters.reset()
+        probs, labels, _ = eval_bnn(model, est, [(x, ys)],
+                                    samples=ZOO_SAMPLES,
+                                    ensemble_params=ensemble)
+        if counters.read() != none:
+            raise AssertionError(f"{arch} eval launched {counters.read()}")
+        if probs.shape != (ZOO_BATCH, CLASSES) \
+                or not np.isfinite(probs).all() \
+                or np.abs(probs.sum(1) - 1).max() > 1e-3:
+            raise AssertionError(f"{arch} bnn probabilities malformed")
+        extra = ""
+        if arch == "vgg16":
+            a = est.state["classifier.0"]["a"]
+            extra = (f"; classifier.0 A {tuple(a.shape)} "
+                     f"({a.numel() * 4 / 2**30:.2f} GiB); memory in use "
+                     f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+                     f"peak so far {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                     " GiB")
+        log(f"{arch} ({size}x{size}, B={ZOO_BATCH}): update launches "
+            f"{json.dumps(by_path[path])}; invert(add={damping[0]}, "
+            f"multiply={damping[1]}) {invert_s:.3f} s; {ZOO_SAMPLES}-sample "
+            "bnn: "
+            f"finite{extra}; phase {time.perf_counter() - t0:.1f} s ({smi})")
+        del est, ensemble, model, x
+        torch.cuda.empty_cache()
+
+    # (c) the CLI chain on array-format files, from a .pth
+    by_path[ZOO_CLI_PATH] = zoo_cli(models, counters, smi, rng)
+
+    # (d) regression: mlp, loss='gaussian', on a UCI CSV
+    t0 = time.perf_counter()
+    data = os.path.abspath(os.path.join(ZOO_ROOT, "data"))
+    os.makedirs(os.path.join(data, "uci"), exist_ok=True)
+    xr = rng.standard_normal((ZOO_UCI_ROWS, ZOO_UCI_FEATURES))
+    yr = np.sin(xr[:, 0]) + 0.5 * xr[:, 1] * xr[:, 2] \
+        + 0.1 * rng.standard_normal(ZOO_UCI_ROWS)
+    np.savetxt(os.path.join(data, "uci", "concrete.csv"),
+               np.column_stack([xr, yr]), delimiter=",", fmt="%.6f",
+               header=",".join([f"x{i}" for i in range(ZOO_UCI_FEATURES)]
+                               + ["y"]), comments="")
+    (xtr, ytr), (xte, yte) = loaders.uci(data, "concrete")
+    model = models.build("mlp", 1, device=dev, in_features=ZOO_UCI_FEATURES)
+    models.load_jax_variables(model, models.seeded_variables(model, 0))
+    est = estimators.KFAC(model, loss="gaussian")
+    counters.reset()
+    for i in range(0, len(xtr), 64):
+        x = torch.from_numpy(xtr[i:i + 64]).to(dev)
+        est.update(x, labels=torch.from_numpy(ytr[i:i + 64, None]).to(dev))
+        est.update(x, generator=gen, num_samples=4)
+    if counters.read() != none:
+        raise AssertionError(f"regression launched {counters.read()}")
+    check_finite(est.state, "mlp gaussian state")
+    est.invert(1.0, float(len(xtr)))
+    check_finite(est.inv_state, "mlp gaussian inv_state")
+    ensemble = est.ensemble_params(SAMPLES, generator=gen)
+    mean, var, targets = eval_bnn_regression(
+        model, est, [(torch.from_numpy(xte).to(dev), yte[:, None])],
+        SAMPLES, ensemble_params=ensemble)
+    if mean.shape != (len(xte), 1) or not np.isfinite(mean).all() \
+            or not (np.isfinite(var).all() and (var >= 1.0).all()):
+        raise AssertionError("mlp gaussian predictive malformed")
+    log(f"mlp uci regression (random weights, loss='gaussian', "
+        f"{len(xtr)} train / {len(xte)} test rows): {SAMPLES}-sample "
+        f"linearized predictive RMSE "
+        f"{float(np.sqrt(np.mean((mean - targets) ** 2))):.4f}, Gaussian "
+        f"NLL {float(gaussian_nll(mean, var, targets)):.4f}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def zoo_cli(models, counters, smi, rng):
+    """Write a CIFAR-10 pickle tree, an SVHN test .mat and a
+    torchvision-layout ``densenet121_cifar10.pth`` under ZOO_ROOT, then
+    ``factors --estimator kfac`` (its launches asserted from ZOO_ROUTES,
+    the kernel-routed A factors of one of its batches against the plain
+    path) and ``evaluate --ood`` (no launch). Returns the factors run's
+    launches."""
+    import os
+    import pickle
+    import numpy as np
+    import scipy.io
+    import torch
+    from curvature_tpu_torch.pipelines import common, evaluate, factors
+    from curvature_tpu_torch.utils.checkpoint import results_paths
+    from curvature_tpu_torch.utils.config import parse_args
+    none = counters.zero()
+    t0 = time.perf_counter()
+    root = os.path.abspath(ZOO_ROOT)
+    data = os.path.join(root, "data")
+    cifar = os.path.join(data, "cifar-10-batches-py")
+    for d in (cifar, os.path.join(data, "svhn"), os.path.join(root,
+                                                              "weights")):
+        os.makedirs(d, exist_ok=True)
+    for i in range(1, 6):
+        with open(os.path.join(cifar, f"data_batch_{i}"), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (ZOO_CIFAR_TRAIN,
+                                                        3072), np.uint8),
+                         b"labels": rng.integers(0, 10, ZOO_CIFAR_TRAIN)
+                         .tolist()}, f)
+    with open(os.path.join(cifar, "test_batch"), "wb") as f:
+        pickle.dump({b"data": rng.integers(0, 256, (ZOO_TEST, 3072),
+                                           np.uint8),
+                     b"labels": rng.integers(0, 10, ZOO_TEST).tolist()}, f)
+    scipy.io.savemat(os.path.join(data, "svhn", "test_32x32.mat"), {
+        "X": rng.integers(0, 256, (32, 32, 3, ZOO_TEST), np.uint8),
+        "y": rng.integers(1, 11, (ZOO_TEST, 1))})
+    seeded = models.build("densenet121", 10, device="cpu")
+    models.load_jax_variables(seeded, models.seeded_variables(seeded, 0))
+    torch.save(models.export_torch_state_dict(seeded.state_dict()),
+               os.path.join(root, "weights", "densenet121_cifar10.pth"))
+    log(f"zoo files (CIFAR-10 pickles, SVHN .mat, .pth): "
+        f"{time.perf_counter() - t0:.1f} s")
+    base = ZOO_ARGV + ["--data_dir", data, "--root_dir", root,
+                       "--results_dir", root]
+    est, got = run_cli(factors, base + ["--estimator", "kfac"], counters,
+                       smi, "densenet121 cifar10 factors kfac")
+    routes = ZOO_ROUTES["densenet121", 32, 32]
+    want = dict(none, patch_gram_tiled=routes[0] * ZOO_CLI_UPDATES,
+                patch_gram_v2=routes[1] * ZOO_CLI_UPDATES)
+    if got != want or est.num_updates != ZOO_CLI_UPDATES:
+        raise AssertionError(f"{ZOO_CLI_PATH}: launches {got}, want {want};"
+                             f" {est.num_updates} updates")
+    check_finite(est.state, f"{ZOO_CLI_PATH} state")
+    for name, p in est.model.state_dict().items():
+        if not torch.equal(p.cpu(), seeded.state_dict()[name]):
+            raise AssertionError(f"the .pth did not load: {name}")
+    x = next(common.on_device(common.build_data(parse_args(base), "train"),
+                              est.device))[0]
+    kernel_route_check(est, {}, x, routes, "densenet121 cifar10 B=32")
+    argv = base + ["--estimator", "kfac", "--ood"] + R18_DAMPING
+    (probs, bnn_probs, labels), got = run_cli(
+        evaluate, argv, counters, smi, "densenet121 cifar10 evaluate --ood")
+    with np.load(results_paths(parse_args(argv))[0] + ".npz",
+                 allow_pickle=True) as f:
+        auroc = f["auroc"]
+    n = ZOO_TEST // 2
+    for what, p in (("nn", probs), ("bnn", bnn_probs)):
+        if p.shape != (n, 10) or not np.isfinite(p).all() \
+                or np.abs(p.sum(1) - 1).max() > 1e-3:
+            raise AssertionError(f"densenet121 cifar10 {what} predictions "
+                                 "malformed")
+    if got != none or not np.isfinite(auroc).all():
+        raise AssertionError(f"densenet121 evaluate: launches {got}, AUROC "
+                             f"{auroc}")
+    log(f"densenet121 cifar10 --ood svhn (random weights): NN accuracy "
+        f"{100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
+        f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}%; AUROC NN "
+        f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
+    return want
+
+
 def train_step_ms(step, batches, reps=3):
     """Wall ms per training step: ``step(x, y)`` over ``batches`` after one
     warm pass, best of ``reps`` passes, each ended by a synchronize."""
@@ -2277,6 +2677,9 @@ def main(argv=None):
     ap.add_argument("--training", action="store_true",
                     help="build the kernels, run the training phase only "
                          "and stop (no result line)")
+    ap.add_argument("--zoo", action="store_true",
+                    help="build the kernels, run the classic-zoo phase "
+                         "only and stop (no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2341,6 +2744,13 @@ def main(argv=None):
                        args.profile)
         log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
             " GiB")
+        return 0
+    if args.zoo:
+        t0 = time.perf_counter()
+        zoo_phase(estimators, models, Counters(tpg, tsg), smi, dev,
+                  args.profile)
+        log(f"zoo phase: {time.perf_counter() - t0:.1f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         return 0
     if args.lm:
         lm_phase(estimators, models, Counters(tpg, tsg), smi,
@@ -2432,9 +2842,12 @@ def main(argv=None):
 
     for rec in records:
         # a record's shapes are ResNet-50's or ResNet-18's: it counts the
-        # launches of its wrapper on that network's paths of its dtype
-        r18 = rec["name"].split("_bf16")[0].endswith("_resnet18")
-        paths = ((R18_PATHS[:1] + (TRAIN_PATH,) if rec["dtype"] == "f32"
+        # launches of its wrapper on that network's paths of its dtype (the
+        # zoo's records count the zoo's paths, below)
+        base = rec["name"].split("_bf16")[0]
+        r18 = base.endswith("_resnet18")
+        paths = (() if base in ZOO_RECORD_PATHS else
+                 (R18_PATHS[:1] + (TRAIN_PATH,) if rec["dtype"] == "f32"
                   else R18_PATHS[1:])
                  if r18 else
                  (PATHS[:1] if rec["dtype"] == "f32" else PATHS[1:]))
@@ -2525,7 +2938,33 @@ def main(argv=None):
         rec["launches"] = sum(rec["launches_by_path"].values())
     torch.cuda.empty_cache()
 
-    # -- 7. the causal-LM path: GPT-2 124M, the ladder, the token CLIs -----
+    # -- 7. the classic zoo: DenseNet-121 and the other torchvision CNNs,
+    # the CIFAR-10 -> SVHN CLI chain from a .pth, the regression cell ----
+    t0 = time.perf_counter()
+    zoo_by_path = zoo_phase(estimators, models, counters, smi, dev,
+                            args.profile)
+    log(f"zoo phase: {time.perf_counter() - t0:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counted = {}
+    for rec in records:
+        mine = ZOO_RECORD_PATHS.get(rec["name"], ())
+        rec["launches_by_path"].update(
+            {p: got[rec["counter"]] if p in mine else 0
+             for p, got in zoo_by_path.items()})
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        for p in mine:
+            key = (p, rec["counter"])
+            counted[key] = counted.get(key, 0) + zoo_by_path[p][rec[
+                "counter"]]
+    # every zoo launch stands under exactly one record
+    for p, got in zoo_by_path.items():
+        for counter in ("patch_gram_tiled", "patch_gram_v2"):
+            if got[counter] != counted.get((p, counter), 0):
+                raise AssertionError(f"{p}: {got[counter]} {counter} "
+                                     "launches under no kernel record")
+    torch.cuda.empty_cache()
+
+    # -- 8. the causal-LM path: GPT-2 124M, the ladder, the token CLIs -----
     lm_phase(estimators, models, counters, smi, dev, args.profile)
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")

@@ -4,7 +4,8 @@ from curvature_tpu_torch.estimators.base import (
 )
 from curvature_tpu_torch.estimators.block import BlockDiagonal
 from curvature_tpu_torch.estimators.capture import (
-    Captured, ce_cotangent, collect, sample_labels,
+    Captured, ce_cotangent, collect, gaussian_cotangent, gaussian_nll,
+    sample_labels,
 )
 from curvature_tpu_torch.estimators.diagonal import Diagonal
 from curvature_tpu_torch.estimators.efb import EFB, kfac_eigenvectors
@@ -14,7 +15,7 @@ from curvature_tpu_torch.estimators.swag import SWAG, update_batch_stats
 
 __all__ = ["Estimator", "act_tokens", "filter_metas", "grad_tokens",
            "grouped_act_tokens", "normalize_damping", "Captured",
-           "ce_cotangent", "collect", "sample_labels", "KFAC", "Diagonal",
+           "ce_cotangent", "collect", "gaussian_cotangent", "gaussian_nll", "sample_labels", "KFAC", "Diagonal",
            "BlockDiagonal", "EFB", "INF", "kfac_eigenvectors", "SWAG",
            "update_batch_stats"]
 

@@ -5,7 +5,8 @@ the Gaussian API (``precision_solve``, ``quadratic_form``,
 Port of ``curvature_tpu/estimators/base.py`` for plain and depth-stacked
 (ScanBlocks) layers; a stacked layer's state, offsets and samples carry a
 leading ``[depth]`` axis. ``loss`` picks the Fisher's output distribution
-(``'cross_entropy'``, or the per-token ``'lm'``; estimators/capture.py).
+(``'cross_entropy'``, the per-token ``'lm'``, or unit-variance regression,
+``'gaussian'``; estimators/capture.py).
 ``state`` and ``inv_state`` are dicts keyed by layer name. PyTorch runs
 eagerly, so the JAX jitted transforms are plain method calls; the factor
 state is updated in place (each ``update`` adds into the existing
@@ -291,8 +292,9 @@ class Estimator:
                generator: Optional[torch.Generator] = None,
                num_samples: int = 1):
         """Accumulate factors from one batch. ``labels`` ([B] or [S, B];
-        [B, T] or [S, B, T] for ``loss='lm'``) give the empirical Fisher or
-        injected MC labels; ``None`` draws
+        [B, T] or [S, B, T] for ``loss='lm'``; [B, D] or [S, B, D] targets
+        for ``loss='gaussian'``, JAX base.py:720-725) give the empirical
+        Fisher or injected MC labels; ``None`` draws
         ``num_samples`` labels from the model distribution."""
         self._accumulate(self.capture(x, labels, generator, num_samples))
         return self.state

@@ -1,16 +1,17 @@
 """Activation, output-gradient and parameter-gradient capture: one
 forward, S backwards.
 
-Port of ``curvature_tpu/estimators/capture.py`` for the categorical
-losses: classification (``loss='cross_entropy'``, logits [B, K], labels
-[S, B]) and the per-token causal-LM Fisher (``loss='lm'``, logits [B, T,
-V], labels [S, B, T]; explicit [B, T] labels are told apart from [S, B]
-by their rank, JAX :172-181). One forward under a capture
+Port of ``curvature_tpu/estimators/capture.py``: classification
+(``loss='cross_entropy'``, logits [B, K], labels [S, B]), the per-token
+causal-LM Fisher (``loss='lm'``, logits [B, T, V], labels [S, B, T]) and
+unit-variance regression (``loss='gaussian'``, predictions [B, D],
+targets [S, B, D]); explicit [B, T] or [B, D] labels are told apart from
+[S, B] by their rank (JAX :193-201). One forward under a capture
 :class:`~curvature_tpu_torch.nn.Context` records every tracked layer's
 input and adds a zero probe to its pre-activation output. Each
 Monte-Carlo label draw only changes the loss cotangent at the logits,
 ``(softmax(logits) - onehot(labels_s)) / #positions`` (B, or B*T for
-``'lm'``), so
+``'lm'``), or ``(f - y_s) / B`` for ``'gaussian'``, so
 the S backwards are a loop of ``torch.autograd.grad`` over the probes
 and/or the tracked layers' ``weight``/``bias`` with ``retain_graph``
 (chosen over ``is_grads_batched``, whose vmapped backward does not cover
@@ -23,7 +24,8 @@ alone, the gradient-moment estimators for the parameters alone).
 Under a compute dtype the caller passes a cast parameter dict (``params``,
 applied with ``torch.func.functional_call``) and a cast input; logits,
 softmax, one-hot and cotangent then stay in the logits' dtype, as in JAX
-(capture.py:74-83). MC labels are drawn from the softmax in f32. Each
+(capture.py:74-83). MC labels are drawn from the softmax in f32 (a
+regression's targets as the predictions plus standard-normal noise). Each
 sample's cotangent is made just before its backward and freed after it,
 so at a 50,257-word vocabulary one ``[B, T, V]`` cotangent exists at a
 time.
@@ -63,11 +65,17 @@ class Captured:
 
 
 def sample_labels(logits: torch.Tensor, num_samples: int,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
-    """Categorical draws [S, *lead] from the model's output distribution
-    (the 'true' Fisher): [S, B] for [B, K] logits, per-token [S, B, T] for
-    [B, T, V]."""
+                  generator: Optional[torch.Generator] = None,
+                  loss: str = "cross_entropy") -> torch.Tensor:
+    """Draws from the model's output distribution (the 'true' Fisher):
+    categorical [S, *lead] ([S, B] for [B, K] logits, per-token [S, B, T]
+    for [B, T, V]); for ``loss='gaussian'`` the predictions plus
+    unit-variance noise, [S, B, D] (JAX :99-116)."""
+    if loss == "gaussian":
+        f = logits.detach()
+        return f[None] + torch.randn((num_samples,) + f.shape,
+                                     generator=generator, dtype=f.dtype,
+                                     device=f.device)
     probs = torch.softmax(logits.detach().float(), dim=-1)
     draws = torch.multinomial(probs.reshape(-1, probs.shape[-1]),
                               num_samples, replacement=True,
@@ -91,6 +99,21 @@ def ce_cotangent(logits: torch.Tensor, labels: torch.Tensor,
     return cot / math.prod(logits.shape[:-1])
 
 
+def gaussian_nll(preds: torch.Tensor, targets: torch.Tensor
+                 ) -> torch.Tensor:
+    """Mean unit-variance Gaussian NLL, 0.5 * mean over the batch of
+    ||f - y||^2: the regression loss whose Fisher the estimators cover
+    (JAX :86-89)."""
+    return 0.5 * ((preds - targets) ** 2).sum(dim=-1).mean()
+
+
+def gaussian_cotangent(preds: torch.Tensor, targets: torch.Tensor
+                       ) -> torch.Tensor:
+    """d(mean 0.5 ||f - y||^2)/d f = (f - y) / B: preds [B, D], targets
+    [S, B, D] -> [S, B, D] (JAX :92-94)."""
+    return (preds.detach() - targets.to(preds.dtype)) / preds.shape[0]
+
+
 def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             labels: Optional[torch.Tensor] = None,
             generator: Optional[torch.Generator] = None,
@@ -102,8 +125,9 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     """Capture acts, probe gradients and parameter gradients for the layers
     in ``metas``.
 
-    ``labels`` are [S, B] (or [B]) class labels, or [S, B, T] (or [B, T])
-    token labels for ``loss='lm'``; ``None`` draws
+    ``labels`` are [S, B] (or [B]) class labels, [S, B, T] (or [B, T])
+    token labels for ``loss='lm'``, or [S, B, D] (or [B, D]) regression
+    targets for ``loss='gaussian'``; ``None`` draws
     ``num_samples`` labels from the model distribution with
     ``generator``. ``params`` (state-dict keys) replace the model's own
     parameters for this forward; the model is not changed. The model runs
@@ -112,9 +136,9 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     two gradient outputs; a switched-off one is neither computed nor
     returned.
     """
-    if loss not in ("cross_entropy", "lm"):
-        raise NotImplementedError(
-            f"loss {loss!r} is not ported yet (ROADMAP Queue 1 item 6)")
+    if loss not in ("cross_entropy", "lm", "gaussian"):
+        raise ValueError(f"unknown loss {loss!r}: 'cross_entropy', 'lm' or "
+                         "'gaussian'")
     weight_keys = [f"{n}.{leaf}" for n, m in metas.items()
                    for leaf in (("weight", "bias") if m.has_bias
                                 else ("weight",))]
@@ -135,11 +159,14 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     finally:
         model.train(was_training)
     if labels is None:
-        labels = sample_labels(logits, num_samples, generator)
+        labels = (sample_labels(logits, num_samples, generator, loss)
+                  if loss == "gaussian"
+                  else sample_labels(logits, num_samples, generator))
     labels = torch.as_tensor(labels, device=logits.device)
-    if labels.ndim == (2 if loss == "lm" else 1):
+    if labels.ndim == (2 if loss in ("lm", "gaussian") else 1):
         labels = labels[None]
-    probs = torch.softmax(logits.detach(), dim=-1)
+    probs = (None if loss == "gaussian"
+             else torch.softmax(logits.detach(), dim=-1))
     names = list(metas)
     inputs = [ctx.probes[n] for n in names] if need_probe_grads else []
     if need_param_grads:
@@ -148,7 +175,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     pgrads = {n: [] for n in names}
     num = labels.shape[0]
     for s in range(num):
-        cot = ce_cotangent(logits, labels[s:s + 1], probs)[0]
+        cot = (gaussian_cotangent(logits, labels[s]) if probs is None
+               else ce_cotangent(logits, labels[s:s + 1], probs)[0])
         gs = torch.autograd.grad(logits, inputs, grad_outputs=cot,
                                  retain_graph=s < num - 1)
         del cot

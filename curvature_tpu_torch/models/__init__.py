@@ -5,15 +5,20 @@ from curvature_tpu_torch.models.convert import (
     state_dict_from_jax, state_from_jax, unstack_scan_groups,
     variables_to_jax,
 )
+from curvature_tpu_torch.models.alexnet import AlexNet, alexnet
 from curvature_tpu_torch.models.convnext import ConvNeXt, convnext
+from curvature_tpu_torch.models.densenet import DenseNet, densenet
 from curvature_tpu_torch.models.efficientnet import (
     EfficientNet, efficientnet, efficientnet_b0,
 )
+from curvature_tpu_torch.models.googlenet import GoogLeNet, googlenet
 from curvature_tpu_torch.models.gpt import (
     GPT2, convert_gpt2_state_dict, gpt2, gpt2_custom, gpt2_large,
     gpt2_medium, gpt2_tiny, gpt2_xl,
 )
-from curvature_tpu_torch.models.lenet5 import lenet5
+from curvature_tpu_torch.models.inception import InceptionV3, inception_v3
+from curvature_tpu_torch.models.lenet5 import TORCH_KEY_MAP, lenet5
+from curvature_tpu_torch.models.mlp import mlp
 from curvature_tpu_torch.models.mnasnet import MNASNet, mnasnet
 from curvature_tpu_torch.models.mobilenet import (
     MobileNetV2, MobileNetV3, mobilenet_v2, mobilenet_v3_large,
@@ -26,14 +31,28 @@ from curvature_tpu_torch.models.resnet import (
 from curvature_tpu_torch.models.shufflenet import (
     ShuffleNetV2, shufflenet_v2,
 )
+from curvature_tpu_torch.models.squeezenet import SqueezeNet, squeezenet
+from curvature_tpu_torch.models.torch_convert import (
+    convert_torch_state_dict, export_torch_state_dict, load_torch_checkpoint,
+)
+from curvature_tpu_torch.models.vgg import VGG, vgg
 
 #: the ported families, by the JAX registry's names (models/__init__.py)
 MODEL_REGISTRY = {
     "lenet5": lenet5,
+    # flat inputs: pass ``in_features`` (JAX infers it at init)
+    "mlp": partial(mlp, (128, 64)),
     **{a: partial(resnet, a) for a in
        ("resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
         "resnext50_32x4d", "resnext101_32x8d", "resnext101_64x4d",
         "wide_resnet50_2", "wide_resnet101_2")},
+    **{a: partial(densenet, a) for a in
+       ("densenet121", "densenet161", "densenet169", "densenet201")},
+    **{a: partial(vgg, a) for a in ("vgg11", "vgg13", "vgg16", "vgg19")},
+    **{f"{a}_bn": partial(vgg, a, batch_norm=True)
+       for a in ("vgg11", "vgg13", "vgg16", "vgg19")},
+    "googlenet": googlenet,
+    "inception_v3": inception_v3,
     "mobilenet_v2": mobilenet_v2,
     "mobilenet_v3_large": mobilenet_v3_large,
     "mobilenet_v3_small": mobilenet_v3_small,
@@ -45,6 +64,7 @@ MODEL_REGISTRY = {
     **{a: partial(shufflenet_v2, a) for a in
        ("shufflenet_v2_x0_5", "shufflenet_v2_x1_0",
         "shufflenet_v2_x1_5", "shufflenet_v2_x2_0")},
+    **{a: partial(squeezenet, a) for a in ("squeezenet1_0", "squeezenet1_1")},
     **{a: partial(convnext, a) for a in
        ("convnext_tiny", "convnext_small", "convnext_base",
         "convnext_large")},
@@ -55,6 +75,7 @@ MODEL_REGISTRY = {
         "regnet_x_400mf", "regnet_x_800mf", "regnet_x_1_6gf",
         "regnet_x_3_2gf", "regnet_x_8gf", "regnet_x_16gf",
         "regnet_x_32gf")},
+    "alexnet": alexnet,
     **{f"mnasnet{s}": partial(mnasnet, a)
        for s, a in (("0_5", 0.5), ("0_75", 0.75), ("1_0", 1.0),
                     ("1_3", 1.3))},
@@ -66,19 +87,30 @@ MODEL_REGISTRY = {
 }
 
 
+#: JAX registry names still to port: the transformers (ROADMAP Queue 1
+#: item 6)
+_NOT_PORTED = ("vit_", "swin_", "maxvit_", "gpt2_moe")
+
+
 def build(name: str, num_classes: int = 1000, device=None, **kw):
     """Build a model by its JAX registry name on ``device`` (CUDA unless
     ``"cpu"`` is passed); ``kw`` go to the constructor (``stem`` for the
-    ResNets; for GPT-2 ``scan_blocks`` and ``max_len``). The other
-    families of the JAX zoo are not ported yet."""
+    ResNets; for GPT-2 ``scan_blocks`` and ``max_len``; ``in_features``
+    for ``mlp``). The JAX zoo's transformers are not ported yet."""
     if name not in MODEL_REGISTRY:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP Queue 1 item 9); "
-            f"ported: {', '.join(sorted(MODEL_REGISTRY))}")
+        if name.startswith(_NOT_PORTED):
+            raise NotImplementedError(
+                f"model {name!r} is not ported yet (ROADMAP Queue 1 item 6)")
+        raise ValueError(f"unknown model {name!r}; available: "
+                         f"{', '.join(sorted(MODEL_REGISTRY))}")
     return MODEL_REGISTRY[name](num_classes=num_classes, device=device, **kw)
 
 
-__all__ = ["load_jax_variables", "seeded_variables", "stack_scan_groups",
+__all__ = ["AlexNet", "alexnet", "DenseNet", "densenet", "GoogLeNet",
+           "googlenet", "InceptionV3", "inception_v3", "mlp", "SqueezeNet",
+           "squeezenet", "VGG", "vgg", "TORCH_KEY_MAP",
+           "convert_torch_state_dict", "export_torch_state_dict",
+           "load_torch_checkpoint", "load_jax_variables", "seeded_variables", "stack_scan_groups",
            "state_dict_from_jax", "state_from_jax", "unstack_scan_groups",
            "variables_to_jax",
            "ConvNeXt", "convnext", "EfficientNet", "efficientnet",

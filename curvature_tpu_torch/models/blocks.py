@@ -44,6 +44,17 @@ class ZooNet(CtxModule):
                 if isinstance(m, (Conv, Dense))}
 
 
+def named(**layers) -> Sequential:
+    """A :class:`~curvature_tpu_torch.nn.Sequential` of ``layers`` in
+    keyword order, each registered under its keyword (torchvision's
+    named children: DenseNet's ``norm0``/``conv0``, a transition's
+    ``norm``/``conv``)."""
+    seq = Sequential([])
+    for key, layer in layers.items():
+        seq.add_module(key, layer)
+    return seq
+
+
 def conv_bn(cin: int, cout: int, kernel_size: int, stride: int = 1,
             groups: int = 1, act: Optional[nn.Module] = None,
             eps: float = 1e-5) -> Sequential:

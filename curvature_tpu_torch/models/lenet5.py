@@ -7,12 +7,20 @@ The tracked layers keep the JAX names (``conv1``, ``conv2``, ``fc1``,
 ``fc2``, ``fc3``), which key the factor files; fc1's 400 inputs are in
 (c, h, w) order in both packages, so the bundled JAX-layout checkpoint
 (``assets/lenet5_mnist.npz``, a copy of the JAX package's) loads through
-``models.load_jax_variables``.
+``models.load_jax_variables``. A checkpoint of the reference's own
+``nn.Sequential`` (``curvature/lenet5_mnist.pth``) names its layers by
+position: ``TORCH_KEY_MAP`` carries them to these names
+(``models.torch_convert``).
 """
 from curvature_tpu_torch.nn import (
     Conv, Dense, Flatten, MaxPool, ReLU, Sequential,
 )
 from curvature_tpu_torch.utils.device import resolve_device
+
+#: torch Sequential state-dict prefixes -> the layer names (JAX
+#: lenet5.py:14)
+TORCH_KEY_MAP = {"0": "conv1", "3": "conv2", "7": "fc1", "9": "fc2",
+                 "11": "fc3"}
 
 
 def lenet5(num_classes: int = 10, device=None) -> Sequential:

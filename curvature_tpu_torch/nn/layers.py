@@ -252,23 +252,56 @@ class Identity(nn.Module):
 
 
 class MaxPool(nn.Module):
-    """Max pooling; the padding is -inf (torch's implicit pad)."""
+    """Max pooling over a window, padded with -inf (JAX layers.py:174-209).
 
-    def __init__(self, kernel_size: int, stride: Optional[int] = None,
-                 padding: int = 0):
+    ``padding`` takes JAX's forms: an int or pairs (explicit), ``"SAME"``
+    (XLA's stride-aware split, GoogLeNet's pools) or ``"VALID"``.
+    ``ceil_mode`` (explicit padding only; SqueezeNet's pools) rounds the
+    output size up, the last window starting inside the input plus its low
+    padding, by JAX's arithmetic: extra -inf rows on the high side. Pads
+    that torch's implicit padding holds (symmetric, at most half the
+    window) go to ``F.max_pool2d``; the others through an explicit -inf
+    ``F.pad``."""
+
+    def __init__(self, kernel_size, stride=None, padding: Any = 0,
+                 ceil_mode: bool = False):
         super().__init__()
-        self.kernel_size = kernel_size
-        self.stride = stride if stride is not None else kernel_size
-        self.padding = padding
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride) if stride is not None \
+            else self.kernel_size
+        self.padding = normalize_padding(padding, self.kernel_size)
+        if ceil_mode and isinstance(self.padding, str):
+            raise ValueError("ceil_mode needs explicit (int) padding")
+        self.ceil_mode = ceil_mode
+
+    def pads(self, h: int, w: int):
+        """((pt, pb), (pl, pr)) for an [.., h, w] input."""
+        pads = [list(p) for p in resolve_padding(
+            self.padding, h, w, self.kernel_size, self.stride)]
+        if self.ceil_mode:
+            for d, size in enumerate((h, w)):
+                k, s = self.kernel_size[d], self.stride[d]
+                lo, hi = pads[d]
+                out = -(-(size + lo + hi - k) // s) + 1
+                if (out - 1) * s >= size + lo:
+                    out -= 1
+                pads[d][1] = max(hi, (out - 1) * s + k - size - lo)
+        return tuple(tuple(p) for p in pads)
 
     def forward(self, x):
-        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding)
+        (pt, pb), (pl, pr) = self.pads(x.shape[-2], x.shape[-1])
+        if pt == pb and pl == pr and 2 * pt <= self.kernel_size[0] \
+                and 2 * pl <= self.kernel_size[1]:
+            return F.max_pool2d(x, self.kernel_size, self.stride, (pt, pl))
+        x = F.pad(x, (pl, pr, pt, pb), value=-math.inf)
+        return F.max_pool2d(x, self.kernel_size, self.stride)
 
 
 class AvgPool(nn.Module):
     """Average pooling over a window; int padding is zero padding counted
     in the divisor (torch's ``count_include_pad=True``, as JAX divides by
-    the full window)."""
+    the full window, layers.py:211-230: Inception's ``AvgPool(3, 1, 1)``
+    averages its border windows over 9)."""
 
     def __init__(self, kernel_size: int, stride: Optional[int] = None,
                  padding: int = 0):

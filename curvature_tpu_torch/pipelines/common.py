@@ -1,9 +1,10 @@
 """Shared model/data construction for the pipeline CLIs.
 
 Port of ``curvature_tpu/pipelines/common.py`` for the ported families
-(lenet5, resnet18, resnet50, the GPT-2s) and datasets (mnist, kmnist,
-synthetic, tokens). The loaders yield NHWC numpy batches (or [B, T] token
-ids) as in JAX; :func:`device_batch` moves one to the device, and
+(the conv zoo, the GPT-2s) and datasets (mnist, kmnist, cifar10, svhn,
+synthetic, tokens; the image folders of gtsrb, tiny and imagenet wait,
+ROADMAP Queue 1 item 9). The loaders yield NHWC numpy batches (or [B, T]
+token ids) as in JAX; :func:`device_batch` moves one to the device, and
 :func:`model_input` views an image batch in the models' NCHW order (a
 channels_last view: the data is transposed once, in the view). ``--data
 tokens`` is the synthetic Markov token stream (512 train / 256 test
@@ -60,7 +61,11 @@ def input_shape(data: str, model: str = "") -> Tuple[int, int, int]:
 
 
 def device_batch(x, device) -> torch.Tensor:
-    """One NHWC numpy batch as a tensor on ``device`` (same layout)."""
+    """One NHWC numpy batch (or a tensor already staged by
+    ``data.prefetch.DevicePrefetcher``) as a tensor on ``device`` (same
+    layout)."""
+    if torch.is_tensor(x):
+        return x.to(device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
 
 
@@ -85,7 +90,8 @@ def on_device(data, device):
 def build_model(cfg):
     """Construct the model on the configuration's device and load its
     weights, searched in JAX's order: ``<root>/weights/<model>_<data>.npz``
-    (JAX layout), a ``.pth`` of the same stem (not ported), the bundled
+    (JAX layout), a torch ``.pth`` of the same stem (torchvision names;
+    LeNet-5's positional ones through ``TORCH_KEY_MAP``), the bundled
     asset ``models/assets/<model>_<data>.npz``, else a seeded
     initialization (``models.seeded_variables``, the port's own numbers:
     torch and JAX initializers never agree). On CUDA the model is
@@ -115,10 +121,9 @@ def build_model(cfg):
     if os.path.exists(weights_npz):
         loaded = load_pytree(weights_npz)
     elif os.path.exists(weights_pth):
-        raise NotImplementedError(
-            f"{weights_pth}: torch checkpoints of the reference's layout "
-            "(models/torch_convert.py) are not ported yet (ROADMAP Queue 1 "
-            "item 9); convert it to a JAX-layout npz")
+        loaded = models.load_torch_checkpoint(
+            weights_pth, model,
+            models.TORCH_KEY_MAP if cfg.model == "lenet5" else None)
     elif os.path.exists(bundled_npz):
         loaded = load_pytree(bundled_npz)
     if loaded is not None:
@@ -215,18 +220,24 @@ def build_data(cfg, splits="train"):
     if cfg.data == "kmnist":
         return D.kmnist(root, cfg.batch_size, cfg.workers, cfg.augment,
                         splits)
+    if cfg.data == "cifar10":
+        return D.cifar10(root, cfg.batch_size, cfg.workers, cfg.augment,
+                         splits)
+    if cfg.data == "svhn":
+        return D.svhn(root, cfg.batch_size, cfg.workers, splits)
     if cfg.data in NUM_CLASSES:
         raise NotImplementedError(
-            f"the {cfg.data} loader is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
+            f"the {cfg.data} loader decodes image folders through PIL, "
+            "which the card's machine lacks: not ported yet (ROADMAP Queue "
+            "1 item 9)")
     raise ValueError(f"unknown dataset {cfg.data!r}")
 
 
 def build_ood_data(cfg, batch_size=None):
     """In-domain/OOD test loader pair (reference evaluate.py:221-243): the
     synthetic OOD set is seed + 1 and ``x * 2 + 1``; a dataset's pair is
-    ``loaders.OOD_PAIRS`` (MNIST's is KMNIST, whose files must be under
-    ``--data_dir``)."""
+    ``loaders.OOD_PAIRS`` (MNIST's is KMNIST, CIFAR-10's SVHN, whose files
+    must be under ``--data_dir``)."""
     bs = batch_size or cfg.batch_size
     in_data = build_data(cfg, splits="test")
     if cfg.data == "synthetic":

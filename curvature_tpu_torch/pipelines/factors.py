@@ -6,8 +6,10 @@ update accumulated into the estimator's state, which is saved as an npz
 that the JAX package loads as its own. Full chunks of ``--scan_chunk``
 uniform batches go through ``update_batches``, the ragged tail through
 ``update``; the labels come from one ``torch.Generator`` seeded with
-``--seed``. Each batch is copied to the device as it comes (the JAX
-``DevicePrefetcher`` is not ported, ROADMAP Queue 1 item 9).
+``--seed``. On the card the batches come through ``data.prefetch.
+DevicePrefetcher``, ``max(--workers, 2)`` deep (JAX :88-96): pinned host
+copies, ``non_blocking`` transfers on a side stream overlapping the
+update; on the CPU each batch is wrapped as it comes.
 
     python -m curvature_tpu_torch.pipelines.factors --model lenet5 \\
         --data mnist --data_dir <dir holding MNIST/raw> --estimator kfac
@@ -19,6 +21,7 @@ from typing import Optional
 import torch
 
 from curvature_tpu_torch import estimators
+from curvature_tpu_torch.data.prefetch import DevicePrefetcher
 from curvature_tpu_torch.models import state_from_jax
 from curvature_tpu_torch.pipelines.common import (
     build_data, build_model, device_batch, layer_filter, loss_kind,
@@ -67,6 +70,9 @@ def compute_factors(model, data, cfg, kfac_state=None,
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
     chunk = max(getattr(cfg, "scan_chunk", 1), 1)
     num_updates = 0
+    if device.type == "cuda":
+        data = DevicePrefetcher(data, depth=max(getattr(cfg, "workers", 0),
+                                                2), device=device)
     for epoch in range(cfg.epochs):
         buffer = []
         t0 = time.perf_counter()

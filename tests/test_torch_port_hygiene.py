@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor anything of the JAX
-package, nor scikit-learn, optax, matplotlib or tabulate (the card's
-machine has none of them), and its entry points run on CUDA unless told
-otherwise."""
+package, nor scikit-learn, optax, matplotlib, tabulate, PIL or pandas
+(the card's machine has none of them), and its entry points run on CUDA
+unless told otherwise."""
 import ast
 import subprocess
 import sys
@@ -21,7 +21,8 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "curvature_tpu", "sklearn",
-                                    "optax", "matplotlib", "tabulate"))
+                                    "optax", "matplotlib", "tabulate",
+                                    "PIL", "pandas"))
 print(len(names), bad)
 assert len(names) >= 20, names
 for required in ("curvature_tpu_torch.utils.casting",
@@ -49,7 +50,17 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.pipelines.loss_landscape",
                  "curvature_tpu_torch.pipelines.visualize",
                  "curvature_tpu_torch.optim",
-                 "curvature_tpu_torch.estimators.swag"):
+                 "curvature_tpu_torch.estimators.swag",
+                 "curvature_tpu_torch.models.densenet",
+                 "curvature_tpu_torch.models.vgg",
+                 "curvature_tpu_torch.models.alexnet",
+                 "curvature_tpu_torch.models.squeezenet",
+                 "curvature_tpu_torch.models.googlenet",
+                 "curvature_tpu_torch.models.inception",
+                 "curvature_tpu_torch.models.mlp",
+                 "curvature_tpu_torch.models.torch_convert",
+                 "curvature_tpu_torch.data.native",
+                 "curvature_tpu_torch.data.prefetch"):
     assert required in names, required
 assert not bad, bad
 """
@@ -87,14 +98,15 @@ def _imports(path: Path):
 
 def test_no_import_of_packages_the_card_lacks():
     """No module of the port, and not chip_smoke.py, imports scikit-learn,
-    optax, matplotlib or tabulate anywhere, function-local imports
-    included (the damping search's surrogates are
-    ``pipelines/surrogates.py``, the tables' formatter ``utils/table.py``)."""
+    optax, matplotlib, tabulate, PIL or pandas anywhere, function-local
+    imports included (the damping search's surrogates are
+    ``pipelines/surrogates.py``, the tables' formatter ``utils/table.py``,
+    the UCI CSV reader ``data/loaders.read_csv``)."""
     files = sorted((REPO / "curvature_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     bad = {str(f.relative_to(REPO)): m for f in files for m in _imports(f)
            if m.split(".")[0] in ("sklearn", "optax", "matplotlib",
-                                  "tabulate")}
+                                  "tabulate", "PIL", "pandas")}
     assert len(files) > 40 and not bad, bad
 
 

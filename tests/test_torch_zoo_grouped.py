@@ -37,6 +37,7 @@ from curvature_tpu_torch.pipelines import evaluate as tevaluate
 from curvature_tpu_torch.pipelines import factors as tfactors
 from curvature_tpu_torch.utils import checkpoint as tckpt
 from curvature_tpu_torch.utils import config as tconfig
+from tests.torch_float64 import float64, to_float64
 
 torch.set_num_threads(1)
 
@@ -152,6 +153,38 @@ def test_family_kfac_factors_match_jax(name, stage):
     for layer in je.metas:
         for key in "ag":
             _close(te.state[layer][key], je.state[layer][key], 1e-4,
+                   f"{layer} {key}")
+
+
+def test_family_kfac_factors_match_jax_in_float64(monkeypatch):
+    """ResNeXt-50's factors on every block (``layer*``: every grouped 3x3,
+    1x1 and downsample conv), an update as above (B=2 at 32² here: the
+    same BatchNorm cancellation, 2 x 4 x 4 values a channel at layer4) but
+    with both packages in float64 (weights, input, factors, and both BatchNorms
+    patched to compute in float64: tests/torch_float64.py): within 1e-12
+    of max (1.2e-14 measured on the CPU at B=4, 64²). The f32 case's gap on the
+    earlier blocks is f32 rounding that BatchNorm's backward multiplies,
+    not a difference of the two computations."""
+    name, stage = "resnext50_32x4d", "layer*"
+    tm, jm, jv = _pair(name, (2, 32, 32, 3))
+    tm = tm.double()
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((2, 32, 32, 3))
+    labels = rng.integers(0, 10, size=(2, 2)).astype(np.int32)
+    with float64(monkeypatch):
+        jv = jax.tree_util.tree_map(jnp.asarray, to_float64(
+            jax.tree_util.tree_map(np.asarray, jv)))
+        je = jest.KFAC(jm, jv, use_pallas=False, layer_filter=stage,
+                       dtype=jnp.float64)
+        je.update(jnp.asarray(x), labels=jnp.asarray(labels))
+        te = port_est.KFAC(tm, layer_filter=stage, dtype=torch.float64)
+        te.update(_nchw(x), labels=torch.from_numpy(labels))
+        want = jax.tree_util.tree_map(np.asarray, je.state)
+    assert list(te.metas) == list(je.metas) and len(te.metas) == 52
+    for layer in je.metas:
+        for key in "ag":
+            assert te.state[layer][key].dtype == torch.float64
+            _close(te.state[layer][key], want[layer][key], 1e-12,
                    f"{layer} {key}")
 
 
