@@ -25,6 +25,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
                                        # classic-zoo phase only (with
                                        # --profile: one DenseNet-121
                                        # update too)
+    python3 chip_smoke.py --transformers  # builds the kernels, runs the
+                                       # vision-transformer phase only
+                                       # (with --profile: one ViT-B/16
+                                       # update too)
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -119,8 +123,17 @@ CIFAR-10 pickle tree and an SVHN .mat written there, from a
 torchvision-layout ``.pth``, its batches through ``DevicePrefetcher``;
 and ``mlp`` with ``loss='gaussian'`` on a UCI CSV. Every update's
 launches are asserted from JAX's routes (``ZOO_ROUTES``) and every
-kernel-routed layer's A factor is held against the plain path. Last the
-causal-LM phase.
+kernel-routed layer's A factor is held against the plain path.
+
+Then the JAX zoo's vision transformers (``transformer_phase``) at 224²,
+B=16, 1000 classes: ViT-B/16 through JAX's ``vit_pipeline`` with
+``attention_qkv_split`` (``vit_b16_kfac_update_img_s``, the 50-layer
+invert ``vit_b16_kfac_invert_50layers``, ``vit_b16_bnn30_eval_fwd_img_s``),
+its head split, bf16 and ``scan_blocks`` checks; Swin-T through the same
+loop and Swin-V2-T; MaxViT-T, whose f32 update launches the tiled kernel
+once (``stem.1.0``), held against the plain path, and none in bf16; the
+ViT-B/16 ``--qkv_split`` and Swin-T CLIs under ``build/transformers``.
+Last the causal-LM phase.
 
 Every failed check raises. The last line of standard output is the
 ``{"ok": true, ...}`` JSON object; the line before it is the ``kernels``
@@ -190,6 +203,10 @@ BLITZ = ["--norm", "1", "--scale", "5e4"]
 #: update_batches chunks of 8 (the default --scan_chunk)
 R18_ARGV = ["--model", "resnet18", "--data", "synthetic", "--batch_size",
             "32"]
+#: the pipeline and hyper phases' ResNet-18 factor files leave layer4 out
+#: (its 4,609-wide A factors were 256 of the 376 MB a kfac file wrote, at
+#: ~19 s a compressed write); every kernel-routed layer stays in
+R18_LAYERS = ["--layers", "conv1,layer1.*,layer2.*,layer3.*,fc"]
 R18_UPDATES = 16
 #: kernel launches of one ResNet-18 kfac update at B = 32, by path: JAX's
 #: routes (the correlation gate, then select_patch_gram), eight tiled
@@ -240,7 +257,7 @@ HYPER_LENET = (("kfac", ["--optimizer", "random", "--calls", "16",
                ("diag", ["--optimizer", "gp", "--calls", "12"]),
                ("efb", ["--optimizer", "forest", "--calls", "10"]),
                ("kfac", ["--optimizer", "gbrt", "--calls", "10"]),
-               ("kfac", ["--layer", "--calls", "8", "--samples", "10"]))
+               ("kfac", ["--layer", "--calls", "4", "--samples", "10"]))
 HYPER_LENET_MARGLIK = (["--optimizer", "gp", "--calls", "12"],
                        ["--optimizer", "grad", "--calls", "100"],
                        ["--optimizer", "grad", "--calls", "100", "--layer"])
@@ -253,6 +270,9 @@ HYPER_PREDICTIVES = ("probit", "bridge", "linearized", "linearized_probit")
 #: evaluate --predictive's posterior samples (the CLI's default is 30: a
 #: linearized run at 30 took 16-18 s of the phase's time)
 HYPER_PREDICTIVE_SAMPLES = ["--samples", "10"]
+#: the LeNet-5 FGSM sweeps (at the blitz's and the searched dampings, and
+#: SWAG's) take 10 posterior samples: at 30 each cost 13-17 s
+FGSM_CHAIN_SAMPLES = ["--samples", "10"]
 #: ResNet-50 (the main path's f32 KFAC factors): the batched evaluator's
 #: candidates (S=10, the two test batches as validation) and the
 #: evidence's
@@ -312,15 +332,15 @@ ZOO_ROUTES = {("densenet121", 16, 224): (16, 0),
 #: 2.5 GB in f32) is past KFAC's default max_factor_dim of 16,384
 ZOO_MAX_FACTOR_DIM = 25089
 #: the CLI chain on array-format files this phase writes: a CIFAR-10
-#: pickle tree (5 batches of 128 training images, 512 test), an SVHN test
-#: .mat of 512 (the OOD pair), a torchvision-layout densenet121_cifar10.pth;
-#: factors kfac (20 updates of 32 through DevicePrefetcher) -> evaluate
+#: pickle tree (5 batches of 64 training images, 256 test), an SVHN test
+#: .mat of 256 (the OOD pair), a torchvision-layout densenet121_cifar10.pth;
+#: factors kfac (10 updates of 32 through DevicePrefetcher) -> evaluate
 #: --ood
 ZOO_ROOT = "build/zoo"
-ZOO_CIFAR_TRAIN, ZOO_TEST = 128, 512
+ZOO_CIFAR_TRAIN, ZOO_TEST = 64, 256
 ZOO_ARGV = ["--model", "densenet121", "--data", "cifar10", "--batch_size",
             "32"]
-ZOO_CLI_UPDATES = 20
+ZOO_CLI_UPDATES = 10
 ZOO_CLI_PATH = "densenet121_cifar10_factors_kfac_f32"
 #: the regression cell: mlp on a synthetic UCI CSV (FEATURES inputs, one
 #: target), loss='gaussian', batches of 64
@@ -356,6 +376,9 @@ TRAIN_SWAG_DAMPING = ["--norm", "1", "--scale", "1"]
 #: split holds 256 images (pipelines/common.build_data), 8 steps of 32 an
 #: epoch; each optimizer from the seeded initialization under its own root
 TRAIN_R18 = ["--epochs", "2"]
+#: its SWAG run keeps 5 deviations (the CLI's default 20: an 880 MB
+#: deviation buffer, most of that run's 21 s its compressed write)
+TRAIN_R18_SWAG_RANK = ["--swag_rank", "5"]
 #: each optimizer's flags: Adam at its usual rate, the KFAC optimizer
 #: (damping 1e-2, JAX's default) at 0.01: both diverge at 0.05
 TRAIN_R18_OPTS = {"sgd": ["--lr", "0.05"], "adam": ["--lr", "1e-3"],
@@ -363,6 +386,38 @@ TRAIN_R18_OPTS = {"sgd": ["--lr", "0.05"], "adam": ["--lr", "1e-3"],
 TRAIN_PATH = "resnet18_synthetic_training_kfac_f32"
 #: the loss line at full width (the CLI's is 51 points)
 LANDSCAPE_R18_POINTS = 11
+#: the transformer phase (JAX benchmarks/suite.py:267-313, vit_pipeline):
+#: ViT-B/16 with the qkv split, then Swin-T and MaxViT-T, at 224², B=16,
+#: f32, MC=1, 1000 classes, under the suite's names
+TRANSFORMER_PATHS = ("vit_b16_kfac_update_img_s", "swin_t_kfac_update_img_s",
+                     "maxvit_t_kfac_update_img_s")
+#: (tiled, v2) launches of one f32 MaxViT-T update at 224², B=16: stem.1.0
+#: (3x3 s1, C=64 at 112²); none in bf16 (held against JAX's dispatch by
+#: tests/test_torch_zoo_transformers.py)
+MAXVIT_ROUTES = (1, 0)
+#: ViT-B/16's stacked factors against the unrolled model's, of max (GPT-2's
+#: stacked slices came within 3.8e-6 on this card)
+SCAN_RTOL = 1e-5
+#: Swin-V2-T at torchvision's 256² (its weights' resolution): every stage's
+#: map a whole number of 8x8 windows. At 224² the 28² and 7² stages pad,
+#: the padding tokens' keys are exactly zero (V2 removes the key bias), the
+#: cosine attention's normalize divides them by its 1e-12 floor, and the
+#: qkv G factors reach eigenvalues of 8.1e20 (B=2, seeded weights,
+#: measured on the CPU; JAX differentiates the norm at zero to NaN there):
+#: invert(ADD, MULTIPLY) is indefinite in f32. At 256² the largest factor
+#: eigenvalue is 1.9e4 and the invert holds
+SWIN_V2_SIZE = 256
+#: the CLIs (synthetic 32² images: a 2x2 patch grid), each narrowed by
+#: --layers so that its npz stays small: ViT-B/16's last encoder layer and
+#: head with the qkv split, Swin-T's last stage and head
+TRANSFORMER_ROOT = "build/transformers"
+VIT_ARGV = ["--model", "vit_b_16", "--data", "synthetic", "--qkv_split",
+            "--layers", "encoder.layers.encoder_layer_11.*,heads.head"]
+SWIN_ARGV = ["--model", "swin_t", "--data", "synthetic", "--layers",
+             "features.7.*,head"]
+#: kernel record -> the transformer paths whose f32 launches it counts
+TRANSFORMER_RECORD_PATHS = {"patch_gram_tiled_maxvit_t":
+                            (TRANSFORMER_PATHS[2],)}
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -422,6 +477,10 @@ PATCH_CASES = {
         ((8, 56, 56, 64), (3, 3), SAME1, (1, 1)),
         ((8, 13, 13, 64), (3, 3), SAME1, (1, 1)),
     ],
+    # MaxViT-T's stem.1.0 at 224², B=16: 3x3 s1 over 64 channels at 112²
+    "patch_gram_tiled_maxvit_t": [
+        ((16, 112, 112, 64), (3, 3), SAME1, (1, 1)),
+    ],
     # Inception v3's v2 layers at B=8, 299²: the 1x7 and 7x1 convs of
     # Mixed_6* (asymmetric pads), the 1x3 and 3x1 of Mixed_7*, the stride-2
     # 3x3 of Mixed_6a's double branch
@@ -448,6 +507,7 @@ ENTRY = {"patch_gram_v2_any_stride": "patch_gram_v2",
          "patch_gram_v2_resnet18": "patch_gram_v2",
          "patch_gram_tiled_densenet121": "patch_gram_tiled",
          "patch_gram_tiled_zoo": "patch_gram_tiled",
+         "patch_gram_tiled_maxvit_t": "patch_gram_tiled",
          "patch_gram_v2_inception_v3": "patch_gram_v2"}
 #: record name -> the launch counter it reads (Counters), where not its own
 COUNTER = dict(ENTRY, patch_gram_v2_any_stride="patch_gram_v2_any_stride")
@@ -1221,10 +1281,10 @@ class Counters:
         return {name: 0 for name in self.fns}
 
 
-def nchw_batches(rng, n_batches, batch, dev):
+def nchw_batches(rng, n_batches, batch, dev, size=None):
     import numpy as np
     import torch
-    xs, ys = synthetic(rng, n_batches * batch)
+    xs, ys = synthetic(rng, n_batches * batch, size)
     return [(torch.from_numpy(np.ascontiguousarray(
         xs[i * batch:(i + 1) * batch].transpose(0, 3, 1, 2))).to(dev)
         .contiguous(memory_format=torch.channels_last),
@@ -1353,8 +1413,8 @@ def pipelines(estimators, counters, smi):
     (probs, labels), _ = run_cli(evaluate, kfac_argv, counters, smi,
                                  "lenet5 evaluate kfac (test)")
     nn = evaluate.summary(probs, labels)
-    (stats, bnn_stats), got = run_cli(evaluate, kfac_argv + ["--fgsm"],
-                                      counters, smi,
+    (stats, bnn_stats), got = run_cli(evaluate, kfac_argv + ["--fgsm"]
+                                      + FGSM_CHAIN_SAMPLES, counters, smi,
                                       "lenet5 evaluate kfac --fgsm")
     if got != none:
         raise AssertionError(f"lenet5 evaluate launched {got}")
@@ -1362,7 +1422,8 @@ def pipelines(estimators, counters, smi):
     # plain Bayesian eval
     log(f"lenet5 digits kfac (bundled weights, {len(labels)} test digits):"
         f" NN accuracy {nn[0]:.2f}% ECE {100 * nn[1]:.2f}% NLL "
-        f"{nn[2]:.4f}; BNN ({SAMPLES} samples, norm 1, scale 5e4) accuracy "
+        f"{nn[2]:.4f}; BNN ({FGSM_CHAIN_SAMPLES[1]} samples, norm 1, scale "
+        f"5e4) accuracy "
         f"{bnn_stats['acc'][0]:.2f}% ECE {bnn_stats['ece1'][0]:.2f}% NLL "
         f"{bnn_stats['nll'][0]:.4f}; FGSM eps 0.1: NN {stats['acc'][5]:.2f}%"
         f", BNN {bnn_stats['acc'][5]:.2f}%")
@@ -1377,7 +1438,8 @@ def pipelines(estimators, counters, smi):
     # (b) ResNet-18 on synthetic data, f32 then bf16
     by_path, updated = {}, []
     root = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
-    base = R18_ARGV + ["--root_dir", root, "--results_dir", root]
+    base = R18_ARGV + R18_LAYERS + ["--root_dir", root, "--results_dir",
+                                    root]
     for path, extra in zip(R18_PATHS, ([], ["--precision", "bfloat16",
                                             "--suffix", "_bf16"])):
         est, got = run_cli(factors, base + ["--estimator", "kfac"] + extra,
@@ -1469,7 +1531,8 @@ def hyper_inputs(estimators, models, counters, smi, dev):
         run_cli(factors, base + ["--estimator", name], counters, smi,
                 f"lenet5 factors {name}")
     root = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
-    base = R18_ARGV + ["--root_dir", root, "--results_dir", root]
+    base = R18_ARGV + R18_LAYERS + ["--root_dir", root, "--results_dir",
+                                    root]
     for name in ("kfac", "efb"):
         run_cli(factors, base + ["--estimator", name], counters, smi,
                 f"resnet18 factors {name}")
@@ -1551,8 +1614,8 @@ def hyper_phase(counters, smi, dev, r50=None):
     kfac_argv = base + ["--estimator", "kfac"]
     cfg = parse_args(kfac_argv)
     best = np.load(results_paths(cfg)[0] + "_best_params.npy")
-    (stats, bnn_stats), got = run_cli(evaluate, kfac_argv + ["--fgsm"],
-                                      counters, smi,
+    (stats, bnn_stats), got = run_cli(evaluate, kfac_argv + ["--fgsm"]
+                                      + FGSM_CHAIN_SAMPLES, counters, smi,
                                       "lenet5 evaluate kfac --fgsm at the "
                                       "searched damping")
     model = common.build_model(cfg)
@@ -1636,7 +1699,8 @@ def hyper_phase(counters, smi, dev, r50=None):
     root = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
     results = os.path.join(root, "hyper")
     shutil.rmtree(results, ignore_errors=True)
-    base = R18_ARGV + ["--root_dir", root, "--results_dir", results]
+    base = R18_ARGV + R18_LAYERS + ["--root_dir", root, "--results_dir",
+                                    results]
     for est_name in ("kfac", "efb"):
         hyper_run(hyper, base + ["--estimator", est_name] + HYPER_R18,
                   counters, smi, f"resnet18 hyper {est_name} "
@@ -2161,6 +2225,241 @@ def zoo_cli(models, counters, smi, rng):
     return want
 
 
+def transformer_phase(estimators, models, counters, smi, dev, profile=False):
+    """The JAX zoo's vision transformers at full width (224², 1000 classes,
+    seeded weights in JAX's layout, f32 unless said, TF32 off): (a)
+    ViT-B/16 through JAX's ``vit_pipeline`` (benchmarks/suite.py:267-313):
+    KFAC with ``attention_qkv_split`` at B=16, MC=1, one warm update then
+    the best of 3 blocks of UPDATES (``vit_b16_kfac_update_img_s``), a warm
+    invert then ``invert(1, 18916)`` timed (``vit_b16_kfac_invert_50layers``),
+    a SAMPLES-sample ensemble and its eval (``vit_b16_bnn30_eval_fwd_img_s``);
+    then ``attention_head_split`` (one update, invert, sample, the split
+    shapes), bf16 (one update) and ``scan_blocks=True`` (one update, each
+    depth slice against the unrolled model's factors); (b) Swin-T through
+    the same loop (``swin_t_kfac_update_img_s``,
+    ``swin_t_bnn30_eval_fwd_img_s``) and one update, invert and sample of
+    Swin-V2-T; (c) MaxViT-T's f32 update (``maxvit_t_kfac_update_img_s``),
+    each launching the tiled patch-Gram kernel once (``stem.1.0``), its A
+    factor held against the plain path, bf16 launching none, the
+    BatchNorms' running statistics unchanged by the captures; (d) the
+    ``factors -> evaluate --ood`` CLIs of ViT-B/16 with ``--qkv_split`` and
+    a Swin-T ``factors`` run under TRANSFORMER_ROOT. Returns the update
+    paths' launches."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch.pipelines import evaluate, factors
+    from curvature_tpu_torch.utils.checkpoint import results_paths
+    from curvature_tpu_torch.utils.config import parse_args
+    none = counters.zero()
+    rng = np.random.default_rng(41)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    batches = [x for x, _ in nchw_batches(rng, UPDATES, BATCH, dev)]
+    test_data = nchw_batches(rng, 2, BATCH, dev)
+    labels = torch.arange(BATCH, device=dev)
+    by_path = {}
+
+    def build(arch, **kw):
+        model = models.build(arch, CLASSES, device=dev, **kw)
+        variables = models.seeded_variables(model, 0)
+        models.load_jax_variables(model, variables)
+        return model.to(memory_format=torch.channels_last), variables
+
+    def loop(arch, est, model, path):
+        """The suite's loop: warm update, rate, invert, eval rate."""
+        est.update(batches[0], generator=gen)          # warm
+        by_path[path] = drive_updates(est, batches, gen, counters, path,
+                                      expect[path])
+        rate = best_rate(est, batches, gen, BATCH)
+        log(f"{path}: {rate:.2f} update img/s (f32 B={BATCH} MC=1 "
+            f"{SIZE}x{SIZE}, best of 3 blocks of {UPDATES} updates; {smi})")
+        if profile and path == TRANSFORMER_PATHS[0]:
+            log(f"{path} (one update):")
+            profile_update(est, batches[0], gen)
+        est.invert(2.0, 20000.0)                        # warm, as the suite
+        ensemble, invert_s = laplace_tail(est, model, test_data, gen,
+                                          counters, f"{arch} kfac")
+        counters.reset()
+        fwd = SAMPLES * eval_rate(model, est, test_data, ensemble)
+        if counters.read() != none:
+            raise AssertionError(f"{arch} eval launched {counters.read()}")
+        return invert_s, fwd
+
+    def split_shapes(est, name, want):
+        got = {k: tuple(v.shape) for k, v in est.state[name].items()}
+        if got != want:
+            raise AssertionError(f"{name}: split factor shapes {got}, want "
+                                 f"{want}")
+
+    expect = {TRANSFORMER_PATHS[0]: none, TRANSFORMER_PATHS[1]: none,
+              TRANSFORMER_PATHS[2]: dict(
+                  none, patch_gram_tiled=MAXVIT_ROUTES[0] * UPDATES,
+                  patch_gram_v2=MAXVIT_ROUTES[1] * UPDATES)}
+
+    # (a) ViT-B/16: the suite's loop with the qkv split
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, variables = build("vit_b_16")
+    est = estimators.KFAC(model, attention_qkv_split=True)
+    if len(est.metas) != 50:
+        raise AssertionError(f"vit_b_16: {len(est.metas)} tracked layers")
+    invert_s, fwd = loop("vit_b_16", est, model, TRANSFORMER_PATHS[0])
+    log(f"vit_b16_kfac_invert_50layers: {invert_s:.4f} s (add={ADD}, "
+        f"multiply={MULTIPLY}, after a warm invert; {smi})")
+    log(f"vit_b16_bnn30_eval_fwd_img_s: {fwd:.2f} ({SAMPLES} x images per "
+        f"second through eval_bnn, best of 3 blocks of {2 * BATCH} images; "
+        f"{smi})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"vit_b_16 peak memory: {peak:.2f} GiB ({smi})")
+    inp = "encoder.layers.encoder_layer_0.self_attention/in_proj"
+    out = "encoder.layers.encoder_layer_0.self_attention/out_proj"
+    split_shapes(est, inp, {"a": (769, 769), "g": (3, 768, 768)})
+    del est
+    torch.cuda.empty_cache()
+    head = estimators.KFAC(model, attention_head_split=True)
+    drive_updates(head, batches[:1], gen, counters, "vit_b_16 head split",
+                  none)
+    split_shapes(head, inp, {"a": (769, 769), "g": (3, 12, 64, 64)})
+    split_shapes(head, out, {"a": (12, 64, 64), "g": (768, 768),
+                             "a_bias": ()})
+    head.invert(ADD, MULTIPLY)
+    check_finite(head.inv_state, "vit_b_16 head split inv_state")
+    draw = head.sample(generator=gen)
+    check_finite(draw, "vit_b_16 head split sample")
+    log(f"vit_b_16 attention_head_split: update, invert, sample finite; "
+        f"{inp} G {tuple(head.state[inp]['g'].shape)}, {out} A "
+        f"{tuple(head.state[out]['a'].shape)} + a_bias "
+        f"{float(head.state[out]['a_bias']):.1f} ({smi})")
+    del head, draw
+    b16 = estimators.KFAC(model, compute_dtype=torch.bfloat16,
+                          attention_qkv_split=True)
+    drive_updates(b16, batches[:1], gen, counters, "vit_b_16 bf16", none)
+    log(f"vit_b_16 bf16 (compute_dtype=bfloat16, qkv split): one update, "
+        f"factors finite ({smi})")
+    del b16
+    flat = estimators.KFAC(model)
+    flat.update(batches[0], labels=labels)
+    scan = models.build("vit_b_16", CLASSES, device=dev, scan_blocks=True)
+    models.load_jax_variables(scan, models.stack_scan_groups(variables,
+                                                             scan))
+    scan = scan.to(memory_format=torch.channels_last)
+    stacked = estimators.KFAC(scan)
+    counters.reset()
+    stacked.update(batches[0], labels=labels)
+    if counters.read() != none:
+        raise AssertionError(f"vit_b_16 scan launched {counters.read()}")
+    worst = 0.0
+    for name, meta in stacked.metas.items():
+        for i in range(meta.stacked or 1):
+            per = (name if not meta.stacked else
+                   name.replace("encoder.layers.",
+                                f"encoder.layers.encoder_layer_{i}.", 1))
+            for key in ("a", "g"):
+                got = stacked.state[name][key]
+                got = got[i] if meta.stacked else got
+                want = flat.state[per][key]
+                rel = float((got - want).abs().max() / want.abs().max())
+                worst = max(worst, rel)
+    log(f"vit_b_16 scan_blocks=True: stacked factors vs the unrolled "
+        f"model's, worst rel {worst:.3e} of max (bar {SCAN_RTOL}; {smi})")
+    if not worst <= SCAN_RTOL:
+        raise AssertionError(f"vit_b_16 scan vs unrolled: {worst:.3e}")
+    del flat, stacked, scan, model, variables
+    torch.cuda.empty_cache()
+    log(f"transformers vit_b_16: {time.perf_counter() - t0:.1f} s ({smi})")
+
+    # (b) Swin-T through the loop; Swin-V2-T's update, invert, sample
+    t0 = time.perf_counter()
+    model, _ = build("swin_t")
+    est = estimators.KFAC(model)
+    _, fwd = loop("swin_t", est, model, TRANSFORMER_PATHS[1])
+    log(f"swin_t_bnn30_eval_fwd_img_s: {fwd:.2f} ({SAMPLES} x images per "
+        f"second through eval_bnn, best of 3 blocks of {2 * BATCH} images; "
+        f"{smi})")
+    del est, model
+    torch.cuda.empty_cache()
+    model, _ = build("swin_v2_t")
+    est = estimators.KFAC(model)
+    x = nchw_batches(rng, 1, BATCH, dev, SWIN_V2_SIZE)[0][0]
+    drive_updates(est, [x], gen, counters, "swin_v2_t", none)
+    est.invert(ADD, MULTIPLY)
+    check_finite(est.inv_state, "swin_v2_t inv_state")
+    check_finite(est.sample(generator=gen), "swin_v2_t sample")
+    log(f"swin_v2_t ({SWIN_V2_SIZE}x{SWIN_V2_SIZE}, B={BATCH}): one update, "
+        f"invert(add={ADD}, multiply={MULTIPLY}), sample finite ({smi})")
+    del est, model
+    torch.cuda.empty_cache()
+    log(f"transformers swin: {time.perf_counter() - t0:.1f} s ({smi})")
+
+    # (c) MaxViT-T: the tiled kernel on stem.1.0 in f32, none in bf16
+    t0 = time.perf_counter()
+    model, _ = build("maxvit_t")
+    running = {k: v.clone() for k, v in model.state_dict().items()
+               if "running" in k}
+    est = estimators.KFAC(model)
+    path = TRANSFORMER_PATHS[2]
+    by_path[path] = drive_updates(est, batches, gen, counters, path,
+                                  expect[path])
+    rel = kernel_route_check(est, {}, batches[-1], MAXVIT_ROUTES,
+                             f"maxvit_t f32 B={BATCH}")
+    rate = best_rate(est, batches, gen, BATCH)
+    log(f"{path}: {rate:.2f} update img/s (f32 B={BATCH} MC=1 {SIZE}x{SIZE},"
+        f" best of 3 blocks of {UPDATES} updates; {SIZE // 32}-partition "
+        f"windows; {smi})")
+    del est
+    b16 = estimators.KFAC(model, compute_dtype=torch.bfloat16)
+    got = drive_updates(b16, batches[:1], gen, counters, "maxvit_t bf16",
+                        none)
+    del b16
+    for k, v in running.items():
+        if not torch.equal(model.state_dict()[k], v):
+            raise AssertionError(f"maxvit_t: the capture moved {k}")
+    log(f"maxvit_t: tiled launches {by_path[path]['patch_gram_tiled']} in "
+        f"{UPDATES} f32 updates, {got['patch_gram_tiled']} in a bf16 update;"
+        f" stem.1.0's A factor {rel:.3e} of max from the plain path (bar "
+        f"{GRAM_RTOL}); {len(running)} running statistics unchanged by the "
+        f"captures ({smi})")
+    del model
+    torch.cuda.empty_cache()
+    log(f"transformers maxvit_t: {time.perf_counter() - t0:.1f} s ({smi})")
+
+    # (d) the CLIs
+    root = os.path.abspath(TRANSFORMER_ROOT)
+    base = ["--root_dir", root, "--results_dir", root]
+    vit = VIT_ARGV + base
+    est, got = run_cli(factors, vit + ["--estimator", "kfac"], counters, smi,
+                       "vit_b_16 synthetic factors kfac --qkv_split")
+    name = "encoder.layers.encoder_layer_11.self_attention/in_proj"
+    if got != none or tuple(est.state[name]["g"].shape) != (3, 768, 768) \
+            or len(est.metas) != 5:
+        raise AssertionError(f"vit_b_16 factors: launches {got}, "
+                             f"{sorted(est.metas)}")
+    check_finite(est.state, "vit_b_16 factors state")
+    argv = vit + ["--estimator", "kfac", "--ood"] + R18_DAMPING
+    (probs, bnn_probs, labels), got = run_cli(
+        evaluate, argv, counters, smi, "vit_b_16 synthetic evaluate --ood")
+    with np.load(results_paths(parse_args(argv))[0] + ".npz",
+                 allow_pickle=True) as f:
+        auroc = f["auroc"]
+    for what, p in (("nn", probs), ("bnn", bnn_probs)):
+        if p.shape != (256, 10) or not np.isfinite(p).all() \
+                or np.abs(p.sum(1) - 1).max() > 1e-3:
+            raise AssertionError(f"vit_b_16 {what} predictions malformed")
+    if got != none or not np.isfinite(auroc).all():
+        raise AssertionError(f"vit_b_16 evaluate: launches {got}, AUROC "
+                             f"{auroc}")
+    log(f"vit_b_16 synthetic --ood (random weights): NN accuracy "
+        f"{100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
+        f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}%; AUROC NN "
+        f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
+    est, got = run_cli(factors, SWIN_ARGV + base + ["--estimator", "kfac"],
+                       counters, smi, "swin_t synthetic factors kfac")
+    if got != none:
+        raise AssertionError(f"swin_t factors launched {got}")
+    check_finite(est.state, "swin_t factors state")
+    return by_path
+
+
 def train_step_ms(step, batches, reps=3):
     """Wall ms per training step: ``step(x, y)`` over ``batches`` after one
     warm pass, best of ``reps`` passes, each ended by a synchronize."""
@@ -2257,7 +2556,8 @@ def training_phase(estimators, counters, smi, dev, profile=False):
             " (trained)")
     cli(hyper, base + ["--estimator", "kfac"] + TRAIN_HYPER,
         "lenet5 hyper kfac " + " ".join(TRAIN_HYPER))
-    stats, bnn = cli(evaluate, base + ["--estimator", "kfac", "--fgsm"],
+    stats, bnn = cli(evaluate, base + ["--estimator", "kfac", "--fgsm"]
+                     + FGSM_CHAIN_SAMPLES,
                      "lenet5 evaluate kfac --fgsm at the searched damping")
     log(f"lenet5 chain on the trained checkpoint: NN {stats['acc'][0]:.2f}%"
         f", BNN {bnn['acc'][0]:.2f}% (ECE {bnn['ece1'][0]:.2f}%, NLL "
@@ -2286,7 +2586,8 @@ def training_phase(estimators, counters, smi, dev, profile=False):
     hist = cli(training, base + TRAIN_SWAG, "lenet5 training "
                + " ".join(TRAIN_SWAG))[1]
     stats, bnn = cli(evaluate, base + ["--estimator", "swag", "--fgsm"]
-                     + TRAIN_SWAG_DAMPING, "lenet5 evaluate swag --fgsm")
+                     + TRAIN_SWAG_DAMPING + FGSM_CHAIN_SAMPLES,
+                     "lenet5 evaluate swag --fgsm")
     log(f"lenet5 swag ({TRAIN_SWAG[1]} more epochs, the last 2 collected):"
         f" NN {stats['acc'][0]:.2f}%, SWAG BNN {bnn['acc'][0]:.2f}% (ECE "
         f"{bnn['ece1'][0]:.2f}%); val {hist['val_acc'][-1]:.2f}%")
@@ -2349,7 +2650,8 @@ def training_phase(estimators, counters, smi, dev, profile=False):
         ms = train_step_ms(step, batches)
         log(f"resnet18 training {opt} step B=32: {ms:.2f} ms, "
             f"{32e3 / ms:.1f} img/s ({smi})")
-    argv = r18("swag") + TRAIN_R18_OPTS["sgd"] + ["--swag"]
+    argv = r18("swag") + TRAIN_R18_OPTS["sgd"] + ["--swag"] \
+        + TRAIN_R18_SWAG_RANK
     cli(training, argv, "resnet18 training sgd --swag")
     argv += ["--estimator", "swag", "--bn_update", "--ood"] \
         + TRAIN_SWAG_DAMPING
@@ -2680,6 +2982,9 @@ def main(argv=None):
     ap.add_argument("--zoo", action="store_true",
                     help="build the kernels, run the classic-zoo phase "
                          "only and stop (no result line)")
+    ap.add_argument("--transformers", action="store_true",
+                    help="build the kernels, run the vision-transformer "
+                         "phase only and stop (no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2752,6 +3057,14 @@ def main(argv=None):
         log(f"zoo phase: {time.perf_counter() - t0:.1f} s; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         return 0
+    if args.transformers:
+        t0 = time.perf_counter()
+        transformer_phase(estimators, models, Counters(tpg, tsg), smi, dev,
+                          args.profile)
+        log(f"transformer phase: {time.perf_counter() - t0:.1f} s; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"({smi})")
+        return 0
     if args.lm:
         lm_phase(estimators, models, Counters(tpg, tsg), smi,
                  torch.device("cuda", 0), args.profile)
@@ -2760,6 +3073,7 @@ def main(argv=None):
         return 0
 
     # -- 2. kernels against their plain versions ----------------------------
+    t_section = time.perf_counter()
     log("kernels vs plain versions:")
     records = []
     for dtype in ("f32", "bf16"):
@@ -2783,7 +3097,10 @@ def main(argv=None):
         print(json.dumps({"kernels": records}))
         return 0
 
+    log(f"kernel checks: {time.perf_counter() - t_section:.1f} s ({smi})")
+
     # -- 3. the paths ---------------------------------------------------------
+    t_section = time.perf_counter()
     model = models.resnet50(num_classes=CLASSES, device=dev)
     models.load_jax_variables(model, models.seeded_variables(model, 0))
     model = model.to(memory_format=torch.channels_last)
@@ -2828,8 +3145,12 @@ def main(argv=None):
     # INF from both, BlockDiagonal on DENSE_LAYER; no Gram kernel
     lad = ladder(estimators, model, est, batches, test_data, gen, counters)
 
+    log(f"resnet50 paths and ladder: {time.perf_counter() - t_section:.1f} s"
+        f" ({smi})")
     # 3e. the pipeline CLIs: LeNet-5 on the digits, ResNet-18 on synthetic
+    t_section = time.perf_counter()
     r18_paths, r18_updated = pipelines(estimators, counters, smi)
+    log(f"pipeline phase: {time.perf_counter() - t_section:.1f} s ({smi})")
     by_path.update(r18_paths)
 
     # 3f. the damping search and the predictives on those factor files, and
@@ -2846,7 +3167,8 @@ def main(argv=None):
         # zoo's records count the zoo's paths, below)
         base = rec["name"].split("_bf16")[0]
         r18 = base.endswith("_resnet18")
-        paths = (() if base in ZOO_RECORD_PATHS else
+        paths = (() if base in ZOO_RECORD_PATHS
+                 or base in TRANSFORMER_RECORD_PATHS else
                  (R18_PATHS[:1] + (TRAIN_PATH,) if rec["dtype"] == "f32"
                   else R18_PATHS[1:])
                  if r18 else
@@ -2857,6 +3179,7 @@ def main(argv=None):
         rec["launches"] = sum(rec["launches_by_path"].values())
 
     # -- 4. is what came out right? -----------------------------------------
+    t_section = time.perf_counter()
     # the kernels' A factors against use_kernels=False on the same capture
     checked = ["layer1.0.conv2", "layer2.0.conv2"]
     for name in checked:
@@ -2910,6 +3233,8 @@ def main(argv=None):
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     add_device_times(records)
+    log(f"checks, rates and device times: "
+        f"{time.perf_counter() - t_section:.1f} s ({smi})")
     if args.profile:
         for path, e, b in zip(PATHS, (est, est16, est_sub),
                               (batches, batches_b32, batches)):
@@ -2945,27 +3270,22 @@ def main(argv=None):
                             args.profile)
     log(f"zoo phase: {time.perf_counter() - t0:.1f} s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    counted = {}
-    for rec in records:
-        mine = ZOO_RECORD_PATHS.get(rec["name"], ())
-        rec["launches_by_path"].update(
-            {p: got[rec["counter"]] if p in mine else 0
-             for p, got in zoo_by_path.items()})
-        rec["launches"] = sum(rec["launches_by_path"].values())
-        for p in mine:
-            key = (p, rec["counter"])
-            counted[key] = counted.get(key, 0) + zoo_by_path[p][rec[
-                "counter"]]
-    # every zoo launch stands under exactly one record
-    for p, got in zoo_by_path.items():
-        for counter in ("patch_gram_tiled", "patch_gram_v2"):
-            if got[counter] != counted.get((p, counter), 0):
-                raise AssertionError(f"{p}: {got[counter]} {counter} "
-                                     "launches under no kernel record")
+    count_record_launches(records, zoo_by_path, ZOO_RECORD_PATHS)
     torch.cuda.empty_cache()
 
-    # -- 8. the causal-LM path: GPT-2 124M, the ladder, the token CLIs -----
+    # -- 8. the vision transformers: ViT-B/16, Swin-T, MaxViT-T, the CLIs --
+    t0 = time.perf_counter()
+    tr_by_path = transformer_phase(estimators, models, counters, smi, dev,
+                                   args.profile)
+    log(f"transformer phase: {time.perf_counter() - t0:.1f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    count_record_launches(records, tr_by_path, TRANSFORMER_RECORD_PATHS)
+    torch.cuda.empty_cache()
+
+    # -- 9. the causal-LM path: GPT-2 124M, the ladder, the token CLIs -----
+    t0 = time.perf_counter()
     lm_phase(estimators, models, counters, smi, dev, args.profile)
+    log(f"lm phase: {time.perf_counter() - t0:.1f} s ({smi})")
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
 
@@ -2975,6 +3295,28 @@ def main(argv=None):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def count_record_launches(records, by_path, record_paths):
+    """Each record's launches on a phase's paths: a record named in
+    ``record_paths`` counts its counter on its paths there, every other
+    record 0; raises unless every launch of a phase stands under exactly
+    one record."""
+    counted = {}
+    for rec in records:
+        mine = record_paths.get(rec["name"], ())
+        rec["launches_by_path"].update(
+            {p: got[rec["counter"]] if p in mine else 0
+             for p, got in by_path.items()})
+        rec["launches"] = sum(rec["launches_by_path"].values())
+        for p in mine:
+            key = (p, rec["counter"])
+            counted[key] = counted.get(key, 0) + by_path[p][rec["counter"]]
+    for p, got in by_path.items():
+        for counter in ("patch_gram_tiled", "patch_gram_v2"):
+            if got[counter] != counted.get((p, counter), 0):
+                raise AssertionError(f"{p}: {got[counter]} {counter} "
+                                     "launches under no kernel record")
 
 
 def profile_update(est, x, gen, num_samples=1):

@@ -34,7 +34,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import torch
 
 from curvature_tpu_torch.nn.core import (
-    LayerMeta, apply_matrix_delta, param_matrix)
+    LayerMeta, apply_matrix_delta, param_key, param_matrix)
 from curvature_tpu_torch.ops.patches import extract_patches
 from curvature_tpu_torch.estimators.capture import Captured, collect
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
@@ -206,8 +206,9 @@ class Estimator:
         own = dict(model.named_parameters())
         self.mean_params = {
             k: own[k].detach().clone()
-            for name in self.metas for k in (f"{name}.weight",
-                                             f"{name}.bias") if k in own}
+            for name in self.metas for k in (param_key(name, "weight"),
+                                             param_key(name, "bias"))
+            if k in own}
         self.state = self.init_state()
         self.inv_state = None
 
@@ -229,7 +230,8 @@ class Estimator:
 
     def noise_shapes(self) -> Dict[str, tuple]:
         """Shape of the standard-normal draw ``sample_state`` takes per
-        layer."""
+        layer (a dict of shapes where a layer takes several draws: KFAC's
+        head-split ``out_proj``)."""
         raise NotImplementedError
 
     def logdet_state(self, state, add, multiply):
@@ -357,8 +359,8 @@ class Estimator:
         deltas, d = {}, 0
         for name, meta in self.metas.items():
             def mat(p):
-                return param_matrix(meta, p[f"{name}.weight"],
-                                    p.get(f"{name}.bias"))
+                return param_matrix(meta, p[param_key(name, "weight")],
+                                    p.get(param_key(name, "bias")))
             deltas[name] = mat(params) - mat(self.mean_params)
             d += deltas[name].numel()
         q = self.quadratic_form(deltas, add, multiply)
@@ -367,9 +369,18 @@ class Estimator:
 
     def draw_noise(self, generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
-        return {name: torch.randn(shape, generator=generator,
-                                  dtype=self.dtype, device=self.device)
+        def draw(shape):
+            if isinstance(shape, dict):
+                return {k: draw(s) for k, s in shape.items()}
+            return torch.randn(shape, generator=generator, dtype=self.dtype,
+                               device=self.device)
+        return {name: draw(shape)
                 for name, shape in self.noise_shapes().items()}
+
+    def _as_noise(self, v):
+        if isinstance(v, dict):
+            return {k: self._as_noise(x) for k, x in v.items()}
+        return torch.as_tensor(v, dtype=self.dtype, device=self.device)
 
     @torch.no_grad()
     def sample(self, noise: Optional[Dict[str, torch.Tensor]] = None,
@@ -379,9 +390,7 @@ class Estimator:
             raise RuntimeError("inverse state is empty; call invert() first")
         if noise is None:
             noise = self.draw_noise(generator)
-        noise = {k: torch.as_tensor(v, dtype=self.dtype, device=self.device)
-                 for k, v in noise.items()}
-        return self.sample_state(self.inv_state, noise)
+        return self.sample_state(self.inv_state, self._as_noise(noise))
 
     def posterior_params(self, noise=None, generator=None
                          ) -> Dict[str, torch.Tensor]:

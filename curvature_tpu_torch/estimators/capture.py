@@ -37,7 +37,8 @@ from typing import Dict, Optional
 import torch
 from torch.func import functional_call
 
-from curvature_tpu_torch.nn.core import Context, LayerMeta, param_matrix
+from curvature_tpu_torch.nn.core import (
+    Context, LayerMeta, param_key, param_matrix)
 
 
 @dataclass
@@ -139,7 +140,7 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     if loss not in ("cross_entropy", "lm", "gaussian"):
         raise ValueError(f"unknown loss {loss!r}: 'cross_entropy', 'lm' or "
                          "'gaussian'")
-    weight_keys = [f"{n}.{leaf}" for n, m in metas.items()
+    weight_keys = [param_key(n, leaf) for n, m in metas.items()
                    for leaf in (("weight", "bias") if m.has_bias
                                 else ("weight",))]
     if need_param_grads:
@@ -191,8 +192,9 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             for n, m in metas.items():
                 # reshape, not view: a channels_last weight's gradient comes
                 # back channels_last
-                pgrads[n].append(param_matrix(m, by_key[f"{n}.weight"],
-                                              by_key.get(f"{n}.bias")))
+                pgrads[n].append(param_matrix(
+                    m, by_key[param_key(n, "weight")],
+                    by_key.get(param_key(n, "bias"))))
     return Captured(
         acts={n: ctx.acts[n] for n in names},
         probe_grads=({n: torch.stack(v) for n, v in grads.items()}

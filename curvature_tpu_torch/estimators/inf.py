@@ -37,6 +37,7 @@ from curvature_tpu_torch.estimators.base import (
     Estimator, group_rows, is_grouped, ungroup_rows)
 from curvature_tpu_torch.estimators.efb import (
     check_square_factors, kfac_eigenvectors)
+from curvature_tpu_torch.nn.core import param_key
 from curvature_tpu_torch.ops.linalg import sym
 
 
@@ -218,8 +219,10 @@ class INF(Estimator):
         self.metas = {n: m for n, m in self.metas.items() if n in diags}
         if not self.metas:
             raise ValueError("diags/factors/lambdas cover no tracked layer")
+        keep = {param_key(n, leaf) for n in self.metas
+                for leaf in ("weight", "bias")}
         self.mean_params = {k: v for k, v in self.mean_params.items()
-                            if k.rsplit(".", 1)[0] in self.metas}
+                            if k in keep}
 
         def place(t):
             return torch.as_tensor(t).to(self.device, self.dtype)

@@ -59,10 +59,24 @@ and the correlation gate allow. Output channels are group-major, so its
 G tokens, offsets and noise split the group axis with one reshape; its
 noise is JAX's ``[g, cols, og]``.
 
-Out of this slice: the attention qkv/head splits (they key on
-``/in_proj`` names, which only ``nn.MultiheadAttention`` has),
-``stack_grams`` and ``fused_g`` (whose fused-G capture set must leave
-grouped layers out, JAX :282-302).
+``attention_qkv_split`` factors a packed attention ``in_proj``'s G per
+q/k/v chunk, ``[3, E, E]`` blocks sharing the A factor;
+``attention_head_split`` goes one level finer: the ``in_proj`` G per
+chunk and head, ``[3, H, d, d]`` (d = E/H), and the ``out_proj`` A per
+head, ``[H, d, d]`` input blocks plus a scalar bias block ``a_bias``
+(its Gram is exactly 1 per sample), sharing G (JAX kfac.py:214-226,
+:304-347, :555-615). Both key on the ``/in_proj`` and ``/out_proj`` names
+of ``nn.MultiheadAttention`` and its stamped head count; a stacked
+layer's blocks carry the depth axis first. They are a posterior layout:
+invert, logdet and sample cover them, ``quad_state`` and
+``solve_state`` raise (JAX :772), and so do the optimizer's
+preconditioner, EFB and INF (square factors only). Their noise is JAX's:
+``[(depth,) 3, cols, E]``, ``[(depth,) 3, H, cols, d]``, and for a
+head-split ``out_proj`` ``{"z": [(depth,) H, d, out], "bias": [(depth,)
+out]}``.
+
+Out of this slice: ``stack_grams`` and ``fused_g`` (whose fused-G capture
+set must leave grouped layers out, JAX :282-302).
 """
 import math
 from typing import Dict
@@ -119,10 +133,14 @@ class KFAC(Estimator):
                  corr_gram: bool = True, corr_gram_grouped: bool = False,
                  corr_gram_min_channels: int = 128,
                  corr_gram_min_extent: int = 14, max_factor_dim: int = 16384,
-                 g_block_size: int = 1024, **kwargs):
+                 g_block_size: int = 1024,
+                 attention_qkv_split: bool = False,
+                 attention_head_split: bool = False, **kwargs):
         # read by init_state, which the base constructor calls
         self.max_factor_dim = int(max_factor_dim)
         self.g_block_size = int(g_block_size)
+        self.attention_qkv_split = bool(attention_qkv_split)
+        self.attention_head_split = bool(attention_head_split)
         super().__init__(model, **kwargs)
         if use_kernels == "auto":
             self.use_kernels = self.device.type == "cuda"
@@ -145,6 +163,31 @@ class KFAC(Estimator):
                 f"subsample_offset {self.subsample_offset} must lie in "
                 f"[0, {k}) per dim for token_subsample={self.token_subsample} "
                 f"(spatial stride {k})")
+
+    def _is_qkv_split(self, meta) -> bool:
+        """A packed ``in_proj`` whose G splits per q/k/v chunk (JAX
+        :214-217); the head split takes precedence."""
+        return (self.attention_qkv_split and meta.name.endswith("/in_proj")
+                and meta.out_features % 3 == 0
+                and not self._is_head_split_in(meta))
+
+    def _is_head_split_in(self, meta) -> bool:
+        """A packed ``in_proj`` whose G splits per chunk and head (JAX
+        :219-222)."""
+        return (self.attention_head_split
+                and meta.name.endswith("/in_proj") and meta.heads > 0
+                and meta.out_features % 3 == 0
+                and (meta.out_features // 3) % meta.heads == 0)
+
+    def _is_head_split_out(self, meta) -> bool:
+        """An ``out_proj`` whose A splits per head (JAX :224-226)."""
+        return (self.attention_head_split
+                and meta.name.endswith("/out_proj") and meta.heads > 0
+                and meta.fan_in % meta.heads == 0)
+
+    def _is_split(self, meta) -> bool:
+        return (self._is_qkv_split(meta) or self._is_head_split_in(meta)
+                or self._is_head_split_out(meta))
 
     def _is_gblock(self, meta) -> bool:
         """Block-diagonal G for an oversized dense layer (a vocabulary
@@ -209,8 +252,21 @@ class KFAC(Estimator):
             if self._is_gblock(m):
                 nb, bs, _ = self._gblock_dims(m)
                 g = torch.zeros((nb, bs, bs), **z)
+            elif self._is_head_split_in(m):
+                d = m.out_features // 3 // m.heads
+                g = torch.zeros(lead + (3, m.heads, d, d), **z)
+            elif self._is_qkv_split(m):
+                e = m.out_features // 3
+                g = torch.zeros(lead + (3, e, e), **z)
             else:
                 g = torch.zeros(lead + (m.out_features,) * 2, **z)
+            if self._is_head_split_out(m):
+                d = m.fan_in // m.heads
+                state[name] = {"a": torch.zeros(lead + (m.heads, d, d), **z),
+                               "g": g}
+                if m.has_bias:
+                    state[name]["a_bias"] = torch.zeros(lead, **z)
+                continue
             state[name] = {"a": torch.zeros(lead + (m.mat_cols,) * 2, **z),
                            "g": g}
         return state
@@ -329,6 +385,15 @@ class KFAC(Estimator):
             g, n_tok = self._g_tokens(meta, cap.probe_grads[name])
             if self._is_gblock(meta):
                 gram = self._gblock_gram(meta, g)
+            elif self._is_head_split_in(meta):
+                # [.., n, 3, H, d] -> per (chunk, head) Grams [.., 3, H,
+                # d, d] (JAX :555-561)
+                d = meta.out_features // 3 // meta.heads
+                gq = g.reshape(g.shape[:-1] + (3, meta.heads, d))
+                gram = _gram_aligned(gq.movedim(-4, -2), self.dtype)
+            elif self._is_qkv_split(meta):
+                gq = g.reshape(g.shape[:-1] + (3, meta.out_features // 3))
+                gram = _gram_aligned(gq.movedim(-3, -2), self.dtype)
             elif is_grouped(meta):
                 # output channels are group-major: one reshape splits the
                 # group axis (JAX :586-595)
@@ -339,18 +404,44 @@ class KFAC(Estimator):
                 gram = _gram_aligned(g, self.dtype)
             # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
             g_factor = gram * (cap.batch_size ** 2 / n_tok)
-            a_factor = self._a_factor(meta, cap.acts[name])
+            if self._is_head_split_out(meta):
+                # out_proj's input is the concat of the heads' outputs: A
+                # splits along fan_in; the ones (bias) column is a scalar
+                # block whose Gram is exactly 1 (JAX :596-615)
+                a_factor = self._head_a_factor(meta, cap.acts[name])
+                if "a_bias" in state[name]:
+                    state[name]["a_bias"] += num_mc
+            else:
+                a_factor = self._a_factor(meta, cap.acts[name])
             state[name]["a"] += num_mc * a_factor.to(self.dtype)
             state[name]["g"] += g_factor
         return state
 
+    def _head_a_factor(self, meta, act):
+        """Per-head input Grams [(depth,) H, d, d] of a head-split
+        ``out_proj``, divided by the token count."""
+        lead = (meta.stacked,) if meta.stacked else ()
+        t = act.reshape(lead + (-1, meta.heads, meta.fan_in // meta.heads))
+        return _gram_aligned(t.movedim(-2, -3), self.dtype) / t.shape[-3]
+
     def invert_state(self, state, add, multiply):
-        return {name: {
-            "a_chol": damped_inverse_cholesky(state[name]["a"], add[i],
-                                              multiply[i]),
-            "g_chol": damped_inverse_cholesky(state[name]["g"], add[i],
-                                              multiply[i]),
-        } for i, name in enumerate(self.metas)}
+        """Per factor (batched over every block axis); a head-split
+        ``out_proj``'s scalar bias block under the same split damping,
+        ``a_bias_chol`` = 1/sqrt(sqrt(s)*a_bias + sqrt(n)) (JAX
+        :630-648)."""
+        inv = {}
+        for i, name in enumerate(self.metas):
+            fac = state[name]
+            inv[name] = {
+                "a_chol": damped_inverse_cholesky(fac["a"], add[i],
+                                                  multiply[i]),
+                "g_chol": damped_inverse_cholesky(fac["g"], add[i],
+                                                  multiply[i])}
+            if "a_bias" in fac:
+                inv[name]["a_bias_chol"] = torch.rsqrt(
+                    torch.sqrt(multiply[i]) * fac["a_bias"]
+                    + torch.sqrt(add[i]))
+        return inv
 
     def logdet_state(self, state, add, multiply):
         """logdet(A (x) G) = out * logdet(A) + cols * logdet(G) per layer
@@ -358,12 +449,28 @@ class KFAC(Estimator):
         split-damped factors, summed.
         A blocked G's padded dims each add log(sqrt(add)) to its blocks'
         logdet, subtracted so the sum runs over the real out_features only
-        (JAX :679-695)."""
+        (JAX :679-695).
+        Split attention factors: a shared A's logdet counts once per G
+        block row (qkv chunks, heads); a head-split ``out_proj``'s H
+        per-head A blocks and its scalar bias block each pair with the
+        shared G, cols = H*d + 1 copies of logdet(G) (JAX :665-675)."""
         tot = torch.zeros((), dtype=self.dtype, device=self.device)
         for i, (name, meta) in enumerate(self.metas.items()):
             fac = state[name]
             la = _split_damped_logdet(fac["a"], add[i], multiply[i])
             lg = _split_damped_logdet(fac["g"], add[i], multiply[i])
+            if self._is_head_split_out(meta):
+                out = fac["g"].shape[-1]
+                heads, d = fac["a"].shape[-3], fac["a"].shape[-1]
+                tot = tot + out * la.sum() + heads * d * lg.sum()
+                if "a_bias" in fac:
+                    lb = torch.log(torch.sqrt(multiply[i]) * fac["a_bias"]
+                                   + torch.sqrt(add[i]))
+                    tot = tot + out * lb.sum() + lg.sum()
+                continue
+            if self._is_qkv_split(meta) or self._is_head_split_in(meta):
+                # the shared A's logdet broadcasts over the G blocks
+                la = la.reshape(la.shape + (1,) * (lg.ndim - la.ndim))
             cols = fac["a"].shape[-1]
             if self._is_gblock(meta):
                 _, _, padded = self._gblock_dims(meta)
@@ -397,6 +504,10 @@ class KFAC(Estimator):
         kfac.py:698-744)."""
         tot = torch.zeros((), dtype=self.dtype, device=self.device)
         for i, (name, meta) in enumerate(self.metas.items()):
+            if self._is_split(meta):
+                raise NotImplementedError(
+                    f"{name}: quadratic form for split attention factors "
+                    "is not implemented — use plain factors")
             fac, d = state[name], self._blocks(meta, deltas[name])
             s, n = torch.sqrt(multiply[i]), torch.sqrt(add[i])
             a_d = sym(diag_add(s * fac["a"], n))
@@ -410,6 +521,11 @@ class KFAC(Estimator):
         kfac.py:746-784)."""
         out = {}
         for name, meta in self.metas.items():
+            if self._is_split(meta):
+                raise ValueError(
+                    f"{name}: split attention factors (qkv/head) are "
+                    "posterior-only; build the KFAC without "
+                    "attention_qkv_split/head_split for inverse products")
             a_chol = inv_state[name]["a_chol"]
             g_chol = inv_state[name]["g_chol"]
             d = self._blocks(meta, deltas[name])
@@ -419,16 +535,27 @@ class KFAC(Estimator):
 
     def noise_shapes(self) -> Dict[str, tuple]:
         """[(depth,) cols, out]; [nb, cols, bs] for a blocked G, JAX's [g,
-        cols, og] for a grouped conv (kfac.py:793-802)."""
+        cols, og] for a grouped conv (kfac.py:793-802); the split
+        attention layouts of the module docstring (JAX :808-850)."""
         out = {}
         for name, m in self.metas.items():
-            if is_grouped(m):
+            lead = (m.stacked,) if m.stacked else ()
+            if self._is_head_split_in(m):
+                out[name] = lead + (3, m.heads, m.mat_cols,
+                                    m.out_features // 3 // m.heads)
+            elif self._is_qkv_split(m):
+                out[name] = lead + (3, m.mat_cols, m.out_features // 3)
+            elif self._is_head_split_out(m):
+                out[name] = {"z": lead + (m.heads, m.fan_in // m.heads,
+                                          m.out_features)}
+                if m.has_bias:
+                    out[name]["bias"] = lead + (m.out_features,)
+            elif is_grouped(m):
                 out[name] = (m.groups, m.mat_cols, m.out_features // m.groups)
             elif self._is_gblock(m):
                 nb, bs, _ = self._gblock_dims(m)
                 out[name] = (nb, m.mat_cols, bs)
             else:
-                lead = (m.stacked,) if m.stacked else ()
                 out[name] = lead + (m.mat_cols, m.out_features)
         return out
 
@@ -440,6 +567,34 @@ class KFAC(Estimator):
         for name, meta in self.metas.items():
             a_chol = inv_state[name]["a_chol"]
             g_chol = inv_state[name]["g_chol"]
+            lead = (meta.stacked,) if meta.stacked else ()
+            if self._is_head_split_out(meta):
+                out[name] = self._sample_head_out(meta, inv_state[name],
+                                                  noise[name])
+                continue
+            if self._is_qkv_split(meta) or self._is_head_split_in(meta):
+                # the shared A against each G block; rows in the packed
+                # (chunk, head, dim) order
+                blocks = g_chol.ndim - a_chol.ndim
+                a_chol = a_chol.reshape(a_chol.shape[:-2] + (1,) * blocks
+                                        + a_chol.shape[-2:])
+                w = (a_chol @ noise[name] @ g_chol.mT).mT
+                out[name] = w.reshape(lead + (meta.out_features, -1))
+                continue
             w = (a_chol @ noise[name] @ g_chol.mT).mT
             out[name] = self._unblocks(meta, w)
         return out
+
+    def _sample_head_out(self, meta, inv, noise):
+        """A head-split ``out_proj``'s draw: per-head matrix-normals
+        a_chol[h] z[h] g_chol^T laid out [out, (head, dim)], and the bias
+        column g_chol z_bias * a_bias_chol (JAX :826-843)."""
+        lead = (meta.stacked,) if meta.stacked else ()
+        w = inv["a_chol"] @ noise["z"] @ inv["g_chol"].mT[..., None, :, :]
+        w = w.movedim(-1, -3).reshape(lead + (meta.out_features,
+                                              meta.fan_in))
+        if "a_bias_chol" not in inv:
+            return w
+        b = (inv["g_chol"] @ noise["bias"][..., None])[..., 0] \
+            * inv["a_bias_chol"][..., None]
+        return torch.cat([w, b[..., None]], dim=-1)

@@ -23,7 +23,7 @@ import torch
 from curvature_tpu_torch.estimators.base import normalize_damping
 from curvature_tpu_torch.eval.evaluate import _device
 from curvature_tpu_torch.eval.predictive import eval_mode
-from curvature_tpu_torch.nn.core import param_matrix
+from curvature_tpu_torch.nn.core import param_key, param_matrix
 
 
 @torch.no_grad()
@@ -54,8 +54,8 @@ def covered_params(est):
     """(d, ||theta||^2) per tracked layer, in meta order (float64)."""
     counts, sq = [], []
     for name, meta in est.metas.items():
-        mat = param_matrix(meta, est.mean_params[f"{name}.weight"],
-                           est.mean_params.get(f"{name}.bias"))
+        mat = param_matrix(meta, est.mean_params[param_key(name, "weight")],
+                           est.mean_params.get(param_key(name, "bias")))
         counts.append(mat.numel())
         sq.append(float((mat.float() ** 2).sum()))
     return np.asarray(counts, np.float64), np.asarray(sq, np.float64)

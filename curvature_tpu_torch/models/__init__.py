@@ -18,6 +18,7 @@ from curvature_tpu_torch.models.gpt import (
 )
 from curvature_tpu_torch.models.inception import InceptionV3, inception_v3
 from curvature_tpu_torch.models.lenet5 import TORCH_KEY_MAP, lenet5
+from curvature_tpu_torch.models.maxvit import MaxVit, maxvit, maxvit_t
 from curvature_tpu_torch.models.mlp import mlp
 from curvature_tpu_torch.models.mnasnet import MNASNet, mnasnet
 from curvature_tpu_torch.models.mobilenet import (
@@ -32,10 +33,21 @@ from curvature_tpu_torch.models.shufflenet import (
     ShuffleNetV2, shufflenet_v2,
 )
 from curvature_tpu_torch.models.squeezenet import SqueezeNet, squeezenet
+from curvature_tpu_torch.models.swin import SwinTransformer, swin, swin_t
 from curvature_tpu_torch.models.torch_convert import (
     convert_torch_state_dict, export_torch_state_dict, load_torch_checkpoint,
 )
+from curvature_tpu_torch.models.transformer import (
+    TinyTransformer, tiny_transformer,
+)
+from curvature_tpu_torch.models.transformer2 import (
+    Encoder, transformer_encoder,
+)
 from curvature_tpu_torch.models.vgg import VGG, vgg
+from curvature_tpu_torch.models.vit import (
+    VisionTransformer, vit, vit_arch, vit_b_16, vit_b_32, vit_h_14, vit_l_16,
+    vit_l_32,
+)
 
 #: the ported families, by the JAX registry's names (models/__init__.py)
 MODEL_REGISTRY = {
@@ -79,6 +91,12 @@ MODEL_REGISTRY = {
     **{f"mnasnet{s}": partial(mnasnet, a)
        for s, a in (("0_5", 0.5), ("0_75", 0.75), ("1_0", 1.0),
                     ("1_3", 1.3))},
+    **{a: partial(vit_arch, a) for a in
+       ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14")},
+    **{a: partial(swin, a) for a in
+       ("swin_t", "swin_s", "swin_b", "swin_v2_t", "swin_v2_s",
+        "swin_v2_b")},
+    "maxvit_t": maxvit_t,
     "gpt2_tiny": gpt2_tiny,
     "gpt2": gpt2,
     "gpt2_medium": gpt2_medium,
@@ -87,20 +105,22 @@ MODEL_REGISTRY = {
 }
 
 
-#: JAX registry names still to port: the transformers (ROADMAP Queue 1
-#: item 6)
-_NOT_PORTED = ("vit_", "swin_", "maxvit_", "gpt2_moe")
+#: JAX registry names still to port: the mixture-of-experts GPT-2s
+#: (ROADMAP Queue 1 item 6, MoE)
+_NOT_PORTED = ("gpt2_moe",)
 
 
 def build(name: str, num_classes: int = 1000, device=None, **kw):
     """Build a model by its JAX registry name on ``device`` (CUDA unless
     ``"cpu"`` is passed); ``kw`` go to the constructor (``stem`` for the
     ResNets; for GPT-2 ``scan_blocks`` and ``max_len``; ``in_features``
-    for ``mlp``). The JAX zoo's transformers are not ported yet."""
+    for ``mlp``; ``image_size`` and ``scan_blocks`` for the ViTs,
+    ``partition`` for MaxViT). The MoE GPT-2s are not ported yet."""
     if name not in MODEL_REGISTRY:
         if name.startswith(_NOT_PORTED):
             raise NotImplementedError(
-                f"model {name!r} is not ported yet (ROADMAP Queue 1 item 6)")
+                f"model {name!r} is not ported yet (ROADMAP Queue 1 item 6, "
+                "MoE: nn.MoE and the expert-stacked factors)")
         raise ValueError(f"unknown model {name!r}; available: "
                          f"{', '.join(sorted(MODEL_REGISTRY))}")
     return MODEL_REGISTRY[name](num_classes=num_classes, device=device, **kw)
@@ -120,4 +140,8 @@ __all__ = ["AlexNet", "alexnet", "DenseNet", "densenet", "GoogLeNet",
            "MobileNetV3", "mobilenet_v2", "mobilenet_v3_large",
            "mobilenet_v3_small", "RegNet", "regnet", "BasicBlock",
            "Bottleneck", "ResNet", "resnet", "resnet18", "resnet50",
-           "ShuffleNetV2", "shufflenet_v2", "MODEL_REGISTRY", "build"]
+           "ShuffleNetV2", "shufflenet_v2", "MaxVit", "maxvit", "maxvit_t",
+           "SwinTransformer", "swin", "swin_t", "TinyTransformer",
+           "tiny_transformer", "Encoder", "transformer_encoder",
+           "VisionTransformer", "vit", "vit_arch", "vit_b_16", "vit_b_32",
+           "vit_h_14", "vit_l_16", "vit_l_32", "MODEL_REGISTRY", "build"]

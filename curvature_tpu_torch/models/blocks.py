@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from curvature_tpu_torch.nn import (
-    BatchNorm, Conv, CtxModule, Dense, LayerMeta, ReLU, Sequential)
+    BatchNorm, Conv, CtxModule, Dense, LayerMeta, MultiheadAttention, ReLU,
+    Sequential)
 
 
 def make_divisible(v: float, divisor: int = 8) -> int:
@@ -29,14 +30,18 @@ def make_divisible(v: float, divisor: int = 8) -> int:
 
 class ZooNet(CtxModule):
     """Base of a model: :meth:`name_layers`, called at the end of the
-    constructor, names each tracked layer by its module path, and
-    ``metas`` lists the tracked layers in forward order (registration
-    order, which every family keeps)."""
+    constructor, names each tracked layer by its module path (an
+    attention's projections ``<path>/in_proj`` and ``<path>/out_proj``,
+    JAX's names), and ``metas`` lists the tracked layers in forward order
+    (registration order, which every family keeps)."""
 
     def name_layers(self):
         for name, m in self.named_modules():
             if isinstance(m, (Conv, Dense)):
                 m.name = name
+        for name, m in self.named_modules():
+            if isinstance(m, MultiheadAttention):
+                m.set_name(name)
 
     @property
     def metas(self) -> Dict[str, LayerMeta]:

@@ -4,7 +4,12 @@ The JAX package keeps ``{"params": {layer: {...}}, "batch_stats": {layer:
 {"mean", "var"}}}`` with HWIO conv kernels and ``[in, out]`` dense
 kernels (``[depth, in, out]`` in a ScanBlocks stack; a grouped conv's
 kernel is ``[kh, kw, C/g, O]``, torch's ``[O, C/g, kh, kw]``), and raw
-parameters such as ConvNeXt's ``layer_scale`` as ``{"value": ...}``.
+parameters such as ConvNeXt's ``layer_scale``, ViT's ``class_token`` and
+``encoder.pos_embedding`` or Swin's bias tables as ``{"value": ...}``,
+where the port keeps buffers among them too (Swin's and MaxViT's
+``relative_position_index``, Swin V2's ``relative_coords_table``: JAX
+keeps them as params). An attention projection is ``<attn>/in_proj`` in
+JAX and the module ``<attn>.in_proj`` here (``nn.core.param_key``).
 :func:`state_dict_from_jax` turns such variables, given as numpy arrays,
 into this port's state dict; :func:`seeded_variables` makes variables in
 that layout from a numpy seed (there are no ResNet or GPT-2 weights in the
@@ -30,16 +35,19 @@ def state_dict_from_jax(variables: Dict, lead: int = 0
                         ) -> Dict[str, torch.Tensor]:
     """JAX-layout numpy variables -> this port's state dict (CPU tensors):
     conv HWIO -> OIHW (grouped: [kh, kw, C/g, O] -> [O, C/g, kh, kw]),
-    dense [(depth,) in, out] -> [(depth,) out, in], BN and LayerNorm
-    scale/bias -> weight/bias, embedding tables (``wte``, ``wpe``:
-    ``weight``) as they are, a raw parameter group ``{"value": v}`` (JAX
-    ConvNeXt's ``{block}.layer_scale``) -> the parameter ``{block}.
-    layer_scale``, batch_stats mean/var -> running_mean/running_var.
-    ``lead`` leading axes of every leaf pass through untouched (SWAG's
-    ``[K, ...]`` deviation buffer): a kernel is a conv's when it has four
-    axes past them."""
+    dense [(depth,) in, out] -> [(depth,) out, in] (``<attn>/in_proj`` ->
+    ``<attn>.in_proj.weight``), BN and LayerNorm scale/bias ->
+    weight/bias, embedding tables (``wte``, ``wpe``: ``weight``) as they
+    are, a raw parameter group ``{"value": v}`` (JAX ConvNeXt's
+    ``{block}.layer_scale``) -> the parameter or buffer ``{block}.
+    layer_scale``, any other group's leaves (the encoder transformer's
+    ``embed`` ``table`` and ``pos``) under their own names, batch_stats
+    mean/var -> running_mean/running_var. ``lead`` leading axes of every
+    leaf pass through untouched (SWAG's ``[K, ...]`` deviation buffer): a
+    kernel is a conv's when it has four axes past them."""
     sd = {}
     for layer, p in variables["params"].items():
+        layer = layer.replace("/", ".")
         if "kernel" in p:
             k = np.asarray(p["kernel"], np.float32)
             if k.ndim - lead == 4:
@@ -57,6 +65,10 @@ def state_dict_from_jax(variables: Dict, lead: int = 0
         elif "value" in p:
             sd[layer] = torch.from_numpy(
                 np.asarray(p["value"], np.float32).copy())
+        elif "scale" not in p:
+            for key, val in p.items():
+                sd[f"{layer}.{key}"] = torch.from_numpy(
+                    np.asarray(val, np.float32).copy())
         else:
             sd[f"{layer}.weight"] = torch.from_numpy(
                 np.asarray(p["scale"], np.float32).copy())
@@ -78,10 +90,15 @@ def variables_to_jax(model: nn.Module,
     numpy variables. Each leaf is placed by the type of the module that
     owns it, never by its rank: a ``Conv`` weight OIHW -> HWIO (grouped
     [O, C/g, kh, kw] -> [kh, kw, C/g, O]), a ``Dense`` weight [(depth,)
-    out, in] -> [(depth,) in, out], ``BatchNorm``/``LayerNorm`` weight ->
-    ``scale``, an embedding's ``weight`` as it is, a module's raw
-    parameter (ConvNeXt's ``layer_scale``) -> ``{"value": ...}``,
-    ``running_mean``/``running_var`` -> ``batch_stats`` ``mean``/``var``.
+    out, in] -> [(depth,) in, out] under the layer's name (an attention
+    projection's ``<attn>/in_proj``), ``BatchNorm``/``LayerNorm`` weight
+    -> ``scale``, an embedding's ``weight`` as it is, a module's raw
+    parameter or buffer (ConvNeXt's ``layer_scale``, ViT's
+    ``class_token``, Swin's ``relative_position_index``) -> ``{"value":
+    ...}`` (a buffer as float32, as JAX keeps it), the leaves of a module
+    marked ``jax_group`` (the encoder transformer's ``embed``) under one
+    group, ``running_mean``/``running_var`` -> ``batch_stats``
+    ``mean``/``var``.
     ``lead`` leading axes of every leaf pass through untouched (SWAG's
     ``[K, ...]`` deviation buffer). A state holding only parameters gives
     no ``batch_stats``; a key no rule places raises ``KeyError``."""
@@ -105,9 +122,10 @@ def variables_to_jax(model: nn.Module,
                                                   for i in (2, 3, 1, 0)))
             else:
                 w = w.swapaxes(-1, -2)
-            params[name] = {"kernel": np.ascontiguousarray(w)}
+            layer = m.name or name
+            params[layer] = {"kernel": np.ascontiguousarray(w)}
             if keys["bias"] in state:
-                params[name]["bias"] = arr(keys["bias"])
+                params[layer]["bias"] = arr(keys["bias"])
         elif isinstance(m, (BatchNorm, LayerNorm)) \
                 and keys["weight"] in state:
             params[name] = {"scale": arr(keys["weight"]),
@@ -117,11 +135,17 @@ def variables_to_jax(model: nn.Module,
         if isinstance(m, BatchNorm) and keys["running_mean"] in state:
             stats[name] = {"mean": arr(keys["running_mean"]),
                            "var": arr(keys["running_var"])}
-        for pname, _ in m.named_parameters(recurse=False):
+        if isinstance(m, (Conv, Dense, BatchNorm, LayerNorm, nn.Embedding)):
+            continue
+        raw = [p for p, _ in m.named_parameters(recurse=False)] \
+            + [b for b, _ in m.named_buffers(recurse=False)]
+        for pname in raw:
             key = f"{name}.{pname}" if name else pname
-            if key in state and key not in kept \
-                    and not isinstance(m, (Conv, Dense, BatchNorm,
-                                           LayerNorm, nn.Embedding)):
+            if key not in state or key in kept:
+                continue
+            if getattr(m, "jax_group", False):
+                params.setdefault(name, {})[pname] = arr(key)
+            else:
                 params[key] = {"value": arr(key)}
     left = [k for k in state if k not in kept]
     if left:
@@ -162,7 +186,13 @@ def seeded_variables(model: nn.Module, seed: int,
     ConvNeXt's ``layer_scale``, which plays that BN's part (the usual
     damped-residual init), so that eval-mode activations do not grow
     block by block and the random network's softmax stays unsaturated.
-    A GPT-2 gets :func:`~curvature_tpu_torch.models.gpt.seeded_gpt2`."""
+    Other raw parameters are N(0, 0.02) (ViT's ``class_token`` and
+    ``pos_embedding``, the bias tables, the encoder's ``embed`` group)
+    but Swin V2's ``logit_scale``, log(10) as JAX initializes it; buffers
+    (the relative-position indices, Swin V2's coordinate table) keep the
+    model's own values. A stacked layer's leaves carry its ``[depth]``
+    axis. A GPT-2 gets :func:`~curvature_tpu_torch.models.gpt.
+    seeded_gpt2`."""
     from curvature_tpu_torch.models.gpt import GPT2, seeded_gpt2
     if isinstance(model, GPT2):
         return seeded_gpt2(model, seed)
@@ -186,14 +216,15 @@ def seeded_variables(model: nn.Module, seed: int,
                 params[name]["bias"] = (0.01 * rng.standard_normal(o)
                                         ).astype(np.float32)
         elif isinstance(m, Dense):
-            o, i = m.weight.shape
-            params[name] = {"kernel": (np.sqrt(1.0 / i) * rng.standard_normal(
-                (i, o))).astype(np.float32)}
+            *lead, o, i = m.weight.shape
+            layer = m.name or name
+            params[layer] = {"kernel": (np.sqrt(1.0 / i) * rng.standard_normal(
+                tuple(lead) + (i, o))).astype(np.float32)}
             if m.bias is not None:
-                params[name]["bias"] = (0.01 * rng.standard_normal(o)
-                                        ).astype(np.float32)
+                params[layer]["bias"] = (0.01 * rng.standard_normal(
+                    tuple(m.bias.shape))).astype(np.float32)
         elif isinstance(m, LayerNorm):
-            n = m.weight.shape[0]
+            n = tuple(m.weight.shape)
             params[name] = {
                 "scale": rng.uniform(0.8, 1.2, n).astype(np.float32),
                 "bias": (0.05 * rng.standard_normal(n)).astype(np.float32)}
@@ -206,7 +237,29 @@ def seeded_variables(model: nn.Module, seed: int,
             stats[name] = {
                 "mean": (0.05 * rng.standard_normal(n)).astype(np.float32),
                 "var": rng.uniform(0.8, 1.2, n).astype(np.float32)}
+        else:
+            _seed_raw(m, name, rng, params)
     return {"params": params, "batch_stats": stats}
+
+
+def _seed_raw(m: nn.Module, name: str, rng, params: Dict):
+    """Seeded values of a module's raw parameters and its buffers (see
+    :func:`seeded_variables`), in the JAX layout."""
+    for pname, p in m.named_parameters(recurse=False):
+        if pname == "layer_scale":
+            continue
+        if pname == "logit_scale":
+            val = np.full(tuple(p.shape), np.log(10.0), np.float32)
+        else:
+            val = (0.02 * rng.standard_normal(tuple(p.shape))
+                   ).astype(np.float32)
+        if getattr(m, "jax_group", False):
+            params.setdefault(name, {})[pname] = val
+        else:
+            params[f"{name}.{pname}" if name else pname] = {"value": val}
+    for bname, b in m.named_buffers(recurse=False):
+        params[f"{name}.{bname}" if name else bname] = {
+            "value": b.detach().float().cpu().numpy()}
 
 
 def stack_scan_groups(variables: Dict, model) -> Dict:

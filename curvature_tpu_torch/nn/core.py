@@ -106,6 +106,13 @@ class Context:
         return y + p
 
 
+def param_key(name: str, leaf: str) -> str:
+    """The state-dict key of a tracked layer's ``leaf`` (``"weight"``,
+    ``"bias"``): the layer name with an attention projection's ``/``
+    (``"attn/in_proj"``, JAX's name) as the module path's ``.``."""
+    return f"{name.replace('/', '.')}.{leaf}"
+
+
 # ---------------------------------------------------------------------------
 # Matrix views: estimators work on the [out, fan_in(+1)] weight matrix per
 # tracked layer (the reference's ``grads.view(shape[0], -1)`` plus the bias
@@ -155,6 +162,6 @@ def apply_matrix_delta(metas: Dict[str, LayerMeta],
     new = dict(params)
     for name, mat in deltas.items():
         for key, val in matrix_to_delta(metas[name], mat).items():
-            full = f"{name}.{key}"
+            full = param_key(name, key)
             new[full] = new[full] + val.to(new[full].dtype)
     return new

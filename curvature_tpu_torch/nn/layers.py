@@ -3,8 +3,9 @@ and depthwise convs through ``groups``), the untracked ``BatchNorm``,
 ``LayerNorm`` (and ConvNeXt's ``ChannelLayerNorm`` on NCHW activations),
 the activations ``ReLU``, ``ReLU6``, ``SiLU``, ``Hardsigmoid``,
 ``Hardswish``, ``GELU`` and ``Identity``, the pools ``MaxPool``,
-``AvgPool``, ``AdaptiveAvgPool`` and ``GlobalAvgPool``, ``Flatten``, and
-the ``Sequential`` and ``Add`` containers.
+``AvgPool``, ``AdaptiveAvgPool`` and ``GlobalAvgPool``, ``Flatten``, the
+``Sequential`` and ``Add`` containers, and ``MultiheadAttention`` (two
+tracked ``Dense`` projections around an explicit softmax attention).
 
 Port of the matching subset of ``curvature_tpu/nn/layers.py`` in PyTorch
 layout (NCHW activations, OIHW conv weights, [out, in] dense weights).
@@ -50,7 +51,8 @@ class Dense(CtxModule):
     """Tracked fully-connected layer (torch ``Linear`` weights) over any
     leading batch/token dims. Inside a ScanBlocks stack its weight is
     ``[depth, out, in]`` and its meta is stacked. ``heads`` is stamped by
-    an attention module on its projections (JAX gpt.py:69-73)."""
+    an attention module on its projections (JAX gpt.py:69-73,
+    layers.py:388-395)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, name: Optional[str] = None):
@@ -374,3 +376,50 @@ class Add(CtxModule):
     def forward(self, x, ctx: Optional[Context] = None):
         return sum(m(x, ctx) if isinstance(m, CtxModule) else m(x)
                    for m in (self.main, self.shortcut))
+
+
+class MultiheadAttention(CtxModule):
+    """Self-attention with torch's packed ``in_proj`` (q, k, v stacked
+    along the outputs) and ``out_proj`` (JAX layers.py:353-398).
+
+    Both projections are tracked :class:`Dense` layers whose meta names
+    are ``<name>/in_proj`` and ``<name>/out_proj``, JAX's names (KFAC's
+    qkv and head splits key on them), while their module paths, and so
+    their state-dict keys, are ``<name>.in_proj`` and ``<name>.out_proj``
+    (``nn.core.param_key`` maps one to the other). :meth:`set_name` names
+    them; ``models.blocks.ZooNet.name_layers`` calls it with the module
+    path. The head count is stamped on both. The attention is explicit,
+    matmul, softmax in the input dtype, matmul, so ``torch.func.jvp`` and
+    ``vmap`` run through it.
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int,
+                 name: Optional[str] = None):
+        super().__init__()
+        if embed_dim % num_heads:
+            raise ValueError("embed_dim must divide num_heads")
+        self.embed_dim = embed_dim
+        self.num_heads = num_heads
+        self.in_proj = Dense(embed_dim, 3 * embed_dim)
+        self.out_proj = Dense(embed_dim, embed_dim)
+        self.in_proj.heads = self.out_proj.heads = num_heads
+        self.name = None
+        if name is not None:
+            self.set_name(name)
+
+    def set_name(self, name: str):
+        self.name = name
+        self.in_proj.name = f"{name}/in_proj"
+        self.out_proj.name = f"{name}/out_proj"
+
+    def forward(self, x, ctx: Optional[Context] = None):
+        b, t, e = x.shape
+        h = self.num_heads
+        d = e // h
+        qkv = self.in_proj(x, ctx)                       # [B, T, 3E]
+        q, k, v = (z.reshape(b, t, h, d).transpose(1, 2)
+                   for z in qkv.split(e, dim=-1))        # [B, H, T, d]
+        attn = torch.softmax((q @ k.transpose(-1, -2)) / math.sqrt(d),
+                             dim=-1)
+        o = (attn @ v).transpose(1, 2).reshape(b, t, e)
+        return self.out_proj(o, ctx)

@@ -72,11 +72,17 @@ class ScanBlocks(nn.Module):
 
     @property
     def scan_group(self) -> Dict:
-        """The JAX ``scan_groups`` entry of this stack."""
+        """The JAX ``scan_groups`` entry of this stack: its parameter
+        layers by JAX name (a tracked layer's ``name``, so an attention
+        projection's ``<attn>/in_proj``)."""
+        layers = set()
+        for n in self.param_names:
+            owner, _ = _owner(self.block, n)
+            layers.add(getattr(owner, "name", None)
+                       or f"{self.name}." + n.rsplit(".", 1)[0])
         return {"depth": self.depth,
                 "per_depth_names": self.per_depth_names,
-                "param_layers": sorted({f"{self.name}." + n.rsplit(".", 1)[0]
-                                        for n in self.param_names}),
+                "param_layers": sorted(layers),
                 "stat_layers": []}
 
     def forward(self, x, ctx: Optional[Context] = None):

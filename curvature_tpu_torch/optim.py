@@ -25,7 +25,8 @@ import torch.nn.functional as F
 
 from curvature_tpu_torch.estimators.base import normalize_damping
 from curvature_tpu_torch.estimators.capture import collect
-from curvature_tpu_torch.nn.core import matrix_to_delta, param_matrix
+from curvature_tpu_torch.nn.core import (
+    matrix_to_delta, param_key, param_matrix)
 
 
 def precondition(metas: Dict, inv_state: Dict,
@@ -49,8 +50,8 @@ def precondition(metas: Dict, inv_state: Dict,
             raise ValueError(f"{name}: split attention factors (qkv/head) "
                              "are posterior-only; build the optimizer KFAC "
                              "without attention_qkv_split/head_split")
-        weight = grads[f"{name}.weight"]
-        gmat = param_matrix(meta, weight, grads.get(f"{name}.bias"))
+        weight = grads[param_key(name, "weight")]
+        gmat = param_matrix(meta, weight, grads.get(param_key(name, "bias")))
         if grouped:
             blocks = gmat.reshape(meta.groups, meta.out_features
                                   // meta.groups, -1)
@@ -60,7 +61,7 @@ def precondition(metas: Dict, inv_state: Dict,
             # batched over an optional leading depth axis (ScanBlocks)
             pmat = g_chol @ (g_chol.mT @ gmat) @ a_chol @ a_chol.mT
         for key, val in matrix_to_delta(meta, pmat).items():
-            full = f"{name}.{key}"
+            full = param_key(name, key)
             new[full] = val.reshape(grads[full].shape).to(grads[full].dtype)
     return new
 

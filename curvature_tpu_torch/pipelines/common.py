@@ -108,6 +108,14 @@ def build_model(cfg):
         # resnet.py:128-130)
         kw["stem"] = "imagenet" if cfg.data in ("imagenet", "tiny") \
             else "cifar"
+    if cfg.model.startswith("vit"):
+        # the positional embedding follows the patch grid (JAX :68-74)
+        kw["image_size"] = input_shape(cfg.data, cfg.model)[0]
+        kw["scan_blocks"] = bool(getattr(cfg, "scan_blocks", False))
+    if cfg.model.startswith("maxvit"):
+        # the partition must divide every stage's map (input/4 ..
+        # input/32): input/32, torchvision's 7 at 224² (JAX :75-79)
+        kw["partition"] = max(1, input_shape(cfg.data, cfg.model)[0] // 32)
     model = models.build(cfg.model, num_classes, device=device, **kw)
     h, w, _ = input_shape(cfg.data, cfg.model)
     variables = models.seeded_variables(model, cfg.seed)
@@ -127,6 +135,8 @@ def build_model(cfg):
     elif os.path.exists(bundled_npz):
         loaded = load_pytree(bundled_npz)
     if loaded is not None:
+        # per-depth entries (a torchvision layout) into a stacked model
+        loaded = models.stack_scan_groups(loaded, model)
         # a checkpoint of another input size would fail deep inside the
         # forward; name the layer here
         init_params = variables["params"]

@@ -60,7 +60,9 @@ def load_estimator(cfg, model):
         est = estimators.Diagonal(model, **kw)
         est.state = load()
     elif name == "kfac":
-        est = estimators.KFAC(model, g_block_size=cfg.g_block_size, **kw)
+        est = estimators.KFAC(model, g_block_size=cfg.g_block_size,
+                              attention_qkv_split=cfg.qkv_split,
+                              attention_head_split=cfg.head_split, **kw)
         est.state = load()
     elif name == "efb":
         est = estimators.EFB(model, load("kfac"), **kw)

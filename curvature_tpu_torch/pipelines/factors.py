@@ -54,7 +54,9 @@ def compute_factors(model, data, cfg, kfac_state=None,
         est = estimators.Diagonal(model, **kw)
     elif name == "kfac":
         est = estimators.KFAC(model, token_subsample=subsample,
-                              g_block_size=cfg.g_block_size, **kw)
+                              g_block_size=cfg.g_block_size,
+                              attention_qkv_split=cfg.qkv_split,
+                              attention_head_split=cfg.head_split, **kw)
     elif name == "block":
         est = estimators.BlockDiagonal(model, **kw)
     elif name == "efb":

@@ -82,9 +82,8 @@ def candidate_ensemble(est, inv, samples: int,
     MAP one after the other."""
     out = []
     for s in range(samples):
-        z = est.draw_noise(generator) if noise is None else {
-            k: torch.as_tensor(v, dtype=est.dtype, device=est.device)
-            for k, v in noise[s].items()}
+        z = (est.draw_noise(generator) if noise is None
+             else est._as_noise(noise[s]))
         out.append(apply_matrix_delta(est.metas, est.mean_params,
                                       est.sample_state(inv, z)))
     return out

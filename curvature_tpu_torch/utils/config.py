@@ -74,9 +74,9 @@ class Config:
     g_block_size: int = 1024        # KFAC: block size of the blocked G of
                                     # dense layers past max_factor_dim
                                     # (vocab heads; 0 = hard error)
-    qkv_split: bool = False         # not ported
-    head_split: bool = False        # not ported
-    scan_blocks: bool = False       # GPT-2: depth-stacked blocks
+    qkv_split: bool = False         # KFAC: per q/k/v chunk attention G
+    head_split: bool = False        # KFAC: per-head attention factors
+    scan_blocks: bool = False       # GPT-2, ViT: depth-stacked blocks
                                     # (nn/scan.py)
     seq_len: int = 64               # GPT-2: context length of --data tokens
     vocab: int = 0                  # GPT-2: vocabulary of the model and of
@@ -121,8 +121,6 @@ def parse_args(argv=None, **overrides) -> Config:
     return Config(**vars(ns))
 
 
-_TRANSFORMERS = ("vit", "swin", "maxvit", "transformer",
-                 "tiny_transformer", "gpt2_moe")
 
 #: (what, test of the config, ROADMAP item): flags whose module is not
 #: ported; each one set raises
@@ -135,10 +133,8 @@ NOT_PORTED = (
      lambda c: c.plot, "Queue 1 item 7"),
     ("--estimator subspace", lambda c: c.estimator == "subspace",
      "Queue 1 item 8"),
-    ("transformer models other than GPT-2 (and GPT-2 MoE)",
-     lambda c: c.model.startswith(_TRANSFORMERS), "Queue 1 item 6"),
-    ("--qkv_split/--head_split (nn.MultiheadAttention's splits)",
-     lambda c: c.qkv_split or c.head_split, "Queue 1 item 6"),
+    ("the mixture-of-experts GPT-2s (nn.MoE)",
+     lambda c: c.model.startswith("gpt2_moe"), "Queue 1 item 6, MoE"),
     ("the visualize figure toggles --calibration/--ecdf/--entropy/"
      "--eigvals/--hyper/--networks/--landscapes (their figures need "
      "matplotlib)",

@@ -498,8 +498,7 @@ def test_evaluate_cli_writes_jax_keys(lenet, swapped, capsys):
     ["--parallel"], ["--mesh", "data:2"], ["--fidelity", "2"],
     ["--spectrum", "3"], ["--plot"],
     ["--estimator", "subspace"],
-    ["--model", "gpt2_moe_tiny"], ["--model", "swin_t"],
-    ["--model", "vit_b_16"], ["--qkv_split"], ["--head_split"],
+    ["--model", "gpt2_moe_tiny"],
     ["--calibration"],
     ["--eigvals"],
 ])
@@ -562,14 +561,15 @@ def test_ported_flags_reach_their_module(flags, tmp_path, monkeypatch):
 
 
 def test_unported_models_data_and_formats_raise(tmp_path):
-    """What is still to port raises, naming its ROADMAP item: the
-    transformers (item 6), the image-folder loaders (item 9: PIL), orbax
+    """What is still to port raises, naming its ROADMAP item: the MoE
+    GPT-2s (item 6), the image-folder loaders (item 9: PIL), orbax
     checkpoints (item 10), the fidelity diagnostics (item 8). The classic
-    zoo, CIFAR-10 and torch ``.pth`` checkpoints are ported
-    (tests/test_torch_zoo_classic.py, test_torch_data.py,
+    zoo, the vision transformers, CIFAR-10 and torch ``.pth`` checkpoints
+    are ported (tests/test_torch_zoo_classic.py,
+    test_torch_zoo_transformers.py, test_torch_data.py,
     test_torch_torch_convert.py)."""
     with pytest.raises(NotImplementedError, match="item 6"):
-        tmodels.build("swin_t", 10, device="cpu")
+        tmodels.build("gpt2_moe_tiny", 10, device="cpu")
     t, _ = _cfgs(["--platform", "cpu", "--data", "gtsrb"])
     with pytest.raises(NotImplementedError, match="item 9"):
         tcommon.build_data(t)

@@ -60,7 +60,12 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.models.mlp",
                  "curvature_tpu_torch.models.torch_convert",
                  "curvature_tpu_torch.data.native",
-                 "curvature_tpu_torch.data.prefetch"):
+                 "curvature_tpu_torch.data.prefetch",
+                 "curvature_tpu_torch.models.transformer",
+                 "curvature_tpu_torch.models.transformer2",
+                 "curvature_tpu_torch.models.vit",
+                 "curvature_tpu_torch.models.swin",
+                 "curvature_tpu_torch.models.maxvit"):
     assert required in names, required
 assert not bad, bad
 """

@@ -90,7 +90,7 @@ def test_unknown_and_unported_names():
     with pytest.raises(ValueError, match="unknown model"):
         tmodels.build("densenet122", 10, device="cpu")
     with pytest.raises(NotImplementedError, match="item 6"):
-        tmodels.build("vit_b_16", 10, device="cpu")
+        tmodels.build("gpt2_moe_tiny", 10, device="cpu")
     with pytest.raises(TypeError):
         tmodels.build("mlp", 10, device="cpu")          # no in_features
 
