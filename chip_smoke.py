@@ -203,10 +203,6 @@ BLITZ = ["--norm", "1", "--scale", "5e4"]
 #: update_batches chunks of 8 (the default --scan_chunk)
 R18_ARGV = ["--model", "resnet18", "--data", "synthetic", "--batch_size",
             "32"]
-#: the pipeline and hyper phases' ResNet-18 factor files leave layer4 out
-#: (its 4,609-wide A factors were 256 of the 376 MB a kfac file wrote, at
-#: ~19 s a compressed write); every kernel-routed layer stays in
-R18_LAYERS = ["--layers", "conv1,layer1.*,layer2.*,layer3.*,fc"]
 R18_UPDATES = 16
 #: kernel launches of one ResNet-18 kfac update at B = 32, by path: JAX's
 #: routes (the correlation gate, then select_patch_gram), eight tiled
@@ -1438,8 +1434,7 @@ def pipelines(estimators, counters, smi):
     # (b) ResNet-18 on synthetic data, f32 then bf16
     by_path, updated = {}, []
     root = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
-    base = R18_ARGV + R18_LAYERS + ["--root_dir", root, "--results_dir",
-                                    root]
+    base = R18_ARGV + ["--root_dir", root, "--results_dir", root]
     for path, extra in zip(R18_PATHS, ([], ["--precision", "bfloat16",
                                             "--suffix", "_bf16"])):
         est, got = run_cli(factors, base + ["--estimator", "kfac"] + extra,
@@ -1531,8 +1526,7 @@ def hyper_inputs(estimators, models, counters, smi, dev):
         run_cli(factors, base + ["--estimator", name], counters, smi,
                 f"lenet5 factors {name}")
     root = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
-    base = R18_ARGV + R18_LAYERS + ["--root_dir", root, "--results_dir",
-                                    root]
+    base = R18_ARGV + ["--root_dir", root, "--results_dir", root]
     for name in ("kfac", "efb"):
         run_cli(factors, base + ["--estimator", name], counters, smi,
                 f"resnet18 factors {name}")
@@ -1699,8 +1693,7 @@ def hyper_phase(counters, smi, dev, r50=None):
     root = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
     results = os.path.join(root, "hyper")
     shutil.rmtree(results, ignore_errors=True)
-    base = R18_ARGV + R18_LAYERS + ["--root_dir", root, "--results_dir",
-                                    results]
+    base = R18_ARGV + ["--root_dir", root, "--results_dir", results]
     for est_name in ("kfac", "efb"):
         hyper_run(hyper, base + ["--estimator", est_name] + HYPER_R18,
                   counters, smi, f"resnet18 hyper {est_name} "

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from curvature_tpu_torch.nn import BatchNorm, Conv, Dense, LayerNorm
+from curvature_tpu_torch.nn import (BatchNorm, Conv, Dense, LayerNorm,
+                                    param_key)
 
 
 def state_dict_from_jax(variables: Dict, lead: int = 0
@@ -47,7 +48,6 @@ def state_dict_from_jax(variables: Dict, lead: int = 0
     kernel is a conv's when it has four axes past them."""
     sd = {}
     for layer, p in variables["params"].items():
-        layer = layer.replace("/", ".")
         if "kernel" in p:
             k = np.asarray(p["kernel"], np.float32)
             if k.ndim - lead == 4:
@@ -55,24 +55,25 @@ def state_dict_from_jax(variables: Dict, lead: int = 0
                     lead + i for i in (3, 2, 0, 1)))
             else:
                 k = k.swapaxes(-1, -2)
-            sd[f"{layer}.weight"] = torch.from_numpy(np.ascontiguousarray(k))
+            sd[param_key(layer, "weight")] = torch.from_numpy(
+                np.ascontiguousarray(k))
             if "bias" in p:
-                sd[f"{layer}.bias"] = torch.from_numpy(
+                sd[param_key(layer, "bias")] = torch.from_numpy(
                     np.asarray(p["bias"], np.float32).copy())
         elif "weight" in p:
-            sd[f"{layer}.weight"] = torch.from_numpy(
+            sd[param_key(layer, "weight")] = torch.from_numpy(
                 np.asarray(p["weight"], np.float32).copy())
         elif "value" in p:
             sd[layer] = torch.from_numpy(
                 np.asarray(p["value"], np.float32).copy())
         elif "scale" not in p:
             for key, val in p.items():
-                sd[f"{layer}.{key}"] = torch.from_numpy(
+                sd[param_key(layer, key)] = torch.from_numpy(
                     np.asarray(val, np.float32).copy())
         else:
-            sd[f"{layer}.weight"] = torch.from_numpy(
+            sd[param_key(layer, "weight")] = torch.from_numpy(
                 np.asarray(p["scale"], np.float32).copy())
-            sd[f"{layer}.bias"] = torch.from_numpy(
+            sd[param_key(layer, "bias")] = torch.from_numpy(
                 np.asarray(p["bias"], np.float32).copy())
     for layer, s in variables.get("batch_stats", {}).items():
         sd[f"{layer}.running_mean"] = torch.from_numpy(

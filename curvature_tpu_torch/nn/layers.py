@@ -397,7 +397,8 @@ class MultiheadAttention(CtxModule):
                  name: Optional[str] = None):
         super().__init__()
         if embed_dim % num_heads:
-            raise ValueError("embed_dim must divide num_heads")
+            raise ValueError(f"num_heads {num_heads} must divide embed_dim "
+                             f"{embed_dim}")
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.in_proj = Dense(embed_dim, 3 * embed_dim)

@@ -21,6 +21,8 @@ import jax.numpy as jnp
 
 from curvature_tpu import estimators as jest
 from curvature_tpu import models as jmodels
+from curvature_tpu import nn as jnn
+from curvature_tpu.models.swin import SwinTransformer as JSwin
 from curvature_tpu.ops.pallas import select_patch_gram
 from curvature_tpu_torch import estimators as port_est
 from curvature_tpu_torch import models as tmodels
@@ -39,6 +41,9 @@ CLASSES = 10
 #: the narrow MaxViT of the factor checks (JAX tests/test_models.py:647)
 MAXVIT_SMALL = dict(stem_channels=8, block_channels=(8, 16),
                     block_layers=(1, 1), head_dim=4, partition=2)
+#: a narrow Swin V2 (embed, depths, heads, window) whose every stage map at
+#: 128² (32, 16, 8, 4) is a whole number of 4x4 windows: nothing pads
+SWIN_V2_SMALL = (16, (2, 2, 2, 2), (2, 2, 4, 4), 4)
 
 
 def _np(t):
@@ -79,6 +84,10 @@ def _build(name):
         return (tmodels.build(name, CLASSES, device="cpu"),
                 jmodels.build(name, CLASSES),
                 56 if name == "swin_t" else 48)
+    if name == "swin_v2_small":
+        return (tmodels.SwinTransformer(*SWIN_V2_SMALL, CLASSES, v2=True),
+                jnn.Model(JSwin(*SWIN_V2_SMALL, CLASSES, v2=True)),
+                128)
     if name == "maxvit_small":
         return (tmodels.maxvit(**MAXVIT_SMALL, num_classes=CLASSES,
                                device="cpu"),
@@ -96,8 +105,8 @@ def _pair(name, seed=0):
     return tm, jm, variables, jvars, size
 
 
-CASES = ("vit", "vit_scan", "swin_t", "swin_v2_t", "maxvit_small",
-         "maxvit_t")
+CASES = ("vit", "vit_scan", "swin_t", "swin_v2_t", "swin_v2_small",
+         "maxvit_small", "maxvit_t")
 
 
 @pytest.fixture(scope="module", params=CASES)
@@ -149,11 +158,13 @@ def test_logits_match_jax(pair):
 @pytest.mark.parametrize("name,split", [
     ("vit", "attention_qkv_split"), ("vit_scan", "attention_head_split"),
     ("vit", None), ("swin_t", None), ("swin_v2_t", None),
-    ("maxvit_small", None)])
+    ("swin_v2_small", None), ("maxvit_small", None)])
 def test_kfac_factors_match_jax(name, split):
     """One KFAC update (B=2, injected labels, MC=2) in each package: every
     factor within 1e-4 of max of JAX's, and the running statistics of
-    MaxViT's BatchNorms untouched by the capture (equal to the bit)."""
+    MaxViT's BatchNorms untouched by the capture (equal to the bit).
+    Where no window pads (``swin_v2_small``) JAX's Swin V2 qkv G is finite
+    and held whole; at 48² see ``_v2_finite_pattern``."""
     tm, jm, variables, _, size = _pair(name, seed=3)
     x = _images(2, size, 4)
     labels = np.random.default_rng(5).integers(
@@ -170,32 +181,33 @@ def test_kfac_factors_match_jax(name, split):
         assert set(te.state[n]) == set(je.state[n]), n
         for key in je.state[n]:
             want = np.asarray(je.state[n][key])
+            got = _np(te.state[n][key])
             if name == "swin_v2_t" and n.endswith("attn.qkv") and key == "g":
-                want = _v2_finite_g(want, te.state[n][key])
-            _close(te.state[n][key], want, 1e-4, f"{n} {key}")
+                finite = _v2_finite_pattern(want, got)
+                got, want = got[finite], want[finite]
+            _close(got, want, 1e-4, f"{n} {key}")
     for k, v in stats.items():
         assert torch.equal(tm.state_dict()[k], v), k
     if name.startswith("maxvit"):
         assert stats
 
 
-def _v2_finite_g(want, got):
+def _v2_finite_pattern(want, got):
     """Swin V2 zeroes the key bias, so a window's padding tokens have
     all-zero keys, and JAX differentiates ``jnp.linalg.norm`` at zero to
     NaN: its qkv G is NaN in exactly the key chunk's rows and columns
     wherever windows pad (48² pads every stage; so does 224² at the 28²
     stage). torch differentiates the norm at zero to 0, as torchvision's
-    ``F.normalize`` does: the port's G is finite. The comparison takes
-    JAX's finite entries, the port's key rows and columns where JAX has
-    NaN, and checks that pattern."""
+    ``F.normalize`` does: the port's G is finite. Checks that pattern and
+    returns the mask of JAX's finite entries, the only ones compared (the
+    key chunk is held to JAX by ``swin_v2_small``, where nothing pads)."""
     c = want.shape[-1] // 3
     nan = np.isnan(want)
     key = np.zeros_like(nan)
     key[c:2 * c, :] = key[:, c:2 * c] = True
     assert nan.any() and (nan == key).all()
-    got = _np(got)
     assert np.isfinite(got).all()
-    return np.where(nan, got, want)
+    return ~nan
 
 
 def test_scan_blocks_match_unrolled():
