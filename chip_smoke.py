@@ -29,6 +29,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
                                        # vision-transformer phase only
                                        # (with --profile: one ViT-B/16
                                        # update too)
+    python3 chip_smoke.py --subspace   # builds the kernels, runs the
+                                       # exact-curvature phase only (with
+                                       # --profile: one Subspace update
+                                       # too)
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -133,7 +137,17 @@ its head split, bf16 and ``scan_blocks`` checks; Swin-T through the same
 loop and Swin-V2-T; MaxViT-T, whose f32 update launches the tiled kernel
 once (``stem.1.0``), held against the plain path, and none in bf16; the
 ViT-B/16 ``--qkv_split`` and Swin-T CLIs under ``build/transformers``.
-Last the causal-LM phase.
+
+Then the exact curvature (``subspace_phase``) on ResNet-18 CIFAR at full
+width, B=128: the rows of JAX's ``subspace_swag_pipeline``
+(``resnet18_subspace_update_rank32_b128``, ``resnet18_subspace_invert``,
+``resnet18_subspace_sample30``, ``resnet18_swag_collect_b128``,
+``resnet18_swag_sample30``), sketch columns against ``ggn_matvec``, the
+solve against the quadratic form, a Lanczos check, the ``factors
+--fidelity --spectrum`` (its KFAC fit launching ``R18_ROUTES``' kernels),
+``factors``/``evaluate``/``hyper --estimator subspace`` CLIs under
+``build/subspace``, and ``self_influence`` under KFAC; no running
+statistic may move. Last the causal-LM phase.
 
 Every failed check raises. The last line of standard output is the
 ``{"ok": true, ...}`` JSON object; the line before it is the ``kernels``
@@ -264,11 +278,13 @@ HYPER_R18_MARGLIK = (["--optimizer", "gp", "--calls", "12"],
                      ["--optimizer", "grad", "--calls", "100"])
 HYPER_PREDICTIVES = ("probit", "bridge", "linearized", "linearized_probit")
 #: evaluate --predictive's posterior samples (the CLI's default is 30: a
-#: linearized run at 30 took 16-18 s of the phase's time)
-HYPER_PREDICTIVE_SAMPLES = ["--samples", "10"]
+#: linearized run at 30 took 16-18 s of the phase's time, at 10 8.6-9.0 s
+#: on a slow host)
+HYPER_PREDICTIVE_SAMPLES = ["--samples", "4"]
 #: the LeNet-5 FGSM sweeps (at the blitz's and the searched dampings, and
-#: SWAG's) take 10 posterior samples: at 30 each cost 13-17 s
-FGSM_CHAIN_SAMPLES = ["--samples", "10"]
+#: SWAG's) take 4 posterior samples: at 30 each cost 13-17 s, at 10
+#: 5.6-8.2 s on a slow host
+FGSM_CHAIN_SAMPLES = ["--samples", "4"]
 #: ResNet-50 (the main path's f32 KFAC factors): the batched evaluator's
 #: candidates (S=10, the two test batches as validation) and the
 #: evidence's
@@ -414,6 +430,33 @@ SWIN_ARGV = ["--model", "swin_t", "--data", "synthetic", "--layers",
 #: kernel record -> the transformer paths whose f32 launches it counts
 TRANSFORMER_RECORD_PATHS = {"patch_gram_tiled_maxvit_t":
                             (TRANSFORMER_PATHS[2],)}
+#: the exact-curvature phase (JAX benchmarks/suite.py:509-561,
+#: subspace_swag_pipeline): ResNet-18 CIFAR (10 classes, 32², seeded
+#: weights) at B=128, the Nyström sketch at rank 32 (suite.py's names),
+#: SWAG at JAX's rank 20; the sketch's vmapped columns in chunks of
+#: SUB_CHUNK (None: all 32 in one vmap)
+SUB_PATHS = ("resnet18_subspace_update_rank32_b128",
+             "resnet18_synthetic_factors_kfac_fidelity",
+             "resnet18_self_influence_kfac")
+SUB_BATCH, SUB_RANK, SUB_CHUNK, SUB_SWAG_RANK = 128, 32, None, 20
+#: the checks' bars: a sketch column against one matvec, and
+#: quadratic_form(solve(d)) against <d, solve(d)>
+SUB_RTOL = 1e-4
+#: Lanczos steps of the phase's check, and the damping of its posterior
+#: (a prior standard deviation of 0.01 outside the sketch's 32 directions,
+#: against He-init scales of 0.02-0.08)
+SUB_LANCZOS, SUB_DAMPING = 16, (1e4, 1e4)
+#: the CLIs under their own root: R18_ARGV's 16 batches of 32; the KFAC
+#: fit behind --fidelity launches R18_ROUTES' kernels, the rest none
+SUB_ROOT = "build/subspace"
+SUB_FIDELITY = ["--fidelity", "4", "--spectrum", "16"]
+SUB_HYPER = ["--optimizer", "random", "--calls", "3", "--samples", "4"]
+#: self-influence of SUB_INFLUENCE training examples under a KFAC fitted
+#: on 4 batches of 32 (R18_ROUTES' launches each)
+SUB_INFLUENCE = 64
+#: kernel record -> the exact-curvature paths whose f32 launches it counts
+SUB_RECORD_PATHS = {"patch_gram_tiled_resnet18": SUB_PATHS[1:],
+                    "patch_gram_v2_resnet18": SUB_PATHS[1:]}
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -2678,6 +2721,242 @@ def training_phase(estimators, counters, smi, dev, profile=False):
     return by_path
 
 
+def subspace_phase(estimators, models, counters, smi, dev, profile=False):
+    """The exact curvature on ResNet-18 CIFAR at full width (JAX
+    ops/matfree.py, eval/fidelity.py, estimators/subspace.py,
+    eval/influence.py; 10 classes, 32², seeded weights, B=128, f32, TF32
+    off): (a) the rows of JAX's ``subspace_swag_pipeline``
+    (benchmarks/suite.py:509-561): a rank-32 ``Subspace`` update after a
+    warm one, best of 3 (``resnet18_subspace_update_rank32_b128``), a warm
+    invert then one timed (``resnet18_subspace_invert``), a 30-sample
+    ensemble after a warm one (``resnet18_subspace_sample30``), SWAG at
+    rank 20 (``resnet18_swag_collect_b128``, ``resnet18_swag_sample30``);
+    (b) checks that need no dense matrix: two sketch columns against
+    ``ggn_matvec`` of their omega columns, ``quadratic_form(solve(d))``
+    against ``<d, solve(d)>``, the top Ritz value of SUB_LANCZOS Lanczos
+    steps at least the Rayleigh quotient of its injected start vector, and
+    every BatchNorm running statistic unchanged by the phase; (c) the
+    CLIs under SUB_ROOT: ``factors --estimator kfac --fidelity 4
+    --spectrum 16`` (its KFAC fit launching R18_ROUTES' kernels an
+    update, the npz files written), ``factors --estimator subspace --rank
+    32``, ``evaluate --estimator subspace --ood`` and a 3-candidate
+    ``hyper --estimator subspace``; (d) ``self_influence`` of
+    SUB_INFLUENCE training examples under a KFAC fitted on 4 batches of
+    32, its first score against ``precision_solve`` of that example's
+    gradient. Returns the paths' launches."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch.eval.influence import (
+        per_example_grad_matrix, self_influence)
+    from curvature_tpu_torch.ops import matfree
+    from curvature_tpu_torch.pipelines import evaluate, factors, hyper
+    from curvature_tpu_torch.utils.checkpoint import (
+        factors_path, results_paths)
+    from curvature_tpu_torch.utils.config import parse_args
+    none = counters.zero()
+    by_path = {}
+    model = models.resnet18(num_classes=10, stem="cifar", device=dev)
+    models.load_jax_variables(model, models.seeded_variables(model, 0))
+    model = model.to(memory_format=torch.channels_last)
+    rng = np.random.default_rng(51)
+    (x, y), = nchw_batches(rng, 1, SUB_BATCH, dev, size=32)
+    y = torch.as_tensor(y % 10, device=dev)
+    stats0 = {k: v.clone() for k, v in model.state_dict().items()
+              if "running" in k}
+    gen = torch.Generator(device=dev).manual_seed(52)
+
+    # (a) the suite's rows
+    torch.cuda.reset_peak_memory_stats()
+    sub = estimators.Subspace(model, rank=SUB_RANK, omega_seed=0,
+                              chunk=SUB_CHUNK)
+    p = matfree.num_params(sub.metas)
+    route = (f"vmapped columns, {SUB_CHUNK or sub.rank} a vmap")
+    counters.reset()
+    _, warm = timed(lambda: sub.update(x))
+    times = [timed(lambda: sub.update(x))[1] for _ in range(3)]
+    got = counters.read()
+    by_path[SUB_PATHS[0]] = got
+    if got != none:
+        raise AssertionError(f"{SUB_PATHS[0]}: launches {got}, want none")
+    check_finite(sub.state, "subspace state")
+    log(f"{SUB_PATHS[0]}: {1 / min(times):.4f} it/s (B={SUB_BATCH}, rank "
+        f"{sub.rank}, p = {p:,} tracked parameters, {route}; best of 3 "
+        f"after a warm update of {warm:.3f} s; updates "
+        f"{', '.join(f'{t:.4f}' for t in times)} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{json.dumps(got)}; {smi})")
+    sub.invert(1.0, 1e3)                                   # warm
+    _, seconds = timed(lambda: sub.invert(2.0, 1e4))
+    log(f"resnet18_subspace_invert: {seconds:.4f} s ({smi})")
+    sub.ensemble_params(30, generator=gen)                 # warm
+    ens, seconds = timed(lambda: sub.ensemble_params(30, generator=gen))
+    for member in ens:
+        check_finite(member, "subspace sample")
+    del ens
+    log(f"resnet18_subspace_sample30: {seconds:.4f} s ({smi})")
+    swag = estimators.SWAG(model, max_rank=SUB_SWAG_RANK)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    swag.collect(params)                                   # warm
+    _, seconds = timed(lambda: [swag.collect(
+        {k: v * (1.0 + 1e-4 * i) for k, v in params.items()})
+        for i in range(3)])
+    log(f"resnet18_swag_collect_b{SUB_BATCH}: {3 / seconds:.4f} it/s "
+        f"(3 collects after a warm one; {smi})")
+    swag.finalize()
+    swag.invert()
+    swag.ensemble_params(30, generator=gen)                # warm
+    ens, seconds = timed(lambda: swag.ensemble_params(30,
+                                                          generator=gen))
+    for member in ens:
+        check_finite(member, "swag sample")
+    del ens, swag
+    log(f"resnet18_swag_sample30: {seconds:.4f} s ({smi})")
+    if profile:
+        log(f"{SUB_PATHS[0]} (B={SUB_BATCH}, rank {sub.rank}):")
+        profile_fn(lambda: sub.update(x), "subspace update")
+
+    # (b) checks without a dense matrix. 4 + profile updates of one batch:
+    # the sketch is that many times F @ Omega
+    updates = 4 + (2 if profile else 0)
+    for r in (0, sub.rank - 1):
+        col = {n: sub.state[n]["sketch"][r] / updates for n in sub.metas}
+        want = matfree.ggn_matvec(model, sub.metas, x, {
+            n: sub.state[n]["omega"][r] for n in sub.metas})
+        err = max(float((col[n] - want[n]).abs().max()) for n in want) \
+            / max(float(want[n].abs().max()) for n in want)
+        log(f"subspace sketch column {r} against ggn_matvec of its omega "
+            f"column: {err:.3e} of max (bar {SUB_RTOL})")
+        if not err <= SUB_RTOL:
+            raise AssertionError(f"sketch column {r}: {err:.3e} of max")
+    d = matfree.random_deltas(sub.metas, gen, kind="normal")
+    solved = sub.precision_solve(d, *SUB_DAMPING)
+    inner = float(sum((d[n] * solved[n]).sum() for n in sub.metas))
+    quad = sub.quadratic_form(solved, *SUB_DAMPING)
+    err = abs(quad - inner) / abs(inner)
+    log(f"subspace quadratic_form(solve(d)) {quad:.6e} against <d, solve(d)>"
+        f" {inner:.6e}: {err:.3e} relative (bar {SUB_RTOL})")
+    if not (err <= SUB_RTOL and inner > 0):
+        raise AssertionError(f"subspace solve/quad: {quad} vs {inner}")
+    del solved, d
+    zeros = {n: torch.zeros(s, device=dev)
+             for n, s in matfree.delta_shapes(sub.metas).items()}
+
+    def matvec(v):
+        return matfree.ggn_matvec(model, sub.metas, x, v)
+    q0 = torch.randn(p, generator=gen, device=dev)
+    (ritz, weights), seconds = timed(lambda: matfree.lanczos_topk(
+        matvec, zeros, SUB_LANCZOS, q0=q0))
+    q = q0 / torch.linalg.vector_norm(q0)
+    rayleigh = float(q @ matfree._flatten(matvec(matfree._unflatten(
+        q, zeros))))
+    log(f"lanczos ({SUB_LANCZOS} steps, {seconds:.3f} s): top Ritz values "
+        f"{', '.join(f'{v:.6g}' for v in ritz[:4].tolist())}; weights sum "
+        f"{float(weights.sum()):.6f}; Rayleigh quotient of q0 "
+        f"{rayleigh:.6g}")
+    if not (float(ritz[0]) >= rayleigh * (1 - 1e-5)
+            and torch.isfinite(ritz).all()):
+        raise AssertionError(f"lanczos: top Ritz {float(ritz[0])} below the "
+                             f"start vector's Rayleigh quotient {rayleigh}")
+    del sub, q0, q, zeros
+    torch.cuda.empty_cache()
+
+    # (c) the CLIs
+    root = os.path.abspath(SUB_ROOT)
+    base = R18_ARGV + ["--root_dir", root, "--results_dir", root]
+    argv = base + ["--estimator", "kfac"] + SUB_FIDELITY
+    est, got = run_cli(factors, argv, counters, smi,
+                       "resnet18 factors kfac --fidelity 4 --spectrum 16")
+    want = dict(none, **{f"patch_gram_{r}": n * R18_UPDATES
+                         for r, n in R18_ROUTES[R18_PATHS[0]].items()})
+    if got != want or est.num_updates != R18_UPDATES:
+        raise AssertionError(f"{SUB_PATHS[1]}: launches {got}, want {want}")
+    by_path[SUB_PATHS[1]] = got
+    stem = factors_path(parse_args(argv))
+    with np.load(stem + "_fidelity.npz") as f:
+        rows = {k.split("/")[0] for k in f.files}
+        joint = {k.split("/")[1]: float(f[k]) for k in f.files
+                 if k.startswith("__joint__/")}
+        if rows != set(est.metas) | {"__joint__"} or not all(
+                np.isfinite(f[k]).all() for k in f.files):
+            raise AssertionError(f"fidelity file rows {sorted(rows)}")
+    with np.load(stem + "_spectrum.npz") as f:
+        ritz = f["ritz"]
+        if ritz.shape != (16,) or not np.isfinite(ritz).all() \
+                or (np.diff(ritz) > 0).any():
+            raise AssertionError(f"spectrum file: ritz {ritz}")
+    log(f"{SUB_PATHS[1]}: launches {json.dumps(got)} (R18_ROUTES x "
+        f"{R18_UPDATES} updates); joint row {json.dumps(joint)}; top Ritz "
+        f"{ritz[:3].tolist()}")
+    del est
+    argv = base + ["--estimator", "subspace", "--rank", str(SUB_RANK)]
+    est, got = run_cli(factors, argv, counters, smi,
+                       f"resnet18 factors subspace --rank {SUB_RANK}")
+    if got != none or est.rank != SUB_RANK:
+        raise AssertionError(f"subspace factors: launches {got}, rank "
+                             f"{est.rank}")
+    check_finite(est.state, "subspace CLI state")
+    del est
+    damping = ["--norm", str(SUB_DAMPING[0]), "--scale", str(SUB_DAMPING[1])]
+    (probs, bnn_probs, labels), got = run_cli(
+        evaluate, argv + ["--ood"] + damping, counters, smi,
+        "resnet18 evaluate subspace --ood")
+    with np.load(results_paths(parse_args(argv))[0] + ".npz",
+                 allow_pickle=True) as f:
+        auroc = f["auroc"]
+    if got != none or bnn_probs.shape != (256, 10) \
+            or not np.isfinite(bnn_probs).all() \
+            or np.abs(bnn_probs.sum(1) - 1).max() > 1e-3 \
+            or not np.isfinite(auroc).all():
+        raise AssertionError(f"subspace evaluate: launches {got}, AUROC "
+                             f"{auroc}")
+    log(f"resnet18 subspace --ood (random weights): NN accuracy "
+        f"{100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
+        f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}%; AUROC NN "
+        f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
+    hyper_run(hyper, argv + SUB_HYPER, counters, smi,
+              "resnet18 hyper subspace (random, 3 candidates)")
+
+    # (d) self-influence under KFAC
+    kfac = estimators.KFAC(model)
+    counters.reset()
+    quarter = SUB_BATCH // 4
+    for i in range(4):
+        kfac.update(x[quarter * i:quarter * (i + 1)], generator=gen)
+    scores, seconds = timed(lambda: self_influence(
+        kfac, x[:SUB_INFLUENCE], y[:SUB_INFLUENCE], *SUB_DAMPING))
+    got = counters.read()
+    want = dict(none, **{f"patch_gram_{r}": 4 * n
+                         for r, n in R18_ROUTES[R18_PATHS[0]].items()})
+    by_path[SUB_PATHS[2]] = got
+    if got != want:
+        raise AssertionError(f"{SUB_PATHS[2]}: launches {got}, want {want}")
+    # example 0's gradient from the same vmapped pass through
+    # precision_solve: the vmapped solve_state against the direct one
+    # (batch-statistics BatchNorm on one image is ill-conditioned, so a
+    # pass at another vmap width differs by f32 rounding near the bar)
+    g0 = {n: g[0] for n, g in per_example_grad_matrix(
+        model, kfac.metas, x[:SUB_INFLUENCE], y[:SUB_INFLUENCE]).items()}
+    s0 = float(sum((g0[n] * u).sum() for n, u in kfac.precision_solve(
+        g0, *SUB_DAMPING).items()))
+    del g0
+    err = abs(float(scores[0]) - s0) / abs(s0)
+    log(f"self_influence of {SUB_INFLUENCE} examples under KFAC: "
+        f"{seconds:.3f} s; scores {float(scores.min()):.6g}.."
+        f"{float(scores.max()):.6g}; example 0 against its own solve "
+        f"{err:.3e} relative (bar {SUB_RTOL}); launches {json.dumps(got)} "
+        f"({smi})")
+    if not (torch.isfinite(scores).all() and (scores > 0).all()
+            and err <= SUB_RTOL):
+        raise AssertionError(f"self_influence: {scores[:4]}, {err}")
+    for k, v in model.state_dict().items():
+        if "running" in k and not torch.equal(v, stats0[k]):
+            raise AssertionError(f"{k} moved during the subspace phase")
+    log(f"subspace phase: every BatchNorm running statistic unchanged; peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return by_path
+
+
 def lm_tokens(rng, n, dev):
     """n seeded [LM_BATCH, LM_T] token batches and [LM_BATCH, LM_T] label
     batches on the card."""
@@ -2978,6 +3257,10 @@ def main(argv=None):
     ap.add_argument("--transformers", action="store_true",
                     help="build the kernels, run the vision-transformer "
                          "phase only and stop (no result line)")
+    ap.add_argument("--subspace", action="store_true",
+                    help="build the kernels, run the exact-curvature phase "
+                         "(Subspace, Lanczos, fidelity, influence) only and "
+                         "stop (no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3057,6 +3340,12 @@ def main(argv=None):
         log(f"transformer phase: {time.perf_counter() - t0:.1f} s; peak "
             f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"({smi})")
+        return 0
+    if args.subspace:
+        t0 = time.perf_counter()
+        subspace_phase(estimators, models, Counters(tpg, tsg), smi, dev,
+                       args.profile)
+        log(f"subspace phase: {time.perf_counter() - t0:.1f} s ({smi})")
         return 0
     if args.lm:
         lm_phase(estimators, models, Counters(tpg, tsg), smi,
@@ -3275,7 +3564,16 @@ def main(argv=None):
     count_record_launches(records, tr_by_path, TRANSFORMER_RECORD_PATHS)
     torch.cuda.empty_cache()
 
-    # -- 9. the causal-LM path: GPT-2 124M, the ladder, the token CLIs -----
+    # -- 9. the exact curvature: the Subspace rows and checks, SWAG, the
+    # fidelity and subspace CLIs, self-influence -------------------------
+    t0 = time.perf_counter()
+    sub_by_path = subspace_phase(estimators, models, counters, smi, dev,
+                                 args.profile)
+    log(f"subspace phase: {time.perf_counter() - t0:.1f} s ({smi})")
+    count_record_launches(records, sub_by_path, SUB_RECORD_PATHS)
+    torch.cuda.empty_cache()
+
+    # -- 10. the causal-LM path: GPT-2 124M, the ladder, the token CLIs ----
     t0 = time.perf_counter()
     lm_phase(estimators, models, counters, smi, dev, args.profile)
     log(f"lm phase: {time.perf_counter() - t0:.1f} s ({smi})")

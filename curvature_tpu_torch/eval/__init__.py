@@ -13,6 +13,11 @@ from curvature_tpu_torch.eval.predictor import BayesianPredictor, Prediction
 from curvature_tpu_torch.eval.marglik import (
     dataset_map_nll, log_marginal_likelihood,
 )
+from curvature_tpu_torch.eval.fidelity import fidelity_report
+from curvature_tpu_torch.eval.influence import (
+    influence_scores, loss_grad_matrix, per_example_grad_matrix,
+    self_influence,
+)
 from curvature_tpu_torch.eval.calibrate import (
     eval_nn_temperature, fit_temperature, temperature_scale,
 )
@@ -25,4 +30,6 @@ __all__ = ["metrics", "STATS_COLUMNS", "eval_bnn", "eval_bnn_stats",
            "eval_bnn_linearized", "make_linearized_ensemble_fn",
            "make_logit_ensemble_fn", "eval_bnn_regression",
            "dataset_map_nll", "log_marginal_likelihood",
-           "fit_temperature", "temperature_scale", "eval_nn_temperature"]
+           "fit_temperature", "temperature_scale", "eval_nn_temperature",
+           "fidelity_report", "influence_scores", "loss_grad_matrix",
+           "per_example_grad_matrix", "self_influence"]

@@ -149,8 +149,8 @@ def fit(model, train_data: Iterable, estimator: str = "kfac", subset=None,
     return a :class:`Laplace` handle.
 
     ``subset``: a ``layer_filter`` ('last' or fnmatch patterns) for
-    subnetwork Laplace. ``estimator``: diag | kfac | block | efb | inf
-    (EFB and INF fit their prerequisites first, one pass each, in the
+    subnetwork Laplace. ``estimator``: diag | kfac | block | subspace
+    (alias lowrank; ``rank`` is its sketch width) | efb | inf (EFB and INF fit their prerequisites first, one pass each, in the
     reference's factors order). The MC labels are drawn from
     ``generator`` (seeded 0 by default); every pass restarts it, as JAX
     restarts its key.
@@ -178,9 +178,9 @@ def fit(model, train_data: Iterable, estimator: str = "kfac", subset=None,
     elif name == "kfac":
         est = run_updates(E.KFAC(model, **kw))
     elif name in ("subspace", "lowrank"):
-        raise NotImplementedError(
-            "the subspace (low-rank Nystrom) Laplace is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
+        # the global low-rank Nystrom Laplace (estimators/subspace.py);
+        # ``rank`` is the sketch width
+        est = run_updates(E.Subspace(model, rank=rank, **kw))
     elif name in ("efb", "inf"):
         kfac = run_updates(E.KFAC(model, layer_filter=subset))
         efb = run_updates(E.EFB(model, kfac.state, **kw))

@@ -23,18 +23,23 @@ TORCH_KEY_MAP = {"0": "conv1", "3": "conv2", "7": "fc1", "9": "fc2",
                  "11": "fc3"}
 
 
-def lenet5(num_classes: int = 10, device=None) -> Sequential:
-    """Build on ``device`` (CUDA unless ``"cpu"`` is passed)."""
+def lenet5(num_classes: int = 10, device=None, in_channels: int = 1,
+           image_size: int = 28) -> Sequential:
+    """Build on ``device`` (CUDA unless ``"cpu"`` is passed) for square
+    ``[B, in_channels, image_size, image_size]`` inputs (JAX infers both at
+    ``init``: 3 channels and 32² on synthetic data give fc1 16*6*6 = 576
+    inputs)."""
     device = resolve_device(device)
+    side = (image_size // 2 - 4) // 2
     return Sequential([
-        Conv(1, 6, 5, padding=2, name="conv1"),
+        Conv(in_channels, 6, 5, padding=2, name="conv1"),
         ReLU(),
         MaxPool(2, 2),
         Conv(6, 16, 5, name="conv2"),
         ReLU(),
         MaxPool(2, 2),
         Flatten(),
-        Dense(400, 120, name="fc1"),
+        Dense(16 * side * side, 120, name="fc1"),
         ReLU(),
         Dense(120, 84, name="fc2"),
         ReLU(),

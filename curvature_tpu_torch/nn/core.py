@@ -63,13 +63,19 @@ class Context:
     estimator's capture leaves them alone, as the JAX ``collect`` discards
     the new statistics. ``probes=False`` records the inputs only (a
     capture that needs no output gradients adds no probe).
+    ``decompose_norm`` has train-mode BatchNorm compute its batch
+    statistics from plain tensor ops (as JAX's layer does) instead of the
+    fused kernel: the exact products and per-example gradients run under
+    ``torch.func.vmap``, where cuDNN's batch-norm backward asks a batched
+    tensor for its channels_last layout, which vmap does not answer.
     """
 
     def __init__(self, track: Iterable[str] = (), update_stats: bool = False,
-                 probes: bool = True):
+                 probes: bool = True, decompose_norm: bool = False):
         self.track = frozenset(track)
         self.update_stats = update_stats
         self.make_probes = probes
+        self.decompose_norm = decompose_norm
         self.acts: Dict[str, torch.Tensor] = {}
         self.probes: Dict[str, torch.Tensor] = {}
         #: (depth index, depth) while a ScanBlocks stack runs its template

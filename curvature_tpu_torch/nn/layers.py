@@ -173,12 +173,28 @@ class BatchNorm(CtxModule):
     def forward(self, x, ctx: Optional[Context] = None):
         update = ctx is None or ctx.update_stats
         keep = self.training and not update
+        if keep and ctx.decompose_norm:
+            return self._decomposed(x)
         out = F.batch_norm(
             x.float(),
             None if keep else self.running_mean,
             None if keep else self.running_var,
             self.weight.float(), self.bias.float(),
             training=self.training, momentum=self.momentum, eps=self.eps)
+        return out.to(x.dtype)
+
+    def _decomposed(self, x):
+        """Train-mode normalization by the batch's mean and biased variance
+        over every axis but the channels, in plain tensor ops (the
+        context's ``decompose_norm``)."""
+        xf = x.float()
+        dims = [d for d in range(xf.ndim) if d != 1]
+        mean = xf.mean(dims, keepdim=True)
+        centred = xf - mean
+        var = (centred * centred).mean(dims, keepdim=True)
+        shape = [1, -1] + [1] * (xf.ndim - 2)
+        out = centred * torch.rsqrt(var + self.eps) \
+            * self.weight.float().view(shape) + self.bias.float().view(shape)
         return out.to(x.dtype)
 
 

@@ -4,8 +4,14 @@ from curvature_tpu_torch.ops.corr_gram import (
 from curvature_tpu_torch.ops.linalg import (
     chol_inv, chol_logdet, damped_inverse_cholesky, sym,
 )
+from curvature_tpu_torch.ops.matfree import (
+    delta_shapes, ggn_matvec, ggn_quad, hutchinson_trace, lanczos_topk,
+    random_deltas,
+)
 from curvature_tpu_torch.ops.patches import extract_patches, resolve_padding
 
 __all__ = ["corr_gram_supported", "corr_patch_gram", "chol_inv",
            "chol_logdet", "damped_inverse_cholesky", "sym",
-           "extract_patches", "resolve_padding"]
+           "extract_patches", "resolve_padding", "delta_shapes",
+           "random_deltas", "ggn_quad", "ggn_matvec", "lanczos_topk",
+           "hutchinson_trace"]

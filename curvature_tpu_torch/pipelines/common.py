@@ -112,6 +112,10 @@ def build_model(cfg):
         # the positional embedding follows the patch grid (JAX :68-74)
         kw["image_size"] = input_shape(cfg.data, cfg.model)[0]
         kw["scan_blocks"] = bool(getattr(cfg, "scan_blocks", False))
+    if cfg.model == "lenet5":
+        # the input's channels and size, as JAX infers them at init
+        h, _, c = input_shape(cfg.data, cfg.model)
+        kw.update(in_channels=c, image_size=h)
     if cfg.model.startswith("maxvit"):
         # the partition must divide every stage's map (input/4 ..
         # input/32): input/32, torchvision's 7 at 224² (JAX :75-79)

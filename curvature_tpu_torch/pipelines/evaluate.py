@@ -78,8 +78,13 @@ def load_estimator(cfg, model):
         est = estimators.SWAG(model)
         return est.load_jax_state(load_pytree(weights_path(cfg, "_swag")))
     elif name == "subspace":
-        raise NotImplementedError(
-            f"--estimator {name} is not ported yet (ROADMAP Queue 1 item 8)")
+        # the saved state carries its omega, so nothing is drawn here and
+        # the rank is the file's
+        state = load()
+        est = estimators.Subspace(
+            model, omega_seed=cfg.seed,
+            omega={n: v["omega"] for n, v in state.items()}, **kw)
+        est.state = state
     else:
         raise ValueError(f"unknown estimator {name!r}")
     missing = set(est.metas) - set(est.state)

@@ -18,6 +18,7 @@ import os
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from curvature_tpu_torch import estimators
@@ -64,8 +65,11 @@ def compute_factors(model, data, cfg, kfac_state=None,
             kfac_state = load_pytree(factors_path(cfg, "kfac"))
         est = estimators.EFB(model, state_from_jax(kfac_state, device), **kw)
     elif name == "subspace":
-        raise NotImplementedError(
-            f"--estimator {name} is not ported yet (ROADMAP Queue 1 item 8)")
+        # the global low-rank Nystrom sketch (estimators/subspace.py) takes
+        # INF's --rank as its width; the loop below runs unchanged (the MC
+        # draws are not used: the GGN takes the label expectation exactly)
+        est = estimators.Subspace(model, rank=cfg.rank, omega_seed=cfg.seed,
+                                  **kw)
     else:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if generator is None:
@@ -127,21 +131,66 @@ def compute_inf(cfg, model):
 
 
 def diagnose(est, x, cfg, norm: float = 1.0):
-    raise NotImplementedError(
-        "--fidelity/--spectrum need eval/fidelity.py and ops/matfree.py, "
-        "not ported yet (ROADMAP Queue 1 item 8)")
+    """The exact-curvature diagnostics against the fitted factors (JAX
+    :145-190) on the model-input batch ``x``: ``--fidelity N`` measures
+    each layer's structural error against the matrix-free GGN
+    (``eval/fidelity.py``, with the all-layers ``"__joint__"`` row) into
+    ``<factors>_fidelity.npz`` (keys ``{layer}/{key}``); ``--spectrum K``
+    saves K Lanczos steps of the true curvature spectrum into
+    ``<factors>_spectrum.npz`` (``ritz``, ``weights``). The probes and the
+    start vector come from one generator seeded ``--seed + 1``."""
+    from curvature_tpu_torch.utils.table import tabulate
+    probes = int(getattr(cfg, "fidelity", 0) or 0)
+    steps = int(getattr(cfg, "spectrum", 0) or 0)
+    gen = torch.Generator(device=est.device).manual_seed(cfg.seed + 1)
+    if probes > 0:
+        from curvature_tpu_torch.eval.fidelity import fidelity_report
+        rep = fidelity_report(est, x, gen, num_probes=probes, norm=norm,
+                              joint=True)
+        rows = [(n, r["scaled_rel_err"], r["alpha"], r["rel_err"],
+                 r["q_true"]) for n, r in rep.items()]
+        print(tabulate(rows, headers=("layer", "structural err", "alpha",
+                                      "rel err @norm", "q_true")))
+        path = factors_path(cfg) + "_fidelity.npz"
+        np.savez(path, **{f"{n}/{k}": v for n, r in rep.items()
+                          for k, v in r.items()})
+        print(f"fidelity report -> {path}")
+    if steps > 0:
+        from curvature_tpu_torch.ops import matfree
+        example = {n: torch.zeros(s, device=est.device)
+                   for n, s in matfree.delta_shapes(est.metas).items()}
+
+        def mv(d):
+            return matfree.ggn_matvec(est.model, est.metas, x, d,
+                                      loss=est.loss)
+        ritz, weights = matfree.lanczos_topk(mv, example, steps, gen)
+        ritz, weights = ritz.cpu().numpy(), weights.cpu().numpy()
+        path = factors_path(cfg) + "_spectrum.npz"
+        np.savez(path, ritz=ritz, weights=weights)
+        print(f"true-curvature spectrum (top ritz {ritz[:3].round(6)}) -> "
+              f"{path}")
+
+
+def _first_input(cfg, device) -> torch.Tensor:
+    """The first training batch as the model takes it, on ``device``."""
+    return model_input(device_batch(
+        next(iter(build_data(cfg, splits="train")))[0], device))
 
 
 def run(cfg):
-    """Full pipeline: model -> data -> factors -> save (factors.py:65-129).
+    """Full pipeline: model -> data -> factors -> save (factors.py:65-129),
+    then ``--fidelity``/``--spectrum`` on the first training batch.
     Returns the estimator."""
     os.makedirs(os.path.join(cfg.root_dir, "factors"), exist_ok=True)
     model = build_model(cfg)
-    if getattr(cfg, "fidelity", 0) or getattr(cfg, "spectrum", 0):
-        diagnose(None, None, cfg)
+    want_diag = getattr(cfg, "fidelity", 0) or getattr(cfg, "spectrum", 0)
     if cfg.estimator == "inf":
         est = compute_inf(cfg, model)
         save_pytree(factors_path(cfg, rank=str(cfg.rank)), est.state)
+        if want_diag:
+            # INF is assembled from saved sums, so its raw scale is unknown
+            # here: the scale-free (alpha-fit) columns are the signal
+            diagnose(est, _first_input(cfg, est.device), cfg)
         return est
     est = compute_factors(model, build_data(cfg, splits="train"), cfg)
     save_pytree(factors_path(cfg), est.state)
@@ -149,6 +198,9 @@ def run(cfg):
         # EFB computes the plain diagonal for free (reference
         # factors.py:126-127, README.rst:246)
         save_pytree(factors_path(cfg, "diag"), est.diags)
+    if want_diag:
+        diagnose(est, _first_input(cfg, est.device), cfg,
+                 norm=float(est.num_updates * cfg.mc_samples))
     return est
 
 

@@ -127,12 +127,8 @@ def parse_args(argv=None, **overrides) -> Config:
 NOT_PORTED = (
     ("--parallel/--mesh (multi-device)",
      lambda c: c.parallel or c.mesh, "Queue 1 item 10"),
-    ("--fidelity/--spectrum (eval/fidelity.py, ops/matfree.py)",
-     lambda c: c.fidelity or c.spectrum, "Queue 1 item 8"),
     ("--plot (pipelines/plot.py: its figures need matplotlib)",
      lambda c: c.plot, "Queue 1 item 7"),
-    ("--estimator subspace", lambda c: c.estimator == "subspace",
-     "Queue 1 item 8"),
     ("the mixture-of-experts GPT-2s (nn.MoE)",
      lambda c: c.model.startswith("gpt2_moe"), "Queue 1 item 6, MoE"),
     ("the visualize figure toggles --calibration/--ecdf/--entropy/"

@@ -357,8 +357,9 @@ def test_parts_out_of_this_slice_raise(ladder):
     est = ladder["fed"]["diag"]
     with pytest.raises(NotImplementedError, match="item 10"):
         est.use_mesh(None)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        getattr(port_est, "Subspace")
+    # Subspace is ported (tests/test_torch_subspace.py)
+    assert port_est.Subspace.__module__ == \
+        "curvature_tpu_torch.estimators.subspace"
     with pytest.raises(NotImplementedError, match="matplotlib"):
         from curvature_tpu_torch.pipelines import plot  # noqa: F401
     with pytest.raises(AttributeError):

@@ -495,9 +495,9 @@ def test_evaluate_cli_writes_jax_keys(lenet, swapped, capsys):
 # -- what is not ported raises --------------------------------------------
 
 @pytest.mark.parametrize("flags", [
-    ["--parallel"], ["--mesh", "data:2"], ["--fidelity", "2"],
-    ["--spectrum", "3"], ["--plot"],
-    ["--estimator", "subspace"],
+    ["--parallel"], ["--mesh", "data:2"], ["--ecdf"],
+    ["--entropy"], ["--plot"],
+    ["--networks"],
     ["--model", "gpt2_moe_tiny"],
     ["--calibration"],
     ["--eigvals"],
@@ -563,7 +563,8 @@ def test_ported_flags_reach_their_module(flags, tmp_path, monkeypatch):
 def test_unported_models_data_and_formats_raise(tmp_path):
     """What is still to port raises, naming its ROADMAP item: the MoE
     GPT-2s (item 6), the image-folder loaders (item 9: PIL), orbax
-    checkpoints (item 10), the fidelity diagnostics (item 8). The classic
+    checkpoints (item 10). The fidelity diagnostics (item 8) are ported
+    (tests/test_torch_matfree.py, the CLI chains below). The classic
     zoo, the vision transformers, CIFAR-10 and torch ``.pth`` checkpoints
     are ported (tests/test_torch_zoo_classic.py,
     test_torch_zoo_transformers.py, test_torch_data.py,
@@ -578,8 +579,9 @@ def test_unported_models_data_and_formats_raise(tmp_path):
     t, _ = _cfgs(ARGV + ["--root_dir", str(tmp_path)])
     with pytest.raises(NotImplementedError, match="item 10"):
         tckpt.save_pytree_orbax(str(tmp_path / "o"), {})
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tfactors.diagnose(None, None, t)
+    for flags in (["--fidelity", "2"], ["--spectrum", "3"],
+                  ["--estimator", "subspace"]):
+        assert tconfig.setup(["--platform", "cpu"] + flags)
 
 
 def test_checkpoint_shape_mismatch_names_the_layer(tmp_path):
@@ -645,3 +647,88 @@ def test_verbose_progress_and_telemetry(tmp_path, capsys):
     a = torch.rand(3)
     monitor.seed_all_rng(11)
     assert torch.equal(a, torch.rand(3))
+
+
+# -- the exact-curvature CLIs (ROADMAP Queue 1 item 8) -----------------------
+
+def test_subspace_cli_chain(tmp_path):
+    """``factors --estimator subspace --rank 12`` on the digits (two
+    update_batches folds and a ragged tail, the MC draws unused) ->
+    ``evaluate --estimator subspace --fgsm`` -> ``hyper --estimator
+    subspace`` (the evidence by gradient ascent and a 3-candidate random
+    search), JAX's pipeline order; the file carries its omega and reloads
+    bit for bit."""
+    from curvature_tpu_torch.pipelines import hyper as thyper
+    argv = ARGV + ["--root_dir", str(tmp_path), "--results_dir",
+                   str(tmp_path), "--estimator", "subspace", "--rank", "12",
+                   "--seed", "0"]
+    est = tfactors.main(argv)
+    assert isinstance(est, port_est.Subspace) and est.rank == 12
+    assert est.num_updates == 4
+    t = tconfig.parse_args(argv)
+    path = tckpt.factors_path(t) + ".npz"
+    assert os.path.exists(path)
+    loaded = tevaluate.load_estimator(t, tcommon.build_model(t))
+    assert loaded.rank == 12
+    for n, v in est.state.items():
+        for key in ("omega", "sketch"):
+            assert torch.equal(loaded.state[n][key], v[key]), (n, key)
+    # outside its 12 directions the posterior is the prior alone: norm 1e4
+    # keeps those weights' standard deviation at 0.01
+    stats, bnn = tevaluate.main(argv + ["--norm", "1e4", "--scale", "1",
+                                        "--fgsm", "--samples", "3"])
+    assert np.isfinite(bnn["nll"]).all() and bnn["acc"][0] > 50.0
+    out = thyper.main(argv + ["--objective", "marglik", "--optimizer",
+                              "grad", "--calls", "5"])
+    assert np.isfinite(out["best_cost"])
+    out = thyper.main(argv + ["--optimizer", "random", "--calls", "3",
+                              "--samples", "2"])
+    assert np.isfinite(out["best_cost"])
+
+
+def test_jax_subspace_factor_file_through_the_port_cli(tmp_path):
+    """JAX's ``factors --estimator subspace`` writes the file; the port's
+    ``evaluate`` loader reads it (omega and sketch) and gives JAX's
+    logdet and eigenvalues: 1e-5 relative, 1e-4 of max."""
+    argv = ARGV + ["--root_dir", str(tmp_path), "--results_dir",
+                   str(tmp_path), "--estimator", "subspace", "--rank", "8",
+                   "--seed", "0"]
+    t, j = _cfgs(argv)
+    je = jfactors.run(j)
+    te = tevaluate.load_estimator(t, tcommon.build_model(t))
+    assert te.rank == 8 and list(te.metas) == list(je.metas)
+    want = je.logdet_precision(NORM, SCALE)
+    assert abs(te.logdet_precision(NORM, SCALE) - want) <= 1e-5 * abs(want)
+    _close(te.eigenvalues(), je.eigenvalues(), 1e-4, "lam")
+
+
+def test_fidelity_and_spectrum_cli(tmp_path, capsys):
+    """``factors --estimator kfac --fidelity 2 --spectrum 3`` writes JAX's
+    npz layouts (``{layer}/{key}`` with the ``__joint__`` row; ``ritz``
+    and ``weights``), the same keys as JAX's run of the same flags, and
+    prints the table; the Ritz values descend and the weights sum to 1."""
+    argv = ARGV + ["--root_dir", str(tmp_path / "port"), "--estimator",
+                   "kfac", "--fidelity", "2", "--spectrum", "3"]
+    tfactors.main(argv)
+    out = capsys.readouterr().out
+    assert "structural err" in out and "__joint__" in out
+    t, _ = _cfgs(argv)
+    jargv = ARGV + ["--root_dir", str(tmp_path / "jax"), "--estimator",
+                    "kfac", "--fidelity", "2", "--spectrum", "3"]
+    _, j = _cfgs(jargv)
+    jfactors.run(j)
+    for suffix in ("_fidelity.npz", "_spectrum.npz"):
+        with np.load(tckpt.factors_path(t) + suffix) as got, \
+                np.load(jckpt.factors_path(j) + suffix) as want:
+            assert sorted(got.files) == sorted(want.files), suffix
+            for k in got.files:
+                assert got[k].shape == want[k].shape, k
+                assert np.isfinite(got[k]).all(), k
+            if suffix == "_spectrum.npz":
+                assert (np.diff(got["ritz"]) <= 0).all()
+                assert abs(got["weights"].sum() - 1.0) < 1e-4
+            else:
+                layers = {k.split("/")[0] for k in got.files}
+                assert layers == {"conv1", "conv2", "fc1", "fc2", "fc3",
+                                  "__joint__"}
+                assert got["__joint__/alpha"] > 0

@@ -65,7 +65,16 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.models.transformer2",
                  "curvature_tpu_torch.models.vit",
                  "curvature_tpu_torch.models.swin",
-                 "curvature_tpu_torch.models.maxvit"):
+                 "curvature_tpu_torch.models.maxvit",
+                 "curvature_tpu_torch.ops.matfree",
+                 "curvature_tpu_torch.eval.fidelity",
+                 "curvature_tpu_torch.eval.influence",
+                 "curvature_tpu_torch.estimators.subspace",
+                 "curvature_tpu_torch.examples.blitz",
+                 "curvature_tpu_torch.examples.ewc",
+                 "curvature_tpu_torch.examples.influence",
+                 "curvature_tpu_torch.examples.modern_laplace",
+                 "curvature_tpu_torch.examples.resnet50_scale"):
     assert required in names, required
 assert not bad, bad
 """

@@ -439,9 +439,11 @@ def test_facade_fit_every_estimator(lenet, kind):
 
 def test_facade_parts_out_of_this_slice_raise(lenet):
     train = [(_nchw(x), y) for x, y in lenet["train"][:1]]
+    # the low-rank Laplace is ported (tests/test_torch_subspace.py)
     for name in ("subspace", "lowrank"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tlaplace.fit(lenet["tm"], train, name)
+        la = tlaplace.fit(lenet["tm"], train, name, rank=4)
+        assert type(la.estimator).__name__ == "Subspace"
+        assert la.estimator.rank == 4
     with pytest.raises(ValueError, match="unknown estimator"):
         tlaplace.fit(lenet["tm"], train, "swag-ish")
     la = tlaplace.Laplace(lenet["tm"], lenet["te"])
