@@ -33,6 +33,10 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
                                        # exact-curvature phase only (with
                                        # --profile: one Subspace update
                                        # too)
+    python3 chip_smoke.py --moe        # builds the kernels, runs the
+                                       # mixture-of-experts phase only
+                                       # (with --profile: one update of
+                                       # the full-width MoE GPT-2 too)
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -147,7 +151,20 @@ solve against the quadratic form, a Lanczos check, the ``factors
 --fidelity --spectrum`` (its KFAC fit launching ``R18_ROUTES``' kernels),
 ``factors``/``evaluate``/``hyper --estimator subspace`` CLIs under
 ``build/subspace``, and ``self_influence`` under KFAC; no running
-statistic may move. Last the causal-LM phase.
+statistic may move. Then the causal-LM phase.
+
+Last the mixture-of-experts phase (``moe_phase``): the Switch GPT-2 at
+GPT-2 124M's width with 8 two-layer experts a block, unrolled, through
+KFAC (``gpt2_moe_124m_e8_kfac_update_tok_s``, invert, a sample, a short
+per-token eval), each expert's routed share and an expert A factor
+against float64; JAX ``benchmarks/suite.py``'s MoE row
+(``gpt2_moe_kfac_update_tok_s``, ``gpt2_moe_kfac_invert_s``,
+``gpt2_moe_expert_factor_blocks`` = 64); KFAC's ``stack_grams`` and
+``fused_g``, each alone and both, against the default on the unrolled
+GPT-2 124M and on ResNet-50 (the same factors, the same launches, the ms
+per update); the ``gpt2_moe_tiny --data tokens`` CLIs under
+``build/moe``; and the ``moe_laplace`` example. None of it launches a
+Gram kernel but ResNet-50's updates, by JAX's routes.
 
 Every failed check raises. The last line of standard output is the
 ``{"ok": true, ...}`` JSON object; the line before it is the ``kernels``
@@ -257,6 +274,29 @@ LM_ARGV = ["--model", "gpt2_tiny", "--data", "tokens", "--seq_len", "16",
 LM_VOCAB_ARGV = ["--model", "gpt2_tiny", "--data", "tokens", "--vocab",
                  "50257", "--seq_len", "64", "--layers", "h.*"]
 LM_CLI_DAMPING = ["--norm", "1e5", "--scale", "1e4"]
+#: the mixture-of-experts phase: the Switch GPT-2 at GPT-2 124M's
+#: width (vocabulary, context, B as the LM phase), E=8 two-layer experts a
+#: block (hidden 3,072), unrolled (MoE cannot ride a ScanBlocks stack),
+#: f32, MC=1, 'h.*'; the rate's blocks of updates cut to 2, the per-token
+#: eval to 4 samples (the script's clock)
+MOE_PATH = "gpt2_moe_124m_e8_kfac_update_tok_s"
+MOE_WIDTH = (768, 12, 12)                  # dim, depth, heads
+MOE_EXPERTS, MOE_UPDATES, MOE_SAMPLES = 8, 2, 4
+#: the expert A factor held against float64, and its bar (of max)
+MOE_CHECKED, MOE_RTOL = "h.0.moe.fc1", 1e-5
+#: JAX benchmarks/suite.py:392-428's MoE row: the model, B, T; 4 updates a
+#: block; its count of per-expert factor blocks (4 blocks x 2 layers x 8)
+MOE_SUITE = dict(vocab=1024, dim=256, depth=4, heads=4, experts=8,
+                 max_len=256)
+MOE_SUITE_BATCH, MOE_SUITE_UPDATES, MOE_SUITE_BLOCKS = 8, 4, 64
+#: KFAC's options against the default (ROADMAP Queue 1 item 2): each alone
+#: and both, on the unrolled GPT-2 124M and on ResNet-50 f32 B=16
+MOE_OPTIONS = ({"stack_grams": True}, {"fused_g": True},
+               {"stack_grams": True, "fused_g": True})
+MOE_OPTION_RTOL = 1e-5
+MOE_ROOT = "build/moe"
+MOE_ARGV = ["--model", "gpt2_moe_tiny", "--data", "tokens", "--seq_len",
+            "16", "--batch_size", "32", "--mc_samples", "1", "--samples", "4"]
 #: the damping-search phase (JAX pipelines/hyper.py, its objectives and
 #: the predictives): the LeNet-5 searches as (estimator, flags); --layer
 #: evaluates ~170 candidates, at 10 samples each (23.3 s of the phase at
@@ -3229,6 +3269,222 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
     return rate
 
 
+def option_timings(estimators, model, batches, gen, counters, expect,
+                   label, smi, **kw):
+    """KFAC with each of ``MOE_OPTIONS`` against the default on ``model``:
+    one update on ``batches[0]``'s labels each, whose launches must equal
+    ``expect`` and whose factors the default's within MOE_OPTION_RTOL of
+    max; then the best of 3 single updates each, its ms printed. Returns
+    {option: ms}."""
+    x, y = batches[0]
+    want, out = None, {}
+    for opts in ({},) + MOE_OPTIONS:
+        est = estimators.KFAC(model, **kw, **opts)
+        counters.reset()
+        est.update(x, labels=y)
+        got = counters.read()
+        if got != expect:
+            raise AssertionError(f"{label} {opts}: launches {got}, want "
+                                 f"{expect}")
+        if want is None:
+            want = {n: {k: v.clone() for k, v in f.items()}
+                    for n, f in est.state.items()}
+        worst = max(rel_err(est.state[n][k], want[n][k])
+                    for n in want for k in want[n])
+        best = float("inf")
+        for _ in range(3):
+            _, seconds = timed(lambda: est.update(x, generator=gen))
+            best = min(best, seconds)
+        name = "+".join(opts) or "default"
+        out[name] = 1e3 * best
+        log(f"{label} kfac {name}: {out[name]:.1f} ms per update (best of 3"
+            f" after one); factors vs the default {worst:.3e} of max (bar "
+            f"{MOE_OPTION_RTOL}); {len(est.gram_probe_names)} layers fused; "
+            f"launches {json.dumps(got)} ({smi})")
+        if worst > MOE_OPTION_RTOL:
+            raise AssertionError(f"{label} {opts}: factors {worst:.3e} off")
+        del est
+    return out
+
+
+def moe_phase(estimators, models, counters, smi, dev, profile=False):
+    """The mixture-of-experts path: (a) the Switch GPT-2 at GPT-2 124M's
+    width, E=8, through KFAC over the blocks (the rate, the state, the
+    peak, invert at LM_DAMPING, a sample, a per-token eval; each expert's
+    routed share at ``h.0`` and its A factor against float64); (b) JAX
+    suite's MoE row; (c) ``stack_grams`` and ``fused_g`` against the
+    default on the unrolled GPT-2 124M and on ResNet-50; (d) the
+    ``gpt2_moe_tiny --data tokens`` CLIs; (e) the ``moe_laplace``
+    example. Returns the rate."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch.examples import moe_laplace
+    from curvature_tpu_torch.pipelines import evaluate, factors
+    from curvature_tpu_torch.utils.checkpoint import factors_path, load_pytree
+    from curvature_tpu_torch.utils.config import parse_args
+    none = counters.zero()
+    rng = np.random.default_rng(21)
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    # (a) the main path at full width
+    t0 = time.perf_counter()
+    model = models.gpt2_moe_custom(LM_VOCAB, *MOE_WIDTH, MOE_EXPERTS,
+                                   max_len=LM_T, device=dev)
+    models.load_jax_variables(model, models.seeded_variables(model, 0))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{MOE_PATH}: model of {n_params:,} parameters with seeded weights "
+        f"in {time.perf_counter() - t0:.1f} s")
+    batches = lm_tokens(rng, 1 + MOE_UPDATES, dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    est = estimators.KFAC(model, loss="lm", layer_filter="h.*")
+    lm_updates(est, batches[:1], gen, counters, f"{MOE_PATH} (warm update)")
+    best = float("inf")
+    for _ in range(3):
+        counters.reset()
+        _, seconds = timed(lambda: [est.update(x, generator=gen)
+                                    for x, _ in batches[1:]])
+        if counters.read() != none:
+            raise AssertionError(f"{MOE_PATH}: launches {counters.read()}")
+        best = min(best, seconds)
+    rate = LM_BATCH * LM_T * MOE_UPDATES / best
+    check_finite(est.state, f"{MOE_PATH} state")
+    log(f"{MOE_PATH}: {rate:.2f} tokens/s (Switch GPT-2 at 124M width, E="
+        f"{MOE_EXPERTS}, unrolled, f32, B={LM_BATCH} T={LM_T} MC=1, layers "
+        f"h.*, best of 3 blocks of {MOE_UPDATES} updates: "
+        f"{1e3 * best / MOE_UPDATES:.1f} ms per update; {smi})")
+    state_gb = sum(t.numel() * t.element_size() for f in est.state.values()
+                   for t in f.values()) / 1e9
+    blocks = sum(m.stacked for m in est.metas.values() if m.moe)
+    log(f"{MOE_PATH}: KFAC state {state_gb:.3f} GB ({blocks} per-expert "
+        f"factor blocks); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    if profile:
+        log(f"{MOE_PATH} (one update):")
+        profile_update(est, batches[0][0], gen)
+    x, y = batches[0]
+    lm_tail(est, model, x, y, gen, counters, "gpt2 moe 124m kfac",
+            MOE_SAMPLES)
+    del est
+    torch.cuda.empty_cache()
+    # routed shares and an expert A factor from one capture
+    chk = estimators.KFAC(model, loss="lm", layer_filter=MOE_CHECKED)
+    cap = chk.capture(x, labels=y)
+    chk._accumulate(cap)
+    xm = cap.acts[MOE_CHECKED].double()                   # [E, B, T, F]
+    t = xm.reshape(xm.shape[0], -1, xm.shape[-1])
+    routed = (t != 0).any(-1)                              # [E, N]
+    shares = routed.double().mean(-1).tolist()
+    log(f"h.0 routed shares by expert (top-1, {t.shape[1]} tokens): "
+        f"{json.dumps([round(v, 4) for v in shares])}, sum "
+        f"{sum(shares):.6f}")
+    if not bool((routed.sum(0) == 1).all()):
+        raise AssertionError("a token routed to other than one expert")
+    want = t.mT @ t / t.shape[1]
+    err = rel_err(chk.state[MOE_CHECKED]["a"].double(), want)
+    log(f"{MOE_CHECKED} A factor vs sum over routed a_n a_n^T / N in float64:"
+        f" {err:.3e} of max (bar {MOE_RTOL})")
+    if err > MOE_RTOL:
+        raise AssertionError(f"{MOE_CHECKED} A factor {err:.3e} off")
+    del chk, cap, xm, t, want, model
+    torch.cuda.empty_cache()
+
+    # (b) JAX suite's MoE row
+    small = models.gpt2_moe_custom(**MOE_SUITE, device=dev)
+    models.load_jax_variables(small, models.seeded_variables(small, 0))
+    tok = torch.from_numpy(rng.integers(
+        0, MOE_SUITE["vocab"], (MOE_SUITE_BATCH, MOE_SUITE["max_len"]))
+    ).to(dev)
+    est = estimators.KFAC(small, loss="lm", layer_filter="h.*")
+    lm_updates(est, [(tok, None)], gen, counters, "gpt2_moe suite (warm)")
+    best = float("inf")
+    for _ in range(3):
+        counters.reset()
+        _, seconds = timed(lambda: [est.update(tok, generator=gen)
+                                    for _ in range(MOE_SUITE_UPDATES)])
+        if counters.read() != none:
+            raise AssertionError(f"gpt2_moe suite: {counters.read()}")
+        best = min(best, seconds)
+    suite_rate = tok.numel() * MOE_SUITE_UPDATES / best
+    est.invert(2.0, 20000.0)
+    _, inv_s = timed(lambda: est.invert(1.0, 18916.0))
+    check_finite(est.sample(generator=gen), "gpt2_moe suite sample")
+    blocks = sum(m.stacked for m in est.metas.values() if m.moe)
+    log(f"gpt2_moe_kfac_update_tok_s: {suite_rate:.2f} (the suite's Switch "
+        f"GPT-2, dim 256, depth 4, E=8, f32, B={MOE_SUITE_BATCH} T="
+        f"{MOE_SUITE['max_len']}, best of 3 blocks of {MOE_SUITE_UPDATES}; "
+        f"{smi})")
+    log(f"gpt2_moe_kfac_invert_s: {inv_s:.4f} (invert(1, 18916) after a "
+        f"warm invert(2, 20000); {smi})")
+    log(f"gpt2_moe_expert_factor_blocks: {blocks} ({smi})")
+    if blocks != MOE_SUITE_BLOCKS:
+        raise AssertionError(f"{blocks} expert factor blocks, want "
+                             f"{MOE_SUITE_BLOCKS}")
+    del est, small
+
+    # (c) stack_grams and fused_g against the default: the unrolled GPT-2
+    # 124M (no kernel), ResNet-50 f32 (its tiled and v2 launches)
+    gpt = models.gpt2(LM_VOCAB, max_len=LM_T, device=dev)
+    models.load_jax_variables(gpt, models.seeded_variables(gpt, 0))
+    gpt_ms = option_timings(estimators, gpt, batches, gen, counters, none,
+                            "gpt2 124m unrolled", smi, loss="lm",
+                            layer_filter="h.*")
+    del gpt
+    torch.cuda.empty_cache()
+    r50 = models.resnet50(num_classes=CLASSES, device=dev)
+    models.load_jax_variables(r50, models.seeded_variables(r50, 0))
+    r50 = r50.to(memory_format=torch.channels_last)
+    imgs = [(x, torch.arange(BATCH, device=dev))
+            for x, _ in nchw_batches(rng, 1, BATCH, dev)]
+    r50_ms = option_timings(estimators, r50, imgs, gen, counters,
+                            dict(none, patch_gram_tiled=3, patch_gram_v2=1),
+                            "resnet50 f32 B=16", smi)
+    log(f"kfac options, ms per update: gpt2 124m {json.dumps(gpt_ms)}; "
+        f"resnet50 {json.dumps(r50_ms)} ({smi})")
+    del r50, imgs
+    torch.cuda.empty_cache()
+
+    # (d) the --data tokens CLIs on gpt2_moe_tiny
+    root = os.path.abspath(os.path.join(MOE_ROOT, "gpt2_moe_tiny"))
+    base = MOE_ARGV + ["--root_dir", root, "--results_dir", root,
+                       "--estimator", "kfac"]
+    est, got = run_cli(factors, base, counters, smi,
+                       "gpt2_moe_tiny tokens factors kfac")
+    saved = load_pytree(factors_path(parse_args(base)))
+    for name, meta in est.metas.items():
+        lead = (meta.stacked,) if meta.stacked else ()
+        want_shapes = {"a": lead + (meta.mat_cols,) * 2,
+                       "g": lead + (meta.out_features,) * 2}
+        have = {k: tuple(np.shape(v)) for k, v in saved[name].items()}
+        if have != want_shapes or not all(np.isfinite(v).all()
+                                          for v in saved[name].values()):
+            raise AssertionError(f"factor file {name}: {have}")
+    if sorted(saved) != sorted(est.metas) or got != none:
+        raise AssertionError(f"gpt2_moe_tiny factors: {sorted(saved)}, {got}")
+    log(f"gpt2_moe_tiny factor file: {len(saved)} layers under JAX's keys, "
+        f"per-expert {tuple(np.shape(saved['h.0.moe.fc1']['a']))} A")
+    (probs, bnn_probs, labels), got = run_cli(
+        evaluate, base + ["--ood"] + LM_CLI_DAMPING, counters, smi,
+        "gpt2_moe_tiny tokens evaluate kfac --ood")
+    for what, p in (("nn", probs), ("bnn", bnn_probs)):
+        if p.shape != (256 * 16, 256) or not np.isfinite(p).all() \
+                or np.abs(p.sum(1) - 1).max() > 1e-3:
+            raise AssertionError(f"gpt2_moe_tiny {what} malformed")
+    if got != none:
+        raise AssertionError(f"gpt2_moe_tiny evaluate launched {got}")
+    log(f"gpt2_moe_tiny tokens kfac --ood (random weights): NN accuracy "
+        f"{100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
+        f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}% per token")
+
+    # (e) the example on the card
+    res, got = run_cli(moe_laplace, [], counters, smi, "examples.moe_laplace")
+    if got != none or not np.isfinite([res["map_nll"], res["bnn_nll"],
+                                       res["log_marglik"]]).all():
+        raise AssertionError(f"moe_laplace: {got}, {res}")
+    return rate
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3260,6 +3516,10 @@ def main(argv=None):
     ap.add_argument("--subspace", action="store_true",
                     help="build the kernels, run the exact-curvature phase "
                          "(Subspace, Lanczos, fidelity, influence) only and "
+                         "stop (no result line)")
+    ap.add_argument("--moe", action="store_true",
+                    help="build the kernels, run the mixture-of-experts "
+                         "phase (and KFAC's stack_grams/fused_g) only and "
                          "stop (no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
@@ -3346,6 +3606,13 @@ def main(argv=None):
         subspace_phase(estimators, models, Counters(tpg, tsg), smi, dev,
                        args.profile)
         log(f"subspace phase: {time.perf_counter() - t0:.1f} s ({smi})")
+        return 0
+    if args.moe:
+        t0 = time.perf_counter()
+        moe_phase(estimators, models, Counters(tpg, tsg), smi, dev,
+                  args.profile)
+        log(f"moe phase: {time.perf_counter() - t0:.1f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
         return 0
     if args.lm:
         lm_phase(estimators, models, Counters(tpg, tsg), smi,
@@ -3577,6 +3844,13 @@ def main(argv=None):
     t0 = time.perf_counter()
     lm_phase(estimators, models, counters, smi, dev, args.profile)
     log(f"lm phase: {time.perf_counter() - t0:.1f} s ({smi})")
+    torch.cuda.empty_cache()
+
+    # -- 11. the mixture of experts: the Switch GPT-2 at 124M width, the
+    # suite's row, KFAC's stack_grams and fused_g, the MoE CLIs ----------
+    t0 = time.perf_counter()
+    moe_phase(estimators, models, counters, smi, dev, args.profile)
+    log(f"moe phase: {time.perf_counter() - t0:.1f} s ({smi})")
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
 

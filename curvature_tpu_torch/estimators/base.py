@@ -180,6 +180,13 @@ class Estimator:
     need_param_grads = True
     need_probe_grads = True
 
+    @property
+    def gram_probe_names(self):
+        """Layers whose output-gradient capture is fused into the backward
+        as its token Gram (capture.collect); estimators that read only
+        that Gram override this (KFAC's ``fused_g``)."""
+        return frozenset()
+
     def __init__(self, model, dtype=torch.float32,
                  compute_dtype: Optional[torch.dtype] = None,
                  layer_filter: Optional[Union[str, Sequence[str]]] = None,
@@ -288,7 +295,8 @@ class Estimator:
                        params=params,
                        need_param_grads=self.need_param_grads,
                        need_probe_grads=self.need_probe_grads,
-                       loss=self.loss)
+                       loss=self.loss,
+                       gram_probe_names=self.gram_probe_names)
 
     def update(self, x: torch.Tensor, labels=None,
                generator: Optional[torch.Generator] = None,

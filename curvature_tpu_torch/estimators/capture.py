@@ -29,6 +29,13 @@ regression's targets as the predictions plus standard-normal noise). Each
 sample's cotangent is made just before its backward and freed after it,
 so at a 50,257-word vocabulary one ``[B, T, V]`` cotangent exists at a
 time.
+
+``gram_probe_names`` fuses the output-gradient capture of those layers
+(JAX capture.py:127-230): each gets a zero f32 ``[out, out]`` accumulator
+behind a ``GramTap`` (nn/core.py) instead of a probe, and each sample's
+``autograd.grad`` returns that layer's token Gram ``sum_n g_n g_n^T``
+(``Captured.probe_grams``, ``[S, out, out]``) in place of its
+``[S, ...preact]`` gradient, all that KFAC's G factor reads.
 """
 import math
 from dataclasses import dataclass, field
@@ -57,12 +64,18 @@ class Captured:
                  gradients of the
                  mean loss (``nn.core.param_matrix``: (c, kh, kw) columns,
                  the bias column last); empty unless asked for.
+    probe_grams: layer -> [S, out, out] per-sample token Grams of the
+                 layers captured through a gram tap (which then have no
+                 ``probe_grads`` entry); None without taps.
+    probe_gram_ntok: layer -> the token count N of each such Gram.
     """
     acts: Dict[str, torch.Tensor]
     probe_grads: Dict[str, torch.Tensor]
     logits: torch.Tensor
     batch_size: int
     param_grads: Dict[str, torch.Tensor] = field(default_factory=dict)
+    probe_grams: Optional[Dict[str, torch.Tensor]] = None
+    probe_gram_ntok: Optional[Dict[str, int]] = None
 
 
 def sample_labels(logits: torch.Tensor, num_samples: int,
@@ -122,7 +135,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             params: Optional[Dict[str, torch.Tensor]] = None,
             need_param_grads: bool = True,
             need_probe_grads: bool = True,
-            loss: str = "cross_entropy") -> Captured:
+            loss: str = "cross_entropy",
+            gram_probe_names=frozenset()) -> Captured:
     """Capture acts, probe gradients and parameter gradients for the layers
     in ``metas``.
 
@@ -135,11 +149,17 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     in train mode (batch-statistics BN) and its running statistics are
     left untouched. ``need_param_grads`` / ``need_probe_grads`` switch the
     two gradient outputs; a switched-off one is neither computed nor
-    returned.
+    returned. ``gram_probe_names`` names the layers whose output gradient
+    comes back as its per-sample token Gram (``probe_grams``); it needs
+    ``need_probe_grads``.
     """
     if loss not in ("cross_entropy", "lm", "gaussian"):
         raise ValueError(f"unknown loss {loss!r}: 'cross_entropy', 'lm' or "
                          "'gaussian'")
+    taps = {n: 1 if metas[n].kind == "conv" else -1
+            for n in sorted(frozenset(gram_probe_names) & set(metas))}
+    if taps and not need_probe_grads:
+        raise ValueError("gram_probe_names requires need_probe_grads")
     weight_keys = [param_key(n, leaf) for n, m in metas.items()
                    for leaf in (("weight", "bias") if m.has_bias
                                 else ("weight",))]
@@ -153,7 +173,7 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             params[k] = params[k].detach().requires_grad_()
     was_training = model.training
     model.train()
-    ctx = Context(track=metas, probes=need_probe_grads)
+    ctx = Context(track=metas, probes=need_probe_grads, gram_taps=taps)
     try:
         logits = (model(x, ctx) if params is None
                   else functional_call(model, params, (x, ctx)))
@@ -168,12 +188,14 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
         labels = labels[None]
     probs = (None if loss == "gaussian"
              else torch.softmax(logits.detach(), dim=-1))
-    names = list(metas)
+    names = [n for n in metas if n not in taps]
     inputs = [ctx.probes[n] for n in names] if need_probe_grads else []
+    inputs += [ctx.taps[n] for n in taps]
     if need_param_grads:
         inputs += [params[k] for k in weight_keys]
     grads = {n: [] for n in names}
-    pgrads = {n: [] for n in names}
+    grams = {n: [] for n in taps}
+    pgrads = {n: [] for n in metas}
     num = labels.shape[0]
     for s in range(num):
         cot = (gaussian_cotangent(logits, labels[s]) if probs is None
@@ -187,6 +209,9 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
                 grads[n].append(g.permute(0, 2, 3, 1)
                                 if metas[n].kind == "conv" else g)
             gs = gs[len(names):]
+        for n, g in zip(taps, gs):
+            grams[n].append(g)
+        gs = gs[len(taps):]
         if need_param_grads:
             by_key = dict(zip(weight_keys, gs))
             for n, m in metas.items():
@@ -196,11 +221,14 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
                     m, by_key[param_key(n, "weight")],
                     by_key.get(param_key(n, "bias"))))
     return Captured(
-        acts={n: ctx.acts[n] for n in names},
+        acts={n: ctx.acts[n] for n in metas},
         probe_grads=({n: torch.stack(v) for n, v in grads.items()}
                      if need_probe_grads else {}),
         logits=logits.detach(),
         batch_size=(math.prod(logits.shape[:-1]) if loss == "lm"
                     else x.shape[0]),
         param_grads=({n: torch.stack(v) for n, v in pgrads.items()}
-                     if need_param_grads else {}))
+                     if need_param_grads else {}),
+        probe_grams=({n: torch.stack(v) for n, v in grams.items()}
+                     if taps else None),
+        probe_gram_ntok=dict(ctx.tap_tokens) if taps else None)

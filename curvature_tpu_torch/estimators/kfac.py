@@ -75,8 +75,19 @@ preconditioner, EFB and INF (square factors only). Their noise is JAX's:
 head-split ``out_proj`` ``{"z": [(depth,) H, d, out], "bias": [(depth,)
 out]}``.
 
-Out of this slice: ``stack_grams`` and ``fused_g`` (whose fused-G capture
-set must leave grouped layers out, JAX :282-302).
+``fused_g=True`` captures the G factor of every plain layer through a
+gram tap (nn/core.py ``GramTap``, ``gram_probe_names``): the backward
+hands back each sample's ``[out, out]`` token Gram instead of the
+``[S, ...preact]`` output gradient. Stacked (ScanBlocks depth or MoE
+experts), grouped, qkv/head-split and blocked-G layers, and convs under
+``token_subsample < 1``, keep their probes: their G needs the raw
+gradient (JAX :282-302). ``stack_grams=True`` batches the plain layers'
+Grams across layers: the token matrices of the layers whose A takes the
+patch route (no correlation Gram, no kernel) are bucketed by shape and
+each bucket is one batched product (its columns zero-padded to a multiple
+of 128, as JAX does), and so are the plain layers' G tokens (JAX
+:460-560). Both options change where a Gram is computed, never its
+value; neither touches the kernel routes.
 """
 import math
 from typing import Dict
@@ -113,6 +124,42 @@ def _gram_aligned(a: torch.Tensor, dtype) -> torch.Tensor:
     return a.transpose(-1, -2) @ a
 
 
+#: tokens per chunk of a batched Gram, and the most partial-product
+#: entries its chunks may hold at once (:func:`_batched_gram`)
+GRAM_CHUNK, GRAM_CHUNK_ENTRIES = 1024, 1 << 26
+
+
+def _batched_gram(a: torch.Tensor, dtype) -> torch.Tensor:
+    """``a[l]^T a[l]`` over a leading layer axis, the token axis cut into
+    chunks of about GRAM_CHUNK (as many as GRAM_CHUNK_ENTRIES allow) whose
+    Grams are summed: a batched f32 GEMM sums its whole token axis in one
+    pass, which left ResNet-50's 12,544-50,176-token G Grams 4.7e-5 of
+    max off one GEMM per layer on an H100 (5.3e-6 in chunks; the option
+    check of chip_smoke.py). Zero rows pad the last chunk and add
+    nothing."""
+    layers, n, f = a.shape
+    c = max(1, min(-(-n // GRAM_CHUNK),
+                   GRAM_CHUNK_ENTRIES // (layers * f * f)))
+    if c == 1:
+        return _gram_aligned(a, dtype)
+    size = -(-n // c)
+    a = torch.nn.functional.pad(a, (0, 0, 0, c * size - n))
+    return _gram_aligned(a.reshape(layers * c, size, f), dtype).reshape(
+        layers, c, f, f).sum(1)
+
+
+def _gram_aligned_batched(a: torch.Tensor, dtype) -> torch.Tensor:
+    """:func:`_batched_gram` with the column count zero-padded to a
+    multiple of 128 above one 128-wide tile (JAX kfac.py:63-72): the
+    padded columns give exactly-zero rows and columns, sliced away."""
+    f = a.shape[-1]
+    pad = -f % 128
+    if f <= 128 or pad == 0:
+        return _batched_gram(a, dtype)
+    return _batched_gram(torch.nn.functional.pad(a, (0, pad)),
+                         dtype)[:, :f, :f]
+
+
 def _conv_token_count(meta, act) -> int:
     """B * H_out * W_out for a conv layer's explicit padding."""
     b, h, w, _ = act.shape
@@ -135,8 +182,11 @@ class KFAC(Estimator):
                  corr_gram_min_extent: int = 14, max_factor_dim: int = 16384,
                  g_block_size: int = 1024,
                  attention_qkv_split: bool = False,
-                 attention_head_split: bool = False, **kwargs):
+                 attention_head_split: bool = False, fused_g: bool = False,
+                 stack_grams: bool = False, **kwargs):
         # read by init_state, which the base constructor calls
+        self.fused_g = bool(fused_g)
+        self.stack_grams = bool(stack_grams)
         self.max_factor_dim = int(max_factor_dim)
         self.g_block_size = int(g_block_size)
         self.attention_qkv_split = bool(attention_qkv_split)
@@ -232,6 +282,20 @@ class KFAC(Estimator):
         if self.token_subsample >= 1.0:
             return 1
         return max(int(round(1.0 / math.sqrt(self.token_subsample))), 1)
+
+    @property
+    def gram_probe_names(self):
+        """The fused-G capture set (``fused_g``): the layers whose G is the
+        plain token Gram of their output gradient; stacked, grouped,
+        split and blocked-G layers, and subsampled convs, are left out
+        (JAX :282-302)."""
+        if not getattr(self, "fused_g", False):
+            return frozenset()
+        k = self._spatial_stride()
+        return frozenset(
+            name for name, m in self.metas.items()
+            if not (m.stacked or is_grouped(m) or self._is_split(m)
+                    or self._is_gblock(m) or (m.kind == "conv" and k > 1)))
 
     def init_state(self):
         self._check_factor_dims()
@@ -376,34 +440,72 @@ class KFAC(Estimator):
         return _gram_aligned(g.reshape(-1, nb, bs).transpose(0, 1),
                              self.dtype)
 
+    # -- stack_grams: cross-layer Gram batching --------------------------------
+    def _a_stackable(self, meta, act) -> bool:
+        """A plain layer whose A takes the patch route (JAX :460-476: no
+        correlation Gram, no kernel)."""
+        return not (meta.stacked or self._is_head_split_out(meta)) \
+            and self.a_route(meta, act.shape, act.element_size()) == "patches"
+
+    def _g_stackable(self, meta) -> bool:
+        """A plain layer whose G is one token Gram (JAX :478-484)."""
+        return not (meta.stacked or is_grouped(meta) or self._is_split(meta)
+                    or self._is_gblock(meta))
+
+    def _stacked_grams(self, cap: Captured, grams):
+        """({name: A}, {name: G}) of the stackable layers (those not fused
+        into ``grams``) whose token matrices share their shape with
+        another's: one batched product per bucket (JAX :486-521)."""
+        k = self._spatial_stride()
+        a_buckets, g_buckets = {}, {}
+        for name, meta in self.metas.items():
+            if name in grams:
+                continue
+            act = cap.acts[name]
+            if self._a_stackable(meta, act):
+                t = act_tokens(meta, act, append_ones=meta.has_bias,
+                               extra_stride=k, offset=self.subsample_offset)
+                a_buckets.setdefault(tuple(t.shape), []).append((name, t))
+            if self._g_stackable(meta):
+                g, n_tok = self._g_tokens(meta, cap.probe_grads[name])
+                g_buckets.setdefault((tuple(g.shape), n_tok), []).append(
+                    (name, g))
+        pre_a, pre_g = {}, {}
+        for shape, items in a_buckets.items():
+            if len(items) > 1:
+                gram = _gram_aligned_batched(
+                    torch.stack([t for _, t in items]), self.dtype) / shape[0]
+                pre_a.update((name, gram[i]) for i, (name, _)
+                             in enumerate(items))
+        for (_, n_tok), items in g_buckets.items():
+            if len(items) > 1:
+                gram = _batched_gram(torch.stack([g for _, g in items]),
+                                     self.dtype) * (cap.batch_size ** 2
+                                                    / n_tok)
+                pre_g.update((name, gram[i]) for i, (name, _)
+                             in enumerate(items))
+        return pre_a, pre_g
+
     # -- transforms -----------------------------------------------------------
     def update_state(self, state, cap: Captured):
-        """Adds this batch's factors into ``state`` in place."""
-        num_mc = next(iter(cap.probe_grads.values())).shape[0]
+        """Adds this batch's factors into ``state`` in place: a fused
+        layer's G from its per-sample Grams, a stacked bucket's factors
+        from its batched product (JAX :523-560)."""
+        grams = cap.probe_grams or {}
+        num_mc = next(iter(cap.probe_grads.values()) if cap.probe_grads
+                      else iter(grams.values())).shape[0]
+        pre_a, pre_g = (self._stacked_grams(cap, grams) if self.stack_grams
+                        else ({}, {}))
         for name, meta in self.metas.items():
-            # [S, ...preact] -> [S*N, out]: the S samples' Grams in one
-            g, n_tok = self._g_tokens(meta, cap.probe_grads[name])
-            if self._is_gblock(meta):
-                gram = self._gblock_gram(meta, g)
-            elif self._is_head_split_in(meta):
-                # [.., n, 3, H, d] -> per (chunk, head) Grams [.., 3, H,
-                # d, d] (JAX :555-561)
-                d = meta.out_features // 3 // meta.heads
-                gq = g.reshape(g.shape[:-1] + (3, meta.heads, d))
-                gram = _gram_aligned(gq.movedim(-4, -2), self.dtype)
-            elif self._is_qkv_split(meta):
-                gq = g.reshape(g.shape[:-1] + (3, meta.out_features // 3))
-                gram = _gram_aligned(gq.movedim(-3, -2), self.dtype)
-            elif is_grouped(meta):
-                # output channels are group-major: one reshape splits the
-                # group axis (JAX :586-595)
-                gq = g.reshape(-1, meta.groups, meta.out_features
-                               // meta.groups)
-                gram = _gram_aligned(gq.transpose(0, 1), self.dtype)
+            if name in grams:
+                # (B*g)^T (B*g) over the S samples' token Grams
+                g_factor = grams[name].sum(0).to(self.dtype) * (
+                    cap.batch_size ** 2 / cap.probe_gram_ntok[name])
+            elif name in pre_g:
+                g_factor = pre_g[name]
             else:
-                gram = _gram_aligned(g, self.dtype)
-            # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
-            g_factor = gram * (cap.batch_size ** 2 / n_tok)
+                g_factor = self._g_factor(meta, cap.probe_grads[name],
+                                          cap.batch_size)
             if self._is_head_split_out(meta):
                 # out_proj's input is the concat of the heads' outputs: A
                 # splits along fan_in; the ones (bias) column is a scalar
@@ -412,10 +514,37 @@ class KFAC(Estimator):
                 if "a_bias" in state[name]:
                     state[name]["a_bias"] += num_mc
             else:
-                a_factor = self._a_factor(meta, cap.acts[name])
+                a_factor = (pre_a[name] if name in pre_a
+                            else self._a_factor(meta, cap.acts[name]))
             state[name]["a"] += num_mc * a_factor.to(self.dtype)
             state[name]["g"] += g_factor
         return state
+
+    def _g_factor(self, meta, probe_grad, batch_size):
+        """This batch's G factor from the [S, ...preact] probe gradient:
+        the S samples' token Grams in one product, per G block of a
+        blocked, split or grouped layer."""
+        g, n_tok = self._g_tokens(meta, probe_grad)
+        if self._is_gblock(meta):
+            gram = self._gblock_gram(meta, g)
+        elif self._is_head_split_in(meta):
+            # [.., n, 3, H, d] -> per (chunk, head) Grams [.., 3, H, d, d]
+            # (JAX :555-561)
+            d = meta.out_features // 3 // meta.heads
+            gq = g.reshape(g.shape[:-1] + (3, meta.heads, d))
+            gram = _gram_aligned(gq.movedim(-4, -2), self.dtype)
+        elif self._is_qkv_split(meta):
+            gq = g.reshape(g.shape[:-1] + (3, meta.out_features // 3))
+            gram = _gram_aligned(gq.movedim(-3, -2), self.dtype)
+        elif is_grouped(meta):
+            # output channels are group-major: one reshape splits the
+            # group axis (JAX :586-595)
+            gq = g.reshape(-1, meta.groups, meta.out_features // meta.groups)
+            gram = _gram_aligned(gq.transpose(0, 1), self.dtype)
+        else:
+            gram = _gram_aligned(g, self.dtype)
+        # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
+        return gram * (batch_size ** 2 / n_tok)
 
     def _head_a_factor(self, meta, act):
         """Per-head input Grams [(depth,) H, d, d] of a head-split

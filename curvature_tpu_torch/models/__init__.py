@@ -14,7 +14,7 @@ from curvature_tpu_torch.models.efficientnet import (
 from curvature_tpu_torch.models.googlenet import GoogLeNet, googlenet
 from curvature_tpu_torch.models.gpt import (
     GPT2, convert_gpt2_state_dict, gpt2, gpt2_custom, gpt2_large,
-    gpt2_medium, gpt2_tiny, gpt2_xl,
+    gpt2_medium, gpt2_moe_custom, gpt2_moe_tiny, gpt2_tiny, gpt2_xl,
 )
 from curvature_tpu_torch.models.inception import InceptionV3, inception_v3
 from curvature_tpu_torch.models.lenet5 import TORCH_KEY_MAP, lenet5
@@ -102,12 +102,8 @@ MODEL_REGISTRY = {
     "gpt2_medium": gpt2_medium,
     "gpt2_large": gpt2_large,
     "gpt2_xl": gpt2_xl,
+    "gpt2_moe_tiny": gpt2_moe_tiny,
 }
-
-
-#: JAX registry names still to port: the mixture-of-experts GPT-2s
-#: (ROADMAP Queue 1 item 6, MoE)
-_NOT_PORTED = ("gpt2_moe",)
 
 
 def build(name: str, num_classes: int = 1000, device=None, **kw):
@@ -115,12 +111,8 @@ def build(name: str, num_classes: int = 1000, device=None, **kw):
     ``"cpu"`` is passed); ``kw`` go to the constructor (``stem`` for the
     ResNets; for GPT-2 ``scan_blocks`` and ``max_len``; ``in_features``
     for ``mlp``; ``image_size`` and ``scan_blocks`` for the ViTs,
-    ``partition`` for MaxViT). The MoE GPT-2s are not ported yet."""
+    ``partition`` for MaxViT; ``experts`` for ``gpt2_moe_tiny``)."""
     if name not in MODEL_REGISTRY:
-        if name.startswith(_NOT_PORTED):
-            raise NotImplementedError(
-                f"model {name!r} is not ported yet (ROADMAP Queue 1 item 6, "
-                "MoE: nn.MoE and the expert-stacked factors)")
         raise ValueError(f"unknown model {name!r}; available: "
                          f"{', '.join(sorted(MODEL_REGISTRY))}")
     return MODEL_REGISTRY[name](num_classes=num_classes, device=device, **kw)
@@ -135,9 +127,9 @@ __all__ = ["AlexNet", "alexnet", "DenseNet", "densenet", "GoogLeNet",
            "variables_to_jax",
            "ConvNeXt", "convnext", "EfficientNet", "efficientnet",
            "efficientnet_b0", "GPT2", "convert_gpt2_state_dict", "gpt2",
-           "gpt2_custom", "gpt2_large", "gpt2_medium", "gpt2_tiny",
-           "gpt2_xl", "lenet5", "MNASNet", "mnasnet", "MobileNetV2",
-           "MobileNetV3", "mobilenet_v2", "mobilenet_v3_large",
+           "gpt2_custom", "gpt2_large", "gpt2_medium", "gpt2_moe_custom",
+           "gpt2_moe_tiny", "gpt2_tiny", "gpt2_xl", "lenet5", "MNASNet",
+           "mnasnet", "MobileNetV2", "MobileNetV3", "mobilenet_v2", "mobilenet_v3_large",
            "mobilenet_v3_small", "RegNet", "regnet", "BasicBlock",
            "Bottleneck", "ResNet", "resnet", "resnet18", "resnet50",
            "ShuffleNetV2", "shufflenet_v2", "MaxVit", "maxvit", "maxvit_t",

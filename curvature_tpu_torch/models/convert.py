@@ -2,7 +2,9 @@
 
 The JAX package keeps ``{"params": {layer: {...}}, "batch_stats": {layer:
 {"mean", "var"}}}`` with HWIO conv kernels and ``[in, out]`` dense
-kernels (``[depth, in, out]`` in a ScanBlocks stack; a grouped conv's
+kernels (``[depth, in, out]`` in a ScanBlocks stack, ``[E, in, out]``
+for a mixture of experts, whose router is ``<moe>.router`` ``[in, E]``,
+torch's ``Linear`` ``[E, in]``; a grouped conv's
 kernel is ``[kh, kw, C/g, O]``, torch's ``[O, C/g, kh, kw]``), and raw
 parameters such as ConvNeXt's ``layer_scale``, ViT's ``class_token`` and
 ``encoder.pos_embedding`` or Swin's bias tables as ``{"value": ...}``,
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from curvature_tpu_torch.nn import (BatchNorm, Conv, Dense, LayerNorm,
+from curvature_tpu_torch.nn import (BatchNorm, Conv, Dense, LayerNorm, MoE,
                                     param_key)
 
 
@@ -92,7 +94,9 @@ def variables_to_jax(model: nn.Module,
     owns it, never by its rank: a ``Conv`` weight OIHW -> HWIO (grouped
     [O, C/g, kh, kw] -> [kh, kw, C/g, O]), a ``Dense`` weight [(depth,)
     out, in] -> [(depth,) in, out] under the layer's name (an attention
-    projection's ``<attn>/in_proj``), ``BatchNorm``/``LayerNorm`` weight
+    projection's ``<attn>/in_proj``; the experts' [E, out, in] -> [E, in,
+    out], a single-stack ``MoE``'s under its name, a router's ``Linear``
+    [E, in] -> [in, E]), ``BatchNorm``/``LayerNorm`` weight
     -> ``scale``, an embedding's ``weight`` as it is, a module's raw
     parameter or buffer (ConvNeXt's ``layer_scale``, ViT's
     ``class_token``, Swin's ``relative_position_index``) -> ``{"value":
@@ -116,14 +120,15 @@ def variables_to_jax(model: nn.Module,
         keys = {leaf: f"{name}.{leaf}" for leaf in ("weight", "bias",
                                                     "running_mean",
                                                     "running_var")}
-        if isinstance(m, (Conv, Dense)) and keys["weight"] in state:
+        if isinstance(m, (Conv, Dense, MoE, nn.Linear)) \
+                and keys["weight"] in state:
             w = arr(keys["weight"])
             if isinstance(m, Conv):
                 w = w.transpose(lead_axes + tuple(lead + i
                                                   for i in (2, 3, 1, 0)))
             else:
                 w = w.swapaxes(-1, -2)
-            layer = m.name or name
+            layer = getattr(m, "name", None) or name
             params[layer] = {"kernel": np.ascontiguousarray(w)}
             if keys["bias"] in state:
                 params[layer]["bias"] = arr(keys["bias"])
@@ -136,7 +141,8 @@ def variables_to_jax(model: nn.Module,
         if isinstance(m, BatchNorm) and keys["running_mean"] in state:
             stats[name] = {"mean": arr(keys["running_mean"]),
                            "var": arr(keys["running_var"])}
-        if isinstance(m, (Conv, Dense, BatchNorm, LayerNorm, nn.Embedding)):
+        if isinstance(m, (Conv, Dense, MoE, nn.Linear, BatchNorm, LayerNorm,
+                          nn.Embedding)):
             continue
         raw = [p for p, _ in m.named_parameters(recurse=False)] \
             + [b for b, _ in m.named_buffers(recurse=False)]
@@ -178,7 +184,8 @@ def seeded_variables(model: nn.Module, seed: int,
                      residual_gain: float = 0.2) -> Dict:
     """Random JAX-layout numpy variables for ``model`` from a numpy seed:
     He-normal conv/dense kernels (a grouped conv's over its (C/g)*kh*kw
-    fan-in), small conv/dense biases, BN and LayerNorm scales near 1 and
+    fan-in; the experts, a single-stack MoE and a router alike), small
+    conv/dense biases, BN and LayerNorm scales near 1 and
     biases near 0, running statistics near (0, 1). The last BN of each
     residual branch (a block's ``residual_bn``: ResNet's Bottleneck and
     BasicBlock, MobileNet's and MNASNet's inverted residuals, MBConv,
@@ -216,12 +223,13 @@ def seeded_variables(model: nn.Module, seed: int,
             if m.bias is not None:
                 params[name]["bias"] = (0.01 * rng.standard_normal(o)
                                         ).astype(np.float32)
-        elif isinstance(m, Dense):
+        elif isinstance(m, (Dense, nn.Linear)) or (
+                isinstance(m, MoE) and m.hidden is None):
             *lead, o, i = m.weight.shape
-            layer = m.name or name
+            layer = getattr(m, "name", None) or name
             params[layer] = {"kernel": (np.sqrt(1.0 / i) * rng.standard_normal(
                 tuple(lead) + (i, o))).astype(np.float32)}
-            if m.bias is not None:
+            if getattr(m, "bias", None) is not None:
                 params[layer]["bias"] = (0.01 * rng.standard_normal(
                     tuple(m.bias.shape))).astype(np.float32)
         elif isinstance(m, LayerNorm):

@@ -13,8 +13,14 @@ ops, as JAX has no attention kernel.
 
 :func:`convert_gpt2_state_dict` maps a Hugging Face state dict (``Conv1D``
 weights ``[in, out]``) to this port's state dict (``Linear`` weights
-``[out, in]``), untying the head from ``wte`` as JAX does. The MoE block
-(``GPT2MoEBlock``) waits for ``nn.MoE`` (ROADMAP Queue 1 item 6).
+``[out, in]``), untying the head from ``wte`` as JAX does.
+
+:class:`GPT2MoEBlock` (``gpt2_moe_custom``, ``gpt2_moe_tiny``) replaces
+the MLP by a Switch-style ``nn.MoE`` (top-1-routed bias-free two-layer
+experts, ``h.{i}.moe.fc1``/``fc2`` stacked ``[E, ...]`` layers and the
+untracked ``h.{i}.moe.router``; JAX gpt.py:97-170). Its experts are
+already stacked, so the MoE model runs unrolled: ``scan_blocks=True``
+raises, as in JAX.
 """
 import math
 from typing import Dict, Optional
@@ -24,7 +30,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from curvature_tpu_torch.nn import Context, Dense, LayerNorm, ScanBlocks
+from curvature_tpu_torch.nn import (
+    Context, Dense, LayerNorm, MoE, ScanBlocks, is_tracked)
 from curvature_tpu_torch.utils.device import resolve_device
 
 
@@ -91,11 +98,29 @@ class GPT2Block(nn.Module):
         return x + self.mlp(self.ln_2(x), ctx)
 
 
+class GPT2MoEBlock(nn.Module):
+    """Pre-LN decoder block with a Switch-style MoE FFN: x += attn(ln_1(x));
+    x += moe(ln_2(x)), the experts two-layer (hidden 4 * dim, gelu_new)."""
+
+    def __init__(self, dim: int, heads: int, experts: int):
+        super().__init__()
+        self.ln_1 = LayerNorm(dim)
+        self.attn = CausalSelfAttention(dim, heads)
+        self.ln_2 = LayerNorm(dim)
+        self.moe = MoE(dim, dim, experts, hidden=4 * dim,
+                       activation=_gelu_new)
+
+    def forward(self, x, ctx: Optional[Context] = None):
+        x = x + self.attn(self.ln_1(x), ctx)
+        return x + self.moe(self.ln_2(x), ctx)
+
+
 class GPT2(nn.Module):
-    """Token ids [B, T] -> logits [B, T, vocab]."""
+    """Token ids [B, T] -> logits [B, T, vocab]; ``experts`` > 0 makes
+    every block a :class:`GPT2MoEBlock`."""
 
     def __init__(self, vocab: int, dim: int, depth: int, heads: int,
-                 max_len: int, scan_blocks: bool = False):
+                 max_len: int, scan_blocks: bool = False, experts: int = 0):
         super().__init__()
         self.vocab = vocab
         self.dim = dim
@@ -104,23 +129,27 @@ class GPT2(nn.Module):
         self.wpe = nn.Embedding(max_len, dim)
         nn.init.normal_(self.wte.weight, std=0.02)
         nn.init.normal_(self.wpe.weight, std=0.01)
+
+        def block(name=None):
+            return (GPT2MoEBlock(dim, heads, experts) if experts
+                    else GPT2Block(dim, heads))
         if scan_blocks:
-            self.h = ScanBlocks(lambda name: GPT2Block(dim, heads), depth,
-                                "h", [f"h.{i}" for i in range(depth)])
+            self.h = ScanBlocks(block, depth, "h",
+                                [f"h.{i}" for i in range(depth)])
         else:
-            self.h = nn.ModuleList(GPT2Block(dim, heads)
-                                   for _ in range(depth))
+            self.h = nn.ModuleList(block() for _ in range(depth))
         self.ln_f = LayerNorm(dim)
         self.lm_head = Dense(dim, vocab, bias=False)
         for name, m in self.named_modules():
             if isinstance(m, Dense):
                 m.name = name
+            elif isinstance(m, MoE):
+                m.set_name(name)
 
     @property
     def metas(self):
         """Tracked layers in forward order; a stack's are stacked."""
-        return {m.name: m.meta for m in self.modules()
-                if isinstance(m, Dense)}
+        return {m.name: m.meta for m in self.modules() if is_tracked(m)}
 
     @property
     def scan_groups(self) -> Dict:
@@ -144,6 +173,26 @@ def gpt2_custom(vocab: int, dim: int, depth: int, heads: int,
     """Build on ``device`` (CUDA unless ``"cpu"`` is passed)."""
     device = resolve_device(device)
     return GPT2(vocab, dim, depth, heads, max_len, scan_blocks).to(device)
+
+
+def gpt2_moe_custom(vocab: int, dim: int, depth: int, heads: int,
+                    experts: int = 8, max_len: int = 1024,
+                    scan_blocks: bool = False, device=None) -> GPT2:
+    """GPT-2 trunk whose every block takes the Switch-style MoE FFN, on
+    ``device`` (CUDA unless ``"cpu"`` is passed); ``scan_blocks=True``
+    raises (the experts are stacked already)."""
+    device = resolve_device(device)
+    return GPT2(vocab, dim, depth, heads, max_len, scan_blocks,
+                experts=experts).to(device)
+
+
+def gpt2_moe_tiny(num_classes: int = 256, experts: int = 4,
+                  max_len: int = 128, scan_blocks: bool = False,
+                  device=None) -> GPT2:
+    """2-layer Switch-style MoE test model (per-expert curvature
+    factors)."""
+    return gpt2_moe_custom(num_classes, 64, 2, 2, experts, max_len,
+                           scan_blocks, device)
 
 
 def gpt2_tiny(num_classes: int = 256, scan_blocks: bool = False,
@@ -226,7 +275,8 @@ def convert_gpt2_state_dict(state_dict: Dict, model: Optional[GPT2] = None
 
 def seeded_gpt2(model: GPT2, seed: int) -> Dict:
     """Random JAX-layout numpy variables for a GPT-2 from a numpy seed:
-    N(0, 0.02) kernels (``[depth, in, out]`` in a stack) and ``wte``,
+    N(0, 0.02) kernels (``[depth, in, out]`` in a stack, ``[E, in, out]``
+    for the experts, ``[in, E]`` for a router) and ``wte``,
     N(0, 0.01) ``wpe`` (the JAX model's init scales), N(0, 0.01) biases,
     LayerNorm scales U(0.8, 1.2) and biases N(0, 0.05)."""
     rng = np.random.default_rng(seed)
@@ -244,6 +294,9 @@ def seeded_gpt2(model: GPT2, seed: int) -> Dict:
                                                            w.shape[-2]))}
             if m.bias is not None:
                 params[name]["bias"] = normal(0.01, tuple(m.bias.shape))
+        elif isinstance(m, nn.Linear):
+            params[name] = {"kernel": normal(0.02,
+                                             tuple(m.weight.shape[::-1]))}
         elif isinstance(m, LayerNorm):
             shape = tuple(m.weight.shape)
             params[name] = {

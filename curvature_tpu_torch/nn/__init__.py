@@ -4,15 +4,16 @@ from curvature_tpu_torch.nn.core import (
 )
 from curvature_tpu_torch.nn.layers import (
     GELU, AdaptiveAvgPool, Add, AvgPool, BatchNorm, ChannelLayerNorm, Conv,
-    CtxModule, Dense, Flatten, GlobalAvgPool, Hardsigmoid, Hardswish, Identity,
-    LayerNorm, MaxPool, MultiheadAttention, ReLU, ReLU6, Sequential, SiLU,
-    normalize_padding,
+    CtxModule, Dense, Experts, Flatten, GlobalAvgPool, Hardsigmoid,
+    Hardswish, Identity, LayerNorm, MaxPool, MoE, MultiheadAttention, ReLU,
+    ReLU6, Sequential, SiLU, is_tracked, normalize_padding,
 )
 from curvature_tpu_torch.nn.scan import ScanBlocks
 
 __all__ = ["Context", "LayerMeta", "apply_matrix_delta", "matrix_to_delta",
            "param_key", "param_matrix", "GELU", "AdaptiveAvgPool", "Add",
            "AvgPool", "BatchNorm", "ChannelLayerNorm", "Conv", "CtxModule",
-           "Dense", "Flatten", "GlobalAvgPool", "Hardsigmoid", "Hardswish",
-           "Identity", "LayerNorm", "MaxPool", "MultiheadAttention", "ReLU",
-           "ReLU6", "ScanBlocks", "Sequential", "SiLU", "normalize_padding"]
+           "Dense", "Experts", "Flatten", "GlobalAvgPool", "Hardsigmoid",
+           "Hardswish", "Identity", "LayerNorm", "MaxPool", "MoE",
+           "MultiheadAttention", "ReLU", "ReLU6", "ScanBlocks", "Sequential",
+           "SiLU", "is_tracked", "normalize_padding"]

@@ -18,6 +18,13 @@ context knows the depth (``scan``): the layer's inputs come back stacked
 ``[depth, ...]``, and its probe is one ``[depth, ...preact]`` zero tensor,
 made at depth 0 and added slice by slice, so ``autograd.grad`` returns
 ``[depth, ...preact]``, JAX's layout (its probes are a scanned input).
+
+A layer named in the context's ``gram_taps`` gets a :class:`GramTap`
+instead of a probe (JAX ``gram_tap``, core.py:66-96): the identity on
+``y``, whose backward hands the float32 ``[out, out]`` token Gram of the
+output gradient to a zero accumulator input, so ``autograd.grad`` over
+the accumulator returns the Gram that KFAC's G factor needs and the full
+output gradient is never returned.
 """
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Tuple
@@ -49,10 +56,32 @@ class LayerMeta:
     stacked: int = 0
     groups: int = 1
     heads: int = 0
+    moe: bool = False
 
     @property
     def mat_cols(self) -> int:
         return self.fan_in + (1 if self.has_bias else 0)
+
+
+class GramTap(torch.autograd.Function):
+    """``GramTap.apply(y, acc, dim)``: the identity on ``y``; the gradient
+    that reaches ``acc`` (a zero float32 ``[out, out]`` tensor that
+    requires grad) is ``sum_n g_n g_n^T`` over every position of the output
+    gradient ``g`` with its channel axis ``dim`` moved last (NCHW conv
+    outputs: ``dim=1``). A bf16 gradient is upcast first: each product of
+    two bf16 values is exact in f32, as JAX's
+    ``preferred_element_type=f32``."""
+
+    @staticmethod
+    def forward(ctx, y, acc, dim):
+        ctx.dim = dim
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = ct.movedim(ctx.dim, -1)
+        g = g.reshape(-1, g.shape[-1]).float()
+        return ct, g.T @ g, None
 
 
 class Context:
@@ -68,11 +97,19 @@ class Context:
     fused kernel: the exact products and per-example gradients run under
     ``torch.func.vmap``, where cuDNN's batch-norm backward asks a batched
     tensor for its channels_last layout, which vmap does not answer.
+    ``gram_taps`` maps the layers whose output gradient is reduced to its
+    token Gram in the backward (:class:`GramTap`) to their channel axis;
+    those get a zero ``[out, out]`` accumulator in ``taps`` (and their
+    token count in ``tap_tokens``) instead of a probe.
     """
 
     def __init__(self, track: Iterable[str] = (), update_stats: bool = False,
-                 probes: bool = True, decompose_norm: bool = False):
+                 probes: bool = True, decompose_norm: bool = False,
+                 gram_taps: Optional[Dict[str, int]] = None):
         self.track = frozenset(track)
+        self.gram_taps = dict(gram_taps or {})
+        self.taps: Dict[str, torch.Tensor] = {}
+        self.tap_tokens: Dict[str, int] = {}
         self.update_stats = update_stats
         self.make_probes = probes
         self.decompose_norm = decompose_norm
@@ -99,6 +136,17 @@ class Context:
     def probe(self, name: str, y: torch.Tensor) -> torch.Tensor:
         if name not in self.track or not self.make_probes:
             return y
+        if name in self.gram_taps:
+            if self.scan is not None:
+                raise ValueError(f"{name}: a stacked layer cannot be "
+                                 "gram-tapped")
+            dim = self.gram_taps[name]
+            out = y.shape[dim]
+            acc = torch.zeros((out, out), dtype=torch.float32,
+                              device=y.device, requires_grad=True)
+            self.taps[name] = acc
+            self.tap_tokens[name] = y.numel() // out
+            return GramTap.apply(y, acc, dim)
         if self.scan is not None:
             i, depth = self.scan
             if i == 0:

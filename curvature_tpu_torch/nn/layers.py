@@ -4,8 +4,10 @@ and depthwise convs through ``groups``), the untracked ``BatchNorm``,
 the activations ``ReLU``, ``ReLU6``, ``SiLU``, ``Hardsigmoid``,
 ``Hardswish``, ``GELU`` and ``Identity``, the pools ``MaxPool``,
 ``AvgPool``, ``AdaptiveAvgPool`` and ``GlobalAvgPool``, ``Flatten``, the
-``Sequential`` and ``Add`` containers, and ``MultiheadAttention`` (two
-tracked ``Dense`` projections around an explicit softmax attention).
+``Sequential`` and ``Add`` containers, ``MultiheadAttention`` (two
+tracked ``Dense`` projections around an explicit softmax attention), and
+the mixture-of-experts layer ``MoE`` (its experts a tracked
+:class:`Experts` stack each).
 
 Port of the matching subset of ``curvature_tpu/nn/layers.py`` in PyTorch
 layout (NCHW activations, OIHW conv weights, [out, in] dense weights).
@@ -79,6 +81,140 @@ class Dense(CtxModule):
             ctx.record_act(self.name, x)
         y = F.linear(x, self.weight, self.bias)
         return ctx.probe(self.name, y) if ctx is not None else y
+
+
+class Experts(Dense):
+    """The bias-free linear maps of ``num_experts`` experts, one weight
+    ``[E, out, in]`` (the layout of a stacked ``Dense``), tracked as one
+    layer whose meta is ``stacked=E, moe=True``. Its input is the
+    mask-routed per-expert token stream ``[E, ..., in]``; it records that
+    stream and probes its ``[E, ..., out]`` output, so every estimator's
+    stacked factor math gives per-expert factors."""
+
+    def __init__(self, num_experts: int, in_features: int,
+                 out_features: int, name: Optional[str] = None):
+        super().__init__(in_features, out_features, bias=False, name=name)
+        bound = 1.0 / math.sqrt(max(in_features, 1))
+        self.weight = nn.Parameter(torch.empty(
+            num_experts, out_features, in_features).uniform_(-bound, bound))
+
+    @property
+    def meta(self) -> LayerMeta:
+        return _experts_meta(self.name, self.weight)
+
+    def forward(self, xm, ctx: Optional[Context] = None):
+        return _apply_experts(self.name, self.weight, xm, ctx)
+
+
+def _experts_meta(name, weight) -> LayerMeta:
+    e, out_f, in_f = weight.shape
+    return LayerMeta(name, "dense", out_f, in_f, False, stacked=e, moe=True)
+
+
+def _apply_experts(name, weight, xm, ctx: Optional[Context]):
+    """``y[e] = xm[e] @ weight[e]^T`` over a ``[E, ..., in]`` stream, with
+    the capture of the tracked layer ``name``."""
+    if ctx is not None:
+        ctx.record_act(name, xm)
+    e = xm.shape[0]
+    y = (xm.reshape(e, -1, xm.shape[-1]) @ weight.mT.to(xm.dtype)
+         ).reshape(xm.shape[:-1] + (weight.shape[-2],))
+    return ctx.probe(name, y) if ctx is not None else y
+
+
+class MoE(CtxModule):
+    """Mixture-of-experts feed-forward layer with top-k routing
+    (``top_k=1``: Switch Transformer, ``top_k=2``: GShard); JAX
+    layers.py:401-494.
+
+    The router is an untracked bias-free linear head (``router``, a
+    ``torch.nn.Linear`` ``[E, in]``; JAX's ``<name>.router`` kernel
+    ``[in, E]``) whose softmax ``p`` stays in the graph. Top-1 routing is
+    the one-hot of ``argmax(p)``, top-k the sum of the one-hots of
+    ``torch.topk``; ``gates = p * mask``. Dispatch is dense: the masked
+    stream ``xm[e] = mask[..., e] * x`` (zeros for the tokens routed
+    elsewhere) goes through every expert, so the layer pays E times the
+    FFN's FLOPs, as JAX's does.
+
+    With ``hidden`` each expert is the bias-free two-layer MLP ``act(x
+    k1_e) k2_e`` (``fc1``, ``fc2``: :class:`Experts` named
+    ``<name>.fc1``, ``<name>.fc2``), the mask re-applied after the
+    activation so that ``act(0) != 0`` leaks no unrouted token into fc2's
+    input; without it the layer itself is the single expert stack (its
+    ``weight`` ``[E, features, in]``, its meta named ``<name>``). Each
+    expert's A factor then sums over the tokens routed to it and divides
+    by all N tokens, ``A_e = sum_{n routed to e} a_n a_n^T / N``: the
+    Fisher block of expert e (unrouted tokens give zero gradient). The
+    experts are bias-free by design, as in JAX.
+    """
+
+    def __init__(self, in_features: int, features: int, num_experts: int,
+                 hidden: Optional[int] = None, activation=None,
+                 top_k: int = 1, name: Optional[str] = None):
+        super().__init__()
+        if num_experts < 1:
+            raise ValueError("MoE needs num_experts >= 1")
+        if not 1 <= top_k <= num_experts:
+            raise ValueError(f"top_k={top_k} must lie in [1, {num_experts}]")
+        self.features = features
+        self.num_experts = num_experts
+        self.hidden = hidden
+        self.activation = activation or (
+            lambda v: F.gelu(v, approximate="tanh"))
+        self.top_k = top_k
+        self.router = nn.Linear(in_features, num_experts, bias=False)
+        if hidden is None:
+            bound = 1.0 / math.sqrt(max(in_features, 1))
+            self.weight = nn.Parameter(torch.empty(
+                num_experts, features, in_features).uniform_(-bound, bound))
+        else:
+            self.fc1 = Experts(num_experts, in_features, hidden)
+            self.fc2 = Experts(num_experts, hidden, features)
+        self.name = None
+        if name is not None:
+            self.set_name(name)
+
+    def set_name(self, name: str):
+        self.name = name
+        if self.hidden is not None:
+            self.fc1.name = f"{name}.fc1"
+            self.fc2.name = f"{name}.fc2"
+
+    @property
+    def meta(self) -> LayerMeta:
+        """The single expert stack's meta (``hidden`` unset)."""
+        return _experts_meta(self.name, self.weight)
+
+    def route(self, x):
+        """(router probabilities ``p``, the 0/1 routing mask), both
+        ``[..., E]`` in ``x``'s dtype."""
+        e = self.num_experts
+        p = torch.softmax(x @ self.router.weight.mT.to(x.dtype), dim=-1)
+        if self.top_k == 1:
+            mask = F.one_hot(p.argmax(-1), e).to(x.dtype)
+        else:
+            idx = torch.topk(p, self.top_k, dim=-1).indices
+            mask = F.one_hot(idx, e).sum(-2).to(x.dtype)
+        return p, mask
+
+    def forward(self, x, ctx: Optional[Context] = None):
+        p, mask = self.route(x)
+        gates = p * mask                                  # [..., E]
+        mask_e = mask.movedim(-1, 0)[..., None]           # [E, ..., 1]
+        xm = mask_e * x                                   # [E, ..., F]
+        if self.hidden is None:
+            ye = _apply_experts(self.name, self.weight, xm, ctx)
+        else:
+            h = self.activation(self.fc1(xm, ctx)) * mask_e
+            ye = self.fc2(h, ctx)                         # [E, ..., O]
+        return (ye * gates.movedim(-1, 0)[..., None]).sum(0)
+
+
+def is_tracked(m: nn.Module) -> bool:
+    """A tracked layer: ``Conv``, ``Dense`` (``Experts`` too), or a
+    single-stack ``MoE``."""
+    return isinstance(m, (Conv, Dense)) or (isinstance(m, MoE)
+                                            and m.hidden is None)
 
 
 class Conv(CtxModule):
@@ -372,8 +508,7 @@ class Sequential(CtxModule):
 
     @property
     def metas(self):
-        return {m.name: m.meta for m in self.modules()
-                if isinstance(m, (Conv, Dense))}
+        return {m.name: m.meta for m in self.modules() if is_tracked(m)}
 
     def forward(self, x, ctx: Optional[Context] = None):
         for layer in self.children():

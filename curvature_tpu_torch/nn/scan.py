@@ -14,6 +14,9 @@ The tracked layers inside are one stacked layer each (a ``Dense`` with a
 ``[depth, out, in]`` weight has ``LayerMeta.stacked = depth``): the capture context records their inputs
 per depth and returns them stacked, and their probe is one ``[depth,
 ...preact]`` tensor (nn/core.py), so every estimator sees the JAX shapes.
+A template holding a layer that is already stacked (an
+:class:`~curvature_tpu_torch.nn.MoE` and its experts) raises, as in JAX:
+the one leading axis cannot carry both.
 ``scan_groups`` records, per stack, its depth, ``per_depth_names`` (the
 unrolled names, ``h.{i}``, that checkpoint converters gather from) and its
 parameter layers, as the JAX model records them.
@@ -25,6 +28,7 @@ from torch import nn
 from torch.func import functional_call
 
 from curvature_tpu_torch.nn.core import Context
+from curvature_tpu_torch.nn.layers import Experts, MoE
 
 
 def _owner(module: nn.Module, path: str):
@@ -57,6 +61,14 @@ class ScanBlocks(nn.Module):
         self.per_depth_names = per_depth_names
         blocks = [make_block(name) for _ in range(depth)]
         template = blocks[0]
+        for path, m in template.named_modules():
+            if isinstance(m, Experts) or (isinstance(m, MoE)
+                                          and m.hidden is None):
+                # JAX nn/scan.py:88-93
+                raise ValueError(
+                    f"{m.name or f'{name}.{path}'}: already-stacked layers (MoE, nested "
+                    "ScanBlocks) inside a ScanBlocks body are not supported "
+                    "— the single leading stack axis cannot carry both")
         if next(template.buffers(), None) is not None:
             raise ValueError("ScanBlocks templates with buffers are not "
                              "supported")

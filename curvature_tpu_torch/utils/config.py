@@ -129,8 +129,6 @@ NOT_PORTED = (
      lambda c: c.parallel or c.mesh, "Queue 1 item 10"),
     ("--plot (pipelines/plot.py: its figures need matplotlib)",
      lambda c: c.plot, "Queue 1 item 7"),
-    ("the mixture-of-experts GPT-2s (nn.MoE)",
-     lambda c: c.model.startswith("gpt2_moe"), "Queue 1 item 6, MoE"),
     ("the visualize figure toggles --calibration/--ecdf/--entropy/"
      "--eigvals/--hyper/--networks/--landscapes (their figures need "
      "matplotlib)",

@@ -1,8 +1,8 @@
 """The port's examples (``curvature_tpu_torch/examples``) run in-process
 on the CPU at small sizes and print the JAX examples' markers
 (tests/test_examples.py): ``accuracy`` (blitz), ``EWC retention gain``,
-``influence OK``, the modern Laplace rows, ResNet-50's update rate and
-predictor. Importing an example runs nothing."""
+``influence OK``, the modern Laplace rows, the MoE GPT-2's per-expert
+factors and routing, ResNet-50's update rate and predictor. Importing an example runs nothing."""
 import importlib
 
 import numpy as np
@@ -11,7 +11,8 @@ import torch
 
 torch.set_num_threads(1)
 
-NAMES = ("blitz", "ewc", "influence", "modern_laplace", "resnet50_scale")
+NAMES = ("blitz", "ewc", "influence", "modern_laplace", "moe_laplace",
+         "resnet50_scale")
 
 
 def _main(name):
@@ -61,6 +62,23 @@ def test_influence_example(capsys):
     assert "influence OK" in capsys.readouterr().out
     assert res["precision"] > 2 * res["chance"]
     assert res["frac"] > 2 * res["chance"]
+
+
+def test_moe_laplace_example(capsys):
+    """JAX tests/test_examples.py:47's run (3 samples, 2 batches): the
+    per-expert factors, the routed shares (summing to 1 under top-1) and
+    both predictives; the expert-sharded step says it waits for the
+    mesh."""
+    res = _main("moe_laplace")(["--platform", "cpu", "--samples", "3",
+                                "--batches", "2"])
+    out = capsys.readouterr().out
+    for marker in ("per-expert A factors", "expert utilization",
+                   "per-token NLL", "item 10"):
+        assert marker in out, (marker, out[-2000:])
+    assert res["a_shape"] == (4, 64, 64)
+    assert res["shares"].sum() == pytest.approx(1.0)
+    assert np.isfinite([res["map_nll"], res["bnn_nll"],
+                        res["log_marglik"]]).all()
 
 
 def test_resnet50_scale_example(capsys):

@@ -166,3 +166,39 @@ def test_vocab_scale_evaluate_takes_the_stats_route(tmp_path):
         assert list(f["stats_columns"]) == list(jeval.STATS_COLUMNS)
         np.testing.assert_array_equal(f["nn_stats"], nn_s)
         assert f["ood_bnn_stats"].shape == (256 * 8, 4)
+
+
+def test_moe_tokens_chain(tmp_path):
+    """``gpt2_moe_tiny --data tokens``: ``factors --estimator kfac`` writes
+    the per-expert ``[E, F, F]`` factors under JAX's keys and shapes (JAX's
+    CLI writes the same config's file), ``hyper --objective marglik
+    --optimizer grad`` tunes the damping on it, and ``evaluate --ood``
+    gives per-token predictions."""
+    from curvature_tpu_torch.pipelines import hyper as thyper
+    argv = ["--platform", "cpu", "--model", "gpt2_moe_tiny", "--data",
+            "tokens", "--seq_len", "16", "--batch_size", "32",
+            "--mc_samples", "1", "--samples", "2", "--estimator", "kfac"]
+    proot, jroot = str(tmp_path / "port"), str(tmp_path / "jax")
+    pargv = argv + ["--root_dir", proot, "--results_dir", proot]
+    jargv = argv + ["--root_dir", jroot, "--results_dir", jroot]
+    est = tfactors.main(pargv)
+    assert est.metas["h.0.moe.fc1"].moe
+    jfactors.main(jargv)
+    got = dict(_leaves(jckpt.load_pytree(jckpt.factors_path(
+        tconfig.parse_args(pargv)))))
+    want = dict(_leaves(jckpt.load_pytree(jckpt.factors_path(
+        jconfig.parse_args(jargv)))))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert got[k].shape == w.shape, k
+        assert np.isfinite(got[k]).all(), k
+    assert got["h.0.moe.fc1/a"].shape == (4, 64, 64)
+    assert got["h.1.moe.fc2/g"].shape == (4, 64, 64)
+    res = thyper.main(pargv + ["--objective", "marglik", "--optimizer",
+                               "grad"])
+    assert np.isfinite(res["best_cost"])
+    assert np.isfinite(np.asarray(res["best_x"], np.float64)).all()
+    preds, bnn, labels = tevaluate.main(pargv + ["--ood"] + DAMPING)
+    assert preds.shape == bnn.shape == (256 * 16, 256)
+    assert labels.shape == (256 * 16,)
+    np.testing.assert_allclose(bnn.sum(1), 1.0, atol=1e-4)

@@ -21,6 +21,7 @@ import jax
 import jax.numpy as jnp
 
 from curvature_tpu import estimators as jest
+from curvature_tpu import models as jmodels
 from curvature_tpu.data import loaders as jloaders
 from curvature_tpu.estimators import capture as jcapture
 from curvature_tpu.eval import attacks as jattacks
@@ -498,7 +499,7 @@ def test_evaluate_cli_writes_jax_keys(lenet, swapped, capsys):
     ["--parallel"], ["--mesh", "data:2"], ["--ecdf"],
     ["--entropy"], ["--plot"],
     ["--networks"],
-    ["--model", "gpt2_moe_tiny"],
+    ["--landscapes"],
     ["--calibration"],
     ["--eigvals"],
 ])
@@ -561,16 +562,21 @@ def test_ported_flags_reach_their_module(flags, tmp_path, monkeypatch):
 
 
 def test_unported_models_data_and_formats_raise(tmp_path):
-    """What is still to port raises, naming its ROADMAP item: the MoE
-    GPT-2s (item 6), the image-folder loaders (item 9: PIL), orbax
-    checkpoints (item 10). The fidelity diagnostics (item 8) are ported
-    (tests/test_torch_matfree.py, the CLI chains below). The classic
-    zoo, the vision transformers, CIFAR-10 and torch ``.pth`` checkpoints
-    are ported (tests/test_torch_zoo_classic.py,
+    """What is still to port raises, naming its ROADMAP item: the
+    image-folder loaders (item 9: PIL), orbax checkpoints (item 10). The
+    MoE GPT-2 is ported: it builds, with JAX's metas
+    (tests/test_torch_moe.py). The fidelity diagnostics (item 8) are
+    ported (tests/test_torch_matfree.py, the CLI chains below). The
+    classic zoo, the vision transformers, CIFAR-10 and torch ``.pth``
+    checkpoints are ported (tests/test_torch_zoo_classic.py,
     test_torch_zoo_transformers.py, test_torch_data.py,
     test_torch_torch_convert.py)."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tmodels.build("gpt2_moe_tiny", 10, device="cpu")
+    moe = tmodels.build("gpt2_moe_tiny", 10, device="cpu", max_len=8)
+    jmoe = jmodels.build("gpt2_moe_tiny", 10, max_len=8)
+    jmoe.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    assert list(moe.metas) == list(jmoe.metas)
+    assert [(m.stacked, m.moe) for m in moe.metas.values()] == \
+        [(m.stacked, m.moe) for m in jmoe.metas.values()]
     t, _ = _cfgs(["--platform", "cpu", "--data", "gtsrb"])
     with pytest.raises(NotImplementedError, match="item 9"):
         tcommon.build_data(t)

@@ -74,6 +74,9 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.examples.ewc",
                  "curvature_tpu_torch.examples.influence",
                  "curvature_tpu_torch.examples.modern_laplace",
+                 "curvature_tpu_torch.examples.moe_laplace",
+                 "curvature_tpu_torch.nn.layers",
+                 "curvature_tpu_torch.nn.core",
                  "curvature_tpu_torch.examples.resnet50_scale"):
     assert required in names, required
 assert not bad, bad

@@ -87,10 +87,17 @@ def test_registered_names_match_jax_init(name):
 
 
 def test_unknown_and_unported_names():
+    """An unknown name raises; ``mlp`` without ``in_features`` raises; the
+    MoE GPT-2, once refused, builds with JAX's metas."""
     with pytest.raises(ValueError, match="unknown model"):
         tmodels.build("densenet122", 10, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tmodels.build("gpt2_moe_tiny", 10, device="cpu")
+    moe = tmodels.build("gpt2_moe_tiny", 10, device="cpu", max_len=8)
+    jmoe = jmodels.build("gpt2_moe_tiny", 10, max_len=8)
+    jax.eval_shape(lambda: jmoe.init(jax.random.PRNGKey(0),
+                                     jnp.zeros((1, 8), jnp.int32)))
+    assert list(moe.metas) == list(jmoe.metas)
+    assert [m.moe for m in moe.metas.values()] == \
+        [m.moe for m in jmoe.metas.values()]
     with pytest.raises(TypeError):
         tmodels.build("mlp", 10, device="cpu")          # no in_features
 

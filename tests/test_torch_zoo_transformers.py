@@ -422,8 +422,9 @@ def _few_batches(build_data):
 def test_cli_builds_every_transformer_and_moe_still_raises(tmp_path):
     """``models.build`` constructs every ViT, Swin and MaxViT name of the
     JAX registry (on the meta device: no weights); ``build_model`` sizes
-    MaxViT's partition by the input (32² -> 1, JAX :75-79); the MoE
-    GPT-2s raise, naming ROADMAP Queue 1 item 6."""
+    MaxViT's partition by the input (32² -> 1, JAX :75-79). The MoE GPT-2
+    no longer raises since it is ported: ``--model gpt2_moe_tiny`` sets
+    up, and ``models.build`` makes it with JAX's metas."""
     for name in ("vit_b_16", "vit_b_32", "vit_l_16", "vit_l_32", "vit_h_14",
                  "swin_t", "swin_s", "swin_b", "swin_v2_t", "swin_v2_s",
                  "swin_v2_b", "maxvit_t"):
@@ -438,7 +439,13 @@ def test_cli_builds_every_transformer_and_moe_still_raises(tmp_path):
     attn = dict(m.named_modules())[
         "blocks.0.layers.0.layers.window_attention"]
     assert attn.partition == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tconfig.setup(["--platform", "cpu", "--model", "gpt2_moe_tiny"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tmodels.build("gpt2_moe_tiny", 10, device="cpu")
+    cfg = tconfig.setup(["--platform", "cpu", "--model", "gpt2_moe_tiny",
+                         "--data", "tokens"])
+    assert cfg.model == "gpt2_moe_tiny"
+    moe = tmodels.build("gpt2_moe_tiny", 10, device="cpu", max_len=8)
+    jmoe = jmodels.build("gpt2_moe_tiny", 10, max_len=8)
+    jax.eval_shape(lambda: jmoe.init(jax.random.PRNGKey(0),
+                                     jnp.zeros((1, 8), jnp.int32)))
+    assert list(moe.metas) == list(jmoe.metas)
+    assert {n: (m.stacked, m.moe) for n, m in moe.metas.items()} == \
+        {n: (m.stacked, m.moe) for n, m in jmoe.metas.items()}
