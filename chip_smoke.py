@@ -37,6 +37,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
                                        # mixture-of-experts phase only
                                        # (with --profile: one update of
                                        # the full-width MoE GPT-2 too)
+    python3 chip_smoke.py --parallel   # builds the kernels, runs the
+                                       # parallel phase only (a world of
+                                       # one over NCCL, two gloo ranks)
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -166,12 +169,27 @@ per update); the ``gpt2_moe_tiny --data tokens`` CLIs under
 ``build/moe``; and the ``moe_laplace`` example. None of it launches a
 Gram kernel but ResNet-50's updates, by JAX's routes.
 
+Then the parallel phase (``parallel_phase``, ROADMAP item 10a): a world
+of one over NCCL, where the ResNet-50 f32 B=16 KFAC update through
+``use_mesh(data:1)`` must equal the single path's (``PAR_ONE_RTOL``;
+3 tiled + 1 v2 launches) and both update rates are printed, and the
+ResNet-18 ``factors --parallel`` CLI under ``build/parallel`` must write
+its plain run's file; then two gloo ranks on the one card, this script
+spawned twice (``--parallel_rank``), whose ResNet-18 CIFAR KFAC factors
+at global B=32 (on ``data:2``, BatchNorm synced, and on ``sample:2``) must
+equal one process's at JAX's bar, whose Diagonal on ``data:2`` must come
+within ``PAR_DIAG64_TOL`` of max of one float64 process's, whose launches
+must be the routes of their shapes, and whose meshed ``eval_bnn`` must
+give one process's ECE and NLL. Each rank's update wall time and collective
+share are printed.
+
 Every failed check raises. The last line of standard output is the
 ``{"ok": true, ...}`` JSON object; the line before it is the ``kernels``
 JSON object. It exits non-zero, printing no result, where there is no
 CUDA device or where the package is not beside it.
 """
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -299,15 +317,15 @@ MOE_ARGV = ["--model", "gpt2_moe_tiny", "--data", "tokens", "--seq_len",
             "16", "--batch_size", "32", "--mc_samples", "1", "--samples", "4"]
 #: the damping-search phase (JAX pipelines/hyper.py, its objectives and
 #: the predictives): the LeNet-5 searches as (estimator, flags); --layer
-#: evaluates ~170 candidates, at 10 samples each (23.3 s of the phase at
-#: the default 30)
+#: evaluates ~170 candidates, at 4 samples each (23.3 s of the phase at
+#: the default 30, 9.4 s at 10)
 HYPER_LENET = (("kfac", ["--optimizer", "random", "--calls", "16",
                          "--boundaries"]),
                ("kfac", ["--optimizer", "grid"]),
                ("diag", ["--optimizer", "gp", "--calls", "12"]),
                ("efb", ["--optimizer", "forest", "--calls", "10"]),
                ("kfac", ["--optimizer", "gbrt", "--calls", "10"]),
-               ("kfac", ["--layer", "--calls", "4", "--samples", "10"]))
+               ("kfac", ["--layer", "--calls", "4", "--samples", "4"]))
 HYPER_LENET_MARGLIK = (["--optimizer", "gp", "--calls", "12"],
                        ["--optimizer", "grad", "--calls", "100"],
                        ["--optimizer", "grad", "--calls", "100", "--layer"])
@@ -321,6 +339,9 @@ HYPER_PREDICTIVES = ("probit", "bridge", "linearized", "linearized_probit")
 #: linearized run at 30 took 16-18 s of the phase's time, at 10 8.6-9.0 s
 #: on a slow host)
 HYPER_PREDICTIVE_SAMPLES = ["--samples", "4"]
+#: the predictives' rates: test batches of 32 timed (the first 128 of
+#: the 256 test images; the linearized predictive runs ~48 img/s)
+HYPER_RATE_BATCHES = 4
 #: the LeNet-5 FGSM sweeps (at the blitz's and the searched dampings, and
 #: SWAG's) take 4 posterior samples: at 30 each cost 13-17 s, at 10
 #: 5.6-8.2 s on a slow host
@@ -347,12 +368,18 @@ GROUPED_BLOCK_LAYER = "features.2.0.block.1.0"
 #: synthetic data, INF at rank 50, the random network's damping of
 #: R18_DAMPING
 GROUPED_ARGV = ["--model", "mobilenet_v2", "--data", "synthetic"]
+#: the grouped, zoo and transformer phases' evaluate --ood CLIs take 10
+#: posterior samples (at the CLI's default 30 each took 4.6-8.8 s)
+OOD_CLI_SAMPLES = ["--samples", "10"]
 GROUPED_INF_RANK = "50"
 #: the zoo phase (the reference's torchvision CNNs, reference
 #: factors.py:80-84): DenseNet-121 at 224², ImageNet head, f32 B=16
 #: through the ResNet-50 row's KFAC loop (bench.py), under its names
 ZOO_PATHS = ("densenet121_kfac_update_img_s",
              "densenet121_kfac_update_bf16_sub4_img_s")
+#: its rates' blocks (best of 3): 2 updates each (~1.3 s an f32 update
+#: at B=16) and one test batch of BATCH images x SAMPLES samples
+ZOO_RATE_UPDATES, ZOO_EVAL_BATCHES = 2, 1
 #: then one update (B=8), invert and a 2-sample eval of each other family
 #: at full width (Inception v3 at 299², the rest at 224²)
 ZOO_FAMILIES = ("densenet161", "vgg16", "inception_v3", "googlenet",
@@ -384,15 +411,15 @@ ZOO_ROUTES = {("densenet121", 16, 224): (16, 0),
 #: 2.5 GB in f32) is past KFAC's default max_factor_dim of 16,384
 ZOO_MAX_FACTOR_DIM = 25089
 #: the CLI chain on array-format files this phase writes: a CIFAR-10
-#: pickle tree (5 batches of 64 training images, 256 test), an SVHN test
-#: .mat of 256 (the OOD pair), a torchvision-layout densenet121_cifar10.pth;
-#: factors kfac (10 updates of 32 through DevicePrefetcher) -> evaluate
-#: --ood
+#: pickle tree (5 batches of ZOO_CIFAR_TRAIN training images, 256 test),
+#: an SVHN test .mat of 256 (the OOD pair), a torchvision-layout
+#: densenet121_cifar10.pth; factors kfac (5 updates of 32 through
+#: DevicePrefetcher, cut from 10 for the run's budget) -> evaluate --ood
 ZOO_ROOT = "build/zoo"
-ZOO_CIFAR_TRAIN, ZOO_TEST = 64, 256
+ZOO_CIFAR_TRAIN, ZOO_TEST = 32, 256
 ZOO_ARGV = ["--model", "densenet121", "--data", "cifar10", "--batch_size",
             "32"]
-ZOO_CLI_UPDATES = 10
+ZOO_CLI_UPDATES = 5
 ZOO_CLI_PATH = "densenet121_cifar10_factors_kfac_f32"
 #: the regression cell: mlp on a synthetic UCI CSV (FEATURES inputs, one
 #: target), loss='gaussian', batches of 64
@@ -497,6 +524,47 @@ SUB_INFLUENCE = 64
 #: kernel record -> the exact-curvature paths whose f32 launches it counts
 SUB_RECORD_PATHS = {"patch_gram_tiled_resnet18": SUB_PATHS[1:],
                     "patch_gram_v2_resnet18": SUB_PATHS[1:]}
+#: the parallel phase: the world of one over NCCL (ResNet-50 f32, B=16,
+#: through use_mesh), the ResNet-18 factors CLI with --parallel and its
+#: plain reference, and each of the two gloo ranks' update (ResNet-18
+#: CIFAR f32, global B=32, data:2)
+PAR_PATHS = ("resnet50_kfac_update_mesh_data1",
+             "resnet18_synthetic_factors_kfac_f32_parallel",
+             "resnet18_synthetic_factors_kfac_f32_plain",
+             "resnet18_kfac_update_gloo_data2_rank0",
+             "resnet18_kfac_update_gloo_data2_rank1")
+PAR_RECORD_PATHS = {"patch_gram_tiled": PAR_PATHS[:1],
+                    "patch_gram_v2": PAR_PATHS[:1],
+                    "patch_gram_tiled_resnet18": PAR_PATHS[1:],
+                    "patch_gram_v2_resnet18": PAR_PATHS[1:]}
+PAR_ROOT = "build/parallel"
+#: the world of one against the single path: max|diff| over max|factor|
+#: (identity is expected: the same kernels on the same tokens)
+PAR_ONE_RTOL = 1e-6
+#: the gloo ranks: JAX's sharding bar (tests/test_sharding.py), rtol 1e-5
+#: and an absolute 1e-6 of max|factor|
+PAR_RTOL, PAR_ATOL = 1e-5, 1e-6
+#: the ranks' Diagonal against one float64 process, every layer: max|diff|
+#: at most this of max|factor|. Diagonal squares each weight's batch
+#: gradient, an f32 sum over 16,384-32,768 positions that cancels for some
+#: weights, so JAX's elementwise bar against one f32 process does not hold
+#: on the card (layer1's convs up to 3.696e-5 of max); one f32 process
+#: itself read up to 2.230e-5 of max from a float64 one. The bar is about
+#: twice that reading
+PAR_DIAG64_TOL = 5e-5
+#: ResNet-18 CIFAR on 2 ranks: the global batch, its MC draws (injected,
+#: [2, 32]), the test images and ensemble members of the meshed eval
+PAR_WORLD, PAR_BATCH, PAR_MC, PAR_TEST, PAR_SAMPLES = 2, 32, 2, 64, 4
+#: the meshed eval's damping: the ResNet-18 CLIs' (R18_DAMPING)
+PAR_DAMPING = (1e4, 1e4)
+#: the meshed eval's ECE and NLL against one process's
+PAR_EVAL_TOL = 1e-6
+#: the world of one's rates: best of 3 blocks of this many updates a side
+PAR_RATE_UPDATES = 2
+#: the parallel phase's budget and the plain run's (seconds): each run
+#: prints its time against them (the contract's limit is 1200 s; the
+#: budgets leave room for hosts ~40% slower than the card's typical one)
+PAR_BUDGET_S, RUN_BUDGET_S = 45.0, 540.0
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -1110,7 +1178,7 @@ def eval_rate(model, est, test_data, ensemble):
                  ensemble_params=ensemble)
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
-    return 2 * BATCH / best
+    return sum(len(y) for _, y in test_data) / best
 
 
 def ladder(estimators, model, kfac, batches, test_data, gen, counters,
@@ -1819,6 +1887,8 @@ def hyper_phase(counters, smi, dev, r50=None):
                                  f"{got}, AUROC {auroc}")
     est.invert(*(float(v) for v in R18_DAMPING[1::2]))
     test = list(common.on_device(common.build_data(cfg, "test"), dev))
+    test = test[:HYPER_RATE_BATCHES]
+    n_test = sum(len(y) for _, y in test)
     ens = est.ensemble_params(SAMPLES, generator=torch.Generator(
         device=dev).manual_seed(5))
     rates = {}
@@ -1830,9 +1900,10 @@ def hyper_phase(counters, smi, dev, r50=None):
             ("linearized", lambda: eval_bnn_linearized(
                 model, est, test, ensemble_params=ens))):
         quiet(fn)                                      # warm-up
-        rates[name] = round(256 / timed(fn)[1], 2)
-    log(f"resnet18 predictive rates, img/s ({SAMPLES}-sample ensemble, 256 "
-        f"images, after a warm-up run; {smi}): {json.dumps(rates)}")
+        rates[name] = round(n_test / timed(fn)[1], 2)
+    log(f"resnet18 predictive rates, img/s ({SAMPLES}-sample ensemble, "
+        f"{n_test} images, after a warm-up run; {smi}): "
+        f"{json.dumps(rates)}")
     del est, ens, model
 
     # (c) ResNet-50 at 224², the main path's f32 KFAC factors
@@ -1988,7 +2059,7 @@ def grouped_phase(estimators, models, counters, smi, dev, profile=False):
         check_finite(est.state, f"mobilenet_v2 {name} state")
     for name in ("kfac", "inf"):
         argv = base + ["--estimator", name, "--ood", "--rank",
-                       GROUPED_INF_RANK] + R18_DAMPING
+                       GROUPED_INF_RANK] + R18_DAMPING + OOD_CLI_SAMPLES
         (probs, bnn_probs, labels), got = run_cli(
             evaluate, argv, counters, smi, f"mobilenet_v2 evaluate {name} "
             "--ood")
@@ -2097,9 +2168,10 @@ def zoo_phase(estimators, models, counters, smi, dev, profile=False):
                                           launches(*routes, UPDATES))
     kernel_route_check(est, {}, batches[-1], routes,
                        f"densenet121 f32 B={BATCH}")
-    rate = best_rate(est, batches, gen, BATCH)
+    rate = best_rate(est, batches[:ZOO_RATE_UPDATES], gen, BATCH)
     log(f"{ZOO_PATHS[0]}: {rate:.2f} update img/s (f32 B={BATCH} MC=1 "
-        f"{SIZE}x{SIZE}, best of 3 blocks of {UPDATES} updates; {smi})")
+        f"{SIZE}x{SIZE}, best of 3 blocks of {ZOO_RATE_UPDATES} updates; "
+        f"{smi})")
     if profile:
         log(f"{ZOO_PATHS[0]} (one update):")
         profile_update(est, batches[0], gen)
@@ -2109,19 +2181,21 @@ def zoo_phase(estimators, models, counters, smi, dev, profile=False):
     log(f"densenet121_kfac_invert: {invert_s:.4f} s (add={damping[0]}, "
         f"multiply={damping[1]}; {smi})")
     counters.reset()
-    bnn_img_s = eval_rate(model, est, test_data, ensemble)
+    bnn_img_s = eval_rate(model, est, test_data[:ZOO_EVAL_BATCHES],
+                          ensemble)
     if counters.read() != none:
         raise AssertionError(f"densenet121 eval launched {counters.read()}")
     log(f"densenet121_bnn30_eval_img_s: {bnn_img_s:.2f} (best of 3 blocks "
-        f"of {2 * BATCH} images x {SAMPLES} samples; {smi})")
+        f"of {ZOO_EVAL_BATCHES * BATCH} images x {SAMPLES} samples; {smi})")
     del est, ensemble
     sub = estimators.KFAC(model, compute_dtype=torch.bfloat16,
                           token_subsample=0.25)
     by_path[ZOO_PATHS[1]] = drive_updates(sub, batches, gen, counters,
                                           ZOO_PATHS[1], none)
-    log(f"{ZOO_PATHS[1]}: {best_rate(sub, batches, gen, BATCH):.2f} update "
-        f"img/s (bf16, token_subsample=0.25, B={BATCH} MC=1, best of 3 "
-        f"blocks of {UPDATES} updates; {smi})")
+    rate = best_rate(sub, batches[:ZOO_RATE_UPDATES], gen, BATCH)
+    log(f"{ZOO_PATHS[1]}: {rate:.2f} update img/s (bf16, "
+        f"token_subsample=0.25, B={BATCH} MC=1, best of 3 blocks of "
+        f"{ZOO_RATE_UPDATES} updates; {smi})")
     del sub, model, batches, test_data
     torch.cuda.empty_cache()
     log(f"zoo densenet121: {time.perf_counter() - t0:.1f} s")
@@ -2279,7 +2353,8 @@ def zoo_cli(models, counters, smi, rng):
     x = next(common.on_device(common.build_data(parse_args(base), "train"),
                               est.device))[0]
     kernel_route_check(est, {}, x, routes, "densenet121 cifar10 B=32")
-    argv = base + ["--estimator", "kfac", "--ood"] + R18_DAMPING
+    argv = base + ["--estimator", "kfac", "--ood"] + R18_DAMPING \
+        + OOD_CLI_SAMPLES
     (probs, bnn_probs, labels), got = run_cli(
         evaluate, argv, counters, smi, "densenet121 cifar10 evaluate --ood")
     with np.load(results_paths(parse_args(argv))[0] + ".npz",
@@ -2511,7 +2586,8 @@ def transformer_phase(estimators, models, counters, smi, dev, profile=False):
         raise AssertionError(f"vit_b_16 factors: launches {got}, "
                              f"{sorted(est.metas)}")
     check_finite(est.state, "vit_b_16 factors state")
-    argv = vit + ["--estimator", "kfac", "--ood"] + R18_DAMPING
+    argv = vit + ["--estimator", "kfac", "--ood"] + R18_DAMPING \
+        + OOD_CLI_SAMPLES
     (probs, bnn_probs, labels), got = run_cli(
         evaluate, argv, counters, smi, "vit_b_16 synthetic evaluate --ood")
     with np.load(results_paths(parse_args(argv))[0] + ".npz",
@@ -3307,7 +3383,27 @@ def option_timings(estimators, model, batches, gen, counters, expect,
     return out
 
 
-def moe_phase(estimators, models, counters, smi, dev, profile=False):
+def prepare_moe_model(models):
+    """The MoE phase's Switch GPT-2 at full width with its seeded weights,
+    built on the CPU in a thread (the numpy draws and torch's copies
+    release the GIL), so that it overlaps the kernels' build; returns the
+    thread's future, whose model :func:`moe_phase` moves to the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def build():
+        t0 = time.perf_counter()
+        model = models.gpt2_moe_custom(LM_VOCAB, *MOE_WIDTH, MOE_EXPERTS,
+                                       max_len=LM_T, device="cpu")
+        models.load_jax_variables(model, models.seeded_variables(model, 0))
+        return model, time.perf_counter() - t0
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(build)
+    pool.shutdown(wait=False)
+    return future
+
+
+def moe_phase(estimators, models, counters, smi, dev, profile=False,
+              prepared=None):
     """The mixture-of-experts path: (a) the Switch GPT-2 at GPT-2 124M's
     width, E=8, through KFAC over the blocks (the rate, the state, the
     peak, invert at LM_DAMPING, a sample, a per-token eval; each expert's
@@ -3329,12 +3425,14 @@ def moe_phase(estimators, models, counters, smi, dev, profile=False):
 
     # (a) the main path at full width
     t0 = time.perf_counter()
-    model = models.gpt2_moe_custom(LM_VOCAB, *MOE_WIDTH, MOE_EXPERTS,
-                                   max_len=LM_T, device=dev)
-    models.load_jax_variables(model, models.seeded_variables(model, 0))
+    if prepared is None:
+        prepared = prepare_moe_model(models)
+    model, cpu_s = prepared.result()
+    model = model.to(dev)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"{MOE_PATH}: model of {n_params:,} parameters with seeded weights "
-        f"in {time.perf_counter() - t0:.1f} s")
+        f"built on the CPU in {cpu_s:.1f} s (with the kernels' build in a "
+        f"whole run), on the card {time.perf_counter() - t0:.1f} s later")
     batches = lm_tokens(rng, 1 + MOE_UPDATES, dev)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3521,6 +3619,12 @@ def main(argv=None):
                     help="build the kernels, run the mixture-of-experts "
                          "phase (and KFAC's stack_grams/fused_g) only and "
                          "stop (no result line)")
+    ap.add_argument("--parallel", action="store_true",
+                    help="build the kernels, run the parallel phase (a "
+                         "world of one over NCCL, two gloo ranks on the "
+                         "card) only and stop (no result line)")
+    ap.add_argument("--parallel_rank", metavar="DIR", default="",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3529,6 +3633,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.parallel_rank:
+        # one rank of the parallel phase's gloo job; prints no result
+        return parallel_rank(args.parallel_rank)
     try:
         from curvature_tpu_torch import estimators, models
         from curvature_tpu_torch.eval import eval_nn
@@ -3554,7 +3661,13 @@ def main(argv=None):
 
     # -- 1. build -----------------------------------------------------------
     t0 = time.perf_counter()
+    runs_moe = not any((args.hyper, args.grouped, args.training, args.zoo,
+                        args.transformers, args.subspace, args.parallel,
+                        args.lm, args.kernels))
+    moe_model = prepare_moe_model(models) if runs_moe else None
     reports = build.build_all(force=True)
+    if moe_model is not None:
+        moe_model.result()          # nothing else on the host while timing
     log(f"build: {time.perf_counter() - t0:.2f} s for "
         f"{sorted(reports)} (nvcc -gencode arch=compute_90a,code=sm_90a, "
         "one process per source)")
@@ -3610,9 +3723,14 @@ def main(argv=None):
     if args.moe:
         t0 = time.perf_counter()
         moe_phase(estimators, models, Counters(tpg, tsg), smi, dev,
-                  args.profile)
+                  args.profile, moe_model)
         log(f"moe phase: {time.perf_counter() - t0:.1f} s; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+        return 0
+    if args.parallel:
+        parallel_phase(estimators, models, Counters(tpg, tsg), smi, dev)
+        log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            " GiB")
         return 0
     if args.lm:
         lm_phase(estimators, models, Counters(tpg, tsg), smi,
@@ -3770,14 +3888,15 @@ def main(argv=None):
             f"MC=1, best of 3 blocks of {UPDATES} updates; {smi})")
     log(f"resnet50_bnn30_eval_img_s: {bnn_img_s:.2f} (best of 3 blocks of "
         f"{2 * BATCH} images x {SAMPLES} samples; {smi})")
-    # the ladder's rates: informative lines, no benchmark metric
+    # the ladder's rates: informative lines, no benchmark metric (the bnn30
+    # evals on one test batch)
     for kind, (e, ens) in lad.items():
         if kind != "inf":                  # INF runs no update pass
             log(f"ladder {kind}: {best_rate(e, batches, gen, BATCH):.2f} "
                 f"update img/s (f32 B={BATCH} MC=1, best of 3 blocks of "
                 f"{UPDATES} updates; {smi})")
-        log(f"ladder {kind}: {eval_rate(model, e, test_data, ens):.2f} bnn30 "
-            f"eval img/s (best of 3 blocks of {2 * BATCH} images x "
+        log(f"ladder {kind}: {eval_rate(model, e, test_data[:1], ens):.2f} "
+            f"bnn30 eval img/s (best of 3 blocks of {BATCH} images x "
             f"{SAMPLES} samples; {smi})")
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
@@ -3849,10 +3968,20 @@ def main(argv=None):
     # -- 11. the mixture of experts: the Switch GPT-2 at 124M width, the
     # suite's row, KFAC's stack_grams and fused_g, the MoE CLIs ----------
     t0 = time.perf_counter()
-    moe_phase(estimators, models, counters, smi, dev, args.profile)
+    moe_phase(estimators, models, counters, smi, dev, args.profile,
+              moe_model)
     log(f"moe phase: {time.perf_counter() - t0:.1f} s ({smi})")
+    torch.cuda.empty_cache()
+
+    # -- 12. the data and sample axes: a world of one over NCCL, two gloo
+    # ranks on the card, the factors CLI with --parallel ----------------
+    par_by_path = parallel_phase(estimators, models, counters, smi, dev)
+    count_record_launches(records, par_by_path, PAR_RECORD_PATHS)
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"whole run: {time.perf_counter() - t_start:.1f} s")
+    seconds = time.perf_counter() - t_start
+    log(f"whole run: {seconds:.1f} s, "
+        f"{'within' if seconds <= RUN_BUDGET_S else 'OVER'} its "
+        f"{RUN_BUDGET_S:.0f} s budget")
 
     log(smi)
     print(json.dumps({"kernels": records}))
@@ -3860,6 +3989,512 @@ def main(argv=None):
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def par_inputs(models, dev):
+    """The gloo ranks' ResNet-18 (CIFAR stem, 10 classes, seeded weights,
+    channels_last on the card), the global batch [32, 3, 32, 32], its
+    injected labels [2, 32] and the eval's 64 test images in 2 batches:
+    the same in every process."""
+    import numpy as np
+    import torch
+    model = models.resnet18(num_classes=10, device=dev)
+    models.load_jax_variables(model, models.seeded_variables(model, 0))
+    model = model.to(memory_format=torch.channels_last)
+    rng = np.random.default_rng(7)
+    (x, _), = nchw_batches(rng, 1, PAR_BATCH, dev, size=32)
+    labels = torch.as_tensor(rng.integers(0, 10, size=(PAR_MC, PAR_BATCH)),
+                             device=dev)
+    test = nchw_batches(rng, 2, PAR_TEST // 2, dev, size=32)
+    return model, x, labels, [(t, y % 10) for t, y in test]
+
+
+def _timed_collectives():
+    """Wrap ``torch.distributed``'s all_reduce and all_gather with device
+    synchronizes and a clock; returns the dict whose ``"s"`` sums their
+    seconds."""
+    import torch
+    import torch.distributed as dist
+    spent = {"s": 0.0, "calls": 0}
+
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return out
+        return timed
+    dist.all_reduce = wrap(dist.all_reduce)
+    dist.all_gather = wrap(dist.all_gather)
+    return spent
+
+
+def parallel_rank(out_dir):
+    """One gloo rank of the parallel phase (``--parallel_rank``), started
+    with ``torch.distributed.run``'s environment: the meshed ResNet-18
+    updates (KFAC and Diagonal on ``data:2``, KFAC on ``sample:2,data:1``)
+    on the global batch, their launch counts, wall and collective seconds,
+    and the meshed eval. Rank 0 writes the factor states."""
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from curvature_tpu_torch import estimators, models, parallel
+    from curvature_tpu_torch.eval import eval_bnn, metrics
+    from curvature_tpu_torch.ops.cuda import patch_gram as tpg
+    from curvature_tpu_torch.ops.cuda import sym_gram as tsg
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's deterministic algorithms, as the parent's references use
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    backend = parallel.initialize()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    model, x, labels, test = par_inputs(models, dev)
+    counters = Counters(tpg, tsg)
+    spent = _timed_collectives()
+    mesh = parallel.make_mesh({"data": PAR_WORLD})
+    out = {"backend": backend, "rank": rank,
+           "setup_s": time.perf_counter() - t0}
+    # the parent's world of one runs first; its card then is free
+    go = os.path.join(out_dir, "go")
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > 300:
+            raise TimeoutError(f"no {go} after 300 s")
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+
+    def timed_update(est, what, warm=False):
+        if warm:
+            est.update(x, labels=labels)
+            est.state = est.init_state()
+        counters.reset()
+        spent.update(s=0.0, calls=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.update(x, labels=labels)
+        torch.cuda.synchronize()
+        out[what] = {"wall_s": time.perf_counter() - t0,
+                     "collective_s": spent["s"],
+                     "collectives": spent["calls"],
+                     "launches": counters.read()}
+    kfac = estimators.KFAC(model).use_mesh(mesh)
+    timed_update(kfac, "kfac", warm=True)
+    diag = estimators.Diagonal(model).use_mesh(mesh)
+    timed_update(diag, "diag")
+    sd = estimators.KFAC(model).use_mesh(
+        parallel.make_mesh({"sample": PAR_WORLD, "data": 1}))
+    timed_update(sd, "kfac_sample")
+    kfac.invert(*PAR_DAMPING)
+    ens = kfac.ensemble_params(
+        PAR_SAMPLES, generator=torch.Generator(device=dev).manual_seed(3))
+    probs, ys, _ = eval_bnn(model, kfac, test, PAR_SAMPLES,
+                            ensemble_params=ens, mesh=mesh)
+    out["ece"] = float(metrics.expected_calibration_error(probs, ys)[0])
+    out["nll"] = float(metrics.negative_log_likelihood(probs, ys))
+    out["work_s"] = time.perf_counter() - t0
+    if rank == 0:
+        torch.save({"kfac": kfac.state, "diag": diag.state,
+                    "kfac_sample": {n: {"g": f["g"]}
+                                    for n, f in sd.state.items()}},
+                   os.path.join(out_dir, "states.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _rel_close(got, want, what, rtol=PAR_RTOL, atol=PAR_ATOL):
+    """Elementwise |got - want| <= atol * max|want| + rtol * |want|;
+    returns max|diff| / max|want|, raising past the bar."""
+    got, want = got.double(), want.double()
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    rel = float(diff.max()) / max(scale, 1e-30)
+    bad = diff > atol * scale + rtol * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} entries past rtol "
+                             f"{rtol}, atol {atol} of max (max|diff| "
+                             f"{rel:.3e} of max)")
+    return rel
+
+
+def _hold_states(got, want, what, **bars):
+    """Every leaf of two factor states within the bar; returns the worst
+    max|diff| / max."""
+    worst = 0.0
+    for name, v in want.items():
+        if isinstance(v, dict):
+            worst = max(worst, _hold_states(got[name], v, f"{what} {name}",
+                                            **bars))
+        else:
+            worst = max(worst, _rel_close(got[name], v, f"{what} {name}",
+                                          **bars))
+    return worst
+
+
+def parallel_phase(estimators, models, counters, smi, dev):
+    """The data and sample axes on the card (ROADMAP item 10a). The two
+    gloo ranks start first (:func:`spawn_ranks`: their start-up overlaps
+    the rest) and wait; :func:`world_of_one` runs its checks; the ranks
+    then run and :func:`gloo_ranks` checks them; last the world of one's
+    update rates, on a card nothing else uses. Returns the launches by
+    path."""
+    import os
+    import shutil
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    root = os.path.abspath(PAR_ROOT)
+    shutil.rmtree(root, ignore_errors=True)
+    out_dir = os.path.join(root, "gloo")
+    os.makedirs(out_dir)
+    # cuDNN's deterministic algorithms: the comparisons then see only the
+    # ranks' own rounding, not run-to-run algorithm choices
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    procs = spawn_ranks(out_dir)
+    try:
+        by_path, rates = world_of_one(estimators, models, counters, smi, dev,
+                                      root)
+        t_one = time.perf_counter() - t0
+        open(os.path.join(out_dir, "go"), "w").close()
+        by_path.update(gloo_ranks(estimators, models, counters, smi, dev,
+                                  procs, out_dir))
+        t_gloo = time.perf_counter() - t0 - t_one
+        rates()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = was
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"parallel phase: {seconds:.1f} s (world of one {t_one:.1f} s, "
+        f"gloo ranks {t_gloo:.1f} s, rates {seconds - t_one - t_gloo:.1f} "
+        f"s; {smi})")
+    log(f"parallel phase: {'within' if seconds <= PAR_BUDGET_S else 'OVER'}"
+        f" its {PAR_BUDGET_S:.0f} s budget")
+    return by_path
+
+
+def spawn_ranks(out_dir):
+    """Start this script twice as the two gloo ranks
+    (``--parallel_rank``), with ``torch.distributed.run``'s
+    environment; they run once ``<out_dir>/go`` exists."""
+    import os
+    env = dict(os.environ, MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(PAR_WORLD),
+               LOCAL_WORLD_SIZE=str(PAR_WORLD))
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel_rank",
+         out_dir],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(PAR_WORLD)]
+
+
+def world_of_one(estimators, models, counters, smi, dev, root):
+    """A world of one over NCCL: the ResNet-50 f32 B=16 KFAC update
+    through ``use_mesh(data:1)`` against the single path on the same batch
+    and labels (identity expected; 3 tiled + 1 v2 launches, as the single
+    path's) and the ResNet-18 ``factors --parallel``
+    CLI against its plain run. Returns the launches by path and the
+    function that times both rates; the caller destroys the process group
+    after it."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch import parallel
+    from curvature_tpu_torch.pipelines import factors
+    from curvature_tpu_torch.utils.checkpoint import load_pytree
+    none = counters.zero()
+    by_path = {}
+    backend = parallel.initialize(f"localhost:{_free_port()}", 1, 0)
+    if backend != "nccl":
+        raise AssertionError(f"a world of one on the card took {backend}")
+    model = models.resnet50(num_classes=CLASSES, device=dev)
+    models.load_jax_variables(model, models.seeded_variables(model, 0))
+    model = model.to(memory_format=torch.channels_last)
+    rng = np.random.default_rng(11)
+    batches = [x for x, _ in nchw_batches(rng, UPDATES, BATCH, dev)]
+    labels = torch.as_tensor(rng.integers(0, CLASSES, size=(1, BATCH)),
+                             device=dev)
+    single = estimators.KFAC(model)
+    meshed = estimators.KFAC(model).use_mesh(parallel.make_mesh({"data": 1}))
+    single.update(batches[0], labels=labels)
+    counters.reset()
+    meshed.update(batches[0], labels=labels)
+    torch.cuda.synchronize()
+    got = counters.read()
+    want = dict(none, patch_gram_tiled=3, patch_gram_v2=1)
+    if got != want:
+        raise AssertionError(f"{PAR_PATHS[0]}: launches {got}, want {want}")
+    by_path[PAR_PATHS[0]] = got
+    worst = _hold_states(meshed.state, single.state, "world of one",
+                         rtol=0.0, atol=PAR_ONE_RTOL)
+    log(f"{PAR_PATHS[0]}: the update through use_mesh(data:1) over NCCL "
+        f"against the single path: max|diff| {worst:.3e} of max|factor| "
+        f"(bar {PAR_ONE_RTOL}); launches {json.dumps(got)}")
+    def rates():
+        blocks = batches[:PAR_RATE_UPDATES]
+        got = {turn: best_rate(single if turn == "single" else meshed,
+                               blocks, torch.Generator(device=dev)
+                               .manual_seed(2), BATCH)
+               for turn in ("mesh", "single")}
+        log(f"{PAR_PATHS[0]}: {got['mesh']:.2f} update img/s through the "
+            f"mesh, {got['single']:.2f} on the single path (in that order; "
+            f"ResNet-50 f32 B={BATCH} MC=1, best of 3 blocks of "
+            f"{len(blocks)} updates each; {smi})")
+    files = {}
+    want = dict(none, **{f"patch_gram_{r}": n * R18_UPDATES for r, n
+                         in R18_ROUTES[R18_PATHS[0]].items()})
+    for path, extra in ((PAR_PATHS[2], []), (PAR_PATHS[1], ["--parallel"])):
+        where = os.path.join(root, path)
+        _, got = run_cli(factors, R18_ARGV + [
+            "--root_dir", where, "--results_dir", where, "--estimator",
+            "kfac"] + extra, counters, smi, f"resnet18 factors kfac {path}")
+        if got != want:
+            raise AssertionError(f"{path}: launches {got}, want {want}")
+        by_path[path] = got
+        files[path] = {n: {k: torch.from_numpy(v) for k, v in f.items()}
+                       for n, f in load_pytree(os.path.join(
+                           where, "factors", "resnet18_synthetic_kfac"))
+                       .items()}
+    worst = _hold_states(files[PAR_PATHS[1]], files[PAR_PATHS[2]],
+                         "factors --parallel", rtol=0.0, atol=PAR_ONE_RTOL)
+    log(f"resnet18 factors --parallel (world of one) against the plain "
+        f"file: max|diff| {worst:.3e} of max|factor| (bar {PAR_ONE_RTOL})")
+    return by_path, rates
+
+
+def _hold_diagonal(got, one, estimators, x, labels):
+    """Diagonal's state from the ranks against one float64 process on the
+    same network, weights, batch and labels (the package's single path,
+    its BatchNorms too in float64: :func:`float64_batch_norm`), every
+    layer within PAR_DIAG64_TOL of max|factor|. Returns {layer: (the
+    ranks', one f32 process's (``one``) max|diff| of max from it)}."""
+    import torch
+    from curvature_tpu_torch import models
+    m64 = models.resnet18(num_classes=10, device=x.device)
+    models.load_jax_variables(m64, models.seeded_variables(m64, 0))
+    m64 = m64.double().to(memory_format=torch.channels_last)
+    with float64_batch_norm():
+        e64 = estimators.Diagonal(m64, dtype=torch.float64)
+        e64.update(x.double(), labels=labels)
+    readings = {}
+    for name, want in e64.state.items():
+        ranks = _rel_close(got[name], want, f"gloo diag {name} against "
+                           "one float64 process", rtol=0.0,
+                           atol=PAR_DIAG64_TOL)
+        readings[name] = (ranks, _rel_close(one[name], want, "", rtol=0.0,
+                                            atol=float("inf")))
+    return readings
+
+
+def _fmt(worst):
+    return json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()})
+
+
+@contextlib.contextmanager
+def _batch_norm_forward(forward):
+    """``nn.layers.BatchNorm.forward`` replaced by ``forward(self, x,
+    ctx, fused)`` while inside."""
+    from curvature_tpu_torch.nn import layers
+    fused = layers.BatchNorm.forward
+    layers.BatchNorm.forward = lambda self, x, ctx=None: forward(
+        self, x, ctx, fused)
+    try:
+        yield
+    finally:
+        layers.BatchNorm.forward = fused
+
+
+def plain_batch_norm(on=True):
+    """While on, a capture's train-mode ``BatchNorm`` normalizes with the
+    plain formula (``BatchNorm._decomposed``: the one the synced ranks
+    run) instead of the fused kernel: the two differ by f32 rounding, and
+    through 17 BatchNorms the G factors of the first layers by up to
+    2e-5 of max (ResNet-18, B=32, CPU)."""
+    def forward(self, x, ctx, fused):
+        if on and self.training and ctx is not None \
+                and not ctx.update_stats:
+            return self._decomposed(x)
+        return fused(self, x, ctx)
+    return _batch_norm_forward(forward)
+
+
+def float64_batch_norm():
+    """While inside, ``BatchNorm`` normalizes a float64 input in float64
+    (with float64 weights and statistics): the port's BatchNorm, as JAX's,
+    computes in f32 whatever its input (tests/torch_float64.py patches
+    both packages the same way for their float64 tests)."""
+    import torch
+    import torch.nn.functional as F
+
+    def forward(self, x, ctx, fused):
+        if x.dtype != torch.float64:
+            return fused(self, x, ctx)
+        keep = self.training and not (ctx is None or ctx.update_stats)
+        return F.batch_norm(
+            x, None if keep else self.running_mean,
+            None if keep else self.running_var, self.weight, self.bias,
+            training=self.training, momentum=self.momentum, eps=self.eps)
+    return _batch_norm_forward(forward)
+
+
+def _routes(kfac, acts, batch):
+    """Patch-Gram launches of one KFAC update whose conv inputs have the
+    shapes of ``acts`` at batch ``batch``, by JAX's routes."""
+    tally = {"patch_gram_tiled": 0, "patch_gram_v2": 0}
+    for name, meta in kfac.metas.items():
+        act = acts[name]
+        r = kfac.a_route(meta, (batch,) + tuple(act.shape[1:]),
+                         act.element_size())
+        if f"patch_gram_{r}" in tally:
+            tally[f"patch_gram_{r}"] += 1
+    return tally
+
+
+def gloo_ranks(estimators, models, counters, smi, dev, procs, out_dir):
+    """Two gloo ranks on the one card (``procs``, :func:`spawn_ranks`):
+    ResNet-18 CIFAR f32 at global B=32, MC=2, injected labels. KFAC on
+    ``data:2`` (BatchNorm synced) and on ``sample:2`` against one
+    process's factors of the whole batch at JAX's bar, Diagonal on
+    ``data:2`` against one float64 process at PAR_DIAG64_TOL; each
+    rank's launches against the routes ``select_patch_gram`` gives its
+    shapes (B=16 on data:2, the whole batch on sample:2); the meshed
+    eval's ECE and NLL against one process's on rank 0's factors."""
+    import os
+    import torch
+    from curvature_tpu_torch.eval import eval_bnn, metrics
+    none = counters.zero()
+    t0 = time.perf_counter()
+    outputs = [p.communicate(timeout=300)[0].decode() for p in procs]
+    for r, (p, o) in enumerate(zip(procs, outputs)):
+        for line in o.strip().splitlines()[-4:]:
+            log(f"  rank {r}: {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"gloo rank {r} exited {p.returncode}:\n"
+                                 f"{o[-4000:]}")
+    reports = []
+    for r in range(PAR_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    t_ranks = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    states = torch.load(os.path.join(out_dir, "states.pt"),
+                        map_location=dev)
+
+    # one process's KFAC factors of the whole batch, the same labels: with
+    # the plain batch-norm formula the data ranks sync, and (sample:2 keeps
+    # the whole batch on each rank, where a one-rank data group keeps the
+    # fused kernel) with the fused kernel for KFAC's G on sample:2
+    model, x, labels, test = par_inputs(models, dev)
+
+    def one_kfac(plain):
+        with plain_batch_norm(plain):
+            kfac = estimators.KFAC(model)
+            kfac.update(x, labels=labels)
+        return kfac
+
+    def one_diag():
+        diag = estimators.Diagonal(model)
+        diag.update(x, labels=labels)
+        return diag.state
+    kfac = one_kfac(True)
+    fused = one_kfac(False).state
+    diag = one_diag()
+    refs = {"kfac": kfac.state,
+            "kfac_sample": {n: {"g": f["g"]} for n, f in fused.items()}}
+    worst = {what: _hold_states(states[what], ref, f"gloo {what}")
+             for what, ref in refs.items()}
+    worst["diag"] = _hold_states(states["diag"], diag, "", rtol=0.0,
+                                 atol=float("inf"))
+    diag64 = _hold_diagonal(states["diag"], diag, estimators, x, labels)
+    spread = {"kfac": _hold_states(one_kfac(True).state, kfac.state,
+                                   "rerun", rtol=0.0, atol=float("inf")),
+              "diag": _hold_states(one_diag(), diag, "rerun", rtol=0.0,
+                                   atol=float("inf"))}
+    formulas = _hold_states(fused, kfac.state, "formulas", rtol=0.0,
+                            atol=float("inf"))
+    log(f"gloo data:2 (KFAC) and sample:2 (KFAC's G) against one process "
+        f"(ResNet-18 f32 B={PAR_BATCH} MC={PAR_MC}): max|diff| of "
+        f"max|factor| {_fmt(worst)} (bar rtol {PAR_RTOL}, atol {PAR_ATOL} "
+        f"of max, Diagonal's read only); one process run twice "
+        f"{_fmt(spread)}; its KFAC factors with the fused batch-norm kernel "
+        f"against the plain formula {formulas:.3e}")
+    ranks64 = {n: r for n, (r, _) in diag64.items()}
+    one64 = {n: o for n, (_, o) in diag64.items()}
+    top = sorted(ranks64, key=ranks64.get)[-4:]
+    log(f"gloo diag data:2 against one float64 process, max|diff| of max "
+        f"(bar {PAR_DIAG64_TOL}): the ranks worst {max(ranks64.values()):.3e}"
+        f", one f32 process worst {max(one64.values()):.3e}; the ranks' "
+        f"four worst layers "
+        f"{_fmt({n: ranks64[n] for n in top})}, one f32 process there "
+        f"{_fmt({n: one64[n] for n in top})}")
+    acts = kfac.capture(x, labels=labels).acts
+    half = PAR_BATCH // PAR_WORLD
+    want = {"kfac": dict(none, **_routes(kfac, acts, half)),
+            # sample:2 keeps the whole batch on each rank
+            "kfac_sample": dict(none, **_routes(kfac, acts, PAR_BATCH)),
+            "diag": none}
+    by_path = {}
+    for r, rep in enumerate(reports):
+        for what, w in want.items():
+            if rep[what]["launches"] != w:
+                raise AssertionError(f"gloo rank {r} {what}: launches "
+                                     f"{rep[what]['launches']}, want {w}")
+        by_path[PAR_PATHS[3 + r]] = rep["kfac"]["launches"]
+        k, d = rep["kfac"], rep["diag"]
+        log(f"gloo rank {r} ({rep['backend']}): kfac update "
+            f"{k['wall_s'] * 1e3:.1f} ms wall, {k['collective_s'] * 1e3:.1f}"
+            f" ms in {k['collectives']} collectives "
+            f"({100 * k['collective_s'] / k['wall_s']:.1f}%); diag "
+            f"{d['wall_s'] * 1e3:.1f} ms ({100 * d['collective_s'] / d['wall_s']:.1f}"
+            f"% in collectives); kfac sample:2 "
+            f"{rep['kfac_sample']['wall_s'] * 1e3:.1f} ms; launches "
+            f"{json.dumps(k['launches'])} (the routes at B={half}; {smi})")
+    # the meshed eval against one process's, on rank 0's factors
+    for name, fac in kfac.state.items():
+        for key in fac:
+            fac[key] = states["kfac"][name][key]
+    kfac.invert(*PAR_DAMPING)
+    ens = kfac.ensemble_params(
+        PAR_SAMPLES, generator=torch.Generator(device=dev).manual_seed(3))
+    probs, ys, _ = eval_bnn(model, kfac, test, PAR_SAMPLES,
+                            ensemble_params=ens)
+    ece = float(metrics.expected_calibration_error(probs, ys)[0])
+    nll = float(metrics.negative_log_likelihood(probs, ys))
+    for r, rep in enumerate(reports):
+        if abs(rep["ece"] - ece) > PAR_EVAL_TOL \
+                or abs(rep["nll"] - nll) > PAR_EVAL_TOL:
+            raise AssertionError(f"gloo rank {r} eval: ECE {rep['ece']} NLL "
+                                 f"{rep['nll']}, one process ECE {ece} NLL "
+                                 f"{nll}")
+    log(f"gloo eval_bnn on data:2 ({PAR_TEST} images x {PAR_SAMPLES} "
+        f"samples): ECE {ece:.6f} NLL {nll:.6f} on every rank and in one "
+        f"process (bar {PAR_EVAL_TOL})")
+    log(f"gloo part: ranks {t_ranks:.1f} s from go to exit (set-up "
+        f"{', '.join(f'{r['setup_s']:.1f}' for r in reports)} s, work "
+        f"{', '.join(f'{r['work_s']:.1f}' for r in reports)} s), the "
+        f"references and checks {time.perf_counter() - t0:.1f} s")
+    return by_path
 
 
 def count_record_launches(records, by_path, record_paths):

@@ -18,8 +18,25 @@ backward with every float parameter and the input cast to it (JAX
 running buffers are never changed, and the factor state accumulates in
 ``dtype``.
 
-Differences from the JAX class, by design of this slice: no ``use_mesh``
-(ROADMAP Queue 1 item 10, raising ``NotImplementedError``),
+``use_mesh`` splits each update over the ranks of a
+:class:`~curvature_tpu_torch.parallel.Mesh`: the batch over its ``data``
+axis, the Monte-Carlo label draws over its ``sample`` axis. Every rank
+passes the whole batch (and the whole ``[S, B]`` labels) and captures
+its block (estimators/capture.py ``Shard``); the factor state stays
+replicated. The gradient-moment estimators (Diagonal, Block, EFB) square
+the global batch gradient, summed over the data ranks and gathered over
+the sample ranks in the capture; the token-Gram estimator (KFAC) sums
+its per-rank factor deltas over every rank, each weighted by its share
+of the tokens (``1 / data ranks``). A batch or draw count that does not
+divide its axis runs whole on every rank, with no collective (JAX's
+``_dispatch``). Internally drawn labels are drawn as one process draws
+them, from the whole batch's logits (gathered over the data ranks) with
+the caller's generator, and each rank keeps its (sample, data) block: the
+sample ranks never repeat each other's draws, and a meshed update equals
+the single process's for drawn labels too. JAX's model, tensor, seq and
+expert axes raise ``NotImplementedError`` (ROADMAP Queue 1 item 10b).
+
+Differences from the JAX class, by design:
 ``update_batches`` is a loop of ``update`` calls rather than a scan, and
 there is no Pallas compile-failure fallback (a kernel failure raises).
 Random draws take injected numbers: ``update`` takes
@@ -32,11 +49,14 @@ import math
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 from curvature_tpu_torch.nn.core import (
     LayerMeta, apply_matrix_delta, param_key, param_matrix)
 from curvature_tpu_torch.ops.patches import extract_patches
-from curvature_tpu_torch.estimators.capture import Captured, collect
+from curvature_tpu_torch.estimators.capture import Captured, Shard, collect
+from curvature_tpu_torch.parallel.mesh import (
+    all_reduce_tree, later_axes_error)
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
 #: reference-compatible layer-type aliases (curvatures.py:57-63)
@@ -172,6 +192,21 @@ def normalize_damping(add, multiply, num_layers: int, device=None,
     return add, multiply
 
 
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _add_into(tree, delta):
+    """``tree += delta`` leaf by leaf, in place."""
+    for k, v in delta.items():
+        if isinstance(v, dict):
+            _add_into(tree[k], v)
+        else:
+            tree[k] += v
+
+
 class Estimator:
     """Base class of the curvature estimators."""
 
@@ -218,6 +253,9 @@ class Estimator:
             if k in own}
         self.state = self.init_state()
         self.inv_state = None
+        #: set by use_mesh(); None = one process
+        self.mesh = None
+        self._data_axis, self._sample_axis = "data", None
 
     # -- per-estimator transforms -------------------------------------------
     def init_state(self):
@@ -269,22 +307,112 @@ class Estimator:
     def _wrap_inv(self, inv):
         return self._wrap_inv_aux(inv, self._inv_aux())
 
-    # -- out of this slice ---------------------------------------------------
-    def use_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "use_mesh and the tensor-parallel leaf specs are not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+    # -- multi-rank execution -------------------------------------------------
+    def use_mesh(self, mesh, data_axis: str = "data",
+                 sample_axis: Optional[str] = "auto",
+                 model_axis: Optional[str] = "auto",
+                 tensor_axis: Optional[str] = "auto",
+                 seq_axis: Optional[str] = "auto",
+                 expert_axis: Optional[str] = "auto",
+                 tensor_min_out: int = 128):
+        """Split factor updates over ``mesh`` (JAX base.py:223-366): the
+        batch over ``data_axis``, the label draws over ``sample_axis``.
+        ``"auto"`` enables an axis iff the mesh has one of that canonical
+        name; an axis nothing uses raises ``ValueError``; the model,
+        tensor, seq and expert axes (and ``tensor_min_out``, their
+        option) raise ``NotImplementedError`` (ROADMAP Queue 1 item
+        10b)."""
+        def resolve(axis, canonical):
+            if axis == "auto":
+                return canonical if canonical in mesh.shape else None
+            if axis is not None and axis not in mesh.shape:
+                raise ValueError(f"mesh {dict(mesh.shape)} has no axis "
+                                 f"{axis!r}")
+            return axis
+
+        if data_axis not in mesh.shape:
+            raise ValueError(f"mesh {dict(mesh.shape)} has no axis "
+                             f"{data_axis!r}")
+        sample_axis = resolve(sample_axis, "sample")
+        later = {a for a in (resolve(model_axis, "model"),
+                             resolve(tensor_axis, "tensor"),
+                             resolve(seq_axis, "seq"),
+                             resolve(expert_axis, "expert")) if a}
+        unused = set(mesh.shape) - {data_axis, sample_axis} - later
+        if unused:
+            # an axis nothing shards over silently idles its ranks
+            raise ValueError(
+                f"mesh axes {sorted(unused)} are not used by any sharding "
+                "rule; canonical names are data/sample/model/tensor/seq/"
+                "expert (or pass the axis explicitly to use_mesh)")
+        if later:
+            raise later_axes_error(later)
+        self.mesh = mesh
+        self._data_axis, self._sample_axis = data_axis, sample_axis
+        return self
+
+    def _shard(self, x: torch.Tensor, labels, num_samples: int):
+        """(x, labels, shard) of this rank's block under the mesh; ``x``
+        and ``labels`` unchanged (shard None) without one, or when the
+        batch or the draw count does not divide its axis."""
+        mesh = self.mesh
+        if mesh is None:
+            return x, labels, None
+        if labels is not None:
+            labels = torch.as_tensor(labels, device=self.device)
+            if labels.ndim == (2 if self.loss in ("lm", "gaussian") else 1):
+                labels = labels[None]
+        draws = num_samples if labels is None else labels.shape[0]
+        rows = mesh.rows(x.shape[0], self._data_axis)
+        samples = mesh.rows(draws, self._sample_axis)
+        if rows is None or samples is None:
+            return x, labels, None
+        if labels is not None:
+            labels = labels[samples][:, rows]
+        shard = Shard(
+            data_group=mesh.group(self._data_axis),
+            sample_group=mesh.group(self._sample_axis),
+            world_group=dist.group.WORLD if dist.is_initialized() else None,
+            batch=x.shape[0], data_size=mesh.size(self._data_axis),
+            rows=rows, samples=samples)
+        return x[rows], labels, shard
+
+    def _reduced_delta(self, cap: Captured):
+        """This batch's factor delta summed over every rank, each rank's
+        weighted by its token share (1 / data ranks): the token-Gram
+        factors of a meshed capture."""
+        delta = self.update_state(self.init_state(), cap)
+        leaves = _leaves(delta)
+        if cap.shard.data_size > 1:
+            for t in leaves:
+                t.div_(cap.shard.data_size)
+        all_reduce_tree(leaves, cap.shard.world_group)
+        return delta
+
+    @torch.no_grad()
+    def batch_state(self, cap: Captured):
+        """This batch's factors alone, in a fresh state: the same on every
+        rank for a meshed capture."""
+        if cap.shard is None or self.need_param_grads:
+            return self.update_state(self.init_state(), cap)
+        return self._reduced_delta(cap)
 
     # -- stateful API (reference lifecycle) ---------------------------------
     @torch.no_grad()
     def _accumulate(self, cap: Captured):
-        self.state = self.update_state(self.state, cap)
+        if cap.shard is None or self.need_param_grads:
+            # a meshed capture's parameter gradients are already global
+            self.state = self.update_state(self.state, cap)
+            return
+        _add_into(self.state, self._reduced_delta(cap))
 
     def capture(self, x: torch.Tensor, labels=None,
                 generator: Optional[torch.Generator] = None,
                 num_samples: int = 1) -> Captured:
         """One batch's activations and probe gradients, in
-        ``compute_dtype`` where one is set."""
+        ``compute_dtype`` where one is set; under a mesh, this rank's
+        block of them (:meth:`use_mesh`)."""
+        x, labels, shard = self._shard(x, labels, num_samples)
         params = None
         if self.compute_dtype is not None:
             params = cast_floats(dict(self.model.named_parameters()),
@@ -296,7 +424,8 @@ class Estimator:
                        need_param_grads=self.need_param_grads,
                        need_probe_grads=self.need_probe_grads,
                        loss=self.loss,
-                       gram_probe_names=self.gram_probe_names)
+                       gram_probe_names=self.gram_probe_names,
+                       shard=shard)
 
     def update(self, x: torch.Tensor, labels=None,
                generator: Optional[torch.Generator] = None,

@@ -30,6 +30,18 @@ sample's cotangent is made just before its backward and freed after it,
 so at a 50,257-word vocabulary one ``[B, T, V]`` cotangent exists at a
 time.
 
+Under a mesh (``Estimator.use_mesh``) each rank captures its block of the
+batch and of the label draws, described by a :class:`Shard`. The context
+carries the data group, so BatchNorm normalizes over the whole batch.
+Labels drawn here come from the whole batch's logits, gathered over the
+data ranks, with the caller's generator (one process's draws); the rank
+keeps its block. Every cotangent is divided by the *global* position
+count, so the probe gradients are those of the global mean loss on this
+rank's tokens. The parameter gradients are summed over the data group
+(the global batch gradient) and gathered over the sample group (every
+draw) before any estimator squares them. ``batch_size`` is the global
+count.
+
 ``gram_probe_names`` fuses the output-gradient capture of those layers
 (JAX capture.py:127-230): each gets a zero f32 ``[out, out]`` accumulator
 behind a ``GramTap`` (nn/core.py) instead of a probe, and each sample's
@@ -39,13 +51,36 @@ behind a ``GramTap`` (nn/core.py) instead of a probe, and each sample's
 """
 import math
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 import torch
 from torch.func import functional_call
 
 from curvature_tpu_torch.nn.core import (
     Context, LayerMeta, param_key, param_matrix)
+from curvature_tpu_torch.parallel.mesh import all_gather, all_reduce_tree
+
+
+@dataclass
+class Shard:
+    """One rank's part of a meshed capture.
+
+    data_group:   process group of the ranks splitting the batch (None:
+                  one rank).
+    sample_group: process group of the ranks splitting the label draws.
+    world_group:  every rank of the mesh (the factor-delta sum).
+    batch:        the global batch size B.
+    data_size:    ranks on the data axis.
+    rows:         this rank's rows of the batch.
+    samples:      this rank's label draws.
+    """
+    data_group: Any
+    sample_group: Any
+    world_group: Any
+    batch: int
+    data_size: int
+    rows: slice
+    samples: slice
 
 
 @dataclass
@@ -68,6 +103,7 @@ class Captured:
                  layers captured through a gram tap (which then have no
                  ``probe_grads`` entry); None without taps.
     probe_gram_ntok: layer -> the token count N of each such Gram.
+    shard:       the rank's :class:`Shard` of a meshed capture, else None.
     """
     acts: Dict[str, torch.Tensor]
     probe_grads: Dict[str, torch.Tensor]
@@ -76,6 +112,7 @@ class Captured:
     param_grads: Dict[str, torch.Tensor] = field(default_factory=dict)
     probe_grams: Optional[Dict[str, torch.Tensor]] = None
     probe_gram_ntok: Optional[Dict[str, int]] = None
+    shard: Optional[Shard] = None
 
 
 def sample_labels(logits: torch.Tensor, num_samples: int,
@@ -98,11 +135,13 @@ def sample_labels(logits: torch.Tensor, num_samples: int,
 
 
 def ce_cotangent(logits: torch.Tensor, labels: torch.Tensor,
-                 probs: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 probs: Optional[torch.Tensor] = None,
+                 count: Optional[int] = None) -> torch.Tensor:
     """d(mean CE)/d logits = (softmax - onehot) / #positions, #positions
-    the product of every leading axis (B, or B*T): logits [*lead, K],
-    labels [S, *lead] -> [S, *lead, K]. ``probs``, where given, is the
-    softmax of the logits, computed once for every sample."""
+    the product of every leading axis (B, or B*T) or ``count`` (a split
+    batch's global count): logits [*lead, K], labels [S, *lead] -> [S,
+    *lead, K]. ``probs``, where given, is the softmax of the logits,
+    computed once for every sample."""
     p = torch.softmax(logits.detach(), dim=-1) if probs is None else probs
     # p - onehot as a scatter of -1: the same numbers, without a [*lead, K]
     # int64 one-hot (1.6 GB at B=8, T=512, V=50,257)
@@ -110,7 +149,7 @@ def ce_cotangent(logits: torch.Tensor, labels: torch.Tensor,
     idx = labels.long()[..., None]
     cot.scatter_add_(-1, idx, torch.full(idx.shape, -1.0, dtype=p.dtype,
                                          device=p.device))
-    return cot / math.prod(logits.shape[:-1])
+    return cot / (count or math.prod(logits.shape[:-1]))
 
 
 def gaussian_nll(preds: torch.Tensor, targets: torch.Tensor
@@ -121,11 +160,13 @@ def gaussian_nll(preds: torch.Tensor, targets: torch.Tensor
     return 0.5 * ((preds - targets) ** 2).sum(dim=-1).mean()
 
 
-def gaussian_cotangent(preds: torch.Tensor, targets: torch.Tensor
-                       ) -> torch.Tensor:
-    """d(mean 0.5 ||f - y||^2)/d f = (f - y) / B: preds [B, D], targets
-    [S, B, D] -> [S, B, D] (JAX :92-94)."""
-    return (preds.detach() - targets.to(preds.dtype)) / preds.shape[0]
+def gaussian_cotangent(preds: torch.Tensor, targets: torch.Tensor,
+                       count: Optional[int] = None) -> torch.Tensor:
+    """d(mean 0.5 ||f - y||^2)/d f = (f - y) / B (``count``: a split
+    batch's global B): preds [B, D], targets [S, B, D] -> [S, B, D] (JAX
+    :92-94)."""
+    return (preds.detach() - targets.to(preds.dtype)) \
+        / (count or preds.shape[0])
 
 
 def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
@@ -136,7 +177,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             need_param_grads: bool = True,
             need_probe_grads: bool = True,
             loss: str = "cross_entropy",
-            gram_probe_names=frozenset()) -> Captured:
+            gram_probe_names=frozenset(),
+            shard: Optional[Shard] = None) -> Captured:
     """Capture acts, probe gradients and parameter gradients for the layers
     in ``metas``.
 
@@ -151,7 +193,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     two gradient outputs; a switched-off one is neither computed nor
     returned. ``gram_probe_names`` names the layers whose output gradient
     comes back as its per-sample token Gram (``probe_grams``); it needs
-    ``need_probe_grads``.
+    ``need_probe_grads``. ``shard`` makes ``x`` and ``labels`` this
+    rank's block of a meshed capture (the module docstring).
     """
     if loss not in ("cross_entropy", "lm", "gaussian"):
         raise ValueError(f"unknown loss {loss!r}: 'cross_entropy', 'lm' or "
@@ -173,16 +216,21 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             params[k] = params[k].detach().requires_grad_()
     was_training = model.training
     model.train()
-    ctx = Context(track=metas, probes=need_probe_grads, gram_taps=taps)
+    ctx = Context(track=metas, probes=need_probe_grads, gram_taps=taps,
+                  data_group=None if shard is None else shard.data_group)
     try:
         logits = (model(x, ctx) if params is None
                   else functional_call(model, params, (x, ctx)))
     finally:
         model.train(was_training)
     if labels is None:
-        labels = (sample_labels(logits, num_samples, generator, loss)
+        full = logits if shard is None else all_gather(
+            logits.detach(), shard.data_group)
+        labels = (sample_labels(full, num_samples, generator, loss)
                   if loss == "gaussian"
-                  else sample_labels(logits, num_samples, generator))
+                  else sample_labels(full, num_samples, generator))
+        if shard is not None:
+            labels = labels[shard.samples][:, shard.rows]
     labels = torch.as_tensor(labels, device=logits.device)
     if labels.ndim == (2 if loss in ("lm", "gaussian") else 1):
         labels = labels[None]
@@ -197,9 +245,17 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     grams = {n: [] for n in taps}
     pgrads = {n: [] for n in metas}
     num = labels.shape[0]
+    # the observation count of every scale: B, or B*T for 'lm'; global
+    # under a shard
+    batch_size = (math.prod(logits.shape[:-1]) if loss == "lm"
+                  else x.shape[0])
+    count = None
+    if shard is not None:
+        batch_size = batch_size // x.shape[0] * shard.batch
+        count = batch_size
     for s in range(num):
-        cot = (gaussian_cotangent(logits, labels[s]) if probs is None
-               else ce_cotangent(logits, labels[s:s + 1], probs)[0])
+        cot = (gaussian_cotangent(logits, labels[s], count) if probs is None
+               else ce_cotangent(logits, labels[s:s + 1], probs, count)[0])
         gs = torch.autograd.grad(logits, inputs, grad_outputs=cot,
                                  retain_graph=s < num - 1)
         del cot
@@ -220,15 +276,21 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
                 pgrads[n].append(param_matrix(
                     m, by_key[param_key(n, "weight")],
                     by_key.get(param_key(n, "bias"))))
+    param_grads = ({n: torch.stack(v) for n, v in pgrads.items()}
+                   if need_param_grads else {})
+    if shard is not None and param_grads:
+        # the global batch gradient of every draw, on every rank
+        all_reduce_tree(list(param_grads.values()), shard.data_group)
+        param_grads = {n: all_gather(g, shard.sample_group)
+                       for n, g in param_grads.items()}
     return Captured(
         acts={n: ctx.acts[n] for n in metas},
         probe_grads=({n: torch.stack(v) for n, v in grads.items()}
                      if need_probe_grads else {}),
         logits=logits.detach(),
-        batch_size=(math.prod(logits.shape[:-1]) if loss == "lm"
-                    else x.shape[0]),
-        param_grads=({n: torch.stack(v) for n, v in pgrads.items()}
-                     if need_param_grads else {}),
+        batch_size=batch_size,
+        param_grads=param_grads,
         probe_grams=({n: torch.stack(v) for n, v in grams.items()}
                      if taps else None),
-        probe_gram_ntok=dict(ctx.tap_tokens) if taps else None)
+        probe_gram_ntok=dict(ctx.tap_tokens) if taps else None,
+        shard=shard)

@@ -41,8 +41,8 @@ from ``torch.Generator(device).manual_seed(omega_seed)``, or injected.
 Memory is 2 p R floats.
 
 The mesh hooks of the JAX class (``_step_rng_meshed``, ``_tp_ok``,
-``_state_leaf_spec``) wait for ROADMAP Queue 1 item 10; ``use_mesh``
-raises, as in the base class.
+``_state_leaf_spec``) wait for ROADMAP Queue 1 item 10b; ``use_mesh``
+raises ``NotImplementedError``.
 """
 import math
 from typing import Dict, Optional, Sequence, Union
@@ -63,6 +63,11 @@ class Subspace(Estimator):
     # no capture pass: the GGN products run their own forward
     need_param_grads = False
     need_probe_grads = False
+
+    def use_mesh(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the Subspace sketch on a mesh is not ported yet (ROADMAP Queue "
+            "1 item 10b)")
 
     def __init__(self, model, rank: int = 16, omega_seed: int = 0,
                  layer_types: Optional[Union[str, Sequence[str]]] = None,

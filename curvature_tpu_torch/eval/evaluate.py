@@ -17,6 +17,12 @@ At a vocabulary-sized output ``eval_nn_stats``/``eval_bnn_stats`` reduce
 each batch on the device to four numbers per token (``STATS_COLUMNS``);
 the Bayesian one accumulates the sample-mean softmax per batch, so no
 [N, V] matrix reaches the host (JAX evaluate.py:237-300).
+
+``mesh`` (a :class:`~curvature_tpu_torch.parallel.Mesh`) splits every
+batch over its data axis: each rank runs its rows and an all-gather
+returns the whole batch's probabilities in batch order, so every rank
+holds the same predictions and metrics (JAX ``_mesh_dispatch``, :22-40).
+A batch that does not divide the axis runs whole on every rank.
 """
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -25,6 +31,7 @@ import torch
 from torch.func import functional_call
 
 from curvature_tpu_torch.eval import metrics
+from curvature_tpu_torch.parallel.mesh import gather_rows
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
 
@@ -37,25 +44,29 @@ def _batches(data, device):
         yield torch.as_tensor(x, device=device), np.asarray(y).reshape(-1)
 
 
-def _forward(model, params, x, compute_dtype):
+def _forward(model, params, x, compute_dtype, mesh=None):
     """Eval-mode softmax [B, K] in f32, with ``params`` (state-dict keys,
     None for the model's own) cast to ``compute_dtype`` with the model's
     other parameters and the input where one is given. Buffers stay as
     they are: BatchNorm normalizes in f32 on f32 running statistics (JAX
-    keeps ``batch_stats`` f32)."""
+    keeps ``batch_stats`` f32). Under ``mesh`` this rank's rows run and
+    the probabilities are gathered."""
     if compute_dtype is not None:
         own = dict(model.named_parameters())
         params = cast_floats(dict(own, **(params or {})), compute_dtype)
         x = cast_input(x, compute_dtype)
-    logits = model(x) if params is None else functional_call(
-        model, params, (x,))
-    p = torch.softmax(logits.float(), dim=-1)
-    # causal LMs: [B, T, V] -> per-token [B*T, V]
-    return p.reshape(-1, p.shape[-1]) if p.ndim > 2 else p
+
+    def fwd(xs):
+        logits = model(xs) if params is None else functional_call(
+            model, params, (xs,))
+        p = torch.softmax(logits.float(), dim=-1)
+        # causal LMs: [B, T, V] -> per-token [B*T, V]
+        return p.reshape(-1, p.shape[-1]) if p.ndim > 2 else p
+    return gather_rows(mesh, fwd, x)
 
 
 @torch.no_grad()
-def eval_nn(model, data: Iterable[Tuple], compute_dtype=None
+def eval_nn(model, data: Iterable[Tuple], compute_dtype=None, mesh=None
             ) -> Tuple[np.ndarray, np.ndarray]:
     """One deterministic pass; returns (softmax [N, K], labels [N])."""
     was_training = model.training
@@ -63,7 +74,8 @@ def eval_nn(model, data: Iterable[Tuple], compute_dtype=None
     probs, labels = [], []
     try:
         for x, y in _batches(data, _device(model)):
-            probs.append(_forward(model, None, x, compute_dtype).cpu())
+            probs.append(_forward(model, None, x, compute_dtype,
+                                  mesh).cpu())
             labels.append(y)
     finally:
         model.train(was_training)
@@ -72,7 +84,7 @@ def eval_nn(model, data: Iterable[Tuple], compute_dtype=None
 
 @torch.no_grad()
 def _ensemble_sums(model, ensemble_params, batches, compute_dtype,
-                   keep_samples):
+                   keep_samples, mesh=None):
     """Per batch, the softmax summed over the ensemble [B, K] (and, with
     ``keep_samples``, each sample's [S, B, K])."""
     was_training = model.training
@@ -80,7 +92,7 @@ def _ensemble_sums(model, ensemble_params, batches, compute_dtype,
     sums, per_sample = [], []
     try:
         for x, _ in _batches(batches, _device(model)):
-            probs = [_forward(model, p, x, compute_dtype)
+            probs = [_forward(model, p, x, compute_dtype, mesh)
                      for p in ensemble_params]
             sums.append(torch.stack(probs).sum(0).cpu())
             if keep_samples:
@@ -113,7 +125,7 @@ def eval_bnn(model, estimator, data: Iterable[Tuple], samples: int = 30,
              ensemble_params: Optional[List[Dict[str, torch.Tensor]]] = None,
              generator: Optional[torch.Generator] = None,
              stats: bool = False, sample_chunk: Optional[int] = None,
-             compute_dtype=None
+             compute_dtype=None, mesh=None
              ) -> Tuple[np.ndarray, np.ndarray, Dict[str, List[float]]]:
     """Mean softmax over ``samples`` posterior weight draws; returns (mean
     predictions [N, K], labels [N], running statistics).
@@ -136,7 +148,8 @@ def eval_bnn(model, estimator, data: Iterable[Tuple], samples: int = 30,
     total, per_sample, members = None, [], 0
     for ens in ensembles:
         members += len(ens)
-        s, kept = _ensemble_sums(model, ens, batches, compute_dtype, stats)
+        s, kept = _ensemble_sums(model, ens, batches, compute_dtype, stats,
+                                 mesh)
         total = s if total is None else total + s
         if stats:
             per_sample.append(np.concatenate(kept, axis=1))
@@ -150,15 +163,16 @@ def eval_bnn(model, estimator, data: Iterable[Tuple], samples: int = 30,
 def eval_nn_and_bnn(model, estimator, data, samples: int = 30,
                     generator: Optional[torch.Generator] = None,
                     stats: bool = False, compute_dtype=None,
-                    sample_chunk: Optional[int] = None):
+                    sample_chunk: Optional[int] = None, mesh=None):
     """Deterministic and Bayesian predictions over the same data
     (reference eval_nn_and_bnn, evaluate.py:155-170); returns
     (predictions, bnn_predictions, labels, bnn_stats)."""
     batches = list(data)
-    predictions, labels = eval_nn(model, batches, compute_dtype)
+    predictions, labels = eval_nn(model, batches, compute_dtype, mesh)
     bnn_predictions, _, bnn_stats = eval_bnn(
         model, estimator, batches, samples, generator=generator,
-        stats=stats, sample_chunk=sample_chunk, compute_dtype=compute_dtype)
+        stats=stats, sample_chunk=sample_chunk, compute_dtype=compute_dtype,
+        mesh=mesh)
     return predictions, bnn_predictions, labels, bnn_stats
 
 
@@ -180,8 +194,8 @@ def _probs_to_stats(p2d: torch.Tensor, y) -> torch.Tensor:
 
 
 @torch.no_grad()
-def eval_nn_stats(model, data: Iterable[Tuple], compute_dtype=None
-                  ) -> Tuple[np.ndarray, np.ndarray]:
+def eval_nn_stats(model, data: Iterable[Tuple], compute_dtype=None,
+                  mesh=None) -> Tuple[np.ndarray, np.ndarray]:
     """:func:`eval_nn` reduced on the device to the [N, 4]
     STATS_COLUMNS; returns (stats, labels [N])."""
     was_training = model.training
@@ -189,7 +203,7 @@ def eval_nn_stats(model, data: Iterable[Tuple], compute_dtype=None
     stats, labels = [], []
     try:
         for x, y in _batches(data, _device(model)):
-            p = _forward(model, None, x, compute_dtype)
+            p = _forward(model, None, x, compute_dtype, mesh)
             stats.append(_probs_to_stats(p, y).cpu())
             labels.append(y)
     finally:
@@ -202,7 +216,7 @@ def eval_bnn_stats(model, estimator, data: Iterable[Tuple],
                    samples: int = 30,
                    generator: Optional[torch.Generator] = None,
                    sample_chunk: Optional[int] = None, compute_dtype=None,
-                   ensemble_params: Optional[List[Dict]] = None
+                   ensemble_params: Optional[List[Dict]] = None, mesh=None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """:func:`eval_bnn` reduced on the device: per batch, the sample-mean
     softmax accumulates there and collapses to STATS_COLUMNS. The
@@ -234,7 +248,7 @@ def eval_bnn_stats(model, estimator, data: Iterable[Tuple],
             total, members = None, 0
             for ens in ensembles():
                 for params in ens:
-                    p = _forward(model, params, x, compute_dtype)
+                    p = _forward(model, params, x, compute_dtype, mesh)
                     total = p if total is None else total + p
                 members += len(ens)
             stats.append(_probs_to_stats(total / members, y).cpu())

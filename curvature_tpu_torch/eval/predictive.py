@@ -19,9 +19,9 @@ dicts, as ``Estimator.ensemble_params`` returns) so that a caller can
 feed a given ensemble; without it ``samples`` members are drawn from
 ``generator``. Data batches are (model input, labels); a causal LM's
 [B, T, V] outputs are scored per token, flattened to [B*T, V] with the
-labels to [B*T], as ``eval_bnn`` does. The JAX functions' ``mesh``
-argument (the batch sharded over devices) is not ported (ROADMAP Queue 1
-item 10).
+labels to [B*T], as ``eval_bnn`` does. ``mesh`` splits each batch over
+the mesh's data axis: each rank runs its rows through every member and
+the logits are gathered in batch order (JAX ``_mesh_wrap``, :64-83).
 """
 import contextlib
 import math
@@ -32,6 +32,7 @@ import torch
 from torch.func import functional_call, jvp
 
 from curvature_tpu_torch.eval.evaluate import _batches, _device
+from curvature_tpu_torch.parallel.mesh import gather_rows
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
 
@@ -98,45 +99,55 @@ def _base(model, compute_dtype) -> Dict[str, torch.Tensor]:
     return cast_floats(dict(model.named_parameters()), compute_dtype)
 
 
-def make_logit_ensemble_fn(model, compute_dtype=None):
+def make_logit_ensemble_fn(model, compute_dtype=None, mesh=None):
     """Per-sample logit forward over an ensemble: ``fwd(ensemble_params,
     x)`` -> [S, B, K] logits ([S, B*T, V] for a causal LM; a bf16
     forward's upcast to f32), the model in eval mode, parameters and
-    input in ``compute_dtype`` where one is given."""
+    input in ``compute_dtype`` where one is given; under ``mesh`` this
+    rank's rows, gathered."""
     def fwd(ensemble_params: List[Dict[str, torch.Tensor]], x):
         base = _base(model, compute_dtype)
         x = cast_input(x, compute_dtype)
-        with eval_mode(model), torch.no_grad():
-            outs = [functional_call(
-                model, {**base, **cast_floats(p, compute_dtype)}, (x,))
-                for p in ensemble_params]
-        return torch.stack([_per_token(o) for o in outs])
+
+        def rows(xs):
+            with eval_mode(model), torch.no_grad():
+                outs = [functional_call(
+                    model, {**base, **cast_floats(p, compute_dtype)}, (xs,))
+                    for p in ensemble_params]
+            return torch.stack([_per_token(o) for o in outs])
+        return gather_rows(mesh, rows, x, dim=1)
     return fwd
 
 
-def make_linearized_ensemble_fn(model, compute_dtype=None):
+def make_linearized_ensemble_fn(model, compute_dtype=None, mesh=None):
     """Linearized-ensemble forward: ``fwd(mean_params, ensemble_params,
     x)`` -> (MAP logits [B, K], logits_s [S, B, K]), logits_s = MAP logits
     + J(x)(theta_s - theta*). The MAP forward runs once per batch; each
     sample is one forward-mode ``jvp`` of ``functional_call`` (JAX
     linearizes once and vmaps the jvp, :171-192). bf16 logits come back
-    f32."""
+    f32. Under ``mesh`` this rank's rows, gathered."""
     def fwd(mean_params: Dict[str, torch.Tensor],
             ensemble_params: List[Dict[str, torch.Tensor]], x):
         base = _base(model, compute_dtype)
         x = cast_input(x, compute_dtype)
         mean = cast_floats(mean_params, compute_dtype)
 
-        def f(p):
-            return functional_call(model, {**base, **p}, (x,))
-        with eval_mode(model), torch.no_grad():
-            logits0 = _per_token(f(mean))
-            lin = []
-            for e in ensemble_params:
-                e = cast_floats(e, compute_dtype)
-                tangent = {k: e[k] - mean[k].to(e[k].dtype) for k in mean}
-                lin.append(_per_token(jvp(f, (mean,), (tangent,))[1]))
-        return logits0, logits0[None] + torch.stack(lin)
+        def rows(xs):
+            def f(p):
+                return functional_call(model, {**base, **p}, (xs,))
+            with eval_mode(model), torch.no_grad():
+                logits0 = _per_token(f(mean))
+                lin = []
+                for e in ensemble_params:
+                    e = cast_floats(e, compute_dtype)
+                    tangent = {k: e[k] - mean[k].to(e[k].dtype)
+                               for k in mean}
+                    lin.append(_per_token(jvp(f, (mean,), (tangent,))[1]))
+            # [1 + S, B, K]: the MAP logits, then each sample's
+            return torch.cat([logits0[None], logits0[None]
+                              + torch.stack(lin)])
+        out = gather_rows(mesh, rows, x, dim=1)
+        return out[0], out[1:]
     return fwd
 
 
@@ -149,7 +160,7 @@ def _ensemble(estimator, samples, ensemble_params, generator):
 def eval_bnn_closed_form(model, estimator, data: Iterable, samples: int = 30,
                          ensemble_params: Optional[List[Dict]] = None,
                          generator: Optional[torch.Generator] = None,
-                         method: str = "probit"
+                         method: str = "probit", mesh=None
                          ) -> Tuple[np.ndarray, np.ndarray]:
     """Closed-form Bayesian predictive from the sampled logit ensemble:
     the same ensemble forwards as ``eval_bnn``, keeping logits, their
@@ -158,7 +169,7 @@ def eval_bnn_closed_form(model, estimator, data: Iterable, samples: int = 30,
     if method not in ("probit", "bridge"):
         raise ValueError(f"unknown closed-form method {method!r}")
     ensemble = _ensemble(estimator, samples, ensemble_params, generator)
-    fwd = make_logit_ensemble_fn(model)
+    fwd = make_logit_ensemble_fn(model, mesh=mesh)
     preds, labels = [], []
     for x, y in _batches(data, _device(model)):
         mu, var = moments(fwd(ensemble, x))
@@ -172,7 +183,8 @@ def eval_bnn_closed_form(model, estimator, data: Iterable, samples: int = 30,
 def eval_bnn_regression(model, estimator, data: Iterable, samples: int = 30,
                         ensemble_params: Optional[List[Dict]] = None,
                         generator: Optional[torch.Generator] = None,
-                        linearized: bool = True, noise_var: float = 1.0):
+                        linearized: bool = True, noise_var: float = 1.0,
+                        mesh=None):
     """Bayesian regression predictive: (mean [N, D], variance [N, D],
     targets [N, D]). The epistemic variance is the ensemble variance of
     the outputs, through the MAP-linearized network by default; the
@@ -180,12 +192,12 @@ def eval_bnn_regression(model, estimator, data: Iterable, samples: int = 30,
     unit-variance Fisher of ``loss='gaussian'``)."""
     ensemble = _ensemble(estimator, samples, ensemble_params, generator)
     if linearized:
-        lin = make_linearized_ensemble_fn(model)
+        lin = make_linearized_ensemble_fn(model, mesh=mesh)
 
         def fwd(x):
             return lin(estimator.mean_params, ensemble, x)[1]
     else:
-        raw = make_logit_ensemble_fn(model)
+        raw = make_logit_ensemble_fn(model, mesh=mesh)
 
         def fwd(x):
             return raw(ensemble, x)
@@ -203,7 +215,8 @@ def eval_bnn_regression(model, estimator, data: Iterable, samples: int = 30,
 def eval_bnn_linearized(model, estimator, data: Iterable, samples: int = 30,
                         ensemble_params: Optional[List[Dict]] = None,
                         generator: Optional[torch.Generator] = None,
-                        method: str = "mc") -> Tuple[np.ndarray, np.ndarray]:
+                        method: str = "mc", mesh=None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Linearized-Laplace (GLM) predictive (Immer et al., 2021):
     ``method`` 'mc' averages the softmax over the linearized logit
     samples; 'probit' / 'bridge' apply the closed forms to the MAP logits
@@ -212,7 +225,7 @@ def eval_bnn_linearized(model, estimator, data: Iterable, samples: int = 30,
     if method not in ("mc", "probit", "bridge"):
         raise ValueError(f"unknown linearized method {method!r}")
     ensemble = _ensemble(estimator, samples, ensemble_params, generator)
-    fwd = make_linearized_ensemble_fn(model)
+    fwd = make_linearized_ensemble_fn(model, mesh=mesh)
     preds, labels = [], []
     for x, y in _batches(data, _device(model)):
         logits0, logits_s = fwd(estimator.mean_params, ensemble, x)

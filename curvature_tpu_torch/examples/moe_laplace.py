@@ -13,7 +13,7 @@ Port of ``examples/moe_laplace.py``, its steps 1-5:
   5. a per-token Bayesian predictive against the MAP one.
 
 JAX's step 6, the same update under an ``expert``-sharded mesh, waits for
-the port's mesh support (ROADMAP Queue 1 item 10); the script says so
+the port's expert axis (ROADMAP Queue 1 item 10b); the script says so
 where the step would run.
 
     python -m curvature_tpu_torch.examples.moe_laplace [--platform cpu]
@@ -107,8 +107,8 @@ def main(argv=None):
           f"BNN({args.samples} samples) {bnn_nll:.4f}")
 
     # -- expert parallelism ----------------------------------------------------
-    print("expert-sharded factors: not run, the port has no device mesh yet "
-          "(ROADMAP Queue 1 item 10)")
+    print("expert-sharded factors: not run, the port's mesh has no expert "
+          "axis yet (ROADMAP Queue 1 item 10b)")
     print("done")
     return {"a_shape": tuple(a.shape), "shares": shares,
             "log_marglik": tuned["log_marglik"], "map_nll": map_nll,

@@ -1,14 +1,18 @@
 """Production-scale example: ResNet-50 KFAC on the card.
 
-Port of ``examples/resnet50_scale.py`` without its mesh sharding (that
-waits for ROADMAP Queue 1 item 10): bfloat16 compute (``--bf16``), device
-prefetch (``data.prefetch.DevicePrefetcher``: pinned copies on a side
-stream), the factor-update rate, the split-damped invert and the serving
-predictor with its uncertainty decomposition, on synthetic data drawn from
-numpy seed 0 (swap the loader for a real ImageNet one). The patch-Gram
-kernels run where JAX's routes send them.
+Port of ``examples/resnet50_scale.py``: bfloat16 compute (``--bf16``),
+device prefetch (``data.prefetch.DevicePrefetcher``: pinned copies on a
+side stream), mesh sharding (``--parallel``: the updates split over the
+data axis of every rank of a ``torch.distributed.run`` launch, the
+predictor's ensemble over a sample axis where the mesh has one), the
+factor-update rate, the split-damped invert and the serving predictor
+with its uncertainty decomposition, on synthetic data drawn from numpy
+seed 0 (swap the loader for a real ImageNet one). The patch-Gram kernels
+run where JAX's routes send them.
 
     python -m curvature_tpu_torch.examples.resnet50_scale [--bf16]
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m curvature_tpu_torch.examples.resnet50_scale --parallel
 """
 import argparse
 import time
@@ -16,7 +20,7 @@ import time
 import numpy as np
 import torch
 
-from curvature_tpu_torch import estimators, models
+from curvature_tpu_torch import estimators, models, parallel
 from curvature_tpu_torch.data.prefetch import DevicePrefetcher
 from curvature_tpu_torch.eval import BayesianPredictor
 from curvature_tpu_torch.pipelines.common import model_input
@@ -40,7 +44,14 @@ def main(argv=None):
                     help="image side (ImageNet's 224)")
     ap.add_argument("--classes", type=int, default=1000)
     ap.add_argument("--samples", type=int, default=30)
+    ap.add_argument("--parallel", action="store_true",
+                    help="split the updates over every rank's data axis")
+    ap.add_argument("--mesh", default="", help="axis spec, e.g. data:2")
     args = ap.parse_args(argv)
+    # before the model is built: the process group picks this rank's GPU
+    if args.parallel or args.mesh:
+        parallel.initialize(device="cpu" if args.platform == "cpu" else None)
+    mesh = parallel.build_mesh(args)
     device = resolve_device("cpu" if args.platform == "cpu" else None)
     if device.type == "cuda":
         # strict f32 where f32 is asked for (cuDNN convs default to TF32)
@@ -54,6 +65,8 @@ def main(argv=None):
         model = model.to(memory_format=torch.channels_last)
     est = estimators.KFAC(
         model, compute_dtype=torch.bfloat16 if args.bf16 else None)
+    if mesh is not None:
+        est.use_mesh(mesh)
 
     # synthetic NHWC input pipeline with device prefetch
     host = np.random.default_rng(0)
@@ -81,7 +94,7 @@ def main(argv=None):
     est.invert(add=1.0, multiply=18916.0)           # README.rst ResNet18 row
     pred = BayesianPredictor(model, est, samples=args.samples,
                              generator=torch.Generator(device=device)
-                             .manual_seed(1))
+                             .manual_seed(1), mesh=mesh)
     out = pred(model_input(torch.as_tensor(batches[0][0], device=device)))
     epistemic = float(out.epistemic.mean())
     print("mean prob shape:", tuple(out.mean.shape),

@@ -100,13 +100,18 @@ class Context:
     ``gram_taps`` maps the layers whose output gradient is reduced to its
     token Gram in the backward (:class:`GramTap`) to their channel axis;
     those get a zero ``[out, out]`` accumulator in ``taps`` (and their
-    token count in ``tap_tokens``) instead of a probe.
+    token count in ``tap_tokens``) instead of a probe. ``data_group`` is
+    the process group of a batch split over ranks (a mesh's data axis):
+    train-mode BatchNorm then normalizes with the statistics of the whole
+    batch, as JAX's sharded program does (nn/layers.py).
     """
 
     def __init__(self, track: Iterable[str] = (), update_stats: bool = False,
                  probes: bool = True, decompose_norm: bool = False,
-                 gram_taps: Optional[Dict[str, int]] = None):
+                 gram_taps: Optional[Dict[str, int]] = None,
+                 data_group=None):
         self.track = frozenset(track)
+        self.data_group = data_group
         self.gram_taps = dict(gram_taps or {})
         self.taps: Dict[str, torch.Tensor] = {}
         self.tap_tokens: Dict[str, int] = {}

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from curvature_tpu_torch.nn.core import Context, LayerMeta
+from curvature_tpu_torch.parallel.mesh import all_reduce_sum, group_size
 from curvature_tpu_torch.ops.patches import resolve_padding
 
 
@@ -294,6 +295,15 @@ class BatchNorm(CtxModule):
     an estimator's ``compute_dtype`` the scale and bias arrive rounded to
     it (JAX casts every float parameter, layers.py:154-171) while the
     running buffers stay f32.
+
+    Under a context whose ``data_group`` spans more than one rank (the
+    batch split over a mesh's data axis), train mode normalizes with the
+    mean and biased variance of the whole batch: the decomposed formula
+    with its two sums taken through a differentiable all-reduce, so the
+    forward and the backward are those of the unsplit batch (JAX's
+    sharded program). A train step's running statistics then update from
+    those global statistics. A group of one rank, or none, keeps the
+    fused kernel.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -309,6 +319,9 @@ class BatchNorm(CtxModule):
     def forward(self, x, ctx: Optional[Context] = None):
         update = ctx is None or ctx.update_stats
         keep = self.training and not update
+        group = ctx.data_group if ctx is not None else None
+        if self.training and group_size(group) > 1:
+            return self._decomposed(x, group, update)
         if keep and ctx.decompose_norm:
             return self._decomposed(x)
         out = F.batch_norm(
@@ -319,17 +332,26 @@ class BatchNorm(CtxModule):
             training=self.training, momentum=self.momentum, eps=self.eps)
         return out.to(x.dtype)
 
-    def _decomposed(self, x):
+    def _decomposed(self, x, group=None, update: bool = False):
         """Train-mode normalization by the batch's mean and biased variance
         over every axis but the channels, in plain tensor ops (the
-        context's ``decompose_norm``)."""
+        context's ``decompose_norm``). With ``group``, the batch split
+        across its ranks (equal shards): the per-channel sums are
+        all-reduced, and with ``update`` the running statistics take the
+        global mean and unbiased variance."""
         xf = x.float()
         dims = [d for d in range(xf.ndim) if d != 1]
-        mean = xf.mean(dims, keepdim=True)
-        centred = xf - mean
-        var = (centred * centred).mean(dims, keepdim=True)
         shape = [1, -1] + [1] * (xf.ndim - 2)
-        out = centred * torch.rsqrt(var + self.eps) \
+        n = xf.numel() // xf.shape[1] * group_size(group)
+        mean = all_reduce_sum(xf.sum(dims), group) / n
+        centred = xf - mean.view(shape)
+        var = all_reduce_sum((centred * centred).sum(dims), group) / n
+        if update:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * var * (n / (n - 1)))
+        out = centred * torch.rsqrt(var + self.eps).view(shape) \
             * self.weight.float().view(shape) + self.bias.float().view(shape)
         return out.to(x.dtype)
 

@@ -16,7 +16,10 @@ EMA of each step's fresh factors and are re-inverted every
 ``invert_every`` steps: a Python branch where JAX has ``lax.cond``. The
 fresh factors come from ``KFAC.update_state``, so on CUDA every step's
 conv A factors take the patch-Gram kernels where JAX's dispatch picks
-them.
+them. With a ``mesh`` the step is the single-process step on the global
+batch: each rank runs its rows of the data axis, BatchNorm normalizes
+over the whole batch, the gradients are summed over the data ranks and
+the fresh factors come from the meshed capture (``Estimator.use_mesh``).
 """
 from typing import Dict
 
@@ -26,7 +29,29 @@ import torch.nn.functional as F
 from curvature_tpu_torch.estimators.base import normalize_damping
 from curvature_tpu_torch.estimators.capture import collect
 from curvature_tpu_torch.nn.core import (
-    matrix_to_delta, param_key, param_matrix)
+    Context, matrix_to_delta, param_key, param_matrix)
+from curvature_tpu_torch.parallel.mesh import all_reduce, all_reduce_tree
+
+
+def loss_backward(model, x, y, mesh=None) -> torch.Tensor:
+    """The mean cross-entropy of the batch, its gradient accumulated into
+    the parameters' ``.grad``; returns the loss, detached. Under ``mesh``
+    (a batch that divides its data axis) each rank runs its rows with
+    BatchNorm synced over the data ranks, its rows' loss divided by the
+    global batch, and the gradients and the loss are summed over the data
+    ranks: every rank holds the global batch's loss and gradient."""
+    rows = None if mesh is None else mesh.rows(x.shape[0])
+    if rows is None:
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        return loss.detach()
+    group = mesh.group("data")
+    logits = model(x[rows], Context(update_stats=True, data_group=group))
+    loss = F.cross_entropy(logits, y[rows], reduction="sum") / x.shape[0]
+    loss.backward()
+    all_reduce_tree([p.grad for p in model.parameters()
+                     if p.grad is not None], group)
+    return all_reduce(loss.detach(), group)
 
 
 def precondition(metas: Dict, inv_state: Dict,
@@ -68,7 +93,8 @@ def precondition(metas: Dict, inv_state: Dict,
 
 def make_kfac_train_step(model, est, optimizer, ema: float = 0.95,
                          damping: float = 1e-2, fisher_scale: float = 1.0,
-                         invert_every: int = 10, mc_fisher: bool = True):
+                         invert_every: int = 10, mc_fisher: bool = True,
+                         mesh=None):
     """One natural-gradient step.
 
     ``est`` is a ``KFAC`` over the layers to precondition (its
@@ -80,10 +106,17 @@ def make_kfac_train_step(model, est, optimizer, ema: float = 0.95,
     ``step(factors, inv, count, x, y, generator)`` -> (factors, inv,
     count + 1, loss), which updates the model's parameters, its BatchNorm
     running statistics and the optimizer's state in place, and
-    ``init(x0, y0, generator)`` -> (factors, inv) from one batch."""
+    ``init(x0, y0, generator)`` -> (factors, inv) from one batch.
+    ``mesh`` splits each step over its data axis (the module docstring);
+    the fresh factors' labels are then drawn per rank."""
     metas = est.metas
+    if mesh is not None:
+        est.use_mesh(mesh)
 
     def batch_factors(x, y, generator):
+        if mesh is not None:
+            return est.batch_state(est.capture(
+                x, None if mc_fisher else y[None], generator, 1))
         # train-mode BatchNorm on batch statistics; the capture leaves the
         # running statistics alone, as JAX discards the capture's stats
         if mc_fisher:
@@ -104,8 +137,7 @@ def make_kfac_train_step(model, est, optimizer, ema: float = 0.95,
     def step(factors, inv, count, x, y, generator=None):
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        loss = F.cross_entropy(model(x), y)
-        loss.backward()
+        loss = loss_backward(model, x, y, mesh)
         fresh = batch_factors(x, y, generator)
         with torch.no_grad():
             factors = {n: {k: ema * v + (1.0 - ema) * fresh[n][k]
@@ -120,7 +152,7 @@ def make_kfac_train_step(model, est, optimizer, ema: float = 0.95,
             for k, g in grads.items():
                 params[k].grad = g
         optimizer.step()
-        return factors, inv, count + 1, loss.detach()
+        return factors, inv, count + 1, loss
 
     def init(x0, y0, generator=None):
         """Initial (factors, inv) from one real batch."""

@@ -1,0 +1,17 @@
+"""Multi-rank scaling for factor estimation, training and Bayesian
+evaluation on ``torch.distributed``: the data and sample axes of the JAX
+package's ``parallel`` (mesh.py, distributed.py)."""
+from curvature_tpu_torch.parallel.mesh import (
+    Mesh, build_mesh, make_mesh, mesh_from_spec, replicate, shard_batch,
+    sharded_update_fn,
+)
+from curvature_tpu_torch.parallel.distributed import (
+    global_mesh, host_local_to_global, initialize, process_batch_slice,
+)
+
+__all__ = [
+    "make_mesh", "mesh_from_spec", "build_mesh", "sharded_update_fn",
+    "replicate", "shard_batch",
+    "initialize", "global_mesh", "process_batch_slice",
+    "host_local_to_global", "Mesh",
+]

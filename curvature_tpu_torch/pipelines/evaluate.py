@@ -13,7 +13,10 @@ numbers per token, computed on the device, written to ``*_stats.npz``.
 ``--predictive probit|bridge|linearized|linearized_probit|
 linearized_bridge`` replaces the sampled Bayesian predictive of ``--ood``
 by a closed-form or linearized one over the same posterior draws
-(``eval/predictive.py``).
+(``eval/predictive.py``). ``--parallel``/``--mesh`` split the test pass
+and the ``--ood`` evals over the ranks' data axis (every rank holds the
+same predictions; rank 0 writes them); the FGSM sweep runs whole on
+every rank, as in JAX.
 
     python -m curvature_tpu_torch.pipelines.evaluate --model lenet5 \\
         --data mnist --data_dir <dir> --estimator kfac --norm 1 \\
@@ -32,8 +35,9 @@ from curvature_tpu_torch.models import state_from_jax
 from curvature_tpu_torch.pipelines.common import (
     NUM_CLASSES, build_data, build_model, build_ood_data, layer_filter,
     loss_kind, on_device)
+from curvature_tpu_torch.parallel.mesh import build_mesh
 from curvature_tpu_torch.utils.checkpoint import (
-    factors_path, load_pytree, results_paths)
+    factors_path, load_pytree, results_paths, write_once)
 from curvature_tpu_torch.utils.table import tabulate
 
 
@@ -160,14 +164,17 @@ def _out_of_domain_stats(cfg, model, est, results_path: str):
     out_data = list(on_device(out_data, device))
     dtype = _compute_dtype(cfg)
     chunk = getattr(cfg, "sample_chunk", 0) or None
-    nn_s, labels = eval_nn_stats(model, in_data, compute_dtype=dtype)
+    mesh = build_mesh(cfg)
+    nn_s, labels = eval_nn_stats(model, in_data, compute_dtype=dtype,
+                                 mesh=mesh)
     bnn_s, _ = eval_bnn_stats(model, est, in_data, cfg.samples,
                               _generator(cfg, model), sample_chunk=chunk,
-                              compute_dtype=dtype)
-    ood_nn_s, _ = eval_nn_stats(model, out_data, compute_dtype=dtype)
+                              compute_dtype=dtype, mesh=mesh)
+    ood_nn_s, _ = eval_nn_stats(model, out_data, compute_dtype=dtype,
+                                mesh=mesh)
     ood_bnn_s, _ = eval_bnn_stats(model, est, out_data, cfg.samples,
                                   _generator(cfg, model), sample_chunk=chunk,
-                                  compute_dtype=dtype)
+                                  compute_dtype=dtype, mesh=mesh)
     _print_stats_summary("NN ", nn_s)
     _print_stats_summary("BNN", bnn_s)
     auroc_nn = metrics.auroc(nn_s[:, 3], ood_nn_s[:, 3])
@@ -175,11 +182,11 @@ def _out_of_domain_stats(cfg, model, est, results_path: str):
     print(f"OOD AUROC (predictive entropy): NN {auroc_nn:.4f} "
           f"| BNN {auroc_bnn:.4f}", flush=True)
     if not cfg.no_results:
-        np.savez_compressed(results_path + "_stats.npz",
-                            stats_columns=np.asarray(STATS_COLUMNS),
-                            labels=labels, nn_stats=nn_s, bnn_stats=bnn_s,
-                            ood_nn_stats=ood_nn_s, ood_bnn_stats=ood_bnn_s,
-                            auroc=np.asarray([auroc_nn, auroc_bnn]))
+        write_once(np.savez_compressed, results_path + "_stats.npz",
+                   stats_columns=np.asarray(STATS_COLUMNS),
+                   labels=labels, nn_stats=nn_s, bnn_stats=bnn_s,
+                   ood_nn_stats=ood_nn_s, ood_bnn_stats=ood_bnn_s,
+                   auroc=np.asarray([auroc_nn, auroc_bnn]))
     return nn_s, bnn_s, labels
 
 
@@ -195,17 +202,20 @@ def out_of_domain(cfg, model, est, results_path: str, fig_path: str):
     dtype = _compute_dtype(cfg)
     chunk = getattr(cfg, "sample_chunk", 0) or None
     pred_kind = getattr(cfg, "predictive", "sampled") or "sampled"
+    # --parallel/--mesh: the eval batches split over the data axis (JAX
+    # :173-178)
+    mesh = build_mesh(cfg)
     if pred_kind == "sampled":
         predictions, bnn_predictions, labels, stats = eval_nn_and_bnn(
             model, est, in_data, cfg.samples, _generator(cfg, model),
-            cfg.stats, compute_dtype=dtype, sample_chunk=chunk)
+            cfg.stats, compute_dtype=dtype, sample_chunk=chunk, mesh=mesh)
         ood_predictions, bnn_ood_predictions, _, _ = eval_nn_and_bnn(
             model, est, out_data, cfg.samples, _generator(cfg, model), False,
-            compute_dtype=dtype, sample_chunk=chunk)
+            compute_dtype=dtype, sample_chunk=chunk, mesh=mesh)
     else:
         predictions, bnn_predictions, labels, ood_predictions, \
             bnn_ood_predictions = _alternative_predictive(
-                cfg, model, est, in_data, out_data, pred_kind, chunk)
+                cfg, model, est, in_data, out_data, pred_kind, chunk, mesh)
         stats = {}
     _print_summary("NN ", predictions, labels)
     _print_summary("BNN", bnn_predictions, labels)
@@ -218,19 +228,19 @@ def out_of_domain(cfg, model, est, results_path: str, fig_path: str):
     print(f"OOD AUROC (predictive entropy): NN {auroc_nn:.4f} "
           f"| BNN {auroc_bnn:.4f}", flush=True)
     if not cfg.no_results:
-        np.savez_compressed(results_path + ".npz",
-                            stats=stats,
-                            labels=labels,
-                            predictions=predictions,
-                            bnn_predictions=bnn_predictions,
-                            ood_predictions=ood_predictions,
-                            bnn_ood_predictions=bnn_ood_predictions,
-                            auroc=np.asarray([auroc_nn, auroc_bnn]))
+        write_once(np.savez_compressed, results_path + ".npz",
+                   stats=stats,
+                   labels=labels,
+                   predictions=predictions,
+                   bnn_predictions=bnn_predictions,
+                   ood_predictions=ood_predictions,
+                   bnn_ood_predictions=bnn_ood_predictions,
+                   auroc=np.asarray([auroc_nn, auroc_bnn]))
     return predictions, bnn_predictions, labels
 
 
 def _alternative_predictive(cfg, model, est, in_data, out_data,
-                            pred_kind: str, chunk):
+                            pred_kind: str, chunk, mesh=None):
     """The closed-form / linearized predictives of ``--predictive``
     (JAX :192-227): the NN on both sets, the BNN through ``pred_kind``
     over one posterior draw per set from a generator seeded with
@@ -251,17 +261,21 @@ def _alternative_predictive(cfg, model, est, in_data, out_data,
         gen = _generator(cfg, model)
         if pred_kind in ("probit", "bridge"):
             return eval_bnn_closed_form(model, est, data, cfg.samples,
-                                        generator=gen, method=pred_kind)[0]
+                                        generator=gen, method=pred_kind,
+                                        mesh=mesh)[0]
         if pred_kind.startswith("linearized"):
             method = pred_kind[len("linearized"):].lstrip("_") or "mc"
             return eval_bnn_linearized(model, est, data, cfg.samples,
-                                       generator=gen, method=method)[0]
+                                       generator=gen, method=method,
+                                       mesh=mesh)[0]
         raise ValueError(f"unknown --predictive {pred_kind!r}")
 
     dtype = _compute_dtype(cfg)
-    predictions, labels = eval_nn(model, in_data, compute_dtype=dtype)
+    predictions, labels = eval_nn(model, in_data, compute_dtype=dtype,
+                                  mesh=mesh)
     bnn_predictions = alt_bnn(in_data)
-    ood_predictions, _ = eval_nn(model, out_data, compute_dtype=dtype)
+    ood_predictions, _ = eval_nn(model, out_data, compute_dtype=dtype,
+                                 mesh=mesh)
     return (predictions, bnn_predictions, labels, ood_predictions,
             alt_bnn(out_data))
 
@@ -294,8 +308,8 @@ def adversarial_attack(cfg, model, est, results_path: str, fig_path: str):
             stats_dict[k].append(s[k])
             bnn_stats_dict[k].append(bs[k])
         if not cfg.no_results:
-            np.savez(results_path + "_fgsm.npz", stats=stats_dict,
-                     bnn_stats=bnn_stats_dict)
+            write_once(np.savez, results_path + "_fgsm.npz",
+                       stats=stats_dict, bnn_stats=bnn_stats_dict)
     print(tabulate(stats_dict, headers="keys"))
     print(tabulate(bnn_stats_dict, headers="keys"), flush=True)
     return stats_dict, bnn_stats_dict
@@ -306,7 +320,7 @@ def test(cfg, model, fig_path: str = ""):
     device = next(model.parameters()).device
     predictions, labels = eval_nn(
         model, on_device(build_data(cfg, splits="test"), device),
-        compute_dtype=_compute_dtype(cfg))
+        compute_dtype=_compute_dtype(cfg), mesh=build_mesh(cfg))
     _print_summary("NN ", predictions, labels)
     return predictions, labels
 

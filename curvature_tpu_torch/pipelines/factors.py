@@ -9,7 +9,14 @@ uniform batches go through ``update_batches``, the ragged tail through
 ``--seed``. On the card the batches come through ``data.prefetch.
 DevicePrefetcher``, ``max(--workers, 2)`` deep (JAX :88-96): pinned host
 copies, ``non_blocking`` transfers on a side stream overlapping the
-update; on the CPU each batch is wrapped as it comes.
+update; on the CPU each batch is wrapped as it comes. ``--parallel``/
+``--mesh data:N[,sample:M]`` split every update over the ranks of a
+``torch.distributed.run`` launch (``Estimator.use_mesh``): each rank
+loads the whole batch and captures its rows, the factors stay replicated
+and rank 0 writes them::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m curvature_tpu_torch.pipelines.factors --mesh data:2 ...
 
     python -m curvature_tpu_torch.pipelines.factors --model lenet5 \\
         --data mnist --data_dir <dir holding MNIST/raw> --estimator kfac
@@ -24,11 +31,12 @@ import torch
 from curvature_tpu_torch import estimators
 from curvature_tpu_torch.data.prefetch import DevicePrefetcher
 from curvature_tpu_torch.models import state_from_jax
+from curvature_tpu_torch.parallel.mesh import build_mesh
 from curvature_tpu_torch.pipelines.common import (
     build_data, build_model, device_batch, layer_filter, loss_kind,
     model_input)
 from curvature_tpu_torch.utils.checkpoint import (
-    factors_path, load_pytree, save_pytree)
+    factors_path, load_pytree, save_pytree, write_once)
 
 
 def _device(model) -> torch.device:
@@ -72,6 +80,12 @@ def compute_factors(model, data, cfg, kfac_state=None,
                                   **kw)
     else:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
+    # multi-rank: the batch split over the mesh's data axis, the factors
+    # replicated (reference factors.py:86-87); a ragged tail batch runs
+    # whole on every rank inside the estimator
+    mesh = build_mesh(cfg)
+    if mesh is not None:
+        est.use_mesh(mesh)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
     chunk = max(getattr(cfg, "scan_chunk", 1), 1)
@@ -152,8 +166,9 @@ def diagnose(est, x, cfg, norm: float = 1.0):
         print(tabulate(rows, headers=("layer", "structural err", "alpha",
                                       "rel err @norm", "q_true")))
         path = factors_path(cfg) + "_fidelity.npz"
-        np.savez(path, **{f"{n}/{k}": v for n, r in rep.items()
-                          for k, v in r.items()})
+        write_once(np.savez, path, **{f"{n}/{k}": v
+                                      for n, r in rep.items()
+                                      for k, v in r.items()})
         print(f"fidelity report -> {path}")
     if steps > 0:
         from curvature_tpu_torch.ops import matfree
@@ -166,7 +181,7 @@ def diagnose(est, x, cfg, norm: float = 1.0):
         ritz, weights = matfree.lanczos_topk(mv, example, steps, gen)
         ritz, weights = ritz.cpu().numpy(), weights.cpu().numpy()
         path = factors_path(cfg) + "_spectrum.npz"
-        np.savez(path, ritz=ritz, weights=weights)
+        write_once(np.savez, path, ritz=ritz, weights=weights)
         print(f"true-curvature spectrum (top ritz {ritz[:3].round(6)}) -> "
               f"{path}")
 

@@ -19,7 +19,9 @@ inversion fails (``torch.linalg.LinAlgError`` from a Cholesky, where JAX
 gets NaN) or gives non-finite values is recorded with JAX's penalty;
 ``run`` prints how many were. The stats ``.npy`` (a pickled dict of
 lists) and ``<results>_best_params.npy`` have JAX's layout and paths, so
-each package reads the other's.
+each package reads the other's. ``--parallel``/``--mesh`` split each
+validation batch over the ranks' data axis: every rank computes the same
+costs, and rank 0 writes the files.
 
     python -m curvature_tpu_torch.pipelines.hyper --model lenet5 \\
         --data mnist --data_dir <dir> --estimator kfac --optimizer gp \\
@@ -40,7 +42,8 @@ from curvature_tpu_torch.pipelines import surrogates
 from curvature_tpu_torch.pipelines.common import (
     build_data, build_model, on_device)
 from curvature_tpu_torch.pipelines.evaluate import load_estimator
-from curvature_tpu_torch.utils.checkpoint import results_paths
+from curvature_tpu_torch.parallel.mesh import build_mesh
+from curvature_tpu_torch.utils.checkpoint import results_paths, write_once
 
 SPACE = (-10.0, 10.0)
 SINGULAR_COST = 200.0
@@ -89,7 +92,7 @@ def candidate_ensemble(est, inv, samples: int,
     return out
 
 
-def make_batched_evaluator(cfg, model, est, val_batches):
+def make_batched_evaluator(cfg, model, est, val_batches, mesh=None):
     """Evaluate many (norm, scale) candidates: ``evaluate(norms, scales,
     generator=None, noise=None)`` with [C] shared or [C, L] per-layer raw
     damping values returns one stat dict per candidate (keys
@@ -102,7 +105,8 @@ def make_batched_evaluator(cfg, model, est, val_batches):
     candidate c's s-th standard-normal draw (else ``generator`` draws).
     A candidate whose inversion raises ``torch.linalg.LinAlgError`` or
     whose predictions are not finite gets the penalty row; the function's
-    ``penalized`` attribute counts them."""
+    ``penalized`` attribute counts them. With ``mesh`` each validation
+    batch splits over the data axis (JAX :90-92)."""
     num_layers = len(est.metas)
     batches = list(val_batches)
 
@@ -122,7 +126,8 @@ def make_batched_evaluator(cfg, model, est, val_batches):
                     est, inv, cfg.samples, generator,
                     None if noise is None else noise[i])
                 probs, labels, _ = eval_bnn(model, est, batches,
-                                            cfg.samples, ensemble_params=ens)
+                                            cfg.samples, ensemble_params=ens,
+                                            mesh=mesh)
                 del ens, inv
             except torch.linalg.LinAlgError:
                 probs = None
@@ -179,7 +184,7 @@ def per_layer_search(cfg, evaluator, num_layers: int, stats: Dict[str, list],
             for k in ("acc", "ece", "nll", "ent", "cost"):
                 stats[k].append(r[k])
         if stats_path:
-            np.save(stats_path, stats)
+            write_once(np.save, stats_path, stats)
 
     seed, seed2 = cfg.seed, cfg.seed + 1
     # phase 1: shared-damping random init
@@ -243,7 +248,7 @@ def _record_row(stats, norms, scales, cost, nll, acc=0.0, ece=0.0,
 
 
 def make_objective(cfg, model, est, val_batches, stats: Dict[str, list],
-                   stats_path: str) -> Callable:
+                   stats_path: str, mesh=None) -> Callable:
     """The sequential objective of the adaptive optimizers: invert the
     estimator at (10^norm_log10, 10^scale_log10) for every layer, then a
     ``cfg.samples``-sample Bayesian eval whose draws come from a
@@ -251,7 +256,7 @@ def make_objective(cfg, model, est, val_batches, stats: Dict[str, list],
     raises ``torch.linalg.LinAlgError`` or leaves a non-finite inverse
     state costs ``SINGULAR_COST``, its row recorded (``run`` finds the
     best candidate by index over the rows); ``objective.penalized``
-    counts them."""
+    counts them. ``mesh`` splits the eval batches over its data axis."""
     num_layers = len(est.metas)
     chunk = getattr(cfg, "sample_chunk", 0) or None
     batches = list(val_batches)
@@ -268,11 +273,12 @@ def make_objective(cfg, model, est, val_batches, stats: Dict[str, list],
             objective.penalized += 1
             _record_row(stats, norms, scales, SINGULAR_COST, float("inf"))
             if stats_path:
-                np.save(stats_path, stats)
+                write_once(np.save, stats_path, stats)
             return SINGULAR_COST
         predictions, labels, _ = eval_bnn(
             model, est, batches, cfg.samples,
-            generator=_generator(est.device, cfg.seed), sample_chunk=chunk)
+            generator=_generator(est.device, cfg.seed), sample_chunk=chunk,
+            mesh=mesh)
         err = 100.0 - float(metrics.accuracy(predictions, labels))
         ece = 100.0 * float(
             metrics.expected_calibration_error(predictions, labels)[0])
@@ -281,7 +287,8 @@ def make_objective(cfg, model, est, val_batches, stats: Dict[str, list],
         _record_row(stats, norms, scales, err + ece, nll, 100.0 - err, ece,
                     ent)
         if stats_path:
-            np.save(stats_path, stats)  # incremental resume (hyper.py:160)
+            # incremental resume (hyper.py:160)
+            write_once(np.save, stats_path, stats)
         return err + ece
 
     objective.penalized = 0
@@ -404,7 +411,8 @@ def aggregate_best_params(cfg, filename: str):
         return None
     best = int(np.argmin(all_stats["cost"]))
     out = np.array([all_stats["norms"][best], all_stats["scales"][best]])
-    np.save(os.path.join(path, f"{filename}_best_params.npy"), out)
+    write_once(np.save, os.path.join(path, f"{filename}_best_params.npy"),
+               out)
     return out
 
 
@@ -420,7 +428,7 @@ def _marglik_grad(cfg, est, nll: float, stats, stats_path: str):
                 [float(v) for v in res["scales"]], cost, float(nll),
                 float("nan"), float("nan"), float("nan"))
     if not cfg.no_results:
-        np.save(stats_path, stats)
+        write_once(np.save, stats_path, stats)
         aggregate_best_params(
             cfg, f"{cfg.prefix}{cfg.model}_{cfg.data}{cfg.suffix}")
     print(f"log marginal likelihood {res['log_marglik']:.3f} after "
@@ -457,7 +465,7 @@ def make_marglik_objective(cfg, est, nll: float, stats, stats_path: str
                     [10.0 ** scale_log10] * num_layers, cost, float(nll),
                     float("nan"), float("nan"), float("nan"))
         if stats_path:
-            np.save(stats_path, stats)
+            write_once(np.save, stats_path, stats)
         return cost
 
     objective.penalized = 0
@@ -475,6 +483,7 @@ def run(cfg):
     device = next(model.parameters()).device
     val_batches = list(on_device(build_data(cfg, splits="val"), device))
     est = load_estimator(cfg, model)
+    mesh = build_mesh(cfg)      # --parallel/--mesh (reference hyper.py:60-61)
     if not getattr(est, "metas", None):
         raise ValueError(
             "hyper tunes the damping of curvature estimators; "
@@ -506,7 +515,8 @@ def run(cfg):
         xs, ys = optimize(objective, cfg.optimizer, cfg.calls, cfg.seed, x0)
         penalized = objective.penalized
     elif cfg.layer:
-        evaluator = make_batched_evaluator(cfg, model, est, val_batches)
+        evaluator = make_batched_evaluator(cfg, model, est, val_batches,
+                                           mesh)
         norms, scales, best_cost = per_layer_search(
             cfg, evaluator, len(est.metas), stats,
             "" if cfg.no_results else stats_path, device=device)
@@ -524,7 +534,8 @@ def run(cfg):
             xs = [list(p) for p in (x0 or [])]
             xs += [list(rng_np.uniform(*SPACE, size=2))
                    for _ in range(max(cfg.calls - len(xs), 0))]
-        evaluator = make_batched_evaluator(cfg, model, est, val_batches)
+        evaluator = make_batched_evaluator(cfg, model, est, val_batches,
+                                           mesh)
         num_layers = len(est.metas)
         gen = _generator(device, cfg.seed)
         ys = []
@@ -539,16 +550,17 @@ def run(cfg):
                             r["acc"], r["ece"], r["ent"])
                 ys.append(r["cost"])
             if not cfg.no_results:
-                np.save(stats_path, stats)
+                write_once(np.save, stats_path, stats)
         penalized = evaluator.penalized
     else:
         objective = make_objective(cfg, model, est, val_batches, stats,
-                                   "" if cfg.no_results else stats_path)
+                                   "" if cfg.no_results else stats_path,
+                                   mesh)
         xs, ys = optimize(objective, cfg.optimizer, cfg.calls, cfg.seed, x0)
         penalized = objective.penalized
 
     if not cfg.no_results:
-        np.save(stats_path, stats)
+        write_once(np.save, stats_path, stats)
         filename = f"{cfg.prefix}{cfg.model}_{cfg.data}{cfg.suffix}"
         aggregate_best_params(cfg, filename)
     best = int(np.argmin(ys))

@@ -10,7 +10,11 @@ A chunk of perturbed parameter sets runs as one batched forward per data
 batch: ``torch.func.vmap`` over ``functional_call`` with the model in
 eval mode (BatchNorm on its running statistics), as JAX vmaps its chunk;
 where vmap cannot take a layer, the chunk runs as a loop. A ragged last
-chunk is padded to the chunk size, as in JAX.
+chunk is padded to the chunk size, as in JAX. ``mesh`` (``--parallel``/
+``--mesh``) splits each data batch over the mesh's data axis: each rank
+sums its rows' losses and hits and the sums meet in an all-reduce (JAX
+``make_chunked_eval(mesh=)``, :63-93); a batch that does not divide
+runs whole on every rank.
 
 The filter axis: JAX normalizes a direction per output filter over every
 axis but the last, the output axis of its HWIO and ``[in, out]`` layouts.
@@ -34,6 +38,8 @@ import torch.nn.functional as F
 from torch.func import functional_call, vmap
 
 from curvature_tpu_torch.nn import Conv, Dense
+from curvature_tpu_torch.parallel.mesh import all_reduce, build_mesh
+from curvature_tpu_torch.utils.checkpoint import write_once
 
 
 def filter_axes(model) -> Dict[str, int]:
@@ -99,10 +105,11 @@ def perturb(params: Dict[str, torch.Tensor], directions: Sequence[Dict],
     return out
 
 
-def make_chunked_eval(model):
+def make_chunked_eval(model, mesh=None):
     """(stacked params {key: [chunk, ...]}, x, y) -> per point (sum loss,
     number correct), two [chunk] tensors on the device; the model runs in
-    eval mode. ``vmap`` over the chunk, else a loop over its points."""
+    eval mode. ``vmap`` over the chunk, else a loop over its points.
+    Under ``mesh`` this rank's rows, the sums all-reduced."""
     def one(p, x, y):
         logits = functional_call(model, p, (x,))
         loss = F.cross_entropy(logits, y) * y.shape[0]
@@ -120,6 +127,14 @@ def make_chunked_eval(model):
 
     @torch.no_grad()
     def chunk_eval(stacked, x, y):
+        rows = None if mesh is None else mesh.rows(x.shape[0])
+        if rows is None:
+            return local_eval(stacked, x, y)
+        group = mesh.group("data")
+        return tuple(all_reduce(t, group)
+                     for t in local_eval(stacked, x[rows], y[rows]))
+
+    def local_eval(stacked, x, y):
         # batched tensors answer layout queries for the contiguous format
         # only: the chunk runs in NCHW whatever the model's format
         stacked = {k: v.contiguous() for k, v in stacked.items()}
@@ -139,7 +154,7 @@ def make_chunked_eval(model):
     return chunk_eval
 
 
-def make_point_evaluator(model, directions, chunk: int = 8):
+def make_point_evaluator(model, directions, chunk: int = 8, mesh=None):
     """One evaluator reused across every chunk of coordinates: each
     chunk's perturbed parameter sets (padded to ``chunk``) run over every
     batch; returns ``eval_coords(coords, batches)`` -> (mean losses,
@@ -148,7 +163,7 @@ def make_point_evaluator(model, directions, chunk: int = 8):
     ``.state["vmap"]`` says whether the chunks ran through vmap."""
     params = {k: p.detach() for k, p in model.named_parameters()}
     dirs = list(directions)
-    chunk_eval = make_chunked_eval(model)
+    chunk_eval = make_chunked_eval(model, mesh)
 
     def eval_coords(coords: np.ndarray, batches: List
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -202,10 +217,12 @@ def _report(what: str, eval_coords):
 
 
 def evaluate_points(model, directions, coords: np.ndarray, batches: List,
-                    chunk: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+                    chunk: int = 8, mesh=None
+                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Loss and accuracy at each coordinate (rows of ``coords``, one
     column per direction)."""
-    return make_point_evaluator(model, directions, chunk)(coords, batches)
+    return make_point_evaluator(model, directions, chunk, mesh)(coords,
+                                                                batches)
 
 
 def _device_batches(batches, device) -> List:
@@ -223,8 +240,8 @@ def _params(model) -> Dict[str, torch.Tensor]:
 def loss1d(model, train_batches, val_batches=None,
            generator: Optional[torch.Generator] = None, xmin: float = -1.0,
            xmax: float = 1.0, steps: int = 51, path: str = "",
-           chunk: int = 8, directions: Optional[Sequence[Dict]] = None
-           ) -> Dict:
+           chunk: int = 8, directions: Optional[Sequence[Dict]] = None,
+           mesh=None) -> Dict:
     """1-D line scan along one filter-normalized direction (reference
     loss1d, loss.py:170-293), resumable via ``path``. ``train_batches``
     and ``val_batches`` are loaders (NHWC numpy batches), each read once;
@@ -240,7 +257,7 @@ def loss1d(model, train_batches, val_batches=None,
         directions = [random_direction(_params(model), generator,
                                        axes=filter_axes(model))]
     xs = result["xcoordinates"][:, None]
-    eval_coords = make_point_evaluator(model, directions, chunk)
+    eval_coords = make_point_evaluator(model, directions, chunk, mesh)
 
     def fill(split, batches):
         loss_key, acc_key = f"{split}_loss", f"{split}_acc"
@@ -269,7 +286,7 @@ def loss2d(model, train_batches, generator: Optional[torch.Generator] = None,
            xmin: float = -1.0, xmax: float = 1.0, xsteps: int = 21,
            ymin: float = -1.0, ymax: float = 1.0, ysteps: int = 21,
            path: str = "", chunk: int = 8,
-           directions: Optional[Sequence[Dict]] = None) -> Dict:
+           directions: Optional[Sequence[Dict]] = None, mesh=None) -> Dict:
     """2-D surface over two random filter-normalized directions, ``dx``
     drawn before ``dy`` (reference loss2d, loss.py:296-397); resumable
     per row. ``directions``, where given, is (dx, dy)."""
@@ -286,7 +303,7 @@ def loss2d(model, train_batches, generator: Optional[torch.Generator] = None,
         directions = [random_direction(_params(model), generator, axes=axes)
                       for _ in range(2)]
     batches = _device_batches(train_batches, device)
-    eval_coords = make_point_evaluator(model, directions, chunk)
+    eval_coords = make_point_evaluator(model, directions, chunk, mesh)
     for j, yv in enumerate(ys):
         if np.isfinite(result["loss"][j]).all():
             continue  # resume: skip evaluated rows (loss.py:359-364)
@@ -308,7 +325,7 @@ def _load_or_new(path: str, default: Dict) -> Dict:
 def _save(path: str, result: Dict):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        np.save(path, result, allow_pickle=True)
+        write_once(np.save, path, result, allow_pickle=True)
 
 
 def run(cfg):
@@ -319,12 +336,15 @@ def run(cfg):
     train = build_data(cfg, splits="train")
     generator = torch.Generator(device=next(model.parameters()).device
                                 ).manual_seed(cfg.seed)
+    # --parallel/--mesh: eval batches split over the data axis (reference
+    # loss.py:423-424)
+    mesh = build_mesh(cfg)
     if cfg.loss2d:
         return loss2d(model, train, generator,
-                      path=results_path + "_loss2d.npy")
+                      path=results_path + "_loss2d.npy", mesh=mesh)
     val = build_data(cfg, splits="val")
     return loss1d(model, train, val, generator,
-                  path=results_path + "_loss1d.npy")
+                  path=results_path + "_loss1d.npy", mesh=mesh)
 
 
 def main(argv=None):

@@ -12,7 +12,11 @@ BatchNorm updates its running statistics as JAX merges the step's
 ``batch_stats``. The step losses stay on the device and reach the host
 once an epoch. The checkpoint is the model's state in JAX's layout
 (``models.variables_to_jax``), so both packages' ``build_model`` read
-it; ``--swag`` writes the SWAG state next to it.
+it; ``--swag`` writes the SWAG state next to it. ``--parallel``/``--mesh``
+split every step over the ranks' data axis (``optim.loss_backward``:
+BatchNorm synced, gradients summed), so each step is the single-process
+step on the global batch and the parameters stay replicated; rank 0
+writes the checkpoint.
 
     python -m curvature_tpu_torch.pipelines.training --model lenet5 \\
         --data mnist --data_dir <dir> --root_dir <root> --epochs 10 \\
@@ -23,10 +27,11 @@ from typing import Dict
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from curvature_tpu_torch.eval import eval_nn, metrics
 from curvature_tpu_torch.models import variables_to_jax
+from curvature_tpu_torch.optim import loss_backward
+from curvature_tpu_torch.parallel.mesh import build_mesh
 from curvature_tpu_torch.pipelines.common import on_device
 from curvature_tpu_torch.utils.checkpoint import save_pytree
 
@@ -44,15 +49,16 @@ def lr_at(step: int, lr: float, total_steps: int) -> float:
     return float(v)
 
 
-def make_train_step(model, optimizer):
+def make_train_step(model, optimizer, mesh=None):
     """One SGD/Adam step on a batch: (x, y) -> the step's mean
-    cross-entropy, a tensor on the device."""
+    cross-entropy, a tensor on the device. With ``mesh`` the batch splits
+    over its data axis (JAX ``make_train_step(mesh=)``, :17-50); a batch
+    that does not divide runs whole on every rank."""
     def step(x, y):
         optimizer.zero_grad(set_to_none=True)
-        loss = F.cross_entropy(model(x), y)
-        loss.backward()
+        loss = loss_backward(model, x, y, mesh)
         optimizer.step()
-        return loss.detach()
+        return loss
     return step
 
 
@@ -61,7 +67,7 @@ def _labels(y, device) -> torch.Tensor:
 
 
 def train(model, train_data, cfg, val_data=None, optimizer: str = "sgd",
-          swag=None):
+          swag=None, mesh=None):
     """Train ``model`` in place on loader batches ``train_data`` (NHWC
     numpy); returns (model, history) with the per-epoch mean loss and,
     given ``val_data``, the validation accuracy.
@@ -71,7 +77,8 @@ def train(model, train_data, cfg, val_data=None, optimizer: str = "sgd",
     labels drawn from a generator seeded with ``cfg.seed``).
     ``swag``: an optional ``estimators.SWAG`` that collects one iterate at
     the end of every epoch in the SWA window (the last 25% of the epochs;
-    every epoch when there are fewer than 4)."""
+    every epoch when there are fewer than 4). ``mesh`` splits every step
+    and the validation pass over its data axis."""
     device = next(model.parameters()).device
     steps_per_epoch = max(len(train_data), 1) \
         if hasattr(train_data, "__len__") else 100
@@ -87,7 +94,8 @@ def train(model, train_data, cfg, val_data=None, optimizer: str = "sgd",
         from curvature_tpu_torch.estimators import KFAC
         est = KFAC(model)
         kstep, kinit = optim.make_kfac_train_step(
-            model, est, opt, damping=getattr(cfg, "opt_damping", 1e-2))
+            model, est, opt, damping=getattr(cfg, "opt_damping", 1e-2),
+            mesh=mesh)
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
         # one batch of the loader, as JAX takes it: on a shuffling loader
         # this draws one permutation, which every later epoch's order
@@ -102,7 +110,7 @@ def train(model, train_data, cfg, val_data=None, optimizer: str = "sgd",
                                               generator)
             return loss
     else:
-        step = make_train_step(model, opt)
+        step = make_train_step(model, opt, mesh)
 
     history: Dict[str, list] = {"loss": [], "val_acc": []}
     swa_start = int(cfg.epochs * 0.75) if cfg.epochs >= 4 else 0
@@ -120,7 +128,8 @@ def train(model, train_data, cfg, val_data=None, optimizer: str = "sgd",
         if swag is not None and epoch >= swa_start:
             swag.collect(model)
         if val_data is not None:
-            probs, labels = eval_nn(model, on_device(val_data, device))
+            probs, labels = eval_nn(model, on_device(val_data, device),
+                                    mesh=mesh)
             history["val_acc"].append(float(metrics.accuracy(probs,
                                                              labels)))
     return model, history
@@ -143,7 +152,7 @@ def run(cfg):
         if getattr(cfg, "swag", False) else None
     opt = cfg.optimizer if cfg.optimizer in ("adam", "kfac") else "sgd"
     model, history = train(model, train_data, cfg, val_data, optimizer=opt,
-                           swag=swag)
+                           swag=swag, mesh=build_mesh(cfg))
     save_pytree(weights_path(cfg), variables_to_jax(model))
     if swag is not None:
         save_pytree(weights_path(cfg, "_swag"), swag.jax_state())

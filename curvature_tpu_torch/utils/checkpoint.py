@@ -8,7 +8,8 @@ by layer names, saved as a compressed npz whose keys join the path with
 package loads in the other with identical arrays. Tensors are saved as
 their numpy arrays (copied to the host); loading gives numpy arrays
 (``models.state_from_jax`` places them on a device). The orbax format
-is not ported.
+is not ported. In a multi-rank run only rank 0 writes (:func:`write_once`,
+which every rank calls); every rank reads.
 """
 import os
 from typing import Dict, Tuple
@@ -17,6 +18,16 @@ import numpy as np
 import torch
 
 _SEP = "::"
+
+
+def write_once(fn, *args, **kwargs):
+    """Run the file-writing call ``fn(*args, **kwargs)`` on rank 0 only
+    (the one process of a single-process run), then wait until every rank
+    gets here, so that a rank reading the file next finds it whole."""
+    from curvature_tpu_torch.parallel.distributed import barrier, is_writer
+    if is_writer():
+        fn(*args, **kwargs)
+    barrier()
 
 
 def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -56,8 +67,12 @@ def save_pytree(path: str, tree: Dict):
     barely compress, and deflating them took 18.6 s of a ~20 s ResNet-18
     ``factors`` run (NVIDIA H100 80GB HBM3, 700.00 W); a rank-32 subspace
     state of ResNet-18 is 2.9 GB."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    np.savez(path, **_flatten(tree))
+    flat = _flatten(tree)
+
+    def write():
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        np.savez(path, **flat)
+    write_once(write)
 
 
 def load_pytree(path: str) -> Dict:
@@ -70,13 +85,13 @@ def load_pytree(path: str) -> Dict:
 def save_pytree_orbax(path: str, tree: Dict):
     raise NotImplementedError(
         "orbax checkpoints (the JAX package's sharded format) are not "
-        "ported (ROADMAP Queue 1 item 10); use save_pytree")
+        "ported (ROADMAP Queue 1 item 10b); use save_pytree")
 
 
 def load_pytree_orbax(path: str, shardings: Dict = None) -> Dict:
     raise NotImplementedError(
         "orbax checkpoints (the JAX package's sharded format) are not "
-        "ported (ROADMAP Queue 1 item 10); use load_pytree")
+        "ported (ROADMAP Queue 1 item 10b); use load_pytree")
 
 
 def factors_path(cfg, estimator: str = None, rank: str = "") -> str:

@@ -8,7 +8,9 @@ packages, with ``parse_args``/``setup`` as the CLI front end.
 without one), ``cpu`` on the CPU. ``setup`` keeps TF32 off, so f32 matmuls
 and convolutions run in strict f32 as the parity rules require. A flag
 whose module is not ported raises ``NotImplementedError`` naming its
-ROADMAP item; none is ignored.
+ROADMAP item; none is ignored. ``--parallel``/``--mesh`` start the
+process group of a ``torch.distributed.run`` launch in ``setup``
+(``parallel.initialize``).
 """
 import argparse
 import dataclasses
@@ -33,8 +35,8 @@ class Config:
     precision: str = "default"      # 'default' | 'float32' strict f32
                                     # | 'bfloat16' bf16 forwards
     workers: int = 0
-    parallel: bool = False          # multi-device: not ported
-    mesh: str = ""
+    parallel: bool = False          # every rank on one data axis
+    mesh: str = ""                  # 'data:N[,sample:M]' over the ranks
     # experiment
     model: str = "lenet5"
     data: str = "mnist"
@@ -125,8 +127,6 @@ def parse_args(argv=None, **overrides) -> Config:
 #: (what, test of the config, ROADMAP item): flags whose module is not
 #: ported; each one set raises
 NOT_PORTED = (
-    ("--parallel/--mesh (multi-device)",
-     lambda c: c.parallel or c.mesh, "Queue 1 item 10"),
     ("--plot (pipelines/plot.py: its figures need matplotlib)",
      lambda c: c.plot, "Queue 1 item 7"),
     ("the visualize figure toggles --calibration/--ecdf/--entropy/"
@@ -161,6 +161,15 @@ def setup(argv=None, **overrides) -> Config:
     utils.py:333-430)."""
     cfg = parse_args(argv, **overrides)
     check_ported(cfg)
+    if cfg.parallel or cfg.mesh:
+        # bad axes raise here; the process group starts (and picks this
+        # rank's GPU) before any model is built
+        from curvature_tpu_torch.parallel import initialize
+        from curvature_tpu_torch.parallel.mesh import check_size, cli_axes
+        axes = cli_axes(cfg)
+        initialize(device="cpu" if cfg.platform == "cpu" else None)
+        if axes is not None:
+            check_size(axes)
     device(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -156,7 +156,8 @@ def test_chunk_falls_back_to_a_loop_and_agrees(monkeypatch):
     want = tll.evaluate_points(tm, [d], coords, batches, chunk=2)
     evaluator = tll.make_chunked_eval(tm)
     evaluator.state["vmap"] = False
-    monkeypatch.setattr(tll, "make_chunked_eval", lambda model: evaluator)
+    monkeypatch.setattr(tll, "make_chunked_eval",
+                        lambda model, mesh=None: evaluator)
     got = tll.evaluate_points(tm, [d], coords, batches, chunk=2)
     np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
     np.testing.assert_array_equal(got[1], want[1])

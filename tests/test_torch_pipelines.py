@@ -496,7 +496,7 @@ def test_evaluate_cli_writes_jax_keys(lenet, swapped, capsys):
 # -- what is not ported raises --------------------------------------------
 
 @pytest.mark.parametrize("flags", [
-    ["--parallel"], ["--mesh", "data:2"], ["--ecdf"],
+    ["--mesh", "model:2"], ["--mesh", "tensor:1,data:1"], ["--ecdf"],
     ["--entropy"], ["--plot"],
     ["--networks"],
     ["--landscapes"],

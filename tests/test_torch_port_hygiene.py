@@ -77,7 +77,11 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.examples.moe_laplace",
                  "curvature_tpu_torch.nn.layers",
                  "curvature_tpu_torch.nn.core",
-                 "curvature_tpu_torch.examples.resnet50_scale"):
+                 "curvature_tpu_torch.examples.resnet50_scale",
+                 "curvature_tpu_torch.parallel",
+                 "curvature_tpu_torch.parallel.mesh",
+                 "curvature_tpu_torch.parallel.distributed",
+                 "curvature_tpu_torch.nn.adapter"):
     assert required in names, required
 assert not bad, bad
 """
@@ -102,6 +106,25 @@ def test_chip_smoke_imports_no_jax_and_no_jax_package():
                  if isinstance(n, ast.ImportFrom) and n.module]
     assert "curvature_tpu_torch.ops.cuda" in imported
     assert not [m for m in imported if _is_jax_side(m)], imported
+
+
+def test_dist_worker_imports_no_jax_and_no_jax_package():
+    """The ranks of the parallel tests (tests/torch_dist_worker.py) run
+    the port alone: no JAX and nothing of the JAX package, in the module
+    or after it ran a job's imports."""
+    path = REPO / "tests" / "torch_dist_worker.py"
+    imported = list(_imports(path))
+    assert "curvature_tpu_torch" in imported
+    assert not [m for m in imported if _is_jax_side(m)], imported
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import torch_dist_worker as W; W.mlp(); "
+            "import curvature_tpu_torch.pipelines.hyper, "
+            "curvature_tpu_torch.pipelines.loss_landscape; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'curvature_tpu')]; assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def _imports(path: Path):
