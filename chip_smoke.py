@@ -565,6 +565,31 @@ PAR_RATE_UPDATES = 2
 #: prints its time against them (the contract's limit is 1200 s; the
 #: budgets leave room for hosts ~40% slower than the card's typical one)
 PAR_BUDGET_S, RUN_BUDGET_S = 45.0, 540.0
+#: the mesh-axes phase (the model, tensor, seq and expert axes): one job
+#: of two gloo ranks on the card runs one KFAC f32 update of each path on
+#: its mesh (injected labels), then invert(MA_DAMPING) and one sample; the
+#: parent holds each to one process's. GPT-2 124M's width (dim 768, 12
+#: heads, vocabulary 50,257) at B=8, T=512, its depth cut from 12 to
+#: MA_DEPTH and the Switch GPT-2's to MA_MOE_DEPTH (time: five one-process
+#: references and a float64 witness in the parent, then the ranks' gloo)
+MA_PATHS = {"switch_gpt2_e8_kfac_update_expert2": ("moe", {"expert": 2}),
+            "gpt2_124m_scan_kfac_update_model2": ("scan", {"model": 2}),
+            "gpt2_124m_kfac_update_tensor2": ("gpt", {"tensor": 2}),
+            "gpt2_124m_kfac_update_seq2": ("gpt", {"seq": 2}),
+            "lenet5_kfac_update_seq2": ("lenet", {"seq": 2}),
+            "resnet18_kfac_update_seq2": ("resnet18", {"seq": 2})}
+MA_WORLD, MA_DEPTH, MA_MOE_DEPTH, MA_EXPERTS = 2, 4, 2, 8
+MA_BATCH, MA_T, MA_LENET_BATCH = 8, 512, 32
+MA_DAMPING, MA_NOISE_SEED = (1.0, 10.0), 17
+MA_ROOT = "build/mesh_axes"
+#: the mesh-axes phase's launches stand under the records of their
+#: wrapper at ResNet-18's shapes (on each seq rank its row blocks, routed
+#: by the whole input); GPT-2 and LeNet-5 launch none
+MA_RECORD_PATHS = {f"{c}_resnet18": tuple(
+    f"resnet18_kfac_update_seq2_rank{r}" for r in range(2))
+    for c in ("patch_gram_tiled", "patch_gram_v2")}
+#: the phase's budget (seconds)
+MA_BUDGET_S = 60.0
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -3625,17 +3650,28 @@ def main(argv=None):
                          "card) only and stop (no result line)")
     ap.add_argument("--parallel_rank", metavar="DIR", default="",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--mesh_axes", action="store_true",
+                    help="build the kernels, run the mesh-axes phase (the "
+                         "model, tensor, seq and expert axes on two gloo "
+                         "ranks of the card) only and stop (no result line)")
+    ap.add_argument("--mesh_axes_rank", metavar="DIR", default="",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
     import numpy as np
     import torch
+    if args.mesh_axes_rank:
+        # one rank of the mesh-axes phase; its device is in the phase's
+        # config (the card, or the CPU of a dry run); prints no result
+        return mesh_axes_rank(args.mesh_axes_rank)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     if args.parallel_rank:
         # one rank of the parallel phase's gloo job; prints no result
         return parallel_rank(args.parallel_rank)
+
     try:
         from curvature_tpu_torch import estimators, models
         from curvature_tpu_torch.eval import eval_nn
@@ -3663,7 +3699,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     runs_moe = not any((args.hyper, args.grouped, args.training, args.zoo,
                         args.transformers, args.subspace, args.parallel,
-                        args.lm, args.kernels))
+                        args.lm, args.kernels, args.mesh_axes))
     moe_model = prepare_moe_model(models) if runs_moe else None
     reports = build.build_all(force=True)
     if moe_model is not None:
@@ -3729,6 +3765,11 @@ def main(argv=None):
         return 0
     if args.parallel:
         parallel_phase(estimators, models, Counters(tpg, tsg), smi, dev)
+        log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            " GiB")
+        return 0
+    if args.mesh_axes:
+        mesh_axes_phase(estimators, models, Counters(tpg, tsg), smi, dev)
         log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
             " GiB")
         return 0
@@ -3977,6 +4018,12 @@ def main(argv=None):
     # ranks on the card, the factors CLI with --parallel ----------------
     par_by_path = parallel_phase(estimators, models, counters, smi, dev)
     count_record_launches(records, par_by_path, PAR_RECORD_PATHS)
+    torch.cuda.empty_cache()
+
+    # -- 13. the model, tensor, seq and expert axes: two gloo ranks on the
+    # card, GPT-2 124M's width, the Switch GPT-2, LeNet-5 ----------------
+    ma_by_path = mesh_axes_phase(estimators, models, counters, smi, dev)
+    count_record_launches(records, ma_by_path, MA_RECORD_PATHS)
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     seconds = time.perf_counter() - t_start
     log(f"whole run: {seconds:.1f} s, "
@@ -4016,20 +4063,24 @@ def par_inputs(models, dev):
     return model, x, labels, [(t, y % 10) for t, y in test]
 
 
-def _timed_collectives():
+def _timed_collectives(cuda=True):
     """Wrap ``torch.distributed``'s all_reduce and all_gather with device
-    synchronizes and a clock; returns the dict whose ``"s"`` sums their
-    seconds."""
+    synchronizes (``cuda``) and a clock; returns the dict whose ``"s"``
+    sums their seconds."""
     import torch
     import torch.distributed as dist
     spent = {"s": 0.0, "calls": 0}
 
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
     def wrap(fn):
         def timed(*args, **kwargs):
-            torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
+            sync()
             spent["s"] += time.perf_counter() - t0
             spent["calls"] += 1
             return out
@@ -4494,6 +4545,479 @@ def gloo_ranks(estimators, models, counters, smi, dev, procs, out_dir):
         f"{', '.join(f'{r['setup_s']:.1f}' for r in reports)} s, work "
         f"{', '.join(f'{r['work_s']:.1f}' for r in reports)} s), the "
         f"references and checks {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+# -- the mesh-axes phase: model, tensor, seq and expert on two gloo ranks ------
+def ma_config(dev):
+    """The phase's sizes, written for its ranks (a dry run on the CPU
+    shrinks them)."""
+    return {"device": dev.type, "depth": MA_DEPTH, "moe_depth": MA_MOE_DEPTH,
+            "experts": MA_EXPERTS, "batch": MA_BATCH, "t": MA_T,
+            "vocab": 50257, "dim": 768, "heads": 12,
+            "lenet_batch": MA_LENET_BATCH}
+
+
+def ma_model(models, kind, cfg, dtype=None):
+    """(model, loss, layer filter) of a path's kind, on the CPU: the
+    modules' own initialization from ``torch.manual_seed(0)``, the same
+    weights in every process (numpy's seeded weights took ~2.5 s a
+    GPT-2 a process)."""
+    import torch
+    torch.manual_seed(0)
+    if kind == "lenet":
+        model, loss, layers = models.lenet5(num_classes=10, device="cpu"), \
+            "cross_entropy", None
+    elif kind == "resnet18":
+        model, loss, layers = models.resnet18(num_classes=10, device="cpu"), \
+            "cross_entropy", None
+    else:
+        if kind == "moe":
+            model = models.gpt2_moe_custom(
+                cfg["vocab"], cfg["dim"], cfg["moe_depth"], cfg["heads"],
+                cfg["experts"], max_len=cfg["t"], device="cpu")
+        else:
+            model = models.gpt2_custom(
+                cfg["vocab"], cfg["dim"], cfg["depth"], cfg["heads"],
+                max_len=cfg["t"], scan_blocks=kind == "scan", device="cpu")
+        loss, layers = "lm", "h.*"
+    return (model if dtype is None else model.to(dtype)), loss, layers
+
+
+def ma_inputs(kind, cfg, dev):
+    """A path's input and injected labels [1, B(, T)], numpy-seeded."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(11)
+    if kind in ("lenet", "resnet18"):
+        b = cfg["lenet_batch"]
+        c, size = (1, 28) if kind == "lenet" else (3, 32)
+        x = rng.standard_normal((b, c, size, size)).astype(np.float32)
+        labels = rng.integers(0, 10, (1, b))
+    else:
+        x = rng.integers(0, cfg["vocab"], (cfg["batch"], cfg["t"]))
+        labels = rng.integers(0, cfg["vocab"], (1, cfg["batch"], cfg["t"]))
+    return torch.as_tensor(x, device=dev), torch.as_tensor(labels,
+                                                           device=dev)
+
+
+def ma_selected(metas):
+    """The layers held elementwise: the first and last ``h.{i}`` layer of
+    each kind (the Switch GPT-2's ``moe.fc1`` and ``moe.fc2`` of h.0
+    among them); a stacked or block-free model's every layer."""
+    kinds = {}
+    for name in metas:
+        parts = name.split(".")
+        kind = ".".join(parts[2:]) if parts[0] == "h" and \
+            parts[1].isdigit() else name
+        kinds.setdefault(kind, []).append(name)
+    return sorted({n for names in kinds.values() for n in (names[0],
+                                                          names[-1])})
+
+
+def ma_sums(tree):
+    """{layer/key: [sum, sum of |x|, sum of x^2]} in float64."""
+    out = {}
+    for name, fac in tree.items():
+        for key, t in fac.items():
+            d = t.double()
+            out[f"{name}/{key}"] = [float(d.sum()), float(d.abs().sum()),
+                                    float((d * d).sum())]
+    return out
+
+
+def ma_noise(est, dev):
+    """Standard normals of the whole model's noise shapes from
+    MA_NOISE_SEED, drawn in float32 (the same numbers for the float64
+    witness)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(MA_NOISE_SEED)
+    return {n: torch.randn(s, generator=gen, device=dev).to(est.dtype)
+            for n, s in est.noise_shapes().items()}
+
+
+def ma_routes(est, model, x):
+    """The kernel launches one update makes by the routes JAX's jit picks
+    from the whole input's shapes (``KFAC.a_route``)."""
+    import torch
+    from curvature_tpu_torch.nn import Context
+    ctx = Context(track=list(est.metas), probes=False)
+    with torch.no_grad():
+        model(x, ctx)
+    got = {"patch_gram_tiled": 0, "patch_gram_v2": 0}
+    if not est.use_kernels:
+        return got
+    for name, meta in est.metas.items():
+        act = ctx.acts[name]
+        route = est.a_route(meta, act.shape, act.element_size())
+        if route in ("tiled", "v2"):
+            got[f"patch_gram_{route}"] += 1
+    return got
+
+
+def ma_reference(estimators, models, kind, cfg, dev, dtype=None):
+    """One process's update of a path's model (``dtype`` float64: the
+    witness, no kernels), its invert and draw; the selected layers'
+    states and draws and every leaf's checksums and shape, on the host."""
+    import torch
+    model, loss, layers = ma_model(models, kind, cfg, dtype)
+    model = model.to(dev)
+    x, labels = ma_inputs(kind, cfg, dev)
+    if dtype is not None and x.is_floating_point():
+        x = x.to(dtype)
+    kw = {} if dtype is None else {"dtype": dtype, "use_kernels": False}
+    est = estimators.KFAC(model, loss=loss, layer_filter=layers, **kw)
+    with (float64_batch_norm() if dtype == torch.float64
+          else contextlib.nullcontext()):
+        est.update(x, labels=labels)
+    sel = ma_selected(est.metas)
+    ref = {"state": {n: {k: v.cpu() for k, v in est.state[n].items()}
+                     for n in sel},
+           "sums": ma_sums(est.state),
+           "shapes": {f"{n}/{k}": tuple(v.shape)
+                      for n, fac in est.state.items()
+                      for k, v in fac.items()},
+           "routes": ma_routes(est, model, x)}
+    est.invert(*MA_DAMPING)
+    draw = est.sample(noise=ma_noise(est, dev))
+    ref["draw"] = {n: draw[n].cpu() for n in sel}
+    del est, model, draw
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return ref
+
+
+def mesh_axes_rank(out_dir):
+    """One gloo rank of the mesh-axes phase (``--mesh_axes_rank``), started
+    with ``torch.distributed.run``'s environment; once ``<out_dir>/go``
+    exists it runs each path of MA_PATHS on its mesh: one timed KFAC
+    update (the first path after a warm one), its launches, collective
+    seconds and peak memory, invert and one draw; it writes its blocks of
+    the selected layers' states and draws, every leaf's checksums and
+    block shape, and, on the model axis, the sharded checkpoint (read
+    back on the mesh, bitwise)."""
+    import copy
+    import os
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from curvature_tpu_torch import estimators, models, parallel
+    from curvature_tpu_torch.ops.cuda import patch_gram as tpg
+    from curvature_tpu_torch.ops.cuda import sym_gram as tsg
+    from curvature_tpu_torch.utils import checkpoint
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # cuDNN's deterministic algorithms, as the parent's references use
+    torch.backends.cudnn.deterministic = True
+    with open(os.path.join(out_dir, "config.json")) as f:
+        cfg = json.load(f)
+    cuda = cfg["device"] == "cuda"
+    t0 = time.perf_counter()
+    backend = parallel.initialize(device=None if cuda else "cpu")
+    dev = (torch.device("cuda", torch.cuda.current_device()) if cuda
+           else torch.device("cpu"))
+    rank = dist.get_rank()
+    counters = Counters(tpg, tsg)
+    spent = _timed_collectives(cuda)
+    # the models on the CPU while the parent has the card
+    built = {kind: ma_model(models, kind, cfg)
+             for kind in dict.fromkeys(k for k, _ in MA_PATHS.values())}
+    report = {"backend": backend, "setup_s": time.perf_counter() - t0,
+              "paths": {}}
+    go = os.path.join(out_dir, "go")
+    while not os.path.exists(go):
+        if time.perf_counter() - t0 > 300:
+            raise TimeoutError(f"no {go} after 300 s")
+        time.sleep(0.05)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    blocks, warm = {}, True
+    for path, (kind, axes) in MA_PATHS.items():
+        t_path = time.perf_counter()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        mesh = parallel.make_mesh(dict(axes, data=1))
+        cpu_model, loss, layers = built[kind]
+        # a kind two paths share is placed anew for each mesh
+        model = copy.deepcopy(cpu_model).to(dev)
+        x, labels = ma_inputs(kind, cfg, dev)
+
+        def make():
+            return estimators.KFAC(model, loss=loss,
+                                   layer_filter=layers).use_mesh(
+                mesh, tensor_min_out=cfg.get("tensor_min_out", 128))
+        if warm:
+            make().update(x, labels=labels)
+            warm = False
+        est = make()
+        counters.reset()
+        spent.update(s=0.0, calls=0)
+        sync()
+        t_up = time.perf_counter()
+        est.update(x, labels=labels)
+        sync()
+        wall = time.perf_counter() - t_up
+        collective_s, calls = spent["s"], spent["calls"]
+        launches = counters.read()
+        est.invert(*MA_DAMPING)
+        draw = est.sample(noise=ma_noise(est, dev))
+        sel = ma_selected(est.metas)
+        mine = {"state": {n: {k: v.cpu() for k, v in est.state[n].items()}
+                          for n in sel},
+                "draw": {n: draw[n].cpu() for n in sel},
+                "sums": ma_sums(est.state),
+                "shapes": {f"{n}/{k}": tuple(v.shape)
+                           for n, fac in est.state.items()
+                           for k, v in fac.items()}}
+        if kind == "scan":
+            ckpt = os.path.join(out_dir, "ckpt")
+            checkpoint.save_pytree_sharded(ckpt, est.state, est.state_plan(),
+                                           mesh)
+            back = checkpoint.load_pytree_sharded(ckpt, mesh)
+            mine["ckpt_equal"] = all(
+                np.array_equal(back[n][k], v.cpu().numpy())
+                for n, fac in est.state.items() for k, v in fac.items())
+        blocks[path] = mine
+        report["paths"][path] = {
+            "update_ms": wall * 1e3, "collective_ms": collective_s * 1e3,
+            "collectives": calls, "launches": launches,
+            "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                         if cuda else 0.0),
+            "path_s": time.perf_counter() - t_path}
+        del est, model, draw
+        if cuda:
+            torch.cuda.empty_cache()
+    torch.save(blocks, os.path.join(out_dir, f"rank{rank}.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def ma_split_dim(kind, axes, key, name, ndim):
+    """The dim a path's mesh splits a state leaf along (JAX's
+    ``_state_leaf_spec``), or None: a stack's depth over ``model``, the
+    experts over ``expert``, a column-parallel layer's G rows over
+    ``tensor`` (every GPT-2 block layer's output is a multiple of 256)."""
+    if "model" in axes and kind == "scan":
+        return 0
+    if "expert" in axes and ".moe." in name:
+        return 0
+    if "tensor" in axes and key == "g":
+        return ndim - 2
+    return None
+
+
+def ma_hold(got, want, what, witness=None, **bars):
+    """:func:`_rel_close` at JAX's bar; where a witness is given and the
+    bar misses (f32 sums split over the seq ranks, or a column-parallel G
+    row block, another GEMM shape than the whole Gram), the float64
+    witness at PAR_DIAG64_TOL of max, or at twice one f32 process's own
+    max|diff| from it where that is larger (PR 16's rule: the bar about
+    twice one f32 process's reading; a draw passes f32 rounding through
+    the inverse roots). Returns (max|diff| / max against ``want``, whether
+    the witness held it)."""
+    try:
+        return _rel_close(got, want, what, **bars), False
+    except AssertionError:
+        if witness is None:
+            raise
+        w = witness.double()
+        one = float((want.double() - w).abs().max() / w.abs().max())
+        _rel_close(got, witness, f"{what} vs float64 (one f32 process "
+                   f"{one:.3e} of max from it)", rtol=0.0,
+                   atol=max(PAR_DIAG64_TOL, 2 * one))
+        diff = (got.double() - want.double()).abs().max()
+        return float(diff / want.double().abs().max()), True
+
+
+def ma_check(path, kind, axes, ranks, ref, wit, dev):
+    """Hold each rank's blocks of ``path`` to one process's (``ref``; the
+    float64 ``wit`` for seq and tensor), comparing on ``dev``; returns
+    (worst state, worst draw, worst checksum readings, holdings, holdings
+    by the witness)."""
+    worst = [0.0, 0.0, 0.0]
+    n_split, held, by_witness = 0, 0, 0
+    for r, blocks in enumerate(ranks):
+        mine = blocks[path]
+        for leaf, shape in ref["shapes"].items():
+            name, key = leaf.rsplit("/", 1)
+            dim = ma_split_dim(kind, axes, key, name, len(shape))
+            want = list(shape)
+            if dim is not None:
+                want[dim] //= MA_WORLD
+                n_split += 1
+            if tuple(mine["shapes"][leaf]) != tuple(want):
+                raise AssertionError(f"{path} rank {r}: {leaf} block "
+                                     f"{mine['shapes'][leaf]}, want {want} "
+                                     f"of {shape}")
+        for part, i, bars in (("state", 0, {}),
+                              ("draw", 1, {"rtol": 1e-4, "atol": 1e-5})):
+            for name, got in mine[part].items():
+                leaves = got.items() if isinstance(got, dict) else [(None,
+                                                                     got)]
+                for key, t in leaves:
+                    whole = ref[part][name] if key is None \
+                        else ref[part][name][key]
+                    w64 = None if wit is None else (
+                        wit[part][name] if key is None
+                        else wit[part][name][key])
+                    for d in range(t.ndim):
+                        if t.shape[d] != whole.shape[d]:
+                            per = t.shape[d]
+                            whole = whole.narrow(d, r * per, per)
+                            if w64 is not None:
+                                w64 = w64.narrow(d, r * per, per)
+                    rel, w = ma_hold(
+                        t.to(dev), whole.to(dev),
+                        f"{path} rank {r} {part} {name} {key}",
+                        None if w64 is None else w64.to(dev), **bars)
+                    worst[i] = max(worst[i], rel)
+                    held, by_witness = held + 1, by_witness + w
+    for leaf, want in ref["sums"].items():
+        name, key = leaf.rsplit("/", 1)
+        split = ma_split_dim(kind, axes, key, name,
+                             len(ref["shapes"][leaf])) is not None
+        got = ([sum(b[path]["sums"][leaf][j] for b in ranks)
+                for j in range(3)] if split else ranks[0][path]["sums"][leaf])
+        rel = max(abs(got[0] - want[0]) / max(want[1], 1e-30),
+                  abs(got[2] - want[2]) / max(want[2], 1e-30))
+        if rel > 4 * PAR_RTOL:
+            w = wit["sums"][leaf] if wit is not None else None
+            rel64 = None if w is None else max(
+                abs(got[0] - w[0]) / max(w[1], 1e-30),
+                abs(got[2] - w[2]) / max(w[2], 1e-30))
+            if rel64 is None or rel64 > 4 * PAR_DIAG64_TOL:
+                raise AssertionError(f"{path}: {leaf} checksums {got} vs "
+                                     f"{want} ({rel:.3e})")
+            by_witness += 1
+        worst[2] = max(worst[2], rel)
+    if {"model", "tensor", "expert"} & set(axes) and n_split == 0:
+        raise AssertionError(f"{path}: no state leaf is split")
+    return worst + [held + len(ref["sums"]), by_witness]
+
+
+def mesh_axes_phase(estimators, models, counters, smi, dev, cfg=None):
+    """The model, tensor, seq and expert axes on the card (ROADMAP item
+    10b): two gloo ranks (:func:`mesh_axes_rank`) start first and wait;
+    this process computes one process's update, invert and draw of each
+    path's model (and a float64 witness of the GPT-2 and LeNet-5 models,
+    for the seq and tensor paths) with the same
+    seeded weights, labels and noise, keeps what it holds on the host and
+    frees the card; the ranks then run and each rank's blocks, checksums
+    and launches are held to it. Returns the ranks' launches by path."""
+    import os
+    import shutil
+    import torch
+    from curvature_tpu_torch.utils.checkpoint import load_pytree_sharded
+    cfg = cfg or ma_config(dev)
+    t0 = time.perf_counter()
+    out_dir = os.path.abspath(MA_ROOT)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    env = dict(os.environ, MASTER_ADDR="localhost",
+               MASTER_PORT=str(_free_port()), WORLD_SIZE=str(MA_WORLD),
+               LOCAL_WORLD_SIZE=str(MA_WORLD))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh_axes_rank",
+         out_dir], env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(MA_WORLD)]
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        refs, wits = {}, {}
+        for kind, axes in MA_PATHS.values():
+            if kind not in refs:
+                refs[kind] = ma_reference(estimators, models, kind, cfg, dev)
+            if {"seq", "tensor"} & set(axes) and kind not in wits:
+                wits[kind] = ma_reference(estimators, models, kind, cfg, dev,
+                                          torch.float64)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+        log(f"mesh axes: one-process references and float64 witnesses "
+            f"{t_ref:.1f} s, on the host; the card freed for the ranks")
+        open(os.path.join(out_dir, "go"), "w").close()
+        outputs = [p.communicate(timeout=600)[0].decode() for p in procs]
+        for r, (p, o) in enumerate(zip(procs, outputs)):
+            if p.returncode != 0:
+                raise AssertionError(f"mesh-axes rank {r} exited "
+                                     f"{p.returncode}:\n{o[-4000:]}")
+        ranks, reports = [], []
+        for r in range(MA_WORLD):
+            ranks.append(torch.load(os.path.join(out_dir, f"rank{r}.pt")))
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                reports.append(json.load(f))
+    finally:
+        torch.backends.cudnn.deterministic = was
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    t_ranks = time.perf_counter() - t0 - t_ref
+    log(f"mesh axes: the ranks' start-up and their models built on the "
+        f"CPU took {reports[0]['setup_s']:.1f} s, beside the references")
+    log(f"mesh axes: GPT-2 124M width (dim {cfg['dim']}, {cfg['heads']} "
+        f"heads, vocabulary {cfg['vocab']}) at B={cfg['batch']}, "
+        f"T={cfg['t']}, depth cut from 12 to {cfg['depth']} blocks (the "
+        f"Switch GPT-2, E={cfg['experts']}, to {cfg['moe_depth']}); LeNet-5 "
+        f"(28x28) and ResNet-18 CIFAR (32x32) at B={cfg['lenet_batch']}; "
+        "KFAC f32, injected labels, two gloo ranks "
+        f"({reports[0]['backend']}) on the card")
+    by_path = {}
+    none = counters.zero()
+    for path, (kind, axes) in MA_PATHS.items():
+        wit = wits.get(kind) if {"seq", "tensor"} & set(axes) else None
+        state, draw, sums, held, by_witness = ma_check(
+            path, kind, axes, ranks, refs[kind], wit, dev)
+        want = dict(none, **refs[kind]["routes"])
+        for r, rep in enumerate(reports):
+            got = rep["paths"][path]
+            if got["launches"] != want:
+                raise AssertionError(f"{path} rank {r}: launches "
+                                     f"{got['launches']}, want {want}")
+            by_path[f"{path}_rank{r}"] = got["launches"]
+            share = got["collective_ms"] / max(got["update_ms"], 1e-9)
+            log(f"  rank {r}: {path} took {got['path_s']:.1f} s (model, "
+                "update, invert, draw, writes)")
+            log(f"{path} rank {r}: update {got['update_ms']:.1f} ms, "
+                f"collectives {got['collective_ms']:.1f} ms "
+                f"({100 * share:.1f}%) in {got['collectives']}, peak "
+                f"{got['peak_gib']:.2f} GiB, Gram launches "
+                f"{got['launches']['patch_gram_tiled']} tiled + "
+                f"{got['launches']['patch_gram_v2']} v2 ({smi})")
+        if kind == "scan":
+            if not all(b[path]["ckpt_equal"] for b in ranks):
+                raise AssertionError(f"{path}: a rank's checkpoint blocks "
+                                     "read back changed")
+            whole = load_pytree_sharded(os.path.join(out_dir, "ckpt"))
+            for r, b in enumerate(ranks):
+                for name, fac in b[path]["state"].items():
+                    for key, t in fac.items():
+                        per = t.shape[0]
+                        if not torch.equal(torch.from_numpy(
+                                whole[name][key][r * per:(r + 1) * per]), t):
+                            raise AssertionError(
+                                f"{path}: checkpoint {name}/{key} differs "
+                                f"from rank {r}'s block")
+        log(f"{path}: held to one process (state {state:.3e}, draw "
+            f"{draw:.3e} of max, checksums {sums:.3e}; {by_witness} of "
+            f"{held} holdings by the float64 witness"
+            + (", checkpoint round trip bitwise" if kind == "scan" else "")
+            + ")")
+    seconds = time.perf_counter() - t0
+    log(f"mesh-axes phase: {seconds:.1f} s (references {t_ref:.1f} s, "
+        f"ranks {t_ranks:.1f} s, checks "
+        f"{seconds - t_ref - t_ranks:.1f} s; {smi}), "
+        f"{'within' if seconds <= MA_BUDGET_S else 'OVER'} its "
+        f"{MA_BUDGET_S:.0f} s budget")
     return by_path
 
 

@@ -19,22 +19,37 @@ running buffers are never changed, and the factor state accumulates in
 ``dtype``.
 
 ``use_mesh`` splits each update over the ranks of a
-:class:`~curvature_tpu_torch.parallel.Mesh`: the batch over its ``data``
-axis, the Monte-Carlo label draws over its ``sample`` axis. Every rank
-passes the whole batch (and the whole ``[S, B]`` labels) and captures
-its block (estimators/capture.py ``Shard``); the factor state stays
-replicated. The gradient-moment estimators (Diagonal, Block, EFB) square
-the global batch gradient, summed over the data ranks and gathered over
-the sample ranks in the capture; the token-Gram estimator (KFAC) sums
-its per-rank factor deltas over every rank, each weighted by its share
-of the tokens (``1 / data ranks``). A batch or draw count that does not
-divide its axis runs whole on every rank, with no collective (JAX's
-``_dispatch``). Internally drawn labels are drawn as one process draws
-them, from the whole batch's logits (gathered over the data ranks) with
-the caller's generator, and each rank keeps its (sample, data) block: the
-sample ranks never repeat each other's draws, and a meshed update equals
-the single process's for drawn labels too. JAX's model, tensor, seq and
-expert axes raise ``NotImplementedError`` (ROADMAP Queue 1 item 10b).
+:class:`~curvature_tpu_torch.parallel.Mesh` on JAX's six axes. Every rank
+passes the whole batch (and the whole ``[S, B]`` labels) and captures its
+block (estimators/capture.py ``Shard``): its rows of the batch
+(``data``), its label draws (``sample``) and its tokens (``seq``: the
+token dim of ``[B, T]`` LM inputs of a model whose forward takes a
+block of positions, ``splits_tokens`` (GPT-2: its attention all-gathers
+keys and values); on other inputs and models every rank runs the whole
+forward and each conv layer's Grams take the rank's block of output
+rows, the patch-Gram route chosen from the whole shape). The ``model``, ``expert`` and ``tensor``
+axes split the parameters (nn/placement.py: ScanBlocks depth, MoE
+experts, Dense output columns) and the factor state: each leaf that JAX's
+``_state_leaf_spec`` shards exists on a rank only as its block
+(:meth:`_carry_plan`), each rank computes only its block (the depth or
+expert block of a stacked layer, KFAC's G rows ``g[:, rows]^T g`` of a
+column-parallel layer), and invert, sample and ``ensemble_params`` run on
+the blocks: ``sample(noise=...)`` takes the whole model's standard
+normals (``noise_shapes()``) and uses its block of them, so a sharded
+draw equals one process's. :meth:`gathered_state` all-gathers the whole
+state. The gradient-moment estimators (Diagonal, Block, EFB) square the
+global batch gradient, summed over the data (and token) ranks and
+gathered over the sample ranks in the capture; the token-Gram estimator
+(KFAC) sums its per-rank factor deltas over the ranks that split tokens
+and draws and share a block (never over the block-splitting axes), each
+weighted by its share of the tokens. A batch or draw count that does not
+divide its axis runs whole on every rank of those axes; a token count
+that does not divide ``seq`` drops only ``seq`` (JAX's ``_dispatch`` and
+its ``_noseq`` wrappers). Internally drawn labels are drawn as one
+process draws them, from the whole batch's logits (gathered over the data
+and token ranks) with the caller's generator, and each rank keeps its
+block. The Gaussian API (``logdet_precision``, ``quadratic_form``,
+``precision_solve``) runs on the gathered state with whole offsets.
 
 Differences from the JAX class, by design:
 ``update_batches`` is a loop of ``update`` calls rather than a scan, and
@@ -44,19 +59,20 @@ Random draws take injected numbers: ``update`` takes
 ``jax.random`` and torch streams never agree; without them a
 ``torch.Generator`` draws.
 """
+import contextlib
+import dataclasses
 import fnmatch
+import itertools
 import math
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
-import torch.distributed as dist
 
 from curvature_tpu_torch.nn.core import (
     LayerMeta, apply_matrix_delta, param_key, param_matrix)
 from curvature_tpu_torch.ops.patches import extract_patches
 from curvature_tpu_torch.estimators.capture import Captured, Shard, collect
-from curvature_tpu_torch.parallel.mesh import (
-    all_reduce_tree, later_axes_error)
+from curvature_tpu_torch.parallel.mesh import all_gather, all_reduce_tree
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
 #: reference-compatible layer-type aliases (curvatures.py:57-63)
@@ -198,6 +214,13 @@ def _leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def _map_tree(fn, tree, plan):
+    """``fn(leaf, spec)`` over a tree and its plan of the same nesting."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, plan[k]) for k, v in tree.items()}
+    return fn(tree, plan)
+
+
 def _add_into(tree, delta):
     """``tree += delta`` leaf by leaf, in place."""
     for k, v in delta.items():
@@ -243,19 +266,28 @@ class Estimator:
         self.dtype = dtype
         self.compute_dtype = compute_dtype
         self.device = next(model.parameters()).device
-        # MAP mean snapshot of the tracked parameters (the reference's
-        # deep-copied model_state), keyed like the state dict
-        own = dict(model.named_parameters())
+        self._snapshot_mean()
+        self.state = self.init_state()
+        self.inv_state = None
+        #: set by use_mesh(); None = one process
+        self.mesh = None
+        self._data_axis, self._sample_axis, self._seq_axis = \
+            "data", None, None
+        self._mesh_axes = None
+        #: {carry attribute: tree of per-leaf specs} (use_mesh)
+        self._plan = None
+        self._whole_view = False
+
+    def _snapshot_mean(self):
+        """MAP mean snapshot of the tracked parameters (the reference's
+        deep-copied model_state), keyed like the state dict: under a mesh
+        this rank's blocks of them."""
+        own = dict(self.model.named_parameters())
         self.mean_params = {
             k: own[k].detach().clone()
             for name in self.metas for k in (param_key(name, "weight"),
                                              param_key(name, "bias"))
             if k in own}
-        self.state = self.init_state()
-        self.inv_state = None
-        #: set by use_mesh(); None = one process
-        self.mesh = None
-        self._data_axis, self._sample_axis = "data", None
 
     # -- per-estimator transforms -------------------------------------------
     def init_state(self):
@@ -308,6 +340,15 @@ class Estimator:
         return self._wrap_inv_aux(inv, self._inv_aux())
 
     # -- multi-rank execution -------------------------------------------------
+    #: whether the estimator shards a column-parallel layer's state rows
+    #: (KFAC's G, Diagonal's [out, cols]); the others keep every layer
+    #: whole under the tensor axis, since their replicated state needs
+    #: every row of every gradient
+    shards_tensor_rows = False
+    #: whether use_mesh places the model's parameters (nn/placement.py);
+    #: the Subspace sketch runs the whole model on every rank
+    places_model = True
+
     def use_mesh(self, mesh, data_axis: str = "data",
                  sample_axis: Optional[str] = "auto",
                  model_axis: Optional[str] = "auto",
@@ -315,13 +356,17 @@ class Estimator:
                  seq_axis: Optional[str] = "auto",
                  expert_axis: Optional[str] = "auto",
                  tensor_min_out: int = 128):
-        """Split factor updates over ``mesh`` (JAX base.py:223-366): the
-        batch over ``data_axis``, the label draws over ``sample_axis``.
-        ``"auto"`` enables an axis iff the mesh has one of that canonical
-        name; an axis nothing uses raises ``ValueError``; the model,
-        tensor, seq and expert axes (and ``tensor_min_out``, their
-        option) raise ``NotImplementedError`` (ROADMAP Queue 1 item
-        10b)."""
+        """Split factor updates, the parameters and the factor state over
+        ``mesh`` (JAX base.py:223-366; the module docstring): the batch over
+        ``data_axis``, the label draws over ``sample_axis``, the tokens over
+        ``seq_axis``, ScanBlocks depth over ``model_axis``, MoE experts over
+        ``expert_axis``, and the output columns of Dense layers with
+        ``out_features`` divisible by the axis and ``>= tensor_min_out``
+        over ``tensor_axis``. ``"auto"`` enables an axis iff the mesh has
+        one of that canonical name; an axis nothing uses raises
+        ``ValueError``. The model is sharded in place; call it once per
+        model and mesh (a second estimator on the same mesh finds the
+        model placed)."""
         def resolve(axis, canonical):
             if axis == "auto":
                 return canonical if canonical in mesh.shape else None
@@ -334,27 +379,230 @@ class Estimator:
             raise ValueError(f"mesh {dict(mesh.shape)} has no axis "
                              f"{data_axis!r}")
         sample_axis = resolve(sample_axis, "sample")
-        later = {a for a in (resolve(model_axis, "model"),
-                             resolve(tensor_axis, "tensor"),
-                             resolve(seq_axis, "seq"),
-                             resolve(expert_axis, "expert")) if a}
-        unused = set(mesh.shape) - {data_axis, sample_axis} - later
+        model_axis = resolve(model_axis, "model")
+        tensor_axis = resolve(tensor_axis, "tensor")
+        seq_axis = resolve(seq_axis, "seq")
+        expert_axis = resolve(expert_axis, "expert")
+        unused = set(mesh.shape) - {data_axis, sample_axis, model_axis,
+                                    tensor_axis, seq_axis, expert_axis}
         if unused:
             # an axis nothing shards over silently idles its ranks
             raise ValueError(
                 f"mesh axes {sorted(unused)} are not used by any sharding "
                 "rule; canonical names are data/sample/model/tensor/seq/"
                 "expert (or pass the axis explicitly to use_mesh)")
-        if later:
-            raise later_axes_error(later)
         self.mesh = mesh
         self._data_axis, self._sample_axis = data_axis, sample_axis
+        self._seq_axis = seq_axis
+        ax = {"model": model_axis, "model_size": mesh.size(model_axis),
+              "tensor": tensor_axis, "tensor_size": mesh.size(tensor_axis),
+              "expert": expert_axis, "expert_size": mesh.size(expert_axis),
+              "tp": (self._tp_layer_names(mesh.size(tensor_axis),
+                                          tensor_min_out)
+                     if tensor_axis else frozenset())}
+        if self.places_model:
+            from curvature_tpu_torch.nn.placement import shard_model
+            ax["tp"] = shard_model(self.model, mesh, ax)
+        else:
+            ax["tp"] = frozenset()
+        self._mesh_axes = ax
+        self._plan = self._carry_plan()
+        self._set_carry(self._apply_plan(self._carry(), self._plan,
+                                         gather=False))
+        self._snapshot_mean()
+        # every sum group, made now in one order on every rank
+        split = [a for a in (data_axis, sample_axis, seq_axis) if a]
+        for n in range(1, len(split) + 1):
+            for axes in itertools.combinations(split, n):
+                mesh.group_of(axes)
         return self
+
+    # -- the sharding rules (JAX base.py:367-414) -------------------------------
+    def _tp_ok(self, name: str, meta: LayerMeta) -> bool:
+        """Whether a layer is eligible for column (tensor) parallelism
+        (JAX :367-371): a plain dense layer, where the estimator shards
+        its state rows (:attr:`shards_tensor_rows`). MoE experts keep their
+        columns whole (their forward is the expert stack's)."""
+        return (self.shards_tensor_rows and meta.kind == "dense"
+                and meta.groups == 1 and not meta.moe)
+
+    def _tp_layer_names(self, axis_size: int, min_out: int):
+        return frozenset(
+            n for n, m in self.metas.items()
+            if self._tp_ok(n, m) and m.out_features % axis_size == 0
+            and m.out_features >= min_out)
+
+    def _state_leaf_spec(self, name: str, keys, shape, ax) -> list:
+        """The axis of each dim of one factor-state leaf of layer ``name``
+        (None: whole); ``keys`` are the dict keys below the layer level.
+        Base rule (JAX :379-393): the leading stack axis, ScanBlocks depth
+        over the model axis, MoE experts over the expert axis, where it
+        divides. Estimators extend it with tensor-parallel dims."""
+        m = self.metas.get(name)
+        spec = [None] * len(shape)
+        if m is not None and m.stacked and shape and shape[0] == m.stacked:
+            lead, size = ((ax["expert"], ax["expert_size"])
+                          if getattr(m, "moe", False)
+                          else (ax["model"], ax["model_size"]))
+            if lead and shape[0] % size == 0:
+                spec[0] = lead
+        return spec
+
+    def _carry(self) -> Dict:
+        """The arrays an update carries, by attribute (JAX ``_carry``); EFB
+        and INF add theirs."""
+        return {"state": self.state}
+
+    def _set_carry(self, carry: Dict):
+        for attr, tree in carry.items():
+            setattr(self, attr, tree)
+
+    def _tree_plan(self, tree, keys=(), name=None):
+        """The spec of every leaf of ``tree`` (JAX ``_carry_shardings``):
+        leaves under a tracked layer's key follow
+        :meth:`_state_leaf_spec`, the others stay whole."""
+        if isinstance(tree, dict):
+            out = {}
+            for k, v in tree.items():
+                if name is None and k in self.metas:
+                    out[k] = self._tree_plan(v, (), k)
+                else:
+                    out[k] = self._tree_plan(
+                        v, keys + ((k,) if name is not None else ()), name)
+            return out
+        shape = tuple(tree) if isinstance(tree, tuple) else tuple(tree.shape)
+        if name is None:
+            return [None] * len(shape)
+        return self._state_leaf_spec(name, keys, shape, self._mesh_axes)
+
+    def _carry_plan(self) -> Dict:
+        return {attr: self._tree_plan(tree)
+                for attr, tree in self._carry().items()}
+
+    def _apply_plan(self, tree, plan, gather: bool):
+        """Each leaf cut to this rank's block of its planned dims, or
+        (``gather``) its blocks all-gathered into the whole."""
+        mesh = self.mesh
+
+        def one(t, spec):
+            if t is None:
+                return t
+            for dim, axis in enumerate(spec):
+                if axis is None or mesh.size(axis) == 1:
+                    continue
+                if gather:
+                    t = all_gather(t, mesh.group(axis), dim)
+                else:
+                    sl = mesh.rows(t.shape[dim], axis)
+                    t = t.narrow(dim, sl.start, sl.stop - sl.start)
+            return t if gather else t.contiguous().clone()
+        return _map_tree(one, tree, plan)
+
+    def _sharded(self) -> bool:
+        """Whether some leaf of the carry lives split over the ranks."""
+        def any_split(plan):
+            if isinstance(plan, dict):
+                return any(any_split(v) for v in plan.values())
+            return any(a is not None and self.mesh.size(a) > 1
+                       for a in plan)
+        return self._plan is not None and not self._whole_view \
+            and any_split(self._plan)
+
+    def gathered_state(self, attr: str = "state"):
+        """The whole of a carried tree (``"state"``; EFB's ``"diags"``):
+        the planned dims all-gathered over their ranks, on every rank; the
+        tree itself where nothing is split."""
+        tree = getattr(self, attr)
+        if not self._sharded():
+            return tree
+        return self._apply_plan(tree, self._plan[attr], gather=True)
+
+    def state_plan(self, attr: str = "state") -> Optional[Dict]:
+        """The tree of per-leaf axis specs of a carried tree (None without
+        a mesh): what ``utils.checkpoint.save_pytree_sharded`` takes."""
+        return None if self._plan is None else self._plan[attr]
+
+    @contextlib.contextmanager
+    def _whole(self):
+        """Run the block with the whole carry in place of this rank's
+        blocks (the Gaussian API on a sharded state)."""
+        if not self._sharded():
+            yield
+            return
+        saved = self._carry()
+        self._set_carry({k: self.gathered_state(k) for k in saved})
+        self._whole_view = True
+        try:
+            yield
+        finally:
+            self._whole_view = False
+            self._set_carry(saved)
+
+    def _tp_rows(self, name: str) -> Optional[slice]:
+        """This rank's rows of a column-parallel layer's output features
+        (None: the layer is whole here)."""
+        ax = self._mesh_axes
+        if ax is None or self._whole_view or name not in ax["tp"]:
+            return None
+        return self.mesh.rows(self.metas[name].out_features, ax["tensor"])
+
+    def _tensor_group(self):
+        return self.mesh.group(self._mesh_axes["tensor"])
+
+    def _block_noise(self, noise):
+        """This rank's block of whole-model standard normals."""
+        if not self._sharded():
+            return noise
+        shapes = {n: (tuple(v.shape) if torch.is_tensor(v)
+                      else {k: tuple(x.shape) for k, x in v.items()})
+                  for n, v in noise.items()}
+        return self._apply_plan(noise, self._tree_plan(shapes), gather=False)
+
+    def _block_capture(self, cap: Captured) -> Captured:
+        """The capture with each depth-sharded stacked layer's inputs and
+        probes cut to this rank's depth block (the ScanBlocks forward runs
+        every depth; an expert-sharded layer is captured as its block)."""
+        if not self._sharded():
+            return cap
+        acts, probes = dict(cap.acts), dict(cap.probe_grads)
+        for name, m in self.metas.items():
+            if not m.stacked or m.moe:
+                continue
+            sl = self.mesh.rows(m.stacked, self._mesh_axes["model"])
+            if sl is None or sl.stop - sl.start == m.stacked:
+                continue
+            if name in acts and acts[name].shape[0] == m.stacked:
+                acts[name] = acts[name][sl]
+            if name in probes and probes[name].shape[1] == m.stacked:
+                probes[name] = probes[name][:, sl]
+        return dataclasses.replace(cap, acts=acts, probe_grads=probes)
+
+    def _tokens(self, x) -> Optional[int]:
+        """The dim the seq axis splits (JAX x.shape[1]: the token dim of
+        [B, T] ids, the leading spatial dim of an image, NCHW here)."""
+        if x.ndim < 2:
+            return None
+        return x.shape[2] if x.ndim == 4 else x.shape[1]
+
+    def _dispatch(self, batch: int, mc: Optional[int] = None,
+                  tokens: Optional[int] = None) -> str:
+        """Which split an update takes (JAX :457-470): ``"sharded"`` when
+        the batch and draw counts divide their axes, ``"noseq"`` when the
+        token dim does not divide ``seq`` (only seq is dropped), else
+        ``"single"`` (the batch and draws whole on every rank; the
+        parameter and state blocks stay)."""
+        mesh = self.mesh
+        if mesh is not None and batch % mesh.size(self._data_axis) == 0 \
+                and (mc is None or mc % mesh.size(self._sample_axis) == 0):
+            seq = mesh.size(self._seq_axis)
+            if seq == 1 or (tokens is not None and tokens % seq == 0):
+                return "sharded"
+            return "noseq"
+        return "single"
 
     def _shard(self, x: torch.Tensor, labels, num_samples: int):
         """(x, labels, shard) of this rank's block under the mesh; ``x``
-        and ``labels`` unchanged (shard None) without one, or when the
-        batch or the draw count does not divide its axis."""
+        and ``labels`` unchanged (shard None) without one."""
         mesh = self.mesh
         if mesh is None:
             return x, labels, None
@@ -363,44 +611,82 @@ class Estimator:
             if labels.ndim == (2 if self.loss in ("lm", "gaussian") else 1):
                 labels = labels[None]
         draws = num_samples if labels is None else labels.shape[0]
-        rows = mesh.rows(x.shape[0], self._data_axis)
-        samples = mesh.rows(draws, self._sample_axis)
-        if rows is None or samples is None:
-            return x, labels, None
+        mode = self._dispatch(x.shape[0], draws, self._tokens(x))
+        d_ax, s_ax, q_ax = self._data_axis, self._sample_axis, self._seq_axis
+        split = {"single": (), "noseq": (d_ax, s_ax),
+                 "sharded": (d_ax, s_ax, q_ax)}[mode]
+        split = tuple(a for a in split if a and mesh.size(a) > 1)
+        rows = (mesh.rows(x.shape[0], d_ax) if d_ax in split
+                else slice(0, x.shape[0]))
+        samples = (mesh.rows(draws, s_ax) if s_ax in split
+                   else slice(0, draws))
+        seq_mode, tok = None, None
+        if q_ax in split:
+            # a model whose forward runs a block of positions says so
+            # (models/gpt.py); any other runs whole on every seq rank
+            seq_mode = ("tokens" if self.loss == "lm" and x.ndim == 2
+                        and getattr(self.model, "splits_tokens", False)
+                        else "rows")
+        if seq_mode == "tokens":
+            tok = mesh.rows(x.shape[1], q_ax)
         if labels is not None:
             labels = labels[samples][:, rows]
+            if tok is not None:
+                labels = labels[:, :, tok]
         shard = Shard(
-            data_group=mesh.group(self._data_axis),
-            sample_group=mesh.group(self._sample_axis),
-            world_group=dist.group.WORLD if dist.is_initialized() else None,
-            batch=x.shape[0], data_size=mesh.size(self._data_axis),
-            rows=rows, samples=samples)
-        return x[rows], labels, shard
+            data_group=mesh.group(d_ax) if d_ax in split else None,
+            sample_group=mesh.group(s_ax) if s_ax in split else None,
+            seq_group=mesh.group(q_ax) if seq_mode == "tokens" else None,
+            sum_group=mesh.group_of(split) if split else None,
+            batch=x.shape[0],
+            tokens=x.shape[1] if self.loss == "lm" and x.ndim == 2 else 1,
+            divisor=mesh.size(d_ax if d_ax in split else None)
+            * mesh.size(q_ax if q_ax in split else None),
+            rows=rows, samples=samples, seq_mode=seq_mode,
+            seq_index=mesh.index(q_ax) if seq_mode else 0,
+            seq_size=mesh.size(q_ax) if seq_mode else 1,
+            token_rows=tok)
+        x = x[rows]
+        if tok is not None:
+            x = x[:, tok]
+        return x, labels, shard
 
     def _reduced_delta(self, cap: Captured):
-        """This batch's factor delta summed over every rank, each rank's
-        weighted by its token share (1 / data ranks): the token-Gram
-        factors of a meshed capture."""
-        delta = self.update_state(self.init_state(), cap)
+        """This batch's factor delta summed over the ranks that split the
+        tokens and draws of this rank's block, each rank's weighted by its
+        token share: the token-Gram factors of a meshed capture."""
+        delta = self.update_state(self._zeros(), cap)
         leaves = _leaves(delta)
-        if cap.shard.data_size > 1:
+        if cap.shard.divisor > 1:
             for t in leaves:
-                t.div_(cap.shard.data_size)
-        all_reduce_tree(leaves, cap.shard.world_group)
+                t.div_(cap.shard.divisor)
+        all_reduce_tree(leaves, cap.shard.sum_group)
         return delta
+
+    def _zeros(self):
+        """A zero state of this rank's block shapes."""
+        def zeros(tree):
+            if isinstance(tree, dict):
+                return {k: zeros(v) for k, v in tree.items()}
+            return torch.zeros_like(tree)
+        return zeros(self.state) if self._sharded() else self.init_state()
 
     @torch.no_grad()
     def batch_state(self, cap: Captured):
         """This batch's factors alone, in a fresh state: the same on every
-        rank for a meshed capture."""
-        if cap.shard is None or self.need_param_grads:
-            return self.update_state(self.init_state(), cap)
+        rank of a block for a meshed capture."""
+        cap = self._block_capture(cap)
+        if cap.shard is None or cap.shard.sum_group is None \
+                or self.need_param_grads:
+            return self.update_state(self._zeros(), cap)
         return self._reduced_delta(cap)
 
     # -- stateful API (reference lifecycle) ---------------------------------
     @torch.no_grad()
     def _accumulate(self, cap: Captured):
-        if cap.shard is None or self.need_param_grads:
+        cap = self._block_capture(cap)
+        if cap.shard is None or cap.shard.sum_group is None \
+                or self.need_param_grads:
             # a meshed capture's parameter gradients are already global
             self.state = self.update_state(self.state, cap)
             return
@@ -463,7 +749,8 @@ class Estimator:
     def logdet_precision(self, add=0.0, multiply=1.0) -> float:
         add, multiply = normalize_damping(add, multiply, len(self.metas),
                                           self.device, self.dtype)
-        return float(self.logdet_state(self.state, add, multiply))
+        with self._whole():
+            return float(self.logdet_state(self.state, add, multiply))
 
     def _as_deltas(self, deltas) -> Dict[str, torch.Tensor]:
         return {name: torch.as_tensor(deltas[name], dtype=self.dtype,
@@ -477,15 +764,18 @@ class Estimator:
         matrix-view offsets ``deltas`` ({layer: [out, fan_in(+1)]})."""
         add, multiply = normalize_damping(add, multiply, len(self.metas),
                                           self.device, self.dtype)
-        inv = self._wrap_inv(self.invert_state(self.state, add, multiply))
-        return self.solve_state(inv, self._as_deltas(deltas))
+        with self._whole():
+            inv = self._wrap_inv(self.invert_state(self.state, add,
+                                                   multiply))
+            return self.solve_state(inv, self._as_deltas(deltas))
 
     @torch.no_grad()
     def quadratic_form(self, deltas, add=0.0, multiply=1.0) -> float:
         add, multiply = normalize_damping(add, multiply, len(self.metas),
                                           self.device, self.dtype)
-        return float(self.quad_state(self.state, add, multiply,
-                                     self._as_deltas(deltas)))
+        with self._whole():
+            return float(self.quad_state(self.state, add, multiply,
+                                         self._as_deltas(deltas)))
 
     @torch.no_grad()
     def log_density(self, params: Dict[str, torch.Tensor], add=0.0,
@@ -506,6 +796,8 @@ class Estimator:
 
     def draw_noise(self, generator: Optional[torch.Generator] = None
                    ) -> Dict[str, torch.Tensor]:
+        """Standard normals of the whole model's :meth:`noise_shapes`, as
+        one process draws them with ``generator``."""
         def draw(shape):
             if isinstance(shape, dict):
                 return {k: draw(s) for k, s in shape.items()}
@@ -527,7 +819,8 @@ class Estimator:
             raise RuntimeError("inverse state is empty; call invert() first")
         if noise is None:
             noise = self.draw_noise(generator)
-        return self.sample_state(self.inv_state, self._as_noise(noise))
+        return self.sample_state(self.inv_state,
+                                 self._block_noise(self._as_noise(noise)))
 
     def posterior_params(self, noise=None, generator=None
                          ) -> Dict[str, torch.Tensor]:

@@ -31,16 +31,21 @@ so at a 50,257-word vocabulary one ``[B, T, V]`` cotangent exists at a
 time.
 
 Under a mesh (``Estimator.use_mesh``) each rank captures its block of the
-batch and of the label draws, described by a :class:`Shard`. The context
-carries the data group, so BatchNorm normalizes over the whole batch.
-Labels drawn here come from the whole batch's logits, gathered over the
-data ranks, with the caller's generator (one process's draws); the rank
-keeps its block. Every cotangent is divided by the *global* position
-count, so the probe gradients are those of the global mean loss on this
-rank's tokens. The parameter gradients are summed over the data group
-(the global batch gradient) and gathered over the sample group (every
-draw) before any estimator squares them. ``batch_size`` is the global
-count.
+batch, of the label draws and of the tokens, described by a
+:class:`Shard`. The context carries the data group, so BatchNorm
+normalizes over the whole batch, and, where the token dim of ``[B, T]``
+LM inputs is split (``seq_mode='tokens'``, a model with ``splits_tokens``),
+the seq group and the block's
+first position: the model offsets its position ids and its attention
+gathers the keys and values of every token (models/gpt.py). Labels drawn
+here come from the whole batch's logits, gathered over the data and token
+ranks, with the caller's generator (one process's draws); the rank keeps
+its block. Every cotangent is divided by the *global* position count, so
+the probe gradients are those of the global mean loss on this rank's
+tokens. The parameter gradients are summed over the data group (and the
+token group) (the global batch gradient) and gathered over the sample
+group (every draw) before any estimator squares them. ``batch_size`` is
+the global count.
 
 ``gram_probe_names`` fuses the output-gradient capture of those layers
 (JAX capture.py:127-230): each gets a zero f32 ``[out, out]`` accumulator
@@ -58,7 +63,8 @@ from torch.func import functional_call
 
 from curvature_tpu_torch.nn.core import (
     Context, LayerMeta, param_key, param_matrix)
-from curvature_tpu_torch.parallel.mesh import all_gather, all_reduce_tree
+from curvature_tpu_torch.parallel.mesh import (
+    all_gather, all_reduce_tree, group_size)
 
 
 @dataclass
@@ -66,21 +72,39 @@ class Shard:
     """One rank's part of a meshed capture.
 
     data_group:   process group of the ranks splitting the batch (None:
-                  one rank).
+                  not split).
     sample_group: process group of the ranks splitting the label draws.
-    world_group:  every rank of the mesh (the factor-delta sum).
+    seq_group:    process group of the ranks splitting the token dim of
+                  ``[B, T]`` inputs (``seq_mode='tokens'``), else None.
+    sum_group:    the ranks that split tokens and draws and share this
+                  rank's parameter and state blocks: the factor-delta sum.
     batch:        the global batch size B.
-    data_size:    ranks on the data axis.
+    tokens:       the global token count T of ``[B, T]`` LM inputs (1
+                  otherwise).
+    divisor:      ranks splitting the tokens (data times seq): each rank's
+                  delta is weighted by one over it.
     rows:         this rank's rows of the batch.
     samples:      this rank's label draws.
+    seq_mode:     ``'tokens'`` (the token dim split), ``'rows'`` (the
+                  forward whole, conv Grams on a block of output rows) or
+                  None (seq not split).
+    seq_index:    this rank's index on the seq axis.
+    seq_size:     the ranks on the seq axis (1 where it is not split).
+    token_rows:   this rank's tokens under ``'tokens'``.
     """
     data_group: Any
     sample_group: Any
-    world_group: Any
+    seq_group: Any
+    sum_group: Any
     batch: int
-    data_size: int
+    tokens: int
+    divisor: int
     rows: slice
     samples: slice
+    seq_mode: Optional[str] = None
+    seq_index: int = 0
+    seq_size: int = 1
+    token_rows: Optional[slice] = None
 
 
 @dataclass
@@ -217,20 +241,25 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     was_training = model.training
     model.train()
     ctx = Context(track=metas, probes=need_probe_grads, gram_taps=taps,
-                  data_group=None if shard is None else shard.data_group)
+                  data_group=None if shard is None else shard.data_group,
+                  seq_group=None if shard is None else shard.seq_group,
+                  seq_offset=(shard.token_rows.start if shard is not None
+                              and shard.token_rows is not None else 0))
     try:
         logits = (model(x, ctx) if params is None
                   else functional_call(model, params, (x, ctx)))
     finally:
         model.train(was_training)
     if labels is None:
-        full = logits if shard is None else all_gather(
-            logits.detach(), shard.data_group)
+        full = logits if shard is None else all_gather(all_gather(
+            logits.detach(), shard.data_group), shard.seq_group, 1)
         labels = (sample_labels(full, num_samples, generator, loss)
                   if loss == "gaussian"
                   else sample_labels(full, num_samples, generator))
         if shard is not None:
             labels = labels[shard.samples][:, shard.rows]
+            if shard.token_rows is not None:
+                labels = labels[:, :, shard.token_rows]
     labels = torch.as_tensor(labels, device=logits.device)
     if labels.ndim == (2 if loss in ("lm", "gaussian") else 1):
         labels = labels[None]
@@ -251,7 +280,7 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
                   else x.shape[0])
     count = None
     if shard is not None:
-        batch_size = batch_size // x.shape[0] * shard.batch
+        batch_size = shard.batch * (shard.tokens if loss == "lm" else 1)
         count = batch_size
     for s in range(num):
         cot = (gaussian_cotangent(logits, labels[s], count) if probs is None
@@ -281,6 +310,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     if shard is not None and param_grads:
         # the global batch gradient of every draw, on every rank
         all_reduce_tree(list(param_grads.values()), shard.data_group)
+        if group_size(shard.seq_group) > 1:
+            all_reduce_tree(list(param_grads.values()), shard.seq_group)
         param_grads = {n: all_gather(g, shard.sample_group)
                        for n, g in param_grads.items()}
     return Captured(

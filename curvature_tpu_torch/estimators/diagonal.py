@@ -9,7 +9,9 @@ leading depth axis, and every transform is elementwise (JAX :32-36):
   invert:  inv = sqrt(1 / (multiply * state + add))
   sample:  z * inv                      (z: [out, cols] standard normals)
 
-The state is updated in place.
+The state is updated in place. Under a mesh a column-parallel layer's
+state keeps its block of output rows, beside the layer's block of
+columns (JAX :22-29); its gradient is that block already.
 """
 from typing import Dict
 
@@ -30,6 +32,16 @@ def damped(state, add, multiply, names) -> Dict[str, torch.Tensor]:
 class Diagonal(Estimator):
 
     need_probe_grads = False
+    shards_tensor_rows = True
+
+    def _state_leaf_spec(self, name, keys, shape, ax):
+        """The [out, cols] matrix view of a column-parallel layer shards its
+        output rows over the tensor axis."""
+        spec = super()._state_leaf_spec(name, keys, shape, ax)
+        if (ax["tensor"] and name in ax["tp"] and len(shape) >= 2
+                and spec[-2] is None and shape[-2] % ax["tensor_size"] == 0):
+            spec[-2] = ax["tensor"]
+        return spec
 
     def init_state(self):
         return {name: torch.zeros(shape, dtype=self.dtype, device=self.device)

@@ -17,7 +17,9 @@ the second moments of the gradient in the Kronecker eigenbasis
 with g_s the [out, fan_in(+1)] gradient of the mean loss for MC sample s.
 ``invert`` is elementwise; ``sample`` scales [cols, out] noise in the
 eigenbasis and rotates it out. The state and ``diags`` are updated in
-place; the eigenvectors ride in ``inv_state`` (``_wrap_inv_aux``).
+place; the eigenvectors ride in ``inv_state`` (``_wrap_inv_aux``). Under
+a mesh the carry (state, ``diags``, eigenvectors) takes the base depth
+and expert rule: each rank keeps its block of a stacked layer's.
 """
 from typing import Dict
 
@@ -83,6 +85,10 @@ class EFB(Estimator):
                                         + (m.out_features, m.mat_cols),
                                         dtype=self.dtype, device=self.device)
                       for name, m in self.metas.items()}
+
+    def _carry(self):
+        return {"state": self.state, "diags": self.diags,
+                "eigvecs": self.eigvecs}
 
     @staticmethod
     def _lead(m) -> tuple:

@@ -27,6 +27,11 @@ R x R Gram (R = |left| * |right|) is built from two Khatri-Rao products
 einsum would make. The eigendecompositions and Grams are large dense
 products that JAX leaves to XLA: here they are torch ops (cuSOLVER,
 cuBLAS), no hand kernel.
+
+Under a mesh the carry (the inputs, their eigenvectors and the state)
+takes the base depth and expert rule: each rank builds its slabs of a
+stacked layer, their padded (L, M) the largest over the stack's ranks,
+so the blocks are those of one process's state.
 """
 from typing import Dict, Optional
 
@@ -39,6 +44,7 @@ from curvature_tpu_torch.estimators.efb import (
     check_square_factors, kfac_eigenvectors)
 from curvature_tpu_torch.nn.core import param_key
 from curvature_tpu_torch.ops.linalg import sym
+from curvature_tpu_torch.parallel.mesh import group_size
 
 
 def dim_reduction(lam_vec: np.ndarray, n: int, m: int, rank: int,
@@ -262,6 +268,22 @@ class INF(Estimator):
     def init_state(self):
         return {}
 
+    def _carry(self):
+        carry = {"state": self.state, "diags": self.diags,
+                 "lambdas": self.lambdas, "_kfac_state": self._kfac_state}
+        if self._eigvecs is not None:
+            carry["_eigvecs"] = self._eigvecs
+        return carry
+
+    def _stack_group(self, meta):
+        """The ranks splitting a stacked layer's slabs (None: whole)."""
+        if self._plan is None or not meta.stacked or self._whole_view:
+            return None
+        ax = self._mesh_axes
+        axis = ax["expert"] if meta.moe else ax["model"]
+        spec = self._plan["diags"][meta.name]
+        return self.mesh.group(axis) if spec[0] is not None else None
+
     @torch.no_grad()
     def update(self, rank: int = 100, max_product: int = 0,
                bucket: int = 8):
@@ -275,7 +297,8 @@ class INF(Estimator):
         for name, meta in self.metas.items():
             # slabs: a stacked layer's depth, a grouped conv's groups; a
             # plain layer is one slab
-            depth = meta.stacked or meta.groups
+            depth = (self.diags[name].shape[0] if meta.stacked
+                     else meta.groups)
             og = meta.out_features // meta.groups
             ua_full = self.eigvecs[name]["a"].reshape(
                 depth, meta.mat_cols, meta.mat_cols)
@@ -290,6 +313,13 @@ class INF(Estimator):
                    for i in range(depth)]
             lb = _bucket(max(len(s[0]) for s in sel), n, bucket)
             rb = _bucket(max(len(s[1]) for s in sel), m, bucket)
+            group = self._stack_group(meta)
+            if group_size(group) > 1:
+                # one padded (L, M) over the whole stack's slabs
+                sizes = torch.tensor([lb, rb], device=ua_full.device)
+                torch.distributed.all_reduce(
+                    sizes, torch.distributed.ReduceOp.MAX, group=group)
+                lb, rb = (int(v) for v in sizes.tolist())
             # every slab's padded index sets gathered at once (a depthwise
             # conv has a slab per channel)
             left_p = np.stack([_pad_indices(s[0], lb, n) for s in sel])
@@ -313,6 +343,13 @@ class INF(Estimator):
             state[name] = st if meta.stacked or is_grouped(meta) \
                 else {k: v[0] for k, v in st.items()}
         self.state = state
+        if self._plan is not None:
+            # the state is built from blocks: a split stack's slabs lead
+            self._plan["state"] = {
+                name: {k: [self._plan["diags"][name][0]
+                           if self.metas[name].stacked else None]
+                       + [None] * (v.ndim - 1) for k, v in st.items()}
+                for name, st in state.items()}
         return state
 
     @staticmethod

@@ -88,7 +88,20 @@ each bucket is one batched product (its columns zero-padded to a multiple
 of 128, as JAX does), and so are the plain layers' G tokens (JAX
 :460-560). Both options change where a Gram is computed, never its
 value; neither touches the kernel routes.
+
+Under a mesh (``Estimator.use_mesh``): a column-parallel layer (``tensor``
+axis; JAX :261-279, split attention and blocked G excluded) keeps its A
+whole and the row block of its G, ``g[:, rows]^T g`` from the whole
+output gradient (the probe sits after the layer's gather); its invert
+gathers G over the tensor ranks, decomposes it and keeps this rank's row
+block of the inverse root, whose sample ``g_chol[rows] z^T a_chol^T``
+(the whole ``z``) is this rank's rows of the whole draw. Stacked layers
+keep their depth or expert block. Under the seq axis on a non-token input
+each conv layer's Grams take this rank's block of output rows: the input
+rows that block reads (zero-padded at the image's edges) through the
+route the whole input picks (:meth:`_row_block`).
 """
+import dataclasses
 import math
 from typing import Dict
 
@@ -105,6 +118,7 @@ from curvature_tpu_torch.ops.cuda.patch_gram import (
 from curvature_tpu_torch.ops.linalg import (
     chol_logdet, damped_inverse_cholesky, diag_add, sym)
 from curvature_tpu_torch.ops.patches import resolve_padding
+from curvature_tpu_torch.parallel.mesh import all_gather
 
 
 def _split_damped_logdet(factor, add, multiply):
@@ -174,6 +188,7 @@ def _conv_token_count(meta, act) -> int:
 class KFAC(Estimator):
 
     need_param_grads = False
+    shards_tensor_rows = True
 
     def __init__(self, model, *, use_kernels="auto",
                  token_subsample: float = 1.0, subsample_offset=(0, 0),
@@ -238,6 +253,23 @@ class KFAC(Estimator):
     def _is_split(self, meta) -> bool:
         return (self._is_qkv_split(meta) or self._is_head_split_in(meta)
                 or self._is_head_split_out(meta))
+
+    def _tp_ok(self, name, meta) -> bool:
+        """Column parallelism shards G's [out, out] rows; split attention
+        layers and blocked G keep their chunked layouts whole (JAX
+        :261-270)."""
+        return (super()._tp_ok(name, meta) and not self._is_split(meta)
+                and not self._is_gblock(meta))
+
+    def _state_leaf_spec(self, name, keys, shape, ax):
+        """G of a column-parallel layer shards its rows over the tensor
+        axis (JAX :272-279)."""
+        spec = super()._state_leaf_spec(name, keys, shape, ax)
+        if (ax["tensor"] and name in ax["tp"] and keys and keys[-1] == "g"
+                and len(shape) >= 2 and spec[-2] is None
+                and shape[-2] % ax["tensor_size"] == 0):
+            spec[-2] = ax["tensor"]
+        return spec
 
     def _is_gblock(self, meta) -> bool:
         """Block-diagonal G for an oversized dense layer (a vocabulary
@@ -360,16 +392,17 @@ class KFAC(Estimator):
                 return which
         return "patches"
 
-    def _a_factor(self, meta, act):
+    def _a_factor(self, meta, act, route=None):
         """Per-batch A factor (already divided by its token count); a
         stacked layer's [depth, cols, cols], its depth axis batching the
-        Gram (JAX :354-359)."""
+        Gram (JAX :354-359). ``route`` overrides :meth:`a_route` (a row
+        block takes the whole input's)."""
         if meta.stacked:
-            a = act.reshape(meta.stacked, -1, meta.fan_in)
+            a = act.reshape(act.shape[0], -1, meta.fan_in)
             if meta.has_bias:
                 a = torch.cat([a, a.new_ones(a.shape[:-1] + (1,))], dim=-1)
             return _gram_aligned(a, self.dtype) / a.shape[1]
-        route = self.a_route(meta, act.shape, act.element_size())
+        route = route or self.a_route(meta, act.shape, act.element_size())
         if route == "grouped":
             t = grouped_act_tokens(meta, act, append_ones=meta.has_bias,
                                    extra_stride=self._spatial_stride(),
@@ -415,6 +448,35 @@ class KFAC(Estimator):
                        offset=self.subsample_offset)
         return _gram_aligned(a, self.dtype) / a.shape[0]
 
+    def _row_block(self, meta, act, probe, shard):
+        """(meta, input, probe gradient, route) of this rank's block of a
+        conv layer's output rows under the seq axis on a non-token input,
+        or None where the layer stays whole (output rows that do not
+        divide the axis, a subsampled grid, a stacked layer). The input
+        rows the block reads are cut from the input padded at its top and
+        bottom edges, and the block's meta pads the columns only; the
+        route is the one the whole input takes (JAX's jit sees the global
+        shape)."""
+        if (shard is None or shard.seq_mode != "rows" or meta.kind != "conv"
+                or meta.stacked or self._spatial_stride() > 1):
+            return None
+        (pt, pb), cols = resolve_padding(meta.padding, act.shape[1],
+                                         act.shape[2], meta.kernel_size,
+                                         meta.strides)
+        kh, sh = meta.kernel_size[0], meta.strides[0]
+        h_out = (act.shape[1] + pt + pb - kh) // sh + 1
+        if h_out % shard.seq_size:
+            return None
+        per = h_out // shard.seq_size
+        r0 = shard.seq_index * per
+        route = self.a_route(meta, act.shape, act.element_size())
+        padded = torch.nn.functional.pad(act, (0, 0, 0, 0, pt, pb))
+        block = padded[:, r0 * sh:(r0 + per - 1) * sh + kh]
+        meta_b = dataclasses.replace(meta, padding=((0, 0), tuple(cols)))
+        if probe is not None:
+            probe = probe[:, :, r0:r0 + per]
+        return meta_b, block, probe, route
+
     def _g_tokens(self, meta, g):
         """[S, ...preact] probe gradient -> ([S*N, out] tokens, N): the
         strided spatial grid of a conv when token_subsample < 1; a stacked
@@ -448,9 +510,11 @@ class KFAC(Estimator):
             and self.a_route(meta, act.shape, act.element_size()) == "patches"
 
     def _g_stackable(self, meta) -> bool:
-        """A plain layer whose G is one token Gram (JAX :478-484)."""
+        """A plain layer whose G is one token Gram (JAX :478-484); a
+        column-parallel layer's G is its row block."""
         return not (meta.stacked or is_grouped(meta) or self._is_split(meta)
-                    or self._is_gblock(meta))
+                    or self._is_gblock(meta)
+                    or self._tp_rows(meta.name) is not None)
 
     def _stacked_grams(self, cap: Captured, grams):
         """({name: A}, {name: G}) of the stackable layers (those not fused
@@ -497,15 +561,26 @@ class KFAC(Estimator):
         pre_a, pre_g = (self._stacked_grams(cap, grams) if self.stack_grams
                         else ({}, {}))
         for name, meta in self.metas.items():
+            rows = self._tp_rows(name)
+            probe = cap.probe_grads.get(name)
+            block = (None if name in pre_a
+                     else self._row_block(meta, cap.acts[name],
+                                          None if name in grams
+                                          or name in pre_g else probe,
+                                          cap.shard))
             if name in grams:
                 # (B*g)^T (B*g) over the S samples' token Grams
-                g_factor = grams[name].sum(0).to(self.dtype) * (
+                gram = grams[name].sum(0)
+                if rows is not None:
+                    gram = gram[rows]
+                g_factor = gram.to(self.dtype) * (
                     cap.batch_size ** 2 / cap.probe_gram_ntok[name])
             elif name in pre_g:
                 g_factor = pre_g[name]
             else:
-                g_factor = self._g_factor(meta, cap.probe_grads[name],
-                                          cap.batch_size)
+                g_factor = self._g_factor(
+                    meta, probe if block is None else block[2],
+                    cap.batch_size, rows)
             if self._is_head_split_out(meta):
                 # out_proj's input is the concat of the heads' outputs: A
                 # splits along fan_in; the ones (bias) column is a scalar
@@ -513,18 +588,25 @@ class KFAC(Estimator):
                 a_factor = self._head_a_factor(meta, cap.acts[name])
                 if "a_bias" in state[name]:
                     state[name]["a_bias"] += num_mc
+            elif name in pre_a:
+                a_factor = pre_a[name]
+            elif block is not None:
+                a_factor = self._a_factor(block[0], block[1], block[3])
             else:
-                a_factor = (pre_a[name] if name in pre_a
-                            else self._a_factor(meta, cap.acts[name]))
+                a_factor = self._a_factor(meta, cap.acts[name])
             state[name]["a"] += num_mc * a_factor.to(self.dtype)
             state[name]["g"] += g_factor
         return state
 
-    def _g_factor(self, meta, probe_grad, batch_size):
+    def _g_factor(self, meta, probe_grad, batch_size, rows=None):
         """This batch's G factor from the [S, ...preact] probe gradient:
         the S samples' token Grams in one product, per G block of a
-        blocked, split or grouped layer."""
+        blocked, split or grouped layer; ``rows`` (a column-parallel
+        layer's output rows) takes the row block ``g[:, rows]^T g``."""
         g, n_tok = self._g_tokens(meta, probe_grad)
+        if rows is not None:
+            g = g.to(self.dtype)
+            return (g[..., rows].mT @ g) * (batch_size ** 2 / n_tok)
         if self._is_gblock(meta):
             gram = self._gblock_gram(meta, g)
         elif self._is_head_split_in(meta):
@@ -549,7 +631,7 @@ class KFAC(Estimator):
     def _head_a_factor(self, meta, act):
         """Per-head input Grams [(depth,) H, d, d] of a head-split
         ``out_proj``, divided by the token count."""
-        lead = (meta.stacked,) if meta.stacked else ()
+        lead = act.shape[:1] if meta.stacked else ()
         t = act.reshape(lead + (-1, meta.heads, meta.fan_in // meta.heads))
         return _gram_aligned(t.movedim(-2, -3), self.dtype) / t.shape[-3]
 
@@ -561,11 +643,15 @@ class KFAC(Estimator):
         inv = {}
         for i, name in enumerate(self.metas):
             fac = state[name]
+            rows = self._tp_rows(name)
+            g = fac["g"] if rows is None else all_gather(
+                fac["g"], self._tensor_group(), -2)
+            g_chol = damped_inverse_cholesky(g, add[i], multiply[i])
             inv[name] = {
                 "a_chol": damped_inverse_cholesky(fac["a"], add[i],
                                                   multiply[i]),
-                "g_chol": damped_inverse_cholesky(fac["g"], add[i],
-                                                  multiply[i])}
+                "g_chol": g_chol if rows is None
+                else g_chol[..., rows, :].contiguous()}
             if "a_bias" in fac:
                 inv[name]["a_bias_chol"] = torch.rsqrt(
                     torch.sqrt(multiply[i]) * fac["a_bias"]
@@ -696,7 +782,7 @@ class KFAC(Estimator):
         for name, meta in self.metas.items():
             a_chol = inv_state[name]["a_chol"]
             g_chol = inv_state[name]["g_chol"]
-            lead = (meta.stacked,) if meta.stacked else ()
+            lead = a_chol.shape[:1] if meta.stacked else ()
             if self._is_head_split_out(meta):
                 out[name] = self._sample_head_out(meta, inv_state[name],
                                                   noise[name])
@@ -718,7 +804,7 @@ class KFAC(Estimator):
         """A head-split ``out_proj``'s draw: per-head matrix-normals
         a_chol[h] z[h] g_chol^T laid out [out, (head, dim)], and the bias
         column g_chol z_bias * a_bias_chol (JAX :826-843)."""
-        lead = (meta.stacked,) if meta.stacked else ()
+        lead = inv["g_chol"].shape[:1] if meta.stacked else ()
         w = inv["a_chol"] @ noise["z"] @ inv["g_chol"].mT[..., None, :, :]
         w = w.movedim(-1, -3).reshape(lead + (meta.out_features,
                                               meta.fan_in))

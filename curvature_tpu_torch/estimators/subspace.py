@@ -40,9 +40,18 @@ saved factors, so a reloaded state (a JAX-written one through
 from ``torch.Generator(device).manual_seed(omega_seed)``, or injected.
 Memory is 2 p R floats.
 
-The mesh hooks of the JAX class (``_step_rng_meshed``, ``_tp_ok``,
-``_state_leaf_spec``) wait for ROADMAP Queue 1 item 10b; ``use_mesh``
-raises ``NotImplementedError``.
+Under a mesh (``use_mesh``, JAX :146-165) the state stays whole on every
+rank and so does the model: the Nyström eigenbasis couples every layer,
+and the GGN products run through ``torch.func`` transforms, which carry no
+collective. Each rank runs the whole batch and applies the loss Hessian
+to its block of the observations only (its rows over ``data``, its
+tokens of ``[B, T, V]`` logits over ``seq``); the ranks' sketch columns
+are summed over those axes, which equals one process's sketch. Nothing is
+drawn, so the ``sample`` ranks, like the ``model``, ``tensor`` and
+``expert`` ranks, repeat the same columns; ``update`` is JAX's
+``_step_rng_meshed`` too, which ignores its key. A batch that does not
+divide ``data`` runs whole on every rank; a token count that does not
+divide ``seq`` drops only seq.
 """
 import math
 from typing import Dict, Optional, Sequence, Union
@@ -52,6 +61,7 @@ from torch.func import jvp, vjp, vmap
 
 from curvature_tpu_torch.estimators.base import Estimator
 from curvature_tpu_torch.ops import matfree
+from curvature_tpu_torch.parallel.mesh import all_reduce_tree
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
 __all__ = ["Subspace"]
@@ -63,12 +73,55 @@ class Subspace(Estimator):
     # no capture pass: the GGN products run their own forward
     need_param_grads = False
     need_probe_grads = False
+    places_model = False
 
-    def use_mesh(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the Subspace sketch on a mesh is not ported yet (ROADMAP Queue "
-            "1 item 10b)")
+    def use_mesh(self, mesh, *args, **kwargs):
+        """The base ``use_mesh`` with every state leaf whole and the model
+        left whole (module docstring); a model another estimator already
+        split over the mesh raises ``ValueError``."""
+        from curvature_tpu_torch.nn.placement import is_split
+        if is_split(self.model):
+            raise ValueError(
+                "the Subspace sketch runs the whole model on every rank; "
+                "build it on a model no estimator has split")
+        return super().use_mesh(mesh, *args, **kwargs)
 
+    # -- mesh rules (JAX :156-165) --------------------------------------------
+    def _tp_ok(self, name, meta):
+        # the Nyström eigenbasis couples all layers: state stays whole
+        return False
+
+    def _state_leaf_spec(self, name, keys, shape, ax):
+        # leaves are [R, *view]: the global invert contracts over them
+        return [None] * len(shape)
+
+    def _obs_block(self, x, lead):
+        """(this rank's observations as a flat 0/1 mask, or None, and the
+        group its sketch columns are summed over): its rows of the batch
+        over ``data`` and, for ``[B, T, V]`` logits, its tokens over
+        ``seq``."""
+        mesh = self.mesh
+        if mesh is None:
+            return None, None
+        mode = self._dispatch(x.shape[0], None, self._tokens(x))
+        keep = torch.ones(lead, dtype=torch.bool, device=self.device)
+        axes = []
+        d_ax, q_ax = self._data_axis, self._seq_axis
+        if mode != "single" and mesh.size(d_ax) > 1:
+            rows = mesh.rows(lead[0], d_ax)
+            mask = torch.zeros_like(keep)
+            mask[rows] = True
+            keep &= mask
+            axes.append(d_ax)
+        if mode == "sharded" and mesh.size(q_ax) > 1 and len(lead) == 2:
+            tok = mesh.rows(lead[1], q_ax)
+            mask = torch.zeros_like(keep)
+            mask[:, tok] = True
+            keep &= mask
+            axes.append(q_ax)
+        if not axes:
+            return None, None
+        return keep.reshape(-1), mesh.group_of(axes)
     def __init__(self, model, rank: int = 16, omega_seed: int = 0,
                  layer_types: Optional[Union[str, Sequence[str]]] = None,
                  dtype=torch.float32,
@@ -151,12 +204,15 @@ class Subspace(Estimator):
             logits, pullback = vjp(f, primals)
             obs = math.prod(logits.shape[:-1])
             logits2d = logits.reshape(obs, logits.shape[-1])
+            keep, group = self._obs_block(x, tuple(logits.shape[:-1]))
 
             def column(col):
                 _, u = jvp(f, (primals,),
                            (matfree._tangent(metas, primals, col),))
                 hu = matfree._h_apply(self.loss, logits2d,
                                       u.reshape(logits2d.shape))
+                if keep is not None:
+                    hu = hu * keep[:, None].to(hu.dtype)
                 (g,) = pullback(hu.reshape(logits.shape))
                 return {n: m.to(self.dtype)
                         for n, m in matfree._matrices(metas, g,
@@ -164,12 +220,20 @@ class Subspace(Estimator):
 
             scale = float(weight) / obs
             step = self.chunk or self.rank
+            # a meshed rank's columns are summed over its group first
+            delta = ({n: state[n]["sketch"] for n in metas} if group is None
+                     else {n: torch.zeros_like(state[n]["sketch"])
+                           for n in metas})
             for lo in range(0, self.rank, step):
                 cols = vmap(column)({n: state[n]["omega"][lo:lo + step]
                                      for n in metas})
                 for n in metas:
-                    state[n]["sketch"][lo:lo + step].add_(cols[n],
-                                                          alpha=scale)
+                    delta[n][lo:lo + step].add_(
+                        cols[n], alpha=scale if group is None else 1.0)
+            if group is not None:
+                all_reduce_tree(list(delta.values()), group)
+                for n in metas:
+                    state[n]["sketch"].add_(delta[n], alpha=scale)
         return state
 
     # -- Nyström factorization (Tropp et al. 2017, Alg. 3, shifted) -----------

@@ -1,6 +1,6 @@
 """Laplace over a Switch-style mixture-of-experts GPT-2, in one script.
 
-Port of ``examples/moe_laplace.py``, its steps 1-5:
+Port of ``examples/moe_laplace.py``:
 
   1. a Switch GPT-2 (top-1-routed two-layer experts, ``nn.MoE``) with
      seeded weights on a synthetic token stream (numpy seed 0);
@@ -10,27 +10,112 @@ Port of ``examples/moe_laplace.py``, its steps 1-5:
   3. the experts' routed shares at ``h.0``, read off the captured
      mask-routed activation stream;
   4. damping tuned by gradient ascent on the Laplace evidence;
-  5. a per-token Bayesian predictive against the MAP one.
-
-JAX's step 6, the same update under an ``expert``-sharded mesh, waits for
-the port's expert axis (ROADMAP Queue 1 item 10b); the script says so
-where the step would run.
+  5. a per-token Bayesian predictive against the MAP one;
+  6. the same update on an ``expert:2`` mesh (expert parallelism): the
+     script starts two ranks of itself (gloo, on the script's device),
+     each holding half of the experts' weights and factors, and holds the
+     gathered ``h.0.moe.fc1`` A factor to this process's (rtol 1e-5, atol
+     1e-6, JAX :93-108).
 
     python -m curvature_tpu_torch.examples.moe_laplace [--platform cpu]
 """
 import argparse
+import os
+import socket
+import subprocess
+import sys
+import tempfile
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
-from curvature_tpu_torch import estimators, models
+from curvature_tpu_torch import estimators, models, parallel
 from curvature_tpu_torch.eval.marglik import marglik_gradient_tune
 from curvature_tpu_torch.nn import Context
 from curvature_tpu_torch.utils.device import resolve_device
 
 VOCAB = 64
 BATCH = 8
+#: the expert-sharded step's layer, ranks and bar (JAX :103-105)
+EP_LAYER, EP_RANKS, EP_RTOL, EP_ATOL = "h.0.moe.fc1", 2, 1e-5, 1e-6
+
+
+def build(args, device):
+    """The seeded Switch GPT-2 and the token batches [batches, B, T]."""
+    model = models.gpt2_moe_tiny(num_classes=VOCAB, experts=args.experts,
+                                 max_len=args.seq_len, device=device)
+    models.load_jax_variables(model, models.seeded_variables(model, 1))
+    model.eval()
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(
+        0, VOCAB, (args.batches, BATCH, args.seq_len)), device=device)
+    return model, toks
+
+
+def expert_update(model, toks, mesh=None):
+    """KFAC on the first batch with its tokens as labels; on ``mesh`` its
+    expert blocks. Returns the estimator."""
+    est = estimators.KFAC(model, loss="lm")
+    if mesh is not None:
+        est.use_mesh(mesh)
+    est.update(toks[0], labels=toks[0][None])
+    return est
+
+
+def expert_rank(args, device, out_dir):
+    """One rank of step 6 (``--expert_rank``): writes its gathered A
+    factor and the shape of its block."""
+    parallel.initialize(device="cpu" if device.type == "cpu" else None)
+    mesh = parallel.make_mesh({"expert": EP_RANKS, "data": 1})
+    model, toks = build(args, device)
+    est = expert_update(model, toks, mesh)
+    block = tuple(est.state[EP_LAYER]["a"].shape)
+    a = est.gathered_state()[EP_LAYER]["a"]
+    rank = torch.distributed.get_rank()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), a=a.cpu().numpy(),
+             block=np.asarray(block))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def expert_parallel(args, device, single_a):
+    """Step 6: two ranks of this script on ``expert:2``; returns the
+    largest difference of their gathered A factor from ``single_a``,
+    relative to its largest entry, and the ranks' block shape. A rank
+    that fails, or a factor off the bar, raises."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), WORLD_SIZE=str(EP_RANKS),
+                   LOCAL_WORLD_SIZE=str(EP_RANKS))
+        argv = [sys.executable, "-m", __spec__.name if __spec__ else
+                "curvature_tpu_torch.examples.moe_laplace",
+                "--expert_rank", out, "--experts", str(args.experts),
+                "--seq_len", str(args.seq_len), "--batches",
+                str(args.batches)] + (["--platform", "cpu"]
+                                      if device.type == "cpu" else [])
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        procs = [subprocess.Popen(argv, cwd=root, env=dict(
+            env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(EP_RANKS)]
+        logs = [p.communicate(timeout=600)[0].decode() for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode:
+                raise RuntimeError(f"expert rank {r} failed:\n{log}")
+        got = [np.load(os.path.join(out, f"rank{r}.npz"))
+               for r in range(EP_RANKS)]
+    want = single_a.cpu().numpy()
+    for g in got:
+        np.testing.assert_allclose(g["a"], want, rtol=EP_RTOL,
+                                   atol=EP_ATOL)
+    err = max(float(np.abs(g["a"] - want).max()) for g in got) \
+        / float(np.abs(want).max())
+    return err, tuple(int(v) for v in got[0]["block"])
 
 
 def routed_shares(model, tokens, layer="h.0.moe.fc1"):
@@ -64,16 +149,14 @@ def main(argv=None):
     ap.add_argument("--seq_len", type=int, default=32)
     ap.add_argument("--batches", type=int, default=4)
     ap.add_argument("--samples", type=int, default=8)
+    ap.add_argument("--expert_rank", metavar="DIR", default="",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     device = resolve_device("cpu" if args.platform == "cpu" else None)
+    if args.expert_rank:
+        return expert_rank(args, device, args.expert_rank)
 
-    model = models.gpt2_moe_tiny(num_classes=VOCAB, experts=args.experts,
-                                 max_len=args.seq_len, device=device)
-    models.load_jax_variables(model, models.seeded_variables(model, 1))
-    model.eval()
-    rng = np.random.default_rng(0)
-    toks = torch.as_tensor(rng.integers(
-        0, VOCAB, (args.batches, BATCH, args.seq_len)), device=device)
+    model, toks = build(args, device)
     gen = torch.Generator(device=device).manual_seed(2)
 
     # -- per-expert factors ---------------------------------------------------
@@ -107,12 +190,17 @@ def main(argv=None):
           f"BNN({args.samples} samples) {bnn_nll:.4f}")
 
     # -- expert parallelism ----------------------------------------------------
-    print("expert-sharded factors: not run, the port's mesh has no expert "
-          "axis yet (ROADMAP Queue 1 item 10b)")
+    single_a = expert_update(build(args, device)[0], toks).state[
+        EP_LAYER]["a"]
+    ep_err, block = expert_parallel(args, device, single_a)
+    print(f"expert-sharded factors on expert:{EP_RANKS}: {EP_LAYER} A "
+          f"block {block} per rank, gathered {tuple(single_a.shape)} "
+          f"{ep_err:.2e} of max off one process (bar rtol {EP_RTOL}, atol "
+          f"{EP_ATOL})")
     print("done")
     return {"a_shape": tuple(a.shape), "shares": shares,
             "log_marglik": tuned["log_marglik"], "map_nll": map_nll,
-            "bnn_nll": bnn_nll}
+            "bnn_nll": bnn_nll, "ep_err": ep_err, "ep_block": block}
 
 
 if __name__ == "__main__":

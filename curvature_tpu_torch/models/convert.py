@@ -175,8 +175,12 @@ def state_from_jax(state, device, dtype: torch.dtype = torch.float32):
 
 
 def load_jax_variables(model: nn.Module, variables: Dict) -> nn.Module:
-    """Load JAX-layout numpy variables into ``model`` (strict)."""
-    model.load_state_dict(state_dict_from_jax(variables), strict=True)
+    """Load JAX-layout numpy variables into ``model`` (strict); a model
+    split over a mesh (``Estimator.use_mesh``) takes this rank's blocks
+    of them (``nn.placement.take_blocks``)."""
+    from curvature_tpu_torch.nn.placement import take_blocks
+    model.load_state_dict(take_blocks(model, state_dict_from_jax(variables)),
+                          strict=True)
     return model
 
 

@@ -11,6 +11,14 @@ masked softmax the JAX model computes (``finfo.min`` off the causal
 triangle), GELU the tanh approximation (HF's ``gelu_new``): plain torch
 ops, as JAX has no attention kernel.
 
+Under a capture context whose token dim is split over ranks (``ctx.
+seq_group``, a mesh's seq axis) each rank runs its block of positions:
+the position ids start at ``ctx.seq_offset``, and the attention gathers
+every rank's keys and values (:func:`~curvature_tpu_torch.parallel.mesh.
+gather_partial`, whose backward sums their cotangents over the ranks) and
+masks at global positions, so each rank's outputs are those of its tokens
+in the whole sequence.
+
 :func:`convert_gpt2_state_dict` maps a Hugging Face state dict (``Conv1D``
 weights ``[in, out]``) to this port's state dict (``Linear`` weights
 ``[out, in]``), untying the head from ``wte`` as JAX does.
@@ -32,6 +40,7 @@ from torch import nn
 
 from curvature_tpu_torch.nn import (
     Context, Dense, LayerNorm, MoE, ScanBlocks, is_tracked)
+from curvature_tpu_torch.parallel.mesh import gather_partial
 from curvature_tpu_torch.utils.device import resolve_device
 
 
@@ -62,9 +71,15 @@ class CausalSelfAttention(nn.Module):
         q = q.reshape(b, t, h, d).transpose(1, 2)        # [B, H, T, d]
         k = k.reshape(b, t, h, d).transpose(1, 2)
         v = v.reshape(b, t, h, d).transpose(1, 2)
+        group = ctx.seq_group if ctx is not None else None
+        if group is not None:
+            # every rank's keys and values; queries at global positions
+            k = gather_partial(k, group, 2)
+            v = gather_partial(v, group, 2)
+        start = ctx.seq_offset if ctx is not None else 0
         attn = (q @ k.transpose(-1, -2)) / math.sqrt(d)
-        causal = torch.ones((t, t), dtype=torch.bool,
-                            device=x.device).tril()    # query >= key
+        pos = torch.arange(k.shape[2], device=x.device)
+        causal = pos[None, :] <= (start + pos[:t])[:, None]  # query >= key
         attn = attn.masked_fill(~causal, torch.finfo(attn.dtype).min)
         attn = torch.softmax(attn, dim=-1)
         o = (attn @ v).transpose(1, 2).reshape(b, t, e)
@@ -117,7 +132,11 @@ class GPT2MoEBlock(nn.Module):
 
 class GPT2(nn.Module):
     """Token ids [B, T] -> logits [B, T, vocab]; ``experts`` > 0 makes
-    every block a :class:`GPT2MoEBlock`."""
+    every block a :class:`GPT2MoEBlock`. ``splits_tokens``: the forward
+    runs a block of positions under a context's ``seq_group`` (module
+    docstring)."""
+
+    splits_tokens = True
 
     def __init__(self, vocab: int, dim: int, depth: int, heads: int,
                  max_len: int, scan_blocks: bool = False, experts: int = 0):
@@ -158,7 +177,8 @@ class GPT2(nn.Module):
 
     def forward(self, tokens, ctx: Optional[Context] = None):
         t = tokens.shape[1]
-        x = self.wte(tokens) + self.wpe.weight[None, :t, :]
+        t0 = ctx.seq_offset if ctx is not None else 0
+        x = self.wte(tokens) + self.wpe.weight[None, t0:t0 + t, :]
         if isinstance(self.h, ScanBlocks):
             x = self.h(x, ctx)
         else:

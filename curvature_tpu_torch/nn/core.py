@@ -103,15 +103,21 @@ class Context:
     token count in ``tap_tokens``) instead of a probe. ``data_group`` is
     the process group of a batch split over ranks (a mesh's data axis):
     train-mode BatchNorm then normalizes with the statistics of the whole
-    batch, as JAX's sharded program does (nn/layers.py).
+    batch, as JAX's sharded program does (nn/layers.py). ``seq_group`` is
+    the process group of a token dim split over ranks (a mesh's seq axis)
+    and ``seq_offset`` the global position of this rank's first token: a
+    causal attention then gathers every rank's keys and values and masks
+    at global positions (models/gpt.py).
     """
 
     def __init__(self, track: Iterable[str] = (), update_stats: bool = False,
                  probes: bool = True, decompose_norm: bool = False,
                  gram_taps: Optional[Dict[str, int]] = None,
-                 data_group=None):
+                 data_group=None, seq_group=None, seq_offset: int = 0):
         self.track = frozenset(track)
         self.data_group = data_group
+        self.seq_group = seq_group
+        self.seq_offset = seq_offset
         self.gram_taps = dict(gram_taps or {})
         self.taps: Dict[str, torch.Tensor] = {}
         self.tap_tokens: Dict[str, int] = {}
@@ -184,9 +190,10 @@ def param_key(name: str, leaf: str) -> str:
 def param_matrix(meta: LayerMeta, weight: torch.Tensor,
                  bias: torch.Tensor = None) -> torch.Tensor:
     """Layer weight (OIHW conv, [out, in] dense) -> [out, fan_in(+1)];
-    a stacked layer's [depth, ...] weight -> [depth, out, fan_in(+1)]."""
-    lead = (meta.stacked,) if meta.stacked else ()
-    mat = weight.reshape(lead + (meta.out_features, -1))
+    a stacked layer's [depth, ...] weight -> [depth, out, fan_in(+1)]. The
+    sizes come from the weight, so a rank's block of a split layer (nn/
+    placement.py) gives its block of the matrix."""
+    mat = weight.flatten(2 if meta.stacked else 1)
     if meta.has_bias:
         mat = torch.cat([mat, bias[..., None]], dim=-1)
     return mat

@@ -13,8 +13,15 @@ Port of the matching subset of ``curvature_tpu/nn/layers.py`` in PyTorch
 layout (NCHW activations, OIHW conv weights, [out, in] dense weights).
 Tracked layers take the capture context ``ctx`` (nn/core.py) and record
 their input and probe their pre-activation output.
+
+Under a mesh (nn/placement.py) a ``Dense`` may hold its block of output
+columns (``tensor`` axis) and an ``MoE``/``Experts`` its block of experts
+(``expert`` axis); the forward then meets the other ranks' blocks in the
+differentiable collectives of parallel/mesh.py, so every rank's output is
+the whole layer's, and the metas keep the whole layer's shapes.
 """
 import math
+from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple, Union
 
 import torch
@@ -22,8 +29,40 @@ import torch.nn.functional as F
 from torch import nn
 
 from curvature_tpu_torch.nn.core import Context, LayerMeta
-from curvature_tpu_torch.parallel.mesh import all_reduce_sum, group_size
+from curvature_tpu_torch.parallel.mesh import (
+    all_reduce_sum, copy_to_group, gather_replicated, group_size,
+    reduce_from_group)
 from curvature_tpu_torch.ops.patches import resolve_padding
+
+
+@dataclass(frozen=True)
+class Split:
+    """One mesh axis a module's parameters are split over: the axis name,
+    its size, this rank's index on it, and its process group."""
+    axis: str
+    size: int
+    index: int
+    group: Any = field(default=None, compare=False)
+
+
+def take_block(module: nn.Module, pname: str, dim: int, split: Split):
+    """Replace ``module``'s parameter ``pname`` by this rank's block of it
+    along ``dim``; the whole shape stays in ``module._full_shapes`` (the
+    metas read it) and the split in ``module._splits``."""
+    p = getattr(module, pname)
+    full = module.__dict__.setdefault("_full_shapes", {})
+    full.setdefault(pname, tuple(p.shape))
+    module.__dict__.setdefault("_splits", {}).setdefault(pname, []).append(
+        (dim, split))
+    per = p.shape[dim] // split.size
+    block = p.detach().narrow(dim, split.index * per, per).clone()
+    setattr(module, pname, nn.Parameter(block, requires_grad=p.requires_grad))
+
+
+def full_shape(module: nn.Module, pname: str) -> tuple:
+    """The whole shape of a parameter, split or not."""
+    return module.__dict__.get("_full_shapes", {}).get(
+        pname, tuple(getattr(module, pname).shape))
 
 
 def normalize_padding(padding, kernel_size: Tuple[int, int]):
@@ -55,13 +94,23 @@ class Dense(CtxModule):
     leading batch/token dims. Inside a ScanBlocks stack its weight is
     ``[depth, out, in]`` and its meta is stacked. ``heads`` is stamped by
     an attention module on its projections (JAX gpt.py:69-73,
-    layers.py:388-395)."""
+    layers.py:388-395).
+
+    Column-parallel (``tp``, a :class:`Split` of the ``tensor`` axis; JAX
+    ``_variable_shardings``): the layer holds its block of output features
+    (weight rows, bias entries), computes its block of the output from the
+    whole input, and the blocks meet in :func:`gather_replicated`, whose
+    backward keeps this rank's block; the input passes
+    :func:`copy_to_group`, whose backward sums the ranks' partial input
+    gradients. The probe sits after the gather: every rank sees the whole
+    output gradient."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, name: Optional[str] = None):
         super().__init__()
         self.name = name
         self.heads = 0
+        self.tp: Optional[Split] = None
         bound = 1.0 / math.sqrt(max(in_features, 1))
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features).uniform_(-bound, bound))
@@ -71,16 +120,29 @@ class Dense(CtxModule):
 
     @property
     def meta(self) -> LayerMeta:
-        out_f, in_f = self.weight.shape[-2:]
-        stacked = self.weight.shape[0] if self.weight.ndim == 3 else 0
+        shape = full_shape(self, "weight")
+        out_f, in_f = shape[-2:]
+        stacked = shape[0] if len(shape) == 3 else 0
         return LayerMeta(self.name, "dense", out_f, in_f,
                          self.bias is not None, stacked=stacked,
                          heads=self.heads)
 
+    def shard_columns(self, split: Split):
+        """Keep this rank's block of output features."""
+        take_block(self, "weight", -2, split)
+        if self.bias is not None:
+            take_block(self, "bias", -1, split)
+        self.tp = split
+
     def forward(self, x, ctx: Optional[Context] = None):
         if ctx is not None:
             ctx.record_act(self.name, x)
-        y = F.linear(x, self.weight, self.bias)
+        if self.tp is None:
+            y = F.linear(x, self.weight, self.bias)
+        else:
+            y = gather_replicated(
+                F.linear(copy_to_group(x, self.tp.group), self.weight,
+                         self.bias), self.tp.group, -1)
         return ctx.probe(self.name, y) if ctx is not None else y
 
 
@@ -101,14 +163,14 @@ class Experts(Dense):
 
     @property
     def meta(self) -> LayerMeta:
-        return _experts_meta(self.name, self.weight)
+        return _experts_meta(self.name, full_shape(self, "weight"))
 
     def forward(self, xm, ctx: Optional[Context] = None):
         return _apply_experts(self.name, self.weight, xm, ctx)
 
 
-def _experts_meta(name, weight) -> LayerMeta:
-    e, out_f, in_f = weight.shape
+def _experts_meta(name, shape) -> LayerMeta:
+    e, out_f, in_f = shape
     return LayerMeta(name, "dense", out_f, in_f, False, stacked=e, moe=True)
 
 
@@ -147,6 +209,14 @@ class MoE(CtxModule):
     by all N tokens, ``A_e = sum_{n routed to e} a_n a_n^T / N``: the
     Fisher block of expert e (unrouted tokens give zero gradient). The
     experts are bias-free by design, as in JAX.
+
+    Expert-parallel (``ep``, a :class:`Split` of the ``expert`` axis; JAX
+    ``_variable_shardings``): each rank holds its block of experts and
+    runs them over every token (the dense dispatch); the router stays
+    whole on every rank. The input passes :func:`copy_to_group` and the
+    ranks' partial combines meet in :func:`reduce_from_group`, so the
+    output and every gradient are the whole layer's. The capture then
+    records this rank's experts' streams and probes, ``[E/size, ...]``.
     """
 
     def __init__(self, in_features: int, features: int, num_experts: int,
@@ -163,6 +233,7 @@ class MoE(CtxModule):
         self.activation = activation or (
             lambda v: F.gelu(v, approximate="tanh"))
         self.top_k = top_k
+        self.ep: Optional[Split] = None
         self.router = nn.Linear(in_features, num_experts, bias=False)
         if hidden is None:
             bound = 1.0 / math.sqrt(max(in_features, 1))
@@ -184,7 +255,16 @@ class MoE(CtxModule):
     @property
     def meta(self) -> LayerMeta:
         """The single expert stack's meta (``hidden`` unset)."""
-        return _experts_meta(self.name, self.weight)
+        return _experts_meta(self.name, full_shape(self, "weight"))
+
+    def shard_experts(self, split: Split):
+        """Keep this rank's block of experts."""
+        if self.hidden is None:
+            take_block(self, "weight", 0, split)
+        else:
+            for fc in (self.fc1, self.fc2):
+                take_block(fc, "weight", 0, split)
+        self.ep = split
 
     def route(self, x):
         """(router probabilities ``p``, the 0/1 routing mask), both
@@ -199,8 +279,15 @@ class MoE(CtxModule):
         return p, mask
 
     def forward(self, x, ctx: Optional[Context] = None):
+        ep = self.ep
+        if ep is not None:
+            x = copy_to_group(x, ep.group)
         p, mask = self.route(x)
         gates = p * mask                                  # [..., E]
+        if ep is not None:
+            per = self.num_experts // ep.size
+            gates = gates[..., ep.index * per:(ep.index + 1) * per]
+            mask = mask[..., ep.index * per:(ep.index + 1) * per]
         mask_e = mask.movedim(-1, 0)[..., None]           # [E, ..., 1]
         xm = mask_e * x                                   # [E, ..., F]
         if self.hidden is None:
@@ -208,7 +295,8 @@ class MoE(CtxModule):
         else:
             h = self.activation(self.fc1(xm, ctx)) * mask_e
             ye = self.fc2(h, ctx)                         # [E, ..., O]
-        return (ye * gates.movedim(-1, 0)[..., None]).sum(0)
+        out = (ye * gates.movedim(-1, 0)[..., None]).sum(0)
+        return out if ep is None else reduce_from_group(out, ep.group)
 
 
 def is_tracked(m: nn.Module) -> bool:

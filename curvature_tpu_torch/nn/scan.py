@@ -20,6 +20,13 @@ the one leading axis cannot carry both.
 ``scan_groups`` records, per stack, its depth, ``per_depth_names`` (the
 unrolled names, ``h.{i}``, that checkpoint converters gather from) and its
 parameter layers, as the JAX model records them.
+
+Depth-sharded (``mp``, a ``Split`` of the ``model`` axis; nn/placement.py)
+the stack holds its block of depths of every parameter and all-gathers the
+stack before the loop (:func:`~curvature_tpu_torch.parallel.mesh.
+gather_replicated`, whose backward keeps this rank's block): what XLA does
+with a scan over a depth-sharded stack. The forward and the capture are
+the whole stack's on every rank; the estimators keep their depth block.
 """
 from typing import Callable, Dict, List, Optional
 
@@ -28,7 +35,8 @@ from torch import nn
 from torch.func import functional_call
 
 from curvature_tpu_torch.nn.core import Context
-from curvature_tpu_torch.nn.layers import Experts, MoE
+from curvature_tpu_torch.nn.layers import Experts, MoE, Split, take_block
+from curvature_tpu_torch.parallel.mesh import gather_replicated
 
 
 def _owner(module: nn.Module, path: str):
@@ -58,6 +66,7 @@ class ScanBlocks(nn.Module):
             raise ValueError("ScanBlocks needs depth >= 1")
         self.name = name
         self.depth = depth
+        self.mp: Optional[Split] = None
         self.per_depth_names = per_depth_names
         blocks = [make_block(name) for _ in range(depth)]
         template = blocks[0]
@@ -97,10 +106,19 @@ class ScanBlocks(nn.Module):
                 "param_layers": sorted(layers),
                 "stat_layers": []}
 
+    def shard_depth(self, split: Split):
+        """Keep this rank's block of depths of every stacked parameter."""
+        for n in self.param_names:
+            take_block(*_owner(self.block, n), 0, split)
+        self.mp = split
+
     def forward(self, x, ctx: Optional[Context] = None):
         # the registered parameters, or the tensors an outer
         # functional_call put in their place
         stacked = {n: getattr(*_owner(self, n)) for n in self.param_names}
+        if self.mp is not None:
+            stacked = {n: gather_replicated(t, self.mp.group, 0)
+                       for n, t in stacked.items()}
         if ctx is not None and ctx.scan is not None:
             raise ValueError("nested ScanBlocks are not supported")
         try:

@@ -1,21 +1,31 @@
 """Device meshes over ``torch.distributed`` ranks, and the collectives the
 port runs on them.
 
-Port of ``curvature_tpu/parallel/mesh.py`` for the ``data`` axis (the
-batch split over ranks) and the ``sample`` axis (Monte-Carlo label draws
-and posterior samples split over ranks). A :class:`Mesh` lays its named
-axes row-major over the launched world (``"sample:2,data:4"``: rank = 4 *
-sample index + data index) and holds one process group per axis: the ranks
-that differ only in that axis's index. JAX gets the global-batch program
-from GSPMD; here every rank runs its own rows and the results meet in
-these collectives, which run where the tensors are (NCCL or gloo on the
-card, gloo on the CPU; ``parallel.initialize`` picks the backend).
+Port of ``curvature_tpu/parallel/mesh.py`` with JAX's six canonical
+axes: ``data`` (the batch split over ranks), ``sample`` (Monte-Carlo label
+draws and posterior samples), ``seq`` (the token or image-row dim),
+``model`` (ScanBlocks depth), ``tensor`` (Dense output columns) and
+``expert`` (MoE experts). A :class:`Mesh` lays its named axes row-major
+over the launched world (``"sample:2,data:4"``: rank = 4 * sample index +
+data index) and holds one process group per axis: the ranks that differ
+only in that axis's index (:meth:`Mesh.group_of` makes one for a set of
+axes). JAX gets the global program from GSPMD; here every rank runs its
+own block and the results meet in these collectives, which run where the
+tensors are (NCCL or gloo on the card, gloo on the CPU;
+``parallel.initialize`` picks the backend).
+
+The differentiable collectives are the four of a column- or
+expert-parallel layer and of a split token dim:
+:func:`gather_replicated` (all-gather; the backward keeps this rank's
+block, for a result every rank of the group uses alike),
+:func:`gather_partial` (all-gather; the backward is a reduce-scatter, for
+a result each rank uses for its own tokens), :func:`copy_to_group`
+(identity; the backward sums over the group) and
+:func:`reduce_from_group` (a sum; the backward is the identity).
 
 A collective that fails raises; no rank carries on alone. Without an
 initialized process group a mesh has one rank and every collective here
-is the identity. JAX's ``model``, ``tensor``, ``seq`` and ``expert`` axes
-are not ported yet (ROADMAP Queue 1 item 10b): ``build_mesh`` and
-``Estimator.use_mesh`` raise ``NotImplementedError`` for them.
+is the identity.
 """
 import math
 from typing import Dict, List, Optional
@@ -23,17 +33,8 @@ from typing import Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-#: the axes the port shards over
-PORTED_AXES = ("data", "sample")
-#: JAX's other canonical axes, not ported yet
-LATER_AXES = ("model", "tensor", "seq", "expert")
-
-
-def later_axes_error(axes) -> NotImplementedError:
-    return NotImplementedError(
-        f"mesh axes {sorted(axes)} (model, tensor, sequence and expert "
-        "parallelism) are not ported yet (ROADMAP Queue 1 item 10b); the "
-        "port shards over 'data' and 'sample'")
+#: the canonical axes (JAX ``use_mesh``)
+AXES = ("data", "sample", "model", "tensor", "seq", "expert")
 
 
 def world_size() -> int:
@@ -74,32 +75,47 @@ class Mesh:
         self._groups = {}
         if dist.is_initialized():
             for axis in self.axis_names:
-                self._groups[axis] = self._make_group(axis, world)
+                self._groups[(axis,)] = self._make_group((axis,), world)
 
-    def _lines(self, axis: str) -> List[List[int]]:
-        """Every line of ranks along ``axis``, in a fixed order."""
+    def _lines(self, axes) -> List[List[int]]:
+        """Every set of ranks that differ only in ``axes``, each in rank
+        order (for one axis: its index order), in a fixed order."""
         sizes = [self.shape[a] for a in self.axis_names]
         strides = [math.prod(sizes[i + 1:]) for i in range(len(sizes))]
-        i = self.axis_names.index(axis)
         lines = {}
         for r in range(math.prod(sizes)):
-            key = r - ((r // strides[i]) % sizes[i]) * strides[i]
+            key = r
+            for a in axes:
+                i = self.axis_names.index(a)
+                key -= ((r // strides[i]) % sizes[i]) * strides[i]
             lines.setdefault(key, []).append(r)
         return [lines[k] for k in sorted(lines)]
 
-    def _make_group(self, axis: str, world: int):
-        size = self.shape[axis]
+    def _make_group(self, axes, world: int):
+        size = math.prod(self.shape[a] for a in axes)
         if size == world:
             return dist.group.WORLD
         if size == 1:
             return None
         mine = None
         # every rank creates every group, in the same order
-        for ranks in self._lines(axis):
+        for ranks in self._lines(axes):
             g = dist.new_group(ranks)
             if self.rank in ranks:
                 mine = g
         return mine
+
+    def group_of(self, axes):
+        """The process group of the ranks that differ only in ``axes``
+        (names of this mesh; None entries are skipped): None where they
+        span one rank. A new set is made on first use, so every rank asks
+        for the same sets in the same order (``Estimator.use_mesh`` does)."""
+        key = tuple(a for a in self.axis_names if a in set(axes))
+        if not dist.is_initialized():
+            return None
+        if key not in self._groups:
+            self._groups[key] = self._make_group(key, world_size())
+        return self._groups[key]
 
     def size(self, axis: Optional[str]) -> int:
         return self.shape.get(axis, 1) if axis else 1
@@ -108,9 +124,9 @@ class Mesh:
         return self.coords.get(axis, 0) if axis else 0
 
     def group(self, axis: Optional[str]):
-        return self._groups.get(axis) if axis else None
+        return self._groups.get((axis,)) if axis else None
 
-    def rows(self, n: int, axis: str = "data") -> Optional[slice]:
+    def rows(self, n: int, axis: Optional[str] = "data") -> Optional[slice]:
         """This rank's block of ``n`` rows split over ``axis``; None when
         ``n`` does not divide (the caller then runs every row)."""
         size = self.size(axis)
@@ -151,21 +167,16 @@ def mesh_from_spec(spec: str) -> Mesh:
 
 def cli_axes(cfg) -> Optional[Dict[str, int]]:
     """The axes of the CLIs' ``--mesh`` spec, checked (None under
-    ``--parallel`` alone: every rank on ``data``). Axes other than
-    ``data`` and ``sample`` raise: JAX's model, tensor, seq and expert axes
-    ``NotImplementedError`` (ROADMAP Queue 1 item 10b), any other name
-    ``ValueError``."""
+    ``--parallel`` alone: every rank on ``data``). A name outside the six
+    canonical axes raises ``ValueError``, as JAX's ``use_mesh`` does."""
     spec = getattr(cfg, "mesh", "")
     if not spec:
         return None
     axes = parse_spec(spec)
-    later = set(axes) & set(LATER_AXES)
-    if later:
-        raise later_axes_error(later)
-    unknown = set(axes) - set(PORTED_AXES)
+    unknown = set(axes) - set(AXES)
     if unknown:
         raise ValueError(f"mesh axes {sorted(unknown)} are not used by any "
-                         "sharding rule; the axes are 'data' and 'sample'")
+                         f"sharding rule; the axes are {', '.join(AXES)}")
     return axes
 
 
@@ -240,6 +251,104 @@ def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
+def group_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of ``t`` over ``group``
+    (``t`` itself without a group): an all-reduce and the block, one path
+    for every backend (gloo has no reduce-scatter)."""
+    if group is None:
+        return t
+    t = t.contiguous().clone()
+    dist.all_reduce(t, group=group)
+    return _block(t, group, dim)
+
+
+def _block(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    per = t.shape[dim] // group_size(group)
+    return t.narrow(dim, group_rank(group) * per, per).contiguous()
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _block(ct, ctx.group, ctx.dim), None, None
+
+
+class _GatherPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return reduce_scatter(ct, ctx.group, ctx.dim).contiguous(), None, \
+            None
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ct = ct.contiguous().clone()
+        dist.all_reduce(ct, group=ctx.group)
+        return ct, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        out = t.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+def gather_replicated(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's blocks concatenated along ``dim``, differentiably, for
+    a result every rank of the group uses alike (a column-parallel
+    output, a depth-sharded stack): the backward keeps this rank's block
+    of the cotangent."""
+    return t if group is None else _GatherReplicated.apply(t, group, dim)
+
+
+def gather_partial(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The group's blocks concatenated along ``dim``, differentiably, for
+    a result each rank uses for its own part of the loss (the keys and
+    values of a split token dim): the backward sums the cotangents over
+    the group and keeps this rank's block (a reduce-scatter)."""
+    return t if group is None else _GatherPartial.apply(t, group, dim)
+
+
+def copy_to_group(t: torch.Tensor, group) -> torch.Tensor:
+    """The identity, whose backward sums the cotangents over the group:
+    the input of a layer whose ranks each compute a part of its output
+    from the whole input (column-parallel Dense, expert-parallel MoE)."""
+    return t if group is None else _CopyToGroup.apply(t, group)
+
+
+def reduce_from_group(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the group, whose backward is the identity: the partial
+    outputs of the ranks of an expert-parallel MoE meeting in a result
+    every rank uses alike."""
+    return t if group is None else _ReduceFromGroup.apply(t, group)
+
+
 def gather_rows(mesh: Optional[Mesh], fn, x: torch.Tensor, dim: int = 0,
                 axis: str = "data"):
     """``fn`` over this rank's rows of ``x``, the results gathered along
@@ -284,7 +393,8 @@ def shard_batch(x: torch.Tensor, mesh: Mesh, axis: str = "data",
 def sharded_update_fn(estimator, mesh: Mesh, data_axis: str = "data"):
     """``step(state, x, labels)`` -> the state after one update of
     ``estimator`` on the global batch ``x`` split over ``data_axis``
-    (JAX's jitted sharded step; the factor state stays replicated)."""
+    (JAX's jitted sharded step; the mesh's other axes split as
+    ``Estimator.use_mesh`` says)."""
     estimator.use_mesh(mesh, data_axis=data_axis)
 
     def step(state, x, labels=None):

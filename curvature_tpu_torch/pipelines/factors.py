@@ -10,13 +10,16 @@ uniform batches go through ``update_batches``, the ragged tail through
 DevicePrefetcher``, ``max(--workers, 2)`` deep (JAX :88-96): pinned host
 copies, ``non_blocking`` transfers on a side stream overlapping the
 update; on the CPU each batch is wrapped as it comes. ``--parallel``/
-``--mesh data:N[,sample:M]`` split every update over the ranks of a
-``torch.distributed.run`` launch (``Estimator.use_mesh``): each rank
-loads the whole batch and captures its rows, the factors stay replicated
-and rank 0 writes them::
+``--mesh`` (``data``, ``sample``, ``seq``, ``model``, ``tensor`` and
+``expert``, e.g. ``model:2,data:1``) split every update over the ranks of
+a ``torch.distributed.run`` launch (``Estimator.use_mesh``): each rank
+loads the whole batch and captures its block, the model and the factor
+state split over the model, tensor and expert axes; the state is gathered
+(``Estimator.gathered_state``) and rank 0 writes the file one process
+writes::
 
     python -m torch.distributed.run --nproc_per_node 2 \
-        -m curvature_tpu_torch.pipelines.factors --mesh data:2 ...
+        -m curvature_tpu_torch.pipelines.factors --mesh model:2,data:1 ...
 
     python -m curvature_tpu_torch.pipelines.factors --model lenet5 \\
         --data mnist --data_dir <dir holding MNIST/raw> --estimator kfac
@@ -80,9 +83,10 @@ def compute_factors(model, data, cfg, kfac_state=None,
                                   **kw)
     else:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
-    # multi-rank: the batch split over the mesh's data axis, the factors
-    # replicated (reference factors.py:86-87); a ragged tail batch runs
-    # whole on every rank inside the estimator
+    # multi-rank: the batch split over the mesh's data axis (reference
+    # factors.py:86-87), the model and state over its model, tensor and
+    # expert axes; a ragged tail batch runs whole on every rank of the
+    # batch axes inside the estimator
     mesh = build_mesh(cfg)
     if mesh is not None:
         est.use_mesh(mesh)
@@ -201,18 +205,19 @@ def run(cfg):
     want_diag = getattr(cfg, "fidelity", 0) or getattr(cfg, "spectrum", 0)
     if cfg.estimator == "inf":
         est = compute_inf(cfg, model)
-        save_pytree(factors_path(cfg, rank=str(cfg.rank)), est.state)
+        save_pytree(factors_path(cfg, rank=str(cfg.rank)),
+                    est.gathered_state())
         if want_diag:
             # INF is assembled from saved sums, so its raw scale is unknown
             # here: the scale-free (alpha-fit) columns are the signal
             diagnose(est, _first_input(cfg, est.device), cfg)
         return est
     est = compute_factors(model, build_data(cfg, splits="train"), cfg)
-    save_pytree(factors_path(cfg), est.state)
+    save_pytree(factors_path(cfg), est.gathered_state())
     if cfg.estimator == "efb":
         # EFB computes the plain diagonal for free (reference
         # factors.py:126-127, README.rst:246)
-        save_pytree(factors_path(cfg, "diag"), est.diags)
+        save_pytree(factors_path(cfg, "diag"), est.gathered_state("diags"))
     if want_diag:
         diagnose(est, _first_input(cfg, est.device), cfg,
                  norm=float(est.num_updates * cfg.mc_samples))

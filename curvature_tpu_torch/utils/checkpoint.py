@@ -7,12 +7,25 @@ by layer names, saved as a compressed npz whose keys join the path with
 ``<results>/<model>/data/<estimator>/...``). A file written by either
 package loads in the other with identical arrays. Tensors are saved as
 their numpy arrays (copied to the host); loading gives numpy arrays
-(``models.state_from_jax`` places them on a device). The orbax format
-is not ported. In a multi-rank run only rank 0 writes (:func:`write_once`,
-which every rank calls); every rank reads.
+(``models.state_from_jax`` places them on a device). In a multi-rank run
+only rank 0 writes (:func:`write_once`, which every rank calls); every
+rank reads.
+
+A state split over a mesh (``Estimator.use_mesh``: the model, tensor and
+expert axes) checkpoints without a gather (:func:`save_pytree_sharded`,
+the counterpart of JAX's orbax checkpoint, :61-85, in the port's own
+format): a directory holding ``index.json`` (every leaf's whole shape,
+dtype and split dims, written by rank 0) and one npz of blocks per
+distinct block-holding rank, named by its indices on the splitting axes.
+:func:`load_pytree_sharded` with a mesh of the same axes gives each rank
+its own blocks straight from its file; without one it assembles the whole
+tree. A JAX orbax directory is refused with ``NotImplementedError``:
+reading one needs orbax, a JAX library.
 """
+import itertools
+import json
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +43,10 @@ def write_once(fn, *args, **kwargs):
     barrier()
 
 
-def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree: Dict, prefix: str = "", leaf: bool = False
+             ) -> Dict[str, np.ndarray]:
+    """``{path: array}`` of a nested dict; ``leaf`` keeps the leaves as
+    they are (a plan's spec lists)."""
     out = {}
     for key, val in tree.items():
         if _SEP in str(key):
@@ -41,7 +57,9 @@ def _flatten(tree: Dict, prefix: str = "") -> Dict[str, np.ndarray]:
                 f"{_SEP!r}; rename the layer/module")
         path = f"{prefix}{_SEP}{key}" if prefix else str(key)
         if isinstance(val, dict):
-            out.update(_flatten(val, path))
+            out.update(_flatten(val, path, leaf))
+        elif leaf:
+            out[path] = val
         elif torch.is_tensor(val):
             out[path] = val.detach().cpu().numpy()
         else:
@@ -82,16 +100,97 @@ def load_pytree(path: str) -> Dict:
         return _unflatten({k: data[k] for k in data.files})
 
 
-def save_pytree_orbax(path: str, tree: Dict):
-    raise NotImplementedError(
-        "orbax checkpoints (the JAX package's sharded format) are not "
-        "ported (ROADMAP Queue 1 item 10b); use save_pytree")
+#: the index file of a sharded checkpoint, and its format tag
+INDEX, FORMAT = "index.json", "curvature_tpu_torch.sharded/1"
+#: files an orbax checkpoint directory holds
+_ORBAX_MARKERS = ("_METADATA", "_CHECKPOINT_METADATA", "manifest.ocdbt",
+                  "_sharding", "checkpoint")
 
 
-def load_pytree_orbax(path: str, shardings: Dict = None) -> Dict:
-    raise NotImplementedError(
-        "orbax checkpoints (the JAX package's sharded format) are not "
-        "ported (ROADMAP Queue 1 item 10b); use load_pytree")
+def _block_file(coords: Dict[str, int]) -> str:
+    return "blocks" + "".join(f"_{a}{i}" for a, i in sorted(coords.items())
+                              ) + ".npz"
+
+
+def save_pytree_sharded(path: str, tree: Dict, plan: Optional[Dict] = None,
+                        mesh=None):
+    """Write ``tree`` (this rank's blocks) as a sharded checkpoint
+    directory at ``path``. ``plan`` is the tree of per-leaf axis specs
+    (``Estimator.state_plan()``; None: every leaf whole) over ``mesh``.
+    Every rank calls it; of the ranks holding the same blocks the one at
+    index 0 of every other axis writes them."""
+    from curvature_tpu_torch.parallel.distributed import barrier, is_writer
+    flat = _flatten(tree)
+    specs = _flatten(plan, leaf=True) if plan is not None else {}
+    split_axes = sorted({a for spec in specs.values() for a in spec
+                         if a is not None and mesh.size(a) > 1})
+    coords = {a: mesh.index(a) for a in split_axes}
+    leaves = {}
+    for key, arr in flat.items():
+        split = [[d, a] for d, a in enumerate(specs.get(key, ()))
+                 if a in coords]
+        shape = list(arr.shape)
+        for d, a in split:
+            shape[d] *= mesh.size(a)
+        leaves[key] = {"shape": shape, "dtype": arr.dtype.str,
+                       "split": split}
+    os.makedirs(path, exist_ok=True)
+    others = [] if mesh is None else [a for a in mesh.axis_names
+                                      if a not in coords]
+    if all(mesh.index(a) == 0 for a in others):
+        np.savez(os.path.join(path, _block_file(coords)), **flat)
+    if is_writer():
+        with open(os.path.join(path, INDEX), "w") as f:
+            json.dump({"format": FORMAT,
+                       "axes": {a: mesh.size(a) for a in split_axes},
+                       "leaves": leaves}, f)
+    barrier()
+
+
+def load_pytree_sharded(path: str, mesh=None) -> Dict:
+    """Read a :func:`save_pytree_sharded` directory: with ``mesh`` (whose
+    splitting axes have the saved sizes) this rank's blocks, from its own
+    file; without one the whole tree, as numpy arrays. A JAX orbax
+    directory raises ``NotImplementedError``."""
+    index_path = os.path.join(path, INDEX)
+    if not os.path.exists(index_path):
+        if os.path.isdir(path) and any(
+                os.path.exists(os.path.join(path, m))
+                for m in _ORBAX_MARKERS):
+            raise NotImplementedError(
+                f"{path} is an orbax checkpoint (the JAX package's "
+                "save_pytree_orbax); reading it needs orbax, a JAX library. "
+                "Restore it with the JAX package and write it with "
+                "save_pytree, or write the state with save_pytree_sharded")
+        raise FileNotFoundError(f"no sharded checkpoint at {path}")
+    with open(index_path) as f:
+        index = json.load(f)
+    if index.get("format") != FORMAT:
+        raise ValueError(f"{index_path}: unknown format "
+                         f"{index.get('format')!r}")
+    axes = index["axes"]
+    if mesh is not None:
+        for a, size in axes.items():
+            if mesh.size(a) != size:
+                raise ValueError(f"{path} was split over {axes}; this mesh "
+                                 f"has {a}:{mesh.size(a)}")
+        name = _block_file({a: mesh.index(a) for a in axes})
+        with np.load(os.path.join(path, name)) as data:
+            return _unflatten({k: data[k] for k in data.files})
+    whole = {k: np.empty(v["shape"], np.dtype(v["dtype"]))
+             for k, v in index["leaves"].items()}
+    names = sorted(axes)
+    for idx in itertools.product(*(range(axes[a]) for a in names)):
+        coords = dict(zip(names, idx))
+        with np.load(os.path.join(path, _block_file(coords))) as data:
+            for key, meta in index["leaves"].items():
+                block = data[key]
+                where = [slice(None)] * block.ndim
+                for d, a in meta["split"]:
+                    where[d] = slice(coords[a] * block.shape[d],
+                                     (coords[a] + 1) * block.shape[d])
+                whole[key][tuple(where)] = block
+    return _unflatten(whole)
 
 
 def factors_path(cfg, estimator: str = None, rank: str = "") -> str:

@@ -36,7 +36,7 @@ class Config:
                                     # | 'bfloat16' bf16 forwards
     workers: int = 0
     parallel: bool = False          # every rank on one data axis
-    mesh: str = ""                  # 'data:N[,sample:M]' over the ranks
+    mesh: str = ""                  # 'data:N[,model:M,...]' over the ranks
     # experiment
     model: str = "lenet5"
     data: str = "mnist"

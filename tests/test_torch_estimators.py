@@ -354,10 +354,10 @@ def test_efb_and_inf_check_their_factors(ladder):
 
 
 def test_parts_out_of_this_slice_raise(ladder):
-    est = ladder["fed"]["diag"]
     from curvature_tpu_torch import parallel
-    with pytest.raises(NotImplementedError, match="item 10"):
-        est.use_mesh(parallel.make_mesh({"data": 1, "model": 1}))
+    # the model axis is ported (tests/test_torch_model_parallel.py)
+    mesh = parallel.make_mesh({"data": 1, "model": 1})
+    assert port_est.Diagonal(ladder["tm"]).use_mesh(mesh).mesh is mesh
     # Subspace is ported (tests/test_torch_subspace.py)
     assert port_est.Subspace.__module__ == \
         "curvature_tpu_torch.estimators.subspace"

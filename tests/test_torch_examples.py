@@ -67,15 +67,18 @@ def test_influence_example(capsys):
 def test_moe_laplace_example(capsys):
     """JAX tests/test_examples.py:47's run (3 samples, 2 batches): the
     per-expert factors, the routed shares (summing to 1 under top-1) and
-    both predictives; the expert-sharded step says it waits for the
-    mesh."""
+    both predictives; the expert-sharded step on two ranks, each holding
+    half of the experts' A factors, their gathered factor held to one
+    process's (JAX's bar, inside the script)."""
     res = _main("moe_laplace")(["--platform", "cpu", "--samples", "3",
                                 "--batches", "2"])
     out = capsys.readouterr().out
     for marker in ("per-expert A factors", "expert utilization",
-                   "per-token NLL", "item 10"):
+                   "per-token NLL", "expert-sharded factors on expert:2"):
         assert marker in out, (marker, out[-2000:])
     assert res["a_shape"] == (4, 64, 64)
+    assert res["ep_block"] == (2, 64, 64)
+    assert res["ep_err"] <= 1e-5
     assert res["shares"].sum() == pytest.approx(1.0)
     assert np.isfinite([res["map_nll"], res["bnn_nll"],
                         res["log_marglik"]]).all()

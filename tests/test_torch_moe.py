@@ -9,8 +9,10 @@ E]`` and ``[E, in]``), the same numpy-seeded inputs and the same labels.
 Bars are relative to the largest magnitude of the JAX value: logits and
 captured inputs 1e-5, f32 factors and states 1e-5, samples from the same
 draws 5e-4 (tests/test_torch_estimators.py's bar for draws); routing
-masks are equal exactly. JAX's expert-sharded case (its mesh) waits for
-the port's mesh support.
+masks are equal exactly. JAX's expert-sharded case runs on a 4-rank
+gloo job on the CPU (tests/torch_dist_worker.py ``job_expert``, mesh
+``expert:2,data:2``), held to one port process at JAX's bar (rtol 1e-5,
+atol 1e-6; draws rtol 1e-4, atol 1e-5) and that process to JAX.
 """
 import numpy as np
 import pytest
@@ -27,6 +29,7 @@ from curvature_tpu_torch import estimators as port_est
 from curvature_tpu_torch import models as tmodels
 from curvature_tpu_torch import nn as tnn
 from curvature_tpu_torch import optim as toptim
+from tests import torch_dist_worker as W
 
 torch.set_num_threads(1)
 
@@ -506,3 +509,42 @@ def test_build_needs_cuda_unless_cpu_is_passed():
     jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0),
                                    jnp.zeros((1, 8), jnp.int32)))
     assert list(m.metas) == list(jm.metas)
+
+
+@pytest.fixture(scope="module")
+def expert_runs(tmp_path_factory):
+    """(each rank's results on expert:2,data:2, one process's)."""
+    out = str(tmp_path_factory.mktemp("expert"))
+    procs = W.start("expert", 4, out)
+    try:
+        single = W.run_expert()
+    except BaseException:
+        for p in procs:
+            p.kill()
+        raise
+    return W.finish(procs, "expert", out), single
+
+
+def test_expert_parallel_sharding_matches_single_device(expert_runs):
+    """ep (JAX tests/test_moe.py:188-205): each rank holds its experts'
+    weights and factors, [E/2, ...]; the gathered factors equal one
+    process's and JAX's, the non-MoE layers stay whole, and the draws of
+    invert + sample on the blocks equal one process's."""
+    ranks, single = expert_runs
+    for r in ranks:
+        for k, v in single.items():
+            rtol, atol = ((1e-4, 1e-5) if k.startswith("moe_kfac_sample")
+                          else (1e-5, 1e-6))
+            np.testing.assert_allclose(r[k], v, rtol=rtol, atol=atol,
+                                       err_msg=k)
+        assert tuple(r["shape/moe_kfac/moe/g"]) == (2, 16, 16)
+        assert tuple(r["shape/moe_kfac/moe/a"]) == (2, 16, 16)
+        assert tuple(r["shape/moe_kfac/head/g"]) == (5, 5)
+    assert single["moe_kfac/moe/g"].shape == (4, 16, 16)
+    jm, jv, _, x, labels = _build(experts=4)
+    je = jest.KFAC(jm, jv)
+    je.update(jnp.asarray(x), labels=jnp.asarray(labels))
+    for name in je.metas:
+        for key in ("a", "g"):
+            _close(single[f"moe_kfac/{name}/{key}"], je.state[name][key],
+                   1e-5, f"{name}.{key} vs JAX")

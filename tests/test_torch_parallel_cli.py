@@ -1,9 +1,9 @@
 """The port's pipeline CLIs on two ranks: ``--mesh data:2`` and
 ``--parallel`` write what one process writes.
 
-The counterpart of tests/test_parallel_cli.py's first five tests (its
-sixth, the model axis, waits for ROADMAP Queue 1 item 10b), on LeNet-5
-and the bundled digits: ``factors`` diag, kfac and efb (EFB fed the one
+The counterpart of tests/test_parallel_cli.py's six tests, on LeNet-5
+and the bundled digits (the sixth, the model axis, on the scanned GPT-2
+tiny's ``factors --mesh model:2,data:1``): ``factors`` diag, kfac and efb (EFB fed the one
 process's KFAC file on both sides, as JAX's fixture does: eigh's basis
 inside near-degenerate eigenspaces turns with the last bits of its
 input), ``inf``, ``evaluate``, ``hyper --optimizer random``, then
@@ -11,7 +11,8 @@ input), ``inf``, ``evaluate``, ``hyper --optimizer random``, then
 process runs the chain once without a mesh while one 2-rank gloo job
 (tests/torch_dist_worker.py ``job_cli``) runs it with the mesh. The
 bars are JAX's (1e-5; the INF reconstruction 1e-4, the training loss
-history 1e-4). The axis errors of ``--mesh`` run here.
+history 1e-4). Each CLI's ``--mesh {axis}:1,data:1`` and the axis
+errors run here.
 """
 import os
 
@@ -40,6 +41,7 @@ def runs(tmp_path_factory):
         next(chain)
         (base / W.KFAC_DONE).touch()
         single = next(chain)
+        W.run_lm_cli(str(base / "lm"))
     except BaseException:
         for p in procs:
             p.kill()
@@ -132,17 +134,47 @@ CLIS = {"factors": factors, "evaluate": evaluate, "hyper": hyper,
         "training": training, "loss_landscape": loss_landscape}
 
 
+#: the axis each CLI runs end to end on (every CLI parses all four)
+CLI_AXIS = {"factors": "model", "evaluate": "tensor", "hyper": "seq",
+            "training": "expert", "loss_landscape": "model"}
+CLI_FLAGS = {"factors": ["--estimator", "diag"], "evaluate": [],
+             "hyper": ["--estimator", "kfac", "--optimizer", "random",
+                       "--calls", "2"],
+             "training": ["--epochs", "1", "--lr", "1e-2"],
+             "loss_landscape": ["--loss1d"]}
+
+
 @pytest.mark.parametrize("cli", sorted(CLIS))
-def test_mesh_axes_are_checked_in_every_cli(cli):
-    """``model``/``tensor``/``seq``/``expert`` raise NotImplementedError
-    (ROADMAP Queue 1 item 10b), an unknown axis and a size that is not the
-    world's (one process here) ValueError, before any work."""
+def test_mesh_axes_are_checked_in_every_cli(cli, runs, tmp_path):
+    """Each CLI accepts ``--mesh {axis}:1,data:1`` for the model, tensor,
+    seq and expert axes (one run end to end, on a copy of the single
+    run's files); an unknown axis and a size that is not the world's (one
+    process here) raise ``ValueError`` before any work."""
+    import shutil
+    from curvature_tpu_torch.data.loaders import FIXTURE_DIR
+    from curvature_tpu_torch.parallel.mesh import build_mesh
+    from curvature_tpu_torch.utils.config import setup
+    root = str(tmp_path / "root")
+    shutil.copytree(runs[0], root)
     main = CLIS[cli].main
     base = ["--platform", "cpu"]
     for axis in ("model", "tensor", "seq", "expert"):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            main(base + ["--mesh", f"{axis}:1,data:1"])
+        cfg = setup(base + ["--mesh", f"{axis}:1,data:1"])
+        assert build_mesh(cfg).shape == {axis: 1, "data": 1}
+    main(W.CLI_ARGV + ["--data_dir", FIXTURE_DIR, "--root_dir", root,
+                       "--results_dir", root, "--mesh",
+                       f"{CLI_AXIS[cli]}:1,data:1"] + CLI_FLAGS[cli])
     with pytest.raises(ValueError, match="not used"):
         main(base + ["--mesh", "data:1,rows:1"])
     with pytest.raises(ValueError, match="!= 1 ranks"):
         main(base + ["--mesh", "data:2"])
+
+
+def test_factors_cli_model_axis_equals_single(runs):
+    """``factors --mesh model:2,data:1`` on two ranks (the scanned GPT-2
+    tiny: each rank holds its half of the stack's depths, its factors'
+    blocks gathered before rank 0 writes) writes one process's file."""
+    single_root, mesh_root, _, _ = runs
+    name = os.path.join("factors", "gpt2_tiny_tokens_kfac.npz")
+    _files_close(os.path.join(os.path.dirname(single_root), "lm", name),
+                 os.path.join(os.path.dirname(mesh_root), "lm", name))

@@ -496,7 +496,7 @@ def test_evaluate_cli_writes_jax_keys(lenet, swapped, capsys):
 # -- what is not ported raises --------------------------------------------
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "model:2"], ["--mesh", "tensor:1,data:1"], ["--ecdf"],
+    ["--hyper"], ["--plot", "--mesh", "model:1,data:1"], ["--ecdf"],
     ["--entropy"], ["--plot"],
     ["--networks"],
     ["--landscapes"],
@@ -563,7 +563,9 @@ def test_ported_flags_reach_their_module(flags, tmp_path, monkeypatch):
 
 def test_unported_models_data_and_formats_raise(tmp_path):
     """What is still to port raises, naming its ROADMAP item: the
-    image-folder loaders (item 9: PIL), orbax checkpoints (item 10). The
+    image-folder loaders (item 9: PIL); a JAX orbax checkpoint directory
+    is refused (reading one needs orbax, a JAX library; the port's
+    sharded checkpoint is tests/test_torch_model_parallel.py's). The
     MoE GPT-2 is ported: it builds, with JAX's metas
     (tests/test_torch_moe.py). The fidelity diagnostics (item 8) are
     ported (tests/test_torch_matfree.py, the CLI chains below). The
@@ -583,8 +585,10 @@ def test_unported_models_data_and_formats_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 9"):
         getattr(tloaders, "imagenet")
     t, _ = _cfgs(ARGV + ["--root_dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tckpt.save_pytree_orbax(str(tmp_path / "o"), {})
+    (tmp_path / "o").mkdir()
+    (tmp_path / "o" / "_METADATA").touch()
+    with pytest.raises(NotImplementedError, match="orbax"):
+        tckpt.load_pytree_sharded(str(tmp_path / "o"))
     for flags in (["--fidelity", "2"], ["--spectrum", "3"],
                   ["--estimator", "subspace"]):
         assert tconfig.setup(["--platform", "cpu"] + flags)

@@ -81,7 +81,13 @@ for required in ("curvature_tpu_torch.utils.casting",
                  "curvature_tpu_torch.parallel",
                  "curvature_tpu_torch.parallel.mesh",
                  "curvature_tpu_torch.parallel.distributed",
-                 "curvature_tpu_torch.nn.adapter"):
+                 "curvature_tpu_torch.nn.adapter",
+                 "curvature_tpu_torch.nn.placement",
+                 "curvature_tpu_torch.nn.scan",
+                 "curvature_tpu_torch.estimators.capture",
+                 "curvature_tpu_torch.estimators.inf",
+                 "curvature_tpu_torch.models.gpt",
+                 "curvature_tpu_torch.utils.checkpoint"):
     assert required in names, required
 assert not bad, bad
 """

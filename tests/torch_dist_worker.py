@@ -454,6 +454,20 @@ def run_cli(root: str, mesh_flags=()):
     yield out
 
 
+#: the scanned GPT-2 tiny whose ``factors`` run splits over ``model``
+LM_ARGV = ["--platform", "cpu", "--model", "gpt2_tiny", "--data", "tokens",
+           "--seq_len", "16", "--batch_size", "32", "--scan_blocks",
+           "--estimator", "kfac", "--mc_samples", "1"]
+
+
+def run_lm_cli(root: str, mesh_flags=()):
+    """``factors`` on the scanned GPT-2 tiny under ``root``, with
+    ``mesh_flags`` (``--mesh model:2,data:1``)."""
+    from curvature_tpu_torch.pipelines import factors
+    factors.main(LM_ARGV + ["--root_dir", root, "--results_dir", root]
+                 + list(mesh_flags))
+
+
 #: written beside the single run's root once its KFAC file is whole
 KFAC_DONE = "single_kfac.done"
 
@@ -482,11 +496,307 @@ def job_cli(out_dir):
         shutil.copy(os.path.join(single, "factors",
                                  "lenet5_mnist_kfac.npz"), mine)
     torch.distributed.barrier()
-    return next(chain)
+    out = next(chain)
+    run_lm_cli(os.path.join(out_dir, "lm"),
+               ["--mesh", f"model:{world},data:1"])
+    return out
+
+
+# -- the model, tensor, seq and expert axes (tests/test_torch_model_parallel.py)
+def scan_vit():
+    """JAX tests/test_model_parallel.py's ``scan_vit`` (16x16 images,
+    patch 8, dim 16, depth 4, 2 heads, mlp 32, 5 classes) with seeded
+    weights."""
+    m = vit_plain()
+    return models.load_jax_variables(m, models.seeded_variables(m, 3))
+
+
+def vit_plain():
+    """:func:`scan_vit`'s model before its weights are loaded."""
+    from curvature_tpu_torch.models.vit import vit
+    return vit(image_size=16, patch_size=8, dim=16, depth=4, heads=2,
+               mlp_dim=32, num_classes=5, scan_blocks=True, device="cpu")
+
+
+def vit_inputs():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((8, 16, 16, 3)).astype(np.float32)   # NHWC
+    labels = rng.integers(0, 5, size=(2, 8))
+    return x, labels
+
+
+def wide_mlp():
+    """JAX's ``wide_mlp``: ``models.mlp([32], 4)`` on 8 features."""
+    m = models.mlp((32,), 4, in_features=8, device="cpu")
+    return models.load_jax_variables(m, models.seeded_variables(m, 4))
+
+
+def wide_inputs():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((16, 8)).astype(np.float32)
+    labels = rng.integers(0, 4, size=(2, 16))
+    return x, labels
+
+
+def tiny_gpt():
+    """JAX's seq case: ``gpt2_custom(vocab=32, dim=16, depth=2, heads=2,
+    max_len=8)``."""
+    m = models.gpt2_custom(32, 16, 2, 2, 8, device="cpu")
+    return models.load_jax_variables(m, models.seeded_variables(m, 5))
+
+
+def gpt_inputs():
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, 32, size=(4, 8))
+    labels = rng.integers(0, 32, size=(2, 4, 8))
+    return toks, labels
+
+
+def lenet():
+    m = models.lenet5(num_classes=10, image_size=32, device="cpu")
+    return models.load_jax_variables(m, models.seeded_variables(m, 6))
+
+
+def lenet_inputs():
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((4, 32, 32, 1)).astype(np.float32)
+    labels = rng.integers(0, 10, size=(2, 4))
+    return x, labels
+
+
+def moe_net(experts=4):
+    """tests/test_torch_moe.py's net: inp -> relu -> MoE -> head."""
+    m = nn.Sequential([
+        nn.Dense(8, 16, name="inp"), nn.ReLU(),
+        nn.MoE(16, 16, experts, name="moe"), nn.Dense(16, 5, name="head")])
+    return models.load_jax_variables(m, models.seeded_variables(m, 0))
+
+
+def moe_inputs(batch=16):
+    """test_torch_moe's ``_build(experts=4)`` inputs (seed 0 + 1)."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((batch, 8)).astype(np.float32)
+    labels = rng.integers(0, 5, (2, batch)).astype(np.int32)
+    return x, labels
+
+
+def normals(shapes, seed):
+    """Seeded standard normals for ``noise_shapes()`` (nested dicts)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(shape):
+        if isinstance(shape, dict):
+            return {k: draw(v) for k, v in shape.items()}
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32))
+    return {n: draw(s) for n, s in shapes.items()}
+
+
+def gather_sample(est, sample):
+    """A sample's blocks gathered into the whole draw (rows of a
+    column-parallel layer, the depth or experts of a stacked one)."""
+    from curvature_tpu_torch.parallel.mesh import all_gather
+    if est.mesh is None:
+        return sample
+    ax, out = est._mesh_axes, {}
+    for name, t in sample.items():
+        m = est.metas[name]
+        if m.stacked and t.shape[0] != m.stacked:
+            t = all_gather(t, est.mesh.group(
+                ax["expert"] if m.moe else ax["model"]), 0)
+        if t.shape[-2] != m.out_features:
+            t = all_gather(t, est.mesh.group(ax["tensor"]), -2)
+        out[name] = t
+    return out
+
+
+def shapes(prefix, tree):
+    """Each leaf's shape, as ``{prefix/key/...: shape}``."""
+    return {k: np.asarray(v.shape) for k, v in flat(prefix, tree).items()}
+
+
+def run_mesh_axes(out_dir=None, meshes=None):
+    """Every case of tests/test_torch_model_parallel.py: with ``meshes``
+    (``{case: Mesh}``) the distributed run, each rank returning its
+    gathered states and draws and its blocks' shapes (``shape/...``);
+    without them one process. Returns ``{key: array}``."""
+    from curvature_tpu_torch.nn.placement import gather_blocks
+    from curvature_tpu_torch.utils import checkpoint
+    meshes = meshes or {}
+    out = {}
+    kw = {"use_kernels": False}
+
+    def meshed(est, case, **opts):
+        mesh = meshes.get(case)
+        return est.use_mesh(mesh, **opts) if mesh is not None else est
+
+    def record(prefix, est, attr="state"):
+        out.update(flat(prefix, est.gathered_state(attr)))
+        if est.mesh is not None:
+            out.update(shapes(f"shape/{prefix}", getattr(est, attr)))
+
+    def lifecycle(prefix, est, seed):
+        est.invert(add=1.0, multiply=10.0)
+        draw = est.sample(noise=normals(est.noise_shapes(), seed))
+        out.update(flat(f"{prefix}_sample", gather_sample(est, draw)))
+
+    # depth-sharded ScanBlocks ViT: KFAC, EFB's carry, the ensemble,
+    # update_batches and the sharded checkpoint
+    x, labels = vit_inputs()
+    xt = nchw(x)
+    kfac = meshed(estimators.KFAC(scan_vit(), **kw), "model")
+    kfac.update(xt, labels=labels)
+    record("vit_kfac", kfac)
+    lifecycle("vit_kfac", kfac, 7)
+    ens = kfac.ensemble_params(2, noise=[normals(kfac.noise_shapes(), s)
+                                         for s in (8, 9)])
+    for i, p in enumerate(ens):
+        p = gather_blocks(kfac.model, p)
+        for key in ("encoder.layers.mlp.0.weight", "heads.head.weight",
+                    "encoder.layers.self_attention.in_proj.bias"):
+            out[f"vit_ens{i}/{key}"] = p[key].detach().numpy()
+    one = estimators.KFAC(scan_vit(), **kw)
+    one.update(xt, labels=labels)
+    efb = meshed(estimators.EFB(scan_vit(), one.state), "model")
+    efb.update(xt, labels=labels)
+    record("vit_efb", efb)
+    record("vit_efb_diags", efb, "diags")
+    efb.invert(add=1.0, multiply=10.0)
+    draw = efb.sample(noise=normals(efb.noise_shapes(), 10))
+    out.update(flat("vit_efb_sample", gather_sample(efb, draw)))
+    diag = meshed(estimators.Diagonal(scan_vit()), "model")
+    diag.update(xt, labels=labels)
+    record("vit_diag", diag)
+    # BlockDiagonal and INF take the base stacked rule
+    block = meshed(estimators.BlockDiagonal(
+        scan_vit(), layer_filter="encoder.layers.mlp.3"), "model")
+    block.update(xt, labels=labels)
+    record("vit_block", block)
+    efb1 = estimators.EFB(scan_vit(), one.state)
+    efb1.update(xt, labels=labels)
+    inf = meshed(estimators.INF(scan_vit(), efb1.diags, one.state,
+                                efb1.state, eigvecs=efb1.eigvecs), "model")
+    inf.update(rank=8, bucket=4)
+    record("vit_inf", inf)
+    lifecycle("vit_inf", inf, 15)
+    if kfac.mesh is not None:
+        # JAX weights loaded into a placed model land as its blocks
+        before = {k: v.clone() for k, v in kfac.model.state_dict().items()}
+        models.load_jax_variables(kfac.model, models.seeded_variables(
+            vit_plain(), 3))
+        out["vit_load_blocks_equal"] = np.asarray(all(
+            torch.equal(v, before[k])
+            for k, v in kfac.model.state_dict().items()))
+    batches = meshed(estimators.KFAC(scan_vit(), **kw), "model")
+    batches.update_batches(torch.stack([xt, xt + 0.5]),
+                           generator=torch.Generator().manual_seed(10),
+                           num_samples=2)
+    record("vit_batches", batches)
+    if kfac.mesh is not None:
+        path = os.path.join(out_dir, "ckpt")
+        checkpoint.save_pytree_sharded(path, kfac.state, kfac.state_plan(),
+                                       kfac.mesh)
+        back = checkpoint.load_pytree_sharded(path, kfac.mesh)
+        same = all(np.array_equal(v, back_v) for v, back_v in zip(
+            flat("s", kfac.state).values(), flat("s", back).values()))
+        out["ckpt_blocks_equal"] = np.asarray(same)
+
+    # column-parallel MLP: KFAC and Diagonal
+    x, labels = wide_inputs()
+    xt = torch.from_numpy(x)
+    for prefix, cls, opts in (("mlp_kfac", estimators.KFAC, kw),
+                              ("mlp_fused", estimators.KFAC,
+                               dict(kw, fused_g=True, stack_grams=True)),
+                              ("mlp_diag", estimators.Diagonal, {})):
+        est = meshed(cls(wide_mlp(), **opts), "tensor", tensor_min_out=4)
+        est.update(xt, labels=labels)
+        record(prefix, est)
+        lifecycle(prefix, est, 11)
+
+    # model:2 x tensor:2 on the ViT
+    x, labels = vit_inputs()
+    both = meshed(estimators.KFAC(scan_vit(), **kw), "model_tensor",
+                  tensor_min_out=16)
+    both.update(nchw(x), labels=labels)
+    record("vit_both", both)
+    lifecycle("vit_both", both, 12)
+
+    # seq on the LM: given labels, drawn labels, a ragged token count
+    toks, labels = gpt_inputs()
+    tt = torch.from_numpy(toks)
+    given = meshed(estimators.KFAC(tiny_gpt(), loss="lm", **kw), "seq")
+    given.update(tt, labels=labels)
+    record("gpt_given", given)
+    lifecycle("gpt_given", given, 13)
+    drawn = meshed(estimators.KFAC(tiny_gpt(), loss="lm", **kw), "seq")
+    drawn.update(tt, generator=torch.Generator().manual_seed(3),
+                 num_samples=2)
+    record("gpt_drawn", drawn)
+    ragged = meshed(estimators.KFAC(tiny_gpt(), loss="lm", **kw), "seq")
+    if ragged.mesh is not None:
+        out["gpt_ragged_dispatch"] = np.asarray(
+            ragged._dispatch(4, 2, tokens=7) == "noseq")
+    ragged.update(tt[:, :7], labels=labels[:, :, :7])
+    record("gpt_ragged", ragged)
+    gdiag = meshed(estimators.Diagonal(tiny_gpt(), loss="lm"), "seq")
+    gdiag.update(tt, labels=labels)
+    record("gpt_diag", gdiag)
+    sub = meshed(estimators.Subspace(tiny_gpt(), rank=4, loss="lm"), "seq")
+    sub.update(tt, labels=labels)
+    record("gpt_subspace", sub)
+
+    # the Subspace on sample:2,data:2: draws split nothing, rows do
+    x, labels = wide_inputs()
+    sub = meshed(estimators.Subspace(wide_mlp(), rank=4), "sample")
+    sub.update(torch.from_numpy(x), labels=labels)
+    record("mlp_subspace", sub)
+
+    # seq on LeNet-5: the image rows
+    x, labels = lenet_inputs()
+    img = meshed(estimators.KFAC(lenet(), **kw), "seq")
+    img.update(nchw(x), labels=labels)
+    record("lenet_kfac", img)
+
+    return out
+
+
+def run_expert(meshes=None):
+    """tests/test_torch_moe.py's expert-parallel case: KFAC on the MoE net
+    on ``meshes["expert"]`` (or one process)."""
+    out = {}
+    x, labels = moe_inputs()
+    moe = estimators.KFAC(moe_net(), use_kernels=False)
+    if meshes:
+        moe.use_mesh(meshes["expert"])
+        out.update(shapes("shape/moe_kfac", moe.state))
+    moe.update(torch.from_numpy(x), labels=labels)
+    out.update(flat("moe_kfac", moe.gathered_state()))
+    moe.invert(add=1.0, multiply=10.0)
+    draw = moe.sample(noise=normals(moe.noise_shapes(), 14))
+    out.update(flat("moe_kfac_sample", gather_sample(moe, draw)))
+    return out
+
+
+#: the meshes of the mesh-axes job, on 4 ranks
+MESH_AXES = {"model": {"model": 2, "data": 2},
+             "tensor": {"tensor": 2, "data": 2},
+             "model_tensor": {"model": 2, "tensor": 2, "data": 1},
+             "seq": {"seq": 2, "data": 2},
+             "sample": {"sample": 2, "data": 2}}
+
+
+def job_mesh_axes(out_dir):
+    return run_mesh_axes(out_dir, {case: parallel.make_mesh(axes)
+                                   for case, axes in MESH_AXES.items()})
+
+
+def job_expert(out_dir):
+    return run_expert({"expert": parallel.make_mesh({"expert": 2,
+                                                     "data": 2})})
 
 
 JOBS = {"sharding": job_sharding, "distributed": job_distributed,
-        "cli": job_cli}
+        "cli": job_cli, "mesh_axes": job_mesh_axes, "expert": job_expert}
 
 
 def main():
