@@ -40,6 +40,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --parallel   # builds the kernels, runs the
                                        # parallel phase only (a world of
                                        # one over NCCL, two gloo ranks)
+    python3 chip_smoke.py --images     # builds the kernels and the
+                                       # image decoders, runs the
+                                       # image-folder phase only
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -111,6 +114,17 @@ path, SWAG with ``evaluate --bn_update --ood``, and an 11-point loss
 line. Nothing else in the phase launches a Gram kernel; it prints each
 optimizer's step ms and img/s, the KFAC optimizer's re-invert and the
 seconds per landscape point.
+
+Then the image-folder loaders (``images_phase``, ROADMAP item 9): the
+decoders built with g++ beside the CUDA kernels, every committed fixture
+decoded on the card's host and held to PIL's decode (``expected.npz``, 0
+pixels off) and the committed JAX loader batches bit for bit, one
+thread's decode and load ms per ImageNet-shaped JPEG,
+``ParallelDecodeLoader``'s img/s, then under ``build/images`` an
+ImageNet-style tree of fixture copies: ``factors`` on ResNet-50 at 224²
+from the JPEG folder (3 tiled + 1 v2 an update, its loop and update
+calls timed), ``evaluate --ood`` to the art folder and ``factors --data
+gtsrb`` on PPMs (8 + 1 an update).
 
 Then the grouped and depthwise convolutions (``grouped_phase``), none
 launching a Gram kernel by JAX's routes: ResNeXt-50 32x4d and
@@ -189,6 +203,7 @@ JSON object. It exits non-zero, printing no result, where there is no
 CUDA device or where the package is not beside it.
 """
 import argparse
+import concurrent.futures
 import contextlib
 import functools
 import json
@@ -330,18 +345,21 @@ HYPER_LENET_MARGLIK = (["--optimizer", "gp", "--calls", "12"],
                        ["--optimizer", "grad", "--calls", "100"],
                        ["--optimizer", "grad", "--calls", "100", "--layer"])
 #: ResNet-18: the sampled searches' calls and samples, the evidence's
-#: searches, the predictives of evaluate --ood
+#: searches, the predictives of evaluate --ood. Its gradient ascent runs
+#: as the 20 timed steps of marglik_gradient_tune below: the CLI's
+#: (at least 100 steps; its path runs on LeNet-5 above) took 11.5-11.8 s
+#: and was cut to make room for the images phase
 HYPER_R18 = ["--optimizer", "random", "--calls", "8", "--samples", "10"]
-HYPER_R18_MARGLIK = (["--optimizer", "gp", "--calls", "12"],
-                     ["--optimizer", "grad", "--calls", "100"])
+HYPER_R18_MARGLIK = (["--optimizer", "gp", "--calls", "12"],)
 HYPER_PREDICTIVES = ("probit", "bridge", "linearized", "linearized_probit")
 #: evaluate --predictive's posterior samples (the CLI's default is 30: a
 #: linearized run at 30 took 16-18 s of the phase's time, at 10 8.6-9.0 s
 #: on a slow host)
 HYPER_PREDICTIVE_SAMPLES = ["--samples", "4"]
-#: the predictives' rates: test batches of 32 timed (the first 128 of
-#: the 256 test images; the linearized predictive runs ~48 img/s)
-HYPER_RATE_BATCHES = 4
+#: the predictives' rates: test batches of 32 timed (the first 64 of the
+#: 256 test images; the linearized predictive runs ~34-48 img/s: 128
+#: images took 6.6 s with the warm-up run, cut for the images phase)
+HYPER_RATE_BATCHES = 2
 #: the LeNet-5 FGSM sweeps (at the blitz's and the searched dampings, and
 #: SWAG's) take 4 posterior samples: at 30 each cost 13-17 s, at 10
 #: 5.6-8.2 s on a slow host
@@ -590,6 +608,32 @@ MA_RECORD_PATHS = {f"{c}_resnet18": tuple(
     for c in ("patch_gram_tiled", "patch_gram_v2")}
 #: the phase's budget (seconds)
 MA_BUDGET_S = 60.0
+#: the image-folder phase (data/images.py, the loaders, the folder CLIs):
+#: the committed fixtures decoded on the card's host and held to PIL's
+#: decodes (expected.npz), then an ImageNet-style tree of fixture copies
+#: under IMG_ROOT (train: 4 classes x 64 of the six ImageNet-shaped JPEGs,
+#: val: 32 of every format, art: 2 classes x 16) and a GTSRB one (PPM, 4
+#: unbalanced classes), and the CLIs on them: ResNet-50 at 224² (ImageNet
+#: stem, 1000 classes, seeded weights) KFAC f32 B=16 MC=1, evaluate --ood
+#: (imagenet -> art), ResNet-18 on --data gtsrb at 32², B=32
+IMG_ROOT = "build/images"
+IMG_PATHS = ("resnet50_imagenet_folder_factors_kfac_f32",
+             "resnet18_gtsrb_folder_factors_kfac_f32")
+IMG_RECORD_PATHS = {"patch_gram_tiled": IMG_PATHS[:1],
+                    "patch_gram_v2": IMG_PATHS[:1],
+                    "patch_gram_tiled_resnet18": IMG_PATHS[1:],
+                    "patch_gram_v2_resnet18": IMG_PATHS[1:]}
+IMG_TRAIN, IMG_VAL, IMG_ART, IMG_GTSRB = (4, 64), 32, (2, 16), (
+    20, 6, 4, 2)
+IMG_ARGV = ["--model", "resnet50", "--data", "imagenet", "--batch_size",
+            str(BATCH), "--mc_samples", "1", "--estimator", "kfac"]
+GTSRB_ARGV = ["--model", "resnet18", "--data", "gtsrb", "--batch_size",
+              "32", "--mc_samples", "1", "--estimator", "kfac"]
+#: ResNet-50 f32 B=16 at 224²: (tiled, v2) A routes an update (PATHS[0])
+IMG_ROUTES = (3, 1)
+#: the threads of the ParallelDecodeLoader rate, and the phase's budget
+#: (seconds)
+IMG_WORKERS, IMG_BUDGET_S = 8, 40.0
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -3608,6 +3652,246 @@ def moe_phase(estimators, models, counters, smi, dev, profile=False,
     return rate
 
 
+def images_check(images, fixtures):
+    """Every committed fixture decoded here against PIL's decode
+    (``expected.npz``), 0 differing pixels; one line per format; then the
+    JAX loader's committed batches from the port's loader. Returns the
+    expected arrays."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from curvature_tpu_torch.data import loaders
+    expected = np.load(os.path.join(fixtures, "expected.npz"))
+    counts, bad = {}, []
+    for name in sorted(os.listdir(fixtures)):
+        if name == "expected.npz":
+            continue
+        path = os.path.join(fixtures, name)
+        with open(path, "rb") as f:
+            kind = images.sniff(f.read(8))
+        got, want = images.open_rgb(path), expected[name]
+        diff = int((got != want).any(-1).sum()) if got.shape == want.shape \
+            else -1
+        counts.setdefault(kind, [0, 0])
+        counts[kind][0] += 1
+        if diff:
+            counts[kind][1] += 1
+            bad.append((name, got.shape, want.shape, diff))
+    for kind, (n, wrong) in sorted(counts.items()):
+        log(f"images: {n} {kind} fixtures decoded, {wrong} with a pixel "
+            f"off PIL's decode (expected.npz)")
+    if bad:
+        raise AssertionError(f"decodes off PIL's: {bad}")
+    tmp = tempfile.mkdtemp(prefix="img_batches_")
+    try:
+        for size in (224, 64):
+            files = [str(f) for f in expected[f"files{size}"]]
+            for rel in files:
+                os.makedirs(os.path.join(tmp, str(size), os.path.dirname(rel)),
+                            exist_ok=True)
+                shutil.copyfile(os.path.join(fixtures, os.path.basename(rel)),
+                                os.path.join(tmp, str(size), rel))
+            loader = loaders.ImageFolderLoader(os.path.join(tmp, str(size)),
+                                               size)
+            x, y = loader.load_batch(range(len(files)))
+            if not (x.dtype == np.float32
+                    and np.array_equal(x, expected[f"batch{size}"])
+                    and np.array_equal(y, expected[f"labels{size}"])):
+                raise AssertionError(f"the {size}² batch is off JAX's loader")
+            log(f"images: the {size}² batch of {len(files)} equals JAX's "
+                "loader's (expected.npz), float32 bit for bit")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return expected
+
+
+def image_tree(fixtures, root):
+    """``root/imagenet/{train,val,art}`` and ``root/gtsrb/{train,val,test}``
+    of fixture copies under new names (IMG_TRAIN, IMG_VAL, IMG_ART,
+    IMG_GTSRB). Returns the ImageNet-shaped JPEGs' paths."""
+    import os
+    import shutil
+    names = sorted(n for n in os.listdir(fixtures) if n != "expected.npz")
+    big = [n for n in names if n.startswith("jpeg_420_q")]
+    ppm = [n for n in names if n.endswith(".ppm")]
+
+    def fill(d, picks, count, tag):
+        os.makedirs(d, exist_ok=True)
+        for i in range(count):
+            src = picks[(i + len(tag)) % len(picks)]
+            shutil.copyfile(os.path.join(fixtures, src), os.path.join(
+                d, f"{tag}_{i:04d}{os.path.splitext(src)[1]}"))
+    if os.path.exists(root):
+        shutil.rmtree(root)
+    im = os.path.join(root, "imagenet")
+    classes, per = IMG_TRAIN
+    for c in range(classes):
+        fill(os.path.join(im, "train", f"n{c:08d}"), big, per, f"t{c}")
+    fill(os.path.join(im, "val", "n00000000"), names, IMG_VAL // 2, "v0")
+    fill(os.path.join(im, "val", "n00000001"), names[::-1], IMG_VAL // 2,
+         "v1")
+    classes, per = IMG_ART
+    for c in range(classes):
+        fill(os.path.join(im, "art", f"a{c}"), big + names, per, f"a{c}")
+    for c, n in enumerate(IMG_GTSRB):
+        fill(os.path.join(root, "gtsrb", "train", f"{c:05d}"), ppm, n,
+             f"g{c}")
+        for split in ("val", "test"):
+            fill(os.path.join(root, "gtsrb", split, f"{c:05d}"), ppm, 2,
+                 split)
+    return [os.path.join(fixtures, n) for n in big]
+
+
+def images_phase(counters, smi, update_img_s=None):
+    """The image-folder loaders on the card's host and the CLIs that read
+    them (ROADMAP Queue 1 item 9): the fixtures against PIL's decodes,
+    the host rates (one thread's decode and load per ImageNet-shaped JPEG,
+    ParallelDecodeLoader at IMG_WORKERS threads), ``factors`` of ResNet-50
+    on the JPEG folder at full width (its launches asserted from JAX's
+    routes, its kernel-routed A factors against the plain path), the
+    ``evaluate --ood`` chain to the art folder, and ``factors --data
+    gtsrb``. Returns the factors runs' launches by path."""
+    import os
+    import numpy as np
+    import torch
+    from curvature_tpu_torch import estimators
+    from curvature_tpu_torch.data import images, loaders, prefetch
+    from curvature_tpu_torch.pipelines import common, evaluate, factors
+    from curvature_tpu_torch.utils.checkpoint import results_paths
+    from curvature_tpu_torch.utils.config import parse_args
+    t_phase = time.perf_counter()
+    none = counters.zero()
+    fixtures = loaders.IMAGE_FIXTURE_DIR
+    images_check(images, fixtures)
+    root = os.path.abspath(IMG_ROOT)
+    big = image_tree(fixtures, root)
+    cpus = os.cpu_count()
+
+    # one thread: decode, and the loader's whole _load (decode, resize of
+    # the shorter side to 256, crop 224), per ImageNet-shaped JPEG
+    for fn, what in ((images.open_rgb, "decode"),
+                     (lambda p: images.load_image(p, SIZE),
+                      "decode+resize+crop")):
+        for p in big:
+            fn(p)
+        reps, t0 = 5, time.perf_counter()
+        for _ in range(reps):
+            for p in big:
+                fn(p)
+        ms = (time.perf_counter() - t0) / (reps * len(big)) * 1e3
+        log(f"images: {what} {ms:.3f} ms per 500x375/375x500/333x500 JPEG "
+            f"on one thread ({len(big)} files x {reps}; host of {cpus} "
+            f"CPUs; {smi})")
+    data_dir = root
+    train = loaders.imagenet(os.path.join(data_dir, "imagenet"), SIZE, BATCH)
+    threaded = prefetch.ParallelDecodeLoader(train, workers=IMG_WORKERS)
+    list(threaded)
+    t0 = time.perf_counter()
+    n = sum(len(y) for _, y in threaded)
+    img_s = n / (time.perf_counter() - t0)
+    log(f"images: ParallelDecodeLoader(workers={IMG_WORKERS}) {img_s:.2f} "
+        f"img/s at {SIZE}² ({n} images, batches of {BATCH}; host of {cpus} "
+        f"CPUs; {smi})")
+
+    # factors on the JPEG folder: the CLI's loop timed inside it, and each
+    # update call in it, so the rest is the loop's wait for batches
+    base = IMG_ARGV + ["--data_dir", data_dir, "--root_dir", root,
+                       "--results_dir", root]
+    loop, calls = {}, []
+    compute, update = factors.compute_factors, estimators.KFAC.update
+
+    def timed_compute(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = compute(*a, **k)
+        torch.cuda.synchronize()
+        loop["s"] = time.perf_counter() - t
+        return out
+
+    def timed_update(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = update(self, *a, **k)
+        torch.cuda.synchronize()
+        calls.append(time.perf_counter() - t)
+        return out
+    factors.compute_factors, estimators.KFAC.update = (timed_compute,
+                                                       timed_update)
+    try:
+        est, got = run_cli(factors, base, counters, smi,
+                           "resnet50 imagenet-folder factors kfac")
+    finally:
+        factors.compute_factors, estimators.KFAC.update = compute, update
+    n_train = IMG_TRAIN[0] * IMG_TRAIN[1]
+    updates = n_train // BATCH
+    want = dict(none, patch_gram_tiled=IMG_ROUTES[0] * updates,
+                patch_gram_v2=IMG_ROUTES[1] * updates)
+    if got != want or est.num_updates != updates or len(calls) != updates:
+        raise AssertionError(f"{IMG_PATHS[0]}: launches {got}, want {want}; "
+                             f"{est.num_updates} updates")
+    check_finite(est.state, f"{IMG_PATHS[0]} state")
+    wait = loop["s"] - sum(calls)
+    steady = BATCH * (updates - 1) / sum(calls[1:])
+    rate = f"; the synthetic-batch rate of this run {update_img_s:.2f}" \
+        if update_img_s else ""
+    log(f"images: factors CLI {n_train / loop['s']:.2f} img/s through its "
+        f"loop ({n_train} images, {loop['s']:.3f} s; --scan_chunk 8, "
+        f"DevicePrefetcher depth 2): {sum(calls):.3f} s in {updates} "
+        f"update calls (first {calls[0]:.3f} s, the rest {steady:.2f} "
+        f"img/s{rate}), {wait:.3f} s ({100 * wait / loop['s']:.1f}%) "
+        f"waiting for the folder's batches ({smi})")
+    x = next(common.on_device(common.build_data(parse_args(base), "train"),
+                              est.device))[0]
+    kernel_route_check(est, {}, x, IMG_ROUTES, "resnet50 imagenet folder "
+                       f"B={BATCH}")
+    del est
+    torch.cuda.empty_cache()
+
+    argv = base + ["--ood", "--norm", str(ADD), "--scale", str(MULTIPLY)] \
+        + OOD_CLI_SAMPLES
+    (probs, bnn_probs, labels), got = run_cli(
+        evaluate, argv, counters, smi, "resnet50 imagenet-folder evaluate "
+        "--ood art")
+    with np.load(results_paths(parse_args(argv))[0] + ".npz",
+                 allow_pickle=True) as f:
+        auroc = f["auroc"]
+    for what, p in (("nn", probs), ("bnn", bnn_probs)):
+        if p.shape != (IMG_VAL, CLASSES) or not np.isfinite(p).all() \
+                or np.abs(p.sum(1) - 1).max() > 1e-3:
+            raise AssertionError(f"imagenet folder {what} predictions "
+                                 "malformed")
+    if got != none or not np.isfinite(auroc).all():
+        raise AssertionError(f"imagenet folder evaluate: launches {got}, "
+                             f"AUROC {auroc}")
+    log(f"images: imagenet folder --ood art (random weights): AUROC NN "
+        f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
+    torch.cuda.empty_cache()
+
+    gbase = GTSRB_ARGV + ["--data_dir", data_dir, "--root_dir", root,
+                          "--results_dir", root]
+    est, ggot = run_cli(factors, gbase, counters, smi,
+                        "resnet18 gtsrb-folder factors kfac")
+    train = loaders.gtsrb(os.path.join(data_dir, "gtsrb"), 32, 32,
+                          splits="train")
+    gupdates = len(train)
+    routes = R18_ROUTES[R18_PATHS[0]]
+    gwant = dict(none, patch_gram_tiled=routes["tiled"] * gupdates,
+                 patch_gram_v2=routes["v2"] * gupdates)
+    if ggot != gwant or est.num_updates != gupdates \
+            or not train.class_balanced:
+        raise AssertionError(f"{IMG_PATHS[1]}: launches {ggot}, want "
+                             f"{gwant}; {est.num_updates} updates")
+    check_finite(est.state, f"{IMG_PATHS[1]} state")
+    del est
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"images phase: {seconds:.1f} s, "
+        f"{'within' if seconds <= IMG_BUDGET_S else 'OVER'} its "
+        f"{IMG_BUDGET_S:.0f} s budget ({smi})")
+    return {IMG_PATHS[0]: want, IMG_PATHS[1]: ggot}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3656,6 +3940,11 @@ def main(argv=None):
                          "ranks of the card) only and stop (no result line)")
     ap.add_argument("--mesh_axes_rank", metavar="DIR", default="",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--images", action="store_true",
+                    help="build the kernels and the image decoders, run the "
+                         "image-folder phase (the fixtures against PIL's "
+                         "decodes, the host rates, the folder CLIs) only "
+                         "and stop (no result line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3674,6 +3963,7 @@ def main(argv=None):
 
     try:
         from curvature_tpu_torch import estimators, models
+        from curvature_tpu_torch.data import images, native
         from curvature_tpu_torch.eval import eval_nn
         from curvature_tpu_torch.ops.cuda import build
         from curvature_tpu_torch.ops.cuda import patch_gram as tpg
@@ -3699,9 +3989,14 @@ def main(argv=None):
     t0 = time.perf_counter()
     runs_moe = not any((args.hyper, args.grouped, args.training, args.zoo,
                         args.transformers, args.subspace, args.parallel,
-                        args.lm, args.kernels, args.mesh_axes))
+                        args.lm, args.kernels, args.mesh_axes, args.images))
     moe_model = prepare_moe_model(models) if runs_moe else None
-    reports = build.build_all(force=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        # the image decoders' g++ build beside the nvcc ones
+        gxx = pool.submit(native.build, images.SOURCE, "curvimages",
+                          images.GXX_FLAGS)
+        reports = build.build_all(force=True)
+        log(f"g++ build of {images.SOURCE.name}: {gxx.result().name}")
     if moe_model is not None:
         moe_model.result()          # nothing else on the host while timing
     log(f"build: {time.perf_counter() - t0:.2f} s for "
@@ -3770,6 +4065,11 @@ def main(argv=None):
         return 0
     if args.mesh_axes:
         mesh_axes_phase(estimators, models, Counters(tpg, tsg), smi, dev)
+        log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            " GiB")
+        return 0
+    if args.images:
+        images_phase(Counters(tpg, tsg), smi)
         log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
             " GiB")
         return 0
@@ -3959,6 +4259,11 @@ def main(argv=None):
     # -- 6. grouped and depthwise convolutions: ResNeXt-50, EfficientNet-B0,
     # ConvNeXt-T, the MobileNetV2 CLIs -------------------------------------
     del est, est16, est_sub, lad, r18_updated, ensemble
+    torch.cuda.empty_cache()
+    # 5b. the image-folder loaders and their CLIs (ResNet-50 from a JPEG
+    # folder, the art OOD chain, GTSRB's PPMs)
+    img_by_path = images_phase(counters, smi, rates[PATHS[0]])
+    count_record_launches(records, img_by_path, IMG_RECORD_PATHS)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     grouped_by_path = grouped_phase(estimators, models, counters, smi, dev,

@@ -8,10 +8,13 @@ constants, split protocol and batches, NHWC float32 numpy as in JAX (the
 pipelines move them to NCHW on the device). The CIFAR bytes decode
 through ``data.native`` (``native/decoder.cpp``), as in JAX; the idx
 bytes by its numpy version, within one ulp of JAX's native decode. The
-image-folder loaders (GTSRB, ImageNet, TinyImageNet, art) decode JPEG/PNG/
-PPM through PIL, which the card's machine lacks: they wait (ROADMAP Queue
-1 item 9). ``FIXTURE_DIR`` holds 1024 real handwritten digits in the
-MNIST idx layout, a copy of the JAX package's fixture.
+image-folder loaders (GTSRB, ImageNet, TinyImageNet, art) decode through
+``data.images``, the port's own JPEG/PNG/PPM/BMP decoders and PIL's
+bicubic resize, so their batches equal JAX's (which reads through PIL)
+exactly. ``FIXTURE_DIR`` holds 1024 real handwritten digits in the MNIST
+idx layout, a copy of the JAX package's fixture; ``IMAGE_FIXTURE_DIR``
+image files of every format the decoders read, with PIL's decodes
+(``tests/torch_image_fixtures.py`` writes them).
 """
 import gzip
 import os
@@ -21,7 +24,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from curvature_tpu_torch.data import native
+from curvature_tpu_torch.data import images, native
 
 MNIST_DIR = "MNIST/raw"
 KMNIST_DIR = "KMNIST/raw"
@@ -35,17 +38,9 @@ GTSRB_STD = np.array([0.05087305, 0.05426421, 0.05859348], np.float32)
 
 #: ``--data_dir`` of the bundled digits (``<FIXTURE_DIR>/MNIST/raw``)
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures", "digits")
-
-_NOT_PORTED = ("gtsrb", "imagenet", "art", "ImageFolderLoader")
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"the {name} loader decodes image folders through PIL, which "
-            "the card's machine lacks: not ported yet (ROADMAP Queue 1 "
-            "item 9)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+#: image files of every format ``data.images`` reads, and ``expected.npz``
+IMAGE_FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures",
+                                 "images")
 
 
 class ArrayLoader:
@@ -286,6 +281,116 @@ def svhn(root: str, batch_size: int = 32, workers: int = 0,
         if "test" in splits:
             loaders.append(ArrayLoader(xt, yt, batch_size, transform=norm))
     return _select_splits(loaders, splits)
+
+
+# -- image-folder datasets ----------------------------------------------------
+
+class ImageFolderLoader:
+    """Lazy loader over an ImageFolder-style directory tree:
+    ``<root>/<class_name>/*.{jpg,jpeg,png,ppm,bmp}`` (JAX loaders.py
+    :271-343). Classes and files in sorted order; each file decoded by
+    ``data.images.load_image`` (PIL's decode, bicubic resize of the
+    shorter side to ``int(s * 8 / 7)``, center crop ``s``), normalized
+    in float32 numpy as JAX does."""
+
+    EXTS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp")
+
+    def __init__(self, root: str, img_size: int, batch_size: int = 32,
+                 mean=IMAGENET_MEAN, std=IMAGENET_STD, shuffle: bool = False,
+                 seed: int = 0, class_balanced: bool = False,
+                 limit: Optional[int] = None):
+        if not os.path.isdir(root):
+            raise FileNotFoundError(
+                f"{root}: expected an ImageFolder layout <root>/<class>/*")
+        self.root = root
+        self.img_size = img_size
+        self.batch_size = batch_size
+        self.mean, self.std = mean, std
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        classes = sorted(d for d in os.listdir(root)
+                         if os.path.isdir(os.path.join(root, d)))
+        self.class_to_idx = {c: i for i, c in enumerate(classes)}
+        self.samples: List[Tuple[str, int]] = []
+        for c in classes:
+            cdir = os.path.join(root, c)
+            for fn in sorted(os.listdir(cdir)):
+                if fn.lower().endswith(self.EXTS):
+                    self.samples.append((os.path.join(cdir, fn),
+                                         self.class_to_idx[c]))
+        if limit:
+            self.samples = self.samples[:limit]
+        self.class_balanced = class_balanced
+
+    def __len__(self):
+        return (len(self.samples) + self.batch_size - 1) // self.batch_size
+
+    def batch_indices(self):
+        """Sample-index batches in this epoch's iteration order (the
+        class-balanced draw is the reference's WeightedRandomSampler,
+        datasets.py:676-683)."""
+        n = len(self.samples)
+        if self.class_balanced:
+            labels = np.array([lbl for _, lbl in self.samples])
+            counts = np.bincount(labels)
+            w = (1.0 / counts)[labels]
+            order = self.rng.choice(n, size=n, replace=True, p=w / w.sum())
+        elif self.shuffle:
+            order = self.rng.permutation(n)
+        else:
+            order = np.arange(n)
+        for i in range(0, n, self.batch_size):
+            yield order[i:i + self.batch_size]
+
+    def load_batch(self, sel):
+        """Decode and normalize one batch of sample indices (thread-safe:
+        the decoders keep no state and drop the GIL)."""
+        xs = np.stack([images.load_image(self.samples[j][0], self.img_size)
+                       for j in sel])
+        ys = np.array([self.samples[j][1] for j in sel], np.int32)
+        return (xs - self.mean) / self.std, ys
+
+    def __iter__(self):
+        for sel in self.batch_indices():
+            yield self.load_batch(sel)
+
+
+def imagenet(root: str, img_size: int = 224, batch_size: int = 32,
+             workers: int = 0, splits="train", tiny: bool = False,
+             use_cache: bool = False):
+    """ImageNet/TinyImageNet folders ``<root>/{train,val}/<class>/*``
+    (datasets.py:514-604); ``test`` reads ``val``. ``tiny`` is the same
+    folder at the caller's size; ``workers`` and ``use_cache`` are
+    accepted and ignored, as in JAX."""
+    split_list = [splits] if isinstance(splits, str) else list(splits)
+    loaders = []
+    for split in split_list:
+        sub = {"train": "train", "val": "val", "test": "val"}[split]
+        loaders.append(ImageFolderLoader(
+            os.path.join(root, sub), img_size, batch_size,
+            shuffle=(split == "train")))
+    return _select_splits(loaders, split_list)
+
+
+def art(root: str, img_size: int = 224, batch_size: int = 32,
+        workers: int = 0, use_cache: bool = False):
+    """Painter-by-numbers OOD set ``<root>/art/<class>/*``
+    (datasets.py:471-511)."""
+    return ImageFolderLoader(os.path.join(root, "art"), img_size, batch_size)
+
+
+def gtsrb(root: str, img_size: int = 32, batch_size: int = 32,
+          workers: int = 0, splits=("train", "val")):
+    """GTSRB folders ``<root>/<split>/<class>/*.ppm`` with class-balanced
+    train sampling (datasets.py:614-706)."""
+    split_list = [splits] if isinstance(splits, str) else list(splits)
+    loaders = []
+    for split in split_list:
+        loaders.append(ImageFolderLoader(
+            os.path.join(root, split), img_size, batch_size,
+            mean=GTSRB_MEAN, std=GTSRB_STD,
+            class_balanced=(split == "train")))
+    return _select_splits(loaders, split_list)
 
 
 # -- regression datasets (datasets.py:192-262) --------------------------------

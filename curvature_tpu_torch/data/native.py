@@ -1,14 +1,18 @@
-"""ctypes binding of the native data-path library (``native/decoder.cpp``).
+"""ctypes binding of the native data-path library (``native/decoder.cpp``),
+and the build rules of every host library of the port's data path.
 
-Port of ``curvature_tpu/data/native.py``. The source is built with ``g++``
-at first use into the git-ignored ``build/`` (beside the CUDA libraries,
-``ops/cuda/build.py``), with ``native/build.sh``'s flags; ``native/`` is
-never written. ``-march=native`` ties a library to its host's CPU, so its
-name carries a tag of the host's CPU flags (a copy of ``build/`` on
-another machine builds its own). Where JAX falls back to numpy without a
-word when the build fails, a failed build here raises with the compiler's
-output. Each entry point has its plain numpy version beside it
-(``*_plain``), which the CPU tests hold it against.
+Port of ``curvature_tpu/data/native.py``. A C++ source is built with
+``g++`` at first use into the git-ignored ``build/`` (beside the CUDA
+libraries, ``ops/cuda/build.py``), with ``native/build.sh``'s flags;
+``native/`` is never written. ``-march=native`` ties a library to its
+host's CPU, so its name carries a tag of the host's CPU flags (a copy of
+``build/`` on another machine builds its own). Where JAX falls back to
+numpy without a word when the build fails, a failed build here raises
+with the compiler's output. ``build(source, name)`` and
+``library_path(name)`` serve both libraries: ``libcurvdata`` (this
+module's entry points, each with its plain numpy version beside it,
+``*_plain``, which the CPU tests hold it against) and ``libcurvimages``
+(``data/csrc/images.cpp``, bound by ``data/images.py``).
 """
 import ctypes
 import functools
@@ -18,7 +22,7 @@ import platform
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -43,40 +47,51 @@ def _host_tag() -> str:
     return hashlib.sha1((platform.machine() + flags).encode()).hexdigest()[:8]
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libcurvdata-{_host_tag()}.so"
+def library_path(name: str = "curvdata") -> Path:
+    return BUILD_DIR / f"lib{name}-{_host_tag()}.so"
 
 
-def build() -> Path:
-    """Compile ``native/decoder.cpp`` into :func:`library_path` (written
-    under a temporary name and renamed, so a concurrent reader never loads
-    half a library). Raises with the compiler's output if it fails."""
+def build(source: Optional[Path] = None, name: str = "curvdata",
+          flags: Sequence[str] = ()) -> Path:
+    """Compile ``source`` (default ``native/decoder.cpp``) into
+    :func:`library_path` of ``name``, with ``flags`` after the common
+    ones (written under a temporary name and renamed, so a concurrent
+    reader never loads half a library). Raises with the compiler's output
+    if it fails."""
+    source = Path(source or SOURCE)
+    target = library_path(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        out = subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, str(SOURCE)],
+        out = subprocess.run(["g++", *GXX_FLAGS, *flags, "-o", tmp,
+                              str(source)],
                              capture_output=True, text=True, timeout=300)
     except OSError as e:
         os.unlink(tmp)
-        raise RuntimeError(f"g++ could not run for {SOURCE}: {e}") from e
+        raise RuntimeError(f"g++ could not run for {source}: {e}") from e
     if out.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"g++ failed for {SOURCE}:\n{out.stdout}"
+        raise RuntimeError(f"g++ failed for {source}:\n{out.stdout}"
                            f"{out.stderr}")
-    os.replace(tmp, library_path())
-    return library_path()
+    os.replace(tmp, target)
+    return target
+
+
+def load(source: Path, name: str, flags: Sequence[str] = ()) -> ctypes.CDLL:
+    """The library ``name`` built from ``source``, built first if it is
+    missing or older than its source."""
+    lib_path = library_path(name)
+    if not lib_path.exists() \
+            or lib_path.stat().st_mtime < Path(source).stat().st_mtime:
+        build(source, name, flags)
+    return ctypes.CDLL(str(lib_path))
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    """The loaded library, built first if it is missing or older than its
-    source."""
-    lib_path = library_path()
-    if not lib_path.exists() \
-            or lib_path.stat().st_mtime < SOURCE.stat().st_mtime:
-        build()
-    lib = ctypes.CDLL(str(lib_path))
+    """The loaded ``libcurvdata``."""
+    lib = load(SOURCE, "curvdata")
     lib.ct_decode_idx.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
         ctypes.c_int]

@@ -1,5 +1,6 @@
-"""Synthetic data (copies of ``synthetic_images`` and ``synthetic_tokens``
-from ``curvature_tpu/data/synthetic.py``, drawing the same numbers from
+"""Synthetic data (copies of ``synthetic_images``,
+``synthetic_classification`` and ``synthetic_tokens`` from
+``curvature_tpu/data/synthetic.py``, drawing the same numbers from
 the same generator; no dataset downloads are possible here). Images come
 out NHWC as in the JAX package; transpose to NCHW for the port's
 models."""
@@ -13,6 +14,18 @@ def synthetic_images(rng: np.random.Generator, num: int, height: int,
                      ) -> Tuple[np.ndarray, np.ndarray]:
     x = rng.standard_normal((num, height, width, channels), dtype=np.float32)
     y = rng.integers(0, num_classes, size=(num,))
+    return x, y.astype(np.int32)
+
+
+def synthetic_classification(rng: np.random.Generator, num: int, dim: int,
+                             num_classes: int
+                             ) -> Tuple[np.ndarray, np.ndarray]:
+    """Gaussian features [N, dim] labelled by a random linear map plus
+    noise."""
+    x = rng.standard_normal((num, dim), dtype=np.float32)
+    w = rng.standard_normal((dim, num_classes), dtype=np.float32)
+    y = np.argmax(x @ w + rng.standard_normal((num, num_classes)) * 0.1,
+                  axis=1)
     return x, y.astype(np.int32)
 
 

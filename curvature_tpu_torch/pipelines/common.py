@@ -1,9 +1,9 @@
 """Shared model/data construction for the pipeline CLIs.
 
 Port of ``curvature_tpu/pipelines/common.py`` for the ported families
-(the conv zoo, the GPT-2s) and datasets (mnist, kmnist, cifar10, svhn,
-synthetic, tokens; the image folders of gtsrb, tiny and imagenet wait,
-ROADMAP Queue 1 item 9). The loaders yield NHWC numpy batches (or [B, T]
+(the conv zoo, the GPT-2s) and every dataset (mnist, kmnist, cifar10,
+svhn, synthetic, tokens, and the image folders of gtsrb, tiny, imagenet
+and art, decoded by ``data.images``). The loaders yield NHWC numpy batches (or [B, T]
 token ids) as in JAX; :func:`device_batch` moves one to the device, and
 :func:`model_input` views an image batch in the models' NCHW order (a
 channels_last view: the data is transposed once, in the view). ``--data
@@ -205,7 +205,11 @@ def build_data(cfg, splits="train"):
     """Dataset dispatch (reference factors.py:89-110): NHWC numpy batches.
     ``synthetic`` is 512 train / 256 test random 32x32x3 images;
     ``tokens`` the Markov token streams, one transition permutation shared
-    by every split, each split drawn from its own seed (JAX :185-205)."""
+    by every split, each split drawn from its own seed (JAX :185-205);
+    ``gtsrb``, ``tiny`` and ``imagenet`` the image folders under
+    ``<data_dir>/gtsrb`` (32²) and ``<data_dir>/imagenet`` (64² for tiny,
+    else the model's input size, 299² for Inception v3), as JAX
+    :224-233."""
     root = cfg.data_dir
     if cfg.data == "tokens":
         v = vocab(cfg)
@@ -239,11 +243,16 @@ def build_data(cfg, splits="train"):
                          splits)
     if cfg.data == "svhn":
         return D.svhn(root, cfg.batch_size, cfg.workers, splits)
-    if cfg.data in NUM_CLASSES:
-        raise NotImplementedError(
-            f"the {cfg.data} loader decodes image folders through PIL, "
-            "which the card's machine lacks: not ported yet (ROADMAP Queue "
-            "1 item 9)")
+    if cfg.data == "gtsrb":
+        return D.gtsrb(os.path.join(root, "gtsrb"), 32, cfg.batch_size,
+                       cfg.workers, splits)
+    if cfg.data == "tiny":
+        return D.imagenet(os.path.join(root, "imagenet"), 64, cfg.batch_size,
+                          cfg.workers, splits, tiny=True)
+    if cfg.data == "imagenet":
+        h, _, _ = input_shape("imagenet", cfg.model)
+        return D.imagenet(os.path.join(root, "imagenet"), h, cfg.batch_size,
+                          cfg.workers, splits)
     raise ValueError(f"unknown dataset {cfg.data!r}")
 
 
@@ -251,7 +260,9 @@ def build_ood_data(cfg, batch_size=None):
     """In-domain/OOD test loader pair (reference evaluate.py:221-243): the
     synthetic OOD set is seed + 1 and ``x * 2 + 1``; a dataset's pair is
     ``loaders.OOD_PAIRS`` (MNIST's is KMNIST, CIFAR-10's SVHN, whose files
-    must be under ``--data_dir``)."""
+    must be under ``--data_dir``; ImageNet's and TinyImageNet's the art
+    folder ``<data_dir>/imagenet/art`` at the in-domain size, JAX
+    :258-260)."""
     bs = batch_size or cfg.batch_size
     in_data = build_data(cfg, splits="test")
     if cfg.data == "synthetic":
@@ -265,7 +276,11 @@ def build_ood_data(cfg, batch_size=None):
         x, y = synthetic_tokens(rng, 256, seq_len(cfg), vocab(cfg),
                                 order=0.0)
         return in_data, D.ArrayLoader(x, y, bs)
-    ood_cfg = dataclasses.replace(cfg, data=D.OOD_PAIRS[cfg.data])
+    ood_name = D.OOD_PAIRS[cfg.data]
+    if ood_name == "art":
+        h, _, _ = input_shape(cfg.data, cfg.model)
+        return in_data, D.art(os.path.join(cfg.data_dir, "imagenet"), h, bs)
+    ood_cfg = dataclasses.replace(cfg, data=ood_name)
     return in_data, build_data(ood_cfg, splits="test")
 
 

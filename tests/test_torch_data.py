@@ -139,13 +139,6 @@ def test_build_data_and_the_ood_pair_match_jax(data_root):
     assert tloaders.OOD_PAIRS == jloaders.OOD_PAIRS
 
 
-@pytest.mark.parametrize("name", ["gtsrb", "imagenet", "art",
-                                  "ImageFolderLoader"])
-def test_image_folder_loaders_wait_for_pil(name):
-    with pytest.raises(NotImplementedError, match="PIL.*item 9"):
-        getattr(tloaders, name)
-
-
 # -- the native decoder -------------------------------------------------------
 
 def test_native_decoder_matches_its_plain_version_and_jax():

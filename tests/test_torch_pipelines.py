@@ -562,12 +562,11 @@ def test_ported_flags_reach_their_module(flags, tmp_path, monkeypatch):
 
 
 def test_unported_models_data_and_formats_raise(tmp_path):
-    """What is still to port raises, naming its ROADMAP item: the
-    image-folder loaders (item 9: PIL); a JAX orbax checkpoint directory
-    is refused (reading one needs orbax, a JAX library; the port's
-    sharded checkpoint is tests/test_torch_model_parallel.py's). The
-    MoE GPT-2 is ported: it builds, with JAX's metas
-    (tests/test_torch_moe.py). The fidelity diagnostics (item 8) are
+    """A JAX orbax checkpoint directory is refused (reading one needs
+    orbax, a JAX library; the port's sharded checkpoint is
+    tests/test_torch_model_parallel.py's). The image-folder loaders are
+    ported (tests/test_torch_images.py). The MoE GPT-2 is ported: it
+    builds, with JAX's metas (tests/test_torch_moe.py). The fidelity diagnostics (item 8) are
     ported (tests/test_torch_matfree.py, the CLI chains below). The
     classic zoo, the vision transformers, CIFAR-10 and torch ``.pth``
     checkpoints are ported (tests/test_torch_zoo_classic.py,
@@ -579,11 +578,6 @@ def test_unported_models_data_and_formats_raise(tmp_path):
     assert list(moe.metas) == list(jmoe.metas)
     assert [(m.stacked, m.moe) for m in moe.metas.values()] == \
         [(m.stacked, m.moe) for m in jmoe.metas.values()]
-    t, _ = _cfgs(["--platform", "cpu", "--data", "gtsrb"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tcommon.build_data(t)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        getattr(tloaders, "imagenet")
     t, _ = _cfgs(ARGV + ["--root_dir", str(tmp_path)])
     (tmp_path / "o").mkdir()
     (tmp_path / "o" / "_METADATA").touch()

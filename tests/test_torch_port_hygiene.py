@@ -26,6 +26,7 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert len(names) >= 20, names
 for required in ("curvature_tpu_torch.utils.casting",
+                 "curvature_tpu_torch.data.images",
                  "curvature_tpu_torch.ops.cuda.patch_gram",
                  "curvature_tpu_torch.ops.cuda.sym_gram",
                  "curvature_tpu_torch.pipelines.factors",
