@@ -126,6 +126,16 @@ from the JPEG folder (3 tiled + 1 v2 an update, its loop and update
 calls timed), ``evaluate --ood`` to the art folder and ``factors --data
 gtsrb`` on PPMs (8 + 1 an update).
 
+Then the figures (``figures_phase``, ROADMAP item 7): the files that the
+``--plot`` CLIs above wrote under JAX's names (ResNet-18's five OOD
+panels for kfac and efb, LeNet-5's FGSM sweep and random search, the
+training phase's loss landscapes, ResNet-50's OOD panels from the JPEG
+folder), then ``visualize`` over the three roots with every figure
+toggle and ``--summary``; each file must pass ``utils/pdf.read_pdf``,
+show its labels and paint at least its series or bars. It prints the
+files, their bytes, the phase's seconds (``FIG_BUDGET_S``) and the
+slowest figure's.
+
 Then the grouped and depthwise convolutions (``grouped_phase``), none
 launching a Gram kernel by JAX's routes: ResNeXt-50 32x4d and
 EfficientNet-B0 at 224², B=16 through the KFAC loop of JAX's
@@ -335,7 +345,7 @@ MOE_ARGV = ["--model", "gpt2_moe_tiny", "--data", "tokens", "--seq_len",
 #: evaluates ~170 candidates, at 4 samples each (23.3 s of the phase at
 #: the default 30, 9.4 s at 10)
 HYPER_LENET = (("kfac", ["--optimizer", "random", "--calls", "16",
-                         "--boundaries"]),
+                         "--boundaries", "--plot"]),
                ("kfac", ["--optimizer", "grid"]),
                ("diag", ["--optimizer", "gp", "--calls", "12"]),
                ("efb", ["--optimizer", "forest", "--calls", "10"]),
@@ -634,6 +644,33 @@ IMG_ROUTES = (3, 1)
 #: the threads of the ParallelDecodeLoader rate, and the phase's budget
 #: (seconds)
 IMG_WORKERS, IMG_BUDGET_S = 8, 40.0
+#: the figures phase (pipelines/plot.py, utils/figure.py, utils/pdf.py):
+#: the --plot CLIs above (ResNet-18's evaluate --ood for kfac and efb,
+#: LeNet-5's evaluate --fgsm, the LeNet-5 random search, the training
+#: phase's --loss1d/--loss2d, ResNet-50's evaluate --ood to the art
+#: folder) wrote their figures under JAX's names; visualize draws over
+#: their roots with every figure toggle. A figure's suffix -> (what its
+#: text must show, an entry ending in ': ' a prefix; the least paths it
+#: paints: its series, points, bars or faces)
+FIG_KINDS = {
+    "_ecdf.pdf": (("Predictive entropy", "1 - ECDF", "NN OOD", "BNN OOD"),
+                  4),
+    "_reliability.pdf": (("Confidence", "Accuracy", "Gap", "ECE: "), 21),
+    "_entropy.pdf": (("Predictive entropy", "in-domain", "OOD", "JSD: "),
+                     78),
+    "_fgsm.pdf": (("FGSM step size", "Accuracy [%]", "ECE [%]", "Entropy",
+                   "NN", "BNN"), 6),
+    "_hyper.pdf": (("log10 norm", "log10 scale", "cost"), 17),
+    "_loss1d.pdf": (("alpha", "Loss", "Accuracy [%]"), 4),
+    "_loss2d.pdf": (("alpha", "beta"), 400),
+    "_calibration.pdf": (("Confidence", "Accuracy", "NN", "BNN-KFAC"), 4),
+    "_networks.pdf": (("Confidence", "Accuracy"), 4),
+    "_eigvals.pdf": (("log10 eigenvalue", "Count", "KFAC"), 60),
+}
+#: the five figures of evaluate --ood --plot (JAX plot.ood_panels)
+FIG_OOD = ("_ecdf.pdf", "_reliability.pdf", "_bnn_reliability.pdf",
+           "_entropy.pdf", "_bnn_entropy.pdf")
+FIG_BUDGET_S = 15.0
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -1629,9 +1666,10 @@ def pipelines(estimators, counters, smi):
     (probs, labels), _ = run_cli(evaluate, kfac_argv, counters, smi,
                                  "lenet5 evaluate kfac (test)")
     nn = evaluate.summary(probs, labels)
-    (stats, bnn_stats), got = run_cli(evaluate, kfac_argv + ["--fgsm"]
+    (stats, bnn_stats), got = run_cli(evaluate, kfac_argv + ["--fgsm",
+                                                             "--plot"]
                                       + FGSM_CHAIN_SAMPLES, counters, smi,
-                                      "lenet5 evaluate kfac --fgsm")
+                                      "lenet5 evaluate kfac --fgsm --plot")
     if got != none:
         raise AssertionError(f"lenet5 evaluate launched {got}")
     # epsilon 0 leaves the batch as it is: the sweep's first row is the
@@ -1689,9 +1727,10 @@ def pipelines(estimators, counters, smi):
                      counters, smi, "resnet18 factors inf (rank 100)")
     check_finite(est.state, "resnet18 inf state")
     for name in ("kfac", "efb"):
-        argv = base + ["--estimator", name, "--ood"] + R18_DAMPING
+        argv = base + ["--estimator", name, "--ood", "--plot"] + R18_DAMPING
         (probs, bnn_probs, labels), got = run_cli(
-            evaluate, argv, counters, smi, f"resnet18 evaluate {name} --ood")
+            evaluate, argv, counters, smi,
+            f"resnet18 evaluate {name} --ood --plot")
         with np.load(results_paths(parse_args(argv))[0] + ".npz",
                      allow_pickle=True) as f:
             auroc = f["auroc"]
@@ -2789,8 +2828,9 @@ def training_phase(estimators, counters, smi, dev, profile=False):
     for flag, keys, points in (("--loss1d", ("train_loss", "val_loss"),
                                 51 * 2), ("--loss2d", ("loss",), 21 * 21)):
         path = f"{results_paths(cfg)[0]}_{flag[2:]}.npy"
-        res, seconds = timed(lambda: cli(loss_landscape, base + [flag],
-                                         f"lenet5 loss_landscape {flag}"))
+        res, seconds = timed(lambda: cli(
+            loss_landscape, base + [flag, "--plot"],
+            f"lenet5 loss_landscape {flag} --plot"))
         stamp = os.stat(path).st_mtime_ns
         again = cli(loss_landscape, base + [flag],
                     f"lenet5 loss_landscape {flag} (resumed)")
@@ -3848,11 +3888,11 @@ def images_phase(counters, smi, update_img_s=None):
     del est
     torch.cuda.empty_cache()
 
-    argv = base + ["--ood", "--norm", str(ADD), "--scale", str(MULTIPLY)] \
-        + OOD_CLI_SAMPLES
+    argv = base + ["--ood", "--plot", "--norm", str(ADD), "--scale",
+                   str(MULTIPLY)] + OOD_CLI_SAMPLES
     (probs, bnn_probs, labels), got = run_cli(
         evaluate, argv, counters, smi, "resnet50 imagenet-folder evaluate "
-        "--ood art")
+        "--ood --plot art")
     with np.load(results_paths(parse_args(argv))[0] + ".npz",
                  allow_pickle=True) as f:
         auroc = f["auroc"]
@@ -3890,6 +3930,122 @@ def images_phase(counters, smi, update_img_s=None):
         f"{'within' if seconds <= IMG_BUDGET_S else 'OVER'} its "
         f"{IMG_BUDGET_S:.0f} s budget ({smi})")
     return {IMG_PATHS[0]: want, IMG_PATHS[1]: ggot}
+
+
+def figures_phase(counters, smi):
+    """The figures (JAX pipelines/plot.py and the figure half of
+    visualize.py, ROADMAP Queue 1 item 7), drawn from what the earlier
+    phases wrote: the --plot CLIs' files under JAX's names (ResNet-18's
+    OOD panels from the factors whose f32 update launched
+    ``R18_ROUTES``' kernels, ResNet-50's from the JPEG folder's, LeNet-5's
+    FGSM sweep and random search, the training phase's landscapes), then
+    ``visualize`` over the three roots with every figure toggle and
+    ``--summary`` (no kernel launches). Each file must pass
+    ``utils/pdf.read_pdf``, show its labels and paint at least its series
+    or bars (``FIG_KINDS``). Prints the files, their bytes, the phase's
+    seconds against ``FIG_BUDGET_S`` and the slowest figure's (from the
+    previous figure's end, or its visualize call's start, to its file)."""
+    import os
+    from curvature_tpu_torch.data.loaders import FIXTURE_DIR
+    from curvature_tpu_torch.pipelines import visualize
+    from curvature_tpu_torch.utils import figure, pdf
+    from curvature_tpu_torch.utils.checkpoint import results_paths
+    from curvature_tpu_torch.utils.config import parse_args
+    t_phase = time.perf_counter()
+    none = counters.zero()
+
+    def fig(argv, subdir=""):
+        return results_paths(parse_args(argv), subdir)[1]
+
+    def check(path):
+        if not os.path.exists(path):
+            raise AssertionError(f"figures: {path} was not written")
+        info = pdf.read_pdf(path)
+        suffix = max((s for s in FIG_KINDS if path.endswith(s)), key=len)
+        want, least = FIG_KINDS[suffix]
+        missing = [w for w in want if not any(
+            s == w or (w.endswith(": ") and s.startswith(w))
+            for s in info["strings"])]
+        if info["pages"] != 1 or missing or info["painted"] < least:
+            raise AssertionError(
+                f"figures: {path}: {info['pages']} pages, missing {missing}"
+                f", {info['painted']} paths painted (at least {least})")
+        return info["bytes"]
+
+    lenet = os.path.abspath(os.path.join(PIPE_ROOT, "lenet5"))
+    r18 = os.path.abspath(os.path.join(PIPE_ROOT, "resnet18"))
+    train = os.path.abspath(os.path.join(TRAIN_ROOT, "lenet5"))
+    img = os.path.abspath(IMG_ROOT)
+    lenet_argv = LENET_ARGV + ["--data_dir", FIXTURE_DIR, "--root_dir",
+                               lenet, "--results_dir", lenet,
+                               "--estimator", "kfac"]
+    r18_argv = {e: R18_ARGV + ["--root_dir", r18, "--results_dir", r18,
+                               "--estimator", e] for e in ("kfac", "efb")}
+    train_argv = LENET_ARGV + ["--data_dir", FIXTURE_DIR, "--root_dir",
+                               train, "--results_dir", train,
+                               "--estimator", "kfac"]
+    img_argv = IMG_ARGV + ["--data_dir", img, "--root_dir", img,
+                           "--results_dir", img]
+    # (a) what the --plot CLIs wrote
+    plotted = [fig(r18_argv[e]) + s for e in r18_argv for s in FIG_OOD]
+    plotted += [fig(lenet_argv) + "_fgsm.pdf",
+                fig(lenet_argv + ["--results_dir", os.path.join(
+                    lenet, "hyper")], "random") + "_hyper.pdf",
+                fig(train_argv) + "_loss1d.pdf",
+                fig(train_argv) + "_loss2d.pdf"]
+    plotted += [fig(img_argv) + s for s in FIG_OOD]
+    sizes = {p: check(p) for p in plotted}
+
+    # (b) visualize over the roots, every figure toggle; each expected
+    # file removed first, so that visualize is what writes it
+    runs = (
+        ("resnet18 pipeline root", r18_argv["kfac"] + [
+            "--calibration", "--networks", "--ood", "--ecdf", "--entropy",
+            "--eigvals", "--summary"],
+         [fig(r18_argv["kfac"]) + s for s in (
+             "_calibration.pdf", "_networks.pdf", *FIG_OOD,
+             "_eigvals.pdf")]),
+        ("lenet5 training root", train_argv + [
+            "--optimizer", "random", "--eigvals", "--hyper", "--fgsm",
+            "--landscapes", "--summary"],
+         [fig(train_argv) + s for s in (
+             "_eigvals.pdf", "_hyper.pdf", "_fgsm.pdf", "_loss1d.pdf",
+             "_loss2d.pdf")]),
+        ("resnet50 images root", img_argv + [
+            "--calibration", "--ood", "--ecdf", "--entropy"],
+         [fig(img_argv) + s for s in ("_calibration.pdf", *FIG_OOD)]))
+    toggles = {f"--{t}" for t in visualize.FIGURE_TOGGLES} | {"--summary"}
+    slowest, mark = (0.0, ""), [0.0]
+    savefig = figure.Figure.savefig
+
+    def timed_savefig(self, path, **kw):
+        nonlocal slowest
+        savefig(self, path, **kw)
+        now = time.perf_counter()
+        if now - mark[0] > slowest[0]:
+            slowest = (now - mark[0], os.path.basename(path))
+        mark[0] = now
+    figure.Figure.savefig = timed_savefig
+    try:
+        for label, argv, expect in runs:
+            for p in expect:
+                if os.path.exists(p):
+                    os.remove(p)
+            mark[0] = time.perf_counter()
+            flags = " ".join(a for a in argv if a in toggles)
+            _, got = run_cli(visualize, argv, counters, smi,
+                             f"visualize {label} {flags}")
+            if got != none:
+                raise AssertionError(f"visualize {label} launched {got}")
+            sizes.update({p: check(p) for p in expect})
+    finally:
+        figure.Figure.savefig = savefig
+    seconds = time.perf_counter() - t_phase
+    log(f"figures: {len(sizes)} files, {sum(sizes.values())} bytes, "
+        f"{seconds:.1f} s, {'within' if seconds <= FIG_BUDGET_S else 'OVER'}"
+        f" its {FIG_BUDGET_S:.0f} s budget; {len(plotted)} written by "
+        f"--plot CLIs, {sum(len(e) for _, _, e in runs)} by visualize; "
+        f"slowest figure {slowest[0]:.3f} s ({slowest[1]}) ({smi})")
 
 
 def main(argv=None):
@@ -4264,6 +4420,10 @@ def main(argv=None):
     # folder, the art OOD chain, GTSRB's PPMs)
     img_by_path = images_phase(counters, smi, rates[PATHS[0]])
     count_record_launches(records, img_by_path, IMG_RECORD_PATHS)
+    torch.cuda.empty_cache()
+    # 5c. the figures: the --plot CLIs' files above, visualize over their
+    # roots
+    figures_phase(counters, smi)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     grouped_by_path = grouped_phase(estimators, models, counters, smi, dev,

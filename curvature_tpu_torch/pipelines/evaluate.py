@@ -16,7 +16,9 @@ by a closed-form or linearized one over the same posterior draws
 (``eval/predictive.py``). ``--parallel``/``--mesh`` split the test pass
 and the ``--ood`` evals over the ranks' data axis (every rank holds the
 same predictions; rank 0 writes them); the FGSM sweep runs whole on
-every rank, as in JAX.
+every rank, as in JAX. ``--plot`` draws JAX's figures under its names
+(``pipelines/plot.py``): the test's ``_reliability.pdf``, ``--ood``'s
+five panels, ``--fgsm``'s ``_fgsm.pdf``.
 
     python -m curvature_tpu_torch.pipelines.evaluate --model lenet5 \\
         --data mnist --data_dir <dir> --estimator kfac --norm 1 \\
@@ -36,6 +38,7 @@ from curvature_tpu_torch.pipelines.common import (
     NUM_CLASSES, build_data, build_model, build_ood_data, layer_filter,
     loss_kind, on_device)
 from curvature_tpu_torch.parallel.mesh import build_mesh
+from curvature_tpu_torch.pipelines import plot
 from curvature_tpu_torch.utils.checkpoint import (
     factors_path, load_pytree, results_paths, write_once)
 from curvature_tpu_torch.utils.table import tabulate
@@ -236,6 +239,9 @@ def out_of_domain(cfg, model, est, results_path: str, fig_path: str):
                    ood_predictions=ood_predictions,
                    bnn_ood_predictions=bnn_ood_predictions,
                    auroc=np.asarray([auroc_nn, auroc_bnn]))
+    if cfg.plot:
+        plot.ood_panels(cfg, predictions, bnn_predictions, ood_predictions,
+                        bnn_ood_predictions, labels, fig_path)
     return predictions, bnn_predictions, labels
 
 
@@ -312,16 +318,23 @@ def adversarial_attack(cfg, model, est, results_path: str, fig_path: str):
                        stats=stats_dict, bnn_stats=bnn_stats_dict)
     print(tabulate(stats_dict, headers="keys"))
     print(tabulate(bnn_stats_dict, headers="keys"), flush=True)
+    if cfg.plot:
+        plot.adversarial_results(FGSM_STEPS, stats_dict, bnn_stats_dict,
+                                 fig_path)
     return stats_dict, bnn_stats_dict
 
 
 def test(cfg, model, fig_path: str = ""):
-    """Plain deterministic test pass (evaluate.py:173-196)."""
+    """Plain deterministic test pass + reliability diagram
+    (evaluate.py:173-196)."""
     device = next(model.parameters()).device
     predictions, labels = eval_nn(
         model, on_device(build_data(cfg, splits="test"), device),
         compute_dtype=_compute_dtype(cfg), mesh=build_mesh(cfg))
     _print_summary("NN ", predictions, labels)
+    if cfg.plot:
+        plot.reliability_diagram(predictions, labels,
+                                 path=fig_path + "_reliability.pdf")
     return predictions, labels
 
 

@@ -21,7 +21,8 @@ gets NaN) or gives non-finite values is recorded with JAX's penalty;
 lists) and ``<results>_best_params.npy`` have JAX's layout and paths, so
 each package reads the other's. ``--parallel``/``--mesh`` split each
 validation batch over the ranks' data axis: every rank computes the same
-costs, and rank 0 writes the files.
+costs, and rank 0 writes the files. ``--plot`` draws the cost scatter
+(``<figures>_hyper.pdf``, ``pipelines/plot.py``).
 
     python -m curvature_tpu_torch.pipelines.hyper --model lenet5 \\
         --data mnist --data_dir <dir> --estimator kfac --optimizer gp \\
@@ -38,7 +39,7 @@ from curvature_tpu_torch.eval import eval_bnn, metrics
 from curvature_tpu_torch.eval.marglik import (
     dataset_map_nll, log_marginal_likelihood, marglik_gradient_tune)
 from curvature_tpu_torch.nn.core import apply_matrix_delta
-from curvature_tpu_torch.pipelines import surrogates
+from curvature_tpu_torch.pipelines import plot, surrogates
 from curvature_tpu_torch.pipelines.common import (
     build_data, build_model, on_device)
 from curvature_tpu_torch.pipelines.evaluate import load_estimator
@@ -473,9 +474,6 @@ def make_marglik_objective(cfg, est, nll: float, stats, stats_path: str
 
 
 def run(cfg):
-    if cfg.plot:
-        raise NotImplementedError("--plot (pipelines/plot.py) is not ported "
-                                  "yet (ROADMAP Queue 1 item 7)")
     subdir = cfg.optimizer if cfg.exp_id == "-1" else \
         os.path.join(cfg.optimizer, cfg.exp_id)
     results_path, _ = results_paths(cfg, subdir)
@@ -574,6 +572,9 @@ def run(cfg):
               f"scale {stats['scales'][stats_idx][0]:.4g}")
     print(f"penalized candidates (singular or non-finite): {penalized} of "
           f"{len(stats['cost']) - rows_before}", flush=True)
+    if cfg.plot:
+        _, fig_path = results_paths(cfg, subdir)
+        plot.hyper_results(stats, fig_path + "_hyper.pdf")
     return {"best_x": xs[best], "best_cost": ys[best], "stats": stats,
             "penalized": penalized}
 

@@ -23,7 +23,8 @@ weight's the second to last (``[(depth,) out, in]``); every other leaf
 has the same layout in both packages and keeps JAX's rule
 (:func:`filter_axes`). Directions are drawn from a ``torch.Generator``
 (seeded with ``--seed`` by ``run``); ``loss1d`` and ``loss2d`` take given
-``directions`` too.
+``directions`` too. ``--plot`` draws ``_loss1d.pdf``/``_loss2d.pdf``
+(``pipelines/plot.py``).
 
     python -m curvature_tpu_torch.pipelines.loss_landscape --model lenet5 \\
         --data mnist --data_dir <dir> --loss1d
@@ -329,9 +330,10 @@ def _save(path: str, result: Dict):
 
 
 def run(cfg):
+    from curvature_tpu_torch.pipelines import plot
     from curvature_tpu_torch.pipelines.common import build_data, build_model
     from curvature_tpu_torch.utils.checkpoint import results_paths
-    results_path, _ = results_paths(cfg)
+    results_path, fig_path = results_paths(cfg)
     model = build_model(cfg)
     train = build_data(cfg, splits="train")
     generator = torch.Generator(device=next(model.parameters()).device
@@ -340,11 +342,17 @@ def run(cfg):
     # loss.py:423-424)
     mesh = build_mesh(cfg)
     if cfg.loss2d:
-        return loss2d(model, train, generator,
-                      path=results_path + "_loss2d.npy", mesh=mesh)
+        res = loss2d(model, train, generator,
+                     path=results_path + "_loss2d.npy", mesh=mesh)
+        if cfg.plot:
+            plot.plot_surfaces(res, fig_path + "_loss2d.pdf")
+        return res
     val = build_data(cfg, splits="val")
-    return loss1d(model, train, val, generator,
-                  path=results_path + "_loss1d.npy", mesh=mesh)
+    res = loss1d(model, train, val, generator,
+                 path=results_path + "_loss1d.npy", mesh=mesh)
+    if cfg.plot:
+        plot.plot_loss1d(res, fig_path + "_loss1d.pdf")
+    return res
 
 
 def main(argv=None):

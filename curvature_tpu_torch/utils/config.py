@@ -6,11 +6,11 @@ packages, with ``parse_args``/``setup`` as the CLI front end.
 
 ``--platform`` keeps its name: ``''`` runs on the CUDA device (and raises
 without one), ``cpu`` on the CPU. ``setup`` keeps TF32 off, so f32 matmuls
-and convolutions run in strict f32 as the parity rules require. A flag
-whose module is not ported raises ``NotImplementedError`` naming its
-ROADMAP item; none is ignored. ``--parallel``/``--mesh`` start the
-process group of a ``torch.distributed.run`` launch in ``setup``
-(``parallel.initialize``).
+and convolutions run in strict f32 as the parity rules require. Every
+flag of the JAX package is ported and none is ignored; ``--plot`` writes
+the figures as PDF (``pipelines/plot.py``). ``--parallel``/``--mesh``
+start the process group of a ``torch.distributed.run`` launch in
+``setup`` (``parallel.initialize``).
 """
 import argparse
 import dataclasses
@@ -124,26 +124,9 @@ def parse_args(argv=None, **overrides) -> Config:
 
 
 
-#: (what, test of the config, ROADMAP item): flags whose module is not
-#: ported; each one set raises
-NOT_PORTED = (
-    ("--plot (pipelines/plot.py: its figures need matplotlib)",
-     lambda c: c.plot, "Queue 1 item 7"),
-    ("the visualize figure toggles --calibration/--ecdf/--entropy/"
-     "--eigvals/--hyper/--networks/--landscapes (their figures need "
-     "matplotlib)",
-     lambda c: (c.calibration or c.ecdf or c.entropy or c.eigvals
-                or c.hyper or c.networks or c.landscapes), "Queue 1 item 7"),
-)
-
-
 def check_ported(cfg: Config):
-    """Raise ``NotImplementedError`` for the first flag set whose module is
-    not ported."""
-    for what, is_set, item in NOT_PORTED:
-        if is_set(cfg):
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item})")
+    """Every flag of the JAX package is ported; what is left to check is
+    the platform: ``--platform`` is ``''``, ``cuda``, ``gpu`` or ``cpu``."""
     if cfg.platform not in ("", "cpu", "cuda", "gpu"):
         raise ValueError(f"--platform {cfg.platform!r}: the port runs on "
                          "'cpu' or the CUDA device ('' / 'cuda' / 'gpu')")

@@ -400,11 +400,3 @@ def test_fgsm_and_odd_tables_equal_tabulate():
     for rows, headers in cases:
         assert tabulate(rows, headers) == tabulate_lib.tabulate(
             rows, headers=headers)
-
-
-@pytest.mark.parametrize("flag", ["--calibration", "--networks", "--ood",
-                                  "--ecdf", "--entropy", "--eigvals",
-                                  "--hyper", "--fgsm", "--landscapes"])
-def test_figure_toggles_raise_naming_matplotlib(flag):
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        tvis.main(["--platform", "cpu", flag])

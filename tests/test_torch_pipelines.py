@@ -1,7 +1,7 @@
 """The pipeline slice against the JAX package: config, npz checkpoints,
 loaders, LeNet-5 with the bundled weights, the per-layer A-factor routes,
 ``compute_factors``/``update_batches``, factor files swapped between the
-packages, FGSM, and the flags that are not ported.
+packages, FGSM, and the flags that reach their modules.
 
 Every case runs LeNet-5 on the bundled digits (4 batches of 128, the
 port's copies of the JAX package's assets) or shapes alone. Both packages
@@ -493,20 +493,7 @@ def test_evaluate_cli_writes_jax_keys(lenet, swapped, capsys):
         tevaluate.main(argv + ["--ood"])
 
 
-# -- what is not ported raises --------------------------------------------
-
-@pytest.mark.parametrize("flags", [
-    ["--hyper"], ["--plot", "--mesh", "model:1,data:1"], ["--ecdf"],
-    ["--entropy"], ["--plot"],
-    ["--networks"],
-    ["--landscapes"],
-    ["--calibration"],
-    ["--eigvals"],
-])
-def test_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        tconfig.setup(["--platform", "cpu"] + flags)
-
+# -- the flags reach their modules ----------------------------------------
 
 @pytest.mark.parametrize("flags", [
     ["--loss2d"], ["--estimator", "swag"], ["--bn_update"], ["--swag"],
