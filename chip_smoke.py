@@ -43,6 +43,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --images     # builds the kernels and the
                                        # image decoders, runs the
                                        # image-folder phase only
+    python3 chip_smoke.py --surface    # builds the kernels, runs the
+                                       # public-surface phase only, then
+                                       # the ensemble routes' sweep
 
 It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
@@ -671,6 +674,29 @@ FIG_KINDS = {
 FIG_OOD = ("_ecdf.pdf", "_reliability.pdf", "_bnn_reliability.pdf",
            "_entropy.pdf", "_bnn_entropy.pdf")
 FIG_BUDGET_S = 15.0
+#: the public-surface phase (ROADMAP Queue 1, the JAX package's exported
+#: names): the tutorial's LeNet-5 (its train and test digits, B=32,
+#: 10 MC labels an update, 30 samples), its invert settings (the
+#: pipeline's blitz damping; INF at rank 100 the tutorial's own), the
+#: ResNet-50 ensemble of the vmapped eval (f32, B=16, 30 members) held to
+#: a member loop within SURF_ENSEMBLE_TOL of max |p|, and its budget
+SURF_DAMPING = {"Diagonal": (1.0, 5e4), "KFAC": (1.0, 5e4),
+                "EFB": (1.0, 5e4), "INF": (1e15, 1e20)}
+SURF_INF_RANK, SURF_MC, SURF_SAMPLES = 100, 10, 30
+SURF_ENSEMBLE_TOL, SURF_BUDGET_S = 1e-4, 40.0
+SURF_ROOT = "build/surface"
+#: the surface phase's kernel path: the ResNet-18 update profile_trace
+#: records, and the kernel records its launches count under
+SURF_PATHS = ("resnet18_kfac_update_traced",)
+SURF_RECORD_PATHS = {"patch_gram_tiled_resnet18": SURF_PATHS,
+                     "patch_gram_v2_resnet18": SURF_PATHS}
+#: --surface's sweep of the ensemble's two routes, what sets
+#: VMAP_MAX_PIXELS in eval/evaluate.py: (registry name, constructor
+#: keywords, batch, image sides), SAMPLES members, f32, TF32 off
+SWEEP_CASES = (("resnet50", {}, BATCH, (32, 64, 96, 128, 224)),
+               ("resnet18", {"stem": "cifar"}, 32, (32, 64)),
+               ("densenet121", {}, BATCH, (64, 224)),
+               ("vit_b_16", {}, BATCH, (224,)))
 SAME1 = ((1, 1), (1, 1))
 #: entry -> [main-path shape first, then odd cases]: (shape, kernel,
 #: padding, strides); sym_gram cases are (N, F)
@@ -4048,6 +4074,489 @@ def figures_phase(counters, smi):
         f"slowest figure {slowest[0]:.3f} s ({slowest[1]}) ({smi})")
 
 
+def surface_phase(estimators, models, counters, smi, dev):
+    """The JAX package's public surface on the card (ROADMAP Queue 1):
+    (a) the tutorial (docs/tutorial.md §2-3 and §6) through the top-level
+    names on LeNet-5 with its bundled weights and the digits: Diagonal,
+    KFAC, EFB and INF(rank=100) updated and inverted at ``SURF_DAMPING``,
+    each evaluated by ``eval.eval_bnn`` (30 samples, one vmapped forward a
+    batch) with ``eval.accuracy`` and ``eval.expected_calibration_error``,
+    then ``laplace.fit(subset="last")``, ``optimize_prior_precision()``
+    and the linearized predictive, each step timed by a ``utils.Timer``;
+    (b) ``utils.profile_trace`` of one ResNet-18 CIFAR f32 KFAC update
+    (``R18_ARGV``'s model, B=32), whose trace must hold exactly the Gram
+    launches its counters assert (``R18_ROUTES``: 8 tiled + 1 v2); (c) the
+    ensemble's two routes (``evaluate.vmaps``) on each side of its pixel
+    limit, each held to a member loop written here
+    (``SURF_ENSEMBLE_TOL``) with its rate and peak memory: ResNet-50 at
+    224² (f32, B=16, 30 members, TF32 off; the rule's member loop, vmap
+    forced), ResNet-18 CIFAR at 32² (B=32; the rule's vmap, the loop
+    forced); and the linearized predictive's rate on ResNet-18 beside the
+    sampled one's; (d) every function of
+    ``pipelines/plot.py`` written to PNG and SVG from (a)'s results: each
+    PNG decoded by ``data/images.open_rgb`` at ``round(figsize x 300)``
+    pixels with ink inside every axes and every string's box, each SVG
+    parsed by ``xml.etree`` with the strings ``read_pdf`` finds in the
+    same figure's PDF. Returns {path: launches}."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+    import curvature_tpu_torch as ct
+    from curvature_tpu_torch import eval as E
+    from curvature_tpu_torch import laplace
+    from curvature_tpu_torch.data import images
+    from curvature_tpu_torch.data.loaders import FIXTURE_DIR
+    from curvature_tpu_torch.eval.evaluate import prepare_ensemble, vmaps
+    from curvature_tpu_torch.pipelines import common, loss_landscape, plot
+    from curvature_tpu_torch.utils import (
+        Timer, figure, pdf, png, profile_trace, svg)
+    from curvature_tpu_torch.utils.config import parse_args
+    t_phase = time.perf_counter()
+    none = counters.zero()
+    timer = Timer()
+    by_path = {}
+
+    # (a) the tutorial through the public names
+    cfg = parse_args(LENET_ARGV + ["--data_dir", FIXTURE_DIR])
+    model = common.build_model(cfg)
+    train_np = list(common.build_data(cfg, splits="train"))
+    test_np = list(common.build_data(cfg, splits="test"))
+
+    def on_card(batches):
+        return [(common.nchw(common.device_batch(x, dev)), y)
+                for x, y in batches]
+    train, test = on_card(train_np), on_card(test_np)
+    sync_on = test[0][0]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    counters.reset()
+    fitted, results = {}, {}
+    for name in ("Diagonal", "KFAC", "EFB", "INF"):
+        # block_on: a tensor on the card, whose device the Timer syncs
+        with timer.phase(f"{name} update", block_on=sync_on):
+            if name == "EFB":
+                est = ct.EFB(model, fitted["KFAC"].state)
+            elif name == "INF":
+                efb = fitted["EFB"]
+                est = ct.INF(model, efb.diags, fitted["KFAC"].state,
+                             efb.state, eigvecs=efb.eigvecs)
+                est.update(rank=SURF_INF_RANK)
+            else:
+                est = getattr(ct, name)(model)
+            if name != "INF":
+                for x, _ in train:
+                    est.update(x, generator=gen, num_samples=SURF_MC)
+        with timer.phase(f"{name} invert", block_on=sync_on):
+            est.invert(*SURF_DAMPING[name])
+        check_finite(est.inv_state, f"surface {name} inv_state")
+        with timer.phase(f"{name} eval_bnn"):
+            probs, labels, stats = E.eval_bnn(
+                model, est, test, samples=SURF_SAMPLES, generator=gen,
+                stats=True)
+        if not np.isfinite(probs).all():
+            raise AssertionError(f"surface {name}: non-finite predictions")
+        fitted[name] = est
+        results[name] = (probs, labels, stats)
+        log(f"surface tutorial {name}: accuracy "
+            f"{float(E.accuracy(probs, labels)):.2f}%, ECE "
+            f"{100 * float(E.expected_calibration_error(probs, labels)[0]):.2f}"
+            f"% ({SURF_SAMPLES} samples, one vmapped forward a batch)")
+    with timer.phase("laplace.fit(subset='last')"):
+        la = laplace.fit(model, train, estimator="kfac", subset="last")
+    with timer.phase("optimize_prior_precision"):
+        tuned = la.optimize_prior_precision()
+    with timer.phase("predictive(linearized)"):
+        lin = la.predictive(test[0][0], method="linearized")
+    if not (np.isfinite(lin).all() and np.allclose(lin.sum(-1), 1.0,
+                                                   atol=1e-4)):
+        raise AssertionError("surface: the linearized predictive is not a "
+                             "distribution")
+    if counters.read() != none:
+        raise AssertionError(f"surface tutorial launched {counters.read()}")
+    log(f"surface tutorial laplace: last-layer KFAC, tuned "
+        f"{json.dumps({k: np.asarray(v).tolist() for k, v in tuned.items()})[:200]}"
+        f"; linearized accuracy on one batch "
+        f"{float(E.accuracy(lin, test[0][1])):.2f}%")
+    log("surface tutorial seconds (Timer): " + json.dumps(
+        {k: round(v, 4) for k, v in timer.times.items()}))
+
+    # (b) profile_trace on a kernel path: one ResNet-18 CIFAR f32 update
+    r18_cfg = parse_args(R18_ARGV + ["--root_dir", SURF_ROOT])
+    r18 = common.build_model(r18_cfg)
+    x18 = next(iter(on_card(common.build_data(r18_cfg, splits="train"))))[0]
+    kfac18 = estimators.KFAC(r18)
+    kfac18.update(x18, generator=gen)                  # warm
+    torch.cuda.synchronize()
+    counters.reset()
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profile_trace(trace_dir):
+            kfac18.update(x18, generator=gen)
+            torch.cuda.synchronize()
+        got = counters.read()
+        files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)
+                 if f.endswith(".json")]
+        if len(files) != 1:
+            raise AssertionError(f"surface: profile_trace wrote {files}")
+        trace_bytes = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    want = R18_ROUTES[R18_PATHS[0]]
+    if (got["patch_gram_tiled"], got["patch_gram_v2"]) != \
+            (want["tiled"], want["v2"]):
+        raise AssertionError(f"surface: the traced update launched {got}")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    grams = [e for e in kernels if "gram_tf32x3_wgmma_kernel" in e["name"]
+             or "gram_wgmma_kernel" in e["name"]]
+    reduces = [e for e in kernels if "gram_reduce_kernel" in e["name"]]
+    if len(grams) != want["tiled"] + want["v2"] or \
+            len(reduces) != len(grams):
+        raise AssertionError(
+            f"surface: the trace holds {len(grams)} Gram and {len(reduces)}"
+            f" reduce kernels, the counters {want['tiled']} + {want['v2']}")
+    by_path[SURF_PATHS[0]] = got
+    counters.reset()
+    log(f"surface profile_trace: {trace_bytes} bytes, {len(events)} events, "
+        f"{len(kernels)} kernels; Gram kernels {len(grams)} = "
+        f"{got['patch_gram_tiled']} tiled + {got['patch_gram_v2']} v2 "
+        f"(counters), {sum(e['dur'] for e in grams):.1f} us on the card "
+        f"(+ {sum(e['dur'] for e in reduces):.1f} us in their reduces; "
+        f"{smi})")
+
+    # (c) the ensemble's two routes on each side of VMAP_MAX_PIXELS, each
+    # held to a member loop written here: ResNet-50 at 224² (the rule's
+    # loop, vmap forced on the instance), ResNet-18 CIFAR at 32² (the
+    # rule's vmap, the loop forced)
+    def rate(fn, images, blocks=3):
+        best = float("inf")
+        for _ in range(blocks):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return images / best
+
+    def both_routes(model, members, x):
+        """{route: (img/s, max |dp| to the witness, peak GiB)}, the rule's
+        route first: make_ensemble_fn on an ensemble prepared once, the
+        other route forced by the instance's ``vmap_max_pixels``."""
+        with torch.no_grad():
+            want = torch.stack([torch.softmax(
+                functional_call(model, p, (x,)).float(), dim=-1)
+                for p in members])
+        fwd = E.make_ensemble_fn(model)
+        out = {}
+        ruled = vmaps(model, x)
+        for forced in (False, True):
+            with (route_forced(model, 0 if ruled else None) if forced
+                  else contextlib.nullcontext()):
+                route = "vmap" if vmaps(model, x) else "loop"
+                ens = prepare_ensemble(model, members, x)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                got = fwd(ens, x)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                worst = float((got - want).abs().max())
+                if not worst <= SURF_ENSEMBLE_TOL:
+                    raise AssertionError(
+                        f"surface: the {route} route is {worst:.3e} from "
+                        f"the member loop (> {SURF_ENSEMBLE_TOL})")
+                out[route] = (rate(lambda: fwd(ens, x), x.shape[0],
+                                   2 if forced else 3), worst, peak)
+                del ens, got
+        torch.cuda.empty_cache()
+        return out
+
+    def routes_line(out):
+        return "; ".join(
+            f"{r}{' (forced)' if i else ' (the rule)'} {v[0]:.2f} img/s, "
+            f"max |dp| {v[1]:.3e}, peak {v[2]:.2f} GiB"
+            for i, (r, v) in enumerate(out.items()))
+    r50 = models.resnet50(num_classes=CLASSES, device=dev)
+    models.load_jax_variables(r50, models.seeded_variables(r50, 0))
+    r50 = r50.to(memory_format=torch.channels_last).eval()
+    x50 = nchw_batches(np.random.default_rng(5), 1, BATCH, dev)[0][0]
+    tracked = {f"{n}.{leaf}" for n in estimators.KFAC(r50).metas
+               for leaf in ("weight", "bias")}
+    mean = {k: v.detach() for k, v in r50.named_parameters()}
+    g50 = torch.Generator(device=dev).manual_seed(6)
+    ensemble = [{k: (v + 1e-3 * v.abs().mean() * torch.randn(
+        v.shape, generator=g50, device=dev, dtype=v.dtype))
+        if k in tracked else v for k, v in mean.items()}
+        for _ in range(SAMPLES)]
+    r50_routes = both_routes(r50, ensemble, x50)
+    if next(iter(r50_routes)) != "loop":
+        raise AssertionError("surface: ResNet-50 at 224² is not routed to "
+                             "the member loop")
+    log(f"surface resnet50_bnn30_eval_img_s (make_ensemble_fn, "
+        f"{x50.shape[-1]}², B={BATCH}, {SAMPLES} members, f32, TF32 off): "
+        f"{routes_line(r50_routes)} (bar {SURF_ENSEMBLE_TOL}; {smi})")
+    del ensemble, mean, r50
+    # ResNet-18 CIFAR, KFAC's posterior from the traced update: the
+    # sampled ensemble's two routes, then the linearized predictive's
+    # rate beside the sampled one's
+    kfac18.invert(float(R18_DAMPING[1]), float(R18_DAMPING[3]))
+    ens18 = kfac18.ensemble_params(SAMPLES, generator=gen)
+    r18.eval()
+    r18_routes = both_routes(r18, ens18, x18)
+    if next(iter(r18_routes)) != "vmap":
+        raise AssertionError("surface: ResNet-18 at 32² is not routed to "
+                             "vmap")
+    log(f"surface resnet18 bnn30 ensemble (make_ensemble_fn, 32², "
+        f"B={x18.shape[0]}, {SAMPLES} members, f32): "
+        f"{routes_line(r18_routes)} ({smi})")
+    x18s = [(x18, np.zeros(x18.shape[0], np.int64))]
+    lin_rate = rate(lambda: E.eval_bnn_linearized(
+        r18, kfac18, x18s, SAMPLES, ensemble_params=ens18), x18.shape[0])
+    smp_rate = rate(lambda: E.eval_bnn(
+        r18, kfac18, x18s, SAMPLES, ensemble_params=ens18), x18.shape[0])
+    log(f"surface resnet18 linearized predictive: {lin_rate:.2f} img/s "
+        f"(one vmapped jvp a batch, {SAMPLES} samples, B={x18.shape[0]}); "
+        f"sampled {smp_rate:.2f} img/s; ratio {smp_rate / lin_rate:.2f}x "
+        f"({smi})")
+    del ens18
+    torch.cuda.empty_cache()
+
+    # (d) every plot function to PNG and SVG, from (a)'s results
+    fig_t0 = time.perf_counter()
+    root = os.path.abspath(os.path.join(SURF_ROOT, "figures"))
+    os.makedirs(root, exist_ok=True)
+    probs, labels, stats = results["KFAC"]
+    nn_probs, _ = E.eval_nn(model, test)
+    ood = [(torch.flip(x, dims=(-1,)) * -1.0 + x.max(), y) for x, y in test]
+    ood_probs, _ = E.eval_nn(model, ood)
+    bnn_ood, _, _ = E.eval_bnn(model, fitted["KFAC"], ood,
+                               samples=SURF_SAMPLES, generator=gen)
+    eig = np.concatenate([np.linalg.eigvalsh(f["a"].double().cpu().numpy())
+                          for f in fitted["KFAC"].state.values()])
+    ritz = np.linalg.eigvalsh(
+        fitted["KFAC"].state["fc3"]["a"].double().cpu().numpy())
+    attack = {"steps": [0.0, 0.1, 0.2], "nn": {}, "bnn": {}}
+    for eps in attack["steps"]:
+        nn_s = E.eval_fgsm(model, test, epsilon=eps)[2]
+        bnn_s = E.eval_fgsm_bnn(model, fitted["KFAC"], test,
+                                samples=4, epsilon=eps, generator=gen)[2]
+        for key in ("acc", "ece1", "ent"):
+            attack["nn"].setdefault(key, []).append(nn_s[key])
+            attack["bnn"].setdefault(key, []).append(bnn_s[key])
+    hyper = {"norms": [], "scales": [], "cost": [], "acc": []}
+    for norm, scale in ((1.0, 5e4), (10.0, 5e4), (1.0, 5e3)):
+        fitted["KFAC"].invert(norm, scale)
+        p, y, _ = E.eval_bnn(model, fitted["KFAC"], test[:2], samples=4,
+                             generator=gen)
+        hyper["norms"].append([norm])
+        hyper["scales"].append([scale])
+        hyper["cost"].append(float(E.negative_log_likelihood(p, y)))
+        hyper["acc"].append(float(E.accuracy(p, y)))
+    lgen = torch.Generator(device=dev).manual_seed(7)
+    line = loss_landscape.loss1d(model, train_np[:2], test_np[:2], lgen,
+                                 steps=9)
+    surface = loss_landscape.loss2d(model, train_np[:2], lgen, xsteps=7,
+                                    ysteps=7)
+
+    class _Cfg:
+        data = "mnist"
+
+    def save(fig, pth):
+        fig.savefig(pth, format=pth.rsplit(".", 1)[-1], dpi=300,
+                    bbox_inches="tight")
+        return fig
+    calls = {
+        "training_curves": lambda pth: plot.training_curves(
+            {"loss": stats["nll"], "val_acc": stats["acc"]}, pth),
+        "factor_norms": lambda pth: plot.factor_norms(
+            fitted["KFAC"].state, pth),
+        "calibration": lambda pth: plot.calibration(
+            probs, labels, pth, label="BNN-KFAC", color="crimson"),
+        "reliability_diagram": lambda pth: plot.reliability_diagram(
+            probs, labels, path=pth),
+        "confidence_hist": lambda pth: plot.confidence_hist(probs, pth),
+        "inv_ecdf_vs_pred_entropy": lambda pth:
+            plot.inv_ecdf_vs_pred_entropy(ood_probs, color="crimson",
+                                          label="OOD", path=pth),
+        "true_false_ecdf": lambda pth: plot.true_false_ecdf(
+            nn_probs, labels, pth),
+        "entropy_hist": lambda pth: plot.entropy_hist(probs, bnn_ood, pth),
+        "eigenvalue_histogram": lambda pth: plot.eigenvalue_histogram(
+            eig, pth, label="KFAC"),
+        "spectral_density": lambda pth: plot.spectral_density(
+            ritz, np.full(len(ritz), 1.0 / len(ritz)), pth,
+            label="fc3 A"),
+        # JAX's rule writes a path without '.pdf' as '<path>_fgsm.pdf':
+        # the figure it returns is saved as plot._save saves
+        "adversarial_results": lambda pth: save(plot.adversarial_results(
+            attack["steps"], attack["nn"], attack["bnn"]), pth),
+        "hyper_results": lambda pth: plot.hyper_results(hyper, pth),
+        "plot_loss1d": lambda pth: plot.plot_loss1d(line, pth),
+        "plot_surfaces": lambda pth: plot.plot_surfaces(surface, pth),
+    }
+    missing = {f for f in dir(plot) if not f.startswith("_")
+               and callable(getattr(plot, f))
+               and getattr(getattr(plot, f), "__module__", "") == plot.__name__
+               } - set(calls) - {"ood_panels"}
+    if missing:
+        raise AssertionError(f"surface: plot functions not drawn: {missing}")
+    boxes = []
+    text = png.Canvas.text
+
+    def recording_text(self, x, y, s, size, color, halign="left",
+                       valign="baseline", rotation=0.0):
+        text(self, x, y, s, size, color, halign, valign, rotation)
+        if s.strip():
+            w = png.text_width(s, size)
+            dx = -w * {"left": 0.0, "center": 0.5, "right": 1.0}[halign]
+            dy = size / 1000.0 * {"baseline": 0.0, "bottom": 207,
+                                  "top": -718, "center": -255.5}[valign]
+            t = math.radians(rotation)
+            u = np.array([dx, dx + w, dx, dx + w])
+            v = np.array([dy - 0.2 * size] * 2 + [dy + 0.75 * size] * 2)
+            px = self._px(np.stack([x + math.cos(t) * u - math.sin(t) * v,
+                                    y + math.sin(t) * u + math.cos(t) * v],
+                                   axis=1))
+            boxes[-1].append((s, px.min(0), px.max(0)))
+    savefig = figure.Figure.savefig
+
+    def recording_savefig(self, path, **kw):
+        boxes.append([])
+        return savefig(self, path, **kw)
+    sizes, seconds = {}, {}
+    png.Canvas.text = recording_text
+    figure.Figure.savefig = recording_savefig
+    try:
+        for name, call in calls.items():
+            for ext in ("pdf", "svg", "png"):
+                path = os.path.join(root, f"{name}.{ext}")
+                t0 = time.perf_counter()
+                out = call(path)
+                seconds[path] = time.perf_counter() - t0
+                sizes[path] = os.path.getsize(path)
+            fig = out.figure if isinstance(out, figure.Axes) else out
+            # the PNG: its size, ink in the axes and in each string's box
+            img = images.open_rgb(os.path.join(root, f"{name}.png"))
+            want_hw = (round(fig.figsize[1] * 300), round(fig.figsize[0] * 300))
+            if img.shape[:2] != want_hw:
+                raise AssertionError(f"surface: {name}.png is {img.shape}, "
+                                     f"not {want_hw}")
+            dark = img.min(axis=2) < 250
+            for ax in fig.axes:
+                x0, y0, w, h = ax.rect
+                r0, r1 = round((1 - y0 - h) * want_hw[0]), \
+                    round((1 - y0) * want_hw[0])
+                c0, c1 = round(x0 * want_hw[1]), round((x0 + w) * want_hw[1])
+                if not dark[r0 + 4:r1 - 4, c0 + 4:c1 - 4].any():
+                    raise AssertionError(f"surface: {name}.png has no ink "
+                                         f"inside the axes at {ax.rect}")
+            for s, lo, hi in boxes[-1]:
+                c0, r0 = np.floor(lo).astype(int)
+                c1, r1 = np.ceil(hi).astype(int) + 1
+                if not dark[max(r0, 0):r1, max(c0, 0):c1].any():
+                    raise AssertionError(f"surface: {name}.png: no ink in "
+                                         f"the box of {s!r}")
+            # the SVG: the strings of the same figure's PDF
+            want_s = pdf.read_pdf(os.path.join(root, f"{name}.pdf"))
+            got_s = svg.read_svg(os.path.join(root, f"{name}.svg"))
+            stand_in = {ord(k): v for k, v in pdf._STAND_INS.items()}
+            if [t.translate(stand_in) for t in got_s["strings"]] != \
+                    want_s["strings"] or \
+                    got_s["painted"] != want_s["painted"]:
+                raise AssertionError(f"surface: {name}.svg does not hold "
+                                     "the PDF's strings and paths")
+    finally:
+        png.Canvas.text = text
+        figure.Figure.savefig = savefig
+    plot.ood_panels(_Cfg, nn_probs, probs, ood_probs, bnn_ood, labels,
+                    os.path.join(root, "ood"))
+    for suffix in FIG_OOD:
+        sizes[os.path.join(root, "ood") + suffix] = pdf.read_pdf(
+            os.path.join(root, "ood") + suffix)["bytes"]
+    slow = max((v, k) for k, v in seconds.items() if k.endswith(".png"))
+    n_png = sum(1 for k in sizes if k.endswith(".png"))
+    n_svg = sum(1 for k in sizes if k.endswith(".svg"))
+    log(f"surface figures: {len(sizes)} files ({n_png} PNG at 300 dpi, "
+        f"{n_svg} SVG, {len(sizes) - n_png - n_svg} PDF), "
+        f"{sum(sizes.values())} bytes, "
+        f"{time.perf_counter() - fig_t0:.1f} s (inputs included); PNG "
+        f"{sum(v for k, v in seconds.items() if k.endswith('.png')):.1f} s,"
+        f" SVG {sum(v for k, v in seconds.items() if k.endswith('.svg')):.2f}"
+        f" s; slowest {os.path.basename(slow[1])} {slow[0]:.3f} s; "
+        f"{sum(len(b) for b in boxes)} string boxes inked")
+    if counters.read() != none:
+        raise AssertionError(f"surface figures launched {counters.read()}")
+    total = time.perf_counter() - t_phase
+    log(f"surface phase: {total:.1f} s, "
+        f"{'within' if total <= SURF_BUDGET_S else 'OVER'} its "
+        f"{SURF_BUDGET_S:.0f} s budget ({smi})")
+    return by_path
+
+
+@contextlib.contextmanager
+def route_forced(model, most):
+    """The ensemble route of ``model`` forced for the block by its
+    instance's ``vmap_max_pixels`` (None: vmap, 0: the member loop; see
+    ``evaluate.vmaps``), the instance's own limit restored after."""
+    own = model.__dict__.get("vmap_max_pixels", route_forced)
+    model.vmap_max_pixels = most
+    try:
+        yield model
+    finally:
+        if own is route_forced:
+            del model.vmap_max_pixels
+        else:
+            model.vmap_max_pixels = own
+
+
+def vmap_sweep(models, smi, dev):
+    """The ensemble's two routes timed over ``SWEEP_CASES`` (seeded
+    weights, channels_last as ``build_model`` lays them out on the card,
+    each member every float parameter plus 1e-3 of its mean magnitude in
+    seeded noise): ms of one ``make_ensemble_fn`` call under vmap and in
+    the member loop, best of 2 after a warm one, beside the route
+    ``evaluate.vmaps`` picks. Prints; decides nothing."""
+    import numpy as np
+    import torch
+    from curvature_tpu_torch import eval as E
+    from curvature_tpu_torch.eval.evaluate import prepare_ensemble, vmaps
+    t_sweep = time.perf_counter()
+    for name, kw, batch, sides in SWEEP_CASES:
+        model = models.build(name, num_classes=CLASSES, device=dev, **kw)
+        models.load_jax_variables(model, models.seeded_variables(model, 0))
+        model = model.to(memory_format=torch.channels_last).eval()
+        gen = torch.Generator(device=dev).manual_seed(8)
+        members = [{k: v.detach() + 1e-3 * v.detach().abs().mean()
+                    * torch.randn(v.shape, generator=gen, device=dev)
+                    for k, v in model.named_parameters()}
+                   for _ in range(SAMPLES)]
+        fwd = E.make_ensemble_fn(model)
+        for side in sides:
+            x = torch.from_numpy(np.random.default_rng(side).standard_normal(
+                (batch, 3, side, side)).astype(np.float32)).to(dev)
+            x = x.contiguous(memory_format=torch.channels_last)
+            ruled = "vmap" if vmaps(model, x) else "loop"
+            ms = {}
+            for route, most in (("vmap", None), ("loop", 0)):
+                with route_forced(model, most):
+                    ens = prepare_ensemble(model, members, x)
+                    fwd(ens, x)
+                    best = float("inf")
+                    for _ in range(2):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fwd(ens, x)
+                        torch.cuda.synchronize()
+                        best = min(best, time.perf_counter() - t0)
+                    ms[route] = 1e3 * best
+                    del ens
+            faster = min(ms, key=ms.get)
+            log(f"vmap sweep {name} {side}² B={batch} S={SAMPLES}: vmap "
+                f"{ms['vmap']:.1f} ms, loop {ms['loop']:.1f} ms; the rule "
+                f"picks {ruled}{'' if ruled == faster else ' (the slower)'}")
+        del model, members, fwd
+        torch.cuda.empty_cache()
+    log(f"vmap sweep: {time.perf_counter() - t_sweep:.1f} s ({smi})")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4096,6 +4605,13 @@ def main(argv=None):
                          "ranks of the card) only and stop (no result line)")
     ap.add_argument("--mesh_axes_rank", metavar="DIR", default="",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--surface", action="store_true",
+                    help="build the kernels, run the public-surface phase "
+                         "(the tutorial through the exported names, "
+                         "profile_trace of a kernel path, the ensemble's "
+                         "vmap and loop routes against a member loop, every "
+                         "figure in PNG and SVG), then the routes' sweep "
+                         "over SWEEP_CASES, and stop (no result line)")
     ap.add_argument("--images", action="store_true",
                     help="build the kernels and the image decoders, run the "
                          "image-folder phase (the fixtures against PIL's "
@@ -4145,7 +4661,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     runs_moe = not any((args.hyper, args.grouped, args.training, args.zoo,
                         args.transformers, args.subspace, args.parallel,
-                        args.lm, args.kernels, args.mesh_axes, args.images))
+                        args.lm, args.kernels, args.mesh_axes, args.images,
+                        args.surface))
     moe_model = prepare_moe_model(models) if runs_moe else None
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         # the image decoders' g++ build beside the nvcc ones
@@ -4221,6 +4738,12 @@ def main(argv=None):
         return 0
     if args.mesh_axes:
         mesh_axes_phase(estimators, models, Counters(tpg, tsg), smi, dev)
+        log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            " GiB")
+        return 0
+    if args.surface:
+        surface_phase(estimators, models, Counters(tpg, tsg), smi, dev)
+        vmap_sweep(models, smi, dev)
         log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
             " GiB")
         return 0
@@ -4424,6 +4947,12 @@ def main(argv=None):
     # 5c. the figures: the --plot CLIs' files above, visualize over their
     # roots
     figures_phase(counters, smi)
+    torch.cuda.empty_cache()
+    # 5d. the JAX package's public surface: the tutorial through the
+    # exported names, profile_trace of a kernel path, the ensemble's two
+    # routes against a member loop, every figure in PNG and SVG
+    surf_by_path = surface_phase(estimators, models, counters, smi, dev)
+    count_record_launches(records, surf_by_path, SURF_RECORD_PATHS)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     grouped_by_path = grouped_phase(estimators, models, counters, smi, dev,

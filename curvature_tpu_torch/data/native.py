@@ -104,6 +104,14 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether ``libcurvdata`` is loaded (JAX :50), building it first
+    where it is missing: True, since a failed build raises with the
+    compiler's output here, where JAX falls back to numpy and answers
+    False."""
+    return _lib() is not None
+
+
 def _threads() -> int:
     return min(8, os.cpu_count() or 1)
 

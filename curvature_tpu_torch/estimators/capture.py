@@ -59,7 +59,9 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from curvature_tpu_torch.nn.core import (
     Context, LayerMeta, param_key, param_matrix)
@@ -158,6 +160,16 @@ def sample_labels(logits: torch.Tensor, num_samples: int,
     return draws.T.reshape((num_samples,) + logits.shape[:-1])
 
 
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                          ) -> torch.Tensor:
+    """Mean cross-entropy from logits (the reference's criterion,
+    scripts/factors.py:39). Rank-polymorphic as JAX's (:65-71): ``[B,
+    K]`` logits with ``[B]`` labels, or a language model's ``[B, T, V]``
+    with ``[B, T]``, the mean then over all B*T token positions."""
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1).long())
+
+
 def ce_cotangent(logits: torch.Tensor, labels: torch.Tensor,
                  probs: Optional[torch.Tensor] = None,
                  count: Optional[int] = None) -> torch.Tensor:
@@ -202,7 +214,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             need_probe_grads: bool = True,
             loss: str = "cross_entropy",
             gram_probe_names=frozenset(),
-            shard: Optional[Shard] = None) -> Captured:
+            shard: Optional[Shard] = None,
+            remat: bool = False) -> Captured:
     """Capture acts, probe gradients and parameter gradients for the layers
     in ``metas``.
 
@@ -245,11 +258,18 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
                   seq_group=None if shard is None else shard.seq_group,
                   seq_offset=(shard.token_rows.start if shard is not None
                               and shard.token_rows is not None else 0))
+    def forward(inp):
+        return (model(inp, ctx) if params is None
+                else functional_call(model, params, (inp, ctx)))
     try:
-        logits = (model(x, ctx) if params is None
-                  else functional_call(model, params, (x, ctx)))
+        logits = (checkpoint(forward, x, use_reentrant=False) if remat
+                  else forward(x))
     finally:
         model.train(was_training)
+    # the recomputation in the backward records again into ctx: keep the
+    # forward's captures
+    acts, probes = dict(ctx.acts), dict(ctx.probes)
+    tap_accs, tap_tokens = dict(ctx.taps), dict(ctx.tap_tokens)
     if labels is None:
         full = logits if shard is None else all_gather(all_gather(
             logits.detach(), shard.data_group), shard.seq_group, 1)
@@ -266,8 +286,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     probs = (None if loss == "gaussian"
              else torch.softmax(logits.detach(), dim=-1))
     names = [n for n in metas if n not in taps]
-    inputs = [ctx.probes[n] for n in names] if need_probe_grads else []
-    inputs += [ctx.taps[n] for n in taps]
+    inputs = [probes[n] for n in names] if need_probe_grads else []
+    inputs += [tap_accs[n] for n in taps]
     if need_param_grads:
         inputs += [params[k] for k in weight_keys]
     grads = {n: [] for n in names}
@@ -315,7 +335,7 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
         param_grads = {n: all_gather(g, shard.sample_group)
                        for n, g in param_grads.items()}
     return Captured(
-        acts={n: ctx.acts[n] for n in metas},
+        acts={n: acts[n] for n in metas},
         probe_grads=({n: torch.stack(v) for n, v in grads.items()}
                      if need_probe_grads else {}),
         logits=logits.detach(),
@@ -323,5 +343,5 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
         param_grads=param_grads,
         probe_grams=({n: torch.stack(v) for n, v in grams.items()}
                      if taps else None),
-        probe_gram_ntok=dict(ctx.tap_tokens) if taps else None,
+        probe_gram_ntok=tap_tokens if taps else None,
         shard=shard)

@@ -5,16 +5,19 @@ evaluate.py:19-91). The input gradient of the mean cross-entropy comes from
 autograd; the perturbed batch is clamped to the batch's own value range.
 In the Bayesian variant each posterior sample attacks with its own weights
 and predicts on its own adversarial batch; the predictions are averaged
-over the samples. The model runs in eval mode.
+over the samples. The model runs in eval mode. :func:`make_fgsm_fn` builds
+the attack once (JAX :18-31); ``fgsm``, ``eval_fgsm`` and ``eval_fgsm_bnn``
+go through it.
 """
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.func import functional_call
 
+from curvature_tpu_torch.estimators.capture import softmax_cross_entropy
 from curvature_tpu_torch.eval import metrics
+from curvature_tpu_torch.eval.evaluate import eval_mode
 
 
 def _logits(model, params, x):
@@ -22,23 +25,29 @@ def _logits(model, params, x):
                                                            (x,))
 
 
-def fgsm(model, x: torch.Tensor, labels, epsilon: float = 0.1,
-         params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-    """x + epsilon * sign(dL/dx), clamped to [min(x), max(x)]
-    (datasets.py:51-62); ``params`` (state-dict keys) replace the model's
-    own, as a posterior sample does."""
-    was_training = model.training
-    model.eval()
-    try:
-        with torch.enable_grad():
+def make_fgsm_fn(model):
+    """The FGSM perturbation ``attack(params, x, labels, epsilon)`` ->
+    x + epsilon * sign(dL/dx), clamped to [min(x), max(x)]
+    (datasets.py:51-62), L the mean cross-entropy of the eval-mode logits
+    (:func:`~curvature_tpu_torch.estimators.capture.softmax_cross_entropy`
+    in f32); ``params`` (state-dict keys) replace the model's own, as a
+    posterior sample does, or None for them (JAX :18-31)."""
+    def attack(params: Optional[Dict[str, torch.Tensor]], x: torch.Tensor,
+               labels, epsilon: float) -> torch.Tensor:
+        with eval_mode(model), torch.enable_grad():
             xx = x.detach().requires_grad_(True)
             labels = torch.as_tensor(labels, device=x.device).long()
-            loss = F.cross_entropy(_logits(model, params, xx).float(),
-                                   labels)
+            loss = softmax_cross_entropy(
+                _logits(model, params, xx).float(), labels)
             grad, = torch.autograd.grad(loss, xx)
-    finally:
-        model.train(was_training)
-    return torch.clamp(x + epsilon * torch.sign(grad), x.min(), x.max())
+        return torch.clamp(x + epsilon * torch.sign(grad), x.min(), x.max())
+    return attack
+
+
+def fgsm(model, x: torch.Tensor, labels, epsilon: float = 0.1,
+         params: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """One FGSM step on ``x`` (:func:`make_fgsm_fn`)."""
+    return make_fgsm_fn(model)(params, x, labels, epsilon)
 
 
 def _stats_dict(predictions, labels, epsilon) -> Dict:
@@ -55,14 +64,10 @@ def _stats_dict(predictions, labels, epsilon) -> Dict:
 
 
 @torch.no_grad()
-def _adv_probs(model, params, x, y, epsilon):
-    adv = fgsm(model, x, y, epsilon, params)
-    was_training = model.training
-    model.eval()
-    try:
+def _adv_probs(model, attack, params, x, y, epsilon):
+    adv = attack(params, x, y, epsilon)
+    with eval_mode(model):
         return torch.softmax(_logits(model, params, adv).float(), dim=-1)
-    finally:
-        model.train(was_training)
 
 
 def _run(model, data, per_batch, epsilon, stats):
@@ -84,8 +89,9 @@ def eval_fgsm(model, data, epsilon: float = 0.1, stats: bool = True
               ) -> Tuple[np.ndarray, np.ndarray, Dict]:
     """Deterministic adversarial eval (reference eval_fgsm,
     evaluate.py:19-57): (predictions, labels, metrics)."""
+    attack = make_fgsm_fn(model)
     return _run(model, data,
-                lambda x, y: _adv_probs(model, None, x, y, epsilon),
+                lambda x, y: _adv_probs(model, attack, None, x, y, epsilon),
                 epsilon, stats)
 
 
@@ -100,11 +106,12 @@ def eval_fgsm_bnn(model, estimator, data, samples: int = 30,
     if ensemble_params is None:
         ensemble_params = estimator.ensemble_params(samples,
                                                     generator=generator)
+    attack = make_fgsm_fn(model)
 
     def per_batch(x, y):
         total = None
         for p in ensemble_params:
-            pr = _adv_probs(model, p, x, y, epsilon)
+            pr = _adv_probs(model, attack, p, x, y, epsilon)
             total = pr if total is None else total + pr
         return total / len(ensemble_params)
     return _run(model, data, per_batch, epsilon, stats)

@@ -11,11 +11,18 @@ moments estimated from the sampled logit ensemble (no extra forwards):
 
 The linearized (GLM) predictive pushes the posterior samples through the
 network linearized at the MAP, f(x, theta*) + J(x)(theta_s - theta*)
-(Immer et al., 2021): one ``torch.func.jvp`` of ``functional_call`` per
-sample, the model in eval mode (BatchNorm on its running statistics).
+(Immer et al., 2021): one ``torch.func.jvp`` of ``functional_call``
+mapped by ``torch.func.vmap`` over the stacked tangents theta_s -
+theta*, the MAP forward once per batch, the model in eval mode
+(BatchNorm on its running statistics), as JAX vmaps its jvp (:171-192).
+The sampled logit ensemble is one vmapped forward too
+(``eval/evaluate.py``'s ``make_ensemble_fn``, whose route and layout
+rules hold here); the linearized jvp is vmapped for every family that
+can run under vmap, at any image size.
 
 Every eval function takes ``ensemble_params=`` (a list of parameter
-dicts, as ``Estimator.ensemble_params`` returns) so that a caller can
+dicts, as ``Estimator.ensemble_params`` returns, or the members
+stacked) so that a caller can
 feed a given ensemble; without it ``samples`` members are drawn from
 ``generator``. Data batches are (model input, labels); a causal LM's
 [B, T, V] outputs are scored per token, flattened to [B*T, V] with the
@@ -23,15 +30,16 @@ labels to [B*T], as ``eval_bnn`` does. ``mesh`` splits each batch over
 the mesh's data axis: each rank runs its rows through every member and
 the logits are gathered in batch order (JAX ``_mesh_wrap``, :64-83).
 """
-import contextlib
 import math
 from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.func import functional_call, jvp
+from torch.func import functional_call, jvp, vmap
 
-from curvature_tpu_torch.eval.evaluate import _batches, _device
+from curvature_tpu_torch.eval.evaluate import (
+    _batches, _device, _nchw, ensemble_logits, ensemble_size, eval_mode,
+    nchw_rest, prepare_ensemble, stack_ensemble, vmaps)
 from curvature_tpu_torch.parallel.mesh import gather_rows
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
@@ -69,17 +77,6 @@ def moments(logits_s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return logits_s.mean(0), logits_s.var(0, correction=0)
 
 
-@contextlib.contextmanager
-def eval_mode(model):
-    """The model in eval mode for the block, its mode restored after."""
-    was_training = model.training
-    model.eval()
-    try:
-        yield model
-    finally:
-        model.train(was_training)
-
-
 def _per_token(logits: torch.Tensor) -> torch.Tensor:
     """Logits at least f32 (a bf16 forward's upcast, a float64 one's
     kept); a causal LM's [B, T, V] as per-token [B*T, V]."""
@@ -89,32 +86,23 @@ def _per_token(logits: torch.Tensor) -> torch.Tensor:
         else logits
 
 
-def _base(model, compute_dtype) -> Dict[str, torch.Tensor]:
-    """The model's own parameters cast to ``compute_dtype``, empty without
-    one (``functional_call`` then takes the module's). Buffers stay as
-    they are: BatchNorm normalizes in f32 on f32 running statistics, as
-    JAX keeps ``batch_stats`` f32."""
-    if compute_dtype is None:
-        return {}
-    return cast_floats(dict(model.named_parameters()), compute_dtype)
-
-
 def make_logit_ensemble_fn(model, compute_dtype=None, mesh=None):
     """Per-sample logit forward over an ensemble: ``fwd(ensemble_params,
     x)`` -> [S, B, K] logits ([S, B*T, V] for a causal LM; a bf16
-    forward's upcast to f32), the model in eval mode, parameters and
-    input in ``compute_dtype`` where one is given; under ``mesh`` this
-    rank's rows, gathered."""
-    def fwd(ensemble_params: List[Dict[str, torch.Tensor]], x):
-        base = _base(model, compute_dtype)
+    forward's upcast to f32), one vmapped forward over the stacked
+    members (``evaluate.make_ensemble_fn``'s call without the softmax,
+    routed as it by ``evaluate.vmaps``),
+    the model in eval mode, parameters and input in ``compute_dtype``
+    where one is given; under ``mesh`` this rank's rows, gathered."""
+    def fwd(ensemble_params, x):
         x = cast_input(x, compute_dtype)
+        ens = prepare_ensemble(model, ensemble_params, x, compute_dtype)
 
         def rows(xs):
-            with eval_mode(model), torch.no_grad():
-                outs = [functional_call(
-                    model, {**base, **cast_floats(p, compute_dtype)}, (xs,))
-                    for p in ensemble_params]
-            return torch.stack([_per_token(o) for o in outs])
+            with eval_mode(model):
+                out = ensemble_logits(model, ens, xs)
+            return _per_token(out.flatten(0, 1)).unflatten(
+                0, (ensemble_size(ens), -1))
         return gather_rows(mesh, rows, x, dim=1)
     return fwd
 
@@ -122,30 +110,60 @@ def make_logit_ensemble_fn(model, compute_dtype=None, mesh=None):
 def make_linearized_ensemble_fn(model, compute_dtype=None, mesh=None):
     """Linearized-ensemble forward: ``fwd(mean_params, ensemble_params,
     x)`` -> (MAP logits [B, K], logits_s [S, B, K]), logits_s = MAP logits
-    + J(x)(theta_s - theta*). The MAP forward runs once per batch; each
-    sample is one forward-mode ``jvp`` of ``functional_call`` (JAX
-    linearizes once and vmaps the jvp, :171-192). bf16 logits come back
-    f32. Under ``mesh`` this rank's rows, gathered."""
-    def fwd(mean_params: Dict[str, torch.Tensor],
-            ensemble_params: List[Dict[str, torch.Tensor]], x):
-        base = _base(model, compute_dtype)
-        x = cast_input(x, compute_dtype)
-        mean = cast_floats(mean_params, compute_dtype)
+    + J(x)(theta_s - theta*). One ``torch.func.jvp`` of
+    ``functional_call`` at the MAP, vmapped over the stacked tangents
+    (JAX linearizes once and vmaps the jvp, :171-192): the primal (the
+    MAP forward) is unbatched and runs once per batch. Parameters whose
+    tensor every member shares with ``mean_params`` have a zero tangent
+    and stay out of the jvp. A family that states no vmap runs one jvp a
+    member (``evaluate.vmaps``). bf16 logits come back f32. Under
+    ``mesh`` this rank's rows, gathered."""
+    def fwd(mean_params: Dict[str, torch.Tensor], ensemble_params, x):
+        ens = stack_ensemble(ensemble_params)
+        mean = dict(mean_params)
+        # a member sharing the MAP tensor moves nothing there
+        fixed = {k: mean[k] for k, v in ens.shared.items()
+                 if k in mean and v is mean[k]}
+        moving = {k: v for k, v in mean.items() if k not in fixed}
+        if compute_dtype is not None:
+            own = {k: v for k, v in model.named_parameters()
+                   if k not in mean}
+            fixed = cast_floats(dict(own, **fixed), compute_dtype)
+            moving = cast_floats(moving, compute_dtype)
+        fixed = {k: _nchw(v) for k, v in fixed.items()}
+        moving = {k: _nchw(v) for k, v in moving.items()}
+        fixed.update(nchw_rest(model, fixed, moving))
+        members = {**ens.shared, **ens.stacked}
+        tangents = {k: (_nchw(members[k]).to(v.dtype) - v
+                        if k in ens.stacked else
+                        (_nchw(members[k]).to(v.dtype) - v).expand(
+                            (ens.size,) + v.shape))
+                    for k, v in moving.items()}
+        x = _nchw(cast_input(x, compute_dtype))
 
         def rows(xs):
             def f(p):
-                return functional_call(model, {**base, **p}, (xs,))
+                return functional_call(model, {**fixed, **p}, (xs,))
+
+            def one(t):
+                return jvp(f, (moving,), (t,))
             with eval_mode(model), torch.no_grad():
-                logits0 = _per_token(f(mean))
-                lin = []
-                for e in ensemble_params:
-                    e = cast_floats(e, compute_dtype)
-                    tangent = {k: e[k] - mean[k].to(e[k].dtype)
-                               for k in mean}
-                    lin.append(_per_token(jvp(f, (mean,), (tangent,))[1]))
+                if not moving:
+                    logits0 = f({})
+                    lin = torch.zeros((ens.size,) + logits0.shape,
+                                      dtype=logits0.dtype,
+                                      device=logits0.device)
+                elif vmaps(model):
+                    logits0, lin = vmap(one, out_dims=(None, 0))(tangents)
+                else:
+                    outs = [one({k: v[i] for k, v in tangents.items()})
+                            for i in range(ens.size)]
+                    logits0 = outs[0][0]
+                    lin = torch.stack([o[1] for o in outs])
+            logits0 = _per_token(logits0)
+            lin = _per_token(lin.flatten(0, 1)).unflatten(0, (ens.size, -1))
             # [1 + S, B, K]: the MAP logits, then each sample's
-            return torch.cat([logits0[None], logits0[None]
-                              + torch.stack(lin)])
+            return torch.cat([logits0[None], logits0[None] + lin])
         out = gather_rows(mesh, rows, x, dim=1)
         return out[0], out[1:]
     return fwd

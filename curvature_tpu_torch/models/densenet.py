@@ -83,3 +83,19 @@ def densenet(arch: str, num_classes: int = 1000, device=None) -> DenseNet:
     growth, blocks, init = _CONFIGS[arch]
     return DenseNet(growth, blocks, init, num_classes).to(
         resolve_device(device))
+
+
+def densenet121(num_classes: int = 1000, device=None) -> DenseNet:
+    return densenet("densenet121", num_classes, device)
+
+
+def densenet161(num_classes: int = 1000, device=None) -> DenseNet:
+    return densenet("densenet161", num_classes, device)
+
+
+def densenet169(num_classes: int = 1000, device=None) -> DenseNet:
+    return densenet("densenet169", num_classes, device)
+
+
+def densenet201(num_classes: int = 1000, device=None) -> DenseNet:
+    return densenet("densenet201", num_classes, device)

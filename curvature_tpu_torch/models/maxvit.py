@@ -174,6 +174,14 @@ class MaxVitBlock(CtxModule):
 class MaxVit(ZooNet):
     """NCHW images -> logits."""
 
+    #: the ensemble evals run its members in a loop, not under
+    #: ``torch.func.vmap`` (``eval/evaluate.py``): on the card its vmapped
+    #: forward raises "NYI: querying is_contiguous inside of vmap for
+    #: memory_format other than torch.contiguous_format" with contiguous
+    #: members and input (torch 2.11, CUDA 12.8), where every other
+    #: family of the zoo runs
+    vmap_ensemble = False
+
     def __init__(self, stem_channels: int, block_channels, block_layers,
                  head_dim: int, partition: int, num_classes: int):
         super().__init__()

@@ -72,3 +72,7 @@ class MNASNet(ZooNet):
 def mnasnet(alpha: float, num_classes: int = 1000, device=None) -> MNASNet:
     """Build on ``device`` (CUDA unless ``"cpu"`` is passed)."""
     return MNASNet(alpha, num_classes).to(resolve_device(device))
+
+
+def mnasnet1_0(num_classes: int = 1000, device=None) -> MNASNet:
+    return mnasnet(1.0, num_classes, device)

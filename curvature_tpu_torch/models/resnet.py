@@ -90,6 +90,11 @@ class ResNet(ZooNet):
                     if block is Bottleneck else {})
         if stem == "cifar":
             self.conv1 = Conv(3, 64, 3, 1, padding=1, bias=False)
+            # the stride-1 stem keeps every pixel: its sampled ensembles
+            # run under vmap up to 32² an image (eval/evaluate.py's
+            # vmaps; on the H100 ResNet-18's vmapped call was faster at
+            # 32², the member loop at 64²)
+            self.vmap_max_pixels = 32 * 32
         else:
             self.conv1 = Conv(3, 64, 7, 2, padding=3, bias=False)
         self.bn1 = BatchNorm(64)
@@ -153,3 +158,18 @@ def resnet18(num_classes: int = 10, stem: str = "cifar",
 def resnet50(num_classes: int = 1000, stem: str = "imagenet",
              device=None) -> ResNet:
     return resnet("resnet50", num_classes, stem, device)
+
+
+def resnet34(num_classes: int = 1000, stem: str = "imagenet",
+             device=None) -> ResNet:
+    return resnet("resnet34", num_classes, stem, device)
+
+
+def resnet101(num_classes: int = 1000, stem: str = "imagenet",
+              device=None) -> ResNet:
+    return resnet("resnet101", num_classes, stem, device)
+
+
+def resnet152(num_classes: int = 1000, stem: str = "imagenet",
+              device=None) -> ResNet:
+    return resnet("resnet152", num_classes, stem, device)

@@ -102,3 +102,8 @@ def shufflenet_v2(arch: str, num_classes: int = 1000,
     repeats, channels = _CONFIGS[arch]
     return ShuffleNetV2(repeats, channels, num_classes).to(
         resolve_device(device))
+
+
+def shufflenet_v2_x1_0(num_classes: int = 1000, device=None
+                       ) -> ShuffleNetV2:
+    return shufflenet_v2("shufflenet_v2_x1_0", num_classes, device)

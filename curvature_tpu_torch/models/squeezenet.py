@@ -78,3 +78,11 @@ def squeezenet(arch: str, num_classes: int = 1000,
                device=None) -> SqueezeNet:
     """Build on ``device`` (CUDA unless ``"cpu"`` is passed)."""
     return SqueezeNet(arch, num_classes).to(resolve_device(device))
+
+
+def squeezenet1_0(num_classes: int = 1000, device=None) -> SqueezeNet:
+    return squeezenet("squeezenet1_0", num_classes, device)
+
+
+def squeezenet1_1(num_classes: int = 1000, device=None) -> SqueezeNet:
+    return squeezenet("squeezenet1_1", num_classes, device)

@@ -232,6 +232,11 @@ class SwinTransformer(ZooNet):
     """NCHW images -> logits: ``features`` (the 4x4 patch embedding, the
     stages and their mergings), ``norm``, the spatial mean, ``head``."""
 
+    #: its sampled ensembles run under ``torch.func.vmap`` at any image
+    #: size (``eval/evaluate.py``'s ``vmaps``): on the H100 Swin-T's
+    #: vmapped bnn30 eval at 224² outran the member loop
+    vmap_max_pixels = None
+
     def __init__(self, embed: int, depths, heads, window: int,
                  num_classes: int, v2: bool = False):
         super().__init__()

@@ -79,3 +79,23 @@ def vgg(arch: str, num_classes: int = 1000, batch_norm: bool = False,
     """Build on ``device`` (CUDA unless ``"cpu"`` is passed)."""
     return VGG(_CFGS[arch], num_classes, batch_norm).to(
         resolve_device(device))
+
+
+def vgg11(num_classes: int = 1000, batch_norm: bool = False,
+          device=None) -> VGG:
+    return vgg("vgg11", num_classes, batch_norm, device)
+
+
+def vgg13(num_classes: int = 1000, batch_norm: bool = False,
+          device=None) -> VGG:
+    return vgg("vgg13", num_classes, batch_norm, device)
+
+
+def vgg16(num_classes: int = 1000, batch_norm: bool = False,
+          device=None) -> VGG:
+    return vgg("vgg16", num_classes, batch_norm, device)
+
+
+def vgg19(num_classes: int = 1000, batch_norm: bool = False,
+          device=None) -> VGG:
+    return vgg("vgg19", num_classes, batch_norm, device)

@@ -105,6 +105,11 @@ class VisionTransformer(ZooNet):
     """NCHW images [B, 3, S, S] -> logits; the class token's output feeds
     the head."""
 
+    #: its sampled ensembles run under ``torch.func.vmap`` at any image
+    #: size (``eval/evaluate.py``'s ``vmaps``): on the H100 ViT-B/16's
+    #: vmapped bnn30 eval at 224² outran the member loop
+    vmap_max_pixels = None
+
     def __init__(self, image_size: int, patch_size: int, dim: int,
                  depth: int, heads: int, mlp_dim: int, num_classes: int,
                  scan_blocks: bool = False):

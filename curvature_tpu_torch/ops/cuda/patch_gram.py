@@ -38,7 +38,8 @@ For a CPU tensor a wrapper computes its plain version; for a CUDA tensor
 it launches the kernel or raises. Nothing falls back.
 
 The dispatch policy (``select_patch_gram``, ``tiled_plan``,
-``patch_gram_v2_supported``) and the advisory ``patch_gram_supported`` are
+``patch_gram_tiled_supported``, ``patch_gram_v2_supported``) and the
+advisory ``patch_gram_supported`` are
 copied with the JAX thresholds, so the same layers take a kernel as in
 JAX; the thresholds were tuned on a TPU and are not yet re-measured on the
 H100.
@@ -146,6 +147,15 @@ def tiled_plan(c: int, kernel_size: Tuple[int, int],
     s = strides[0]
     h_out, w_out = -(-h // s), -(-w // s)
     return _tiled_layout(c, kernel_size, s, h_out, w_out, batch, itemsize)
+
+
+def patch_gram_tiled_supported(c: int, kernel_size: Tuple[int, int],
+                               strides: Tuple[int, int], h: int, w: int,
+                               batch: int, itemsize: int = 4) -> bool:
+    """Whether the tiled route has a plan for this conv shape (JAX
+    :417-421)."""
+    return tiled_plan(c, kernel_size, strides, h, w, batch, itemsize) \
+        is not None
 
 
 def select_patch_gram(c: int, kernel_size: Tuple[int, int],

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from curvature_tpu_torch.estimators.base import normalize_damping
-from curvature_tpu_torch.estimators.capture import collect
+from curvature_tpu_torch.estimators.capture import (
+    collect, softmax_cross_entropy)
 from curvature_tpu_torch.nn.core import (
     Context, matrix_to_delta, param_key, param_matrix)
 from curvature_tpu_torch.parallel.mesh import all_reduce, all_reduce_tree
@@ -42,7 +43,7 @@ def loss_backward(model, x, y, mesh=None) -> torch.Tensor:
     ranks: every rank holds the global batch's loss and gradient."""
     rows = None if mesh is None else mesh.rows(x.shape[0])
     if rows is None:
-        loss = F.cross_entropy(model(x), y)
+        loss = softmax_cross_entropy(model(x), y)
         loss.backward()
         return loss.detach()
     group = mesh.group("data")

@@ -6,4 +6,11 @@ closed-form or linearized predictive, the FGSM sweep), ``loss_landscape``
 (1-D and 2-D loss surfaces) and ``visualize`` (its figures and tables),
 with the JAX package's flags, artefact paths and npz layout. ``plot``
 draws the figures (``--plot`` in the CLIs) on the port's own figure model
-and PDF writer (``utils/figure.py``, ``utils/pdf.py``)."""
+and its PDF, SVG and PNG writers (``utils/figure.py``, ``utils/pdf.py``,
+``utils/svg.py``, ``utils/png.py``). The package exports JAX's
+``build_model``, ``build_data`` and ``input_shape``."""
+from curvature_tpu_torch.pipelines.common import (
+    build_data, build_model, input_shape,
+)
+
+__all__ = ["build_model", "build_data", "input_shape"]

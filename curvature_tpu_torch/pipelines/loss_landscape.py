@@ -35,9 +35,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.func import functional_call, vmap
 
+from curvature_tpu_torch.estimators.capture import softmax_cross_entropy
 from curvature_tpu_torch.nn import Conv, Dense
 from curvature_tpu_torch.parallel.mesh import all_reduce, build_mesh
 from curvature_tpu_torch.utils.checkpoint import write_once
@@ -113,7 +113,7 @@ def make_chunked_eval(model, mesh=None):
     Under ``mesh`` this rank's rows, the sums all-reduced."""
     def one(p, x, y):
         logits = functional_call(model, p, (x,))
-        loss = F.cross_entropy(logits, y) * y.shape[0]
+        loss = softmax_cross_entropy(logits, y) * y.shape[0]
         return loss, (logits.argmax(-1) == y).sum()
 
     batched = vmap(one, in_dims=(0, None, None))

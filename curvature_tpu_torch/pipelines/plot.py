@@ -3,9 +3,10 @@
 Port of ``curvature_tpu/pipelines/plot.py``: every function under the
 same name and signature, its numbers from the port's ``eval/metrics.py``.
 Where JAX returns matplotlib's figure or axes, these return the port's
-(``utils/figure.py``), drawn to PDF by ``utils/pdf.py`` when ``path`` is
-given; a path that does not end in ``.pdf`` raises ``ValueError`` (JAX,
-through matplotlib, also writes ``.png``/``.svg``; no CLI path does).
+(``utils/figure.py``), drawn when ``path`` is given in the format its
+suffix names, PDF, SVG or PNG (``Figure.savefig``, at JAX's 300 dpi);
+another suffix raises ``ValueError`` (JAX, through matplotlib, writes
+more; no CLI path does).
 Inputs may be numpy arrays or tensors. Under ``--mesh`` rank 0 writes.
 """
 import os

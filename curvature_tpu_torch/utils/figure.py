@@ -2,7 +2,8 @@
 ``pipelines/plot.py`` and ``pipelines/visualize.py`` make, and no others.
 
 The card's machine has no matplotlib, so the port keeps a model of its
-own, drawn to PDF by ``utils/pdf.py``. :func:`subplots` and
+own, drawn to PDF, SVG or PNG by ``utils/pdf.py``, ``utils/svg.py`` and
+``utils/png.py`` (``Figure.savefig`` picks by the suffix). :func:`subplots` and
 :func:`figure` give a :class:`Figure`; ``Figure.add_subplot`` gives an
 :class:`Axes` (or an :class:`Axes3D` with ``projection="3d"``), and
 ``Figure.colorbar`` a :class:`Colorbar`. Each ``Axes`` call appends an
@@ -1250,20 +1251,38 @@ class Figure:
         self.axes.append(cax)
         return Colorbar(mappable, cax, label)
 
-    def savefig(self, path: str, **_):
-        """Write this figure as a one-page PDF; another suffix raises
-        ``ValueError``. The keyword arguments matplotlib takes (``dpi``,
-        ``bbox_inches``, ``format``) change nothing in a vector page."""
-        from curvature_tpu_torch.utils import pdf
-        suffix = os.path.splitext(path)[1]
-        if suffix.lower() != ".pdf":
+    def savefig(self, path: str, dpi=100.0, format=None, **_):
+        """Write this figure to ``path`` in the format its suffix (or
+        ``format``) names: ``pdf``, ``svg`` or ``png``, one layout for the
+        three (:func:`render`). ``dpi`` sets the PNG's pixels per inch
+        (matplotlib's default figure dpi, 100, where none is given); the
+        vector formats are in points. Another format raises
+        ``ValueError``; ``bbox_inches`` changes nothing (the page is the
+        figure's size)."""
+        from curvature_tpu_torch.utils import pdf, png, svg
+        kind = (format or os.path.splitext(path)[1].lstrip(".")).lower()
+        if kind not in SAVE_FORMATS:
             raise ValueError(
-                f"{path}: the port writes figures as PDF only; the suffix "
-                f"{suffix or '(none)'!r} is not '.pdf'")
+                f"{path}: the format {kind or '(none)'!r} is not one the "
+                f"port writes; it writes {', '.join(SAVE_FORMATS)}")
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        canvas = pdf.Canvas(self.figsize[0] * 72.0, self.figsize[1] * 72.0)
-        render(self, canvas)
-        pdf.write_pdf(path, [canvas])
+        w, h = self.figsize[0] * 72.0, self.figsize[1] * 72.0
+        if kind == "pdf":
+            canvas = pdf.Canvas(w, h)
+            render(self, canvas)
+            pdf.write_pdf(path, [canvas])
+        elif kind == "svg":
+            canvas = svg.Canvas(w, h)
+            render(self, canvas)
+            svg.write_svg(path, canvas)
+        else:
+            canvas = png.Canvas(w, h, dpi=float(dpi))
+            render(self, canvas)
+            png.write_png(path, canvas)
+
+
+#: the formats :meth:`Figure.savefig` writes
+SAVE_FORMATS = ("pdf", "svg", "png")
 
 
 def _cell(figsize, nrows, ncols, index):
@@ -1332,7 +1351,8 @@ class _Frame:
 
 
 def render(fig: Figure, c) -> None:
-    """Draw ``fig`` on a canvas (``utils/pdf.Canvas``)."""
+    """Draw ``fig`` on a canvas (``utils/pdf``, ``utils/svg`` or
+    ``utils/png``'s ``Canvas``: one drawing interface)."""
     W, H = c.width, c.height
     c.rect(0, 0, W, H, fill=(1.0, 1.0, 1.0, 1.0))
     for ax in fig.axes:

@@ -1,13 +1,18 @@
-"""Telemetry and seeding: host RAM, device memory, RNG seeds.
+"""Telemetry and seeding: host RAM, device memory, phase timers, traces,
+RNG seeds.
 
-Port of ``ram``, ``device_memory_gb`` and ``seed_all_rng`` of
-``curvature_tpu/utils/monitor.py`` (the reference's tqdm RAM/VRAM postfix,
-utils.py:270-285, and its seeding, utils.py:313-330). ``ram`` reads
-``/proc/meminfo`` where JAX asks ``psutil``, with psutil's definition.
+Port of ``curvature_tpu/utils/monitor.py`` (the reference's tqdm RAM/VRAM
+postfix, utils.py:270-285, and its seeding, utils.py:313-330). ``ram``
+reads ``/proc/meminfo`` where JAX asks ``psutil``, with psutil's
+definition. :class:`Timer` accumulates wall-clock phases, synchronizing
+the devices of what it is told to wait for; :func:`profile_trace` is the
+``torch.profiler`` counterpart of ``jax.profiler``'s trace directory.
 """
+import contextlib
 import os
 import random
-from typing import Optional
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -31,6 +36,58 @@ def device_memory_gb(device=None) -> float:
     if device.type != "cuda" or not torch.cuda.is_available():
         return 0.0
     return torch.cuda.memory_allocated(device) / 1024.0 ** 3
+
+
+def _devices(tree, out):
+    """The CUDA devices of the tensors in ``tree`` (a tensor, or dicts,
+    lists and tuples of them)."""
+    if torch.is_tensor(tree):
+        if tree.is_cuda:
+            out.add(tree.device)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _devices(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _devices(v, out)
+    return out
+
+
+class Timer:
+    """Accumulating phase timer: ``times[name]`` sums the seconds of every
+    ``phase(name)`` block. ``block_on`` (a tensor or a tree of them) has
+    its CUDA devices synchronized before the clock stops, so queued work
+    is counted (JAX's ``block_until_ready``)."""
+
+    def __init__(self):
+        self.times: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str, block_on=None):
+        t0 = time.perf_counter()
+        yield
+        for dev in _devices(block_on, set()):
+            torch.cuda.synchronize(dev)
+        self.times[name] = self.times.get(name, 0.0) \
+            + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Trace the block with ``torch.profiler`` (CPU activities, and CUDA
+    ones where a card is present); on exit the trace is written under
+    ``log_dir`` by ``torch.profiler.tensorboard_trace_handler`` (a
+    ``*.pt.trace.json`` Chrome trace, as ``jax.profiler`` writes its trace
+    directory). Yields the profiler."""
+    from torch import profiler
+    activities = [profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    handler = profiler.tensorboard_trace_handler(log_dir)
+    with profiler.profile(activities=activities,
+                          on_trace_ready=handler) as prof:
+        yield prof
 
 
 def seed_all_rng(seed: Optional[int] = None) -> int:

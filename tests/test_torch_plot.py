@@ -418,15 +418,19 @@ def test_port_figure_holds_to_matplotlibs(case, monkeypatch, tmp_path):
 
 def test_fgsm_suffix_rule_and_non_pdf_suffix(tmp_path):
     """``adversarial_results`` appends ``_fgsm.pdf`` to a path without
-    the suffix and keeps one with it (JAX :235-236); a figure path with
-    another suffix raises naming it."""
+    the suffix and keeps one with it (JAX :235-236); a ``.png`` path
+    writes a PNG, and a figure path with a suffix the port does not write
+    raises naming it."""
     base = str(tmp_path / "sweep")
     tplot.adversarial_results(IN["steps"], IN["fgsm"], IN["fgsm_bnn"], base)
     tplot.adversarial_results(IN["steps"], IN["fgsm"], IN["fgsm_bnn"],
                               base + ".pdf")
     assert sorted(os.listdir(tmp_path)) == ["sweep.pdf", "sweep_fgsm.pdf"]
-    with pytest.raises(ValueError, match="'.png'"):
-        tplot.confidence_hist(IN["probs"], str(tmp_path / "c.png"))
+    tplot.confidence_hist(IN["probs"], str(tmp_path / "c.png"))
+    with open(tmp_path / "c.png", "rb") as f:
+        assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    with pytest.raises(ValueError, match="'eps'"):
+        tplot.confidence_hist(IN["probs"], str(tmp_path / "c.eps"))
 
 
 def test_read_pdf_finds_structural_faults(tmp_path):

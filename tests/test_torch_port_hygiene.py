@@ -173,14 +173,24 @@ def test_default_device_entry_point_raises_without_a_gpu():
 
 def test_bundled_assets_are_byte_copies():
     """The port's own copies of the JAX package's assets (it imports
-    nothing of that package) stay identical to them."""
+    nothing of that package) stay identical to them, and the PNG
+    writer's DejaVu Sans and its licence to matplotlib's files, where
+    matplotlib is installed (only that pair is left out where it is
+    not)."""
     import filecmp
+    import importlib.util
     raw = "data/fixtures/digits/MNIST/raw"
     files = ["models/assets/lenet5_mnist.npz"] + [
         f"{raw}/{f}" for f in ("train-images-idx3-ubyte.gz",
                                "train-labels-idx1-ubyte.gz",
                                "t10k-images-idx3-ubyte.gz",
                                "t10k-labels-idx1-ubyte.gz")]
-    for f in files:
-        assert filecmp.cmp(REPO / "curvature_tpu_torch" / f,
-                           REPO / "curvature_tpu" / f, shallow=False), f
+    pairs = [(REPO / "curvature_tpu_torch" / f, REPO / "curvature_tpu" / f)
+             for f in files]
+    spec = importlib.util.find_spec("matplotlib")
+    if spec is not None:
+        ttf = Path(spec.origin).parent / "mpl-data" / "fonts" / "ttf"
+        pairs += [(REPO / "curvature_tpu_torch" / "utils" / "fonts" / f,
+                   ttf / f) for f in ("DejaVuSans.ttf", "LICENSE_DEJAVU")]
+    for ours, theirs in pairs:
+        assert filecmp.cmp(ours, theirs, shallow=False), ours
