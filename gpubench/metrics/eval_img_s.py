@@ -1,0 +1,7 @@
+"""``eval_img_s``: images through the ``eval`` generator's steps, all the
+window's work over all its time."""
+from gpubench.readers import rate
+
+
+def read(rec):
+    return rate(rec, "eval", "img")

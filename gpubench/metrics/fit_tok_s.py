@@ -1,0 +1,7 @@
+"""``fit_tok_s``: tokens through the ``fit`` generator's steps, all the
+window's work over all its time."""
+from gpubench.readers import rate
+
+
+def read(rec):
+    return rate(rec, "fit", "tok")
