@@ -73,6 +73,7 @@ from curvature_tpu_torch.nn.core import (
 from curvature_tpu_torch.ops.patches import extract_patches
 from curvature_tpu_torch.estimators.capture import Captured, Shard, collect
 from curvature_tpu_torch.parallel.mesh import all_gather, all_reduce_tree
+from curvature_tpu_torch.utils import monitor
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
 #: reference-compatible layer-type aliases (curvatures.py:57-63)
@@ -277,6 +278,8 @@ class Estimator:
         #: {carry attribute: tree of per-leaf specs} (use_mesh)
         self._plan = None
         self._whole_view = False
+        #: the calls of update() so far: the ``step`` of their spans
+        self.updates = 0
 
     def _snapshot_mean(self):
         """MAP mean snapshot of the tracked parameters (the reference's
@@ -720,8 +723,14 @@ class Estimator:
         [B, T] or [S, B, T] for ``loss='lm'``; [B, D] or [S, B, D] targets
         for ``loss='gaussian'``, JAX base.py:720-725) give the empirical
         Fisher or injected MC labels; ``None`` draws
-        ``num_samples`` labels from the model distribution."""
-        self._accumulate(self.capture(x, labels, generator, num_samples))
+        ``num_samples`` labels from the model distribution. Its two phases
+        are the spans ``capture`` and ``update_state`` (utils/monitor.py),
+        both with this call's number as ``step``."""
+        self.updates += 1
+        with monitor.span("capture", self.device, step=self.updates):
+            cap = self.capture(x, labels, generator, num_samples)
+        with monitor.span("update_state", self.device, step=self.updates):
+            self._accumulate(cap)
         return self.state
 
     def update_batches(self, xs: torch.Tensor,
@@ -739,10 +748,11 @@ class Estimator:
     def invert(self, add=0.0, multiply=1.0):
         """Damped inversion; ``add``/``multiply`` are scalars or per-layer
         sequences."""
-        add, multiply = normalize_damping(add, multiply, len(self.metas),
-                                          self.device, self.dtype)
-        self.inv_state = self._wrap_inv(
-            self.invert_state(self.state, add, multiply))
+        with monitor.span("invert"):
+            add, multiply = normalize_damping(add, multiply, len(self.metas),
+                                              self.device, self.dtype)
+            self.inv_state = self._wrap_inv(
+                self.invert_state(self.state, add, multiply))
         return self.inv_state
 
     @torch.no_grad()
@@ -838,6 +848,7 @@ class Estimator:
         if noise is not None and len(noise) != num_samples:
             raise ValueError(f"{len(noise)} noise draws for {num_samples} "
                              "samples")
-        return [self.posterior_params(
-                    None if noise is None else noise[i], generator)
-                for i in range(num_samples)]
+        with monitor.span("sample", members=num_samples):
+            return [self.posterior_params(
+                        None if noise is None else noise[i], generator)
+                    for i in range(num_samples)]

@@ -67,6 +67,7 @@ from curvature_tpu_torch.nn.core import (
     Context, LayerMeta, param_key, param_matrix)
 from curvature_tpu_torch.parallel.mesh import (
     all_gather, all_reduce_tree, group_size)
+from curvature_tpu_torch.utils import monitor
 
 
 @dataclass
@@ -262,8 +263,9 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
         return (model(inp, ctx) if params is None
                 else functional_call(model, params, (inp, ctx)))
     try:
-        logits = (checkpoint(forward, x, use_reentrant=False) if remat
-                  else forward(x))
+        with monitor.span("capture.forward"):
+            logits = (checkpoint(forward, x, use_reentrant=False) if remat
+                      else forward(x))
     finally:
         model.train(was_training)
     # the recomputation in the backward records again into ctx: keep the
@@ -302,29 +304,32 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     if shard is not None:
         batch_size = shard.batch * (shard.tokens if loss == "lm" else 1)
         count = batch_size
-    for s in range(num):
-        cot = (gaussian_cotangent(logits, labels[s], count) if probs is None
-               else ce_cotangent(logits, labels[s:s + 1], probs, count)[0])
-        gs = torch.autograd.grad(logits, inputs, grad_outputs=cot,
-                                 retain_graph=s < num - 1)
-        del cot
-        if need_probe_grads:
-            for n, g in zip(names, gs):
-                # JAX layout: NCHW conv grads -> NHWC views
-                grads[n].append(g.permute(0, 2, 3, 1)
-                                if metas[n].kind == "conv" else g)
-            gs = gs[len(names):]
-        for n, g in zip(taps, gs):
-            grams[n].append(g)
-        gs = gs[len(taps):]
-        if need_param_grads:
-            by_key = dict(zip(weight_keys, gs))
-            for n, m in metas.items():
-                # reshape, not view: a channels_last weight's gradient comes
-                # back channels_last
-                pgrads[n].append(param_matrix(
-                    m, by_key[param_key(n, "weight")],
-                    by_key.get(param_key(n, "bias"))))
+    with monitor.span("capture.backward"):
+        for s in range(num):
+            cot = (gaussian_cotangent(logits, labels[s], count)
+                   if probs is None
+                   else ce_cotangent(logits, labels[s:s + 1], probs,
+                                     count)[0])
+            gs = torch.autograd.grad(logits, inputs, grad_outputs=cot,
+                                     retain_graph=s < num - 1)
+            del cot
+            if need_probe_grads:
+                for n, g in zip(names, gs):
+                    # JAX layout: NCHW conv grads -> NHWC views
+                    grads[n].append(g.permute(0, 2, 3, 1)
+                                    if metas[n].kind == "conv" else g)
+                gs = gs[len(names):]
+            for n, g in zip(taps, gs):
+                grams[n].append(g)
+            gs = gs[len(taps):]
+            if need_param_grads:
+                by_key = dict(zip(weight_keys, gs))
+                for n, m in metas.items():
+                    # reshape, not view: a channels_last weight's gradient
+                    # comes back channels_last
+                    pgrads[n].append(param_matrix(
+                        m, by_key[param_key(n, "weight")],
+                        by_key.get(param_key(n, "bias"))))
     param_grads = ({n: torch.stack(v) for n, v in pgrads.items()}
                    if need_param_grads else {})
     if shard is not None and param_grads:

@@ -119,6 +119,7 @@ from curvature_tpu_torch.ops.linalg import (
     chol_logdet, damped_inverse_cholesky, diag_add, sym)
 from curvature_tpu_torch.ops.patches import resolve_padding
 from curvature_tpu_torch.parallel.mesh import all_gather
+from curvature_tpu_torch.utils import monitor
 
 
 def _split_damped_logdet(factor, add, multiply):
@@ -396,27 +397,34 @@ class KFAC(Estimator):
         """Per-batch A factor (already divided by its token count); a
         stacked layer's [depth, cols, cols], its depth axis batching the
         Gram (JAX :354-359). ``route`` overrides :meth:`a_route` (a row
-        block takes the whole input's)."""
+        block takes the whole input's). The span ``factor`` (side ``a``)
+        carries the route taken, ``stacked`` for a stacked layer."""
         if meta.stacked:
-            a = act.reshape(act.shape[0], -1, meta.fan_in)
-            if meta.has_bias:
-                a = torch.cat([a, a.new_ones(a.shape[:-1] + (1,))], dim=-1)
-            return _gram_aligned(a, self.dtype) / a.shape[1]
+            route = "stacked"
         route = route or self.a_route(meta, act.shape, act.element_size())
-        if route == "grouped":
-            t = grouped_act_tokens(meta, act, append_ones=meta.has_bias,
-                                   extra_stride=self._spatial_stride(),
-                                   offset=self.subsample_offset)
-            return _gram_aligned(t.transpose(0, 1), self.dtype) / t.shape[0]
-        if route == "corr":
-            return self._corr_a_factor(meta, act)
-        if route in ("tiled", "v2"):
-            fn = patch_gram_v2 if route == "v2" else patch_gram_tiled
-            gram = fn(act, meta.kernel_size, meta.padding, meta.strides)
-            if not meta.has_bias:
-                gram = gram[:meta.fan_in, :meta.fan_in]
-            return gram.to(self.dtype) / _conv_token_count(meta, act)
-        return self._a_factor_xla(meta, act)
+        with monitor.span("factor", layer=meta.name, side="a", route=route,
+                          shape=act.shape):
+            if route == "stacked":
+                a = act.reshape(act.shape[0], -1, meta.fan_in)
+                if meta.has_bias:
+                    a = torch.cat([a, a.new_ones(a.shape[:-1] + (1,))],
+                                  dim=-1)
+                return _gram_aligned(a, self.dtype) / a.shape[1]
+            if route == "grouped":
+                t = grouped_act_tokens(meta, act, append_ones=meta.has_bias,
+                                       extra_stride=self._spatial_stride(),
+                                       offset=self.subsample_offset)
+                return _gram_aligned(t.transpose(0, 1),
+                                     self.dtype) / t.shape[0]
+            if route == "corr":
+                return self._corr_a_factor(meta, act)
+            if route in ("tiled", "v2"):
+                fn = patch_gram_v2 if route == "v2" else patch_gram_tiled
+                gram = fn(act, meta.kernel_size, meta.padding, meta.strides)
+                if not meta.has_bias:
+                    gram = gram[:meta.fan_in, :meta.fan_in]
+                return gram.to(self.dtype) / _conv_token_count(meta, act)
+            return self._a_factor_xla(meta, act)
 
     def _corr_a_factor(self, meta, act):
         from dataclasses import replace
@@ -534,15 +542,17 @@ class KFAC(Estimator):
                 g, n_tok = self._g_tokens(meta, cap.probe_grads[name])
                 g_buckets.setdefault((tuple(g.shape), n_tok), []).append(
                     (name, g))
+        a_buckets = [(k, v) for k, v in a_buckets.items() if len(v) > 1]
+        g_buckets = [(k, v) for k, v in g_buckets.items() if len(v) > 1]
         pre_a, pre_g = {}, {}
-        for shape, items in a_buckets.items():
-            if len(items) > 1:
+        with monitor.span("stack_grams",
+                          buckets=len(a_buckets) + len(g_buckets)):
+            for shape, items in a_buckets:
                 gram = _gram_aligned_batched(
                     torch.stack([t for _, t in items]), self.dtype) / shape[0]
                 pre_a.update((name, gram[i]) for i, (name, _)
                              in enumerate(items))
-        for (_, n_tok), items in g_buckets.items():
-            if len(items) > 1:
+            for (_, n_tok), items in g_buckets:
                 gram = _batched_gram(torch.stack([g for _, g in items]),
                                      self.dtype) * (cap.batch_size ** 2
                                                     / n_tok)
@@ -554,7 +564,11 @@ class KFAC(Estimator):
     def update_state(self, state, cap: Captured):
         """Adds this batch's factors into ``state`` in place: a fused
         layer's G from its per-sample Grams, a stacked bucket's factors
-        from its batched product (JAX :523-560)."""
+        from its batched product (JAX :523-560). Each layer's A and G is
+        a span ``factor`` with its ``layer``, ``side`` and ``route``: the
+        A routes of :meth:`_a_factor`, ``head_split`` or ``stack_grams``;
+        the G routes of :meth:`_g_route`, ``tap`` (fused) or
+        ``stack_grams``."""
         grams = cap.probe_grams or {}
         num_mc = next(iter(cap.probe_grads.values()) if cap.probe_grads
                       else iter(grams.values())).shape[0]
@@ -569,14 +583,18 @@ class KFAC(Estimator):
                                           or name in pre_g else probe,
                                           cap.shard))
             if name in grams:
-                # (B*g)^T (B*g) over the S samples' token Grams
-                gram = grams[name].sum(0)
-                if rows is not None:
-                    gram = gram[rows]
-                g_factor = gram.to(self.dtype) * (
-                    cap.batch_size ** 2 / cap.probe_gram_ntok[name])
+                with monitor.span("factor", layer=name, side="g",
+                                  route="tap", shape=grams[name].shape):
+                    # (B*g)^T (B*g) over the S samples' token Grams
+                    gram = grams[name].sum(0)
+                    if rows is not None:
+                        gram = gram[rows]
+                    g_factor = gram.to(self.dtype) * (
+                        cap.batch_size ** 2 / cap.probe_gram_ntok[name])
             elif name in pre_g:
-                g_factor = pre_g[name]
+                with monitor.span("factor", layer=name, side="g",
+                                  route="stack_grams"):
+                    g_factor = pre_g[name]
             else:
                 g_factor = self._g_factor(
                     meta, probe if block is None else block[2],
@@ -585,11 +603,16 @@ class KFAC(Estimator):
                 # out_proj's input is the concat of the heads' outputs: A
                 # splits along fan_in; the ones (bias) column is a scalar
                 # block whose Gram is exactly 1 (JAX :596-615)
-                a_factor = self._head_a_factor(meta, cap.acts[name])
+                with monitor.span("factor", layer=name, side="a",
+                                  route="head_split",
+                                  shape=cap.acts[name].shape):
+                    a_factor = self._head_a_factor(meta, cap.acts[name])
                 if "a_bias" in state[name]:
                     state[name]["a_bias"] += num_mc
             elif name in pre_a:
-                a_factor = pre_a[name]
+                with monitor.span("factor", layer=name, side="a",
+                                  route="stack_grams"):
+                    a_factor = pre_a[name]
             elif block is not None:
                 a_factor = self._a_factor(block[0], block[1], block[3])
             else:
@@ -598,35 +621,54 @@ class KFAC(Estimator):
             state[name]["g"] += g_factor
         return state
 
+    def _g_route(self, meta, rows) -> str:
+        """The branch of :meth:`_g_factor` a layer's G takes."""
+        if rows is not None:
+            return "rows"
+        if self._is_gblock(meta):
+            return "gblock"
+        if self._is_head_split_in(meta):
+            return "head_split"
+        if self._is_qkv_split(meta):
+            return "qkv_split"
+        if is_grouped(meta):
+            return "grouped"
+        return "stacked" if meta.stacked else "plain"
+
     def _g_factor(self, meta, probe_grad, batch_size, rows=None):
         """This batch's G factor from the [S, ...preact] probe gradient:
         the S samples' token Grams in one product, per G block of a
         blocked, split or grouped layer; ``rows`` (a column-parallel
-        layer's output rows) takes the row block ``g[:, rows]^T g``."""
-        g, n_tok = self._g_tokens(meta, probe_grad)
-        if rows is not None:
-            g = g.to(self.dtype)
-            return (g[..., rows].mT @ g) * (batch_size ** 2 / n_tok)
-        if self._is_gblock(meta):
-            gram = self._gblock_gram(meta, g)
-        elif self._is_head_split_in(meta):
-            # [.., n, 3, H, d] -> per (chunk, head) Grams [.., 3, H, d, d]
-            # (JAX :555-561)
-            d = meta.out_features // 3 // meta.heads
-            gq = g.reshape(g.shape[:-1] + (3, meta.heads, d))
-            gram = _gram_aligned(gq.movedim(-4, -2), self.dtype)
-        elif self._is_qkv_split(meta):
-            gq = g.reshape(g.shape[:-1] + (3, meta.out_features // 3))
-            gram = _gram_aligned(gq.movedim(-3, -2), self.dtype)
-        elif is_grouped(meta):
-            # output channels are group-major: one reshape splits the
-            # group axis (JAX :586-595)
-            gq = g.reshape(-1, meta.groups, meta.out_features // meta.groups)
-            gram = _gram_aligned(gq.transpose(0, 1), self.dtype)
-        else:
-            gram = _gram_aligned(g, self.dtype)
-        # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
-        return gram * (batch_size ** 2 / n_tok)
+        layer's output rows) takes the row block ``g[:, rows]^T g``. The
+        span ``factor`` (side ``g``) carries the :meth:`_g_route`."""
+        route = self._g_route(meta, rows)
+        with monitor.span("factor", layer=meta.name, side="g", route=route,
+                          shape=probe_grad.shape):
+            g, n_tok = self._g_tokens(meta, probe_grad)
+            if route == "rows":
+                g = g.to(self.dtype)
+                return (g[..., rows].mT @ g) * (batch_size ** 2 / n_tok)
+            if route == "gblock":
+                gram = self._gblock_gram(meta, g)
+            elif route == "head_split":
+                # [.., n, 3, H, d] -> per (chunk, head) Grams
+                # [.., 3, H, d, d] (JAX :555-561)
+                d = meta.out_features // 3 // meta.heads
+                gq = g.reshape(g.shape[:-1] + (3, meta.heads, d))
+                gram = _gram_aligned(gq.movedim(-4, -2), self.dtype)
+            elif route == "qkv_split":
+                gq = g.reshape(g.shape[:-1] + (3, meta.out_features // 3))
+                gram = _gram_aligned(gq.movedim(-3, -2), self.dtype)
+            elif route == "grouped":
+                # output channels are group-major: one reshape splits the
+                # group axis (JAX :586-595)
+                gq = g.reshape(-1, meta.groups,
+                               meta.out_features // meta.groups)
+                gram = _gram_aligned(gq.transpose(0, 1), self.dtype)
+            else:
+                gram = _gram_aligned(g, self.dtype)
+            # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
+            return gram * (batch_size ** 2 / n_tok)
 
     def _head_a_factor(self, meta, act):
         """Per-head input Grams [(depth,) H, d, d] of a head-split

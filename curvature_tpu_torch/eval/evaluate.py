@@ -55,6 +55,7 @@ from torch.func import functional_call, vmap
 
 from curvature_tpu_torch.eval import metrics
 from curvature_tpu_torch.parallel.mesh import gather_rows
+from curvature_tpu_torch.utils import monitor
 from curvature_tpu_torch.utils.casting import cast_floats, cast_input
 
 
@@ -233,8 +234,11 @@ def ensemble_logits(model, ens, x: torch.Tensor) -> torch.Tensor:
     expanded."""
     with torch.no_grad():
         if not isinstance(ens, StackedEnsemble):
-            return torch.stack([functional_call(model, m, (x,))
-                                for m in ens])
+            outs = []
+            for i, member in enumerate(ens):
+                with monitor.span("eval.member", member=i):
+                    outs.append(functional_call(model, member, (x,)))
+            return torch.stack(outs)
         x = _nchw(x)
         if not ens.stacked:
             out = functional_call(model, ens.shared, (x,))
@@ -326,13 +330,19 @@ def _chunks(ensemble, step: int):
 @torch.no_grad()
 def _ensemble_sums(fwd, ens, batches, keep_samples, device):
     """Per batch, the softmax summed over a prepared ensemble [B, K]
-    (and, with ``keep_samples``, each sample's [S, B, K])."""
+    (and, with ``keep_samples``, each sample's [S, B, K]); each batch's
+    forward and its copy to the host are the spans ``eval.forward`` and
+    ``eval.to_host``."""
     sums, per_sample = [], []
+    members = ensemble_size(ens)
+    route = "vmap" if isinstance(ens, StackedEnsemble) else "loop"
     for x, _ in _batches(batches, device):
-        probs = fwd(ens, x)
-        sums.append(probs.sum(0).cpu())
-        if keep_samples:
-            per_sample.append(probs.cpu().numpy())
+        with monitor.span("eval.forward", members=members, route=route):
+            probs = fwd(ens, x)
+        with monitor.span("eval.to_host"):
+            sums.append(probs.sum(0).cpu())
+            if keep_samples:
+                per_sample.append(probs.cpu().numpy())
     return torch.cat(sums).numpy(), per_sample
 
 
@@ -372,32 +382,36 @@ def eval_bnn(model, estimator, data: Iterable[Tuple], samples: int = 30,
     holds: a
     drawn ensemble is drawn and run a chunk at a time (JAX's
     ``_eval_bnn_chunked``), a given one is run in chunks. ``stats`` fills
-    the reference's running statistics (empty lists otherwise)."""
-    batches = list(data)
-    labels = np.concatenate([np.asarray(y).reshape(-1) for _, y in batches])
-    step = min(sample_chunk or samples, samples)
-    if ensemble_params is not None:
-        ensembles = _chunks(ensemble_params, sample_chunk or
-                            len(ensemble_params))
-    else:
-        # each chunk drawn when it runs: at most sample_chunk sets exist
-        ensembles = (estimator.ensemble_params(min(step, samples - i),
-                                               generator=generator)
-                     for i in range(0, samples, step))
-    fwd = make_ensemble_fn(model, compute_dtype, mesh)
-    total, per_sample, members = None, [], 0
-    for ens in ensembles:
-        ens = prepare_ensemble(model, ens, batches[0][0], compute_dtype)
-        members += ensemble_size(ens)
-        s, kept = _ensemble_sums(fwd, ens, batches, stats, _device(model))
-        total = s if total is None else total + s
+    the reference's running statistics (empty lists otherwise). The call
+    is the span ``eval_bnn``."""
+    with monitor.span("eval_bnn", samples=samples):
+        batches = list(data)
+        labels = np.concatenate([np.asarray(y).reshape(-1)
+                                 for _, y in batches])
+        step = min(sample_chunk or samples, samples)
+        if ensemble_params is not None:
+            ensembles = _chunks(ensemble_params, sample_chunk or
+                                len(ensemble_params))
+        else:
+            # each chunk drawn when it runs: at most sample_chunk sets exist
+            ensembles = (estimator.ensemble_params(min(step, samples - i),
+                                                   generator=generator)
+                         for i in range(0, samples, step))
+        fwd = make_ensemble_fn(model, compute_dtype, mesh)
+        total, per_sample, members = None, [], 0
+        for ens in ensembles:
+            ens = prepare_ensemble(model, ens, batches[0][0], compute_dtype)
+            members += ensemble_size(ens)
+            s, kept = _ensemble_sums(fwd, ens, batches, stats,
+                                     _device(model))
+            total = s if total is None else total + s
+            if stats:
+                per_sample.append(np.concatenate(kept, axis=1))
+        stats_list = {"acc": [], "ece": [], "nll": [], "ent": []}
         if stats:
-            per_sample.append(np.concatenate(kept, axis=1))
-    stats_list = {"acc": [], "ece": [], "nll": [], "ent": []}
-    if stats:
-        stats_list = _running_stats(np.concatenate(per_sample, axis=0),
-                                    labels, members)
-    return total / members, labels, stats_list
+            stats_list = _running_stats(np.concatenate(per_sample, axis=0),
+                                        labels, members)
+        return total / members, labels, stats_list
 
 
 def eval_nn_and_bnn(model, estimator, data, samples: int = 30,
