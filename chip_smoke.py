@@ -51,14 +51,15 @@ It builds the CUDA kernels from ``curvature_tpu_torch/ops/cuda/csrc``,
 counts the tensor-core (HGMMA) instructions of each kernel in their SASS
 (every tile kernel must have them, the f32 pre-pass and the reduces
 none), holds each kernel (patch_gram_tiled, patch_gram_v2, patch_gram,
-sym_gram with its f32 pre-pass; f32 and bf16) against its plain PyTorch
-version on the card, including cases whose blocks each sum a full
-``MAX_CHAIN_TOKENS`` chain, then drives
+sym_gram with its f32 pre-pass, corr_gram; f32 and bf16) against its plain
+PyTorch version on the card, including cases whose blocks each sum a full
+``MAX_CHAIN_TOKENS`` chain (and corr_gram against its float64 Gram, at a
+bar a single TF32 pass fails), then drives
 three paths of ResNet-50 (ImageNet stem, 1000 classes, 224x224, MC=1,
 seeded weights), named after ``bench.py``'s rows:
 
   * ``resnet50_kfac_update_img_s``: the KFAC Laplace loop in f32 at B=16,
-    4 factor updates, split-damped inversion, a 30-sample posterior
+    4 factor updates (each 3 tiled + 1 v2 + 16 corr_gram launches), split-damped inversion, a 30-sample posterior
     ensemble, and the NN/BNN eval on 2 synthetic test batches;
   * ``resnet50_kfac_update_bf16_b32_img_s``: KFAC updates with
     ``compute_dtype=bfloat16`` at B=32 (layer2.0.conv2 through the v2
@@ -125,9 +126,9 @@ pixels off) and the committed JAX loader batches bit for bit, one
 thread's decode and load ms per ImageNet-shaped JPEG,
 ``ParallelDecodeLoader``'s img/s, then under ``build/images`` an
 ImageNet-style tree of fixture copies: ``factors`` on ResNet-50 at 224²
-from the JPEG folder (3 tiled + 1 v2 an update, its loop and update
-calls timed), ``evaluate --ood`` to the art folder and ``factors --data
-gtsrb`` on PPMs (8 + 1 an update).
+from the JPEG folder (3 tiled + 1 v2 + 16 corr an update, its loop and
+update calls timed), ``evaluate --ood`` to the art folder and ``factors
+--data gtsrb`` on PPMs (8 + 1 an update).
 
 Then the figures (``figures_phase``, ROADMAP item 7): the files that the
 ``--plot`` CLIs above wrote under JAX's names (ResNet-18's five OOD
@@ -199,7 +200,7 @@ Gram kernel but ResNet-50's updates, by JAX's routes.
 Then the parallel phase (``parallel_phase``, ROADMAP item 10a): a world
 of one over NCCL, where the ResNet-50 f32 B=16 KFAC update through
 ``use_mesh(data:1)`` must equal the single path's (``PAR_ONE_RTOL``;
-3 tiled + 1 v2 launches) and both update rates are printed, and the
+3 tiled + 1 v2 + 16 corr launches) and both update rates are printed, and the
 ResNet-18 ``factors --parallel`` CLI under ``build/parallel`` must write
 its plain run's file; then two gloo ranks on the one card, this script
 spawned twice (``--parallel_rank``), whose ResNet-18 CIFAR KFAC factors
@@ -263,6 +264,12 @@ DENSE_LAYER = "layer1.0.conv1"
 DENSE_C = 16
 PATHS = ("resnet50_kfac_update_img_s", "resnet50_kfac_update_bf16_b32_img_s",
          "resnet50_kfac_update_bf16_sub4_img_s")
+#: corr_gram launches of one ResNet-50 update at 224², any batch, f32 or
+#: bf16: two a call (products, assemble) in each of the 8 layers that take
+#: the correlation route (stride 1, 3x3, C >= 128, extent >= 14):
+#: layer2.1-3.conv2 at 28² and layer3.1-5.conv2 at 14²; none where
+#: token_subsample < 1 closes that route
+R50_CORR = 2 * 8
 #: the pipeline phase: the ResNet-18 factors runs whose launches are read
 R18_PATHS = ("resnet18_synthetic_factors_kfac_f32",
              "resnet18_synthetic_factors_kfac_bf16")
@@ -429,15 +436,20 @@ ZOO_BATCH, ZOO_SAMPLES = 8, 2
 ZOO_DAMPING = {"densenet121": (2312.0, 12791.0),
                "densenet161": (260.0, 17780.0)}
 ZOO_DEFAULT_DAMPING = (1e8, 1e4)
-#: (tiled, v2) kernel launches of one f32 update by JAX's routes, per
-#: (model, batch, extent): held against JAX's dispatch by
-#: tests/test_torch_zoo_classic_layers.py
-ZOO_ROUTES = {("densenet121", 16, 224): (16, 0),
-              ("densenet121", 32, 32): (58, 0),
-              ("densenet161", 8, 224): (0, 0), ("vgg16", 8, 224): (2, 0),
-              ("inception_v3", 8, 299): (10, 27),
-              ("googlenet", 8, 224): (9, 0), ("alexnet", 8, 224): (0, 0),
-              ("squeezenet1_1", 8, 224): (6, 0)}
+#: (tiled, v2, corr) A routes of one f32 update by JAX's routes, per
+#: (model, batch, extent): the tiled and v2 counts held against JAX's
+#: dispatch by tests/test_torch_zoo_classic_layers.py; each corr layer
+#: (the 3x3 convs over 128 or more channels at 14² or more: DenseNet's
+#: bottlenecked denseblocks 1-3, VGG-16's conv2_2 to conv5_3, GoogLeNet's
+#: four widest 3x3 branches) launches corr_gram twice
+ZOO_ROUTES = {("densenet121", 16, 224): (16, 0, 42),
+              ("densenet121", 32, 32): (58, 0, 0),
+              ("densenet161", 8, 224): (0, 0, 54),
+              ("vgg16", 8, 224): (2, 0, 10),
+              ("inception_v3", 8, 299): (10, 27, 0),
+              ("googlenet", 8, 224): (9, 0, 4),
+              ("alexnet", 8, 224): (0, 0, 0),
+              ("squeezenet1_1", 8, 224): (6, 0, 0)}
 #: VGG-16's classifier.0 has fan-in 25,088: its A factor (25,089 wide,
 #: 2.5 GB in f32) is past KFAC's default max_factor_dim of 16,384
 ZOO_MAX_FACTOR_DIM = 25089
@@ -461,7 +473,9 @@ ZOO_RECORD_PATHS = {
     "patch_gram_tiled_zoo": ("vgg16_kfac_update", "inception_v3_kfac_update",
                              "googlenet_kfac_update",
                              "squeezenet1_1_kfac_update"),
-    "patch_gram_v2_inception_v3": ("inception_v3_kfac_update",)}
+    "patch_gram_v2_inception_v3": ("inception_v3_kfac_update",),
+    "corr_gram": (ZOO_PATHS[0], "densenet161_kfac_update", "vgg16_kfac_update",
+                  "googlenet_kfac_update")}
 #: the training phase (JAX pipelines/training.py, optim.py,
 #: estimators/swag.py, pipelines/loss_landscape.py), under its own root: a
 #: weights/lenet5_mnist.npz under PIPE_ROOT would take the bundled
@@ -501,10 +515,11 @@ LANDSCAPE_R18_POINTS = 11
 #: f32, MC=1, 1000 classes, under the suite's names
 TRANSFORMER_PATHS = ("vit_b16_kfac_update_img_s", "swin_t_kfac_update_img_s",
                      "maxvit_t_kfac_update_img_s")
-#: (tiled, v2) launches of one f32 MaxViT-T update at 224², B=16: stem.1.0
-#: (3x3 s1, C=64 at 112²); none in bf16 (held against JAX's dispatch by
-#: tests/test_torch_zoo_transformers.py)
-MAXVIT_ROUTES = (1, 0)
+#: (tiled, v2, corr) A routes of one f32 MaxViT-T update at 224², B=16:
+#: stem.1.0 (3x3 s1, C=64 at 112²); none in bf16 (the tiled and v2
+#: counts held against JAX's dispatch by
+#: tests/test_torch_zoo_transformers.py); no corr layer (64 channels)
+MAXVIT_ROUTES = (1, 0, 0)
 #: ViT-B/16's stacked factors against the unrolled model's, of max (GPT-2's
 #: stacked slices came within 3.8e-6 on this card)
 SCAN_RTOL = 1e-5
@@ -566,6 +581,7 @@ PAR_PATHS = ("resnet50_kfac_update_mesh_data1",
              "resnet18_kfac_update_gloo_data2_rank1")
 PAR_RECORD_PATHS = {"patch_gram_tiled": PAR_PATHS[:1],
                     "patch_gram_v2": PAR_PATHS[:1],
+                    "corr_gram": PAR_PATHS[:1],
                     "patch_gram_tiled_resnet18": PAR_PATHS[1:],
                     "patch_gram_v2_resnet18": PAR_PATHS[1:]}
 PAR_ROOT = "build/parallel"
@@ -634,6 +650,7 @@ IMG_PATHS = ("resnet50_imagenet_folder_factors_kfac_f32",
              "resnet18_gtsrb_folder_factors_kfac_f32")
 IMG_RECORD_PATHS = {"patch_gram_tiled": IMG_PATHS[:1],
                     "patch_gram_v2": IMG_PATHS[:1],
+                    "corr_gram": IMG_PATHS[:1],
                     "patch_gram_tiled_resnet18": IMG_PATHS[1:],
                     "patch_gram_v2_resnet18": IMG_PATHS[1:]}
 IMG_TRAIN, IMG_VAL, IMG_ART, IMG_GTSRB = (4, 64), 32, (2, 16), (
@@ -642,8 +659,9 @@ IMG_ARGV = ["--model", "resnet50", "--data", "imagenet", "--batch_size",
             str(BATCH), "--mc_samples", "1", "--estimator", "kfac"]
 GTSRB_ARGV = ["--model", "resnet18", "--data", "gtsrb", "--batch_size",
               "32", "--mc_samples", "1", "--estimator", "kfac"]
-#: ResNet-50 f32 B=16 at 224²: (tiled, v2) A routes an update (PATHS[0])
-IMG_ROUTES = (3, 1)
+#: ResNet-50 f32 B=16 at 224²: (tiled, v2, corr) A routes an update
+#: (PATHS[0]; R50_CORR)
+IMG_ROUTES = (3, 1, R50_CORR // 2)
 #: the threads of the ParallelDecodeLoader rate, and the phase's budget
 #: (seconds)
 IMG_WORKERS, IMG_BUDGET_S = 8, 40.0
@@ -820,6 +838,8 @@ REPLACES = {
     "patch_gram_v2": "curvature_tpu/ops/pallas/patch_gram.py:229",
     "patch_gram": "curvature_tpu/ops/pallas/patch_gram.py:114",
     "sym_gram": "curvature_tpu/ops/pallas/sym_gram.py:85",
+    "corr_gram": "no Pallas kernel: curvature_tpu/ops/corr_gram.py is plain "
+                 "XLA; on CUDA, the torch composition of ops/corr_gram.py",
 }
 
 
@@ -854,21 +874,31 @@ def add_device_times(records):
     and its sum, ``device_ms``: the kernels' own time, where ``ms`` also
     holds the host's gaps between back-to-back wrapper calls that cannot
     be enqueued as fast as the card runs them (kernels of ~0.1 ms); and
-    the shares of the split reduce and the f32 pre-pass in it. Run after
-    the paths: a profiler run slows the host's later launches."""
+    the shares of the split reduce, the f32 pre-pass and the correlation
+    Gram's assemble in it (and that Gram's device time at each of its
+    shapes). Run after the paths: a profiler run slows the host's later
+    launches."""
     for rec in records:
         by_kernel = device_ms_by_kernel(rec.pop("call"))
         rec["device_ms_by_kernel"] = by_kernel
         rec["device_ms"] = sum(by_kernel.values())
-        for part in ("reduce", "presplit"):
+        for part in ("reduce", "presplit", "assemble"):
             rec[f"device_ms_{part}"] = sum(
                 v for k, v in by_kernel.items() if f"{part}_kernel" in k)
+        for key, fn in rec.pop("calls_by_shape", {}).items():
+            rec["by_shape"][key]["device_ms"] = sum(
+                device_ms_by_kernel(fn).values())
         log(f"{rec['name']}: {rec['ms']:.4f} ms, device {rec['device_ms']:.4f}"
             f" ms ({rec['gather']} gather; {rec['tile']}), plain "
             f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f} / f32 "
             f"out {rec['library_f32_out_ms']}, bound {rec['bound_ms']:.4f} "
             f"({rec['bound_by']}); by kernel " + ", ".join(
                 f"{k} {v:.4f}" for k, v in rec["device_ms_by_kernel"].items()))
+        for key, t in rec.get("by_shape", {}).items():
+            log(f"  {rec['name']} {key}: {t['ms']:.4f} ms a call (host "
+                f"{t['host_ms']:.4f}), device {t['device_ms']:.4f} ms, "
+                f"plain {t['plain_ms']:.4f} ms; {t['blocks']} blocks of "
+                f"{t['items']} rectangles")
 
 
 def device_ms_by_kernel(fn, calls=5):
@@ -969,7 +999,9 @@ def time_yardsticks(dtype, p_of):
 KERNEL_OF = {("patch", "f32"): "gram_tf32x3_wgmma_kernel",
              ("patch", "bf16"): "gram_wgmma_kernel",
              ("sym", "f32"): "sym_tf32x3_wgmma_kernel",
-             ("sym", "bf16"): "sym_wgmma_kernel"}
+             ("sym", "bf16"): "sym_wgmma_kernel",
+             ("corr", "f32"): "corr_tf32x3_wgmma_kernel",
+             ("corr", "bf16"): "corr_tf32x3_wgmma_kernel"}
 
 
 def hgmma_counts(build):
@@ -983,7 +1015,7 @@ def hgmma_counts(build):
     tool = shutil.which("cuobjdump") or str(Path(build._nvcc()).parent
                                              / "cuobjdump")
     counts = {}
-    for name in ("patch_gram", "sym_gram"):
+    for name in ("patch_gram", "sym_gram", "corr_gram"):
         sass = subprocess.run([tool, "-sass", str(build.library_path(name))],
                               capture_output=True, text=True, timeout=120,
                               check=True).stdout
@@ -1016,7 +1048,7 @@ def _record(name, dtype, shape, abs_err, rel, worst, cases, **times):
             "dtype": dtype,
             "route": "cuda",
             "source": "curvature_tpu_torch/ops/cuda/csrc/"
-                      + ("sym_gram.cu" if name == "sym_gram"
+                      + (f"{name}.cu" if name in ("sym_gram", "corr_gram")
                          else "patch_gram.cu"),
             "replaces": REPLACES[function], "launches": None,
             "launches_by_path": None, "max_abs_err": abs_err,
@@ -1188,6 +1220,141 @@ def check_sym_kernel(tsg, dtype):
                  dtype),
         **time_yardsticks(dtype, lambda: x))
     rec["chain_cap_rel_err"] = check_sym_chain(tsg, tdt, rng)
+    return [rec]
+
+
+#: ResNet-50's correlation-route shapes at B=128 (layer2.1-3.conv2 and
+#: layer3.1-5.conv2, 3x3 SAME); the first is the record's shape
+CORR_CASES = [((128, 28, 28, 128), (3, 3), "SAME"),
+              ((128, 14, 14, 256), (3, 3), "SAME")]
+#: the correlation Gram against its float64 value: the worst error of an
+#: off-diagonal entry over the largest off-diagonal entry. The diagonal
+#: (and max|G|) grows as the tokens, an off-diagonal sum and the rounding
+#: of any sum as their square root, so a bar of max|G| loses sight of a
+#: lower precision as N grows, and this one does not. On the card the
+#: kernel read at most 1.09e-6 (f32, tests/test_torch_corr_gram.py's
+#: shapes and CORR_CASES), the same Grams of operands rounded to TF32 (a
+#: single TF32 pass) at least 2.75e-4 and of bf16 operands 2.27e-3
+CORR_OFF_RTOL = 1e-5
+
+
+def corr_flops(shape, kernel_size):
+    """The correlation Gram's FLOP: 2 * N * C^2 * (2 kh kw - kh - kw + 1)
+    (2k^2 - 2k + 1 full-field products for a k x k kernel)."""
+    b, h, w, c = shape
+    k2 = kernel_size[0] * kernel_size[1]
+    taps = 2 * k2 - kernel_size[0] - kernel_size[1] + 1
+    return 2 * b * h * w * c * c * taps
+
+
+def gram64(x, kernel_size, pads):
+    """The [F+1, F+1] patch Gram with its ones column, in float64, from the
+    unfolded patch matrix (an oracle independent of both routes)."""
+    import torch
+    import torch.nn.functional as F
+    (pt, pb), (pl, pr) = pads
+    xp = F.pad(x.double().permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    p = F.unfold(xp, kernel_size)
+    p = p.transpose(1, 2).reshape(-1, p.shape[1])
+    p = torch.cat([p, p.new_ones(p.shape[0], 1)], 1)
+    return p.T @ p
+
+
+def off_diagonal_err(got, ref):
+    """The largest off-diagonal |got - ref| over the largest off-diagonal
+    |ref|."""
+    import torch
+    off = ~torch.eye(ref.shape[0], dtype=torch.bool, device=ref.device)
+    return float((got.double() - ref)[off].abs().max()
+                 / ref[off].abs().max())
+
+
+def tf32_round(x):
+    """``x`` rounded to TF32 (10 mantissa bits, to nearest): the operands
+    of a single TF32 pass."""
+    import torch
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def check_corr_kernel(ccg, tcorr, dtype):
+    """The correlation Gram's kernel on CORR_CASES in ``dtype``: two
+    launches a call, the same bits from a second call, within GRAM_RTOL of
+    the composition and within CORR_OFF_RTOL of the float64 Gram off the
+    diagonal, where (in f32) a single TF32 pass and bf16 operands must
+    fail that bar.
+    Each shape timed (CUDA events over back-to-back calls, the host's
+    enqueue time a call, the composition's time); the record is the
+    first shape's, its bound the 3xTF32 one of corr_flops. Returns the
+    records."""
+    import numpy as np
+    import torch
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dtype]
+    rng = np.random.default_rng(3)
+    worst, by_shape, calls, main = 0.0, {}, {}, None
+    for shape, ks, pad in CORR_CASES:
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).cuda().to(tdt)
+        pads = ccg.resolve_padding(pad, shape[1], shape[2], ks)
+        before = ccg.corr_gram.launches
+        got = _launch_twice(ccg.corr_gram, x, ks, pad)
+        launches = (ccg.corr_gram.launches - before) / 2
+        want = tcorr.corr_patch_gram_plain(x, ks, pad)
+        abs_err = float((got - want).abs().max())
+        rel = abs_err / float(want.abs().max())
+        ref = gram64(x, ks, pads)
+        off = off_diagonal_err(got, ref)
+        controls = {} if dtype == "bf16" else {
+            "tf32_1x": off_diagonal_err(gram64(tf32_round(x), ks, pads),
+                                        ref),
+            "bf16_operands": off_diagonal_err(
+                gram64(x.bfloat16(), ks, pads), ref)}
+        del ref
+        log(f"  corr_gram {dtype} {shape} k={ks} {pad}: {launches:.0f} "
+            f"launches a call, rel={rel:.3e} (composition), off-diagonal "
+            f"{off:.3e} (float64; bar {CORR_OFF_RTOL})" + "".join(
+                f", {k} {v:.3e}" for k, v in controls.items()))
+        if not (torch.isfinite(got).all() and rel <= GRAM_RTOL
+                and off <= CORR_OFF_RTOL and launches == 2):
+            raise AssertionError(f"corr_gram {dtype} {shape}: rel {rel:.3e}"
+                                 f", off-diagonal {off:.3e}, {launches} "
+                                 "launches")
+        if any(v <= CORR_OFF_RTOL for v in controls.values()):
+            raise AssertionError(f"corr_gram {shape}: a lower precision "
+                                 f"passes the bar: {controls}")
+        worst = max(worst, rel)
+        plan = ccg.make_plan(*shape, ks, pads, ccg._resident_blocks(
+            0, dtype == "bf16", ccg.vector_gather(x)))
+        call = functools.partial(ccg.corr_gram, x, ks, pad)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        key = "x".join(map(str, shape))
+        by_shape[key] = {
+            "ms": cuda_ms(call), "host_ms": host_ms,
+            "plain_ms": cuda_ms(lambda: tcorr.corr_patch_gram_plain(
+                x, ks, pad)),
+            "max_rel_err": rel, "off_diagonal_err": off,
+            "controls_off_diagonal_err": controls,
+            "blocks": len(plan.blocks), "items": len(plan.items),
+            "max_tokens_a_block": max(plan.per_split)}
+        calls[key] = call
+        if main is None:
+            main = (x, ks, pads, abs_err, rel, call, corr_flops(shape, ks))
+    x, ks, pads, abs_err, rel, call, flops = main
+    rec = _record(
+        "corr_gram", dtype, x.shape, abs_err, rel, worst, len(CORR_CASES),
+        gather="vector" if ccg.vector_gather(x) else "scalar",
+        ms=by_shape["x".join(map(str, x.shape))]["ms"], call=call,
+        plain_ms=by_shape["x".join(map(str, x.shape))]["plain_ms"],
+        **bounds(flops, x.numel() * x.element_size()
+                 + (x.shape[-1] * ks[0] * ks[1] + 1) ** 2 * 4, "f32"),
+        **time_yardsticks(dtype, lambda: unfold(x, ks, pads, (1, 1))))
+    rec.update(flops=flops, launches_per_call=2, by_shape=by_shape,
+               calls_by_shape=calls)
     return [rec]
 
 
@@ -1540,13 +1707,15 @@ class Counters:
     attribute)}."""
 
     def __init__(self, tpg, tsg):
+        from curvature_tpu_torch.ops.cuda import corr_gram as ccg
         self.fns = {"patch_gram_tiled": (tpg.patch_gram_tiled, "launches"),
                     "patch_gram_v2": (tpg.patch_gram_v2, "launches"),
                     "patch_gram_v2_any_stride": (tpg.patch_gram_v2,
                                                  "any_stride_launches"),
                     "patch_gram": (tpg.patch_gram, "launches"),
                     "sym_gram": (tsg.sym_gram, "launches"),
-                    "tf32_presplit": (tsg.tf32_presplit, "launches")}
+                    "tf32_presplit": (tsg.tf32_presplit, "launches"),
+                    "corr_gram": (ccg.corr_gram, "launches")}
 
     def reset(self):
         for fn, attr in self.fns.values():
@@ -2216,42 +2385,52 @@ def grouped_phase(estimators, models, counters, smi, dev, profile=False):
 
 
 def kernel_route_check(est, plain_kw, x, expect, what):
-    """The (tiled, v2) counts of ``est``'s A routes on ``x`` (one
+    """The (tiled, v2, corr) counts of ``est``'s A routes on ``x`` (one
     capture's input shapes) must be ``expect``; then every kernel-routed
     layer's A factor from that capture against a ``use_kernels=False``
-    KFAC's (``plain_kw`` its other arguments), under GRAM_RTOL: the
-    kernels held against their plain versions at the shapes the path gives
-    them. Returns the worst error, rel to max."""
+    KFAC's (``plain_kw`` its other arguments), and every corr layer's Gram
+    against the torch composition, under GRAM_RTOL: the kernels held
+    against their plain versions at the shapes the path gives them.
+    Returns the worst error, rel to max."""
     import torch
+    from curvature_tpu_torch.ops import corr_gram as tcorr
     cap = est.capture(x, labels=torch.zeros(x.shape[0], dtype=torch.long,
                                             device=x.device))
     routes = {n: est.a_route(m, cap.acts[n].shape,
                              cap.acts[n].element_size())
               for n, m in est.metas.items()}
-    counts = tuple(list(routes.values()).count(r) for r in ("tiled", "v2"))
+    kinds = ("tiled", "v2", "corr")
+    counts = tuple(list(routes.values()).count(r) for r in kinds)
     if counts != tuple(expect):
-        raise AssertionError(f"{what}: (tiled, v2) routes {counts}, want "
-                             f"{tuple(expect)}")
-    names = [n for n, r in routes.items() if r in ("tiled", "v2")]
+        raise AssertionError(f"{what}: (tiled, v2, corr) routes {counts}, "
+                             f"want {tuple(expect)}")
+    names = [n for n, r in routes.items() if r in kinds]
+    patch = [n for n in names if routes[n] != "corr"]
+    plain = est.__class__(est.model, use_kernels=False, layer_filter=patch,
+                          **plain_kw) if patch else None
     worst = 0.0
-    if names:
-        plain = est.__class__(est.model, use_kernels=False,
-                              layer_filter=names, **plain_kw)
-        for name in names:
-            act = cap.acts[name]
-            got = est._a_factor(est.metas[name], act)
+    for name in names:
+        act, meta = cap.acts[name], est.metas[name]
+        if routes[name] == "corr":
+            args = (act, meta.kernel_size, meta.padding, meta.has_bias)
+            got = tcorr.corr_patch_gram(*args)
+            want = tcorr.corr_patch_gram_plain(*args)
+        else:
+            got = est._a_factor(meta, act)
             want = plain._a_factor(plain.metas[name], act)
-            rel = float((got - want).abs().max() / want.abs().max())
-            worst = max(worst, rel)
-            if not (torch.isfinite(got).all() and rel <= GRAM_RTOL):
-                raise AssertionError(
-                    f"{what} {name} ({routes[name]}, input "
-                    f"{tuple(act.shape)}): A factor rel err {rel:.3e}")
+        rel = float((got - want).abs().max() / want.abs().max())
+        worst = max(worst, rel)
+        if not (torch.isfinite(got).all() and rel <= GRAM_RTOL):
+            raise AssertionError(
+                f"{what} {name} ({routes[name]}, input "
+                f"{tuple(act.shape)}): A factor rel err {rel:.3e}")
+    if names:
         shapes = sorted({(routes[n], tuple(cap.acts[n].shape),
                           est.metas[n].kernel_size) for n in names})
         log(f"{what}: {len(names)} kernel-routed A factors vs "
-            f"use_kernels=False, worst rel {worst:.3e} (bar {GRAM_RTOL}); "
-            f"(route, input, kernel): {shapes}")
+            f"use_kernels=False and the corr composition, worst rel "
+            f"{worst:.3e} (bar {GRAM_RTOL}); (route, input, kernel): "
+            f"{shapes}")
     return worst
 
 
@@ -2287,8 +2466,9 @@ def zoo_phase(estimators, models, counters, smi, dev, profile=False):
         models.load_jax_variables(model, models.seeded_variables(model, 0))
         return model.to(memory_format=torch.channels_last)
 
-    def launches(tiled, v2, n=1):
-        return dict(none, patch_gram_tiled=tiled * n, patch_gram_v2=v2 * n)
+    def launches(tiled, v2, corr, n=1):
+        return dict(none, patch_gram_tiled=tiled * n, patch_gram_v2=v2 * n,
+                    corr_gram=2 * corr * n)
 
     # (a) DenseNet-121: the KFAC loop, f32 then bf16 + token_subsample
     t0 = time.perf_counter()
@@ -2476,7 +2656,8 @@ def zoo_cli(models, counters, smi, rng):
                        smi, "densenet121 cifar10 factors kfac")
     routes = ZOO_ROUTES["densenet121", 32, 32]
     want = dict(none, patch_gram_tiled=routes[0] * ZOO_CLI_UPDATES,
-                patch_gram_v2=routes[1] * ZOO_CLI_UPDATES)
+                patch_gram_v2=routes[1] * ZOO_CLI_UPDATES,
+                corr_gram=2 * routes[2] * ZOO_CLI_UPDATES)
     if got != want or est.num_updates != ZOO_CLI_UPDATES:
         raise AssertionError(f"{ZOO_CLI_PATH}: launches {got}, want {want};"
                              f" {est.num_updates} updates")
@@ -2579,7 +2760,8 @@ def transformer_phase(estimators, models, counters, smi, dev, profile=False):
     expect = {TRANSFORMER_PATHS[0]: none, TRANSFORMER_PATHS[1]: none,
               TRANSFORMER_PATHS[2]: dict(
                   none, patch_gram_tiled=MAXVIT_ROUTES[0] * UPDATES,
-                  patch_gram_v2=MAXVIT_ROUTES[1] * UPDATES)}
+                  patch_gram_v2=MAXVIT_ROUTES[1] * UPDATES,
+                  corr_gram=2 * MAXVIT_ROUTES[2] * UPDATES)}
 
     # (a) ViT-B/16: the suite's loop with the qkv split
     t0 = time.perf_counter()
@@ -3671,7 +3853,8 @@ def moe_phase(estimators, models, counters, smi, dev, profile=False,
     imgs = [(x, torch.arange(BATCH, device=dev))
             for x, _ in nchw_batches(rng, 1, BATCH, dev)]
     r50_ms = option_timings(estimators, r50, imgs, gen, counters,
-                            dict(none, patch_gram_tiled=3, patch_gram_v2=1),
+                            dict(none, patch_gram_tiled=3, patch_gram_v2=1,
+                                 corr_gram=R50_CORR),
                             "resnet50 f32 B=16", smi)
     log(f"kfac options, ms per update: gpt2 124m {json.dumps(gpt_ms)}; "
         f"resnet50 {json.dumps(r50_ms)} ({smi})")
@@ -3892,7 +4075,8 @@ def images_phase(counters, smi, update_img_s=None):
     n_train = IMG_TRAIN[0] * IMG_TRAIN[1]
     updates = n_train // BATCH
     want = dict(none, patch_gram_tiled=IMG_ROUTES[0] * updates,
-                patch_gram_v2=IMG_ROUTES[1] * updates)
+                patch_gram_v2=IMG_ROUTES[1] * updates,
+                corr_gram=2 * IMG_ROUTES[2] * updates)
     if got != want or est.num_updates != updates or len(calls) != updates:
         raise AssertionError(f"{IMG_PATHS[0]}: launches {got}, want {want}; "
                              f"{est.num_updates} updates")
@@ -4637,7 +4821,9 @@ def main(argv=None):
         from curvature_tpu_torch import estimators, models
         from curvature_tpu_torch.data import images, native
         from curvature_tpu_torch.eval import eval_nn
+        from curvature_tpu_torch.ops import corr_gram as tcorr
         from curvature_tpu_torch.ops.cuda import build
+        from curvature_tpu_torch.ops.cuda import corr_gram as ccg
         from curvature_tpu_torch.ops.cuda import patch_gram as tpg
         from curvature_tpu_torch.ops.cuda import sym_gram as tsg
     except ImportError as e:
@@ -4766,12 +4952,18 @@ def main(argv=None):
     for dtype in ("f32", "bf16"):
         records += check_patch_kernels(tpg, dtype)
         records += check_sym_kernel(tsg, dtype)
+        records += check_corr_kernel(ccg, tcorr, dtype)
     for rec in records:
-        fam = "sym" if rec["function"] == "sym_gram" else "patch"
-        mod = tsg if fam == "sym" else tpg
-        edge = mod.BF16_TILE if rec["dtype"] == "bf16" else mod.F32_TILE
+        fam = {"sym_gram": "sym", "corr_gram": "corr"}.get(
+            rec["function"], "patch")
+        mod = {"sym": tsg, "patch": tpg}.get(fam)
+        edge = ccg.TILE if fam == "corr" else mod.BF16_TILE \
+            if rec["dtype"] == "bf16" else mod.F32_TILE
         kernel = KERNEL_OF[fam, rec["dtype"]]
-        if rec["dtype"] == "f32":
+        if fam == "corr" and rec["dtype"] == "bf16":
+            how = (f"3xTF32 wgmma m64n{edge}k8 on tf32 tensor cores, bf16 "
+                   "widened exactly (zero lo halves)")
+        elif rec["dtype"] == "f32":
             how = f"3xTF32 wgmma m64n{edge}k8 on tf32 tensor cores"
         else:
             how = f"wgmma m64n{edge}k16 on bf16 tensor cores"
@@ -4807,7 +4999,8 @@ def main(argv=None):
                              "on CUDA")
     by_path[PATHS[0]] = drive_updates(
         est, batches, gen, counters, PATHS[0],
-        dict(none, patch_gram_tiled=3 * UPDATES, patch_gram_v2=UPDATES))
+        dict(none, patch_gram_tiled=3 * UPDATES, patch_gram_v2=UPDATES,
+             corr_gram=R50_CORR * UPDATES))
     ensemble, _ = laplace_tail(est, model, test_data, gen, counters, "kfac")
     counters.reset()
     nn_probs, labels = eval_nn(model, test_data)
@@ -4820,7 +5013,7 @@ def main(argv=None):
     est16 = estimators.KFAC(model, compute_dtype=torch.bfloat16)
     by_path[PATHS[1]] = drive_updates(
         est16, batches_b32, gen, counters, PATHS[1],
-        dict(none, patch_gram_v2=UPDATES))
+        dict(none, patch_gram_v2=UPDATES, corr_gram=R50_CORR * UPDATES))
 
     # 3c. bf16 with token_subsample=0.25 at B=16: no Gram kernel
     est_sub = estimators.KFAC(model, compute_dtype=torch.bfloat16,
@@ -4851,11 +5044,12 @@ def main(argv=None):
     for rec in records:
         # a record's shapes are ResNet-50's or ResNet-18's: it counts the
         # launches of its wrapper on that network's paths of its dtype (the
-        # zoo's records count the zoo's paths, below)
+        # zoo's records count the zoo's paths, below; corr_gram's count
+        # its wrapper on every path)
         base = rec["name"].split("_bf16")[0]
         r18 = base.endswith("_resnet18")
-        paths = (() if base in ZOO_RECORD_PATHS
-                 or base in TRANSFORMER_RECORD_PATHS else
+        zoo = base in ZOO_RECORD_PATHS or base in TRANSFORMER_RECORD_PATHS
+        paths = (() if zoo and base != "corr_gram" else
                  (R18_PATHS[:1] + (TRAIN_PATH,) if rec["dtype"] == "f32"
                   else R18_PATHS[1:])
                  if r18 else
@@ -5257,8 +5451,8 @@ def spawn_ranks(out_dir):
 def world_of_one(estimators, models, counters, smi, dev, root):
     """A world of one over NCCL: the ResNet-50 f32 B=16 KFAC update
     through ``use_mesh(data:1)`` against the single path on the same batch
-    and labels (identity expected; 3 tiled + 1 v2 launches, as the single
-    path's) and the ResNet-18 ``factors --parallel``
+    and labels (identity expected; 3 tiled + 1 v2 + 16 corr launches, as
+    the single path's) and the ResNet-18 ``factors --parallel``
     CLI against its plain run. Returns the launches by path and the
     function that times both rates; the caller destroys the process group
     after it."""
@@ -5287,7 +5481,7 @@ def world_of_one(estimators, models, counters, smi, dev, root):
     meshed.update(batches[0], labels=labels)
     torch.cuda.synchronize()
     got = counters.read()
-    want = dict(none, patch_gram_tiled=3, patch_gram_v2=1)
+    want = dict(none, patch_gram_tiled=3, patch_gram_v2=1, corr_gram=R50_CORR)
     if got != want:
         raise AssertionError(f"{PAR_PATHS[0]}: launches {got}, want {want}")
     by_path[PAR_PATHS[0]] = got
@@ -5404,15 +5598,18 @@ def float64_batch_norm():
 
 
 def _routes(kfac, acts, batch):
-    """Patch-Gram launches of one KFAC update whose conv inputs have the
-    shapes of ``acts`` at batch ``batch``, by JAX's routes."""
-    tally = {"patch_gram_tiled": 0, "patch_gram_v2": 0}
+    """Gram-kernel launches of one KFAC update whose conv inputs have the
+    shapes of ``acts`` at batch ``batch``, by JAX's routes (two a corr
+    layer of one group on the card)."""
+    tally = {"patch_gram_tiled": 0, "patch_gram_v2": 0, "corr_gram": 0}
     for name, meta in kfac.metas.items():
         act = acts[name]
         r = kfac.a_route(meta, (batch,) + tuple(act.shape[1:]),
                          act.element_size())
         if f"patch_gram_{r}" in tally:
             tally[f"patch_gram_{r}"] += 1
+        elif r == "corr" and meta.groups == 1 and act.is_cuda:
+            tally["corr_gram"] += 2
     return tally
 
 
@@ -5632,20 +5829,22 @@ def ma_noise(est, dev):
 
 def ma_routes(est, model, x):
     """The kernel launches one update makes by the routes JAX's jit picks
-    from the whole input's shapes (``KFAC.a_route``)."""
+    from the whole input's shapes (``KFAC.a_route``): the patch kernels
+    under ``use_kernels``, two corr_gram launches a corr layer of one
+    group on the card (a row block's too)."""
     import torch
     from curvature_tpu_torch.nn import Context
     ctx = Context(track=list(est.metas), probes=False)
     with torch.no_grad():
         model(x, ctx)
-    got = {"patch_gram_tiled": 0, "patch_gram_v2": 0}
-    if not est.use_kernels:
-        return got
+    got = {"patch_gram_tiled": 0, "patch_gram_v2": 0, "corr_gram": 0}
     for name, meta in est.metas.items():
         act = ctx.acts[name]
         route = est.a_route(meta, act.shape, act.element_size())
-        if route in ("tiled", "v2"):
+        if route in ("tiled", "v2") and est.use_kernels:
             got[f"patch_gram_{route}"] += 1
+        elif route == "corr" and meta.groups == 1 and act.is_cuda:
+            got["corr_gram"] += 2
     return got
 
 
@@ -6031,7 +6230,7 @@ def count_record_launches(records, by_path, record_paths):
             key = (p, rec["counter"])
             counted[key] = counted.get(key, 0) + by_path[p][rec["counter"]]
     for p, got in by_path.items():
-        for counter in ("patch_gram_tiled", "patch_gram_v2"):
+        for counter in ("patch_gram_tiled", "patch_gram_v2", "corr_gram"):
             if got[counter] != counted.get((p, counter), 0):
                 raise AssertionError(f"{p}: {got[counter]} {counter} "
                                      "launches under no kernel record")

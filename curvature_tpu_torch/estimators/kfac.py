@@ -15,11 +15,13 @@ depth-stacked (ScanBlocks) Dense layers and blocked-G vocabulary heads:
   solve:  G_d^-1 d A_d^-1 = (g_chol g_chol^T) d (a_chol a_chol^T).
 
 The conv A factor is dispatched three ways, as in JAX (kfac.py:349-400):
-the correlation Gram (ops/corr_gram.py) for stride-1 3x3 with many
-channels and a large extent; the CUDA patch-Gram kernels
+the correlation Gram (ops/corr_gram.py, a kernel on CUDA) for stride-1
+3x3 with many channels and a large extent; the CUDA patch-Gram kernels
 (ops/cuda/patch_gram.py) where ``select_patch_gram`` picks one; the patch
-extraction + Gram otherwise. ``use_kernels`` is the JAX ``use_pallas``:
-``"auto"`` enables the kernels on CUDA; ``False`` is the A/B switch.
+extraction + Gram otherwise. ``use_kernels`` (JAX's ``use_pallas``):
+``"auto"`` enables the patch-Gram kernels on CUDA, ``False`` is their A/B
+switch; the correlation route takes its kernel wherever the input is on
+CUDA.
 
 ``token_subsample < 1`` estimates the conv factors from a strided grid of
 spatial positions, stride k = round(1/sqrt(token_subsample)) per dimension,

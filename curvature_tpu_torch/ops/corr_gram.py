@@ -10,17 +10,23 @@ A grouped conv (``groups`` > 1) correlates within-group channel pairs only
 ([G, cg, cg] per delta), giving the per-group blocks [G, Fg(+1), Fg(+1)]
 in the layout of ``estimators.base.grouped_act_tokens`` (JAX :26-29).
 
-The JAX version is plain XLA, so this is plain torch ops (matmuls over
-shifted slices), not a hand-written kernel.
+On a CUDA tensor with ``groups == 1`` the same mathematics runs as one
+hand-written kernel (``ops/cuda/corr_gram.py``, ``csrc/corr_gram.cu``):
+every product on the tensor cores in two launches, with no per-block
+torch op on the host. A CPU tensor, and the grouped route, take the torch
+composition below (matmuls over shifted slices), which is also the
+kernel's plain version.
 """
 from typing import Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
+from curvature_tpu_torch.ops.cuda.corr_gram import corr_gram
+from curvature_tpu_torch.ops.cuda.patch_gram import KERNEL_DTYPES
 from curvature_tpu_torch.ops.patches import resolve_padding
 
-__all__ = ["corr_patch_gram", "corr_gram_supported"]
+__all__ = ["corr_patch_gram", "corr_gram_supported", "corr_patch_gram_plain"]
 
 
 def corr_gram_supported(kernel_size, strides, groups: int = 1) -> bool:
@@ -42,6 +48,24 @@ def corr_patch_gram(x: torch.Tensor,
                     padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
                     has_bias: bool = True,
                     groups: int = 1) -> torch.Tensor:
+    """Unnormalized patch Gram for a stride-1 conv over NHWC ``x``
+    (:func:`corr_patch_gram_plain`'s contract): the CUDA kernel for a
+    CUDA tensor of one group, with input other than float32 or bfloat16
+    taken as float32 as the composition takes it; the composition
+    otherwise."""
+    if x.device.type == "cuda" and groups == 1:
+        if x.dtype not in KERNEL_DTYPES:
+            x = x.float()
+        return corr_gram(x.contiguous(), kernel_size, padding, has_bias)
+    return corr_patch_gram_plain(x, kernel_size, padding, has_bias, groups)
+
+
+def corr_patch_gram_plain(x: torch.Tensor,
+                          kernel_size: Tuple[int, int],
+                          padding: Union[str, Sequence[Tuple[int, int]]]
+                          = "SAME",
+                          has_bias: bool = True,
+                          groups: int = 1) -> torch.Tensor:
     """Unnormalized patch Gram for a stride-1 conv over NHWC ``x``:
     canonical (c, dy, dx) feature order, optional ones column last, f32
     output; ``[F(+1), F(+1)]`` for ``groups == 1``, the per-group blocks
