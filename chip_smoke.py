@@ -3787,7 +3787,9 @@ def moe_phase(estimators, models, counters, smi, dev, profile=False,
     chk = estimators.KFAC(model, loss="lm", layer_filter=MOE_CHECKED)
     cap = chk.capture(x, labels=y)
     chk._accumulate(cap)
-    xm = cap.acts[MOE_CHECKED].double()                   # [E, B, T, F]
+    # KFAC's capture keeps the routed rows: the masked stream rebuilt
+    xm = cap.routes[MOE_CHECKED].dense(
+        cap.acts[MOE_CHECKED]).double()                   # [E, B, T, F]
     t = xm.reshape(xm.shape[0], -1, xm.shape[-1])
     routed = (t != 0).any(-1)                              # [E, N]
     shares = routed.double().mean(-1).tolist()

@@ -238,6 +238,9 @@ class Estimator:
     #: these so the unused gradient path is never computed (capture.collect)
     need_param_grads = True
     need_probe_grads = True
+    #: whether the capture hands on an MoE expert layer's routed rows
+    #: (capture.collect ``routed``) instead of its masked stream
+    routed_streams = False
 
     @property
     def gram_probe_names(self):
@@ -714,7 +717,7 @@ class Estimator:
                        need_probe_grads=self.need_probe_grads,
                        loss=self.loss,
                        gram_probe_names=self.gram_probe_names,
-                       shard=shard)
+                       shard=shard, routed=self.routed_streams)
 
     def update(self, x: torch.Tensor, labels=None,
                generator: Optional[torch.Generator] = None,

@@ -64,7 +64,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from curvature_tpu_torch.nn.core import (
-    Context, LayerMeta, param_key, param_matrix)
+    Context, LayerMeta, Routes, param_key, param_matrix)
 from curvature_tpu_torch.parallel.mesh import (
     all_gather, all_reduce_tree, group_size)
 from curvature_tpu_torch.utils import monitor
@@ -130,6 +130,9 @@ class Captured:
                  layers captured through a gram tap (which then have no
                  ``probe_grads`` entry); None without taps.
     probe_gram_ntok: layer -> the token count N of each such Gram.
+    routes:      layer -> the ``Routes`` of an expert layer whose
+                 ``acts``/``probe_grads`` are its routed rows (``collect``'s
+                 ``routed``); empty otherwise.
     shard:       the rank's :class:`Shard` of a meshed capture, else None.
     """
     acts: Dict[str, torch.Tensor]
@@ -139,6 +142,7 @@ class Captured:
     param_grads: Dict[str, torch.Tensor] = field(default_factory=dict)
     probe_grams: Optional[Dict[str, torch.Tensor]] = None
     probe_gram_ntok: Optional[Dict[str, int]] = None
+    routes: Dict[str, Routes] = field(default_factory=dict)
     shard: Optional[Shard] = None
 
 
@@ -216,7 +220,7 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             loss: str = "cross_entropy",
             gram_probe_names=frozenset(),
             shard: Optional[Shard] = None,
-            remat: bool = False) -> Captured:
+            remat: bool = False, routed: bool = False) -> Captured:
     """Capture acts, probe gradients and parameter gradients for the layers
     in ``metas``.
 
@@ -233,6 +237,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     comes back as its per-sample token Gram (``probe_grams``); it needs
     ``need_probe_grads``. ``shard`` makes ``x`` and ``labels`` this
     rank's block of a meshed capture (the module docstring).
+    ``routed`` keeps the expert layers' routed rows (the module
+    docstring).
     """
     if loss not in ("cross_entropy", "lm", "gaussian"):
         raise ValueError(f"unknown loss {loss!r}: 'cross_entropy', 'lm' or "
@@ -271,6 +277,7 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     # the recomputation in the backward records again into ctx: keep the
     # forward's captures
     acts, probes = dict(ctx.acts), dict(ctx.probes)
+    routes = {n: r for n, r in ctx.routes.items() if n in metas}
     tap_accs, tap_tokens = dict(ctx.taps), dict(ctx.tap_tokens)
     if labels is None:
         full = logits if shard is None else all_gather(all_gather(
@@ -339,14 +346,23 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
             all_reduce_tree(list(param_grads.values()), shard.seq_group)
         param_grads = {n: all_gather(g, shard.sample_group)
                        for n, g in param_grads.items()}
+    acts = {n: acts[n] for n in metas}
+    probe_grads = ({n: torch.stack(v) for n, v in grads.items()}
+                   if need_probe_grads else {})
+    if not routed:
+        for n, r in routes.items():
+            acts[n] = r.dense(acts[n])
+            if n in probe_grads:
+                probe_grads[n] = r.dense(probe_grads[n])
+        routes = {}
     return Captured(
-        acts={n: acts[n] for n in metas},
-        probe_grads=({n: torch.stack(v) for n, v in grads.items()}
-                     if need_probe_grads else {}),
+        acts=acts,
+        probe_grads=probe_grads,
         logits=logits.detach(),
         batch_size=batch_size,
         param_grads=param_grads,
         probe_grams=({n: torch.stack(v) for n, v in grams.items()}
                      if taps else None),
         probe_gram_ntok=tap_tokens if taps else None,
+        routes=routes,
         shard=shard)

@@ -91,6 +91,14 @@ of 128, as JAX does), and so are the plain layers' G tokens (JAX
 :460-560). Both options change where a Gram is computed, never its
 value; neither touches the kernel routes.
 
+An MoE's expert layer takes the ``routed`` route: the capture hands on its
+routed rows (``Captured.routes``), and each held expert's A and G are the
+Grams of its own rows, divided as the masked stream's are, ``A_e = sum_{n
+routed to e} a_n a_n^T / N`` and ``G_e = (M^2 / N) sum g_n g_n^T`` over all
+N tokens: the ``stacked`` route's numbers without the ``[held, N, F]``
+stream. Its ``factor`` spans carry the ``rows`` and ``experts`` and time
+the device.
+
 Under a mesh (``Estimator.use_mesh``): a column-parallel layer (``tensor``
 axis; JAX :261-279, split attention and blocked G excluded) keeps its A
 whole and the row block of its G, ``g[:, rows]^T g`` from the whole
@@ -192,6 +200,7 @@ class KFAC(Estimator):
 
     need_param_grads = False
     shards_tensor_rows = True
+    routed_streams = True
 
     def __init__(self, model, *, use_kernels="auto",
                  token_subsample: float = 1.0, subsample_offset=(0, 0),
@@ -577,6 +586,13 @@ class KFAC(Estimator):
         pre_a, pre_g = (self._stacked_grams(cap, grams) if self.stack_grams
                         else ({}, {}))
         for name, meta in self.metas.items():
+            if name in cap.routes:
+                a_factor, g_factor = self._routed_factors(
+                    meta, cap.acts[name], cap.probe_grads[name],
+                    cap.routes[name], cap.batch_size)
+                state[name]["a"] += num_mc * a_factor
+                state[name]["g"] += g_factor
+                continue
             rows = self._tp_rows(name)
             probe = cap.probe_grads.get(name)
             block = (None if name in pre_a
@@ -622,6 +638,26 @@ class KFAC(Estimator):
             state[name]["a"] += num_mc * a_factor.to(self.dtype)
             state[name]["g"] += g_factor
         return state
+
+    def _routed_factors(self, meta, rows, probe_grad, routes, batch_size):
+        """(A ``[held, cols, cols]``, G ``[held, out, out]``) of an expert
+        layer from its routed rows ``[rows, in]`` and their ``[S, rows,
+        out]`` probe gradient: one Gram per held expert over its own rows,
+        each divided by the layer's N tokens (the module docstring)."""
+        o, n = routes.offsets, routes.num_tokens
+        with monitor.span("factor", rows.device, layer=meta.name, side="a",
+                          route="routed", rows=routes.rows,
+                          experts=routes.experts):
+            a = torch.stack([_gram_aligned(rows[o[e]:o[e + 1]], self.dtype)
+                             for e in range(routes.experts)]) / n
+        with monitor.span("factor", rows.device, layer=meta.name, side="g",
+                          route="routed", rows=routes.rows,
+                          experts=routes.experts):
+            g = torch.stack([
+                _gram_aligned(probe_grad[:, o[e]:o[e + 1]].reshape(
+                    -1, meta.out_features), self.dtype)
+                for e in range(routes.experts)]) * (batch_size ** 2 / n)
+        return a, g
 
     def _g_route(self, meta, rows) -> str:
         """The branch of :meth:`_g_factor` a layer's G takes."""

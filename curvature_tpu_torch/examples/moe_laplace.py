@@ -119,15 +119,14 @@ def expert_parallel(args, device, single_a):
 
 
 def routed_shares(model, tokens, layer="h.0.moe.fc1"):
-    """Each expert's share of the tokens, from the ``[E, ..., F]`` masked
-    stream the expert layer ``layer`` records (a routed token's row is
-    non-zero in its expert's slice only)."""
+    """Each expert's share of the tokens, from the routes the expert
+    layer ``layer`` records (its rows per expert over the tokens)."""
     ctx = Context(track=[layer], probes=False)
     with torch.no_grad():
         model(tokens, ctx)
-    xm = ctx.acts[layer]
-    routed = (xm != 0).any(-1).reshape(xm.shape[0], -1)
-    return routed.float().mean(-1).cpu().numpy()
+    r = ctx.routes[layer]
+    counts = np.diff(np.asarray(r.offsets))
+    return counts / r.num_tokens
 
 
 @torch.no_grad()

@@ -9,6 +9,10 @@ from curvature_tpu_torch.models.alexnet import AlexNet, alexnet
 from curvature_tpu_torch.models.convnext import (
     ConvNeXt, convnext, convnext_tiny,
 )
+from curvature_tpu_torch.models.deepseek import (
+    MOONLIGHT_16B_A3B, DeepseekV3, deepseek_v3, deepseek_v3_tiny,
+    moonlight_16b_a3b,
+)
 from curvature_tpu_torch.models.densenet import (
     DenseNet, densenet, densenet121, densenet161, densenet169, densenet201,
 )
@@ -123,6 +127,9 @@ MODEL_REGISTRY = {
     "gpt2_large": gpt2_large,
     "gpt2_xl": gpt2_xl,
     "gpt2_moe_tiny": gpt2_moe_tiny,
+    # port-only: the DeepSeek-V3 block (MLA, sigmoid-routed MoE)
+    "deepseek_v3_tiny": deepseek_v3_tiny,
+    "moonlight_16b_a3b": moonlight_16b_a3b,
 }
 
 

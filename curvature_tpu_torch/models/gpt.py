@@ -144,6 +144,9 @@ class GPT2(nn.Module):
         self.vocab = vocab
         self.dim = dim
         self.max_len = max_len
+        # routed experts take data-dependent row counts, which vmap cannot
+        # batch over members: the ensemble forwards run as a loop
+        self.vmap_ensemble = not experts
         self.wte = nn.Embedding(vocab, dim)
         self.wpe = nn.Embedding(max_len, dim)
         nn.init.normal_(self.wte.weight, std=0.02)

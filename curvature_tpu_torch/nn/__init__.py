@@ -6,7 +6,8 @@ from curvature_tpu_torch.nn.layers import (
     GELU, AdaptiveAvgPool, Add, AvgPool, BatchNorm, ChannelLayerNorm, Conv,
     CtxModule, Dense, Experts, Flatten, GlobalAvgPool, Hardsigmoid,
     Hardswish, Identity, LayerNorm, MaxPool, MoE, MultiheadAttention, ReLU,
-    ReLU6, Sequential, SiLU, is_tracked, normalize_padding,
+    ReLU6, RMSNorm, Sequential, SiLU, apply_rope_interleaved, is_tracked,
+    normalize_padding, rope_cos_sin,
 )
 from curvature_tpu_torch.nn.scan import ScanBlocks
 
@@ -15,5 +16,6 @@ __all__ = ["Context", "LayerMeta", "apply_matrix_delta", "matrix_to_delta",
            "AvgPool", "BatchNorm", "ChannelLayerNorm", "Conv", "CtxModule",
            "Dense", "Experts", "Flatten", "GlobalAvgPool", "Hardsigmoid",
            "Hardswish", "Identity", "LayerNorm", "MaxPool", "MoE",
-           "MultiheadAttention", "ReLU", "ReLU6", "ScanBlocks", "Sequential",
-           "SiLU", "is_tracked", "normalize_padding"]
+           "MultiheadAttention", "ReLU", "ReLU6", "RMSNorm", "ScanBlocks",
+           "Sequential", "SiLU", "apply_rope_interleaved", "is_tracked",
+           "normalize_padding", "rope_cos_sin"]

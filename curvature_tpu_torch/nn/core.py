@@ -25,7 +25,16 @@ instead of a probe (JAX ``gram_tap``, core.py:66-96): the identity on
 output gradient to a zero accumulator input, so ``autograd.grad`` over
 the accumulator returns the Gram that KFAC's G factor needs and the full
 output gradient is never returned.
+
+An MoE's expert layers run over their routed rows only (nn/layers.py
+``MoE``): such a layer records the ``[rows, in]`` stream of the tokens
+routed to the experts it holds, sorted by expert, and its
+:class:`Routes` (``record_routes``), and probes its ``[rows, out]``
+output. :meth:`Routes.dense` rebuilds the masked per-expert stream
+``[held, *tokens, F]`` (zero rows for the tokens routed elsewhere) from
+such rows by an exact scatter.
 """
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Iterable, Optional, Tuple
 
@@ -61,6 +70,44 @@ class LayerMeta:
     @property
     def mat_cols(self) -> int:
         return self.fan_in + (1 if self.has_bias else 0)
+
+
+@dataclass(frozen=True)
+class Routes:
+    """Where the rows of a routed expert stream come from: rows
+    ``offsets[e]:offsets[e + 1]`` belong to held expert ``e``, and row ``i``
+    is token ``tokens[i]`` of the ``prod(lead)`` flattened tokens of the
+    layer's input (``lead``: its token shape, ``[B, T]`` or ``[B]``)."""
+    offsets: Tuple[int, ...]
+    tokens: torch.Tensor
+    lead: Tuple[int, ...]
+
+    @property
+    def experts(self) -> int:
+        return len(self.offsets) - 1
+
+    @property
+    def rows(self) -> int:
+        return self.offsets[-1]
+
+    @property
+    def num_tokens(self) -> int:
+        return math.prod(self.lead)
+
+    def dense(self, rows: torch.Tensor) -> torch.Tensor:
+        """``[*pre, rows, F]`` routed rows -> the masked stream ``[*pre,
+        held, *lead, F]``: each row at its (expert, token), zeros
+        elsewhere. A copy of every value, so exact."""
+        pre, f = rows.shape[:-2], rows.shape[-1]
+        counts = torch.tensor(
+            [b - a for a, b in zip(self.offsets, self.offsets[1:])],
+            device=rows.device)
+        expert = torch.repeat_interleave(
+            torch.arange(self.experts, device=rows.device), counts)
+        n = self.num_tokens
+        out = rows.new_zeros(pre + (self.experts * n, f))
+        out.index_copy_(len(pre), expert * n + self.tokens, rows)
+        return out.reshape(pre + (self.experts,) + self.lead + (f,))
 
 
 class GramTap(torch.autograd.Function):
@@ -125,6 +172,7 @@ class Context:
         self.make_probes = probes
         self.decompose_norm = decompose_norm
         self.acts: Dict[str, torch.Tensor] = {}
+        self.routes: Dict[str, Routes] = {}
         self.probes: Dict[str, torch.Tensor] = {}
         #: (depth index, depth) while a ScanBlocks stack runs its template
         self.scan: Optional[Tuple[int, int]] = None
@@ -137,6 +185,11 @@ class Context:
         else:
             i, depth = self.scan
             self.acts.setdefault(name, [None] * depth)[i] = x.detach()
+
+    def record_routes(self, name: str, routes: Routes):
+        """The :class:`Routes` of a routed expert layer's recorded rows."""
+        if name in self.track:
+            self.routes[name] = routes
 
     def stack_acts(self):
         """Stack the per-depth inputs of a ScanBlocks run: [depth, ...]."""

@@ -1,6 +1,7 @@
 """Layers of the ported model families: tracked ``Dense``/``Conv`` (grouped
 and depthwise convs through ``groups``), the untracked ``BatchNorm``,
 ``LayerNorm`` (and ConvNeXt's ``ChannelLayerNorm`` on NCHW activations),
+``RMSNorm`` and DeepSeek's interleaved rotary embedding,
 the activations ``ReLU``, ``ReLU6``, ``SiLU``, ``Hardsigmoid``,
 ``Hardswish``, ``GELU`` and ``Identity``, the pools ``MaxPool``,
 ``AvgPool``, ``AdaptiveAvgPool`` and ``GlobalAvgPool``, ``Flatten``, the
@@ -28,11 +29,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from curvature_tpu_torch.nn.core import Context, LayerMeta
+from curvature_tpu_torch.nn.core import Context, LayerMeta, Routes
 from curvature_tpu_torch.parallel.mesh import (
     all_reduce_sum, copy_to_group, gather_replicated, group_size,
     reduce_from_group)
 from curvature_tpu_torch.ops.patches import resolve_padding
+from curvature_tpu_torch.utils import monitor
 
 
 @dataclass(frozen=True)
@@ -147,12 +149,14 @@ class Dense(CtxModule):
 
 
 class Experts(Dense):
-    """The bias-free linear maps of ``num_experts`` experts, one weight
-    ``[E, out, in]`` (the layout of a stacked ``Dense``), tracked as one
-    layer whose meta is ``stacked=E, moe=True``. Its input is the
-    mask-routed per-expert token stream ``[E, ..., in]``; it records that
-    stream and probes its ``[E, ..., out]`` output, so every estimator's
-    stacked factor math gives per-expert factors."""
+    """The bias-free linear maps of the experts an MoE holds, one weight
+    ``[held, out, in]`` (the layout of a stacked ``Dense``), tracked as one
+    layer whose meta is ``stacked=held, moe=True``. Its input is the routed
+    stream ``[rows, in]`` (the tokens routed to the held experts, sorted by
+    expert) with its :class:`~curvature_tpu_torch.nn.core.Routes`; each
+    expert runs over its own rows only. It records that stream and its
+    routes and probes its ``[rows, out]`` output, so each expert's factors
+    sum over its routed tokens (nn/core.py)."""
 
     def __init__(self, num_experts: int, in_features: int,
                  out_features: int, name: Optional[str] = None):
@@ -165,8 +169,8 @@ class Experts(Dense):
     def meta(self) -> LayerMeta:
         return _experts_meta(self.name, full_shape(self, "weight"))
 
-    def forward(self, xm, ctx: Optional[Context] = None):
-        return _apply_experts(self.name, self.weight, xm, ctx)
+    def forward(self, xs, routes: Routes, ctx: Optional[Context] = None):
+        return _apply_experts(self.name, self.weight, xs, routes, ctx)
 
 
 def _experts_meta(name, shape) -> LayerMeta:
@@ -174,83 +178,140 @@ def _experts_meta(name, shape) -> LayerMeta:
     return LayerMeta(name, "dense", out_f, in_f, False, stacked=e, moe=True)
 
 
-def _apply_experts(name, weight, xm, ctx: Optional[Context]):
-    """``y[e] = xm[e] @ weight[e]^T`` over a ``[E, ..., in]`` stream, with
-    the capture of the tracked layer ``name``."""
+def _apply_experts(name, weight, xs, routes: Routes,
+                   ctx: Optional[Context]):
+    """``y[rows of e] = xs[rows of e] @ weight[e]^T`` over a routed ``[rows,
+    in]`` stream, with the capture of the tracked layer ``name``."""
     if ctx is not None:
-        ctx.record_act(name, xm)
-    e = xm.shape[0]
-    y = (xm.reshape(e, -1, xm.shape[-1]) @ weight.mT.to(xm.dtype)
-         ).reshape(xm.shape[:-1] + (weight.shape[-2],))
+        ctx.record_act(name, xs)
+        ctx.record_routes(name, routes)
+    w = weight.to(xs.dtype)
+    o = routes.offsets
+    y = torch.cat([xs[o[e]:o[e + 1]] @ w[e].mT
+                   for e in range(routes.experts)])
     return ctx.probe(name, y) if ctx is not None else y
 
 
 class MoE(CtxModule):
     """Mixture-of-experts feed-forward layer with top-k routing
-    (``top_k=1``: Switch Transformer, ``top_k=2``: GShard); JAX
-    layers.py:401-494.
+    (``top_k=1``: Switch Transformer, ``top_k=2``: GShard; JAX
+    layers.py:401-494) or DeepSeek-V3's sigmoid routing.
 
     The router is an untracked bias-free linear head (``router``, a
     ``torch.nn.Linear`` ``[E, in]``; JAX's ``<name>.router`` kernel
-    ``[in, E]``) whose softmax ``p`` stays in the graph. Top-1 routing is
-    the one-hot of ``argmax(p)``, top-k the sum of the one-hots of
-    ``torch.topk``; ``gates = p * mask``. Dispatch is dense: the masked
-    stream ``xm[e] = mask[..., e] * x`` (zeros for the tokens routed
-    elsewhere) goes through every expert, so the layer pays E times the
-    FFN's FLOPs, as JAX's does.
+    ``[in, E]``) whose scores stay in the graph. ``scoring="softmax"``:
+    ``p = softmax(logits)``, top-1 the ``argmax(p)``, top-k ``torch.topk``,
+    each chosen expert weighted by its ``p``. ``scoring="sigmoid"``
+    (DeepSeek-V3): ``s = sigmoid(logits)``; the chosen set is the top-k of
+    ``s + e_score_correction_bias`` (an untracked buffer that decides the
+    selection only), each chosen expert weighted by its ``s``, divided by
+    the chosen scores' sum where ``norm_topk_prob``, times
+    ``routed_scale``.
+
+    Dispatch is routed: the (token, choice) pairs are sorted by expert,
+    the experts the layer holds run over their own rows only, and each
+    token's weighted outputs are summed back in the order of its choices
+    (a scatter to distinct slots and a sum, so the output is the same on
+    every run: the next layer's routing never sees an atomic add's
+    order). One synchronize a forward reads the experts' row counts.
 
     With ``hidden`` each expert is the bias-free two-layer MLP ``act(x
     k1_e) k2_e`` (``fc1``, ``fc2``: :class:`Experts` named
-    ``<name>.fc1``, ``<name>.fc2``), the mask re-applied after the
-    activation so that ``act(0) != 0`` leaks no unrouted token into fc2's
-    input; without it the layer itself is the single expert stack (its
-    ``weight`` ``[E, features, in]``, its meta named ``<name>``). Each
-    expert's A factor then sums over the tokens routed to it and divides
-    by all N tokens, ``A_e = sum_{n routed to e} a_n a_n^T / N``: the
-    Fisher block of expert e (unrouted tokens give zero gradient). The
-    experts are bias-free by design, as in JAX.
+    ``<name>.fc1``, ``<name>.fc2``), or with ``gated`` the SwiGLU
+    ``(silu(x g_e) * (x u_e)) d_e`` (``gate_proj``, ``up_proj``,
+    ``down_proj``); without ``hidden`` the layer itself is the single
+    expert stack (its ``weight`` ``[E, features, in]``, its meta named
+    ``<name>``). Each expert's A factor then sums over the tokens routed to
+    it and divides by all N tokens, ``A_e = sum_{n routed to e} a_n a_n^T
+    / N``: the Fisher block of expert e (unrouted tokens give zero
+    gradient). The experts are bias-free by design, as in JAX.
 
+    The held block: ``held=(start, count)`` keeps experts ``start ..
+    start + count - 1`` (their weights ``[count, ...]``) while the router
+    scores all ``num_experts``; the output is those experts' part of the
+    layer's, on one process (a card of an expert-parallel host).
     Expert-parallel (``ep``, a :class:`Split` of the ``expert`` axis; JAX
-    ``_variable_shardings``): each rank holds its block of experts and
-    runs them over every token (the dense dispatch); the router stays
-    whole on every rank. The input passes :func:`copy_to_group` and the
-    ranks' partial combines meet in :func:`reduce_from_group`, so the
-    output and every gradient are the whole layer's. The capture then
-    records this rank's experts' streams and probes, ``[E/size, ...]``.
+    ``_variable_shardings``): each rank holds its block of experts in the
+    same way; the input passes :func:`copy_to_group` and the ranks'
+    partial combines meet in :func:`reduce_from_group`, so the output and
+    every gradient are the whole layer's. The capture records the held
+    experts' routed rows and probes.
+
+    Inside each forward the spans ``moe.route``, ``moe.dispatch``,
+    ``moe.experts`` and ``moe.combine`` (utils/monitor.py) carry the
+    ``layer``, the ``held`` experts and their routed ``rows``; dispatch and
+    combine time the device. ``MoE.routed_rows`` counts the rows dispatched
+    to held experts, ``MoE.dropped_tokens`` the (token, choice) pairs left
+    out: 0, as no expert has a capacity.
     """
+
+    #: rows dispatched to held experts, over every forward
+    routed_rows = 0
+    #: (token, choice) pairs no expert took; none (no capacity)
+    dropped_tokens = 0
 
     def __init__(self, in_features: int, features: int, num_experts: int,
                  hidden: Optional[int] = None, activation=None,
-                 top_k: int = 1, name: Optional[str] = None):
+                 top_k: int = 1, name: Optional[str] = None,
+                 scoring: str = "softmax", gated: bool = False,
+                 norm_topk_prob: bool = False, routed_scale: float = 1.0,
+                 held: Optional[Tuple[int, int]] = None):
         super().__init__()
         if num_experts < 1:
             raise ValueError("MoE needs num_experts >= 1")
         if not 1 <= top_k <= num_experts:
             raise ValueError(f"top_k={top_k} must lie in [1, {num_experts}]")
+        if scoring not in ("softmax", "sigmoid"):
+            raise ValueError(f"unknown scoring {scoring!r}: 'softmax' or "
+                             "'sigmoid'")
+        if gated and hidden is None:
+            raise ValueError("gated experts need hidden")
+        start, count = held if held is not None else (0, num_experts)
+        if not (0 <= start and 1 <= count and start + count <= num_experts):
+            raise ValueError(f"held={held} must lie in [0, {num_experts})")
         self.features = features
         self.num_experts = num_experts
         self.hidden = hidden
+        self.gated = gated
         self.activation = activation or (
-            lambda v: F.gelu(v, approximate="tanh"))
+            F.silu if gated else (lambda v: F.gelu(v, approximate="tanh")))
         self.top_k = top_k
+        self.scoring = scoring
+        self.norm_topk_prob = norm_topk_prob
+        self.routed_scale = routed_scale
+        self.held = (start, count)
         self.ep: Optional[Split] = None
         self.router = nn.Linear(in_features, num_experts, bias=False)
+        if scoring == "sigmoid":
+            self.register_buffer("e_score_correction_bias",
+                                 torch.zeros(num_experts))
         if hidden is None:
             bound = 1.0 / math.sqrt(max(in_features, 1))
             self.weight = nn.Parameter(torch.empty(
-                num_experts, features, in_features).uniform_(-bound, bound))
+                count, features, in_features).uniform_(-bound, bound))
+        elif gated:
+            self.gate_proj = Experts(count, in_features, hidden)
+            self.up_proj = Experts(count, in_features, hidden)
+            self.down_proj = Experts(count, hidden, features)
         else:
-            self.fc1 = Experts(num_experts, in_features, hidden)
-            self.fc2 = Experts(num_experts, hidden, features)
+            self.fc1 = Experts(count, in_features, hidden)
+            self.fc2 = Experts(count, hidden, features)
         self.name = None
         if name is not None:
             self.set_name(name)
 
+    def _expert_layers(self):
+        if self.hidden is None:
+            return {}
+        if self.gated:
+            return {"gate_proj": self.gate_proj, "up_proj": self.up_proj,
+                    "down_proj": self.down_proj}
+        return {"fc1": self.fc1, "fc2": self.fc2}
+
     def set_name(self, name: str):
         self.name = name
-        if self.hidden is not None:
-            self.fc1.name = f"{name}.fc1"
-            self.fc2.name = f"{name}.fc2"
+        for leaf, layer in self._expert_layers().items():
+            layer.name = f"{name}.{leaf}"
 
     @property
     def meta(self) -> LayerMeta:
@@ -259,43 +320,96 @@ class MoE(CtxModule):
 
     def shard_experts(self, split: Split):
         """Keep this rank's block of experts."""
+        if self.held != (0, self.num_experts):
+            raise ValueError(f"{self.name}: a layer that holds a block of "
+                             "experts cannot be split again")
         if self.hidden is None:
             take_block(self, "weight", 0, split)
         else:
-            for fc in (self.fc1, self.fc2):
+            for fc in self._expert_layers().values():
                 take_block(fc, "weight", 0, split)
+        per = self.num_experts // split.size
+        self.held = (split.index * per, per)
         self.ep = split
 
+    def select(self, x2):
+        """(chosen experts ``[N, k]``, their combine weights ``[N, k]`` in
+        ``x2``'s dtype) of the tokens ``x2`` ``[N, in]``."""
+        logits = x2 @ self.router.weight.mT.to(x2.dtype)
+        if self.scoring == "softmax":
+            p = torch.softmax(logits, dim=-1)
+            idx = (p.argmax(-1, keepdim=True) if self.top_k == 1
+                   else torch.topk(p, self.top_k, dim=-1).indices)
+            return idx, p.gather(-1, idx)
+        s = torch.sigmoid(logits)
+        choice = s.detach() + self.e_score_correction_bias.to(s.dtype)
+        idx = torch.topk(choice, self.top_k, dim=-1).indices
+        w = s.gather(-1, idx)
+        if self.norm_topk_prob:
+            w = w / (w.sum(-1, keepdim=True) + 1e-20)
+        return idx, w * self.routed_scale
+
     def route(self, x):
-        """(router probabilities ``p``, the 0/1 routing mask), both
-        ``[..., E]`` in ``x``'s dtype."""
+        """(router scores, the 0/1 routing mask), both ``[..., E]`` in
+        ``x``'s dtype: the softmax ``p`` or the sigmoid ``s``."""
         e = self.num_experts
-        p = torch.softmax(x @ self.router.weight.mT.to(x.dtype), dim=-1)
-        if self.top_k == 1:
-            mask = F.one_hot(p.argmax(-1), e).to(x.dtype)
-        else:
-            idx = torch.topk(p, self.top_k, dim=-1).indices
-            mask = F.one_hot(idx, e).sum(-2).to(x.dtype)
-        return p, mask
+        x2 = x.reshape(-1, x.shape[-1])
+        logits = x2 @ self.router.weight.mT.to(x.dtype)
+        scores = (torch.softmax(logits, dim=-1) if self.scoring == "softmax"
+                  else torch.sigmoid(logits))
+        idx, _ = self.select(x2)
+        mask = F.one_hot(idx, e).sum(-2).to(x.dtype)
+        return (scores.reshape(x.shape[:-1] + (e,)),
+                mask.reshape(x.shape[:-1] + (e,)))
+
+    def _experts(self, xs, routes: Routes, ctx: Optional[Context]):
+        if self.hidden is None:
+            return _apply_experts(self.name, self.weight, xs, routes, ctx)
+        if self.gated:
+            h = self.activation(self.gate_proj(xs, routes, ctx)) \
+                * self.up_proj(xs, routes, ctx)
+            return self.down_proj(h, routes, ctx)
+        return self.fc2(self.activation(self.fc1(xs, routes, ctx)), routes,
+                        ctx)
 
     def forward(self, x, ctx: Optional[Context] = None):
         ep = self.ep
         if ep is not None:
             x = copy_to_group(x, ep.group)
-        p, mask = self.route(x)
-        gates = p * mask                                  # [..., E]
-        if ep is not None:
-            per = self.num_experts // ep.size
-            gates = gates[..., ep.index * per:(ep.index + 1) * per]
-            mask = mask[..., ep.index * per:(ep.index + 1) * per]
-        mask_e = mask.movedim(-1, 0)[..., None]           # [E, ..., 1]
-        xm = mask_e * x                                   # [E, ..., F]
-        if self.hidden is None:
-            ye = _apply_experts(self.name, self.weight, xm, ctx)
-        else:
-            h = self.activation(self.fc1(xm, ctx)) * mask_e
-            ye = self.fc2(h, ctx)                         # [E, ..., O]
-        out = (ye * gates.movedim(-1, 0)[..., None]).sum(0)
+        lead, k = tuple(x.shape[:-1]), self.top_k
+        x2 = x.reshape(-1, x.shape[-1])
+        n = x2.shape[0]
+        start, count = self.held
+        with monitor.span("moe.route", layer=self.name, held=count):
+            idx, w = self.select(x2)                          # [N, k]
+        with monitor.span("moe.dispatch", x.device, layer=self.name,
+                          held=count) as sp:
+            flat = idx.reshape(-1)
+            order = torch.argsort(flat, stable=True)
+            counts = torch.bincount(flat, minlength=self.num_experts)
+            counts = counts.tolist()
+            lo = sum(counts[:start])
+            offsets = [0]
+            for c in counts[start:start + count]:
+                offsets.append(offsets[-1] + c)
+            rows = offsets[-1]
+            slots = order[lo:lo + rows]         # the (token, choice) pairs
+            tok = torch.div(slots, k, rounding_mode="floor")
+            xs = x2[tok]                                      # [rows, in]
+            if sp is not None:
+                sp.attrs["rows"] = rows
+        MoE.routed_rows += rows
+        MoE.dropped_tokens += n * k - sum(counts)
+        with monitor.span("moe.experts", layer=self.name, held=count,
+                          rows=rows):
+            ys = self._experts(xs, Routes(tuple(offsets), tok, lead), ctx)
+        with monitor.span("moe.combine", x.device, layer=self.name,
+                          held=count, rows=rows):
+            gate = w.reshape(-1)[slots]
+            weighted = ys * gate[:, None]
+            out = weighted.new_zeros(n * k, weighted.shape[-1]).index_copy(
+                0, slots, weighted).reshape(n, k, -1).sum(1)
+        out = out.reshape(lead + (out.shape[-1],))
         return out if ep is None else reduce_from_group(out, ep.group)
 
 
@@ -460,6 +574,50 @@ class LayerNorm(nn.Module):
         out = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
                            self.bias.float(), self.eps)
         return out.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    """Root-mean-square normalization over the last dim (Zhang and
+    Sennrich, 2019; Hugging Face's ``LlamaRMSNorm``): ``weight * x /
+    sqrt(mean(x^2) + eps)``, the mean in f32, the product in the input's
+    dtype."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+
+    def forward(self, x):
+        v = x.float()
+        v = v * torch.rsqrt(v.pow(2).mean(-1, keepdim=True) + self.eps)
+        return self.weight * v.to(x.dtype)
+
+
+def rope_cos_sin(positions: torch.Tensor, dim: int, theta: float,
+                 dtype=torch.float32):
+    """(cos, sin) ``[T, dim]`` of the rotary embedding (Su et al., 2021) at
+    integer ``positions``: frequencies ``theta^(-2i/dim)``, each angle
+    twice, the two halves ``rotate_half`` pairs."""
+    inv = 1.0 / theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                       device=positions.device) / dim)
+    ang = positions.float()[:, None] * inv[None]
+    emb = torch.cat([ang, ang], dim=-1)
+    return emb.cos().to(dtype), emb.sin().to(dtype)
+
+
+def rotate_half(x):
+    h = x.shape[-1] // 2
+    return torch.cat([-x[..., h:], x[..., :h]], dim=-1)
+
+
+def apply_rope_interleaved(x, cos, sin):
+    """DeepSeek's RoPE on ``[..., T, d]``: the interleaved pairs ``(x0,
+    x1), (x2, x3), ...`` first laid out as two halves (``view(..., d/2,
+    2).transpose(-1, -2)``), then ``x cos + rotate_half(x) sin``."""
+    d = x.shape[-1]
+    x = x.reshape(x.shape[:-1] + (d // 2, 2)).transpose(-1, -2).reshape(
+        x.shape)
+    return x * cos + rotate_half(x) * sin
 
 
 class ChannelLayerNorm(LayerNorm):
