@@ -10,6 +10,11 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py --kernels    # builds, checks and times the kernels
                                        # only, with the f32 sym_gram split
                                        # sweep
+    python3 chip_smoke.py --grams      # builds the kernels, checks and
+                                       # times the batched f32 sym_gram at
+                                       # the fit cells' shapes, sweeps its
+                                       # gate, counts its launches an
+                                       # update on the fit models
     python3 chip_smoke.py --lm         # builds the kernels, runs the
                                        # causal-LM phase only
     python3 chip_smoke.py --grouped    # builds the kernels, runs the
@@ -217,6 +222,7 @@ JSON object. It exits non-zero, printing no result, where there is no
 CUDA device or where the package is not beside it.
 """
 import argparse
+import atexit
 import concurrent.futures
 import contextlib
 import functools
@@ -314,6 +320,9 @@ LM_BATCH, LM_T, LM_VOCAB, LM_UPDATES = 8, 512, 50257, 10
 #: damping of the random GPT-2's posteriors: a prior standard deviation
 #: of at most 1/sqrt(norm) ~ 0.003 per weight against N(0, 0.02) kernels
 LM_LADDER_BATCHES, LM_LADDER_SAMPLES = 4, 10
+#: batched symmetric kernel launches a KFAC update of GPT-2 124M's stacked
+#: blocks at B=8, T=512: its 8 factor Grams, each past the gate
+LM_SYM = 8
 LM_DAMPING = (1e5, 1e4)
 #: the vocabulary head's blocked G: 50 blocks of 1,024 (51,200 padded rows)
 LM_G_BLOCK = 1024
@@ -1379,13 +1388,14 @@ def check_sym_chain(tsg, tdt, rng):
 
 def sweep_sym_splits(tsg):
     """SPLIT_SWEEP through the f32 ``sym_gram``, each shape launched with
-    one split and with the wave-filling count (the wrapper's plan
-    replaced for the sweep): device ms of each (pre-pass, tile kernel and
-    any reduce), every result checked against the plain version."""
+    one split and with the wave-filling count (the wrapper's f32 plan,
+    ``_batched_plan``, replaced for the sweep): device ms of each
+    (pre-pass, tile kernel and any reduce), every result checked against
+    the plain version."""
     import numpy as np
     import torch
     rng = np.random.default_rng(2)
-    plan, rows = tsg.split_plan, []
+    plan, rows = tsg._batched_plan, []
     slots = tsg._resident_blocks(0, False)
     try:
         for n, f in SPLIT_SWEEP:
@@ -1400,7 +1410,7 @@ def sweep_sym_splits(tsg):
                        -(-n // tsg.MAX_CHAIN_TOKENS))
             for key, splits in (("one", 1), ("fill", fill)):
                 per = -(-(-(-n // splits)) // tsg.CHUNK) * tsg.CHUNK
-                tsg.split_plan = lambda *_, p=per: (-(-n // p), p)
+                tsg._batched_plan = lambda *_, p=per: (-(-n // p), p)
                 want = tsg.sym_gram_plain(x)
                 rel = float((tsg.sym_gram(x) - want).abs().max()) \
                     / max(float(want.abs().max()), 1.0)
@@ -1415,7 +1425,7 @@ def sweep_sym_splits(tsg):
             log(f"  split sweep {json.dumps(row)}")
             rows.append(row)
     finally:
-        tsg.split_plan = plan
+        tsg._batched_plan = plan
     return rows
 
 
@@ -1454,7 +1464,7 @@ def laplace_tail(est, model, test_data, gen, counters, label,
     counters.reset()
     probs, labels, _ = eval_bnn(model, est, test_data, samples=SAMPLES,
                                 ensemble_params=ensemble)
-    if counters.read() != counters.zero():
+    if counters.read() != counters.want():
         raise AssertionError(f"{label}: eval must not launch the Gram "
                              f"kernels: {counters.read()}")
     log(f"{label}: invert(add={add}, multiply={multiply}) {invert_s:.3f} s; "
@@ -1521,7 +1531,7 @@ def ladder(estimators, model, kfac, batches, test_data, gen, counters,
                bucket=INF_BUCKET)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    if counters.read() != none:
+    if counters.read() != counters.want(none):
         raise AssertionError(f"INF build launched {counters.read()}")
     sizes = {n: [s["ua"].shape[-1], s["ug"].shape[-1]]
              for n, s in inf.state.items()}
@@ -1702,12 +1712,39 @@ def dense_bars(dtype, evals, basis, dim):
         "basis": 2 * DENSE_C * dim * eps}
 
 
+def sym_launches(tsg, spans):
+    """The batched symmetric kernel's launches that ``spans`` record: one a
+    slice of MAX_SEGMENTS segments of each Gram that a ``factor`` span
+    says took it (its ``gram_shape``) or a ``stack_grams`` span lists (its
+    ``gram_shapes``); raises where such a (segments, rows, F) is under
+    the gate, or a ``sym`` span gives no shape."""
+    n = 0
+    for s in spans:
+        if s.name == "stack_grams":
+            shapes = s.attrs.get("gram_shapes", [])
+        elif s.name == "factor" and s.attrs.get("gram") == "sym" \
+                and s.attrs.get("route") != "stack_grams":
+            shapes = [s.attrs["gram_shape"]]
+        else:
+            continue
+        for segments, rows, f in shapes:
+            if not tsg.batched_gate(segments, rows, f):
+                raise AssertionError(f"a Gram under the gate took the "
+                                     f"batched kernel: {s}")
+            n += -(-segments // tsg.MAX_SEGMENTS)
+    return n
+
+
 class Counters:
     """The kernel wrappers' launch counters, as {name: (wrapper,
-    attribute)}."""
+    attribute)}. Spans record from construction on: :meth:`read` holds
+    the batched symmetric kernel's counter to the count that the spans
+    since the last :meth:`reset` give (:func:`sym_launches`), and
+    :meth:`want` completes an expectation with it."""
 
     def __init__(self, tpg, tsg):
         from curvature_tpu_torch.ops.cuda import corr_gram as ccg
+        from curvature_tpu_torch.utils import monitor
         self.fns = {"patch_gram_tiled": (tpg.patch_gram_tiled, "launches"),
                     "patch_gram_v2": (tpg.patch_gram_v2, "launches"),
                     "patch_gram_v2_any_stride": (tpg.patch_gram_v2,
@@ -1715,18 +1752,45 @@ class Counters:
                     "patch_gram": (tpg.patch_gram, "launches"),
                     "sym_gram": (tsg.sym_gram, "launches"),
                     "tf32_presplit": (tsg.tf32_presplit, "launches"),
-                    "corr_gram": (ccg.corr_gram, "launches")}
+                    "corr_gram": (ccg.corr_gram, "launches"),
+                    "sym_gram_batched": (tsg.sym_gram_batched, "launches")}
+        self.tsg, self.monitor = tsg, monitor
+        self.tracing = contextlib.ExitStack()
+        self.tracing.enter_context(monitor.tracing())
+        atexit.register(self.tracing.close)
+        self.last_sym = 0
 
     def reset(self):
         for fn, attr in self.fns.values():
             setattr(fn, attr, 0)
+        self.monitor.clear_spans()
 
     def read(self):
-        return {name: getattr(fn, attr)
-                for name, (fn, attr) in self.fns.items()}
+        got = {name: getattr(fn, attr)
+               for name, (fn, attr) in self.fns.items()}
+        if self.monitor.dropped_spans():
+            raise AssertionError("the span buffer overflowed")
+        want = sym_launches(self.tsg, self.monitor.spans())
+        if got["sym_gram_batched"] != want:
+            raise AssertionError(f"sym_gram_batched launched "
+                                 f"{got['sym_gram_batched']} times, the "
+                                 f"factor spans' Grams give {want}")
+        self.last_sym = want
+        return got
 
     def zero(self):
-        return {name: 0 for name in self.fns}
+        """No launch of any counter but the batched kernel's, whose count
+        :meth:`want` fills in."""
+        return {name: 0 for name in self.fns if name != "sym_gram_batched"}
+
+    def want(self, expect=None, got=None):
+        """``expect`` (default :meth:`zero`) with the batched kernel's
+        count where it gives none: ``got``'s (default the last read's),
+        which :meth:`read` held to the spans'."""
+        expect = dict(self.zero() if expect is None else expect)
+        expect.setdefault("sym_gram_batched", self.last_sym if got is None
+                          else got["sym_gram_batched"])
+        return expect
 
 
 def nchw_batches(rng, n_batches, batch, dev, size=None):
@@ -1760,7 +1824,7 @@ def drive_updates(est, batches, gen, counters, path, expect):
     got = counters.read()
     log(f"{path}: {len(batches)} updates in {seconds:.3f} s (first block, "
         f"incl. warm-up); launches {json.dumps(got)}")
-    if got != expect:
+    if got != counters.want(expect, got):
         raise AssertionError(f"{path}: expected launches {expect}, got {got}")
     check_finite(est.state, f"{path} state")
     return got
@@ -1850,7 +1914,7 @@ def pipelines(estimators, counters, smi):
     for name in ("diag", "kfac", "efb"):
         est, got = run_cli(factors, base + ["--estimator", name], counters,
                            smi, f"lenet5 factors {name}")
-        if got != none or est.num_updates != LENET_UPDATES:
+        if got != counters.want(none, got) or est.num_updates != LENET_UPDATES:
             raise AssertionError(f"lenet5 factors {name}: launches {got}, "
                                  f"{est.num_updates} updates")
         check_finite(est.state, f"lenet5 {name} state")
@@ -1865,7 +1929,7 @@ def pipelines(estimators, counters, smi):
                                                              "--plot"]
                                       + FGSM_CHAIN_SAMPLES, counters, smi,
                                       "lenet5 evaluate kfac --fgsm --plot")
-    if got != none:
+    if got != counters.want(none, got):
         raise AssertionError(f"lenet5 evaluate launched {got}")
     # epsilon 0 leaves the batch as it is: the sweep's first row is the
     # plain Bayesian eval
@@ -1899,7 +1963,7 @@ def pipelines(estimators, counters, smi):
         want = dict(none, **{f"patch_gram_{r}": n * R18_UPDATES
                              for r, n in per_update.items()})
         log(f"{path}: per update {json.dumps(per_update)} by JAX's routes")
-        if got != want or est.num_updates != R18_UPDATES:
+        if got != counters.want(want, got) or est.num_updates != R18_UPDATES:
             raise AssertionError(f"{path}: launches {got}, want {want}")
         check_finite(est.state, f"{path} state")
         by_path[path] = got
@@ -1915,7 +1979,7 @@ def pipelines(estimators, counters, smi):
     for name in ("efb", "diag"):
         est, got = run_cli(factors, base + ["--estimator", name], counters,
                            smi, f"resnet18 factors {name}")
-        if got != none:
+        if got != counters.want(none, got):
             raise AssertionError(f"resnet18 {name} launched {got}")
         check_finite(est.state, f"resnet18 {name} state")
     est, _ = run_cli(factors, base + ["--estimator", "inf", "--rank", "100"],
@@ -1940,7 +2004,7 @@ def pipelines(estimators, counters, smi):
             f"accuracy {100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
             f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}%; AUROC NN "
             f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
-        if got != none or not np.isfinite(auroc).all():
+        if got != counters.want(none, got) or not np.isfinite(auroc).all():
             raise AssertionError(f"resnet18 evaluate {name}: launches {got},"
                                  f" AUROC {auroc}")
     return by_path, updated
@@ -1954,7 +2018,7 @@ def hyper_run(hyper, argv, counters, smi, label):
     (out, got), seconds = timed(lambda: run_cli(hyper, argv, counters, smi,
                                                 label))
     rows = 1 if "grad" in argv else len(out["stats"]["cost"])
-    if got != counters.zero() or not np.isfinite(out["best_cost"]):
+    if got != counters.want(got=got) or not np.isfinite(out["best_cost"]):
         raise AssertionError(f"{label}: launches {got}, best cost "
                              f"{out['best_cost']}")
     log(f"{label}: best cost {out['best_cost']:.4f} over {rows} candidates,"
@@ -2034,7 +2098,7 @@ def hyper_phase(counters, smi, dev, r50=None):
         """``fn()`` with no Gram kernel launched."""
         counters.reset()
         out = fn()
-        if counters.read() != none:
+        if counters.read() != counters.want(none):
             raise AssertionError(f"launches {counters.read()}")
         return out
 
@@ -2082,7 +2146,7 @@ def hyper_phase(counters, smi, dev, r50=None):
         f" (1, 5e4) {at_blitz['cost']:.3f} (acc {at_blitz['acc']:.2f}%, "
         f"ECE {at_blitz['ece']:.2f}%); test BNN accuracy at the searched "
         f"damping {bnn_stats['acc'][0]:.2f}%")
-    if got != none or bnn_stats["acc"][0] <= 50.0:
+    if got != counters.want(none, got) or bnn_stats["acc"][0] <= 50.0:
         raise AssertionError(f"lenet5 evaluate at the searched damping: "
                              f"launches {got}, BNN {bnn_stats['acc'][0]}")
     evaluate.invert_from_config(cfg, est, results_paths(cfg)[0])
@@ -2185,7 +2249,7 @@ def hyper_phase(counters, smi, dev, r50=None):
         log(f"resnet18 --predictive {kind} (random weights): BNN accuracy "
             f"{acc(bnn_probs, labels):.2f}%; AUROC NN {auroc[0]:.4f} BNN "
             f"{auroc[1]:.4f}")
-        if got != none or not np.isfinite(auroc).all():
+        if got != counters.want(none, got) or not np.isfinite(auroc).all():
             raise AssertionError(f"resnet18 --predictive {kind}: launches "
                                  f"{got}, AUROC {auroc}")
     est.invert(*(float(v) for v in R18_DAMPING[1::2]))
@@ -2282,7 +2346,7 @@ def grouped_phase(estimators, models, counters, smi, dev, profile=False):
     def nn_stats(model, label):
         counters.reset()
         probs, labels = eval_nn(model, test_data)
-        if counters.read() != none:
+        if counters.read() != counters.want(none):
             raise AssertionError(f"{label} eval_nn launched {counters.read()}")
         log(f"{label} nn metrics (random weights, {2 * BATCH} synthetic "
             f"images): {json.dumps(prob_stats(probs, labels, label))}")
@@ -2307,7 +2371,7 @@ def grouped_phase(estimators, models, counters, smi, dev, profile=False):
         nn_stats(model, arch)
         counters.reset()
         fwd = SAMPLES * eval_rate(model, est, test_data, ensemble)
-        if counters.read() != none:
+        if counters.read() != counters.want(none):
             raise AssertionError(f"{arch} eval launched {counters.read()}")
         log(f"{arch}_bnn30_eval_fwd_img_s: {fwd:.2f} ({SAMPLES} x images "
             f"per second through eval_bnn, best of 3 blocks of {2 * BATCH} "
@@ -2357,7 +2421,7 @@ def grouped_phase(estimators, models, counters, smi, dev, profile=False):
         extra = ["--rank", GROUPED_INF_RANK] if name == "inf" else []
         est, got = run_cli(factors, base + ["--estimator", name] + extra,
                            counters, smi, f"mobilenet_v2 factors {name}")
-        if got != none:
+        if got != counters.want(none, got):
             raise AssertionError(f"mobilenet_v2 factors {name}: {got}")
         check_finite(est.state, f"mobilenet_v2 {name} state")
     for name in ("kfac", "inf"):
@@ -2378,7 +2442,7 @@ def grouped_phase(estimators, models, counters, smi, dev, profile=False):
             f"accuracy {100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
             f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}%; AUROC NN "
             f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
-        if got != none or not np.isfinite(auroc).all():
+        if got != counters.want(none, got) or not np.isfinite(auroc).all():
             raise AssertionError(f"mobilenet_v2 evaluate {name}: launches "
                                  f"{got}, AUROC {auroc}")
     return by_path
@@ -2497,7 +2561,7 @@ def zoo_phase(estimators, models, counters, smi, dev, profile=False):
     counters.reset()
     bnn_img_s = eval_rate(model, est, test_data[:ZOO_EVAL_BATCHES],
                           ensemble)
-    if counters.read() != none:
+    if counters.read() != counters.want(none):
         raise AssertionError(f"densenet121 eval launched {counters.read()}")
     log(f"densenet121_bnn30_eval_img_s: {bnn_img_s:.2f} (best of 3 blocks "
         f"of {ZOO_EVAL_BATCHES * BATCH} images x {SAMPLES} samples; {smi})")
@@ -2542,7 +2606,7 @@ def zoo_phase(estimators, models, counters, smi, dev, profile=False):
         probs, labels, _ = eval_bnn(model, est, [(x, ys)],
                                     samples=ZOO_SAMPLES,
                                     ensemble_params=ensemble)
-        if counters.read() != none:
+        if counters.read() != counters.want(none):
             raise AssertionError(f"{arch} eval launched {counters.read()}")
         if probs.shape != (ZOO_BATCH, CLASSES) \
                 or not np.isfinite(probs).all() \
@@ -2587,7 +2651,7 @@ def zoo_phase(estimators, models, counters, smi, dev, profile=False):
         x = torch.from_numpy(xtr[i:i + 64]).to(dev)
         est.update(x, labels=torch.from_numpy(ytr[i:i + 64, None]).to(dev))
         est.update(x, generator=gen, num_samples=4)
-    if counters.read() != none:
+    if counters.read() != counters.want(none):
         raise AssertionError(f"regression launched {counters.read()}")
     check_finite(est.state, "mlp gaussian state")
     est.invert(1.0, float(len(xtr)))
@@ -2658,9 +2722,11 @@ def zoo_cli(models, counters, smi, rng):
     want = dict(none, patch_gram_tiled=routes[0] * ZOO_CLI_UPDATES,
                 patch_gram_v2=routes[1] * ZOO_CLI_UPDATES,
                 corr_gram=2 * routes[2] * ZOO_CLI_UPDATES)
-    if got != want or est.num_updates != ZOO_CLI_UPDATES:
+    if got != counters.want(want, got) \
+            or est.num_updates != ZOO_CLI_UPDATES:
         raise AssertionError(f"{ZOO_CLI_PATH}: launches {got}, want {want};"
                              f" {est.num_updates} updates")
+    launches = got
     check_finite(est.state, f"{ZOO_CLI_PATH} state")
     for name, p in est.model.state_dict().items():
         if not torch.equal(p.cpu(), seeded.state_dict()[name]):
@@ -2681,14 +2747,14 @@ def zoo_cli(models, counters, smi, rng):
                 or np.abs(p.sum(1) - 1).max() > 1e-3:
             raise AssertionError(f"densenet121 cifar10 {what} predictions "
                                  "malformed")
-    if got != none or not np.isfinite(auroc).all():
+    if got != counters.want(none, got) or not np.isfinite(auroc).all():
         raise AssertionError(f"densenet121 evaluate: launches {got}, AUROC "
                              f"{auroc}")
     log(f"densenet121 cifar10 --ood svhn (random weights): NN accuracy "
         f"{100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
         f"{100 * np.mean(bnn_probs.argmax(1) == labels):.2f}%; AUROC NN "
         f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
-    return want
+    return launches
 
 
 def transformer_phase(estimators, models, counters, smi, dev, profile=False):
@@ -2747,7 +2813,7 @@ def transformer_phase(estimators, models, counters, smi, dev, profile=False):
                                           counters, f"{arch} kfac")
         counters.reset()
         fwd = SAMPLES * eval_rate(model, est, test_data, ensemble)
-        if counters.read() != none:
+        if counters.read() != counters.want(none):
             raise AssertionError(f"{arch} eval launched {counters.read()}")
         return invert_s, fwd
 
@@ -2813,7 +2879,7 @@ def transformer_phase(estimators, models, counters, smi, dev, profile=False):
     stacked = estimators.KFAC(scan)
     counters.reset()
     stacked.update(batches[0], labels=labels)
-    if counters.read() != none:
+    if counters.read() != counters.want(none):
         raise AssertionError(f"vit_b_16 scan launched {counters.read()}")
     worst = 0.0
     for name, meta in stacked.metas.items():
@@ -2897,7 +2963,8 @@ def transformer_phase(estimators, models, counters, smi, dev, profile=False):
     est, got = run_cli(factors, vit + ["--estimator", "kfac"], counters, smi,
                        "vit_b_16 synthetic factors kfac --qkv_split")
     name = "encoder.layers.encoder_layer_11.self_attention/in_proj"
-    if got != none or tuple(est.state[name]["g"].shape) != (3, 768, 768) \
+    if got != counters.want(none, got) \
+            or tuple(est.state[name]["g"].shape) != (3, 768, 768) \
             or len(est.metas) != 5:
         raise AssertionError(f"vit_b_16 factors: launches {got}, "
                              f"{sorted(est.metas)}")
@@ -2913,7 +2980,7 @@ def transformer_phase(estimators, models, counters, smi, dev, profile=False):
         if p.shape != (256, 10) or not np.isfinite(p).all() \
                 or np.abs(p.sum(1) - 1).max() > 1e-3:
             raise AssertionError(f"vit_b_16 {what} predictions malformed")
-    if got != none or not np.isfinite(auroc).all():
+    if got != counters.want(none, got) or not np.isfinite(auroc).all():
         raise AssertionError(f"vit_b_16 evaluate: launches {got}, AUROC "
                              f"{auroc}")
     log(f"vit_b_16 synthetic --ood (random weights): NN accuracy "
@@ -2922,7 +2989,7 @@ def transformer_phase(estimators, models, counters, smi, dev, profile=False):
         f"{auroc[0]:.4f} BNN {auroc[1]:.4f}")
     est, got = run_cli(factors, SWIN_ARGV + base + ["--estimator", "kfac"],
                        counters, smi, "swin_t synthetic factors kfac")
-    if got != none:
+    if got != counters.want(none, got):
         raise AssertionError(f"swin_t factors launched {got}")
     check_finite(est.state, "swin_t factors state")
     return by_path
@@ -2977,7 +3044,7 @@ def training_phase(estimators, counters, smi, dev, profile=False):
 
     def cli(module, argv, label, want=None):
         out, got = run_cli(module, argv, counters, smi, label)
-        if got != (want or none):
+        if got != counters.want(want or none, got):
             raise AssertionError(f"{label}: launches {got}, want "
                                  f"{want or none}")
         return out
@@ -3144,7 +3211,8 @@ def training_phase(estimators, counters, smi, dev, profile=False):
         model, common.build_data(cfg, "train"), common.build_data(cfg, "val"),
         torch.Generator(device=dev).manual_seed(cfg.seed),
         steps=LANDSCAPE_R18_POINTS))
-    if counters.read() != none or not np.isfinite(res["train_loss"]).all():
+    if counters.read() != counters.want(none) \
+            or not np.isfinite(res["train_loss"]).all():
         raise AssertionError(f"resnet18 loss1d: launches {counters.read()}")
     points = 2 * LANDSCAPE_R18_POINTS
     log(f"resnet18 loss1d at full width: {points} points (train, 512 "
@@ -3210,7 +3278,7 @@ def subspace_phase(estimators, models, counters, smi, dev, profile=False):
     times = [timed(lambda: sub.update(x))[1] for _ in range(3)]
     got = counters.read()
     by_path[SUB_PATHS[0]] = got
-    if got != none:
+    if got != counters.want(none, got):
         raise AssertionError(f"{SUB_PATHS[0]}: launches {got}, want none")
     check_finite(sub.state, "subspace state")
     log(f"{SUB_PATHS[0]}: {1 / min(times):.4f} it/s (B={SUB_BATCH}, rank "
@@ -3302,7 +3370,7 @@ def subspace_phase(estimators, models, counters, smi, dev, profile=False):
                        "resnet18 factors kfac --fidelity 4 --spectrum 16")
     want = dict(none, **{f"patch_gram_{r}": n * R18_UPDATES
                          for r, n in R18_ROUTES[R18_PATHS[0]].items()})
-    if got != want or est.num_updates != R18_UPDATES:
+    if got != counters.want(want, got) or est.num_updates != R18_UPDATES:
         raise AssertionError(f"{SUB_PATHS[1]}: launches {got}, want {want}")
     by_path[SUB_PATHS[1]] = got
     stem = factors_path(parse_args(argv))
@@ -3325,7 +3393,7 @@ def subspace_phase(estimators, models, counters, smi, dev, profile=False):
     argv = base + ["--estimator", "subspace", "--rank", str(SUB_RANK)]
     est, got = run_cli(factors, argv, counters, smi,
                        f"resnet18 factors subspace --rank {SUB_RANK}")
-    if got != none or est.rank != SUB_RANK:
+    if got != counters.want(none, got) or est.rank != SUB_RANK:
         raise AssertionError(f"subspace factors: launches {got}, rank "
                              f"{est.rank}")
     check_finite(est.state, "subspace CLI state")
@@ -3337,7 +3405,7 @@ def subspace_phase(estimators, models, counters, smi, dev, profile=False):
     with np.load(results_paths(parse_args(argv))[0] + ".npz",
                  allow_pickle=True) as f:
         auroc = f["auroc"]
-    if got != none or bnn_probs.shape != (256, 10) \
+    if got != counters.want(none, got) or bnn_probs.shape != (256, 10) \
             or not np.isfinite(bnn_probs).all() \
             or np.abs(bnn_probs.sum(1) - 1).max() > 1e-3 \
             or not np.isfinite(auroc).all():
@@ -3362,7 +3430,7 @@ def subspace_phase(estimators, models, counters, smi, dev, profile=False):
     want = dict(none, **{f"patch_gram_{r}": 4 * n
                          for r, n in R18_ROUTES[R18_PATHS[0]].items()})
     by_path[SUB_PATHS[2]] = got
-    if got != want:
+    if got != counters.want(want, got):
         raise AssertionError(f"{SUB_PATHS[2]}: launches {got}, want {want}")
     # example 0's gradient from the same vmapped pass through
     # precision_solve: the vmapped solve_state against the direct one
@@ -3442,7 +3510,7 @@ def lm_tail(est, model, x, y, gen, counters, label, samples):
     (stats, _), eval_s = timed(lambda: eval_bnn_stats(
         model, est, [(x, y.cpu().numpy())], samples, generator=gen,
         sample_chunk=10))
-    if counters.read() != counters.zero():
+    if counters.read() != counters.want():
         raise AssertionError(f"{label}: eval launched {counters.read()}")
     log(f"{label}: invert{LM_DAMPING} {inv_s:.3f} s; sample {sample_s:.3f} "
         f"s; {samples}-sample per-token bnn eval of {x.numel()} tokens "
@@ -3450,18 +3518,24 @@ def lm_tail(est, model, x, y, gen, counters, label, samples):
         "weights)")
 
 
-def lm_updates(est, batches, gen, counters, label):
+def lm_updates(est, batches, gen, counters, label, sym=None):
     """``update`` over ``batches`` with the counters set to 0 just before
-    and read just after: no Gram kernel may launch."""
+    and read just after: no patch or correlation Gram kernel may launch,
+    the batched symmetric kernel ``sym`` times an update where given (else
+    as the factor spans say)."""
     counters.reset()
     _, seconds = timed(lambda: [est.update(x, generator=gen)
                                 for x, _ in batches])
     got = counters.read()
     log(f"{label}: {len(batches)} updates in {seconds:.3f} s; launches "
         f"{json.dumps(got)}")
-    if got != counters.zero():
+    want = counters.zero()
+    if sym is not None:
+        want["sym_gram_batched"] = sym * len(batches)
+    if got != counters.want(want, got):
         raise AssertionError(f"{label}: Gram kernels launched: {got}")
     check_finite(est.state, f"{label} state")
+    return got
 
 
 def lm_phase(estimators, models, counters, smi, dev, profile=False):
@@ -3472,7 +3546,7 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
     unrolled model; (b) last-layer KFAC on the 50,257-word head with
     blocked G; (c) Diagonal, KFAC, EFB and INF over 4 batches, Block on
     gpt2_tiny's stacked ``h.attn.c_proj``; (d) the ``--data tokens`` CLIs.
-    Returns the rate."""
+    Returns (the rate, the launches of the update paths by path)."""
     import os
     import numpy as np
     import torch
@@ -3489,14 +3563,18 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
 
     # (a) the main path: KFAC over the blocks, the rate by bench.py's method
     est = estimators.KFAC(model, loss="lm", layer_filter="h.*")
-    lm_updates(est, batches[:1], gen, counters, f"{LM_PATH} (warm update)")
+    by_path = {f"{LM_PATH}_warm": lm_updates(
+        est, batches[:1], gen, counters, f"{LM_PATH} (warm update)",
+        LM_SYM)}
     best = float("inf")
     for _ in range(3):
         counters.reset()
         _, seconds = timed(lambda: [est.update(x, generator=gen)
                                     for x, _ in batches[1:]])
-        if counters.read() != none:
-            raise AssertionError(f"{LM_PATH}: launches {counters.read()}")
+        got = counters.read()
+        if got != dict(none, sym_gram_batched=LM_SYM * LM_UPDATES):
+            raise AssertionError(f"{LM_PATH}: launches {got}")
+        by_path[LM_PATH] = got
         best = min(best, seconds)
     rate = LM_BATCH * LM_T * LM_UPDATES / best
     check_finite(est.state, f"{LM_PATH} state")
@@ -3544,7 +3622,7 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
     counters.reset()
     cap = head.capture(x, labels=y)
     head._accumulate(cap)
-    if counters.read() != none:
+    if counters.read() != counters.want(none):
         raise AssertionError(f"lm_head update launched {counters.read()}")
     g = head.state["lm_head"]["g"]
     got = float(torch.diagonal(g, dim1=-2, dim2=-1).double().sum())
@@ -3567,11 +3645,13 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
     # (c) the ladder over the stacked 124M layers, the same 4 batches
     ladder_batches = batches[:LM_LADDER_BATCHES]
     diag = estimators.Diagonal(model, loss="lm", layer_filter="h.*")
-    lm_updates(diag, ladder_batches, gen, counters, "gpt2 ladder diagonal")
+    by_path["gpt2_ladder_diagonal"] = lm_updates(
+        diag, ladder_batches, gen, counters, "gpt2 ladder diagonal", 0)
     lm_tail(diag, model, x, y, gen, counters, "gpt2 ladder diagonal",
             LM_LADDER_SAMPLES)
     kfac = estimators.KFAC(model, loss="lm", layer_filter="h.*")
-    lm_updates(kfac, ladder_batches, gen, counters, "gpt2 ladder kfac")
+    by_path["gpt2_ladder_kfac"] = lm_updates(
+        kfac, ladder_batches, gen, counters, "gpt2 ladder kfac", LM_SYM)
     lm_tail(kfac, model, x, y, gen, counters, "gpt2 ladder kfac",
             LM_LADDER_SAMPLES)
     efb, eig_s = timed(lambda: estimators.EFB(model, kfac.state, loss="lm",
@@ -3580,7 +3660,8 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
                      for k in "ag"})
     log(f"gpt2 ladder efb: eigendecomposition of {2 * len(efb.metas)} "
         f"stacked factors ({shapes}) in {eig_s:.3f} s")
-    lm_updates(efb, ladder_batches, gen, counters, "gpt2 ladder efb")
+    by_path["gpt2_ladder_efb"] = lm_updates(
+        efb, ladder_batches, gen, counters, "gpt2 ladder efb")
     lm_tail(efb, model, x, y, gen, counters, "gpt2 ladder efb",
             LM_LADDER_SAMPLES)
     counters.reset()
@@ -3588,7 +3669,7 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
                          eigvecs=efb.eigvecs, layer_filter="h.*")
     _, build_s = timed(lambda: inf.update(
         rank=INF_RANK, max_product=LM_INF_MAX_PRODUCT, bucket=INF_BUCKET))
-    if counters.read() != none:
+    if counters.read() != counters.want(none):
         raise AssertionError(f"INF build launched {counters.read()}")
     sizes = {n: [s["ua"].shape[-1], s["ug"].shape[-1]]
              for n, s in inf.state.items()}
@@ -3606,8 +3687,9 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
           for _ in range(LM_LADDER_BATCHES)]
     blk = estimators.BlockDiagonal(tiny, loss="lm",
                                    layer_filter="h.attn.c_proj")
-    lm_updates(blk, tb, gen, counters,
-               "gpt2_tiny ladder block (h.attn.c_proj, stacked)")
+    by_path["gpt2_tiny_ladder_block"] = lm_updates(
+        blk, tb, gen, counters,
+        "gpt2_tiny ladder block (h.attn.c_proj, stacked)")
     lm_tail(blk, tiny, tb[0][0], tb[0][1], gen, counters,
             "gpt2_tiny ladder block", LM_LADDER_SAMPLES)
     del blk, tiny
@@ -3618,7 +3700,7 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
     for name in ("diag", "kfac", "efb", "inf"):
         est, got = run_cli(factors, base + ["--estimator", name], counters,
                            smi, f"gpt2_tiny tokens factors {name}")
-        if got != none:
+        if got != counters.want(none, got):
             raise AssertionError(f"gpt2_tiny factors {name} launched {got}")
         check_finite(est.state, f"gpt2_tiny {name} state")
     for name in ("kfac", "efb"):
@@ -3635,7 +3717,7 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
                     or not np.isfinite(p).all() \
                     or np.abs(p.sum(1) - 1).max() > 1e-3:
                 raise AssertionError(f"gpt2_tiny {name} {what} malformed")
-        if got != none or not np.isfinite(auroc).all():
+        if got != counters.want(none, got) or not np.isfinite(auroc).all():
             raise AssertionError(f"gpt2_tiny evaluate {name}: {got}, "
                                  f"AUROC {auroc}")
         log(f"gpt2_tiny tokens {name} --ood (random weights): NN accuracy "
@@ -3652,14 +3734,15 @@ def lm_phase(estimators, models, counters, smi, dev, profile=False):
         evaluate, base + ["--ood"] + LM_CLI_DAMPING, counters, smi,
         "gpt2_tiny vocab 50257 evaluate kfac --ood (stats route)")
     n_tok = 256 * parse_args(base).seq_len
-    if got != none or got2 != none or nn_s.shape != (n_tok, 4) \
-            or bnn_s.shape != (n_tok, 4):
+    if got != counters.want(none, got) \
+            or got2 != counters.want(none, got2) \
+            or nn_s.shape != (n_tok, 4) or bnn_s.shape != (n_tok, 4):
         raise AssertionError(f"gpt2_tiny vocab: {got}, {got2}, "
                              f"{nn_s.shape}, {bnn_s.shape}")
     log(f"gpt2_tiny vocab 50257 per-token stats: NN "
         f"{json.dumps(token_stats(nn_s, 'nn'))}, BNN "
         f"{json.dumps(token_stats(bnn_s, 'bnn'))}")
-    return rate
+    return rate, by_path
 
 
 def option_timings(estimators, model, batches, gen, counters, expect,
@@ -3676,7 +3759,7 @@ def option_timings(estimators, model, batches, gen, counters, expect,
         counters.reset()
         est.update(x, labels=y)
         got = counters.read()
-        if got != expect:
+        if got != counters.want(expect, got):
             raise AssertionError(f"{label} {opts}: launches {got}, want "
                                  f"{expect}")
         if want is None:
@@ -3760,7 +3843,7 @@ def moe_phase(estimators, models, counters, smi, dev, profile=False,
         counters.reset()
         _, seconds = timed(lambda: [est.update(x, generator=gen)
                                     for x, _ in batches[1:]])
-        if counters.read() != none:
+        if counters.read() != counters.want(none):
             raise AssertionError(f"{MOE_PATH}: launches {counters.read()}")
         best = min(best, seconds)
     rate = LM_BATCH * LM_T * MOE_UPDATES / best
@@ -3820,7 +3903,7 @@ def moe_phase(estimators, models, counters, smi, dev, profile=False,
         counters.reset()
         _, seconds = timed(lambda: [est.update(tok, generator=gen)
                                     for _ in range(MOE_SUITE_UPDATES)])
-        if counters.read() != none:
+        if counters.read() != counters.want(none):
             raise AssertionError(f"gpt2_moe suite: {counters.read()}")
         best = min(best, seconds)
     suite_rate = tok.numel() * MOE_SUITE_UPDATES / best
@@ -3878,7 +3961,7 @@ def moe_phase(estimators, models, counters, smi, dev, profile=False,
         if have != want_shapes or not all(np.isfinite(v).all()
                                           for v in saved[name].values()):
             raise AssertionError(f"factor file {name}: {have}")
-    if sorted(saved) != sorted(est.metas) or got != none:
+    if sorted(saved) != sorted(est.metas) or got != counters.want(none, got):
         raise AssertionError(f"gpt2_moe_tiny factors: {sorted(saved)}, {got}")
     log(f"gpt2_moe_tiny factor file: {len(saved)} layers under JAX's keys, "
         f"per-expert {tuple(np.shape(saved['h.0.moe.fc1']['a']))} A")
@@ -3889,7 +3972,7 @@ def moe_phase(estimators, models, counters, smi, dev, profile=False,
         if p.shape != (256 * 16, 256) or not np.isfinite(p).all() \
                 or np.abs(p.sum(1) - 1).max() > 1e-3:
             raise AssertionError(f"gpt2_moe_tiny {what} malformed")
-    if got != none:
+    if got != counters.want(none, got):
         raise AssertionError(f"gpt2_moe_tiny evaluate launched {got}")
     log(f"gpt2_moe_tiny tokens kfac --ood (random weights): NN accuracy "
         f"{100 * np.mean(probs.argmax(1) == labels):.2f}%, BNN "
@@ -3897,8 +3980,8 @@ def moe_phase(estimators, models, counters, smi, dev, profile=False,
 
     # (e) the example on the card
     res, got = run_cli(moe_laplace, [], counters, smi, "examples.moe_laplace")
-    if got != none or not np.isfinite([res["map_nll"], res["bnn_nll"],
-                                       res["log_marglik"]]).all():
+    if got != counters.want(none, got) or not np.isfinite(
+            [res["map_nll"], res["bnn_nll"], res["log_marglik"]]).all():
         raise AssertionError(f"moe_laplace: {got}, {res}")
     return rate
 
@@ -4079,9 +4162,11 @@ def images_phase(counters, smi, update_img_s=None):
     want = dict(none, patch_gram_tiled=IMG_ROUTES[0] * updates,
                 patch_gram_v2=IMG_ROUTES[1] * updates,
                 corr_gram=2 * IMG_ROUTES[2] * updates)
-    if got != want or est.num_updates != updates or len(calls) != updates:
+    if got != counters.want(want, got) or est.num_updates != updates \
+            or len(calls) != updates:
         raise AssertionError(f"{IMG_PATHS[0]}: launches {got}, want {want}; "
                              f"{est.num_updates} updates")
+    folder = got
     check_finite(est.state, f"{IMG_PATHS[0]} state")
     wait = loop["s"] - sum(calls)
     steady = BATCH * (updates - 1) / sum(calls[1:])
@@ -4113,7 +4198,7 @@ def images_phase(counters, smi, update_img_s=None):
                 or np.abs(p.sum(1) - 1).max() > 1e-3:
             raise AssertionError(f"imagenet folder {what} predictions "
                                  "malformed")
-    if got != none or not np.isfinite(auroc).all():
+    if got != counters.want(none, got) or not np.isfinite(auroc).all():
         raise AssertionError(f"imagenet folder evaluate: launches {got}, "
                              f"AUROC {auroc}")
     log(f"images: imagenet folder --ood art (random weights): AUROC NN "
@@ -4130,7 +4215,7 @@ def images_phase(counters, smi, update_img_s=None):
     routes = R18_ROUTES[R18_PATHS[0]]
     gwant = dict(none, patch_gram_tiled=routes["tiled"] * gupdates,
                  patch_gram_v2=routes["v2"] * gupdates)
-    if ggot != gwant or est.num_updates != gupdates \
+    if ggot != counters.want(gwant, ggot) or est.num_updates != gupdates \
             or not train.class_balanced:
         raise AssertionError(f"{IMG_PATHS[1]}: launches {ggot}, want "
                              f"{gwant}; {est.num_updates} updates")
@@ -4141,7 +4226,7 @@ def images_phase(counters, smi, update_img_s=None):
     log(f"images phase: {seconds:.1f} s, "
         f"{'within' if seconds <= IMG_BUDGET_S else 'OVER'} its "
         f"{IMG_BUDGET_S:.0f} s budget ({smi})")
-    return {IMG_PATHS[0]: want, IMG_PATHS[1]: ggot}
+    return {IMG_PATHS[0]: folder, IMG_PATHS[1]: ggot}
 
 
 def figures_phase(counters, smi):
@@ -4247,7 +4332,7 @@ def figures_phase(counters, smi):
             flags = " ".join(a for a in argv if a in toggles)
             _, got = run_cli(visualize, argv, counters, smi,
                              f"visualize {label} {flags}")
-            if got != none:
+            if got != counters.want(none, got):
                 raise AssertionError(f"visualize {label} launched {got}")
             sizes.update({p: check(p) for p in expect})
     finally:
@@ -4358,7 +4443,7 @@ def surface_phase(estimators, models, counters, smi, dev):
                                                    atol=1e-4)):
         raise AssertionError("surface: the linearized predictive is not a "
                              "distribution")
-    if counters.read() != none:
+    if counters.read() != counters.want(none):
         raise AssertionError(f"surface tutorial launched {counters.read()}")
     log(f"surface tutorial laplace: last-layer KFAC, tuned "
         f"{json.dumps({k: np.asarray(v).tolist() for k, v in tuned.items()})[:200]}"
@@ -4668,7 +4753,7 @@ def surface_phase(estimators, models, counters, smi, dev):
         f" SVG {sum(v for k, v in seconds.items() if k.endswith('.svg')):.2f}"
         f" s; slowest {os.path.basename(slow[1])} {slow[0]:.3f} s; "
         f"{sum(len(b) for b in boxes)} string boxes inked")
-    if counters.read() != none:
+    if counters.read() != counters.want(none):
         raise AssertionError(f"surface figures launched {counters.read()}")
     total = time.perf_counter() - t_phase
     log(f"surface phase: {total:.1f} s, "
@@ -4743,6 +4828,351 @@ def vmap_sweep(models, smi, dev):
     log(f"vmap sweep: {time.perf_counter() - t_sweep:.1f} s ({smi})")
 
 
+# -- the batched symmetric Gram (--grams) -------------------------------------
+
+#: --grams: the batched f32 symmetric Gram at the fit cells' shapes, each
+#: (name, rows shape, segment lengths of a ragged case or None, ones
+#: column): GPT-2's stacked A factors ([12, 8192, 769] and [12, 8192,
+#: 3073] with the ones column the pre-pass writes) and c_attn's G,
+#: Moonlight's dense down_proj A and a routed layer-side (16 held experts
+#: over 12,288 rows, 330-1,583 each); then a transposed view (a grouped
+#: layer's tokens), a ragged case with an empty segment, and more segments
+#: than one launch takes (two launches)
+BATCHED_CASES = [
+    ("gpt2_a_769", (12, 8192, 768), None, True),
+    ("gpt2_a_3073", (12, 8192, 3072), None, True),
+    ("gpt2_g_2304", (12, 8192, 2304), None, False),
+    ("moonlight_a_11264", (8192, 11264), None, False),
+    ("moonlight_routed_2048", (12288, 2048), "routed", False),
+    ("transposed_view", (3, 4096, 300), "view", False),
+    ("ragged_empty_ones", (1000, 257), [0, 0, 333, 1000], True),
+    ("two_slices", (130, 300, 320), None, False),
+]
+#: --grams: the gate's sweep, the kernel against cuBLAS's strict-f32
+#: product over F, for segments of each row count, one segment and 16
+GATE_SWEEP_F = (128, 192, 256, 320, 384, 512, 769, 1024, 1408, 2048, 3072,
+                4096)
+GATE_SWEEP_ROWS = (128, 256, 512, 768, 2048, 8192)
+GATE_SWEEP_SEGMENTS = (1, 16)
+
+
+def routed_lengths(total=12288, n=16, lo=330, hi=1583, seed=0):
+    """``n`` segment lengths in [lo, hi] summing to ``total``: a routed
+    layer of 16 held experts as the Moonlight cell loads them."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    while True:
+        w = rng.uniform(lo, hi, n)
+        lens = np.floor(w / w.sum() * total).astype(int)
+        lens[-1] += total - lens.sum()
+        if lens.min() >= lo and lens.max() <= hi:
+            return lens.tolist()
+
+
+def batched_input(shape, kind, seed):
+    """(x, offsets) of a BATCHED_CASES entry on the card."""
+    import numpy as np
+    import torch
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).cuda()
+    if kind == "routed":
+        return x, [0] + np.cumsum(routed_lengths(shape[0])).tolist()
+    if kind == "view":
+        return x.transpose(0, 1).contiguous().transpose(0, 1), None
+    return x, kind
+
+
+def check_batched_sym(tsg):
+    """BATCHED_CASES through ``sym_gram_batched``: the pre-pass bit for bit
+    its plain version, one launch a call, two launches the same bits, each
+    Gram bitwise symmetric and off its diagonal within CORR_OFF_RTOL of a
+    float64 Gram, beside the error of the cuBLAS Gram it replaces; timed
+    (CUDA events, the profiler's device time) against its bound and that
+    route (cuBLAS's strict-f32 ``a^T a``: the batched matmul, after the
+    ones column's concatenation, or one matmul an expert and a stack).
+    Returns the records."""
+    import torch
+    records = []
+    for i, (name, shape, kind, ones) in enumerate(BATCHED_CASES):
+        x, offsets = batched_input(shape, kind, 10 + i)
+        lengths = tsg._segment_table(x, offsets)[2]
+        f = x.shape[-1] + ones
+        # the pre-pass of the first launch's segments, as the Gram runs it
+        px = x[:tsg.MAX_SEGMENTS] if len(lengths) > tsg.MAX_SEGMENTS else x
+        with torch.cuda.device(x.device):
+            _, op = next(tsg._presplits(x, offsets, ones))
+        if not torch.equal(op, tsg.tf32_presplit_batched_plain(px, offsets,
+                                                               ones)):
+            raise AssertionError(f"{name}: the batched pre-pass differs "
+                                 "from its plain version")
+        del op
+        segs = tsg.segments_of(x, offsets)
+        before = tsg.sym_gram_batched.launches
+        got = tsg.sym_gram_batched(x, offsets, ones)
+        if tsg.sym_gram_batched.launches != before + -(
+                -len(segs) // tsg.MAX_SEGMENTS):
+            raise AssertionError(f"{name}: not one launch a slice of "
+                                 f"{tsg.MAX_SEGMENTS} segments")
+        if not torch.equal(got, tsg.sym_gram_batched(x, offsets, ones)):
+            raise AssertionError(f"{name}: two launches differ")
+        got = got.reshape(-1, f, f)
+        if not torch.equal(got, got.mT):
+            raise AssertionError(f"{name}: not bitwise symmetric")
+        def call(x=x, offsets=offsets, ones=ones):
+            return tsg.sym_gram_batched(x, offsets, ones)
+
+        def library(x=x, offsets=offsets, ones=ones, segs=segs):
+            if offsets is not None:
+                return torch.stack([a.T @ a for a in (
+                    tsg._with_ones(s, ones) for s in segs)])
+            a = tsg._with_ones(x, ones)
+            return a.transpose(-1, -2) @ a
+        lib = library().reshape(-1, f, f)
+        worst = lib_worst = 0.0
+        for g, b, s in zip(got, lib, segs):
+            if s.shape[0] == 0:
+                if g.any():
+                    raise AssertionError(f"{name}: an empty segment's Gram "
+                                         "is not zero")
+                continue
+            s = tsg._with_ones(s.double(), ones)
+            want = s.T @ s
+            worst = max(worst, off_diagonal_err(g, want))
+            lib_worst = max(lib_worst, off_diagonal_err(b, want))
+        del lib
+        log(f"  sym_gram_batched {name} {tuple(x.shape)} offsets "
+            f"{'ragged' if offsets else 'uniform'} ones={ones}: "
+            f"off-diagonal err {worst:.3e} of the largest off-diagonal "
+            f"float64 entry (bar {CORR_OFF_RTOL}); cuBLAS strict f32 "
+            f"{lib_worst:.3e}")
+        if not worst <= CORR_OFF_RTOL:
+            raise AssertionError(f"{name}: off-diagonal error {worst:.3e} "
+                                 f"over {CORR_OFF_RTOL}")
+        rows = sum(s.shape[0] for s in segs)
+        splits, _ = tsg.split_plan(max(lengths), f, False,
+                                   tsg._resident_blocks(0, False),
+                                   len(lengths))
+        records.append(dict(
+            name=f"sym_gram_batched_{name}", function="sym_gram_batched",
+            counter="sym_gram_batched", dtype="f32",
+            source="curvature_tpu_torch/ops/cuda/csrc/sym_gram.cu",
+            shape=list(x.shape), segments=len(segs), ones=ones,
+            ragged=offsets is not None, splits=splits,
+            off_diagonal_err=worst, library_off_diagonal_err=lib_worst,
+            launches=None, launches_by_path=None, ms=cuda_ms(call),
+            call=call,
+            library_ms=cuda_ms(library),
+            library_call="cuBLAS a^T a, strict f32 (TF32 off)",
+            **bounds(rows * f * (f + 1), x.numel() * 4
+                     + len(segs) * f * f * 4, "f32")))
+        del x, got
+        torch.cuda.empty_cache()
+    for rec in records:
+        by_kernel = device_ms_by_kernel(rec.pop("call"))
+        rec["device_ms"] = sum(by_kernel.values())
+        rec["device_ms_presplit"] = sum(
+            v for k, v in by_kernel.items() if "presplit_kernel" in k)
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        log(f"{rec['name']}: {rec['ms']:.4f} ms, device "
+            f"{rec['device_ms']:.4f} ms (pre-pass "
+            f"{rec['device_ms_presplit']:.4f}), {rec['splits']} split(s), "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+            f"{100 * rec['bound_share']:.1f}%), cuBLAS strict f32 "
+            f"{rec['library_ms']:.4f} ms")
+    return records
+
+
+def device_ms(fn, tries=3):
+    """The summed device time per call of ``fn`` (device_ms_by_kernel),
+    profiled again where a profile came back with no kernel events."""
+    for _ in range(tries):
+        ms = sum(device_ms_by_kernel(fn, calls=3).values())
+        if ms > 0:
+            return ms
+    raise RuntimeError("the profiler recorded no device time")
+
+
+def sweep_gate(tsg):
+    """The batched kernel against cuBLAS's strict-f32 product over
+    GATE_SWEEP_F for every segment count and row count of
+    GATE_SWEEP_SEGMENTS x GATE_SWEEP_ROWS: each one's device time (the
+    profiler's kernels, what a device-paced fit waits for) and its
+    back-to-back time (CUDA events; where it exceeds the device time, the
+    host's cost of a call, what a host-paced fit waits for). Returns the
+    rows; for each (segments, rows), the least F of the sweep from which
+    the kernel wins at every larger F on device time and on both times
+    (None: nowhere); and the shapes where the gate and the win on both
+    disagree."""
+    import torch
+    rows_out, crossover, disagree = [], {"device": {}, "both": {}}, []
+    for segs in GATE_SWEEP_SEGMENTS:
+        for n in GATE_SWEEP_ROWS:
+            wins = {"device": [], "both": []}
+            for f in GATE_SWEEP_F:
+                x = torch.randn((segs, n, f), device="cuda")
+
+                def kernel():
+                    return tsg.sym_gram_batched(x)
+
+                def cublas():
+                    return x.mT @ x
+                row = {"segments": segs, "rows": n, "f": f,
+                       "kernel_device_ms": device_ms(kernel),
+                       "cublas_device_ms": device_ms(cublas),
+                       "kernel_ms": cuda_ms(kernel, min_ms=20),
+                       "cublas_ms": cuda_ms(cublas, min_ms=20),
+                       "gate": tsg.batched_gate(segs, segs * n, f)}
+                rows_out.append(row)
+                device = row["kernel_device_ms"] < row["cublas_device_ms"]
+                both = device and row["kernel_ms"] < row["cublas_ms"]
+                wins["device"].append(device)
+                wins["both"].append(both)
+                if row["gate"] != both:
+                    disagree.append([segs, n, f, row["gate"]])
+                log(f"  gate sweep: {segs} x [{n}, {f}]: device kernel "
+                    f"{row['kernel_device_ms']:.4f} ms, cuBLAS "
+                    f"{row['cublas_device_ms']:.4f} ms "
+                    f"({row['cublas_device_ms'] / row['kernel_device_ms']:.2f}"
+                    f"x); back to back {row['kernel_ms']:.4f} / "
+                    f"{row['cublas_ms']:.4f} ms; gate {row['gate']}")
+                del x
+            for key, won in wins.items():
+                least = None
+                for f, w in zip(reversed(GATE_SWEEP_F), reversed(won)):
+                    if not w:
+                        break
+                    least = f
+                crossover[key][f"{segs}x{n}"] = least
+    log(f"gate sweep crossover (least F won through the sweep's top), on "
+        f"device time and on both times: {json.dumps(crossover)}; the gate "
+        f"against a win on both, where they differ ([segments, rows, F, "
+        f"gate]): {json.dumps(disagree)}")
+    return rows_out, crossover, disagree
+
+
+def expected_sym(est, spans):
+    """The factor spans whose Gram passes the batched gate, from their
+    shapes alone (the route code's decision restated): stacked and plain
+    dense or conv Grams over their tokens, routed sides over their rows
+    (one given label, S = 1); the kernel routes (corr, tiled, v2), tap
+    and rows take none."""
+    import dataclasses
+    import math
+    import torch
+    from curvature_tpu_torch.estimators.kfac import _conv_token_count
+    from curvature_tpu_torch.ops.cuda.sym_gram import batched_gate
+    from curvature_tpu_torch.ops.patches import resolve_padding
+    n = 0
+    for s in spans:
+        meta, side, route = est.metas[s.attrs["layer"]], s.attrs["side"], \
+            s.attrs["route"]
+        shape = s.attrs.get("shape")
+        f = meta.mat_cols if side == "a" else meta.out_features
+        if route == "routed":
+            segs, rows = s.attrs["experts"], s.attrs["rows"]
+        elif route == "stacked":
+            segs = shape[0] if side == "a" else shape[1]
+            rows = math.prod(shape[:-1])
+        elif route == "patches" and meta.kind == "conv":
+            pad = resolve_padding(meta.padding, shape[1], shape[2],
+                                  meta.kernel_size, meta.strides)
+            segs, rows = 1, _conv_token_count(
+                dataclasses.replace(meta, padding=pad),
+                torch.empty(shape, device="meta"))
+        elif route in ("patches", "plain"):
+            segs, rows = 1, math.prod(shape[:-1])
+        else:
+            continue
+        n += batched_gate(segs, rows, f)
+    return n
+
+
+def fit_launches(estimators, models, tsg, dev):
+    """One update of each fit cell's model (the cells' shapes; one given
+    label): the batched kernel's launches, the factor spans' ``gram``
+    counts, both held to the shape-alone expectation (GPT-2: all 8
+    stacked factors, no matmul Gram; Moonlight: every routed layer-side
+    one launch), and ``update_state`` ms with the kernel against
+    ``use_kernels=False`` (the matmul Grams; on ResNet-50 the patch
+    kernels too). Returns {model: record}."""
+    import collections
+    import torch
+    from curvature_tpu_torch.utils import monitor
+    out = {}
+    cases = [
+        ("gpt2-124m", lambda: models.gpt2(50257, scan_blocks=True,
+                                          device=dev),
+         (8, 1024), 50257, dict(loss="lm", layer_filter="h.*")),
+        ("moonlight-16b-a3b", lambda: models.moonlight_16b_a3b(
+            num_hidden_layers=6, held=(0, 16), device=dev),
+         (2, 4096), 163840, dict(loss="lm", layer_filter="model.layers.*")),
+        ("resnet50", lambda: models.resnet50(num_classes=1000, device=dev)
+         .to(memory_format=torch.channels_last), (128, 3, 224, 224), 1000,
+         {}),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name, build, shape, classes, kw in cases:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build()
+        if len(shape) == 2:
+            x = torch.randint(0, classes, shape, device=dev, generator=gen)
+            labels = torch.randint(0, classes, (1,) + shape, device=dev,
+                                   generator=gen)
+        else:
+            x = torch.randn(shape, device=dev, generator=gen).contiguous(
+                memory_format=torch.channels_last)
+            labels = torch.randint(0, classes, (1, shape[0]), device=dev,
+                                   generator=gen)
+        est = estimators.KFAC(model, **kw)
+        est.update(x, labels=labels)
+        torch.cuda.synchronize()
+        before = tsg.sym_gram_batched.launches
+        with monitor.tracing():
+            monitor.clear_spans()
+            est.update(x, labels=labels)
+            spans = [s for s in monitor.spans() if s.name == "factor"]
+        monitor.clear_spans()
+        launches = tsg.sym_gram_batched.launches - before
+        grams = collections.Counter(s.attrs["gram"] for s in spans)
+        want = expected_sym(est, spans)
+        routed = [s for s in spans if s.attrs["route"] == "routed"]
+
+        def state_ms(use):
+            est.use_kernels = use
+            cap = est.capture(x, labels=labels)
+            with torch.no_grad():
+                est.update_state(est.state, cap)
+                ms = cuda_ms(lambda: est.update_state(est.state, cap),
+                             min_ms=200, warmup=1)
+            del cap
+            return ms
+        kernel_ms, matmul_ms = state_ms(True), state_ms(False)
+        est.use_kernels = True
+        rec = {"launches_per_update": launches, "expected": want,
+               "grams": dict(grams), "routed_sym": sum(
+                   s.attrs["gram"] == "sym" for s in routed),
+               "routed_sides": len(routed),
+               "update_state_ms": kernel_ms,
+               "update_state_ms_matmul": matmul_ms,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"fit launches {name}: {json.dumps(rec)}")
+        if not launches == grams["sym"] == want:
+            raise AssertionError(f"{name}: {launches} launches, "
+                                 f"{grams['sym']} sym spans, {want} expected")
+        if name == "gpt2-124m" and dict(grams) != {"sym": 8}:
+            raise AssertionError(f"{name}: grams {dict(grams)}, not 8 sym")
+        if name == "moonlight-16b-a3b" and (
+                not routed or rec["routed_sym"] != len(routed)):
+            raise AssertionError(f"{name}: {rec['routed_sym']} of "
+                                 f"{len(routed)} routed sides took the "
+                                 "kernel")
+        out[name] = rec
+        del est, model, x, labels, spans
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4752,6 +5182,12 @@ def main(argv=None):
                     help="build and check the kernels, print their records "
                          "and the f32 sym_gram split sweep (SPLIT_SWEEP), "
                          "and stop (no paths, no result line)")
+    ap.add_argument("--grams", action="store_true",
+                    help="build the kernels, check and time the batched "
+                         "f32 symmetric Gram at the fit cells' shapes, "
+                         "sweep its gate against cuBLAS, count its launches "
+                         "an update on the three fit models, and stop (no "
+                         "result line)")
     ap.add_argument("--lm", action="store_true",
                     help="build the kernels, run the causal-LM phase only "
                          "and stop (no result line)")
@@ -4850,7 +5286,7 @@ def main(argv=None):
     runs_moe = not any((args.hyper, args.grouped, args.training, args.zoo,
                         args.transformers, args.subspace, args.parallel,
                         args.lm, args.kernels, args.mesh_axes, args.images,
-                        args.surface))
+                        args.surface, args.grams))
     moe_model = prepare_moe_model(models) if runs_moe else None
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         # the image decoders' g++ build beside the nvcc ones
@@ -4940,6 +5376,19 @@ def main(argv=None):
         log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
             " GiB")
         return 0
+    if args.grams:
+        t0 = time.perf_counter()
+        log("sym_gram_batched at the fit cells' shapes:")
+        records = check_batched_sym(tsg)
+        sweep, crossover, disagree = sweep_gate(tsg)
+        fits = fit_launches(estimators, models, tsg, dev)
+        print(json.dumps({"grams": records, "gate_sweep": sweep,
+                          "gate_crossover": crossover,
+                          "gate_disagrees": disagree, "fit_launches": fits,
+                          "card": smi}))
+        log(f"grams phase: {time.perf_counter() - t0:.1f} s; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+        return 0
     if args.lm:
         lm_phase(estimators, models, Counters(tpg, tsg), smi,
                  torch.device("cuda", 0), args.profile)
@@ -5006,7 +5455,7 @@ def main(argv=None):
     ensemble, _ = laplace_tail(est, model, test_data, gen, counters, "kfac")
     counters.reset()
     nn_probs, labels = eval_nn(model, test_data)
-    if counters.read() != counters.zero():
+    if counters.read() != counters.want():
         raise AssertionError(f"eval_nn launched {counters.read()}")
     log(f"nn metrics (random weights, {2 * BATCH} synthetic images): "
         f"{json.dumps(prob_stats(nn_probs, labels, 'nn'))}")
@@ -5117,6 +5566,14 @@ def main(argv=None):
     log(f"peak memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     add_device_times(records)
+    # the batched symmetric kernel at the fit cells' shapes; its records
+    # count the wrapper's launches on every path, whatever the shape
+    batched = check_batched_sym(tsg)
+    for rec in batched:
+        rec["launches_by_path"] = {p: got["sym_gram_batched"]
+                                   for p, got in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
+    records += batched
     log(f"checks, rates and device times: "
         f"{time.perf_counter() - t_section:.1f} s ({smi})")
     if args.profile:
@@ -5192,8 +5649,10 @@ def main(argv=None):
 
     # -- 10. the causal-LM path: GPT-2 124M, the ladder, the token CLIs ----
     t0 = time.perf_counter()
-    lm_phase(estimators, models, counters, smi, dev, args.profile)
+    _, lm_by_path = lm_phase(estimators, models, counters, smi, dev,
+                             args.profile)
     log(f"lm phase: {time.perf_counter() - t0:.1f} s ({smi})")
+    count_record_launches(records, lm_by_path, {})
     torch.cuda.empty_cache()
 
     # -- 11. the mixture of experts: the Switch GPT-2 at 124M width, the
@@ -5484,7 +5943,7 @@ def world_of_one(estimators, models, counters, smi, dev, root):
     torch.cuda.synchronize()
     got = counters.read()
     want = dict(none, patch_gram_tiled=3, patch_gram_v2=1, corr_gram=R50_CORR)
-    if got != want:
+    if got != counters.want(want, got):
         raise AssertionError(f"{PAR_PATHS[0]}: launches {got}, want {want}")
     by_path[PAR_PATHS[0]] = got
     worst = _hold_states(meshed.state, single.state, "world of one",
@@ -5510,7 +5969,7 @@ def world_of_one(estimators, models, counters, smi, dev, root):
         _, got = run_cli(factors, R18_ARGV + [
             "--root_dir", where, "--results_dir", where, "--estimator",
             "kfac"] + extra, counters, smi, f"resnet18 factors kfac {path}")
-        if got != want:
+        if got != counters.want(want, got):
             raise AssertionError(f"{path}: launches {got}, want {want}")
         by_path[path] = got
         files[path] = {n: {k: torch.from_numpy(v) for k, v in f.items()}
@@ -5701,7 +6160,8 @@ def gloo_ranks(estimators, models, counters, smi, dev, procs, out_dir):
     by_path = {}
     for r, rep in enumerate(reports):
         for what, w in want.items():
-            if rep[what]["launches"] != w:
+            if rep[what]["launches"] != counters.want(
+                    w, rep[what]["launches"]):
                 raise AssertionError(f"gloo rank {r} {what}: launches "
                                      f"{rep[what]['launches']}, want {w}")
         by_path[PAR_PATHS[3 + r]] = rep["kfac"]["launches"]
@@ -6175,7 +6635,7 @@ def mesh_axes_phase(estimators, models, counters, smi, dev, cfg=None):
         want = dict(none, **refs[kind]["routes"])
         for r, rep in enumerate(reports):
             got = rep["paths"][path]
-            if got["launches"] != want:
+            if got["launches"] != counters.want(want, got["launches"]):
                 raise AssertionError(f"{path} rank {r}: launches "
                                      f"{got['launches']}, want {want}")
             by_path[f"{path}_rank{r}"] = got["launches"]
@@ -6223,7 +6683,9 @@ def count_record_launches(records, by_path, record_paths):
     one record."""
     counted = {}
     for rec in records:
-        mine = record_paths.get(rec["name"], ())
+        # the batched kernel's records count its wrapper on every path
+        mine = (tuple(by_path) if rec["counter"] == "sym_gram_batched"
+                else record_paths.get(rec["name"], ()))
         rec["launches_by_path"].update(
             {p: got[rec["counter"]] if p in mine else 0
              for p, got in by_path.items()})

@@ -47,7 +47,21 @@ a block-diagonal G of ``ceil(out / g_block_size)`` ``[bs, bs]`` blocks
 over zero-padded output features, sharing its A (``_is_gblock``, JAX
 :228-241); the padded tail is sliced away at sample, solve and logdet.
 ``g_block_size=0`` restores the hard error. These Grams are products that
-JAX leaves to XLA (no Pallas kernel): here they are cuBLAS matmuls.
+JAX leaves to XLA (no Pallas kernel). Here, on a CUDA float32 input whose
+Gram is f32, with ``use_kernels`` on and above the measured gate
+(``ops/cuda/sym_gram.batched_gate``), every Gram of :func:`_gram_aligned`
+(the ``stacked``, ``patches``, ``plain``, ``grouped``, split, ``gblock``
+and ``stack_grams`` Grams) and both of a ``routed`` layer's take the
+port's 3xTF32 symmetric kernel (``sym_gram_batched``): one pre-pass and
+one Gram launch for a whole depth stack, group or block set, or for all of
+an MoE layer's held experts over their row ranges, within ~2^-21 of the f32
+products, as the patch and correlation kernels. Anything else (a CPU
+tensor, bf16 operands, ``use_kernels=False``, a Gram below the gate) stays
+a strict-f32 ``a^T a`` matmul. :func:`_sym_gram` makes that decision,
+once a Gram. Each ``factor`` span carries ``gram``: ``sym`` (with the
+Gram's ``gram_shape``, its segments, rows and F) or ``matmul``, or the
+other kernel routes' ``corr``, ``patch`` and ``tap``; a ``stack_grams``
+span lists the ``gram_shapes`` of its buckets that took the kernel.
 
 A grouped or depthwise conv (``LayerMeta.groups`` = g > 1) keeps
 block-diagonal per-group factors, ``[g, cols, cols]`` A and ``[g, og,
@@ -113,7 +127,7 @@ route the whole input picks (:meth:`_row_block`).
 """
 import dataclasses
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -125,6 +139,8 @@ from curvature_tpu_torch.ops.corr_gram import (
     corr_gram_supported, corr_patch_gram)
 from curvature_tpu_torch.ops.cuda.patch_gram import (
     patch_gram_tiled, patch_gram_v2, select_patch_gram)
+from curvature_tpu_torch.ops.cuda.sym_gram import (
+    batched_gate, sym_gram_batched)
 from curvature_tpu_torch.ops.linalg import (
     chol_logdet, damped_inverse_cholesky, diag_add, sym)
 from curvature_tpu_torch.ops.patches import resolve_padding
@@ -139,12 +155,62 @@ def _split_damped_logdet(factor, add, multiply):
     return chol_logdet(torch.sqrt(multiply) * factor + torch.sqrt(add) * eye)
 
 
-def _gram_aligned(a: torch.Tensor, dtype) -> torch.Tensor:
+def _takes_sym(kernels: bool, a: torch.Tensor, dtype, segments: int,
+               rows: int, f: int) -> bool:
+    """Whether a factor Gram takes the 3xTF32 symmetric kernel: ``kernels``
+    (``KFAC.use_kernels``) on, ``a`` a CUDA float32 tensor, an f32 Gram,
+    and ``segments`` Grams of ``f`` features over ``rows`` rows in all
+    past :func:`batched_gate`."""
+    return (kernels and a.is_cuda and a.dtype == torch.float32
+            and dtype == torch.float32 and batched_gate(segments, rows, f))
+
+
+def _sym_gram(a: torch.Tensor, dtype, kernels: bool, ones: bool = False,
+              offsets=None) -> Optional[torch.Tensor]:
+    """The Grams of :func:`_gram_aligned`'s arguments from the 3xTF32
+    symmetric kernel where :func:`_takes_sym` holds, else None: the
+    route's one decision. One launch takes every leading index (a
+    transposed view read as it is, the ones column written by the
+    pre-pass) or, with ``offsets``, every row segment, the S samples'
+    rows of a segment made adjacent first (a copy only for S > 1). The
+    ``factor`` span open around it gets ``gram`` ``sym`` and
+    ``gram_shape`` (segments, rows, F)."""
+    f = a.shape[-1]
+    segments = (len(offsets) - 1 if offsets is not None
+                else math.prod(a.shape[:-2]))
+    shape = (segments, math.prod(a.shape[:-1]), f + ones)
+    if not _takes_sym(kernels, a, dtype, *shape):
+        return None
+    monitor.annotate("factor", gram="sym", gram_shape=shape)
+    if offsets is None:
+        return sym_gram_batched(a, ones=ones)
+    s = math.prod(a.shape[:-2])
+    return sym_gram_batched(a.reshape(s, -1, f).transpose(0, 1).reshape(
+        -1, f), [s * o for o in offsets], ones)
+
+
+def _gram_aligned(a: torch.Tensor, dtype, kernels: bool = False,
+                  ones: bool = False, offsets=None) -> torch.Tensor:
     """``a^T a`` in ``dtype`` over the last two dims (batched over leading
-    ones), the operands upcast first (bf16 x bf16 is exact in f32; a
-    bf16-output matmul would round the result). The JAX version zero-pads
-    the column count to a multiple of 128 for the MXU; cuBLAS needs no
-    such help."""
+    ones), ``ones`` appending a ones column to every row first; with
+    ``offsets`` (host ints), one Gram of each row segment
+    ``offsets[e]:offsets[e + 1]`` of the second-to-last dim over every
+    leading index (``[held, F, F]``). :func:`_sym_gram` where it applies;
+    otherwise a strict-f32 matmul a Gram, the operands upcast first (bf16
+    x bf16 is exact in f32; a bf16-output matmul would round the result),
+    and the span open around it gets ``gram`` ``matmul``. The JAX version
+    zero-pads the column count to a multiple of 128 for the MXU; neither
+    needs such help."""
+    gram = _sym_gram(a, dtype, kernels, ones, offsets)
+    if gram is not None:
+        return gram
+    monitor.annotate("factor", gram="matmul")
+    if ones:
+        a = torch.cat([a, a.new_ones(a.shape[:-1] + (1,))], dim=-1)
+    if offsets is not None:
+        return torch.stack([
+            _gram_aligned(a[..., o0:o1, :].reshape(-1, a.shape[-1]), dtype)
+            for o0, o1 in zip(offsets, offsets[1:])])
     a = a.to(dtype)
     return a.transpose(-1, -2) @ a
 
@@ -161,7 +227,8 @@ def _batched_gram(a: torch.Tensor, dtype) -> torch.Tensor:
     pass, which left ResNet-50's 12,544-50,176-token G Grams 4.7e-5 of
     max off one GEMM per layer on an H100 (5.3e-6 in chunks; the option
     check of chip_smoke.py). Zero rows pad the last chunk and add
-    nothing."""
+    nothing. (The symmetric kernel caps and flushes its blocks' chains,
+    so ``stack_grams`` tries :func:`_sym_gram` first.)"""
     layers, n, f = a.shape
     c = max(1, min(-(-n // GRAM_CHUNK),
                    GRAM_CHUNK_ENTRIES // (layers * f * f)))
@@ -417,19 +484,19 @@ class KFAC(Estimator):
                           shape=act.shape):
             if route == "stacked":
                 a = act.reshape(act.shape[0], -1, meta.fan_in)
-                if meta.has_bias:
-                    a = torch.cat([a, a.new_ones(a.shape[:-1] + (1,))],
-                                  dim=-1)
-                return _gram_aligned(a, self.dtype) / a.shape[1]
+                return _gram_aligned(a, self.dtype, self.use_kernels,
+                                     ones=meta.has_bias) / a.shape[1]
             if route == "grouped":
                 t = grouped_act_tokens(meta, act, append_ones=meta.has_bias,
                                        extra_stride=self._spatial_stride(),
                                        offset=self.subsample_offset)
-                return _gram_aligned(t.transpose(0, 1),
-                                     self.dtype) / t.shape[0]
+                return _gram_aligned(t.transpose(0, 1), self.dtype,
+                                     self.use_kernels) / t.shape[0]
             if route == "corr":
+                monitor.annotate("factor", gram="corr")
                 return self._corr_a_factor(meta, act)
             if route in ("tiled", "v2"):
+                monitor.annotate("factor", gram="patch")
                 fn = patch_gram_v2 if route == "v2" else patch_gram_tiled
                 gram = fn(act, meta.kernel_size, meta.padding, meta.strides)
                 if not meta.has_bias:
@@ -465,7 +532,7 @@ class KFAC(Estimator):
         a = act_tokens(meta, act, append_ones=meta.has_bias,
                        extra_stride=self._spatial_stride(),
                        offset=self.subsample_offset)
-        return _gram_aligned(a, self.dtype) / a.shape[0]
+        return _gram_aligned(a, self.dtype, self.use_kernels) / a.shape[0]
 
     def _row_block(self, meta, act, probe, shard):
         """(meta, input, probe gradient, route) of this rank's block of a
@@ -519,7 +586,7 @@ class KFAC(Estimator):
         nb, bs, padded = self._gblock_dims(meta)
         g = torch.nn.functional.pad(g, (0, padded - meta.out_features))
         return _gram_aligned(g.reshape(-1, nb, bs).transpose(0, 1),
-                             self.dtype)
+                             self.dtype, self.use_kernels)
 
     # -- stack_grams: cross-layer Gram batching --------------------------------
     def _a_stackable(self, meta, act) -> bool:
@@ -538,7 +605,10 @@ class KFAC(Estimator):
     def _stacked_grams(self, cap: Captured, grams):
         """({name: A}, {name: G}) of the stackable layers (those not fused
         into ``grams``) whose token matrices share their shape with
-        another's: one batched product per bucket (JAX :486-521)."""
+        another's: one batched product per bucket (JAX :486-521), each
+        value a pair (factor, the Gram it took: ``sym`` or ``matmul``).
+        Where buckets took the kernel, the ``stack_grams`` span gets their
+        (segments, rows, F) as ``gram_shapes``."""
         k = self._spatial_stride()
         a_buckets, g_buckets = {}, {}
         for name, meta in self.metas.items():
@@ -555,20 +625,31 @@ class KFAC(Estimator):
                     (name, g))
         a_buckets = [(k, v) for k, v in a_buckets.items() if len(v) > 1]
         g_buckets = [(k, v) for k, v in g_buckets.items() if len(v) > 1]
-        pre_a, pre_g = {}, {}
+        pre_a, pre_g, sym_shapes = {}, {}, []
+
+        def bucket(t, matmul):
+            gram = _sym_gram(t, self.dtype, self.use_kernels)
+            if gram is None:
+                return matmul(t, self.dtype), "matmul"
+            sym_shapes.append((t.shape[0], t.shape[0] * t.shape[1],
+                               t.shape[2]))
+            return gram, "sym"
         with monitor.span("stack_grams",
                           buckets=len(a_buckets) + len(g_buckets)):
             for shape, items in a_buckets:
-                gram = _gram_aligned_batched(
-                    torch.stack([t for _, t in items]), self.dtype) / shape[0]
-                pre_a.update((name, gram[i]) for i, (name, _)
+                gram, kind = bucket(torch.stack([t for _, t in items]),
+                                    _gram_aligned_batched)
+                gram = gram / shape[0]
+                pre_a.update((name, (gram[i], kind)) for i, (name, _)
                              in enumerate(items))
             for (_, n_tok), items in g_buckets:
-                gram = _batched_gram(torch.stack([g for _, g in items]),
-                                     self.dtype) * (cap.batch_size ** 2
-                                                    / n_tok)
-                pre_g.update((name, gram[i]) for i, (name, _)
+                gram, kind = bucket(torch.stack([g for _, g in items]),
+                                    _batched_gram)
+                gram = gram * (cap.batch_size ** 2 / n_tok)
+                pre_g.update((name, (gram[i], kind)) for i, (name, _)
                              in enumerate(items))
+            if sym_shapes:
+                monitor.annotate("stack_grams", gram_shapes=sym_shapes)
         return pre_a, pre_g
 
     # -- transforms -----------------------------------------------------------
@@ -602,7 +683,8 @@ class KFAC(Estimator):
                                           cap.shard))
             if name in grams:
                 with monitor.span("factor", layer=name, side="g",
-                                  route="tap", shape=grams[name].shape):
+                                  route="tap", gram="tap",
+                                  shape=grams[name].shape):
                     # (B*g)^T (B*g) over the S samples' token Grams
                     gram = grams[name].sum(0)
                     if rows is not None:
@@ -611,8 +693,8 @@ class KFAC(Estimator):
                         cap.batch_size ** 2 / cap.probe_gram_ntok[name])
             elif name in pre_g:
                 with monitor.span("factor", layer=name, side="g",
-                                  route="stack_grams"):
-                    g_factor = pre_g[name]
+                                  route="stack_grams", gram=pre_g[name][1]):
+                    g_factor = pre_g[name][0]
             else:
                 g_factor = self._g_factor(
                     meta, probe if block is None else block[2],
@@ -629,8 +711,8 @@ class KFAC(Estimator):
                     state[name]["a_bias"] += num_mc
             elif name in pre_a:
                 with monitor.span("factor", layer=name, side="a",
-                                  route="stack_grams"):
-                    a_factor = pre_a[name]
+                                  route="stack_grams", gram=pre_a[name][1]):
+                    a_factor = pre_a[name][0]
             elif block is not None:
                 a_factor = self._a_factor(block[0], block[1], block[3])
             else:
@@ -642,21 +724,20 @@ class KFAC(Estimator):
     def _routed_factors(self, meta, rows, probe_grad, routes, batch_size):
         """(A ``[held, cols, cols]``, G ``[held, out, out]``) of an expert
         layer from its routed rows ``[rows, in]`` and their ``[S, rows,
-        out]`` probe gradient: one Gram per held expert over its own rows,
-        each divided by the layer's N tokens (the module docstring)."""
-        o, n = routes.offsets, routes.num_tokens
+        out]`` probe gradient: one Gram per held expert over its own rows
+        (:func:`_gram_aligned` at the routes' offsets: one ragged launch of
+        the symmetric kernel a side where it applies, else a matmul an
+        expert), each divided by the layer's N tokens (the module
+        docstring)."""
+        o, n, held = routes.offsets, routes.num_tokens, routes.experts
         with monitor.span("factor", rows.device, layer=meta.name, side="a",
-                          route="routed", rows=routes.rows,
-                          experts=routes.experts):
-            a = torch.stack([_gram_aligned(rows[o[e]:o[e + 1]], self.dtype)
-                             for e in range(routes.experts)]) / n
+                          route="routed", rows=routes.rows, experts=held):
+            a = _gram_aligned(rows, self.dtype, self.use_kernels,
+                              offsets=o) / n
         with monitor.span("factor", rows.device, layer=meta.name, side="g",
-                          route="routed", rows=routes.rows,
-                          experts=routes.experts):
-            g = torch.stack([
-                _gram_aligned(probe_grad[:, o[e]:o[e + 1]].reshape(
-                    -1, meta.out_features), self.dtype)
-                for e in range(routes.experts)]) * (batch_size ** 2 / n)
+                          route="routed", rows=routes.rows, experts=held):
+            g = _gram_aligned(probe_grad, self.dtype, self.use_kernels,
+                              offsets=o) * (batch_size ** 2 / n)
         return a, g
 
     def _g_route(self, meta, rows) -> str:
@@ -684,6 +765,7 @@ class KFAC(Estimator):
                           shape=probe_grad.shape):
             g, n_tok = self._g_tokens(meta, probe_grad)
             if route == "rows":
+                monitor.annotate("factor", gram="matmul")
                 g = g.to(self.dtype)
                 return (g[..., rows].mT @ g) * (batch_size ** 2 / n_tok)
             if route == "gblock":
@@ -693,18 +775,21 @@ class KFAC(Estimator):
                 # [.., 3, H, d, d] (JAX :555-561)
                 d = meta.out_features // 3 // meta.heads
                 gq = g.reshape(g.shape[:-1] + (3, meta.heads, d))
-                gram = _gram_aligned(gq.movedim(-4, -2), self.dtype)
+                gram = _gram_aligned(gq.movedim(-4, -2), self.dtype,
+                                     self.use_kernels)
             elif route == "qkv_split":
                 gq = g.reshape(g.shape[:-1] + (3, meta.out_features // 3))
-                gram = _gram_aligned(gq.movedim(-3, -2), self.dtype)
+                gram = _gram_aligned(gq.movedim(-3, -2), self.dtype,
+                                     self.use_kernels)
             elif route == "grouped":
                 # output channels are group-major: one reshape splits the
                 # group axis (JAX :586-595)
                 gq = g.reshape(-1, meta.groups,
                                meta.out_features // meta.groups)
-                gram = _gram_aligned(gq.transpose(0, 1), self.dtype)
+                gram = _gram_aligned(gq.transpose(0, 1), self.dtype,
+                                     self.use_kernels)
             else:
-                gram = _gram_aligned(g, self.dtype)
+                gram = _gram_aligned(g, self.dtype, self.use_kernels)
             # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
             return gram * (batch_size ** 2 / n_tok)
 
@@ -713,7 +798,8 @@ class KFAC(Estimator):
         ``out_proj``, divided by the token count."""
         lead = act.shape[:1] if meta.stacked else ()
         t = act.reshape(lead + (-1, meta.heads, meta.fan_in // meta.heads))
-        return _gram_aligned(t.movedim(-2, -3), self.dtype) / t.shape[-3]
+        return _gram_aligned(t.movedim(-2, -3), self.dtype,
+                             self.use_kernels) / t.shape[-3]
 
     def invert_state(self, state, add, multiply):
         """Per factor (batched over every block axis); a head-split

@@ -1,5 +1,8 @@
 // Symmetric token Gram X^T X for Hopper (sm_90a): [N, F] f32 or bf16 in,
-// [F, F] f32 out, computing only the lower triangle.
+// [F, F] f32 out, computing only the lower triangle. In f32 one launch
+// takes a batch of row segments of one row matrix (a depth-stacked [L, N,
+// F] factor input, or an MoE layer's rows sorted by expert) and writes one
+// [F, F] Gram a segment.
 //
 // Replaces the Pallas kernels of curvature_tpu/ops/pallas/sym_gram.py:
 //   sym_gram variant='tri'   (_kernel :53; pallas_call :132)
@@ -47,6 +50,14 @@
 //    splits in order, and writes the tile and its transpose. With one split
 //    the tile kernel does that itself, straight from its accumulators: no
 //    workspace, no second launch.
+//  * f32 batches: the segments' table (Segments: each segment's first
+//    element, its rows, the row stride) is a kernel parameter, so a batch
+//    costs no host-to-device copy. The pre-pass gives each segment whole
+//    chunks, its last one zero-padded, so no chunk straddles two segments;
+//    the tile kernel's grid runs over (lower tile, split, segment), tiles
+//    fastest, so the blocks resident at once share one segment's slabs in
+//    L2. A segment of no rows has no chunks and gets an exact-zero Gram.
+//    The pre-pass can also append a ones column (a bias's) to every row.
 //  * Every tile and its transpose are written from the same shared-memory
 //    values, through a padded [T][T+1] tile so both writes are coalesced
 //    rows, and a diagonal tile's upper half mirrors its lower half: the
@@ -82,42 +93,45 @@ __device__ __forceinline__ void write_tile_pair(const float (*tile)[T + 1],
   }
 }
 
-// One lower tile per block: the splits summed in order, then the tile at
-// (ti, tj) and its transpose at (tj, ti), both from the same values.
+// One lower tile of one Gram per block, grid (tiles, batch): the splits
+// summed in order, then the tile at (ti, tj) and its transpose at (tj,
+// ti), both from the same values. The workspace is [split][batch][tile].
 __global__ void __launch_bounds__(REDUCE_THREADS)
 sym_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
                   int F, int num_tiles, int splits) {
   __shared__ float tile[TILE][TILE + 1];
-  const int t = blockIdx.x;
+  const int t = blockIdx.x, b = blockIdx.y;
   int ti, tj;
   gram::tri_tile(t, ti, tj);
-  const size_t per_split = static_cast<size_t>(num_tiles) * TILE * TILE;
-  const float* src = ws + static_cast<size_t>(t) * TILE * TILE;
+  const size_t per_split =
+      static_cast<size_t>(gridDim.y) * num_tiles * TILE * TILE;
+  const float* src =
+      ws + (static_cast<size_t>(b) * num_tiles + t) * TILE * TILE;
   for (int e = threadIdx.x; e < TILE * TILE; e += REDUCE_THREADS) {
     float v = 0.0f;
     for (int s = 0; s < splits; ++s) v += src[s * per_split + e];
     tile[e / TILE][e % TILE] = v;
   }
   __syncthreads();
-  write_tile_pair<TILE>(tile, out, F, ti, tj);
+  write_tile_pair<TILE>(tile, out + static_cast<size_t>(b) * F * F, F, ti,
+                        tj);
 }
 
 // The end of a tensor-core tile kernel of WGS warpgroups, `acc` its
-// values of block tile (ti, tj): with more than one split (gridDim.y), the
-// partial tile into the 64x64-tile workspace (num_tiles 64-tiles a split)
-// for sym_reduce_kernel; with one, staged in the (now idle) ring at smem,
-// the tile and its transpose into out as coalesced rows.
+// values of block tile (ti, tj) of the Gram at out: with more than one
+// split (gridDim.y), the partial tile into its split's 64x64-tile
+// workspace at ws for sym_reduce_kernel; with one, staged in the (now
+// idle) ring at smem, the tile and its transpose into out as coalesced
+// rows.
 template <int WGS>
 __device__ __forceinline__ void finish_tile(const float (&acc)[32 * WGS],
                                             unsigned char* smem,
                                             float* __restrict__ ws,
                                             float* __restrict__ out, int F,
-                                            int num_tiles, int ti, int tj) {
+                                            int ti, int tj) {
   constexpr int T = 64 * WGS;
   if (gridDim.y > 1) {
-    wg::store_subtiles<WGS>(
-        ws + static_cast<size_t>(blockIdx.y) * num_tiles * TILE * TILE, ti,
-        tj, (F + TILE - 1) / TILE, acc);
+    wg::store_subtiles<WGS>(ws, ti, tj, (F + TILE - 1) / TILE, acc);
     return;
   }
   float(*tile)[T + 1] = reinterpret_cast<float(*)[T + 1]>(smem);
@@ -146,23 +160,58 @@ __host__ __device__ constexpr int presplit_fblocks(int F) {
   return (F + Tf::TILE - 1) / Tf::TILE * TF_WGS;
 }
 
-// x [N, F] -> hi and lo, each [ceil(N/32) chunks][presplit_fblocks(F)
-// blocks] slabs of [64 features x 32 tokens] (tf::SLAB bytes, swizzled as
-// tf::desc reads them), zero past N and F; hi = cvt.rna.tf32(x) and lo =
-// cvt.rna.tf32(x - hi), as tf::store_split. Grid (chunks, fblocks), 256
-// threads: each block reads its [32 tokens x 64 features] rows of x
-// coalesced into a padded shared tile and writes its two slabs as
-// coalesced 16-byte chunks.
+// The most segments one f32 launch takes: their table is a kernel
+// parameter (2 KB here); the wrapper launches a larger batch in slices.
+constexpr int MAX_SEGMENTS = 128;
+
+// Segment b of a batch: its row i, feature f at x[base[b] + i * ld + f]
+// for i < len[b]; its rows are pre-split chunks chunk0[b] ..
+// chunk0[b + 1] - 1, each of tf::BK rows, the last zero-padded.
+struct Segments {
+  long long base[MAX_SEGMENTS];
+  int len[MAX_SEGMENTS];
+  int chunk0[MAX_SEGMENTS + 1];
+  int count;
+};
+
+// What the tile kernel reads of Segments.
+struct ChunkStarts {
+  int chunk0[MAX_SEGMENTS + 1];
+};
+
+// The segments of segs -> hi and lo, each
+// [chunk0[count] chunks][presplit_fblocks(F) blocks] slabs of [64 features
+// x 32 rows] (tf::SLAB bytes, swizzled as tf::desc reads them), zero past
+// a segment's rows and past F; hi = cvt.rna.tf32(x) and lo =
+// cvt.rna.tf32(x - hi), as tf::store_split. With `ones`, feature F - 1 of
+// every row is 1 (x holds F - 1 features). Grid (chunks, fblocks), 256
+// threads: each block finds its chunk's segment, reads its [32 rows x 64
+// features] of x coalesced into a padded shared tile and writes its two
+// slabs as coalesced 16-byte chunks.
 __global__ void __launch_bounds__(256)
 tf32_presplit_kernel(const float* __restrict__ x, uint4* __restrict__ hi,
-                     uint4* __restrict__ lo, int N, int F) {
-  __shared__ float tile[tf::BK][64 + 1];         // [token][feature]
+                     uint4* __restrict__ lo,
+                     const __grid_constant__ Segments segs, long long ld,
+                     int F, int ones) {
+  __shared__ float tile[tf::BK][64 + 1];         // [row][feature]
   const int c = blockIdx.x, fb = blockIdx.y;
+  int b = 0;                                     // the last b: chunk0[b] <= c
+  for (int step = MAX_SEGMENTS / 2; step > 0; step /= 2)
+    if (b + step < segs.count && segs.chunk0[b + step] <= c) b += step;
+  const int r0 = (c - segs.chunk0[b]) * tf::BK, len = segs.len[b];
+  const float* src = x + segs.base[b];
+  const int fx = F - ones;                       // features read from x
   const int col = threadIdx.x % 64, f = fb * 64 + col;
   for (int r = threadIdx.x / 64; r < tf::BK; r += 4) {
-    const int n = c * tf::BK + r;
-    tile[r][col] =
-        n < N && f < F ? __ldg(x + static_cast<size_t>(n) * F + f) : 0.0f;
+    const int n = r0 + r;
+    float v = 0.0f;
+    if (n < len) {
+      if (f < fx)
+        v = __ldg(src + n * ld + f);
+      else if (f < F)
+        v = 1.0f;                                // the ones column
+    }
+    tile[r][col] = v;
   }
   __syncthreads();
   const size_t slab = (static_cast<size_t>(c) * gridDim.y + fb) *
@@ -181,20 +230,25 @@ tf32_presplit_kernel(const float* __restrict__ x, uint4* __restrict__ hi,
   }
 }
 
-// f32 lower tile on the tensor cores, 3xTF32 from the pre-split hi and lo
-// slabs: grid (lower tiles of edge Tf::TILE, splits), TF_WGS warpgroups a
-// block, Tf::SMEM bytes of dynamic shared memory; split y sums chunks
-// [y * chunks_per_split, ...) of the `chunks` in the buffers.
+// f32 lower tiles on the tensor cores, 3xTF32 from the pre-split hi and
+// lo slabs: grid (lower tiles of edge Tf::TILE, splits, segments), TF_WGS
+// warpgroups a block, Tf::SMEM bytes of dynamic shared memory; split y of
+// segment b sums its chunks [y * chunks_per_split, ...) into Gram b of
+// out ([segments][F][F]), through the workspace ([split][segment][64-tile
+// num_tiles]) where there is more than one split.
 __global__ void __launch_bounds__(Tf::THREADS)
 sym_tf32x3_wgmma_kernel(const float* __restrict__ hi,
                         const float* __restrict__ lo, float* __restrict__ ws,
-                        float* __restrict__ out, int F, int chunks,
+                        float* __restrict__ out, int F,
+                        const __grid_constant__ ChunkStarts segs,
                         int chunks_per_split, int num_tiles) {
   extern __shared__ __align__(1024) unsigned char smem[];
   int ti, tj;
   gram::tri_tile(blockIdx.x, ti, tj);
-  const int c0 = blockIdx.y * chunks_per_split;
-  const int nchunks = max(0, min(chunks_per_split, chunks - c0));
+  const int b = blockIdx.z;
+  const int c0 = segs.chunk0[b] + blockIdx.y * chunks_per_split;
+  const int nchunks =
+      max(0, min(chunks_per_split, segs.chunk0[b + 1] - c0));
   const size_t chunk = static_cast<size_t>(presplit_fblocks(F)) * tf::SLAB;
   const tf::Presplit p{reinterpret_cast<const char*>(hi),
                        reinterpret_cast<const char*>(lo),
@@ -203,7 +257,11 @@ sym_tf32x3_wgmma_kernel(const float* __restrict__ hi,
   float acc[Tf::ACC];
   tf::presplit_tile<TF_WGS, TF_STAGES>(p, wg::ring_base(smem), nchunks,
                                         ti == tj, acc);
-  finish_tile<TF_WGS>(acc, smem, ws, out, F, num_tiles, ti, tj);
+  finish_tile<TF_WGS>(
+      acc, smem,
+      ws + (static_cast<size_t>(blockIdx.y) * gridDim.z + b) * num_tiles *
+               TILE * TILE,
+      out + static_cast<size_t>(b) * F * F, F, ti, tj);
 }
 
 // ---- bf16 -------------------------------------------------------------------
@@ -267,7 +325,10 @@ sym_wgmma_kernel(const __nv_bfloat16* __restrict__ x, float* __restrict__ ws,
   float acc[Wg::ACC];
   wg::gram_tile<WGS, false>(gather, wg::ring_base(smem), nchunks, ti == tj,
                             acc, nullptr);
-  finish_tile<WGS>(acc, smem, ws, out, F, num_tiles, ti, tj);
+  finish_tile<WGS>(
+      acc, smem,
+      ws + static_cast<size_t>(blockIdx.y) * num_tiles * TILE * TILE, out, F,
+      ti, tj);
 }
 
 // ---- launch -----------------------------------------------------------------
@@ -294,33 +355,65 @@ int num_lower_tiles(int F, int edge) {
 }
 
 cudaError_t reduce(const float* ws, float* out, int F, int splits,
-                   cudaStream_t s) {
+                   int batch, cudaStream_t s) {
   const int num_tiles = num_lower_tiles(F, TILE);
-  sym_reduce_kernel<<<num_tiles, REDUCE_THREADS, 0, s>>>(ws, out, F,
-                                                         num_tiles, splits);
+  sym_reduce_kernel<<<dim3(num_tiles, batch), REDUCE_THREADS, 0, s>>>(
+      ws, out, F, num_tiles, splits);
   return cudaGetLastError();
 }
 
-int presplit(const float* x, float* hi, float* lo, int N, int F,
+// chunk0 of `count` segments of len rows each: prefix sums of whole
+// chunks; false where a count or length is out of range.
+bool chunk_starts(const int* len, int count, int* chunk0) {
+  if (count < 1 || count > MAX_SEGMENTS) return false;
+  long long c = 0;
+  chunk0[0] = 0;
+  for (int b = 0; b < count; ++b) {
+    if (len[b] < 0) return false;
+    c += (len[b] + tf::BK - 1) / tf::BK;
+    if (c >= (1ll << 31)) return false;
+    chunk0[b + 1] = static_cast<int>(c);
+  }
+  return true;
+}
+
+int presplit(const float* x, float* hi, float* lo, const long long* base,
+             const int* len, int count, long long ld, int F, int ones,
              void* stream) {
-  const dim3 grid((N + tf::BK - 1) / tf::BK, presplit_fblocks(F));
+  Segments segs;
+  if (!chunk_starts(len, count, segs.chunk0) || F < 1 || ones < 0 ||
+      ones > 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int b = 0; b < count; ++b) {
+    segs.base[b] = base[b];
+    segs.len[b] = len[b];
+  }
+  segs.count = count;
+  if (segs.chunk0[count] == 0) return 0;         // no rows: nothing to split
+  const dim3 grid(segs.chunk0[count], presplit_fblocks(F));
   tf32_presplit_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, reinterpret_cast<uint4*>(hi), reinterpret_cast<uint4*>(lo), N, F);
+      x, reinterpret_cast<uint4*>(hi), reinterpret_cast<uint4*>(lo), segs,
+      ld, F, ones);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch(const float* hi, const float* lo, float* out, float* ws, int N,
-           int F, int splits, int chunks_per_split, void* stream) {
+int launch(const float* hi, const float* lo, float* out, float* ws,
+           const int* len, int count, int F, int splits,
+           int chunks_per_split, void* stream) {
+  ChunkStarts segs;
+  if (!chunk_starts(len, count, segs.chunk0) || splits < 1 ||
+      chunks_per_split < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = allow_tf32x3_smem();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  sym_tf32x3_wgmma_kernel<<<dim3(num_lower_tiles(F, Tf::TILE), splits),
+  sym_tf32x3_wgmma_kernel<<<dim3(num_lower_tiles(F, Tf::TILE), splits,
+                                 count),
                             Tf::THREADS, Tf::SMEM, s>>>(
-      hi, lo, ws, out, F, (N + tf::BK - 1) / tf::BK, chunks_per_split,
-      num_lower_tiles(F, TILE));
+      hi, lo, ws, out, F, segs, chunks_per_split, num_lower_tiles(F, TILE));
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(reduce(ws, out, F, splits, s));
+  return static_cast<int>(reduce(ws, out, F, splits, count, s));
 }
 
 int launch(const __nv_bfloat16* x, float* out, float* ws, int N, int F,
@@ -335,29 +428,35 @@ int launch(const __nv_bfloat16* x, float* out, float* ws, int N, int F,
                                     tokens_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  return static_cast<int>(reduce(ws, out, F, splits, s));
+  return static_cast<int>(reduce(ws, out, F, splits, 1, s));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Entries of sym_gram and tf32_presplit
+// Entries of sym_gram, sym_gram_batched and tf32_presplit
 // (curvature_tpu_torch/ops/cuda/sym_gram.py). f32: tf32_presplit_f32
-// writes hi and lo (each [ceil(N/32)][2 * ceil(F/128)][64][32] f32,
-// 16-byte aligned), then sym_gram_f32 reads them, its splits
-// chunks_per_split chunks of 32 tokens each. bf16 rows have a stride of
+// writes hi and lo (each [chunks][2 * ceil(F/128)][64][32] f32, 16-byte
+// aligned; chunks the sum of ceil(len[b]/32)) from `count` <= 128 row
+// segments of x (segment b's row i at x + base[b] + i * ld; with ones,
+// F - 1 features read and a ones column appended), then sym_gram_f32
+// reads them for the same lengths and writes [count][F][F], its splits
+// chunks_per_split chunks of 32 rows each. bf16 rows have a stride of
 // ld >= F elements, a multiple of 8, and x is 16-byte aligned (the wrapper
-// pads). With splits == 1 neither needs a workspace.
-int tf32_presplit_f32(const float* x, float* hi, float* lo, int N, int F,
-                      void* stream) {
-  return presplit(x, hi, lo, N, F, stream);
+// pads). With splits == 1 neither needs a workspace; with more, f32's is
+// [splits][count][64-tiles of F][64][64].
+int tf32_presplit_f32(const float* x, float* hi, float* lo,
+                      const long long* base, const int* len, int count,
+                      long long ld, int F, int ones, void* stream) {
+  return presplit(x, hi, lo, base, len, count, ld, F, ones, stream);
 }
 
 int sym_gram_f32(const float* hi, const float* lo, float* out, float* ws,
-                 int N, int F, int splits, int chunks_per_split,
-                 void* stream) {
-  return launch(hi, lo, out, ws, N, F, splits, chunks_per_split, stream);
+                 const int* len, int count, int F, int splits,
+                 int chunks_per_split, void* stream) {
+  return launch(hi, lo, out, ws, len, count, F, splits, chunks_per_split,
+                stream);
 }
 
 int sym_gram_bf16(const __nv_bfloat16* x, float* out, float* ws, int N, int F,

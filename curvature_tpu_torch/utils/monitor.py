@@ -11,7 +11,8 @@ the devices of what it is told to wait for; :func:`profile_trace` is the
 :func:`span` marks a stretch of the program (an update's ``capture`` and
 ``update_state``, each layer's ``factor``, ``invert``, ``sample``, the
 eval's forwards). It records only while a ``torch.profiler`` session runs
-or inside :func:`tracing`; otherwise it costs one flag check. A recorded
+or inside :func:`tracing`; otherwise it costs one flag check, as does
+:func:`annotate`, which adds attributes to the innermost open span. A recorded
 span keeps its id, its parent's id, its name, its start and end on the
 host's ``time.time_ns`` clock (the clock the profiler's timestamps are
 given in) and its attributes in a bounded in-memory buffer; under a
@@ -137,7 +138,7 @@ class _Recorder:
         self.local = threading.local()
         self.lock = threading.Lock()
 
-    def stack(self) -> List[int]:
+    def stack(self) -> List["_Span"]:
         stack = getattr(self.local, "stack", None)
         if stack is None:
             stack = self.local.stack = []
@@ -171,9 +172,9 @@ class _Span:
                            torch.cuda.Event(enable_timing=True))
             self.events[0].record(torch.cuda.current_stream(device))
         stack = _REC.stack()
-        self.parent = stack[-1] if stack else None
+        self.parent = stack[-1].id if stack else None
         self.id = next(_REC.ids)
-        stack.append(self.id)
+        stack.append(self)
         self.start = time.time_ns()
         return self
 
@@ -211,6 +212,18 @@ def span(name: str, device=None, **attrs):
     if not (_REC.forced or _autograd_profiler._is_profiler_enabled):
         return _OFF
     return _Span(name, device, attrs)
+
+
+def annotate(name: str, **attrs):
+    """Adds ``attrs`` to the innermost span open on this thread where it is
+    a ``name`` span and spans are recording (what a stretch learns only
+    once it has begun, such as which Gram a factor took); otherwise does
+    nothing past those checks."""
+    if not (_REC.forced or _autograd_profiler._is_profiler_enabled):
+        return
+    stack = _REC.stack()
+    if stack and stack[-1].name == name:
+        stack[-1].attrs.update(attrs)
 
 
 @contextlib.contextmanager
