@@ -1131,14 +1131,15 @@ def check_chain(tpg, tdt, rng):
     error, rel to max|G|."""
     import numpy as np
     import torch
+    from curvature_tpu_torch.ops.cuda.launch import MAX_CHAIN_TOKENS
     shape, ks, pad, st = CHAIN_CASE
     x = torch.from_numpy(rng.standard_normal(shape).astype(
         np.float32)).cuda().to(tdt)
     n = shape[0] * shape[1] * shape[2]
     per_split = -(-n // patch_splits(tpg, x, ks, pad, st))
-    if per_split != tpg.MAX_CHAIN_TOKENS:
+    if per_split != MAX_CHAIN_TOKENS:
         raise AssertionError(f"chain case: {per_split} tokens a split, not "
-                             f"{tpg.MAX_CHAIN_TOKENS}")
+                             f"{MAX_CHAIN_TOKENS}")
     got = _launch_twice(tpg.patch_gram, x, ks, pad)
     want = tpg.patch_gram_plain(x, ks, pad, st)
     rel = float((got - want).abs().max() / want.abs().max())
@@ -1374,9 +1375,10 @@ def check_sym_chain(tsg, tdt, rng):
     Returns its error, rel to max(max|G|, 1)."""
     import numpy as np
     import torch
+    from curvature_tpu_torch.ops.cuda.launch import MAX_CHAIN_TOKENS
     n, f = SYM_CHAIN_CASE
     bf16 = tdt == torch.bfloat16
-    cap = tsg.BF16_CHAIN_TOKENS if bf16 else tsg.MAX_CHAIN_TOKENS
+    cap = tsg.BF16_CHAIN_TOKENS if bf16 else MAX_CHAIN_TOKENS
     x = torch.from_numpy(rng.standard_normal((n, f)).astype(
         np.float32)).cuda().to(tdt)
     splits, per_split = sym_splits(tsg, x)
@@ -1394,6 +1396,8 @@ def sweep_sym_splits(tsg):
     the plain version."""
     import numpy as np
     import torch
+    from curvature_tpu_torch.ops.cuda.launch import (
+        MAX_CHAIN_TOKENS, split_count)
     rng = np.random.default_rng(2)
     plan, rows = tsg._batched_plan, []
     slots = tsg._resident_blocks(0, False)
@@ -1406,8 +1410,8 @@ def sweep_sym_splits(tsg):
             row = {"shape": [n, f], "block_tiles": tiles,
                    "waves": tiles / slots,
                    "wrapper_plan": list(plan(n, f, False, slots))}
-            fill = max(tsg.split_count(n, tiles, slots),
-                       -(-n // tsg.MAX_CHAIN_TOKENS))
+            fill = max(split_count(n, tiles, slots),
+                       -(-n // MAX_CHAIN_TOKENS))
             for key, splits in (("one", 1), ("fill", fill)):
                 per = -(-(-(-n // splits)) // tsg.CHUNK) * tsg.CHUNK
                 tsg._batched_plan = lambda *_, p=per: (-(-n // p), p)
@@ -5051,17 +5055,16 @@ def sweep_gate(tsg):
 
 
 def expected_sym(est, spans):
-    """The factor spans whose Gram passes the batched gate, from their
-    shapes alone (the route code's decision restated): stacked and plain
-    dense or conv Grams over their tokens, routed sides over their rows
-    (one given label, S = 1); the kernel routes (corr, tiled, v2), tap
-    and rows take none."""
-    import dataclasses
+    """The factor spans whose Gram takes the batched kernel by the seam's
+    own decision (``grams.takes_kernel``) on their shapes alone: stacked
+    and plain dense or conv Grams over their tokens (``kfac._token_count``),
+    routed sides over their rows (one given label, S = 1); the kernel
+    routes (corr, tiled, v2), tap and rows take none."""
     import math
     import torch
-    from curvature_tpu_torch.estimators.kfac import _conv_token_count
-    from curvature_tpu_torch.ops.cuda.sym_gram import batched_gate
-    from curvature_tpu_torch.ops.patches import resolve_padding
+    from curvature_tpu_torch.estimators.grams import takes_kernel
+    from curvature_tpu_torch.estimators.kfac import _token_count
+    probe = torch.empty(0, device=est.device)
     n = 0
     for s in spans:
         meta, side, route = est.metas[s.attrs["layer"]], s.attrs["side"], \
@@ -5074,16 +5077,12 @@ def expected_sym(est, spans):
             segs = shape[0] if side == "a" else shape[1]
             rows = math.prod(shape[:-1])
         elif route == "patches" and meta.kind == "conv":
-            pad = resolve_padding(meta.padding, shape[1], shape[2],
-                                  meta.kernel_size, meta.strides)
-            segs, rows = 1, _conv_token_count(
-                dataclasses.replace(meta, padding=pad),
-                torch.empty(shape, device="meta"))
+            segs, rows = 1, _token_count(meta, shape)
         elif route in ("patches", "plain"):
             segs, rows = 1, math.prod(shape[:-1])
         else:
             continue
-        n += batched_gate(segs, rows, f)
+        n += takes_kernel(probe, est.dtype, est.use_kernels, (segs, rows, f))
     return n
 
 
@@ -5092,7 +5091,9 @@ def fit_launches(estimators, models, tsg, dev):
     label): the batched kernel's launches, the factor spans' ``gram``
     counts, both held to the shape-alone expectation (GPT-2: all 8
     stacked factors, no matmul Gram; Moonlight: every routed layer-side
-    one launch), and ``update_state`` ms with the kernel against
+    one launch), the routes of the matmul Grams (a batched one over more
+    than ``grams.GRAM_CHUNK`` tokens is cut into chunks), and
+    ``update_state`` ms with the kernel against
     ``use_kernels=False`` (the matmul Grams; on ResNet-50 the patch
     kernels too). Returns {model: record}."""
     import collections
@@ -5150,7 +5151,11 @@ def fit_launches(estimators, models, tsg, dev):
         kernel_ms, matmul_ms = state_ms(True), state_ms(False)
         est.use_kernels = True
         rec = {"launches_per_update": launches, "expected": want,
-               "grams": dict(grams), "routed_sym": sum(
+               "grams": dict(grams), "matmul_routes": dict(
+                   collections.Counter(
+                       f"{s.attrs['route']}/{s.attrs['side']}"
+                       for s in spans if s.attrs["gram"] == "matmul")),
+               "routed_sym": sum(
                    s.attrs["gram"] == "sym" for s in routed),
                "routed_sides": len(routed),
                "update_state_ms": kernel_ms,

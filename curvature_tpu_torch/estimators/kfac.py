@@ -46,22 +46,8 @@ whose ``out_features`` exceed ``max_factor_dim`` (a vocabulary head) gets
 a block-diagonal G of ``ceil(out / g_block_size)`` ``[bs, bs]`` blocks
 over zero-padded output features, sharing its A (``_is_gblock``, JAX
 :228-241); the padded tail is sliced away at sample, solve and logdet.
-``g_block_size=0`` restores the hard error. These Grams are products that
-JAX leaves to XLA (no Pallas kernel). Here, on a CUDA float32 input whose
-Gram is f32, with ``use_kernels`` on and above the measured gate
-(``ops/cuda/sym_gram.batched_gate``), every Gram of :func:`_gram_aligned`
-(the ``stacked``, ``patches``, ``plain``, ``grouped``, split, ``gblock``
-and ``stack_grams`` Grams) and both of a ``routed`` layer's take the
-port's 3xTF32 symmetric kernel (``sym_gram_batched``): one pre-pass and
-one Gram launch for a whole depth stack, group or block set, or for all of
-an MoE layer's held experts over their row ranges, within ~2^-21 of the f32
-products, as the patch and correlation kernels. Anything else (a CPU
-tensor, bf16 operands, ``use_kernels=False``, a Gram below the gate) stays
-a strict-f32 ``a^T a`` matmul. :func:`_sym_gram` makes that decision,
-once a Gram. Each ``factor`` span carries ``gram``: ``sym`` (with the
-Gram's ``gram_shape``, its segments, rows and F) or ``matmul``, or the
-other kernel routes' ``corr``, ``patch`` and ``tap``; a ``stack_grams``
-span lists the ``gram_shapes`` of its buckets that took the kernel.
+``g_block_size=0`` restores the hard error. Every token Gram goes through
+``grams.factor_gram``, whose docstring says which take the kernel.
 
 A grouped or depthwise conv (``LayerMeta.groups`` = g > 1) keeps
 block-diagonal per-group factors, ``[g, cols, cols]`` A and ``[g, og,
@@ -100,10 +86,10 @@ experts), grouped, qkv/head-split and blocked-G layers, and convs under
 gradient (JAX :282-302). ``stack_grams=True`` batches the plain layers'
 Grams across layers: the token matrices of the layers whose A takes the
 patch route (no correlation Gram, no kernel) are bucketed by shape and
-each bucket is one batched product (its columns zero-padded to a multiple
-of 128, as JAX does), and so are the plain layers' G tokens (JAX
-:460-560). Both options change where a Gram is computed, never its
-value; neither touches the kernel routes.
+each bucket is one batched product (``grams.py`` on JAX's column pad),
+and so are the plain layers' G tokens (JAX :460-560). Both options change
+where a Gram is computed, never its value; neither touches the kernel
+routes.
 
 An MoE's expert layer takes the ``routed`` route: the capture hands on its
 routed rows (``Captured.routes``), and each held expert's A and G are the
@@ -127,7 +113,7 @@ route the whole input picks (:meth:`_row_block`).
 """
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -135,12 +121,11 @@ from curvature_tpu_torch.estimators.base import (
     Estimator, act_tokens, grad_tokens, group_rows, grouped_act_tokens,
     is_grouped, ungroup_rows)
 from curvature_tpu_torch.estimators.capture import Captured
+from curvature_tpu_torch.estimators.grams import factor_gram, gram_label
 from curvature_tpu_torch.ops.corr_gram import (
     corr_gram_supported, corr_patch_gram)
 from curvature_tpu_torch.ops.cuda.patch_gram import (
     patch_gram_tiled, patch_gram_v2, select_patch_gram)
-from curvature_tpu_torch.ops.cuda.sym_gram import (
-    batched_gate, sym_gram_batched)
 from curvature_tpu_torch.ops.linalg import (
     chol_logdet, damped_inverse_cholesky, diag_add, sym)
 from curvature_tpu_torch.ops.patches import resolve_padding
@@ -155,112 +140,20 @@ def _split_damped_logdet(factor, add, multiply):
     return chol_logdet(torch.sqrt(multiply) * factor + torch.sqrt(add) * eye)
 
 
-def _takes_sym(kernels: bool, a: torch.Tensor, dtype, segments: int,
-               rows: int, f: int) -> bool:
-    """Whether a factor Gram takes the 3xTF32 symmetric kernel: ``kernels``
-    (``KFAC.use_kernels``) on, ``a`` a CUDA float32 tensor, an f32 Gram,
-    and ``segments`` Grams of ``f`` features over ``rows`` rows in all
-    past :func:`batched_gate`."""
-    return (kernels and a.is_cuda and a.dtype == torch.float32
-            and dtype == torch.float32 and batched_gate(segments, rows, f))
-
-
-def _sym_gram(a: torch.Tensor, dtype, kernels: bool, ones: bool = False,
-              offsets=None) -> Optional[torch.Tensor]:
-    """The Grams of :func:`_gram_aligned`'s arguments from the 3xTF32
-    symmetric kernel where :func:`_takes_sym` holds, else None: the
-    route's one decision. One launch takes every leading index (a
-    transposed view read as it is, the ones column written by the
-    pre-pass) or, with ``offsets``, every row segment, the S samples'
-    rows of a segment made adjacent first (a copy only for S > 1). The
-    ``factor`` span open around it gets ``gram`` ``sym`` and
-    ``gram_shape`` (segments, rows, F)."""
-    f = a.shape[-1]
-    segments = (len(offsets) - 1 if offsets is not None
-                else math.prod(a.shape[:-2]))
-    shape = (segments, math.prod(a.shape[:-1]), f + ones)
-    if not _takes_sym(kernels, a, dtype, *shape):
-        return None
-    monitor.annotate("factor", gram="sym", gram_shape=shape)
-    if offsets is None:
-        return sym_gram_batched(a, ones=ones)
-    s = math.prod(a.shape[:-2])
-    return sym_gram_batched(a.reshape(s, -1, f).transpose(0, 1).reshape(
-        -1, f), [s * o for o in offsets], ones)
-
-
-def _gram_aligned(a: torch.Tensor, dtype, kernels: bool = False,
-                  ones: bool = False, offsets=None) -> torch.Tensor:
-    """``a^T a`` in ``dtype`` over the last two dims (batched over leading
-    ones), ``ones`` appending a ones column to every row first; with
-    ``offsets`` (host ints), one Gram of each row segment
-    ``offsets[e]:offsets[e + 1]`` of the second-to-last dim over every
-    leading index (``[held, F, F]``). :func:`_sym_gram` where it applies;
-    otherwise a strict-f32 matmul a Gram, the operands upcast first (bf16
-    x bf16 is exact in f32; a bf16-output matmul would round the result),
-    and the span open around it gets ``gram`` ``matmul``. The JAX version
-    zero-pads the column count to a multiple of 128 for the MXU; neither
-    needs such help."""
-    gram = _sym_gram(a, dtype, kernels, ones, offsets)
-    if gram is not None:
-        return gram
-    monitor.annotate("factor", gram="matmul")
-    if ones:
-        a = torch.cat([a, a.new_ones(a.shape[:-1] + (1,))], dim=-1)
-    if offsets is not None:
-        return torch.stack([
-            _gram_aligned(a[..., o0:o1, :].reshape(-1, a.shape[-1]), dtype)
-            for o0, o1 in zip(offsets, offsets[1:])])
-    a = a.to(dtype)
-    return a.transpose(-1, -2) @ a
-
-
-#: tokens per chunk of a batched Gram, and the most partial-product
-#: entries its chunks may hold at once (:func:`_batched_gram`)
-GRAM_CHUNK, GRAM_CHUNK_ENTRIES = 1024, 1 << 26
-
-
-def _batched_gram(a: torch.Tensor, dtype) -> torch.Tensor:
-    """``a[l]^T a[l]`` over a leading layer axis, the token axis cut into
-    chunks of about GRAM_CHUNK (as many as GRAM_CHUNK_ENTRIES allow) whose
-    Grams are summed: a batched f32 GEMM sums its whole token axis in one
-    pass, which left ResNet-50's 12,544-50,176-token G Grams 4.7e-5 of
-    max off one GEMM per layer on an H100 (5.3e-6 in chunks; the option
-    check of chip_smoke.py). Zero rows pad the last chunk and add
-    nothing. (The symmetric kernel caps and flushes its blocks' chains,
-    so ``stack_grams`` tries :func:`_sym_gram` first.)"""
-    layers, n, f = a.shape
-    c = max(1, min(-(-n // GRAM_CHUNK),
-                   GRAM_CHUNK_ENTRIES // (layers * f * f)))
-    if c == 1:
-        return _gram_aligned(a, dtype)
-    size = -(-n // c)
-    a = torch.nn.functional.pad(a, (0, 0, 0, c * size - n))
-    return _gram_aligned(a.reshape(layers * c, size, f), dtype).reshape(
-        layers, c, f, f).sum(1)
-
-
-def _gram_aligned_batched(a: torch.Tensor, dtype) -> torch.Tensor:
-    """:func:`_batched_gram` with the column count zero-padded to a
-    multiple of 128 above one 128-wide tile (JAX kfac.py:63-72): the
-    padded columns give exactly-zero rows and columns, sliced away."""
-    f = a.shape[-1]
-    pad = -f % 128
-    if f <= 128 or pad == 0:
-        return _batched_gram(a, dtype)
-    return _batched_gram(torch.nn.functional.pad(a, (0, pad)),
-                         dtype)[:, :f, :f]
-
-
-def _conv_token_count(meta, act) -> int:
-    """B * H_out * W_out for a conv layer's explicit padding."""
-    b, h, w, _ = act.shape
-    kh, kw = meta.kernel_size
-    sh, sw = meta.strides
-    (pt, pb), (pl, pr) = meta.padding
-    h_out = (h + pt + pb - kh) // sh + 1
-    w_out = (w + pl + pr - kw) // sw + 1
-    return b * h_out * w_out
+def _token_count(meta, shape, k: int = 1, offset=(0, 0)) -> int:
+    """The tokens a layer's A Gram sums over an input of ``shape``: a dense
+    or stacked layer's rows (per depth of a stacked one); a conv's output
+    positions over the batch, string padding resolved, on the grid of
+    stride ``k`` from ``offset`` (``token_subsample < 1``)."""
+    if meta.stacked or meta.kind != "conv":
+        return math.prod(shape[1:] if meta.stacked else shape) // meta.fan_in
+    b, h, w, _ = shape
+    (pt, pb), (pl, pr) = resolve_padding(meta.padding, h, w,
+                                         meta.kernel_size, meta.strides)
+    h_out = (h + pt + pb - meta.kernel_size[0]) // meta.strides[0] + 1
+    w_out = (w + pl + pr - meta.kernel_size[1]) // meta.strides[1] + 1
+    return b * len(range(offset[0], h_out, k)) \
+        * len(range(offset[1], w_out, k))
 
 
 class KFAC(Estimator):
@@ -472,46 +365,42 @@ class KFAC(Estimator):
         return "patches"
 
     def _a_factor(self, meta, act, route=None):
-        """Per-batch A factor (already divided by its token count); a
-        stacked layer's [depth, cols, cols], its depth axis batching the
-        Gram (JAX :354-359). ``route`` overrides :meth:`a_route` (a row
-        block takes the whole input's). The span ``factor`` (side ``a``)
-        carries the route taken, ``stacked`` for a stacked layer."""
+        """Per-batch A factor: the route's unnormalised Gram divided by the
+        tokens it summed (:func:`_token_count`); a stacked layer's [depth,
+        cols, cols], its depth axis batching the Gram (JAX :354-359).
+        ``route`` overrides :meth:`a_route` (a row block takes the whole
+        input's). The span ``factor`` (side ``a``) carries the route taken,
+        ``stacked`` for a stacked layer."""
         if meta.stacked:
             route = "stacked"
         route = route or self.a_route(meta, act.shape, act.element_size())
+        k = self._spatial_stride()
         with monitor.span("factor", layer=meta.name, side="a", route=route,
                           shape=act.shape):
             if route == "stacked":
-                a = act.reshape(act.shape[0], -1, meta.fan_in)
-                return _gram_aligned(a, self.dtype, self.use_kernels,
-                                     ones=meta.has_bias) / a.shape[1]
-            if route == "grouped":
-                t = grouped_act_tokens(meta, act, append_ones=meta.has_bias,
-                                       extra_stride=self._spatial_stride(),
+                gram = factor_gram(act.reshape(act.shape[0], -1, meta.fan_in),
+                                   self.dtype, self.use_kernels,
+                                   ones=meta.has_bias)
+            elif route == "grouped":
+                t = grouped_act_tokens(meta, act, extra_stride=k,
                                        offset=self.subsample_offset)
-                return _gram_aligned(t.transpose(0, 1), self.dtype,
-                                     self.use_kernels) / t.shape[0]
-            if route == "corr":
+                gram = factor_gram(t.transpose(0, 1), self.dtype,
+                                   self.use_kernels, ones=meta.has_bias)
+            elif route == "corr":
                 monitor.annotate("factor", gram="corr")
-                return self._corr_a_factor(meta, act)
-            if route in ("tiled", "v2"):
+                gram = corr_patch_gram(act, meta.kernel_size, meta.padding,
+                                       has_bias=meta.has_bias,
+                                       groups=meta.groups)
+            elif route in ("tiled", "v2"):
                 monitor.annotate("factor", gram="patch")
                 fn = patch_gram_v2 if route == "v2" else patch_gram_tiled
                 gram = fn(act, meta.kernel_size, meta.padding, meta.strides)
                 if not meta.has_bias:
                     gram = gram[:meta.fan_in, :meta.fan_in]
-                return gram.to(self.dtype) / _conv_token_count(meta, act)
-            return self._a_factor_xla(meta, act)
-
-    def _corr_a_factor(self, meta, act):
-        from dataclasses import replace
-        gram = corr_patch_gram(act, meta.kernel_size, meta.padding,
-                               has_bias=meta.has_bias, groups=meta.groups)
-        pad = resolve_padding(meta.padding, act.shape[1], act.shape[2],
-                              meta.kernel_size, meta.strides)
-        return gram.to(self.dtype) / _conv_token_count(
-            replace(meta, padding=pad), act)
+            else:
+                gram = self._patches_a_factor(meta, act)
+            return gram.to(self.dtype) / _token_count(
+                meta, act.shape, k, self.subsample_offset)
 
     def _corr_gram_ok(self, meta, act) -> bool:
         """The correlation route's gate; ``act`` is the layer input or its
@@ -525,14 +414,13 @@ class KFAC(Estimator):
                 and shape[-1] >= self.corr_gram_min_channels
                 and min(shape[1], shape[2]) >= self.corr_gram_min_extent)
 
-    def _a_factor_xla(self, meta, act):
-        """Patch extraction + Gram (the name keeps the JAX counterpart's);
-        also the subsampled route: the skipped positions are never
-        generated."""
-        a = act_tokens(meta, act, append_ones=meta.has_bias,
-                       extra_stride=self._spatial_stride(),
+    def _patches_a_factor(self, meta, act):
+        """Patch extraction + unnormalised Gram, every dense layer too; also
+        the subsampled route: the skipped positions are never generated."""
+        a = act_tokens(meta, act, extra_stride=self._spatial_stride(),
                        offset=self.subsample_offset)
-        return _gram_aligned(a, self.dtype, self.use_kernels) / a.shape[0]
+        return factor_gram(a, self.dtype, self.use_kernels,
+                           ones=meta.has_bias)
 
     def _row_block(self, meta, act, probe, shard):
         """(meta, input, probe gradient, route) of this rank's block of a
@@ -585,8 +473,8 @@ class KFAC(Estimator):
         columns are exactly zero (JAX :574-590)."""
         nb, bs, padded = self._gblock_dims(meta)
         g = torch.nn.functional.pad(g, (0, padded - meta.out_features))
-        return _gram_aligned(g.reshape(-1, nb, bs).transpose(0, 1),
-                             self.dtype, self.use_kernels)
+        return factor_gram(g.reshape(-1, nb, bs).transpose(0, 1),
+                           self.dtype, self.use_kernels)
 
     # -- stack_grams: cross-layer Gram batching --------------------------------
     def _a_stackable(self, meta, act) -> bool:
@@ -604,10 +492,10 @@ class KFAC(Estimator):
 
     def _stacked_grams(self, cap: Captured, grams):
         """({name: A}, {name: G}) of the stackable layers (those not fused
-        into ``grams``) whose token matrices share their shape with
-        another's: one batched product per bucket (JAX :486-521), each
-        value a pair (factor, the Gram it took: ``sym`` or ``matmul``).
-        Where buckets took the kernel, the ``stack_grams`` span gets their
+        into ``grams``) whose token matrices (and bias) share their shape
+        with another's: one batched Gram per bucket (JAX :486-521), each
+        value a pair (factor, the bucket's :func:`gram_label`). Where
+        buckets took the kernel, the ``stack_grams`` span gets their
         (segments, rows, F) as ``gram_shapes``."""
         k = self._spatial_stride()
         a_buckets, g_buckets = {}, {}
@@ -616,38 +504,36 @@ class KFAC(Estimator):
                 continue
             act = cap.acts[name]
             if self._a_stackable(meta, act):
-                t = act_tokens(meta, act, append_ones=meta.has_bias,
-                               extra_stride=k, offset=self.subsample_offset)
-                a_buckets.setdefault(tuple(t.shape), []).append((name, t))
+                t = act_tokens(meta, act, extra_stride=k,
+                               offset=self.subsample_offset)
+                a_buckets.setdefault((tuple(t.shape), meta.has_bias),
+                                     []).append((name, t))
             if self._g_stackable(meta):
                 g, n_tok = self._g_tokens(meta, cap.probe_grads[name])
                 g_buckets.setdefault((tuple(g.shape), n_tok), []).append(
                     (name, g))
         a_buckets = [(k, v) for k, v in a_buckets.items() if len(v) > 1]
         g_buckets = [(k, v) for k, v in g_buckets.items() if len(v) > 1]
-        pre_a, pre_g, sym_shapes = {}, {}, []
-
-        def bucket(t, matmul):
-            gram = _sym_gram(t, self.dtype, self.use_kernels)
-            if gram is None:
-                return matmul(t, self.dtype), "matmul"
-            sym_shapes.append((t.shape[0], t.shape[0] * t.shape[1],
-                               t.shape[2]))
-            return gram, "sym"
+        pre_a, pre_g, labels = {}, {}, []
         with monitor.span("stack_grams",
                           buckets=len(a_buckets) + len(g_buckets)):
-            for shape, items in a_buckets:
-                gram, kind = bucket(torch.stack([t for _, t in items]),
-                                    _gram_aligned_batched)
-                gram = gram / shape[0]
-                pre_a.update((name, (gram[i], kind)) for i, (name, _)
+            for (shape, ones), items in a_buckets:
+                t = torch.stack([t for _, t in items])
+                labels.append(gram_label(t, self.dtype, self.use_kernels,
+                                         ones=ones))
+                gram = factor_gram(t, self.dtype, self.use_kernels,
+                                   ones=ones) / shape[0]
+                pre_a.update((name, (gram[i], labels[-1])) for i, (name, _)
                              in enumerate(items))
             for (_, n_tok), items in g_buckets:
-                gram, kind = bucket(torch.stack([g for _, g in items]),
-                                    _batched_gram)
-                gram = gram * (cap.batch_size ** 2 / n_tok)
-                pre_g.update((name, (gram[i], kind)) for i, (name, _)
+                t = torch.stack([g for _, g in items])
+                labels.append(gram_label(t, self.dtype, self.use_kernels))
+                gram = factor_gram(t, self.dtype, self.use_kernels) * (
+                    cap.batch_size ** 2 / n_tok)
+                pre_g.update((name, (gram[i], labels[-1])) for i, (name, _)
                              in enumerate(items))
+            sym_shapes = [lb["gram_shape"] for lb in labels
+                          if "gram_shape" in lb]
             if sym_shapes:
                 monitor.annotate("stack_grams", gram_shapes=sym_shapes)
         return pre_a, pre_g
@@ -693,7 +579,7 @@ class KFAC(Estimator):
                         cap.batch_size ** 2 / cap.probe_gram_ntok[name])
             elif name in pre_g:
                 with monitor.span("factor", layer=name, side="g",
-                                  route="stack_grams", gram=pre_g[name][1]):
+                                  route="stack_grams", **pre_g[name][1]):
                     g_factor = pre_g[name][0]
             else:
                 g_factor = self._g_factor(
@@ -711,7 +597,7 @@ class KFAC(Estimator):
                     state[name]["a_bias"] += num_mc
             elif name in pre_a:
                 with monitor.span("factor", layer=name, side="a",
-                                  route="stack_grams", gram=pre_a[name][1]):
+                                  route="stack_grams", **pre_a[name][1]):
                     a_factor = pre_a[name][0]
             elif block is not None:
                 a_factor = self._a_factor(block[0], block[1], block[3])
@@ -725,19 +611,18 @@ class KFAC(Estimator):
         """(A ``[held, cols, cols]``, G ``[held, out, out]``) of an expert
         layer from its routed rows ``[rows, in]`` and their ``[S, rows,
         out]`` probe gradient: one Gram per held expert over its own rows
-        (:func:`_gram_aligned` at the routes' offsets: one ragged launch of
-        the symmetric kernel a side where it applies, else a matmul an
-        expert), each divided by the layer's N tokens (the module
-        docstring)."""
+        (``factor_gram`` at the routes' offsets: one ragged launch of the
+        symmetric kernel a side where it applies, else a matmul an expert),
+        each divided by the layer's N tokens (the module docstring)."""
         o, n, held = routes.offsets, routes.num_tokens, routes.experts
         with monitor.span("factor", rows.device, layer=meta.name, side="a",
                           route="routed", rows=routes.rows, experts=held):
-            a = _gram_aligned(rows, self.dtype, self.use_kernels,
-                              offsets=o) / n
+            a = factor_gram(rows, self.dtype, self.use_kernels,
+                            offsets=o) / n
         with monitor.span("factor", rows.device, layer=meta.name, side="g",
                           route="routed", rows=routes.rows, experts=held):
-            g = _gram_aligned(probe_grad, self.dtype, self.use_kernels,
-                              offsets=o) * (batch_size ** 2 / n)
+            g = factor_gram(probe_grad, self.dtype, self.use_kernels,
+                            offsets=o) * (batch_size ** 2 / n)
         return a, g
 
     def _g_route(self, meta, rows) -> str:
@@ -775,21 +660,21 @@ class KFAC(Estimator):
                 # [.., 3, H, d, d] (JAX :555-561)
                 d = meta.out_features // 3 // meta.heads
                 gq = g.reshape(g.shape[:-1] + (3, meta.heads, d))
-                gram = _gram_aligned(gq.movedim(-4, -2), self.dtype,
-                                     self.use_kernels)
+                gram = factor_gram(gq.movedim(-4, -2), self.dtype,
+                                   self.use_kernels)
             elif route == "qkv_split":
                 gq = g.reshape(g.shape[:-1] + (3, meta.out_features // 3))
-                gram = _gram_aligned(gq.movedim(-3, -2), self.dtype,
-                                     self.use_kernels)
+                gram = factor_gram(gq.movedim(-3, -2), self.dtype,
+                                   self.use_kernels)
             elif route == "grouped":
                 # output channels are group-major: one reshape splits the
                 # group axis (JAX :586-595)
                 gq = g.reshape(-1, meta.groups,
                                meta.out_features // meta.groups)
-                gram = _gram_aligned(gq.transpose(0, 1), self.dtype,
-                                     self.use_kernels)
+                gram = factor_gram(gq.transpose(0, 1), self.dtype,
+                                   self.use_kernels)
             else:
-                gram = _gram_aligned(g, self.dtype, self.use_kernels)
+                gram = factor_gram(g, self.dtype, self.use_kernels)
             # (B*g)^T (B*g) = B^2 * g^T g: scale the [out, out] result
             return gram * (batch_size ** 2 / n_tok)
 
@@ -798,8 +683,8 @@ class KFAC(Estimator):
         ``out_proj``, divided by the token count."""
         lead = act.shape[:1] if meta.stacked else ()
         t = act.reshape(lead + (-1, meta.heads, meta.fan_in // meta.heads))
-        return _gram_aligned(t.movedim(-2, -3), self.dtype,
-                             self.use_kernels) / t.shape[-3]
+        return factor_gram(t.movedim(-2, -3), self.dtype,
+                           self.use_kernels) / t.shape[-3]
 
     def invert_state(self, state, add, multiply):
         """Per factor (batched over every block axis); a head-split

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from curvature_tpu_torch.ops.cuda.corr_gram import corr_gram
-from curvature_tpu_torch.ops.cuda.patch_gram import KERNEL_DTYPES
+from curvature_tpu_torch.ops.cuda.launch import KERNEL_DTYPES
 from curvature_tpu_torch.ops.patches import resolve_padding
 
 __all__ = ["corr_patch_gram", "corr_gram_supported", "corr_patch_gram_plain"]

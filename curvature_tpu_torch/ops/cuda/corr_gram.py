@@ -38,8 +38,9 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from curvature_tpu_torch.ops.cuda.patch_gram import (
-    KERNEL_DTYPES, MAX_CHAIN_TOKENS, check_kernel_dtype, resident_slots)
+from curvature_tpu_torch.ops.cuda.launch import (
+    KERNEL_DTYPES, MAX_CHAIN_TOKENS, check, check_kernel_dtype,
+    resident_slots, stream)
 from curvature_tpu_torch.ops.patches import resolve_padding
 
 #: output tile edge of the kernel (64 * WGS in csrc/corr_gram.cu)
@@ -225,8 +226,6 @@ def _lib() -> ctypes.CDLL:
     lib.corr_gram_blocks_per_sm.argtypes = [
         ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
     lib.corr_gram_blocks_per_sm.restype = ctypes.c_int
-    lib.corr_gram_error_string.argtypes = [ctypes.c_int]
-    lib.corr_gram_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -302,16 +301,12 @@ def corr_gram(x: torch.Tensor, kernel_size: Tuple[int, int],
     colsum = torch.empty(plan.slots * TILE, dtype=torch.float32,
                          device=x.device)
     ptr = table.data_ptr()
-    lib = _lib()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"corr_gram_{suffix}")(
+        check("corr_gram", getattr(_lib(), f"corr_gram_{suffix}")(
             x.data_ptr(), out.data_ptr(), ws.data_ptr(), colsum.data_ptr(),
             *(ptr + 4 * o for o in plan.offsets()), len(plan.blocks), h, w,
-            c, k, int(has_bias), plan.n_tokens, int(vec), stream)
-    if rc != 0:
-        raise RuntimeError(f"corr_gram: CUDA error {rc}: "
-                           f"{lib.corr_gram_error_string(rc).decode()}")
+            c, k, int(has_bias), plan.n_tokens, int(vec), stream(x)),
+            "corr_gram")
     corr_gram.launches += 2
     return out
 

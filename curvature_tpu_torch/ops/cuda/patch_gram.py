@@ -22,7 +22,7 @@ type, templated on stride: (1, 1) and (2, 2) fixed at compile time, any
 other (sh, sw) read at run time (``csrc/patch_gram.cu``, whose header says what
 bounds it and how the design answers), both on the tensor cores
 (``wgmma``). bf16 runs bf16 x bf16 -> f32, exact products. f32 runs
-3xTF32: each value is split into TF32 halves (:func:`tf32_split`) and
+3xTF32: each value is split into TF32 halves (``launch.tf32_split``) and
 ``lo*hi + hi*lo + hi*hi`` is summed in f32, within ~2^-21 of the f32
 products; one TF32 product would miss the JAX tests' 1e-4 bar, and strict
 FP32 FMA's bound is 2.5x longer (67 TFLOP/s against 495/3). Both gather 16
@@ -51,6 +51,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from curvature_tpu_torch.ops.cuda.launch import (
+    KERNEL_DTYPES, MAX_CHAIN_TOKENS, check, check_device, check_kernel_dtype,
+    resident_slots, split_count, stream)
 from curvature_tpu_torch.ops.patches import resolve_padding
 
 MAX_F = 1200
@@ -60,10 +63,6 @@ _TILE = 64
 #: 64 * WGS in csrc/patch_gram.cu)
 F32_TILE = 128
 BF16_TILE = 128
-#: the most tokens one block sums in the tensor cores' f32 accumulator; a
-#: longer range is split, and the splits are summed in f32 in a fixed order
-#: (the accumulator's error grows with the chain: PERF.md)
-MAX_CHAIN_TOKENS = 8192
 #: strides with a compile-time kernel instance; any other positive pair
 #: runs the run-time-stride instance (counted apart in
 #: ``patch_gram_v2.any_stride_launches``)
@@ -210,27 +209,9 @@ def patch_gram_plain(x: torch.Tensor, kernel_size: Tuple[int, int],
     return p.T @ p
 
 
-def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The f32 kernel's operand split in plain torch ops (tests only):
-    ``hi`` is ``x`` rounded to TF32 (10 explicit mantissa bits) to nearest
-    with ties away from zero, as ``cvt.rna.tf32.f32``, and ``lo`` is
-    ``x - hi`` rounded the same way; both have their low 13 bits zero and
-    ``hi + lo`` holds ``x`` to ~2^-22. The kernel sums
-    ``lo*hi + hi*lo + hi*hi`` for each product."""
-    def rna(v):
-        bits = v.contiguous().view(torch.int32)
-        return ((bits + 0x1000) & -0x2000).view(torch.float32)
-    hi = rna(x.float())
-    return hi, rna(x.float() - hi)
-
-
 # ---------------------------------------------------------------------------
 # CUDA launch
 # ---------------------------------------------------------------------------
-
-#: element types the kernel takes, and the suffix of their C entry
-KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -247,22 +228,7 @@ def _lib() -> ctypes.CDLL:
     lib.patch_gram_blocks_per_sm.argtypes = [
         ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.patch_gram_blocks_per_sm.restype = ctypes.c_int
-    lib.patch_gram_error_string.argtypes = [ctypes.c_int]
-    lib.patch_gram_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def resident_slots(device_index: int, blocks_per_sm) -> int:
-    """Blocks of a kernel the card holds at once: SMs x ``blocks_per_sm``
-    (a C occupancy query filling a ``c_int``)."""
-    per_sm = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        rc = blocks_per_sm(ctypes.byref(per_sm))
-    if rc != 0:
-        raise RuntimeError(f"occupancy query: CUDA error {rc}")
-    sms = torch.cuda.get_device_properties(
-        device_index).multi_processor_count
-    return sms * max(per_sm.value, 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -283,18 +249,6 @@ def gather_kind(x: torch.Tensor) -> str:
         and x.data_ptr() % 16 == 0 else "scalar"
 
 
-def split_count(n_tokens: int, num_tiles: int, slots: int) -> int:
-    """Token-chunk split count that best fills whole waves of ``slots``
-    resident blocks (the last wave of a grid idles the SMs it leaves
-    empty), with at least 256 tokens per split; the fewest splits among
-    equals."""
-    def fill(s):
-        blocks = num_tiles * s
-        return blocks / (-(-blocks // slots) * slots)
-    return max(range(1, max(1, min(64, n_tokens // 256)) + 1),
-               key=lambda s: (round(fill(s), 1), -s))
-
-
 def plan_splits(n_tokens: int, num_tiles: int, slots: int) -> int:
     """Token splits of a launch over ``n_tokens`` tokens and ``num_tiles``
     block tiles: the wave-filling count, and at least enough that no block
@@ -308,14 +262,6 @@ def block_tiles(f: int, bf16: bool) -> int:
     kernel for ``f`` features."""
     nt = -(-f // (BF16_TILE if bf16 else F32_TILE))
     return nt * (nt + 1) // 2
-
-
-def check_kernel_dtype(x: torch.Tensor, name: str) -> str:
-    """The C entry suffix for ``x``'s dtype; raises for any other."""
-    if x.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 or "
-                        f"bfloat16, got {x.dtype}")
-    return KERNEL_DTYPES[x.dtype]
 
 
 def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
@@ -345,24 +291,13 @@ def _launch(name: str, x: torch.Tensor, kernel_size, pads, strides,
                      dtype=torch.float32, device=x.device)
     colsum = torch.empty(splits * nt * _TILE, dtype=torch.float32,
                          device=x.device)
-    lib = _lib()
     args = [b, h, w, c, kh, kw, *strides, pads[0][0], pads[1][0], ho, wo,
             splits, per_split, int(vec)]
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = getattr(lib, f"patch_gram_{suffix}")(
+        check("patch_gram", getattr(_lib(), f"patch_gram_{suffix}")(
             x.data_ptr(), out.data_ptr(), ws.data_ptr(), colsum.data_ptr(),
-            *args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}: "
-                           f"{lib.patch_gram_error_string(rc).decode()}")
+            *args, stream(x)), name)
     return out
-
-
-def check_device(x: torch.Tensor, name: str):
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel or plain version for device "
-                         f"{x.device}")
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ same kernels here (``csrc/sym_gram.cu``, whose header says what bounds
 them), on the tensor cores (``wgmma``):
 
   * f32 runs 3xTF32, as the f32 patch Gram: each value split into TF32
-    halves (``patch_gram.tf32_split``) and ``lo*hi + hi*lo + hi*hi``
+    halves (``launch.tf32_split``) and ``lo*hi + hi*lo + hi*hi``
     summed in f32, within ~2^-21 of the f32 products. The transpose and
     the split are done once per call, not once per tile, by a pre-pass
     (:func:`tf32_presplit`, plain version :func:`tf32_presplit_plain`)
@@ -54,9 +54,9 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from curvature_tpu_torch.ops.cuda.patch_gram import (
-    MAX_CHAIN_TOKENS, check_device, check_kernel_dtype, resident_slots,
-    split_count, tf32_split)
+from curvature_tpu_torch.ops.cuda.launch import (
+    MAX_CHAIN_TOKENS, check, check_device, check_kernel_dtype,
+    resident_slots, split_count, stream, tf32_split)
 
 __all__ = ["batched_gate", "sym_gram", "sym_gram_batched",
            "sym_gram_batched_plain", "sym_gram_plain", "sym_gram_supported",
@@ -236,19 +236,7 @@ def _lib() -> ctypes.CDLL:
                lib.sym_gram_blocks_per_sm):
         fn.restype = ctypes.c_int
     lib.sym_gram_blocks_per_sm.argtypes = [i, ctypes.POINTER(i)]
-    lib.sym_gram_error_string.argtypes = [i]
-    lib.sym_gram_error_string.restype = ctypes.c_char_p
     return lib
-
-
-def _check(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA error {rc}: "
-                           f"{_lib().sym_gram_error_string(rc).decode()}")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 @functools.lru_cache(maxsize=None)
@@ -289,17 +277,18 @@ def _segment_table(x: torch.Tensor, offsets=None):
 _batched_plan = functools.lru_cache(maxsize=4096)(split_plan)
 
 
-def _presplit(x, base, lengths, ld, f, ones, stream):
+def _presplit(x, base, lengths, ld, f, ones):
     """The pre-pass kernel over the segments: [2, chunks, blocks, 64, 8,
     4] f32. Run under the device of ``x``."""
     chunks = sum(-(-n // CHUNK) for n in lengths)
     out = torch.empty((2, chunks) + presplit_shape(1, f)[2:],
                       dtype=torch.float32, device=x.device)
     count = len(lengths)
-    _check(_lib().tf32_presplit_f32(
+    check("sym_gram", _lib().tf32_presplit_f32(
         x.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
         (ctypes.c_longlong * count)(*base),
-        (ctypes.c_int * count)(*lengths), count, ld, f, int(ones), stream),
+        (ctypes.c_int * count)(*lengths), count, ld, f, int(ones),
+        stream(x)),
         "tf32_presplit")
     return out
 
@@ -314,10 +303,10 @@ def _presplits(x: torch.Tensor, offsets, ones: bool):
     for b0 in range(0, len(lengths), MAX_SEGMENTS):
         b1 = b0 + MAX_SEGMENTS
         yield lengths[b0:b1], _presplit(x, base[b0:b1], lengths[b0:b1], ld,
-                                        f, ones, _stream(x))
+                                        f, ones)
 
 
-def _gram_f32(op, lengths, f, out, stream):
+def _gram_f32(op, lengths, f, out):
     """The f32 tile kernel (and its reduce) over pre-split segments into
     ``out`` ([segments, f, f]). Run under the device of ``out``."""
     count = len(lengths)
@@ -329,11 +318,11 @@ def _gram_f32(op, lengths, f, out, stream):
         nt = -(-f // _TILE)
         ws = torch.empty(splits * count * nt * (nt + 1) // 2 * _TILE * _TILE,
                          dtype=torch.float32, device=out.device)
-    _check(_lib().sym_gram_f32(
+    check("sym_gram", _lib().sym_gram_f32(
         op[0].data_ptr(), op[1].data_ptr(), out.data_ptr(),
         None if ws is None else ws.data_ptr(),
         (ctypes.c_int * count)(*lengths), count, f, splits,
-        per_split // CHUNK, stream), "sym_gram")
+        per_split // CHUNK, stream(out)), "sym_gram")
 
 
 def tf32_presplit(x: torch.Tensor) -> torch.Tensor:
@@ -350,8 +339,7 @@ def tf32_presplit(x: torch.Tensor) -> torch.Tensor:
         return tf32_presplit_plain(x)
     x, base, lengths, ld = _segment_table(x)
     with torch.cuda.device(x.device):
-        out = _presplit(x, base, lengths, ld, x.shape[-1], False,
-                        _stream(x))
+        out = _presplit(x, base, lengths, ld, x.shape[-1], False)
     tf32_presplit.launches += 1
     return out
 
@@ -366,7 +354,7 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
         op = tf32_presplit(x)
         out = torch.empty((1, f, f), dtype=torch.float32, device=x.device)
         with torch.cuda.device(x.device):
-            _gram_f32(op, [n], f, out, _stream(x))
+            _gram_f32(op, [n], f, out)
         return out[0]
     x = x.contiguous()
     if n * (f + 7) >= 2 ** 31:
@@ -382,9 +370,9 @@ def _launch(x: torch.Tensor) -> torch.Tensor:
                      dtype=torch.float32, device=x.device)
     x = pad_features(x)
     with torch.cuda.device(x.device):
-        _check(_lib().sym_gram_bf16(
+        check("sym_gram", _lib().sym_gram_bf16(
             x.data_ptr(), out.data_ptr(), ws.data_ptr(), n, f, x.shape[1],
-            splits, per_split, _stream(x)), "sym_gram")
+            splits, per_split, stream(x)), "sym_gram")
     return out
 
 
@@ -416,7 +404,7 @@ def sym_gram_batched(x: torch.Tensor, offsets=None,
     with torch.cuda.device(x.device):
         b0 = 0
         for lengths, op in _presplits(x, offsets, ones):
-            _gram_f32(op, lengths, f, out[b0:b0 + len(lengths)], _stream(x))
+            _gram_f32(op, lengths, f, out[b0:b0 + len(lengths)])
             b0 += len(lengths)
             del op
             sym_gram_batched.launches += 1

@@ -21,6 +21,7 @@ from curvature_tpu_torch import models as tmodels
 from curvature_tpu_torch import nn as tnn
 from curvature_tpu_torch.ops import corr_gram as tcorr
 from curvature_tpu_torch.ops.cuda import corr_gram as ccg
+from curvature_tpu_torch.ops.cuda import launch
 from curvature_tpu_torch.ops.patches import resolve_padding
 
 torch.set_num_threads(1)
@@ -202,7 +203,7 @@ def test_plan_blocks_cover_each_item_once(shape, ks, pad, slots):
         seen[key] = True
     for i, rect in enumerate(plan.items):
         tokens = b * rect[4] * rect[5]
-        assert plan.per_split[i] <= ccg.MAX_CHAIN_TOKENS
+        assert plan.per_split[i] <= launch.MAX_CHAIN_TOKENS
         assert plan.per_split[i] * plan.splits[i] >= tokens
         assert plan.per_split[i] * (plan.splits[i] - 1) < tokens
         want = {(i, ti, tj, s) for ti, tj in plan.item_tiles(i)

@@ -1,11 +1,12 @@
 """The batched symmetric Gram (``ops/cuda/sym_gram.sym_gram_batched``) and
-KFAC's route to it: its plain version and its pre-pass's layout over
-uniform, ragged, empty, strided and ones-column segments, checked per
-segment against ``sym_gram_plain`` and a float64 ``a^T a``; the gate from
-shape alone; the ``gram`` attribute of the ``factor`` spans; the routed
-and stacked routes through the batched entry against the matmul route;
-and, on the card only, the kernel at the fit cells' shapes against a
-float64 Gram."""
+KFAC's one route to it, ``estimators/grams.factor_gram``: the kernel's
+plain version and its pre-pass's layout over uniform, ragged, empty,
+strided and ones-column segments, checked per segment against
+``sym_gram_plain`` and a float64 ``a^T a``; the gate from shape alone; the
+seam's decision and the ones column it appends; the ``gram`` attribute of
+the ``factor`` spans; the routed and stacked routes through the batched
+entry against the matmul route; and, on the card only, the kernel at the
+fit cells' shapes against a float64 Gram."""
 import math
 
 import numpy as np
@@ -15,8 +16,8 @@ import torch
 from curvature_tpu_torch import estimators as est
 from curvature_tpu_torch import models as tmodels
 from curvature_tpu_torch import nn as tnn
-from curvature_tpu_torch.estimators import kfac as tkfac
-from curvature_tpu_torch.ops.cuda import patch_gram as tpg
+from curvature_tpu_torch.estimators import grams as tgrams
+from curvature_tpu_torch.ops.cuda import launch
 from curvature_tpu_torch.ops.cuda import sym_gram as tsg
 from curvature_tpu_torch.utils import monitor
 
@@ -189,15 +190,70 @@ def test_gate_from_shape_alone(segments, rows, f, want):
 
 
 def test_route_takes_sym_only_on_cuda_f32_with_kernels():
-    """``_takes_sym``: a CPU tensor, bf16 operands, a bf16 Gram or
-    ``use_kernels=False`` always take the matmul, whatever the shape."""
+    """The seam's decision (``grams.takes_kernel``): a CPU tensor, bf16
+    operands, a bf16 Gram or ``use_kernels=False`` always take the matmul,
+    whatever the shape, and so does a CPU Gram's label."""
     a = torch.empty((12, 8192, 769), device="meta")
-    ok = dict(segments=12, rows=12 * 8192, f=769)
-    assert not tkfac._takes_sym(True, torch.empty(1, 1), torch.float32,
-                                **ok)
-    assert not tkfac._takes_sym(False, a, torch.float32, **ok)
-    assert not tkfac._takes_sym(True, a.bfloat16(), torch.float32, **ok)
-    assert not tkfac._takes_sym(True, a, torch.bfloat16, **ok)
+    ok = (12, 12 * 8192, 769)
+    assert not tgrams.takes_kernel(torch.empty(1, 1), torch.float32, True,
+                                   ok)
+    assert not tgrams.takes_kernel(a, torch.float32, False, ok)
+    assert not tgrams.takes_kernel(a.bfloat16(), torch.float32, True, ok)
+    assert not tgrams.takes_kernel(a, torch.bfloat16, True, ok)
+    assert tgrams.gram_label(torch.empty(12, 8192, 768), torch.float32,
+                             True, ones=True) == {"gram": "matmul"}
+
+
+def _force_kernel(monkeypatch, calls=None):
+    """Forces the seam's decision open, its kernel the plain
+    ``sym_gram_batched_plain``, each call's (shape, offsets, ones) kept in
+    ``calls``."""
+    def plain(a, offsets=None, ones=False):
+        if calls is not None:
+            calls.append((tuple(a.shape), offsets, ones))
+        return tsg.sym_gram_batched_plain(a, offsets, ones)
+    monkeypatch.setattr(tgrams, "takes_kernel", lambda *a, **k: True)
+    monkeypatch.setattr(tgrams, "sym_gram_batched", plain)
+
+
+#: (input shape, view, offsets) of ``factor_gram``: [n, F] tokens, a
+#: grouped layer's [N, g, F] tokens read as [g, N, F] through a
+#: transposed view, and [S, R, F] rows cut at host offsets (an empty
+#: segment among them)
+ONES_CASES = {
+    "2d": ((70, 9), None, None),
+    "transposed": ((40, 3, 7), (1, 0, 2), None),
+    "offsets": ((2, 30, 6), None, [0, 11, 11, 30]),
+}
+
+
+@pytest.mark.parametrize("kernel", [False, True], ids=["matmul", "kernel"])
+@pytest.mark.parametrize("name", sorted(ONES_CASES))
+def test_factor_gram_appends_the_ones_column(name, kernel, monkeypatch):
+    """``factor_gram(t, ones=True)`` is the Gram of ``cat([t, 1])``: on the
+    matmul path (float64 in, float64 Gram) to float64 rounding, and with
+    the kernel decision forced to the plain ``sym_gram_batched_plain``
+    (f32 sums) within f32 rounding; one Gram a leading index, or one a
+    segment of the S samples' rows."""
+    shape, perm, offsets = ONES_CASES[name]
+    t = _rows(shape, len(name)).double()
+    if perm:
+        t = t.permute(perm)
+    if kernel:
+        _force_kernel(monkeypatch)
+    got = tgrams.factor_gram(t, torch.float64, kernel, ones=True,
+                             offsets=offsets)
+    if offsets is None:
+        segs = list(t.reshape((-1,) + t.shape[-2:]))
+    else:
+        segs = [t[:, a:b].reshape(-1, t.shape[-1])
+                for a, b in zip(offsets, offsets[1:])]
+    f = t.shape[-1] + 1
+    assert got.shape == ((len(segs),) if offsets else t.shape[:-2]) + (f, f)
+    for g, seg in zip(got.reshape(-1, f, f), segs):
+        want = _gram64(seg, ones=True)
+        assert want[-1, -1] == seg.shape[0]
+        _close(g, want, F32_REL if kernel else 1e-12)
 
 
 def _gpt():
@@ -241,30 +297,24 @@ def test_factor_spans_carry_gram(which):
 
 @pytest.mark.parametrize("which", ["gpt", "moe"])
 def test_batched_route_equals_the_matmul_route(which, monkeypatch):
-    """With the gate forced open, the stacked route (its ones column from
-    the pre-pass) and the routed route (all held experts in one ragged
-    call, the S = 2 samples' rows made adjacent) go through
-    ``sym_gram_batched`` (its plain version here) and give the matmul
-    route's factors within f32 rounding; each such span says ``sym``, a
-    routed layer-side is one call."""
+    """With the seam's decision forced open, the stacked and plain routes
+    (every bias's ones column from the pre-pass) and the routed route (all
+    held experts in one ragged call, the S = 2 samples' rows made
+    adjacent) go through ``sym_gram_batched`` (its plain version here) and
+    give the matmul route's factors within f32 rounding; each such span
+    says ``sym``, a routed layer-side is one call."""
     model, x, labels = _gpt() if which == "gpt" else _moe()
     kw = {"loss": "lm"} if which == "gpt" else {}
     want, _ = _kfac(model, x, labels, **kw)
     calls = []
-    batched = tsg.sym_gram_batched
-
-    def spy(a, offsets=None, ones=False):
-        calls.append((tuple(a.shape), offsets, ones))
-        return batched(a, offsets, ones)
-    monkeypatch.setattr(tkfac, "sym_gram_batched", spy)
-    monkeypatch.setattr(tkfac, "_takes_sym", lambda *a, **k: True)
+    _force_kernel(monkeypatch, calls)
     got, spans = _kfac(model, x, labels, **kw)
     assert {s.attrs["gram"] for s in spans} == {"sym"}
     assert len(calls) == len(spans)
+    assert sum(ones for _, _, ones in calls) == sum(
+        m.has_bias for m in got.metas.values())
     if which == "gpt":
         assert {o for _, o, _ in calls} == {None}
-        assert sum(ones for _, _, ones in calls) == sum(
-            m.has_bias for m in got.metas.values() if m.stacked)
     else:
         routed = [c for c in calls if c[1] is not None]
         assert len(routed) == 2 * 3                      # 3 experts' layers
@@ -277,10 +327,10 @@ def test_batched_route_equals_the_matmul_route(which, monkeypatch):
 
 def test_sym_spans_carry_gram_shape_and_stack_grams_its_buckets(
         monkeypatch):
-    """With the gate forced open: a ``sym`` factor span carries its Gram's
-    (segments, rows, F), and with ``stack_grams`` each bucket is one call
-    whose (layers, rows, F) the ``stack_grams`` span lists, its layers'
-    spans saying ``sym``; the factors equal the matmul route's."""
+    """With the seam's decision forced open: a ``sym`` factor span carries
+    its Gram's (segments, rows, F), and with ``stack_grams`` each bucket is
+    one call whose (layers, rows, F) the ``stack_grams`` span lists, its
+    layers' spans saying ``sym``; the factors equal the matmul route's."""
     torch.manual_seed(2)
     model = tnn.Sequential([tnn.Dense(8, 16, name="d0"), tnn.ReLU(),
                             tnn.Dense(16, 16, name="d1"), tnn.ReLU(),
@@ -288,7 +338,7 @@ def test_sym_spans_carry_gram_shape_and_stack_grams_its_buckets(
                             tnn.Dense(16, 5, name="d3")])
     x, labels = torch.randn(24, 8), torch.randint(0, 5, (1, 24))
     want, _ = _kfac(model, x, labels, stack_grams=True)
-    monkeypatch.setattr(tkfac, "_takes_sym", lambda *a, **k: True)
+    _force_kernel(monkeypatch)
     got, _ = _kfac(model, x, labels)
     with monitor.tracing():
         monitor.clear_spans()
@@ -428,6 +478,6 @@ def test_split_plan_counts_every_segment_tiles():
     splits, per = tsg.split_plan(8192, 769, False, 132, 1)
     assert splits > 1 and per % tsg.CHUNK == 0
     assert tsg.split_plan(16384, 4609, False, 132, 3)[1] \
-        <= tpg.MAX_CHAIN_TOKENS
+        <= launch.MAX_CHAIN_TOKENS
     assert tsg.split_plan(0, 2048, False, 132, 16) == (1, tsg.CHUNK)
     assert math.prod(tsg.split_plan(1583, 2048, False, 132, 16)) >= 1583

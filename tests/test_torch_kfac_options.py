@@ -19,6 +19,7 @@ from curvature_tpu import nn as jnn
 from curvature_tpu_torch import estimators as port_est
 from curvature_tpu_torch import models as tmodels
 from curvature_tpu_torch import nn as tnn
+from curvature_tpu_torch.estimators import grams as tgrams
 from curvature_tpu_torch.estimators import kfac as tkfac
 
 torch.set_num_threads(1)
@@ -387,14 +388,14 @@ def test_gram_probe_names_are_jax_set(kw):
                                    (1, 3000, 300)],
                          ids=["chunked", "one-chunk", "padded"])
 def test_batched_gram_chunks_the_token_axis(shape):
-    """``stack_grams``' batched Gram cuts a long token axis into chunks
-    (zero rows pad the last) and zero-pads wide column counts to a
-    multiple of 128: in float64 it equals each layer's own ``a^T a`` to
+    """The seam's batched matmul Gram (``grams.factor_gram`` off the
+    kernel) cuts a long token axis into chunks (zero rows pad the last),
+    and a wide column count (``padded``: 300, once zero-padded to 384)
+    takes no pad: in float64 it equals each layer's own ``a^T a`` to
     rounding."""
     a = torch.from_numpy(np.random.default_rng(11).standard_normal(shape))
     want = torch.stack([t.T @ t for t in a])
-    for fn in (tkfac._batched_gram, tkfac._gram_aligned_batched):
-        got = fn(a, torch.float64)
-        assert got.shape == want.shape
-        np.testing.assert_allclose(got.numpy(), want.numpy(),
-                                   atol=1e-12 * want.abs().max().item())
+    got = tgrams.factor_gram(a, torch.float64, False)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want.numpy(),
+                               atol=1e-12 * want.abs().max().item())

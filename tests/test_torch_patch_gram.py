@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from curvature_tpu_torch.ops.cuda import launch
 from curvature_tpu_torch.ops.cuda import patch_gram as tpg
 
 try:
@@ -224,10 +225,10 @@ def test_bf16_splits_bound_each_accumulation_chain(n_tokens):
     block's accumulator: the plan is the wave-filling count, raised to
     the chain cap where that binds."""
     for tiles, slots in ((15, 132), (15, 264), (45, 264), (2701, 396)):
-        fill = tpg.split_count(n_tokens, tiles, slots)
+        fill = launch.split_count(n_tokens, tiles, slots)
         capped = tpg.plan_splits(n_tokens, tiles, slots)
-        assert capped == max(fill, -(-n_tokens // tpg.MAX_CHAIN_TOKENS))
-        assert -(-n_tokens // capped) <= tpg.MAX_CHAIN_TOKENS
+        assert capped == max(fill, -(-n_tokens // launch.MAX_CHAIN_TOKENS))
+        assert -(-n_tokens // capped) <= launch.MAX_CHAIN_TOKENS
 
 
 def test_chain_cap_binds_on_the_smoke_chain_case():
@@ -238,7 +239,7 @@ def test_chain_cap_binds_on_the_smoke_chain_case():
         splits = tpg.plan_splits(132 * 64 * 64, tpg.block_tiles(576, False),
                                  slots)
         assert splits == 66
-        assert 132 * 64 * 64 == splits * tpg.MAX_CHAIN_TOKENS
+        assert 132 * 64 * 64 == splits * launch.MAX_CHAIN_TOKENS
 
 
 def _tf32_bits(t):
@@ -253,7 +254,7 @@ def test_tf32_split_halves_hold_x(relu):
         100_000).astype(np.float32))
     if relu:
         x = x.clamp_min(0)
-    hi, lo = tpg.tf32_split(x)
+    hi, lo = launch.tf32_split(x)
     assert int(_tf32_bits(hi).abs().max()) == 0
     assert int(_tf32_bits(lo).abs().max()) == 0
     err = (hi.double() + lo.double() - x.double()).abs()
@@ -262,7 +263,7 @@ def test_tf32_split_halves_hold_x(relu):
     assert bool(((hi - x).abs() <= 2.0 ** -11 * x.abs()).all())
     # a tie (x halfway between two TF32 values) rounds away from zero
     tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
-    assert tpg.tf32_split(tie)[0].tolist() == [1.0 + 2.0 ** -10,
+    assert launch.tf32_split(tie)[0].tolist() == [1.0 + 2.0 ** -10,
                                                -(1.0 + 2.0 ** -10)]
 
 
@@ -284,7 +285,7 @@ def test_tf32x3_gram_is_within_1e_6_of_float64(relu):
     if relu:
         x = np.maximum(x, 0)
     p = _patch_matrix(torch.from_numpy(x), (3, 3), 1)
-    hi, lo = tpg.tf32_split(p)
+    hi, lo = launch.tf32_split(p)
     got = lo.T @ hi + hi.T @ lo + hi.T @ hi
     want = p.double().T @ p.double()
     assert float((got.double() - want).abs().max()) \
@@ -296,10 +297,10 @@ def test_tf32x3_gram_is_within_1e_6_of_float64(relu):
 
 
 def test_kernel_takes_f32_and_bf16_only():
-    assert tpg.check_kernel_dtype(torch.zeros(1), "k") == "f32"
-    assert tpg.check_kernel_dtype(torch.zeros(1).bfloat16(), "k") == "bf16"
+    assert launch.check_kernel_dtype(torch.zeros(1), "k") == "f32"
+    assert launch.check_kernel_dtype(torch.zeros(1).bfloat16(), "k") == "bf16"
     with pytest.raises(TypeError):
-        tpg.check_kernel_dtype(torch.zeros(1).half(), "k")
+        launch.check_kernel_dtype(torch.zeros(1).half(), "k")
 
 
 def test_tiled_rejects_infeasible_plan_like_jax():

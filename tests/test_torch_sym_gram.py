@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from curvature_tpu_torch.ops.cuda import patch_gram as tpg
+from curvature_tpu_torch.ops.cuda import launch
 from curvature_tpu_torch.ops.cuda import sym_gram as tsg
 
 try:
@@ -130,7 +130,7 @@ def test_presplit_plain_layout(n, f):
     assert op.shape == tsg.presplit_shape(n, f) \
         == (2, np_ // 32, fp // 64, 64, 8, 4)
     got = _unswizzle(op)
-    for half, want in zip(got, tpg.tf32_split(x)):
+    for half, want in zip(got, launch.tf32_split(x)):
         padded = np.zeros((fp, np_), np.float32)
         padded[:f, :n] = want.numpy().T
         assert np.array_equal(half.view(np.int32), padded.view(np.int32))
@@ -142,7 +142,7 @@ def test_tf32x3_sym_gram_matches_jax(n, f):
     TF32 halves summed in f32, against the JAX Pallas ``sym_gram``
     (interpret mode) at its bar, 2e-5 of max(max|G|, 1)."""
     x, jx = _inputs((n, f), "float32")
-    hi, lo = tpg.tf32_split(x)
+    hi, lo = launch.tf32_split(x)
     got = lo.T @ hi + hi.T @ lo + hi.T @ hi
     want = np.asarray(jsg.sym_gram(jx, interpret=True))
     _assert_close(got.numpy(), want)
@@ -167,7 +167,7 @@ def test_f32_split_plan_caps_chains_and_counts_block_tiles(n, f, slots,
     waves, else the wave-filling plan)."""
     splits, per = tsg.split_plan(n, f, False, slots)
     assert (splits, per) == want
-    assert per % tsg.CHUNK == 0 and per <= tpg.MAX_CHAIN_TOKENS
+    assert per % tsg.CHUNK == 0 and per <= launch.MAX_CHAIN_TOKENS
     assert (splits - 1) * per < n <= splits * per
 
 
@@ -206,7 +206,7 @@ def test_cuda_kernel_matches_plain(n, f, dtype):
         (n, f)).astype(np.float32)).cuda().to(getattr(torch, dtype))
     if n == 16384:
         bf16 = dtype == "bfloat16"
-        cap = tsg.BF16_CHAIN_TOKENS if bf16 else tpg.MAX_CHAIN_TOKENS
+        cap = tsg.BF16_CHAIN_TOKENS if bf16 else launch.MAX_CHAIN_TOKENS
         slots = tsg._resident_blocks(x.device.index, bf16)
         assert tsg.split_plan(n, f, bf16, slots) == (n // cap, cap)
     if dtype == "float32":
