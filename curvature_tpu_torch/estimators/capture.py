@@ -118,7 +118,7 @@ class Captured:
                  dense; a stacked layer's [depth, ...]).
     probe_grads: layer -> [S, ...preact] dL/dy of the mean loss, JAX
                  layout (NHWC conv, [S, B, (T,) out] dense; a stacked
-                 layer's [S, depth, ...preact]).
+                 layer's [S, depth, ...preact], contiguous).
     logits:      [B, K] (or [B, T, V]) outputs of the forward.
     batch_size:  the observation count every estimator's scale uses: B,
                  or B*T for ``loss='lm'`` (JAX :219-226).
@@ -295,11 +295,18 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     probs = (None if loss == "gaussian"
              else torch.softmax(logits.detach(), dim=-1))
     names = [n for n in metas if n not in taps]
-    inputs = [probes[n] for n in names] if need_probe_grads else []
+    # a stacked layer's per-depth probe leaves (nn/core.py), in depth order
+    slots = ({n: len(probes[n]) for n in names
+              if isinstance(probes[n], list)} if need_probe_grads else {})
+    inputs = ([p for n in names for p in (probes[n] if n in slots
+                                          else [probes[n]])]
+              if need_probe_grads else [])
     inputs += [tap_accs[n] for n in taps]
     if need_param_grads:
         inputs += [params[k] for k in weight_keys]
-    grads = {n: [] for n in names}
+    grads = {n: [] for n in names if n not in slots}
+    # [S, depth, ...preact], each depth's gradient written once per draw
+    stacked = {}
     grams = {n: [] for n in taps}
     pgrads = {n: [] for n in metas}
     num = labels.shape[0]
@@ -311,24 +318,30 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
     if shard is not None:
         batch_size = shard.batch * (shard.tokens if loss == "lm" else 1)
         count = batch_size
-    with monitor.span("capture.backward"):
+    def jax_layout(n, g):
+        # NCHW conv grads -> NHWC views
+        return g.permute(0, 2, 3, 1) if metas[n].kind == "conv" else g
+    with monitor.span("capture.backward",
+                      probe_slots=sum(slots.values())):
         for s in range(num):
             cot = (gaussian_cotangent(logits, labels[s], count)
                    if probs is None
                    else ce_cotangent(logits, labels[s:s + 1], probs,
                                      count)[0])
-            gs = torch.autograd.grad(logits, inputs, grad_outputs=cot,
-                                     retain_graph=s < num - 1)
+            gs = iter(torch.autograd.grad(logits, inputs, grad_outputs=cot,
+                                          retain_graph=s < num - 1))
             del cot
-            if need_probe_grads:
-                for n, g in zip(names, gs):
-                    # JAX layout: NCHW conv grads -> NHWC views
-                    grads[n].append(g.permute(0, 2, 3, 1)
-                                    if metas[n].kind == "conv" else g)
-                gs = gs[len(names):]
-            for n, g in zip(taps, gs):
-                grams[n].append(g)
-            gs = gs[len(taps):]
+            for n in names if need_probe_grads else ():
+                if n not in slots:
+                    grads[n].append(jax_layout(n, next(gs)))
+                    continue
+                for i in range(slots[n]):
+                    g = jax_layout(n, next(gs))
+                    if n not in stacked:
+                        stacked[n] = g.new_empty((num, slots[n]) + g.shape)
+                    stacked[n][s, i] = g
+            for n in taps:
+                grams[n].append(next(gs))
             if need_param_grads:
                 by_key = dict(zip(weight_keys, gs))
                 for n, m in metas.items():
@@ -347,8 +360,8 @@ def collect(model, metas: Dict[str, LayerMeta], x: torch.Tensor,
         param_grads = {n: all_gather(g, shard.sample_group)
                        for n, g in param_grads.items()}
     acts = {n: acts[n] for n in metas}
-    probe_grads = ({n: torch.stack(v) for n, v in grads.items()}
-                   if need_probe_grads else {})
+    probe_grads = ({n: stacked[n] if n in slots else torch.stack(grads[n])
+                    for n in names} if need_probe_grads else {})
     if not routed:
         for n, r in routes.items():
             acts[n] = r.dense(acts[n])

@@ -15,9 +15,13 @@ the same string as the JAX ``LayerMeta.name``.
 A layer inside a depth-stacked :class:`~curvature_tpu_torch.nn.scan.
 ScanBlocks` runs once per depth under one name. While ScanBlocks loops, the
 context knows the depth (``scan``): the layer's inputs come back stacked
-``[depth, ...]``, and its probe is one ``[depth, ...preact]`` zero tensor,
-made at depth 0 and added slice by slice, so ``autograd.grad`` returns
-``[depth, ...preact]``, JAX's layout (its probes are a scanned input).
+``[depth, ...]``, and its probes are a list of ``depth`` leaves, one of
+the per-depth shape ``[...preact]`` each, a zero scalar expanded (no
+fill). ``collect`` writes each depth's gradient once into its slot of
+one ``[S, depth, ...preact]`` tensor, JAX's layout (its probes are a
+scanned input). One ``[depth, ...]`` leaf indexed per depth would make
+every depth's backward a zero ``[depth, ...]`` tensor and autograd add
+``depth`` of them: work that grows as depth².
 
 A layer named in the context's ``gram_taps`` gets a :class:`GramTap`
 instead of a probe (JAX ``gram_tap``, core.py:66-96): the identity on
@@ -173,7 +177,8 @@ class Context:
         self.decompose_norm = decompose_norm
         self.acts: Dict[str, torch.Tensor] = {}
         self.routes: Dict[str, Routes] = {}
-        self.probes: Dict[str, torch.Tensor] = {}
+        #: layer -> its probe leaf, or a stacked layer's per-depth leaves
+        self.probes: Dict[str, Any] = {}
         #: (depth index, depth) while a ScanBlocks stack runs its template
         self.scan: Optional[Tuple[int, int]] = None
 
@@ -214,9 +219,10 @@ class Context:
         if self.scan is not None:
             i, depth = self.scan
             if i == 0:
-                self.probes[name] = y.new_zeros((depth,) + y.shape,
-                                                requires_grad=True)
-            return y + self.probes[name][i]
+                self.probes[name] = [None] * depth
+            p = y.new_zeros(()).expand(y.shape).requires_grad_()
+            self.probes[name][i] = p
+            return y + p
         # zeros_like keeps y's memory format, so a channels_last model gets
         # channels_last probe gradients
         p = torch.zeros_like(y, requires_grad=True)

@@ -12,8 +12,9 @@ is the idiom.
 
 The tracked layers inside are one stacked layer each (a ``Dense`` with a
 ``[depth, out, in]`` weight has ``LayerMeta.stacked = depth``): the capture context records their inputs
-per depth and returns them stacked, and their probe is one ``[depth,
-...preact]`` tensor (nn/core.py), so every estimator sees the JAX shapes.
+per depth and returns them stacked, and give them one probe leaf per depth,
+whose gradients ``collect`` returns as one ``[S, depth, ...preact]`` tensor
+(nn/core.py), so every estimator sees the JAX shapes.
 A template holding a layer that is already stacked (an
 :class:`~curvature_tpu_torch.nn.MoE` and its experts) raises, as in JAX:
 the one leading axis cannot carry both.

@@ -11,7 +11,13 @@ states, samples (JAX's draws rebuilt), logdet, quadratic form and solve
 are compared with JAX's state fed to the port. Bars, relative to max|JAX
 value|: A 1e-5, G and every other state 1e-4, inverse states 1e-4,
 samples 5e-4. A stacked slice equals the unrolled model's layer.
+
+The stacked probes' gradients are bit for bit those of the former
+design (one ``[depth, ...]`` leaf indexed per depth), and their backward
+runs no ``[depth, ...]``-sized zero fill, slice copy or add.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +29,9 @@ from curvature_tpu import estimators as jest
 from curvature_tpu import models as jmodels
 from curvature_tpu_torch import estimators as port_est
 from curvature_tpu_torch import models as tmodels
+from curvature_tpu_torch.estimators.capture import ce_cotangent, collect
+from curvature_tpu_torch.nn.core import Context
+from curvature_tpu_torch.utils import monitor
 
 torch.set_num_threads(1)
 
@@ -255,3 +264,93 @@ def test_stacked_slice_equals_unrolled_layer(ladder):
                     if key is not None:
                         got, want = got[key], want[key]
                     _close(got[i], want, bar, f"{flat_name} {key}")
+
+
+def _stacked_gpt2(depth):
+    torch.manual_seed(depth)
+    m = tmodels.gpt2_custom(VOCAB, DIM, depth, HEADS, CTX, scan_blocks=True,
+                            device="cpu")
+    return m, port_est.KFAC(m, loss="lm", layer_filter="h.*").metas
+
+
+def _indexed_leaf_probe_grads(model, metas, x, labels):
+    """The former stacked probe: one zero ``[depth, ...]`` leaf per layer,
+    made at depth 0 and indexed per depth; ``[S, depth, ...]`` gradients."""
+    ctx, leaves = Context(track=metas), {}
+
+    def probe(name, y):
+        if name not in metas:
+            return y
+        i, depth = ctx.scan
+        if i == 0:
+            leaves[name] = y.new_zeros((depth,) + y.shape, requires_grad=True)
+        return y + leaves[name][i]
+    ctx.probe = probe
+    logits = model(x, ctx)
+    grads = [torch.autograd.grad(logits, list(leaves.values()),
+                                 ce_cotangent(logits, labels[s:s + 1])[0],
+                                 retain_graph=True)
+             for s in range(labels.shape[0])]
+    return {n: torch.stack([g[k] for g in grads])
+            for k, n in enumerate(leaves)}
+
+
+@pytest.mark.parametrize("depth", [3, 12])
+@pytest.mark.parametrize("samples", [1, 2])
+def test_stacked_probe_grads_equal_the_indexed_leaf(depth, samples):
+    """Per-depth probe leaves give the former design's gradients exactly,
+    in one contiguous ``[S, depth, B, T, out]`` tensor per layer."""
+    m, metas = _stacked_gpt2(depth)
+    x = torch.randint(0, VOCAB, (3, 8))
+    labels = torch.randint(0, VOCAB, (samples, 3, 8))
+    cap = collect(m, metas, x, labels=labels, need_param_grads=False,
+                  loss="lm")
+    want = _indexed_leaf_probe_grads(m, metas, x, labels)
+    assert list(cap.probe_grads) == list(metas)
+    for name, meta in metas.items():
+        got = cap.probe_grads[name]
+        assert got.shape == (samples, depth, 3, 8, meta.out_features), name
+        assert got.is_contiguous(), name
+        assert torch.equal(got, want[name]), name
+
+
+def _probe_slots(model, metas, x, **kw):
+    with monitor.tracing():
+        monitor.clear_spans()
+        collect(model, metas, x, need_param_grads=False,
+                generator=torch.Generator().manual_seed(0), **kw)
+        spans = [s for s in monitor.spans() if s.name == "capture.backward"]
+        monitor.clear_spans()
+    assert len(spans) == 1
+    return spans[0].attrs["probe_slots"]
+
+
+def test_stacked_probe_backward_is_linear_in_depth():
+    """A depth-12 stacked capture's backward runs no ``select_backward``
+    and no in-place add on a ``[depth, ...]`` tensor (the former design
+    ran 4 * 12 of the first and 4 * 11 of the second), and its
+    ``capture.backward`` span counts 4 * 12 probe leaves."""
+    depth = 12
+    m, metas = _stacked_gpt2(depth)
+    x = torch.randint(0, VOCAB, (3, 8))
+    labels = torch.randint(0, VOCAB, (1, 3, 8))
+    with torch.profiler.profile(record_shapes=True) as prof:
+        collect(m, metas, x, labels=labels, need_param_grads=False,
+                loss="lm")
+    ops = collections.Counter(e.name for e in prof.events())
+    assert ops["aten::select_backward"] == 0
+    stacked = [e.input_shapes for e in prof.events()
+               if e.name in ("aten::add_", "aten::add", "aten::zeros",
+                             "aten::copy_")
+               and any(len(s) == 4 and s[:3] == [depth, 3, 8]
+                       for s in e.input_shapes)]
+    assert not stacked, stacked
+    assert _probe_slots(m, metas, x, loss="lm") == 4 * depth
+
+
+def test_unstacked_capture_has_no_probe_slots():
+    """An unrolled model's probes are one leaf per layer: no slots."""
+    torch.manual_seed(0)
+    m = tmodels.resnet18(num_classes=10, device="cpu")
+    metas = port_est.KFAC(m).metas
+    assert _probe_slots(m, metas, torch.randn(2, 3, 32, 32)) == 0

@@ -206,21 +206,34 @@ def test_patch_gram_tiled_supported_matches_jax():
     assert checked == 7 * 4 * 3 * 4 * 3
 
 
-@pytest.mark.parametrize("need", ["probes", "params", "grams"])
+@pytest.mark.parametrize("need", ["probes", "params", "grams",
+                                  "stacked_probes"])
 def test_collect_remat_equals_plain(need):
     """Recomputing the forward in the backward gives the same captures
     (inputs, probe gradients, parameter gradients, tapped Grams) within
-    1e-6 of max, and the same logits."""
+    1e-6 of max, and the same logits: on ResNet-18, and on a depth-stacked
+    GPT-2 (``stacked_probes``), whose recompute makes its per-depth probe
+    leaves anew while the backward reaches the forward's."""
     torch.manual_seed(0)
-    m = tmodels.resnet18(num_classes=10, device="cpu")
-    metas = KFAC(m).metas
-    x = torch.randn(4, 3, 32, 32)
-    kw = {"probes": dict(need_param_grads=False),
-          "params": dict(need_probe_grads=False),
-          "grams": dict(need_param_grads=False,
-                        gram_probe_names=frozenset(list(metas)[:4]))}[need]
+    if need == "stacked_probes":
+        m = tmodels.gpt2_custom(61, 32, 3, 2, 16, scan_blocks=True,
+                                device="cpu")
+        metas = KFAC(m, loss="lm").metas
+        x = torch.randint(0, 61, (3, 8))
+        kw = dict(need_param_grads=False, loss="lm")
+    else:
+        m = tmodels.resnet18(num_classes=10, device="cpu")
+        metas = KFAC(m).metas
+        x = torch.randn(4, 3, 32, 32)
+        kw = {"probes": dict(need_param_grads=False),
+              "params": dict(need_probe_grads=False),
+              "grams": dict(need_param_grads=False,
+                            gram_probe_names=frozenset(list(metas)[:4]))
+              }[need]
     caps = [collect(m, metas, x, generator=torch.Generator().manual_seed(1),
                     num_samples=2, remat=r, **kw) for r in (False, True)]
+    if need == "stacked_probes":
+        assert any(meta.stacked == 3 for meta in metas.values())
     for field in ("acts", "probe_grads", "param_grads", "probe_grams"):
         a, b = getattr(caps[0], field), getattr(caps[1], field)
         assert (a is None) == (b is None), field
